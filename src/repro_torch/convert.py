@@ -1,0 +1,110 @@
+"""Layout conversion between the JAX package's trees and the port's.
+
+The JAX package scans its decoder: per-layer params, quant state, stats
+and caches live under ``decoder/blocks/b<j>`` with a leading
+``[repeats, ...]`` axis (plus an unrolled ``decoder/tail/t<j>``).  The
+port keeps one entry per layer under ``decoder/layers``.  These helpers
+take the JAX trees as nested dicts of numpy arrays (no JAX import) and
+return the port's trees of tensors, and back — so tests can feed the
+reference's parameters to the port and compare stats, quant states and
+caches site by site.  bf16 arrays round-trip exactly (to float32 on the
+way back).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.param_tree import ParamTree
+
+
+def _split(cfg, n_layers: int):
+    u = len(cfg.pattern)
+    repeats = n_layers // u
+    return u, repeats, n_layers - repeats * u
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _index(tree, r: int):
+    return _map(lambda a: a[r], tree)
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def _to_tensor(a, device) -> torch.Tensor:
+    a = np.array(a)                       # a writable copy torch can own
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
+
+
+def _to_numpy(t) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy()
+
+
+def unstack_decoder(dec: dict, cfg, n_layers: int) -> dict:
+    """JAX ``{"blocks": ..., "tail": ...}`` -> ``{"layers": [...]}``."""
+    u, repeats, n_tail = _split(cfg, n_layers)
+    layers = []
+    for idx in range(n_layers):
+        r, j = divmod(idx, u)
+        if r < repeats:
+            layers.append(_index(dec["blocks"][f"b{j}"], r))
+        else:
+            layers.append(dec["tail"][f"t{idx - repeats * u}"])
+    return {"layers": layers}
+
+
+def stack_decoder(dec: dict, cfg, n_layers: int) -> dict:
+    """Port ``{"layers": [...]}`` -> JAX ``{"blocks": ..., "tail": ...}``."""
+    u, repeats, n_tail = _split(cfg, n_layers)
+    layers = dec["layers"]
+    blocks = {} if repeats == 0 else {
+        f"b{j}": _stack([layers[r * u + j] for r in range(repeats)])
+        for j in range(u)}
+    tail = {f"t{j}": layers[repeats * u + j] for j in range(n_tail)}
+    return {"blocks": blocks, "tail": tail}
+
+
+def from_jax_layout(tree: dict, cfg, device=None) -> dict:
+    """A JAX params / quant-state / stats / cache tree (numpy leaves) as
+    the port's tree of tensors on ``device`` (the card unless ``"cpu"``)."""
+    device = resolve_device(device)
+    out = {}
+    for k, v in tree.items():
+        if k == "decoder":
+            v = unstack_decoder(v, cfg, cfg.n_layers)
+        out[k] = _map(lambda a: _to_tensor(a, device), v)
+    return out
+
+
+def to_jax_layout(tree: dict, cfg) -> dict:
+    """The port's tree as the JAX layout, with numpy leaves."""
+    out = {}
+    for k, v in tree.items():
+        v = _map(_to_numpy, v)
+        if k == "decoder":
+            v = stack_decoder(v, cfg, cfg.n_layers)
+        out[k] = v
+    return out
+
+
+def params_from_jax(tree: dict, cfg, device=None) -> ParamTree:
+    """The JAX package's ``init_params`` tree as the port's parameters."""
+    return ParamTree(from_jax_layout(tree, cfg, device))

@@ -1,0 +1,315 @@
+"""Execution-backend dispatch, forward half (port of
+``repro/core/backend.py``).
+
+Every quantization site has two implementations:
+
+  ``simulated``  plain PyTorch fake-quant, the int contractions evaluated
+                 exactly in float64;
+  ``fused``      the kernels of ``repro_torch.kernels`` through ``ops``:
+                 the hand-written CUDA kernels for CUDA tensors, their
+                 plain versions for CPU tensors.  Legal only for
+                 fully-static policies.
+
+Both evaluate the same arithmetic — ``round(x / s + zp)`` with shared
+registers, exact min/max, and ``alpha * (int32 contraction)`` — so they
+agree bit for bit wherever the arithmetic is exact.  The backward half
+(gradient quantizer, STE and the attention-core backward) comes with the
+training slice.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from . import estimators, quant
+from .state import INITED, QMAX, QMIN, pack_stats
+
+SIMULATED = "simulated"
+FUSED = "fused"
+BACKENDS = (SIMULATED, FUSED)
+
+
+def _ops():
+    from repro_torch.kernels import ops
+    return ops
+
+
+class QTensor(NamedTuple):
+    """Integer image of an on-grid tensor plus its quant registers."""
+
+    q: torch.Tensor            # uint8 (asymmetric) / int8 (symmetric)
+    scale: torch.Tensor        # fp32 scalar register
+    zero_point: torch.Tensor   # fp32 scalar register (integral-valued)
+
+
+def dequantize_qtensor(qt: QTensor) -> torch.Tensor:
+    """fp32 values of an image: ``quant.dequantize``'s two ops, from the
+    registers already derived from the range."""
+    return (qt.q.to(torch.float32) - qt.zero_point) * qt.scale
+
+
+# ---------------------------------------------------------------------------
+# Policy validation.
+# ---------------------------------------------------------------------------
+def validate(policy) -> None:
+    """Raise ``ValueError`` if the policy's backend selection is illegal."""
+    if policy.backend not in BACKENDS:
+        raise ValueError(
+            f"unknown backend {policy.backend!r}; expected one of {BACKENDS}")
+    if policy.backend != FUSED:
+        return
+    dynamic = []
+    if policy.quantize_acts and not policy.act_estimator.is_static:
+        dynamic.append(f"act_estimator={policy.act_estimator.kind!r}")
+    if policy.quantize_grads and not policy.grad_estimator.is_static:
+        dynamic.append(f"grad_estimator={policy.grad_estimator.kind!r}")
+    if dynamic:
+        raise ValueError(
+            "backend='fused' requires fully-static quantization ranges "
+            "(the single-pass kernels consume pre-computed quant registers; "
+            "a dynamic estimator needs the whole tensor before choosing a "
+            f"range — the two-pass dataflow of paper eq. 5). Dynamic: "
+            f"{', '.join(dynamic)}. Use estimators from "
+            f"{estimators.STATIC_ESTIMATORS} or backend='simulated'.")
+    tele = policy.telemetry
+    if tele.enabled and tele.guard and tele.mode == "dynamic":
+        raise ValueError(
+            "backend='fused' cannot honor the overflow guard's 'dynamic' "
+            "fallback mode (it re-quantizes with current min-max, which is "
+            "a dynamic range). Use guard mode='widen', which keeps ranges "
+            "static, or backend='simulated'.")
+
+
+def int8_matmul_eligible(policy) -> bool:
+    """True iff the act/weight quantizers produce operands on the int8
+    matmul layout (asymmetric uint8 x symmetric int8)."""
+    return bool(
+        policy.enabled
+        and policy.quantize_acts and policy.quantize_weights
+        and policy.act_spec.bits == 8 and not policy.act_spec.symmetric
+        and policy.weight_spec.bits == 8 and policy.weight_spec.symmetric
+        and not policy.int8_weight_gather)
+
+
+# ---------------------------------------------------------------------------
+# The quantizer forward: on-grid values, integer image, observed min/max.
+# ---------------------------------------------------------------------------
+def canonical(x: torch.Tensor) -> torch.Tensor:
+    """fp32 view of ``x`` rounded to its nominal dtype precision.
+
+    The reference needs ``lax.reduce_precision`` because XLA may elide a
+    ``f32 -> bf16 -> f32`` round trip.  In eager PyTorch a bf16 tensor is
+    stored as bf16, so its fp32 view already holds the bf16-rounded
+    values: the cast IS the round trip."""
+    return x.to(torch.float32)
+
+
+def _quantizer_fwd(x, qmin, qmax, spec: quant.QuantSpec, fused: bool):
+    """Returns ``(xq, q, obs_min, obs_max)``."""
+    xf = canonical(x)
+    if fused and spec.bits <= 8:
+        q, mn, mx = _ops().fused_quantize(xf, qmin, qmax, spec=spec)
+    else:
+        q = quant.quantize(xf, qmin, qmax, spec)
+        if spec.bits <= 8:
+            q = q.to(spec.storage_dtype)
+        mn, mx = quant.tensor_minmax(xf)
+    xq = quant.dequantize(q, qmin, qmax, spec).to(x.dtype)
+    return xq, q, mn, mx
+
+
+# ---------------------------------------------------------------------------
+# Q_Y: activation quantizer sites.
+# ---------------------------------------------------------------------------
+def act_quantize(policy, x, leaf, step):
+    """The classic activation site; returns ``(xq, stats, qtensor)``."""
+    return site_quantize(policy, x, leaf, step, name="act")
+
+
+def site_quantize(policy, x: torch.Tensor, leaf: torch.Tensor, step, *,
+                  cfg=None, spec=None, name: str = "act"):
+    """Activation-quantizer site with an overridable (estimator, spec).
+
+    Simulated: estimator ranges -> fake-quant -> stats reduction.  Fused:
+    one pass of the quantize kernel with the leaf's pre-computed range;
+    the kernel's partials are the next-step statistics (no separate
+    min/max pass)."""
+    cfg = policy.act_estimator if cfg is None else cfg
+    spec = policy.act_spec if spec is None else spec
+    tele = policy.telemetry
+    if tele.enabled:
+        raise NotImplementedError(
+            "telemetry site statistics come with the telemetry slice of the "
+            "port")
+    xf = canonical(x)
+    if policy.backend == FUSED:
+        xq, q, used_qmin, used_qmax, obs = _fused_static_quant(
+            cfg, spec, x, leaf, step, tele)
+    else:
+        used_qmin, used_qmax = estimators.ranges(cfg, leaf, xf, spec, step,
+                                                 telemetry=tele)
+        xq, q, mn, mx = _quantizer_fwd(x, used_qmin, used_qmax, spec,
+                                       fused=False)
+        obs = (mn, mx)
+    st = estimators.stats(cfg, xf, used_qmin, used_qmax, observed=obs)
+    scale, zp = quant.scale_zero_point(used_qmin, used_qmax, spec)
+    return xq, st, QTensor(q, scale, zp)
+
+
+def _fused_static_quant(cfg, spec, x, leaf, step, tele):
+    """Static single-pass quantization.  While the leaf is uninitialized
+    the paper's first-batch rule re-quantizes with the observed range; the
+    reference selects that with ``lax.cond``, here it is a host-side
+    branch on ``leaf[INITED]`` (one device->host scalar read per site
+    call on a CUDA tensor)."""
+    if cfg.kind == estimators.FIXED:
+        qmin = torch.tensor(cfg.fixed_min, dtype=torch.float32,
+                            device=leaf.device)
+        qmax = torch.tensor(cfg.fixed_max, dtype=torch.float32,
+                            device=leaf.device)
+        xq, q, mn, mx = _quantizer_fwd(x, qmin, qmax, spec, fused=True)
+        return xq, q, qmin, qmax, (mn, mx)
+    xq, q, mn, mx = _quantizer_fwd(x, leaf[QMIN], leaf[QMAX], spec,
+                                   fused=True)
+    qmin, qmax = estimators.ranges(cfg, leaf, x, spec, step, telemetry=tele,
+                                   observed=(mn, mx))
+    if not bool(leaf[INITED] > 0.5):
+        xq, q = _quantizer_fwd(x, mn, mx, spec, fused=True)[:2]
+    return xq, q, qmin, qmax, (mn, mx)
+
+
+# ---------------------------------------------------------------------------
+# Q_W: weight quantizer (current min-max).
+# ---------------------------------------------------------------------------
+def weight_quantize(policy, w: torch.Tensor) -> QTensor:
+    """The weight's int8 image and registers on the symmetric grid.
+
+    The reference also returns the dequantized weight; eager PyTorch would
+    materialize it even where only the image is consumed, so callers that
+    need values take :func:`dequantize_qtensor` (the same fp32 ops)."""
+    spec = policy.weight_spec
+    mn, mx = quant.tensor_minmax(canonical(w))
+    _, q, _, _ = _quantizer_fwd(w, mn, mx, spec,
+                                fused=(policy.backend == FUSED))
+    scale, zp = quant.scale_zero_point(mn, mx, spec)
+    return QTensor(q, scale, zp)
+
+
+# ---------------------------------------------------------------------------
+# The contraction.
+# ---------------------------------------------------------------------------
+def qmatmul(policy, espec: str, xq: torch.Tensor, xqt: Optional[QTensor],
+            wq: Optional[torch.Tensor], wqt: Optional[QTensor],
+            out_dtype=None) -> torch.Tensor:
+    """Quantized-site contraction ``einsum(espec, xq, wq)``.
+
+    With int8 images of both operands the contraction runs integer-exact
+    (``alpha * int32``); otherwise it is the fp32 einsum of the on-grid
+    values, for which ``wq=None`` means "dequantize ``wqt``"."""
+    out_dtype = out_dtype or xq.dtype
+    if xqt is None or wqt is None or not int8_matmul_eligible(policy):
+        if wq is None:
+            wq = dequantize_qtensor(wqt).to(xq.dtype)
+        return torch.einsum(espec, xq.to(torch.float32),
+                            wq.to(torch.float32)).to(out_dtype)
+    ops = _ops()
+    resolved = ops.resolve_einsum_spec(espec, xq.ndim)
+    alpha = (xqt.scale * wqt.scale).to(torch.float32)
+    if policy.backend == FUSED:
+        plan = ops.plan_einsum(resolved, xqt.q.ndim, wqt.q.ndim)
+        y, _, _ = ops.int8_matmul_fp(xqt.q, wqt.q, xqt.zero_point, alpha,
+                                     plan=plan)
+    else:
+        # int32 contraction, exact in float64 (integers far below 2**53).
+        rx = xqt.q.to(torch.int32) - torch.round(xqt.zero_point).to(
+            torch.int32)
+        acc = torch.einsum(resolved, rx.to(torch.float64),
+                           wqt.q.to(torch.float64))
+        y = alpha * acc.to(torch.float32)
+    return y.to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# The attention core as one quant site.
+# ---------------------------------------------------------------------------
+KV_SPEC = quant.QuantSpec(bits=8, symmetric=True, stochastic=False)
+P_SPEC = quant.QuantSpec(bits=8, symmetric=False, stochastic=False)
+
+
+def qattention_eligible(policy) -> bool:
+    """True iff the attention core can run as an int8 quant site (static
+    activation ranges on an 8-bit grid)."""
+    return bool(policy.enabled and policy.quantize_acts
+                and policy.act_estimator.is_static
+                and policy.act_spec.bits == 8)
+
+
+def _pstats_vector(policy, stats6, p_lo, p_hi):
+    """The probability-site stats vector from ``[mn, mx, clip, n, err,
+    sig]`` (width 3 while telemetry is disabled)."""
+    if policy.telemetry.enabled:
+        raise NotImplementedError(
+            "probability-site telemetry comes with the telemetry slice")
+    return pack_stats(stats6[0], stats6[1])
+
+
+def qattention(policy, q, k, v, sites: dict, *, mode: str, window=None,
+               prefix_len=None, kv_len=None, scale: float, step):
+    """Backend-dispatched int8 attention core.
+
+    ``q [B, S, KV, G, hd]`` x ``k/v [B, Skv, KV, hd]`` -> ``(out [B, S, KV,
+    G, hd], stats)`` with hindsight ranges for q, k, v and the softmax
+    probabilities; ``sites`` is the ``{"q"/"k"/"v"/"p": {"act": leaf}}``
+    core-site tree.  The block plan comes from
+    :func:`repro_torch.kernels.tuning.attention_block`, exactly as in the
+    reference, so both backends replay the reference's schedule."""
+    from repro_torch.kernels import int8_attention as mod
+    from repro_torch.kernels import tuning
+
+    b, s, kvh, g, hd = q.shape
+    skv = k.shape[1]
+    cfg = policy.act_estimator
+    dev = q.device
+    _, q_st, q_qt = site_quantize(policy, q, sites["q"]["act"], step,
+                                  name="attn_q")
+    _, k_st, k_qt = site_quantize(policy, k, sites["k"]["act"], step,
+                                  cfg=cfg, spec=KV_SPEC, name="attn_k")
+    _, v_st, v_qt = site_quantize(policy, v, sites["v"]["act"], step,
+                                  cfg=cfg, spec=KV_SPEC, name="attn_v")
+    p_lo, p_hi = estimators.static_ranges(cfg, sites["p"]["act"])
+    p_lo, p_hi = p_lo.to(torch.float32), p_hi.to(torch.float32)
+    scale_p, zp_p = quant.scale_zero_point(p_lo, p_hi, P_SPEC)
+
+    alpha_qk = torch.tensor(scale, dtype=torch.float32, device=dev) \
+        * q_qt.scale * k_qt.scale
+    alpha_pv = scale_p * v_qt.scale
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    regs = torch.stack([q_qt.zero_point, alpha_qk, scale_p, zp_p, alpha_pv,
+                        p_lo, p_hi, zero]).to(torch.float32)
+    kvl = torch.tensor([skv if kv_len is None else int(kv_len)],
+                       dtype=torch.int32, device=dev)
+
+    bq, bkv = tuning.attention_block(s, skv, hd)
+    sched = mod.make_schedule(
+        sq=s, skv=skv, hd=hd, bq=bq, bkv=bkv, groups=g, mode=mode,
+        window=int(window or 0), prefix_len=int(prefix_len or 0),
+        sm_scale=float(scale))
+
+    def qflat(t):
+        return t.permute(0, 2, 3, 1, 4).reshape(b * kvh * g, s, hd)
+
+    def kvflat(t):
+        return t.permute(0, 2, 1, 3).reshape(b * kvh, skv, hd)
+
+    args = (qflat(q_qt.q), kvflat(k_qt.q), kvflat(v_qt.q), regs, kvl)
+    if policy.backend == FUSED:
+        out3, _, ps = _ops().int8_attention_fp(*args, sched=sched)
+    else:
+        out3, _, ps = mod.attention_core_reference(*args, sched=sched)
+    stats6 = torch.stack(mod.reduce_pstats(ps))
+    out = out3.reshape(b, kvh, g, s, hd).permute(0, 3, 1, 2, 4).to(q.dtype)
+    p_st = _pstats_vector(policy, stats6, p_lo, p_hi)
+    stats = {"q": {"act": q_st}, "k": {"act": k_st}, "v": {"act": v_st},
+             "p": {"act": p_st}}
+    return out, stats

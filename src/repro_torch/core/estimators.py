@@ -1,0 +1,200 @@
+"""Quantization-range estimators (port of ``repro/core/estimators.py``).
+
+  ``current``    dynamic  min/max of the current tensor
+  ``running``    dynamic  EMA of min/max including the current tensor
+  ``hindsight``  STATIC   EMA of min/max of previous tensors only (the paper)
+  ``dsgc``       hybrid   golden-section clipping search, re-run every
+                          ``dsgc_interval`` steps
+  ``fixed``      STATIC   constant range
+
+Each estimator is a pair of functions over a state leaf
+``[qmin, qmax, initialized]``: ``ranges`` (the range used now) and
+``update`` (next step's state).  The ``observed=`` argument of ``ranges``
+and ``stats`` takes min/max statistics the caller already has — on the
+fused backend the quantize kernel's partials — so no second pass over the
+tensor runs (the single-pass dataflow of paper Fig. 4).
+
+The telemetry-enabled (width-10) paths come with the telemetry slice;
+they raise here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from . import quant
+from .state import INITED, QMAX, QMIN, pack_stats
+
+CURRENT = "current"
+RUNNING = "running"
+HINDSIGHT = "hindsight"
+DSGC = "dsgc"
+FIXED = "fixed"
+
+ALL_ESTIMATORS = (CURRENT, RUNNING, HINDSIGHT, DSGC, FIXED)
+STATIC_ESTIMATORS = (HINDSIGHT, FIXED)
+
+
+@dataclasses.dataclass(frozen=True)
+class EstimatorConfig:
+    """Static estimator configuration for one tensor family."""
+
+    kind: str = HINDSIGHT
+    momentum: float = 0.9
+    dsgc_interval: int = 100
+    dsgc_iters: int = 20
+    fixed_min: float = -1.0
+    fixed_max: float = 1.0
+
+    def __post_init__(self):
+        if self.kind not in ALL_ESTIMATORS:
+            raise ValueError(f"unknown estimator {self.kind!r}")
+
+    @property
+    def is_static(self) -> bool:
+        return self.kind in STATIC_ESTIMATORS
+
+
+def _telemetry_on(telemetry, leaf: torch.Tensor) -> bool:
+    return (telemetry is not None and telemetry.enabled
+            and leaf.shape[-1] > INITED + 1)
+
+
+def _const(v: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
+# ---------------------------------------------------------------------------
+# DSGC range search (golden-section over a symmetric clipping threshold).
+# ---------------------------------------------------------------------------
+_GOLDEN = 0.6180339887498949
+
+
+def dsgc_search(x: torch.Tensor, spec: quant.QuantSpec, iters: int = 20
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Golden-section search for the clipping value ``c`` minimizing
+    ``1 - cos(x, Q(x; -c, c))`` on ``c in [0.05, 1] * max|x|``."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().max().clamp(min=1e-8)
+    det_spec = dataclasses.replace(spec, stochastic=False)
+
+    def objective(c):
+        y = quant.fake_quant_raw(xf, -c, c, det_spec)
+        return quant.cosine_distance(xf, y)
+
+    lo, hi = 0.05 * amax, amax
+    for _ in range(iters):
+        m1 = hi - _GOLDEN * (hi - lo)
+        m2 = lo + _GOLDEN * (hi - lo)
+        f1, f2 = objective(m1), objective(m2)
+        lo, hi = torch.where(f1 < f2, lo, m1), torch.where(f1 < f2, m2, hi)
+    c = 0.5 * (lo + hi)
+    return -c, c
+
+
+# ---------------------------------------------------------------------------
+# ranges(): the range used to quantize the *current* tensor.
+# ---------------------------------------------------------------------------
+def ranges(cfg: EstimatorConfig, leaf: torch.Tensor, x: torch.Tensor,
+           spec: quant.QuantSpec, step: Optional[int] = None,
+           telemetry=None,
+           observed: Optional[tuple[torch.Tensor, torch.Tensor]] = None
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Return the (qmin, qmax) the estimator prescribes for ``x``.  With
+    ``observed`` given, no reduction of ``x`` runs."""
+    inited = leaf[INITED] > 0.5
+    if cfg.kind == FIXED:
+        return _const(cfg.fixed_min, leaf), _const(cfg.fixed_max, leaf)
+
+    if cfg.kind == HINDSIGHT:
+        if (telemetry is not None and telemetry.enabled and telemetry.guard
+                and telemetry.mode == "dynamic"
+                and leaf.shape[-1] > INITED + 1):
+            raise NotImplementedError(
+                "the overflow guard's dynamic mode comes with the telemetry "
+                "slice of the port")
+        mn, mx = observed if observed is not None else quant.tensor_minmax(x)
+        return (torch.where(inited, leaf[QMIN], mn),
+                torch.where(inited, leaf[QMAX], mx))
+
+    if cfg.kind == CURRENT:
+        return quant.tensor_minmax(x)
+
+    if cfg.kind == RUNNING:
+        mn, mx = quant.tensor_minmax(x)
+        eta = cfg.momentum
+        qmin = torch.where(inited, eta * leaf[QMIN] + (1 - eta) * mn, mn)
+        qmax = torch.where(inited, eta * leaf[QMAX] + (1 - eta) * mx, mx)
+        return qmin, qmax
+
+    if cfg.kind == DSGC:
+        step = 0 if step is None else int(step)
+        if not bool(inited) or step % cfg.dsgc_interval == 0:
+            return dsgc_search(x, spec, cfg.dsgc_iters)
+        return leaf[QMIN], leaf[QMAX]
+
+    raise ValueError(cfg.kind)
+
+
+def static_ranges(cfg: EstimatorConfig, leaf: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pre-computed (qmin, qmax) of a STATIC estimator: no tensor, no
+    first-batch fallback, no reduction."""
+    if cfg.kind == FIXED:
+        return _const(cfg.fixed_min, leaf), _const(cfg.fixed_max, leaf)
+    if cfg.kind == HINDSIGHT:
+        return leaf[..., QMIN], leaf[..., QMAX]
+    raise ValueError(
+        f"static_ranges requires a static estimator, got {cfg.kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# stats(): what the accumulator-side logic emits for the update.
+# ---------------------------------------------------------------------------
+def stats(cfg: EstimatorConfig, x: torch.Tensor, used_qmin: torch.Tensor,
+          used_qmax: torch.Tensor,
+          observed: Optional[tuple[torch.Tensor, torch.Tensor]] = None
+          ) -> torch.Tensor:
+    """Online statistics of the current tensor as a state-shaped vector."""
+    if cfg.kind == DSGC:
+        return pack_stats(used_qmin, used_qmax)
+    mn, mx = observed if observed is not None else quant.tensor_minmax(x)
+    return pack_stats(mn, mx)
+
+
+# ---------------------------------------------------------------------------
+# update(): fold the statistics into the next step's state.
+# ---------------------------------------------------------------------------
+def update(cfg: EstimatorConfig, leaf: torch.Tensor, stat: torch.Tensor,
+           telemetry=None) -> torch.Tensor:
+    """Next-step state from (previous state, this step's statistics);
+    elementwise on the last axis.  Unvisited sites keep their state."""
+    if _telemetry_on(telemetry, leaf):
+        raise NotImplementedError(
+            "telemetry-width state updates come with the telemetry slice of "
+            "the port")
+    visited = stat[..., INITED] > 0.5
+    inited = leaf[..., INITED] > 0.5
+
+    if cfg.kind == FIXED:
+        return leaf
+    if cfg.kind in (HINDSIGHT, RUNNING):
+        eta = cfg.momentum
+        new_qmin = torch.where(
+            inited, eta * leaf[..., QMIN] + (1 - eta) * stat[..., QMIN],
+            stat[..., QMIN])
+        new_qmax = torch.where(
+            inited, eta * leaf[..., QMAX] + (1 - eta) * stat[..., QMAX],
+            stat[..., QMAX])
+    elif cfg.kind in (CURRENT, DSGC):
+        new_qmin, new_qmax = stat[..., QMIN], stat[..., QMAX]
+    else:
+        raise ValueError(cfg.kind)
+
+    qmin = torch.where(visited, new_qmin, leaf[..., QMIN])
+    qmax = torch.where(visited, new_qmax, leaf[..., QMAX])
+    new_inited = torch.where(visited, torch.ones_like(leaf[..., INITED]),
+                             leaf[..., INITED])
+    return torch.stack([qmin, qmax, new_inited], dim=-1)

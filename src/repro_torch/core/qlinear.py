@@ -1,0 +1,161 @@
+"""Quantized linear algebra, forward half (port of
+``repro/core/qlinear.py``).
+
+A quantized matmul site: ``x_q = Q_Y(x)`` (activation estimator),
+``w_q = Q_W(w)`` (current min-max, symmetric), ``y = x_q @ w_q (+ b)`` as
+an int8 x int8 -> int32 contraction.  Activation sites emit their
+observed statistics; the state update runs once per step
+(:func:`update_quant_state`).  The gradient barrier is the identity in the
+forward pass; its ``autograd.Function`` comes with the training slice.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import backend, estimators
+from .backend import QTensor  # noqa: F401  (re-exported for site callers)
+from .policy import QuantPolicy
+from .state import INITED, QMAX, QMIN, init_range_state, tree_map, \
+    tree_map_with_path
+
+
+# ---------------------------------------------------------------------------
+# Q_W: weight quantizer — current min-max, no state.
+# ---------------------------------------------------------------------------
+def quantize_weight(w: torch.Tensor, policy: QuantPolicy) -> torch.Tensor:
+    """On-grid weight values (fp32; ``w`` itself when not quantized)."""
+    wq, wqt = quantize_weight_q(w, policy)
+    return wq if wqt is None else backend.dequantize_qtensor(wqt)
+
+
+def quantize_weight_q(w: torch.Tensor, policy: QuantPolicy
+                      ) -> tuple[Optional[torch.Tensor], Optional[QTensor]]:
+    """``(w, None)`` when weights are not quantized, else ``(None,
+    qtensor)``: the dequantized copy is left to the consumer that reads it
+    (:func:`backend.qmatmul` on its fp path), so the int8 contraction never
+    materializes one."""
+    if not (policy.enabled and policy.quantize_weights):
+        return w, None
+    if policy.int8_weight_gather:
+        raise NotImplementedError(
+            "int8_weight_gather is a sharding option; it comes with the "
+            "distribution slice of the port")
+    return None, backend.weight_quantize(policy, w)
+
+
+# ---------------------------------------------------------------------------
+# Q_Y: activation quantizer site.
+# ---------------------------------------------------------------------------
+def stats_zeros(policy: QuantPolicy, device=None) -> torch.Tensor:
+    """A "site not visited" stats vector of the policy's stat width."""
+    return torch.zeros((policy.stat_width,), dtype=torch.float32,
+                       device=device)
+
+
+def act_quant_site(x: torch.Tensor, leaf: torch.Tensor, policy: QuantPolicy,
+                   step) -> tuple[torch.Tensor, torch.Tensor,
+                                  Optional[QTensor]]:
+    """``(x_q, observed stats, qtensor)``; ``qtensor`` is ``None`` when
+    activation quantization is off."""
+    if not (policy.enabled and policy.quantize_acts):
+        return x, stats_zeros(policy, x.device), None
+    return backend.act_quantize(policy, x, leaf, step)
+
+
+def grad_quant_barrier(y: torch.Tensor, leaf: torch.Tensor,
+                       policy: QuantPolicy, seed, step) -> torch.Tensor:
+    """Identity in the forward pass (the backward quantizer comes with the
+    training slice)."""
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Site containers and matmul sites.
+# ---------------------------------------------------------------------------
+def init_site(policy: Optional[QuantPolicy] = None, device=None) -> dict:
+    """State for one quantized matmul: activation-in + grad-out leaves."""
+    width = 3 if policy is None else policy.stat_width
+    return {"act": init_range_state(width, device),
+            "grad": init_range_state(width, device)}
+
+
+def _contract(policy, espec, xq, xqt, w, bias, dtype):
+    wq, wqt = quantize_weight_q(w, policy)
+    if wq is not None:
+        wq = wq.to(dtype)
+    y = backend.qmatmul(policy, espec, xq, xqt, wq, wqt)
+    if bias is not None:
+        y = y + bias.to(dtype)
+    return y
+
+
+def qdense_pre(xq: torch.Tensor, w: torch.Tensor, site: dict,
+               policy: QuantPolicy, *, einsum_spec: str = "...k,kn->...n",
+               bias: Optional[torch.Tensor] = None, seed=0, step=0,
+               qinfo: Optional[QTensor] = None) -> tuple[torch.Tensor, dict]:
+    """Quantized matmul whose input was already quantized by a shared
+    activation site; ``qinfo`` is that site's :class:`QTensor`."""
+    y = _contract(policy, einsum_spec, xq, qinfo, w, bias, xq.dtype)
+    y = grad_quant_barrier(y, site["grad"], policy, seed, step)
+    z = stats_zeros(policy, xq.device)
+    return y, {"act": z, "grad": z.clone()}
+
+
+def qdense(x: torch.Tensor, w: torch.Tensor, site: dict,
+           policy: QuantPolicy, *, bias: Optional[torch.Tensor] = None,
+           seed=0, step=0) -> tuple[torch.Tensor, dict]:
+    """Quantized ``x @ w (+ bias)``; returns ``(y, stats)``."""
+    xq, act_stats, xqt = act_quant_site(x, site["act"], policy, step)
+    y = _contract(policy, "...k,kn->...n", xq, xqt, w, bias, x.dtype)
+    y = grad_quant_barrier(y, site["grad"], policy, seed, step)
+    return y, {"act": act_stats, "grad": stats_zeros(policy, x.device)}
+
+
+def qeinsum(spec: str, x: torch.Tensor, w: torch.Tensor, site: dict,
+            policy: QuantPolicy, *, seed=0, step=0
+            ) -> tuple[torch.Tensor, dict]:
+    """Quantized einsum for non-2D contractions (attention projections)."""
+    xq, act_stats, xqt = act_quant_site(x, site["act"], policy, step)
+    y = _contract(policy, spec, xq, xqt, w, None, x.dtype)
+    y = grad_quant_barrier(y, site["grad"], policy, seed, step)
+    return y, {"act": act_stats, "grad": stats_zeros(policy, x.device)}
+
+
+# ---------------------------------------------------------------------------
+# State plumbing.
+# ---------------------------------------------------------------------------
+def combine_stats(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Combine two observations of one site: min of mins, max of maxes,
+    visited-or, each side masked by its own visited flag."""
+    if a.shape[-1] != 3:
+        raise NotImplementedError(
+            "telemetry-width stats come with the telemetry slice")
+    av = a[..., INITED] > 0.5
+    bv = b[..., INITED] > 0.5
+    big = 3.4e38
+    amin = torch.where(av, a[..., QMIN], big)
+    bmin = torch.where(bv, b[..., QMIN], big)
+    amax = torch.where(av, a[..., QMAX], -big)
+    bmax = torch.where(bv, b[..., QMAX], -big)
+    visited = torch.maximum(a[..., INITED], b[..., INITED])
+    mn = torch.where(visited > 0.5, torch.minimum(amin, bmin), 0.0)
+    mx = torch.where(visited > 0.5, torch.maximum(amax, bmax), 0.0)
+    return torch.stack([mn, mx, visited], dim=-1)
+
+
+def update_quant_state(policy: QuantPolicy, quant_state, stats):
+    """One estimator update per site; the leaf's dict key ("act" /
+    "grad") picks the estimator."""
+    def upd(path, leaf, st):
+        kind = next((p for p in reversed(path) if p in ("act", "grad")),
+                    None)
+        cfg = policy.act_estimator if kind == "act" else policy.grad_estimator
+        return estimators.update(cfg, leaf, st, telemetry=policy.telemetry)
+
+    return tree_map_with_path(upd, quant_state, stats)
+
+
+def zero_stats_like(state):
+    return tree_map(torch.zeros_like, state)

@@ -1,0 +1,361 @@
+"""Int8 flash attention with in-kernel hindsight statistics (port of
+``repro/kernels/int8_attention.py``).
+
+Per (q block, kv block) tile:
+
+    int8 QK^T (int32 accumulate) -> fp32 online softmax
+    -> requantize p with the PRE-COMPUTED [p_lo, p_hi] registers
+    -> int8 PV (int32 accumulate)
+
+while the same tile is reduced to the (min, max, clip, n, err, sig)
+partials of the probability site.  ``attention_core_reference`` is the
+plain, order-pinned version: it replays the identical block schedule and
+recurrence through the shared per-block functions below, so it is both
+the ``simulated`` backend's attention core and what the CUDA kernel is
+held against.
+
+Source note.  The CUDA kernel (``csrc/int8_attention.cu``) replaces the
+TPU kernel ``attention_kernel`` (``repro/kernels/int8_attention.py``,
+body ``_attn_kernel``).  One CUDA block per (head, q block) walks its
+``width`` kv blocks in the reference's order — that loop replaces the
+TPU's sequential grid axis — with GQA through ``bh // groups``.  At the
+slice's shape it is bound by its own instruction issue (``__dp4a`` tiles,
+the serial softmax and the pinned tree sums), not by bytes or by the
+card's int8 rate; tensor-core MMA is later work.
+
+Layout: q uint8 ``[BH, sq, hd]`` (BH = B * KV * G, head-major), k/v int8
+``[ZB, skv, hd]`` (ZB = B * KV).  Registers: fp32 ``[8]`` =
+``[zp_q, alpha_qk, scale_p, zp_p, alpha_pv, p_lo, p_hi, spare]``.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.quant import QuantSpec
+
+from . import LaunchCounter, build
+
+COUNTER = LaunchCounter("int8_attention")
+
+NEG_INF = -1e30
+P_SPEC = QuantSpec(bits=8, symmetric=False)
+STAT_SLOTS = 6
+MASK_MODES = ("causal", "sliding", "prefix", "cross", "bidir")
+KERNEL_MAX_TILE = 128        # bq, bkv, hd limit of the CUDA kernel
+
+
+# ---------------------------------------------------------------------------
+# Schedule: the static block plan shared by kernel and reference.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class AttnSchedule:
+    sq: int
+    skv: int
+    hd: int
+    bq: int
+    bkv: int
+    groups: int
+    mode: str
+    window: int
+    prefix_len: int
+    sm_scale: float
+    width: int
+
+    @property
+    def nq(self) -> int:
+        return -(-self.sq // self.bq)
+
+    @property
+    def nkv(self) -> int:
+        return -(-self.skv // self.bkv)
+
+
+def make_schedule(*, sq: int, skv: int, hd: int, bq: int, bkv: int,
+                  groups: int, mode: str, window: int = 0,
+                  prefix_len: int = 0, sm_scale: float) -> AttnSchedule:
+    """Resolve block sizes and the per-q-block kv visitation width (the
+    sliding mode's block-local fast path)."""
+    if mode not in MASK_MODES:
+        raise ValueError(f"unknown mask mode {mode!r}; expected {MASK_MODES}")
+    if mode == "sliding" and window <= 0:
+        raise ValueError("sliding mode requires window > 0")
+    bq = max(1, min(int(bq), sq))
+    bkv = max(1, min(int(bkv), skv))
+    # int32 exactness headroom: accumulators stay below 2**24, exact
+    # through the fp32 cast, for hd, bkv <= 512.
+    if hd > 512 or bkv > 512:
+        raise ValueError(f"head_dim/bkv must be <= 512 (got {hd}, {bkv})")
+    nq = -(-sq // bq)
+    nkv = -(-skv // bkv)
+    if mode == "sliding":
+        width = 1
+        for i in range(nq):
+            hi = min((i * bq + bq - 1) // bkv, nkv - 1)
+            lo = max(0, i * bq - window + 1) // bkv
+            width = max(width, hi - lo + 1)
+        width = min(width, nkv)
+    else:
+        width = nkv
+    return AttnSchedule(sq=sq, skv=skv, hd=hd, bq=bq, bkv=bkv, groups=groups,
+                        mode=mode, window=int(window),
+                        prefix_len=int(prefix_len), sm_scale=float(sm_scale),
+                        width=width)
+
+
+def _kv_block_base(i: int, sched: AttnSchedule) -> int:
+    """First kv block index q block ``i`` visits."""
+    if sched.mode != "sliding" or sched.width >= sched.nkv:
+        return 0
+    hi = min((i * sched.bq + sched.bq - 1) // sched.bkv, sched.nkv - 1)
+    return min(max(hi - (sched.width - 1), 0), max(sched.nkv - sched.width, 0))
+
+
+def _block_visited(i: int, ki: int, sched: AttnSchedule) -> bool:
+    """Block-level skip predicate: a skipped block is provably fully
+    masked for every row of the q block."""
+    if sched.mode in ("cross", "bidir", "sliding"):
+        return True
+    causal = (ki * sched.bkv) <= (i * sched.bq + sched.bq - 1)
+    if sched.mode == "prefix":
+        return causal or (ki * sched.bkv) < sched.prefix_len
+    return causal
+
+
+def _element_mask(q_pos, k_pos, kvlen, sched: AttnSchedule):
+    """Boolean attend-mask plus the runtime ``kvlen`` and static ``skv``
+    bounds."""
+    if sched.mode in ("cross", "bidir"):
+        m = torch.ones(torch.broadcast_shapes(q_pos.shape, k_pos.shape),
+                       dtype=torch.bool, device=q_pos.device)
+    elif sched.mode == "prefix":
+        m = (k_pos <= q_pos) | (k_pos < sched.prefix_len)
+    elif sched.mode == "sliding":
+        m = (k_pos <= q_pos) & (q_pos - k_pos < sched.window)
+    else:
+        m = k_pos <= q_pos
+    return m & (k_pos < kvlen) & (k_pos < sched.skv)
+
+
+# ---------------------------------------------------------------------------
+# Arithmetic-order pinning.
+# ---------------------------------------------------------------------------
+def _fence(v: torch.Tensor) -> torch.Tensor:
+    """The reference multiplies by a runtime 1.0 here to keep XLA from
+    contracting the mul->add seam into an FMA.  Eager PyTorch runs every
+    op as its own rounded kernel, so the seam is already pinned; the CUDA
+    kernel pins it with __fmul_rn / __fadd_rn and -fmad=false."""
+    return v
+
+
+def _tree_sum_last2(v: torch.Tensor) -> torch.Tensor:
+    """Pairwise-halving sum over the last TWO axes (zero-padded to a power
+    of two) — the reference's fixed association tree."""
+    shp = v.shape
+    n = shp[-2] * shp[-1]
+    v = v.reshape(shp[:-2] + (n,))
+    p = 1
+    while p < n:
+        p *= 2
+    if p != n:
+        v = torch.cat([v, v.new_zeros(shp[:-2] + (p - n,))], dim=-1)
+    while p > 1:
+        p //= 2
+        v = v[..., :p] + v[..., p:]
+    return v[..., 0]
+
+
+def _tree_sum_flat(v: torch.Tensor) -> torch.Tensor:
+    return _tree_sum_last2(v.reshape(1, -1))
+
+
+# ---------------------------------------------------------------------------
+# The shared per-block recurrence.
+# ---------------------------------------------------------------------------
+def _scores_to_probs(acc_qk, mask, m_prev, alpha_qk, scale_p, zp_p):
+    """Exact QK^T accumulator tile -> quantized probabilities.  Returns
+    ``(rp, p, p_hat, m_new, corr)``; ``rp`` is the zero-point-corrected
+    probability image (masked entries exactly 0)."""
+    s = _fence(alpha_qk * acc_qk.to(torch.float32))
+    s = torch.where(mask, s, NEG_INF)
+    m_new = torch.maximum(m_prev, s.amax(dim=-1, keepdim=True))
+    p = torch.exp(s - m_new)
+    p = torch.where(mask, p, 0.0)
+    p_int = torch.round(p / scale_p + zp_p).clamp(float(P_SPEC.int_min),
+                                                  float(P_SPEC.int_max))
+    rp = p_int.to(torch.int32) - zp_p.to(torch.int32)
+    p_hat = (p_int - zp_p) * scale_p
+    corr = torch.exp(m_prev - m_new)
+    return rp, p, p_hat, m_new, corr
+
+
+def _accumulate(acc_prev, l_prev, corr, acc_pv, rp, alpha_pv, scale_p):
+    """Online-softmax carry update with separately rounded seams."""
+    acc = _fence(acc_prev * corr) + _fence(alpha_pv * acc_pv.to(torch.float32))
+    lsum = rp.sum(dim=-1, keepdim=True).to(torch.float32)
+    l = _fence(l_prev * corr) + _fence(scale_p * lsum)
+    return acc, l
+
+
+def _stats_update(st, p, p_hat, sv, p_lo, p_hi):
+    """Fold one tile into the (pmin, pmax, clip, n, err, sig) partials."""
+    big = torch.finfo(torch.float32).max
+    pmn = torch.where(sv, p, big).amin(dim=(-2, -1))
+    pmx = torch.where(sv, p, -big).amax(dim=(-2, -1))
+    clip = torch.where(sv & ((p < p_lo) | (p > p_hi)), 1.0, 0.0).sum(
+        dim=(-2, -1))
+    cnt = torch.where(sv, 1.0, 0.0).sum(dim=(-2, -1)).expand_as(pmn)
+    d = p - p_hat
+    err = _tree_sum_last2(_fence(torch.where(sv, d * d, 0.0)))
+    sig = _tree_sum_last2(_fence(torch.where(sv, p * p, 0.0)))
+    return torch.stack([torch.minimum(st[..., 0], pmn),
+                        torch.maximum(st[..., 1], pmx),
+                        st[..., 2] + clip,
+                        st[..., 3] + cnt,
+                        st[..., 4] + err,
+                        st[..., 5] + sig], dim=-1)
+
+
+def _stats_init(shape, device) -> torch.Tensor:
+    big = torch.finfo(torch.float32).max
+    z = torch.zeros(shape, dtype=torch.float32, device=device)
+    return torch.stack([z + big, z - big, z, z, z, z], dim=-1)
+
+
+def reduce_pstats(partials: torch.Tensor):
+    """Reduce ``[BH, nq, 6]`` partials to the site-level (mn, mx, clip, n,
+    err, sig): min/max/counts exact in any order, err/sig order-pinned."""
+    return (partials[..., 0].amin(), partials[..., 1].amax(),
+            partials[..., 2].sum(), partials[..., 3].sum(),
+            _tree_sum_flat(partials[..., 4].reshape(-1)),
+            _tree_sum_flat(partials[..., 5].reshape(-1)))
+
+
+# ---------------------------------------------------------------------------
+# The plain version: order-pinned replay of the kernel's schedule.
+# ---------------------------------------------------------------------------
+def _pad_axis(x: torch.Tensor, size: int, axis: int) -> torch.Tensor:
+    cur = x.shape[axis]
+    if cur == size:
+        return x
+    pads = [0, 0] * (x.ndim - 1 - axis) + [0, size - cur]
+    return F.pad(x, pads)
+
+
+def attention_core_reference(q_u8, k_i8, v_i8, regs, kvlen, *,
+                             sched: AttnSchedule):
+    """Returns ``(out fp32 [BH, sq, hd], ml fp32 [BH, sq, 2], pstats fp32
+    [BH, nq, 6])``.  The int contractions run in float64, exact for these
+    integer operands in any summation order."""
+    S = sched
+    bh = q_u8.shape[0]
+    zb = bh // S.groups
+    dev = q_u8.device
+    f64 = torch.float64
+    qz = _pad_axis(q_u8, S.nq * S.bq, 1).reshape(zb, S.groups, S.nq, S.bq,
+                                                 S.hd)
+    kz = _pad_axis(k_i8, S.nkv * S.bkv, 1).reshape(zb, S.nkv, S.bkv, S.hd)
+    vz = _pad_axis(v_i8, S.nkv * S.bkv, 1).reshape(zb, S.nkv, S.bkv, S.hd)
+    regs = regs.reshape(-1).to(torch.float32)
+    zp_q, alpha_qk, scale_p, zp_p, alpha_pv, p_lo, p_hi = (
+        regs[j] for j in range(7))
+    kvl = kvlen.reshape(()).to(device=dev)
+    rows = torch.arange(S.bq, device=dev)[:, None]
+    cols = torch.arange(S.bkv, device=dev)[None, :]
+
+    outs, mls, sts = [], [], []
+    for i in range(S.nq):
+        rq = (qz[:, :, i].to(torch.int32) - zp_q.to(torch.int32)).to(f64)
+        m = torch.full((zb, S.groups, S.bq, 1), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((zb, S.groups, S.bq, 1), dtype=torch.float32,
+                        device=dev)
+        acc = torch.zeros((zb, S.groups, S.bq, S.hd), dtype=torch.float32,
+                          device=dev)
+        st = _stats_init((zb, S.groups), dev)
+        base = _kv_block_base(i, S)
+        for t in range(S.width):
+            ki = base + t
+            if not _block_visited(i, ki, S):
+                continue
+            rk = kz[:, ki].to(f64)
+            rv = vz[:, ki].to(f64)
+            acc_qk = torch.einsum("zgqh,zkh->zgqk", rq, rk)
+            q_pos = i * S.bq + rows
+            k_pos = ki * S.bkv + cols
+            mask = _element_mask(q_pos, k_pos, kvl, S)
+            rp, p, p_hat, m_new, corr = _scores_to_probs(
+                acc_qk, mask, m, alpha_qk, scale_p, zp_p)
+            acc_pv = torch.einsum("zgqk,zkh->zgqh", rp.to(f64), rv)
+            acc, l = _accumulate(acc, l, corr, acc_pv, rp, alpha_pv, scale_p)
+            m = m_new
+            sv = (q_pos < S.sq) & (k_pos < S.skv)
+            st = _stats_update(st, p, p_hat, sv, p_lo, p_hi)
+        outs.append(acc / l.clamp(min=1e-30))
+        mls.append(torch.cat([m, l], dim=-1))
+        sts.append(st)
+    # [nq, ZB, G, bq, ...] -> kernel element order [BH, sq, ...]
+    out = torch.stack(outs).permute(1, 2, 0, 3, 4).reshape(
+        bh, S.nq * S.bq, S.hd)[:, :S.sq]
+    ml = torch.stack(mls).permute(1, 2, 0, 3, 4).reshape(
+        bh, S.nq * S.bq, 2)[:, :S.sq]
+    pstats = torch.stack(sts).permute(1, 2, 0, 3).reshape(bh, S.nq,
+                                                          STAT_SLOTS)
+    return out.contiguous(), ml.contiguous(), pstats.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel.
+# ---------------------------------------------------------------------------
+_MODE_CODE = {"causal": 0, "sliding": 1, "prefix": 2, "cross": 3, "bidir": 4}
+
+
+def _lib():
+    lib = build.library("int8_attention")
+    fn = lib.repro_int8_attention
+    if fn.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp] * 8 + [ci] * 11 + [vp]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def attention_cuda(q_u8, k_i8, v_i8, regs, kvlen, *, sched: AttnSchedule):
+    """Launch the CUDA kernel; same returns as
+    :func:`attention_core_reference`."""
+    S = sched
+    if not (q_u8.is_cuda and k_i8.is_cuda and v_i8.is_cuda):
+        raise ValueError("attention_cuda needs CUDA tensors")
+    if (q_u8.dtype, k_i8.dtype, v_i8.dtype) != (torch.uint8, torch.int8,
+                                                torch.int8):
+        raise TypeError("attention_cuda takes uint8 q and int8 k/v")
+    if max(S.bq, S.bkv, S.hd) > KERNEL_MAX_TILE:
+        raise ValueError(
+            f"the CUDA attention kernel takes bq, bkv, hd <= "
+            f"{KERNEL_MAX_TILE}; got ({S.bq}, {S.bkv}, {S.hd})")
+    bh = q_u8.shape[0]
+    if q_u8.shape != (bh, S.sq, S.hd) or bh % S.groups or \
+            k_i8.shape != (bh // S.groups, S.skv, S.hd) or \
+            v_i8.shape != k_i8.shape:
+        raise ValueError(f"attention shapes {tuple(q_u8.shape)}, "
+                         f"{tuple(k_i8.shape)} do not match {S}")
+    dev = q_u8.device
+    q_u8, k_i8, v_i8 = q_u8.contiguous(), k_i8.contiguous(), v_i8.contiguous()
+    regs = regs.to(device=dev, dtype=torch.float32).reshape(-1).contiguous()
+    kvl = kvlen.to(device=dev, dtype=torch.int32).reshape(1).contiguous()
+    out = torch.empty((bh, S.sq, S.hd), dtype=torch.float32, device=dev)
+    ml = torch.empty((bh, S.sq, 2), dtype=torch.float32, device=dev)
+    pstats = torch.empty((bh, S.nq, STAT_SLOTS), dtype=torch.float32,
+                         device=dev)
+    status = _lib()(q_u8.data_ptr(), k_i8.data_ptr(), v_i8.data_ptr(),
+                    regs.data_ptr(), kvl.data_ptr(), out.data_ptr(),
+                    ml.data_ptr(), pstats.data_ptr(),
+                    bh, S.sq, S.skv, S.hd, S.bq, S.bkv, S.groups,
+                    _MODE_CODE[S.mode], S.window, S.prefix_len, S.width,
+                    torch.cuda.current_stream(dev).cuda_stream)
+    build.check(status, "int8_attention")
+    COUNTER.count += 1
+    return out, ml, pstats

@@ -1,0 +1,142 @@
+"""Batched serving driver: quantized prefill + decode with static ranges
+(port of ``repro/launch/serve.py``).
+
+In-hindsight ranges double as static inference quantization ranges:
+every activation quantizer runs single-pass static once its leaf is
+initialized.  ``--backend fused`` (the default) runs the quantizers, the
+int8 projections and the prefill attention core on the hand-written CUDA
+kernels; ``--backend simulated`` runs the plain PyTorch fake-quant path
+(``launch/train.py``'s meaning of the flag).  The KV cache is bf16, or
+int8 with ``--int8-cache``.  Runs on the CUDA card unless ``--device cpu``
+is given.
+
+Example (H100, full width):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \
+      --batch 4 --prompt-len 1024 --gen 32
+CPU, reduced:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \
+      --reduced --batch 2 --prompt-len 16 --gen 4 --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch import configs, data
+from repro_torch.core.policy import QuantPolicy
+from repro_torch.device import resolve_device
+from repro_torch.models import model
+
+
+@dataclasses.dataclass
+class ServeRun:
+    """What one serve run produced (returned by :func:`main`)."""
+
+    cfg: object
+    policy: QuantPolicy
+    params: object
+    quant_state: dict
+    prompt: torch.Tensor            # [B, prompt_len] token ids
+    tokens: torch.Tensor            # [B, gen] generated ids
+    prefill_logits: torch.Tensor    # [B, V] logits of the last prompt token
+    prefill_stats: dict             # forward stats tree of the prefill
+    prefill_ms: float
+    decode_ms: float
+    decode_tok_s: float
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def generate(params, quant_state, prompt: torch.Tensor, cfg,
+             policy: QuantPolicy, gen: int) -> ServeRun:
+    """Prefill ``prompt`` and greedily decode ``gen`` tokens."""
+    device = prompt.device
+    b, prompt_len = prompt.shape
+    cache_len = prompt_len + gen
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, caches, stats = model.prefill(
+        params, quant_state, {"tokens": prompt}, cfg, policy,
+        cache_len=cache_len, return_stats=True)
+    _sync(device)
+    t_prefill = time.perf_counter() - t0
+    prefill_logits = logits
+
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        pos = torch.full((b,), prompt_len + i, dtype=torch.int64,
+                         device=device)
+        logits, caches = model.decode_step(params, quant_state, tok, pos,
+                                           caches, cfg, policy)
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        out.append(tok)
+    _sync(device)
+    t_decode = time.perf_counter() - t0
+    return ServeRun(
+        cfg=cfg, policy=policy, params=params, quant_state=quant_state,
+        prompt=prompt, tokens=torch.cat(out, dim=1),
+        prefill_logits=prefill_logits, prefill_stats=stats,
+        prefill_ms=t_prefill * 1e3, decode_ms=t_decode * 1e3,
+        decode_tok_s=(gen - 1) * b / max(t_decode, 1e-9))
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="starcoder2-3b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--policy", default="hindsight",
+                    choices=["hindsight", "fp32"])
+    ap.add_argument("--backend", default="fused",
+                    choices=["simulated", "fused"])
+    ap.add_argument("--int8-cache", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> ServeRun:
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    # fp32 products outside the int8 sites (logits, decode attention) run
+    # in full fp32, never TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    cfg = configs.get_reduced(args.arch) if args.reduced \
+        else configs.get(args.arch)
+    if args.int8_cache:
+        cfg = dataclasses.replace(cfg, cache_dtype="int8")
+    policy = QuantPolicy.disabled() if args.policy == "fp32" \
+        else QuantPolicy.w8a8g8(backend=args.backend)
+
+    params = model.init_params(cfg, seed=args.seed, device=device)
+    quant_state = model.init_quant_state(cfg, policy, device=device)
+    stream = data.for_arch(cfg, seq_len=args.prompt_len + args.gen,
+                           global_batch=args.batch, seed=args.seed)
+    prompt = stream.batch(0)["tokens"][:, :args.prompt_len].to(device)
+
+    run = generate(params, quant_state, prompt, cfg, policy, args.gen)
+    print(f"[serve] arch={cfg.name} policy={args.policy} "
+          f"backend={policy.backend} cache={cfg.cache_dtype} "
+          f"device={device}")
+    print(f"[serve] prefill {args.batch}x{args.prompt_len}: "
+          f"{run.prefill_ms:.1f} ms")
+    print(f"[serve] decode  {args.gen - 1} steps: {run.decode_ms:.1f} ms "
+          f"({run.decode_tok_s:.1f} tok/s)")
+    print(f"[serve] sample tokens[0]: {run.tokens[0][:12].tolist()}")
+    return run
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,278 @@
+"""Attention (port of ``repro/models/attention.py``): GQA self-attention
+with quantized q/k/v/o projections, the backend-dispatched int8 attention
+core for static policies, the fp paths, and the KV cache.
+
+Layouts follow the reference: ``wq [D, KV, G, hd]``, ``wo [KV, G, hd, D]``,
+activations ``q [B, S, KV, G, hd]``, ``k/v [B, S, KV, hd]``; caches are
+dicts ``{"k": [B, L, KV, hd], "v": ..., "pos": [B, L]}`` (sliding-window
+caches are ring buffers).  Unlike the reference's functional updates, the
+cache functions write into the cache tensors in place (a full-size cache
+copy per layer and token would double its memory), and return the dict.
+
+Not ported yet: cross attention (``kv_x``, the enc-dec family) and the
+long-sequence fp paths ``_chunked_attn`` / ``_local_attn`` (S > 4096 or
+S > window on a non-static policy), which raise.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import backend, qlinear
+from repro_torch.core.policy import QuantPolicy
+from repro_torch.core.state import init_range_state, make_range_state
+
+from .layers import apply_rope, init_normal
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Parameter / site init.
+# ---------------------------------------------------------------------------
+def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
+                   n_kv: int, head_dim: int, use_bias: bool,
+                   dtype=torch.float32) -> dict:
+    s = d_model ** -0.5
+    g = n_heads // n_kv
+    p = {
+        "wq": init_normal(gen, (d_model, n_kv, g, head_dim), s, dtype),
+        "wk": init_normal(gen, (d_model, n_kv, head_dim), s, dtype),
+        "wv": init_normal(gen, (d_model, n_kv, head_dim), s, dtype),
+        "wo": init_normal(gen, (n_kv, g, head_dim, d_model),
+                      (n_heads * head_dim) ** -0.5, dtype),
+    }
+    if use_bias:
+        dev = gen.device
+        p["bq"] = torch.zeros((n_kv, g, head_dim), dtype=dtype, device=dev)
+        p["bk"] = torch.zeros((n_kv, head_dim), dtype=dtype, device=dev)
+        p["bv"] = torch.zeros((n_kv, head_dim), dtype=dtype, device=dev)
+        p["bo"] = torch.zeros((d_model,), dtype=dtype, device=dev)
+    return p
+
+
+def init_attention_sites(device=None) -> dict:
+    sites = {name: qlinear.init_site(device=device)
+             for name in ("q", "k", "v", "o")}
+    # The attention core's sites; the probability leaf starts at the
+    # softmax codomain [0, 1] (its range is consumed mid-kernel).
+    sites["core"] = {
+        "q": {"act": init_range_state(device=device)},
+        "k": {"act": init_range_state(device=device)},
+        "v": {"act": init_range_state(device=device)},
+        "p": {"act": make_range_state(0.0, 1.0, device=device)},
+    }
+    return sites
+
+
+# ---------------------------------------------------------------------------
+# Masks and the fp attention paths.
+# ---------------------------------------------------------------------------
+def _mask_block(q_pos, kv_pos, mode: str, window: Optional[int],
+                prefix_len: Optional[int], kv_len):
+    """Boolean ``[q, k]`` mask: True = attend."""
+    q = q_pos[:, None]
+    k = kv_pos[None, :]
+    if mode in ("cross", "bidir"):
+        m = torch.ones((q_pos.shape[0], kv_pos.shape[0]), dtype=torch.bool,
+                       device=q_pos.device)
+    elif mode == "prefix":
+        m = (k <= q) | (k < prefix_len)
+    elif mode == "sliding":
+        m = (k <= q) & (q - k < window)
+    else:
+        m = k <= q
+    if kv_len is not None:
+        m = m & (k < kv_len)
+    return m
+
+
+def _dense_attn(q, k, v, *, mode: str, window, prefix_len, kv_len,
+                scale: float):
+    """Single-tile fp32 attention (the path of non-static policies)."""
+    sq, skv = q.shape[1], k.shape[1]
+    s = torch.einsum("bqngh,bknh->bngqk", q.to(torch.float32) * scale,
+                     k.to(torch.float32))
+    dev = q.device
+    mask = _mask_block(torch.arange(sq, device=dev),
+                       torch.arange(skv, device=dev), mode, window,
+                       prefix_len, kv_len)
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    out = torch.einsum("bngqk,bknh->bngqh", p, v.to(torch.float32))
+    out = out / p.sum(dim=-1).clamp(min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+
+
+def _decode_attn(q, k_cache, v_cache, cache_pos, cur_pos, *, mode: str,
+                 window, prefix_len, scale: float, kv_scale=None):
+    """One new token against the cache.  q ``[B, 1, KV, G, hd]``; caches
+    ``[B, L, KV, hd]``; ``cache_pos [B, L]`` (-1 = empty slot); ``cur_pos
+    [B]``.  ``kv_scale`` = (k_scale, v_scale) of an int8 cache, folded
+    into the epilogue."""
+    qf = q[:, 0].to(torch.float32) * scale
+    if kv_scale is not None:
+        qf = qf * kv_scale[0]
+    s = torch.einsum("bkgh,blkh->bkgl", qf, k_cache.to(torch.float32))
+    pos = cache_pos[:, None, None, :]
+    cur = cur_pos[:, None, None, None]
+    valid = (pos >= 0) & (pos <= cur)
+    if mode == "sliding":
+        valid &= (cur - pos) < window
+    if mode == "prefix":
+        valid |= (pos >= 0) & (pos < prefix_len)
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    out = torch.einsum("bkgl,blkh->bkgh", p, v_cache.to(torch.float32))
+    out = out / p.sum(dim=-1).clamp(min=1e-30)[..., None]
+    if kv_scale is not None:
+        out = out * kv_scale[1]
+    return out[:, None].to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# KV cache.
+# ---------------------------------------------------------------------------
+def init_kv_cache(batch: int, length: int, n_kv: int, head_dim: int,
+                  dtype=torch.bfloat16, device=None) -> dict:
+    """int8 dtype = the in-hindsight quantized cache: per-tensor symmetric
+    scales set at prefill, folded into the decode epilogue."""
+    c = {"k": torch.zeros((batch, length, n_kv, head_dim), dtype=dtype,
+                          device=device),
+         "v": torch.zeros((batch, length, n_kv, head_dim), dtype=dtype,
+                          device=device),
+         "pos": torch.full((batch, length), -1, dtype=torch.int32,
+                           device=device)}
+    if dtype == torch.int8:
+        c["scale"] = torch.ones((2,), dtype=torch.float32, device=device)
+    return c
+
+
+def _quant_kv(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return torch.round(x.to(torch.float32) / scale).clamp(-127, 127).to(
+        torch.int8)
+
+
+def cache_fill(cache: dict, k, v) -> dict:
+    """Prefill: write ``[B, S, KV, hd]`` into the cache in place.  Ring
+    caches (L < S) keep the last L tokens at slots ``pos % L``."""
+    s = k.shape[1]
+    length = cache["k"].shape[1]
+    start = max(0, s - length)
+    pos = torch.arange(start, s, device=k.device)
+    slots = pos % length
+    ksrc, vsrc = k[:, start:], v[:, start:]
+    if "scale" in cache:
+        ks = (ksrc.to(torch.float32).abs().amax() / 127.0).clamp(min=1e-8)
+        vs = (vsrc.to(torch.float32).abs().amax() / 127.0).clamp(min=1e-8)
+        cache["scale"] = torch.stack([ks, vs])
+        ksrc, vsrc = _quant_kv(ksrc, ks), _quant_kv(vsrc, vs)
+    cache["k"][:, slots] = ksrc.to(cache["k"].dtype)
+    cache["v"][:, slots] = vsrc.to(cache["v"].dtype)
+    cache["pos"][:, slots] = pos.to(torch.int32)
+    return cache
+
+
+def cache_insert(cache: dict, k_new, v_new, pos: torch.Tensor) -> dict:
+    """Insert one token's (k, v) at absolute positions ``pos [B]`` in
+    place (slot ``pos % L``); an int8 cache quantizes it with the stored
+    hindsight scale."""
+    length = cache["k"].shape[1]
+    slot = pos % length
+    b = torch.arange(k_new.shape[0], device=k_new.device)
+    kn, vn = k_new[:, 0], v_new[:, 0]
+    if "scale" in cache:
+        kn = _quant_kv(kn, cache["scale"][0])
+        vn = _quant_kv(vn, cache["scale"][1])
+    cache["k"][b, slot] = kn.to(cache["k"].dtype)
+    cache["v"][b, slot] = vn.to(cache["v"].dtype)
+    cache["pos"][b, slot] = pos.to(torch.int32)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# The attention layer.
+# ---------------------------------------------------------------------------
+def attention_layer(params, sites: dict, x: torch.Tensor, *, n_heads: int,
+                    n_kv: int, head_dim: int, mode: str = "causal",
+                    window: Optional[int] = None,
+                    prefix_len: Optional[int] = None,
+                    rope_theta: Optional[float] = 10000.0,
+                    positions: Optional[torch.Tensor] = None,
+                    kv_len=None, cache: Optional[dict] = None,
+                    policy: QuantPolicy, seed=0, step=0,
+                    dense_attn_max: int = 4096):
+    """Self-attention layer; returns ``(y, stats, cache)``."""
+    b, s, _ = x.shape
+    scale = head_dim ** -0.5
+    new_sites = {}
+    core_stats = None
+    # One shared activation quantization for q/k/v; its range state lives
+    # on the "q" site.
+    xq, in_stats, xqi = qlinear.act_quant_site(x, sites["q"]["act"], policy,
+                                               step)
+    q, sq = qlinear.qdense_pre(xq, params["wq"], sites["q"], policy,
+                               einsum_spec="bsd,dkgh->bskgh",
+                               bias=params.get("bq"), seed=seed, step=step,
+                               qinfo=xqi)
+    sq["act"] = in_stats
+    new_sites["q"] = sq
+    k, new_sites["k"] = qlinear.qdense_pre(
+        xq, params["wk"], sites["k"], policy, einsum_spec="bsd,dkh->bskh",
+        bias=params.get("bk"), seed=seed + 1, step=step, qinfo=xqi)
+    v, new_sites["v"] = qlinear.qdense_pre(
+        xq, params["wv"], sites["v"], policy, einsum_spec="bsd,dkh->bskh",
+        bias=params.get("bv"), seed=seed + 2, step=step, qinfo=xqi)
+
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+    if rope_theta is not None and mode != "cross":
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+
+    if cache is not None and s == 1:
+        cur = positions[:, 0]
+        cache = cache_insert(cache, k, v, cur)
+        out = _decode_attn(q, cache["k"], cache["v"], cache["pos"], cur,
+                           mode=mode, window=window, prefix_len=prefix_len,
+                           scale=scale, kv_scale=cache.get("scale"))
+    else:
+        use_core = ("core" in sites and s > 1
+                    and backend.qattention_eligible(policy)
+                    and (mode != "sliding" or isinstance(window, int))
+                    and (mode != "prefix" or isinstance(prefix_len, int)))
+        if use_core:
+            out, core_stats = backend.qattention(
+                policy, q, k, v, sites["core"], mode=mode, window=window,
+                prefix_len=prefix_len, kv_len=kv_len, scale=scale, step=step)
+        elif mode == "sliding" and window is not None and s > window \
+                and s % window == 0:
+            raise NotImplementedError(
+                "the block-local sliding fp path (_local_attn, S > window) "
+                "is not ported yet")
+        elif max(s, k.shape[1]) <= dense_attn_max:
+            out = _dense_attn(q, k, v, mode=mode, window=window,
+                              prefix_len=prefix_len, kv_len=kv_len,
+                              scale=scale)
+        else:
+            raise NotImplementedError(
+                "the chunked fp attention path (_chunked_attn, S > "
+                f"{dense_attn_max}) is not ported yet")
+        if cache is not None:
+            cache = cache_fill(cache, k, v)
+
+    if "core" in sites:
+        if core_stats is None:
+            core_stats = {name: {"act": qlinear.stats_zeros(policy, x.device)}
+                          for name in sites["core"]}
+        new_sites["core"] = core_stats
+
+    y, new_sites["o"] = qlinear.qeinsum("bskgh,kghd->bsd", out, params["wo"],
+                                        sites["o"], policy, seed=seed + 3,
+                                        step=step)
+    if params.get("bo") is not None:
+        y = y + params["bo"].to(y.dtype)
+    return y, new_sites, cache

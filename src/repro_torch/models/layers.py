@@ -1,0 +1,162 @@
+"""Shared layers (port of ``repro/models/layers.py``): norms, rotary
+embeddings, activations, the quantized MLP and the embedding.
+
+Norms, rotary and activations compute in fp32 and cast back to the input
+dtype, like the reference; every weight-bearing matmul goes through
+:mod:`repro_torch.core.qlinear`.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import qlinear
+from repro_torch.core.policy import QuantPolicy
+
+
+def init_normal(gen: torch.Generator, shape, scale: float, dtype
+                ) -> torch.Tensor:
+    """``N(0, 1) * scale`` drawn on ``gen``'s device, cast to ``dtype``."""
+    x = torch.randn(shape, generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (x * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms.
+# ---------------------------------------------------------------------------
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * weight.to(torch.float32)
+    return y.to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, weight: torch.Tensor,
+              bias: Optional[torch.Tensor], eps: float = 1e-5
+              ) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    d = xf - mu
+    var = torch.mean(d * d, dim=-1, keepdim=True)
+    y = d * torch.rsqrt(var + eps) * weight.to(torch.float32)
+    if bias is not None:
+        y = y + bias.to(torch.float32)
+    return y.to(x.dtype)
+
+
+def apply_norm(x: torch.Tensor, params, kind: str) -> torch.Tensor:
+    if kind == "rmsnorm":
+        return rmsnorm(x, params["scale"])
+    return layernorm(x, params["scale"], params.get("bias"))
+
+
+def init_norm(d: int, kind: str, use_bias: bool, device=None) -> dict:
+    p = {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+    if kind == "layernorm" and use_bias:
+        p["bias"] = torch.zeros((d,), dtype=torch.float32, device=device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings.
+# ---------------------------------------------------------------------------
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: ``[B, S, *head_dims, Dh]``; positions: ``[B, S]``."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)
+    angles = positions[..., None].to(torch.float32) * freqs
+    expand = tuple(angles.shape[:2]) + (1,) * (x.ndim - 3) + (hd // 2,)
+    cos = torch.cos(angles).reshape(expand)
+    sin = torch.sin(angles).reshape(expand)
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Activations.
+# ---------------------------------------------------------------------------
+def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "gelu":
+        # jax.nn.gelu defaults to the tanh approximation.
+        return F.gelu(x, approximate="tanh")
+    if kind == "silu":
+        return F.silu(x)
+    if kind == "relu":
+        return F.relu(x)
+    if kind == "sq_relu":
+        r = F.relu(x)
+        return r * r
+    raise ValueError(f"unknown activation {kind!r}")
+
+
+GLU_KINDS = ("swiglu", "geglu", "reglu")
+_GLU_ACT = {"swiglu": "silu", "geglu": "gelu", "reglu": "relu"}
+
+
+# ---------------------------------------------------------------------------
+# MLP.
+# ---------------------------------------------------------------------------
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, kind: str,
+             use_bias: bool, dtype=torch.float32) -> dict:
+    p = {"w_up": init_normal(gen, (d_model, d_ff), d_model ** -0.5, dtype),
+         "w_down": init_normal(gen, (d_ff, d_model), d_ff ** -0.5, dtype)}
+    if kind in GLU_KINDS:
+        p["w_gate"] = init_normal(gen, (d_model, d_ff), d_model ** -0.5, dtype)
+    if use_bias:
+        p["b_up"] = torch.zeros((d_ff,), dtype=dtype, device=gen.device)
+        p["b_down"] = torch.zeros((d_model,), dtype=dtype, device=gen.device)
+    return p
+
+
+def init_mlp_sites(kind: str, device=None) -> dict:
+    sites = {"up": qlinear.init_site(device=device),
+             "down": qlinear.init_site(device=device)}
+    if kind in GLU_KINDS:
+        sites["gate"] = qlinear.init_site(device=device)
+    return sites
+
+
+def apply_mlp(params, sites: dict, x: torch.Tensor, kind: str,
+              policy: QuantPolicy, seed=0, step=0
+              ) -> tuple[torch.Tensor, dict]:
+    """Returns ``(out, stats)``; one shared input quantization for up (and
+    gate), its range state on the "up" site."""
+    new_sites = {}
+    xq, in_stats, xqi = qlinear.act_quant_site(x, sites["up"]["act"], policy,
+                                               step)
+    up, s_up = qlinear.qdense_pre(xq, params["w_up"], sites["up"], policy,
+                                  bias=params.get("b_up"), seed=seed,
+                                  step=step, qinfo=xqi)
+    if kind in GLU_KINDS:
+        gate, new_sites["gate"] = qlinear.qdense_pre(
+            xq, params["w_gate"], sites["gate"], policy, seed=seed + 1,
+            step=step, qinfo=xqi)
+        h = activation(gate, _GLU_ACT[kind]) * up
+    else:
+        h = activation(up, kind)
+    s_up["act"] = in_stats
+    new_sites["up"] = s_up
+    out, new_sites["down"] = qlinear.qdense(
+        h, params["w_down"], sites["down"], policy,
+        bias=params.get("b_down"), seed=seed + 2, step=step)
+    return out, new_sites
+
+
+# ---------------------------------------------------------------------------
+# Embedding.
+# ---------------------------------------------------------------------------
+def init_embedding(gen: torch.Generator, vocab: int, d_model: int,
+                   dtype=torch.float32) -> torch.Tensor:
+    return init_normal(gen, (vocab, d_model), d_model ** -0.5, dtype)

@@ -1,0 +1,114 @@
+"""The transformer stack (port of ``repro/models/transformer.py``, the
+``"attn"`` block).
+
+The reference scans a pattern unit with ``lax.scan`` and stacks per-layer
+state into ``[repeats, ...]`` leaves; the port runs a Python loop over
+the layers and keeps one entry per layer: params, quant sites and caches
+are ``{"layers": [layer 0, layer 1, ...]}``.  ``repro_torch.convert``
+maps between the two layouts.  The other block kinds (MoE, RG-LRU, RWKV,
+enc-dec) come with their model families.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import attention as attn
+from . import layers
+
+# Seed stride reserved per layer (matches the reference).
+_SEED_STRIDE = 64
+
+
+def _check_kind(kind: str) -> None:
+    if kind != "attn":
+        raise NotImplementedError(
+            f"block kind {kind!r} comes with its model family's slice")
+
+
+def _init_block(gen: torch.Generator, kind: str, cfg) -> dict:
+    _check_kind(kind)
+    dt = getattr(torch, cfg.param_dtype)
+    dev = gen.device
+    return {
+        "ln1": layers.init_norm(cfg.d_model, cfg.norm_kind, cfg.use_bias, dev),
+        "attn": attn.init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv,
+                                    cfg.head_dim, cfg.use_bias, dt),
+        "ln2": layers.init_norm(cfg.d_model, cfg.norm_kind, cfg.use_bias, dev),
+        "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind,
+                               cfg.use_bias, dt),
+    }
+
+
+def _init_block_sites(kind: str, cfg, device=None) -> dict:
+    _check_kind(kind)
+    return {"attn": attn.init_attention_sites(device),
+            "mlp": layers.init_mlp_sites(cfg.mlp_kind, device)}
+
+
+def _init_block_cache(kind: str, cfg, batch: int, cache_len: int,
+                      device=None) -> dict:
+    _check_kind(kind)
+    length = cache_len
+    if cfg.sliding_window is not None:
+        length = min(cache_len, cfg.sliding_window)
+    return {"kv": attn.init_kv_cache(batch, length, cfg.n_kv, cfg.head_dim,
+                                     getattr(torch, cfg.cache_dtype), device)}
+
+
+def _apply_block(kind: str, params, sites, x, *, cfg, policy, seed, step,
+                 positions, cache=None):
+    """Returns ``(x, stats, cache)``."""
+    _check_kind(kind)
+    window = cfg.sliding_window
+    mode = "sliding" if window is not None else "causal"
+    new_sites: dict = {}
+    h = layers.apply_norm(x, params["ln1"], cfg.norm_kind)
+    a, new_sites["attn"], kv = attn.attention_layer(
+        params["attn"], sites["attn"], h, n_heads=cfg.n_heads,
+        n_kv=cfg.n_kv, head_dim=cfg.head_dim, mode=mode, window=window,
+        rope_theta=cfg.rope_theta, positions=positions,
+        cache=None if cache is None else cache["kv"], policy=policy,
+        seed=seed, step=step, dense_attn_max=cfg.dense_attn_max)
+    x = x + a
+    h = layers.apply_norm(x, params["ln2"], cfg.norm_kind)
+    m, new_sites["mlp"] = layers.apply_mlp(params["mlp"], sites["mlp"], h,
+                                           cfg.mlp_kind, policy, seed + 16,
+                                           step)
+    x = x + m
+    return x, new_sites, (None if cache is None else {"kv": kv})
+
+
+def _kinds(cfg, n_layers: int) -> list:
+    return [cfg.pattern[i % len(cfg.pattern)] for i in range(n_layers)]
+
+
+def init_stack(gen: torch.Generator, cfg, n_layers: int) -> dict:
+    return {"layers": [_init_block(gen, kind, cfg)
+                       for kind in _kinds(cfg, n_layers)]}
+
+
+def init_stack_sites(cfg, n_layers: int, device=None) -> dict:
+    return {"layers": [_init_block_sites(kind, cfg, device)
+                       for kind in _kinds(cfg, n_layers)]}
+
+
+def init_stack_cache(cfg, n_layers: int, batch: int, cache_len: int,
+                     device=None) -> dict:
+    return {"layers": [_init_block_cache(kind, cfg, batch, cache_len, device)
+                       for kind in _kinds(cfg, n_layers)]}
+
+
+def apply_stack(params, sites, x, *, cfg, policy, seed, step, positions,
+                caches=None):
+    """Returns ``(x, stats, caches)``."""
+    new_sites, new_caches = [], []
+    for idx, kind in enumerate(_kinds(cfg, cfg.n_layers)):
+        x, ns, nc = _apply_block(
+            kind, params["layers"][idx], sites["layers"][idx], x, cfg=cfg,
+            policy=policy, seed=seed + idx * _SEED_STRIDE, step=step,
+            positions=positions,
+            cache=None if caches is None else caches["layers"][idx])
+        new_sites.append(ns)
+        new_caches.append(nc)
+    return (x, {"layers": new_sites},
+            None if caches is None else {"layers": new_caches})

@@ -1,0 +1,136 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card.  Marked ``cuda``; each test takes the ``card`` fixture, which
+skips where there is no CUDA device (the decision is made inside the
+fixture, never at import).  Run on the H100 with
+
+    PYTHONPATH=src python -m pytest --noconftest -m cuda \
+        tests/test_torch_cuda.py
+
+This file imports no JAX: the machine with the card has none (hence
+``--noconftest``: ``tests/conftest.py`` imports JAX).
+"""
+import pytest
+import torch
+
+from repro_torch.core.quant import QuantSpec
+from repro_torch.kernels import fused_quantize as fq
+from repro_torch.kernels import int8_attention as attn
+from repro_torch.kernels import int8_matmul as mm
+from repro_torch.kernels import ops
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the H100)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _gen(dev, seed):
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (7, 13), (257, 301), (4096, 96),
+                                   (3, 5, 17)])
+@pytest.mark.parametrize("sym", [False, True])
+def test_fused_quantize_kernel_matches_plain(card, shape, sym):
+    g = _gen(card, sum(shape))
+    x = torch.randn(shape, generator=g, device=card) * 2.5
+    views = (x, x.reshape(-1)[1:]) if x.numel() > 1 else (x,)
+    for view in views:                       # aligned, and misaligned start
+        spec = QuantSpec(bits=8, symmetric=sym)
+        qp = ops._qparams(torch.tensor(-2.0, device=card),
+                          torch.tensor(3.0, device=card), spec)
+        qk, mnk, mxk = fq.fused_quantize_cuda(view, qp, spec)
+        qr, mnr, mxr = fq.fused_quantize_plain(view, qp, spec)
+        torch.cuda.synchronize()
+        assert torch.equal(qk, qr)
+        assert torch.equal(mnk, mnr) and torch.equal(mxk, mxr)
+
+
+@pytest.mark.parametrize("b,m,k,n", [(1, 4, 64, 33), (1, 130, 300, 263),
+                                     (3, 37, 70, 129), (1, 256, 3072, 256)])
+def test_int8_matmul_kernel_matches_plain(card, b, m, k, n):
+    g = _gen(card, m + k + n)
+    x = torch.randint(0, 256, (b, m, k), generator=g, device=card,
+                      dtype=torch.uint8)
+    w = torch.randint(-127, 128, (b, k, n), generator=g, device=card,
+                      dtype=torch.int8)
+    zp = torch.tensor(117.0, device=card)
+    alpha = torch.tensor(3.1e-4, device=card)
+    yk, mnk, mxk = mm.int8_matmul_fp_cuda(x, w, zp, alpha)
+    yr, mnr, mxr = mm.int8_matmul_fp_plain(x, w, zp, alpha)
+    torch.cuda.synchronize()
+    assert torch.equal(yk, yr)
+    assert torch.equal(mnk, mnr) and torch.equal(mxk, mxr)
+
+
+ATTN_CASES = [
+    # mode, sq, skv, groups, hd, window, prefix, kv_len, (bq, bkv)
+    ("causal", 24, 24, 3, 8, 0, 0, None, (8, 8)),
+    ("causal", 200, 200, 2, 64, 0, 0, 170, (128, 128)),
+    ("sliding", 300, 300, 2, 32, 100, 0, None, (64, 64)),
+    ("sliding", 256, 256, 12, 128, 4096, 0, None, (128, 128)),
+    ("prefix", 40, 40, 1, 16, 0, 13, None, (16, 8)),
+    ("cross", 33, 70, 2, 12, 0, 0, 61, (16, 32)),
+]
+
+
+@pytest.mark.parametrize("case", ATTN_CASES, ids=lambda c: f"{c[0]}-{c[1]}")
+def test_attention_kernel_matches_plain(card, case):
+    mode, sq, skv, groups, hd, window, prefix, kv_len, (bq, bkv) = case
+    g = _gen(card, sq + hd)
+    zb = 2
+    q = torch.randint(0, 256, (zb * groups, sq, hd), generator=g,
+                      device=card, dtype=torch.uint8)
+    k = torch.randint(-127, 128, (zb, skv, hd), generator=g, device=card,
+                      dtype=torch.int8)
+    v = torch.randint(-127, 128, (zb, skv, hd), generator=g, device=card,
+                      dtype=torch.int8)
+    scale_p = torch.tensor(1.0) / torch.tensor(255.0)
+    regs = torch.tensor([131.0, hd ** -0.5 * 0.021 * 0.013, float(scale_p),
+                         0.0, float(scale_p) * 0.017, 0.0, 1.0, 0.0],
+                        device=card)
+    kvl = torch.tensor([skv if kv_len is None else kv_len], device=card,
+                       dtype=torch.int32)
+    sched = attn.make_schedule(sq=sq, skv=skv, hd=hd, bq=bq, bkv=bkv,
+                               groups=groups, mode=mode, window=window,
+                               prefix_len=prefix, sm_scale=hd ** -0.5)
+    ok, mlk, psk = attn.attention_cuda(q, k, v, regs, kvl, sched=sched)
+    orf, mlr, psr = attn.attention_core_reference(q, k, v, regs, kvl,
+                                                  sched=sched)
+    torch.cuda.synchronize()
+    assert torch.equal(mlk[..., 0], mlr[..., 0])          # running max
+    assert torch.equal(psk[..., :4], psr[..., :4])        # min/max/clip/n
+    # expf vs torch.exp may differ in the last ulp and flip one p level.
+    torch.testing.assert_close(ok, orf, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(mlk[..., 1], mlr[..., 1], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(psk[..., 4:], psr[..., 4:], rtol=1e-4,
+                               atol=1e-6)
+
+
+def test_reduced_serve_on_card_uses_every_kernel(card):
+    from repro_torch import configs
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.models import model
+    cfg = configs.get_reduced("starcoder2-3b")
+    params = model.init_params(cfg, seed=0, device=card)
+    tokens = torch.randint(0, cfg.vocab, (2, 20), generator=_gen(card, 1),
+                           device=card)
+    logits = {}
+    for backend in ("simulated", "fused"):
+        policy = QuantPolicy.w8a8g8(backend=backend)
+        ops.reset_launch_counts()
+        logits[backend], _ = model.prefill(
+            params, model.init_quant_state(cfg, device=card),
+            {"tokens": tokens}, cfg, policy)
+        counts = ops.launch_counts()
+        if backend == "fused":
+            assert all(c > 0 for c in counts.values()), counts
+        else:
+            assert not any(counts.values()), counts
+    torch.testing.assert_close(logits["fused"], logits["simulated"],
+                               rtol=1e-3, atol=1e-3)

@@ -1,0 +1,181 @@
+"""Port vs reference: the plain versions of the three ported kernels against
+the JAX package's Pallas kernels (interpret mode, the ``ops`` default).
+
+  * fused_quantize: integer images and min/max bit-exact;
+  * int8_matmul_fp: ``y`` and min/max bit-exact (exact int32 contraction,
+    one fp32 multiply);
+  * attention: the schedule is identical; the running max ``m``, the
+    min/max/clip/n statistics are exact; ``out``, ``l`` and err/sig are
+    compared with a tolerance because XLA's and PyTorch's ``exp`` differ
+    in the last ulp, which can flip a requantized probability by one
+    level.
+"""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.quant import QuantSpec as JSpec
+from repro.kernels import int8_attention as jattn
+from repro.kernels import ops as jops
+from repro.kernels import tuning as jtuning
+from repro_torch.core.quant import QuantSpec as TSpec
+from repro_torch.kernels import int8_attention as tattn
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import tuning as ttuning
+
+
+def _eq(a, b, what=""):
+    np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=what)
+
+
+# ---------------------------------------------------------------------------
+# fused_quantize
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("shape", [(1, 1), (7, 13), (33, 70), (257, 300),
+                                   (3, 5, 17)])
+@pytest.mark.parametrize("sym", [False, True])
+def test_fused_quantize_plain_matches_jax(shape, sym):
+    rng = np.random.default_rng(sum(shape) + sym)
+    x = (rng.standard_normal(shape) * 2.5).astype(np.float32)
+    lo, hi = np.float32(-2.0), np.float32(3.0)  # clips both tails
+    qj, mnj, mxj = jops.fused_quantize(jnp.asarray(x), lo, hi,
+                                       spec=JSpec(bits=8, symmetric=sym))
+    qt, mnt, mxt = tops.fused_quantize(torch.from_numpy(x), torch.tensor(lo),
+                                       torch.tensor(hi),
+                                       spec=TSpec(bits=8, symmetric=sym))
+    assert qt.dtype == (torch.int8 if sym else torch.uint8)
+    _eq(qj, qt, "q")
+    _eq(mnj, mnt, "min")
+    _eq(mxj, mxt, "max")
+
+
+# ---------------------------------------------------------------------------
+# int8_matmul_fp — the slice's four einsum specs, ragged M/N/K.
+# ---------------------------------------------------------------------------
+MM_CASES = [
+    ("bsd,dkgh->bskgh", (2, 37, 70), (70, 2, 3, 11)),
+    ("bsd,dkh->bskh", (3, 5, 130), (130, 2, 9)),
+    ("bskgh,kghd->bsd", (2, 19, 2, 3, 21), (2, 3, 21, 45)),
+    ("...k,kn->...n", (4, 29, 300), (300, 263)),
+    ("...k,kn->...n", (4, 1, 64), (64, 33)),
+]
+
+
+@pytest.mark.parametrize("spec,xs,ws", MM_CASES,
+                         ids=[f"{c[0]}-{c[1]}" for c in MM_CASES])
+def test_int8_matmul_fp_plain_matches_jax(spec, xs, ws):
+    rng = np.random.default_rng(len(xs) * 100 + xs[-1])
+    xq = rng.integers(0, 256, xs, dtype=np.uint8)
+    wq = rng.integers(-127, 128, ws, dtype=np.int8)
+    zp, alpha = np.float32(117.0), np.float32(3.1e-4)
+    plan_j = jops.plan_einsum(spec, len(xs), len(ws))
+    plan_t = tops.plan_einsum(spec, len(xs), len(ws))
+    assert (plan_j.x_perm, plan_j.w_perm, plan_j.y_perm) == \
+        (plan_t.x_perm, plan_t.w_perm, plan_t.y_perm)
+    yj, mnj, mxj = jops.int8_matmul_fp(jnp.asarray(xq), jnp.asarray(wq),
+                                       zp, alpha, plan=plan_j)
+    yt, mnt, mxt = tops.int8_matmul_fp(torch.from_numpy(xq),
+                                       torch.from_numpy(wq),
+                                       torch.tensor(zp), torch.tensor(alpha),
+                                       plan=plan_t)
+    assert tuple(yt.shape) == tuple(yj.shape)
+    _eq(yj, yt, "y")
+    _eq(mnj, mnt, "min")
+    _eq(mxj, mxt, "max")
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+SCHED_CASES = [(1024, 1024, 128), (24, 24, 16), (40, 40, 8), (300, 300, 64),
+               (1, 17, 16), (130, 70, 32)]
+
+
+@pytest.mark.parametrize("sq,skv,hd", SCHED_CASES)
+@pytest.mark.parametrize("mode,window", [("causal", 0), ("sliding", 24),
+                                         ("sliding", 4096)])
+def test_attention_block_and_schedule_match_jax(sq, skv, hd, mode, window):
+    """The tile changes the results, so the port must pick the reference's
+    (bq, bkv) and kv visitation plan."""
+    blk = jtuning.attention_block(sq, skv, hd)
+    assert ttuning.attention_block(sq, skv, hd) == tuple(blk)
+    kw = dict(sq=sq, skv=skv, hd=hd, bq=blk[0], bkv=blk[1], groups=3,
+              mode=mode, window=window, sm_scale=hd ** -0.5)
+    sj, st = jattn.make_schedule(**kw), tattn.make_schedule(**kw)
+    assert dataclasses.astuple(sj) == dataclasses.astuple(st)
+    for i in range(st.nq):
+        assert int(jattn._kv_block_base(i, sj)) == tattn._kv_block_base(i, st)
+
+
+ATTN_CASES = [
+    # mode, sq, skv, groups, hd, window, kv_len, block
+    ("causal", 24, 24, 3, 8, 0, None, (8, 8)),
+    ("causal", 21, 21, 2, 16, 0, 17, (8, 8)),
+    ("sliding", 40, 40, 2, 8, 12, None, (8, 8)),
+    ("sliding", 29, 29, 1, 16, 9, None, (16, 8)),
+    ("causal", 19, 19, 4, 12, 0, None, None),
+]
+
+
+def _attn_inputs(sq, skv, groups, hd, seed, zb=2):
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 256, (zb * groups, sq, hd), dtype=np.uint8)
+    k = rng.integers(-127, 128, (zb, skv, hd), dtype=np.int8)
+    v = rng.integers(-127, 128, (zb, skv, hd), dtype=np.int8)
+    s_q, s_k, s_v = 0.021, 0.013, 0.017
+    scale_p = np.float32(1.0) / np.float32(255.0)
+    regs = np.array([[131.0, hd ** -0.5 * s_q * s_k, scale_p, 0.0,
+                      scale_p * s_v, 0.0, 1.0, 0.0]], np.float32)
+    return q, k, v, regs
+
+
+@pytest.mark.parametrize("case", ATTN_CASES, ids=lambda c: f"{c[0]}-{c[1]}")
+def test_attention_plain_matches_jax(case, monkeypatch):
+    mode, sq, skv, groups, hd, window, kv_len, block = case
+    if block is not None:
+        monkeypatch.setenv("REPRO_ATTN_BLOCK", f"{block[0]},{block[1]}")
+    bq, bkv = ttuning.attention_block(sq, skv, hd)
+    kw = dict(sq=sq, skv=skv, hd=hd, bq=bq, bkv=bkv, groups=groups,
+              mode=mode, window=window, sm_scale=hd ** -0.5)
+    q, k, v, regs = _attn_inputs(sq, skv, groups, hd, seed=sq + hd)
+    kvl = np.array([[skv if kv_len is None else kv_len]], np.int32)
+    oj, mlj, psj = jops.int8_attention_fp(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(regs),
+        jnp.asarray(kvl), sched=jattn.make_schedule(**kw))
+    ot, mlt, pst = tops.int8_attention_fp(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(regs), torch.from_numpy(kvl),
+        sched=tattn.make_schedule(**kw))
+    mlj, psj = np.array(mlj), np.array(psj)
+    # exact: running max (exact int32 scores x one fp32 multiply) and the
+    # order-free statistics.
+    _eq(mlj[..., 0], mlt[..., 0], "m")
+    _eq(psj[..., :4], pst[..., :4], "min/max/clip/n")
+    # tolerance: exp differs by an ulp between XLA and PyTorch, which can
+    # move one requantized probability by one level (1/255 of the row max).
+    np.testing.assert_allclose(mlj[..., 1], mlt[..., 1].numpy(), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(np.asarray(oj), ot.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(psj[..., 4:], pst[..., 4:].numpy(), rtol=1e-4,
+                               atol=1e-6)
+    for a, b in zip(jattn.reduce_pstats(jnp.asarray(psj)),
+                    tattn.reduce_pstats(torch.from_numpy(psj))):
+        _eq(a, b, "reduce_pstats")
+
+
+def test_attention_cuda_wrapper_rejects_cpu_tensors():
+    """A CPU tensor never reaches the kernel launcher, and the launcher
+    refuses what is not on the card (no silent fallback)."""
+    q, k, v, regs = _attn_inputs(8, 8, 1, 8, seed=0, zb=1)
+    sched = tattn.make_schedule(sq=8, skv=8, hd=8, bq=8, bkv=8, groups=1,
+                                mode="causal", sm_scale=8 ** -0.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        tattn.attention_cuda(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v), torch.from_numpy(regs),
+                             torch.tensor([8]), sched=sched)
+    with pytest.raises(ValueError, match="CPU or all on a CUDA"):
+        tops.fused_quantize(torch.zeros(3, device="meta"), 0.0, 1.0)
