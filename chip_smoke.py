@@ -1,22 +1,33 @@
 """Smoke run of the PyTorch port on one CUDA card (H100).
 
-Drives the port's serving path — full-width starcoder2-3b, 30 layers,
-random weights from a seed, batch 4 x 1024-token prompts, 32 generated
-tokens, in-hindsight w8a8 quantization on the fused backend — through
-the hand-written CUDA kernels, and checks each kernel against its plain
-PyTorch version at the shapes that path gives it.  Phases, one line each:
+Drives the port's two paths on full-width starcoder2-3b (30 layers, random
+weights from a seed, in-hindsight W8A8G8 quantization on the fused
+backend) through the hand-written CUDA kernels: serving (batch 4 x
+1024-token prompts, 32 generated tokens) and training (AdamW steps on
+batch 4 x 1024 tokens, remat on).  Each kernel is checked against its
+plain PyTorch version at the shapes those paths give it.  Phases, one line
+each:
 
   1. device        name, count, and nvidia-smi's name and power limit
   2. build         nvcc of every kernel source, in parallel
   3. kernels       each kernel vs its plain version (exact, or within the
-                   stated tolerance), then timed with CUDA events beside
-                   its bound, its plain version and a library yardstick
+                   stated tolerance; the on-chip Philox form of the
+                   stochastic quantizer statistically), then timed with
+                   CUDA events beside its bound, its plain version and a
+                   library yardstick
   4. serve         repro_torch.launch.serve.main(...) with the launch
                    counters zeroed just before and read just after
   5. static path   one prefill's statistics folded into the quant state
                    (every activation leaf initialized), served again so the
                    single-pass hindsight branch runs
   6. parity        prefill logits, fused vs simulated backend, same params
+  7. train         repro_torch.launch.train.main(...): 3 steps, 30 layers,
+                   with the launch counters zeroed just before and read
+                   just after
+                   and one more step of the same state under torch.profiler
+                   (device time by kernel family, the device's idle share)
+  8. train parity  one forward + backward, fused vs simulated backend, same
+                   params, batch and noise (4 layers at full width)
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises (exit code != 0)
@@ -46,6 +57,7 @@ INT8_OPS = 1979e12
 FP32_OPS = 67e12
 
 PROMPT, GEN, BATCH = 1024, 32, 4
+TRAIN_STEPS, PARITY_LAYERS = 3, 4
 
 
 def log(phase: str, msg: str) -> None:
@@ -124,6 +136,97 @@ def check_fused_quantize(dev, gen, cfg):
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
+def check_stochastic_quantize(dev, gen, cfg):
+    from repro_torch.core.quant import QuantSpec
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stochastic_quantize as sq
+
+    d, f, hd, nkv = cfg.d_model, cfg.d_ff, cfg.head_dim, cfg.n_kv
+    m = BATCH * PROMPT
+    spec = QuantSpec(bits=8, symmetric=False, stochastic=True)
+    shapes = [  # (what, shape, bf16 input): the gradient sites of a step
+        ("grad d", (m, d), False), ("grad ff", (m, f), False),
+        ("grad k/v", (m, nkv * hd), False), ("ragged", (4093, 3001), False),
+        ("bf16 grad d", (m, d), True)]
+    qp = ops._qparams(torch.tensor(-2.5e-3, device=dev),
+                      torch.tensor(3e-3, device=dev), spec)   # clips tails
+    for what, shape, bf16 in shapes:
+        x = torch.randn(shape, generator=gen, device=dev) * 1e-3
+        if bf16:
+            x = x.to(torch.bfloat16).to(torch.float32)
+        u = torch.rand(shape, generator=gen, device=dev)
+        qk, mnk, mxk = sq.stochastic_quantize_cuda(x, qp, u, spec)
+        qr, mnr, mxr = sq.stochastic_quantize_plain(x, qp, u, spec)
+        torch.cuda.synchronize()
+        if not (torch.equal(qk, qr) and torch.equal(mnk, mnr)
+                and torch.equal(mxk, mxr)):
+            n_bad = int((qk != qr).sum())
+            raise AssertionError(f"stochastic_quantize {what} {shape}: "
+                                 f"{n_bad} images differ, min/max "
+                                 f"{mnk.item()}/{mnr.item()} "
+                                 f"{mxk.item()}/{mxr.item()}")
+    log("kernels", f"stochastic_quantize (operand form): {len(shapes)} "
+                   f"shapes bit-exact (images and min/max) with the same "
+                   f"noise")
+
+    # On-chip Philox form: statistics only (its noise has no plain twin).
+    x = torch.randn((m, f), generator=gen, device=dev) * 1e-3
+    lo, hi = torch.aminmax(x)
+    qp_full = ops._qparams(lo, hi, spec)
+    q1, mn1, mx1 = ops.stochastic_quantize(x, lo, hi, None, spec=spec,
+                                           on_chip_prng=True, seed=5)
+    q2, _, _ = ops.stochastic_quantize(x, lo, hi, None, spec=spec,
+                                       on_chip_prng=True, seed=6)
+    if not (torch.equal(mn1, lo) and torch.equal(mx1, hi)):
+        raise AssertionError("stochastic_quantize on-chip: min/max differ")
+    err = (q1.to(torch.float32) - qp_full[1]) * qp_full[0] - x
+    mean, sigma = err.double().mean().item(), err.double().std().item()
+    bound4 = 4.0 * sigma / math.sqrt(err.numel())
+    if not abs(mean) <= bound4:
+        raise AssertionError(f"on-chip rounding biased: mean {mean:.3e} > "
+                             f"4 sigma/sqrt(n) {bound4:.3e}")
+    diff_seeds = (q1 != q2).float().mean().item()
+    if not diff_seeds > 0.2:
+        raise AssertionError(f"seeds 5 and 6 give {diff_seeds:.4f} "
+                             f"differing elements")
+    # A constant input half a level above a grid point rounds up iff its
+    # u >= 0.5: the image is the noise's top bit, tile by tile.
+    c = torch.full((m, f), 0.5, device=dev)
+    qc, _, _ = ops.stochastic_quantize(c, torch.tensor(0.0, device=dev),
+                                       torch.tensor(255.0, device=dev), None,
+                                       spec=spec, on_chip_prng=True, seed=5)
+    tiles = qc.reshape(m // 256, 256, f // 256, 256).permute(
+        0, 2, 1, 3).reshape(-1, 256 * 256)
+    n_unique = torch.unique(tiles, dim=0).shape[0]
+    up = qc.float().mean().item()
+    if n_unique != tiles.shape[0] or abs(up - 0.5) > 1e-3:
+        raise AssertionError(f"on-chip noise: {n_unique} distinct of "
+                             f"{tiles.shape[0]} tiles, P(u >= 0.5) = {up}")
+    log("kernels", f"stochastic_quantize (on-chip Philox form) at "
+                   f"[{m}, {f}]: mean rounding error {mean:.3e} within 4 "
+                   f"sigma/sqrt(n) = {bound4:.3e}; seeds 5 vs 6 differ in "
+                   f"{diff_seeds:.4f} of elements; {n_unique} of "
+                   f"{tiles.shape[0]} 256x256 tiles distinct; P(u >= 0.5) "
+                   f"= {up:.5f}")
+
+    # Timed at the largest gradient site, the MLP hidden [4096, 12288].
+    u = torch.rand((m, f), generator=gen, device=dev)
+    ms = time_ms(lambda: sq.stochastic_quantize_cuda(x, qp, u, spec), 20)
+    plain_ms = time_ms(lambda: sq.stochastic_quantize_plain(x, qp, u, spec),
+                       5)
+    onchip_ms = time_ms(lambda: sq.stochastic_quantize_onchip_cuda(
+        x, qp, 5, spec), 20)
+    n = x.numel()
+    b_ms, b_by = bound(n * 9, n * 6, FP32_OPS)
+    ob_ms, _ = bound(n * 5, n * 6, FP32_OPS)
+    return dict(name="stochastic_quantize", route="cuda",
+                source="src/repro_torch/csrc/stochastic_quantize.cu",
+                replaces="src/repro/kernels/stochastic_quantize.py:87",
+                shape=[m, f], max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                onchip_ms=onchip_ms, onchip_bound_ms=ob_ms)
+
+
 def check_int8_matmul(dev, gen, cfg):
     from repro_torch.kernels import int8_matmul as mm
 
@@ -132,6 +235,8 @@ def check_int8_matmul(dev, gen, cfg):
     for m in (BATCH * PROMPT, BATCH):
         cases += [("q", m, d, d), ("k/v", m, d, nkv * hd), ("o", m, d, d),
                   ("up", m, d, f), ("down", m, f, d)]
+    # the training loss's chunked LM head: [4, 512, 3072] x [3072, 49152]
+    cases.append(("head", BATCH * cfg.loss_chunk, d, cfg.vocab))
     zp = torch.tensor(117.0, device=dev)
     alpha = torch.tensor(2.3e-5, device=dev)
     worst = 0.0
@@ -149,8 +254,9 @@ def check_int8_matmul(dev, gen, cfg):
                                  f"max |dy| {err}")
         worst = max(worst, err)
     log("kernels", f"int8_matmul_fp: {len(cases)} shapes bit-exact "
-                   f"(y and min/max), prefill M={BATCH * PROMPT} and "
-                   f"decode M={BATCH}")
+                   f"(y and min/max), prefill M={BATCH * PROMPT}, decode "
+                   f"M={BATCH} and the LM-head chunk M={BATCH * cfg.loss_chunk}"
+                   f" N={cfg.vocab}")
     # Timed at the MLP up projection [4096, 3072] x [3072, 12288].
     m, k, n = BATCH * PROMPT, d, f
     x = torch.randint(0, 256, (1, m, k), generator=gen, device=dev,
@@ -166,11 +272,23 @@ def check_int8_matmul(dev, gen, cfg):
         log("kernels", f"torch._int_mm yardstick unavailable: {e}")
         lib_ms = None
     b_ms, b_by = bound(m * k + k * n + 4 * m * n, 2 * m * n * k, INT8_OPS)
+    # Also timed at the training loss's LM-head chunk [2048, 3072, 49152].
+    hm, hn = BATCH * cfg.loss_chunk, cfg.vocab
+    xh = torch.randint(0, 256, (1, hm, k), generator=gen, device=dev,
+                       dtype=torch.uint8)
+    wh = torch.randint(-127, 128, (1, k, hn), generator=gen, device=dev,
+                       dtype=torch.int8)
+    head_ms = time_ms(lambda: mm.int8_matmul_fp_cuda(xh, wh, zp, alpha), 5)
+    head_bound, _ = bound(hm * k + k * hn + 4 * hm * hn, 2 * hm * hn * k,
+                          INT8_OPS)
+    log("kernels", f"int8_matmul_fp at the LM-head chunk [{hm}, {k}, {hn}]: "
+                   f"{head_ms:.4f} ms, bound {head_bound:.4f} ms")
     return dict(name="int8_matmul_fp", route="cuda",
                 source="src/repro_torch/csrc/int8_matmul.cu",
                 replaces="src/repro/kernels/int8_matmul.py:139",
                 shape=[m, k, n], max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                head_ms=head_ms, head_bound_ms=head_bound)
 
 
 def check_attention(dev, gen, cfg):
@@ -249,6 +367,194 @@ def check_attention(dev, gen, cfg):
 
 
 # ---------------------------------------------------------------------------
+# Phases 7-8: the training path.
+# ---------------------------------------------------------------------------
+def train_phase(cfg) -> dict:
+    from repro_torch.core.state import INITED, tree_leaves, tree_map_with_path
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    argv = ["--arch", cfg.name, "--batch", str(BATCH), "--seq", str(PROMPT),
+            "--steps", str(TRAIN_STEPS), "--log-every", "1"]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    run = train.main(argv)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(c > 0 for c in counts.values()):
+        raise AssertionError(f"a kernel of the train path never launched: "
+                             f"{counts}")
+    if len(run.losses) != TRAIN_STEPS or not all(
+            math.isfinite(v) for v in run.losses):
+        raise AssertionError(f"train losses {run.losses}")
+    # Every site visited in a step holds a range after it: all grad
+    # leaves, and all act leaves but the k/v ones (q/k/v share one input
+    # site, whose range lives on "q").  The count after step 0 must
+    # already be the final one.
+    quant = run.state["quant"]
+    leaves = tree_leaves(quant)
+    grad_leaves = []
+    tree_map_with_path(lambda path, leaf: grad_leaves.append(leaf)
+                       if path[-1] == "grad" else None, quant)
+    expect = len(leaves) - 2 * cfg.n_layers
+    inited = [m["inited_sites"] for m in run.metrics]
+    if not all(float(leaf[INITED]) == 1.0 for leaf in grad_leaves) or \
+            inited != [expect] * TRAIN_STEPS:
+        raise AssertionError(f"initialized sites per step {inited}, "
+                             f"expected {expect} of {len(leaves)}")
+    steady = run.step_ms[1:]
+    step_ms = sum(steady) / len(steady)
+    tok_s = BATCH * PROMPT / (step_ms / 1e3)
+    per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+    log("train", f"{cfg.n_layers} layers d={cfg.d_model} B={BATCH} "
+                 f"S={PROMPT}, AdamW, remat: losses "
+                 f"{[round(v, 4) for v in run.losses]}; step 0 "
+                 f"{run.step_ms[0]:.1f} ms (uninitialized-leaf double pass), "
+                 f"steps 1-{TRAIN_STEPS - 1} {[round(v, 1) for v in steady]} "
+                 f"ms, {tok_s:.1f} tokens/s; peak {peak:.2f} GiB; "
+                 f"{inited[0]} of {len(leaves)} quant sites initialized "
+                 f"after step 0; launches per step {per_step}")
+    out = dict(losses=run.losses, step_ms=run.step_ms,
+               steady_step_ms=step_ms, tokens_per_s=tok_s, peak_gib=peak,
+               launches=counts, launches_per_step=per_step,
+               inited_sites=inited, profile=profile_step(run))
+    del run, quant, leaves, grad_leaves
+    return out
+
+
+KERNEL_FAMILIES = (   # (family, substrings of the kernel name), first match
+    ("int8_matmul_fp (ours)", ("int8_matmul_fp_kernel",)),
+    ("int8_attention (ours)", ("int8_attention_kernel",)),
+    ("fused_quantize (ours)", ("fused_quantize_kernel",)),
+    ("stochastic_quantize (ours)", ("stochastic_quantize_kernel",)),
+    ("cuBLAS GEMM (fp32 backward, fp64 QK^T recompute)",
+     ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
+    ("RNG (gradient noise)", ("philox", "distribution")),
+    ("reductions", ("reduce",)),
+)
+
+
+def profile_step(run) -> dict:
+    """One more training step of ``run``'s state under torch.profiler
+    (CUDA activity only, to keep the host overhead low): device time by
+    kernel family and the share of the step's wall time the card idled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import data
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedules import constant
+    from repro_torch.runtime import steps
+
+    step = steps.make_train_step(run.cfg, run.policy, adamw(), constant(1e-4))
+    stream = data.for_arch(run.cfg, seq_len=PROMPT, global_batch=BATCH)
+    batch = {k: v.to("cuda") for k, v in stream.batch(TRAIN_STEPS).items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run.state, met = step(run.state, batch)
+        float(met["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fam: dict = {}
+    kernels = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us <= 0:
+            continue
+        kernels.append((us / 1e3, evt.count, evt.key))
+        low = evt.key.lower()
+        name = next((f for f, subs in KERNEL_FAMILIES
+                     if any(x in low for x in subs)), "other elementwise/copy")
+        ms, n = fam.get(name, (0.0, 0))
+        fam[name] = (ms + us / 1e3, n + evt.count)
+    busy_ms = sum(ms for ms, _, _ in kernels)
+    if busy_ms <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    kernels.sort(reverse=True)
+    fam = dict(sorted(fam.items(), key=lambda kv: -kv[1][0]))
+    log("train-profile", f"one steady step under torch.profiler: wall "
+                         f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+                         f"(idle {100 * (1 - busy_ms / wall_ms):.1f}% of the "
+                         f"step); by family (ms, launches): "
+                         + "; ".join(f"{k} {v[0]:.1f} ({v[1]})"
+                                     for k, v in fam.items()))
+    log("train-profile", "top kernels (ms, launches): " + "; ".join(
+        f"{k[:60]} {ms:.1f} ({n})" for ms, n, k in kernels[:10]))
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, families=fam,
+                top=kernels[:25])
+
+
+def train_parity_phase(cfg, dev) -> dict:
+    import dataclasses
+
+    from repro_torch import data
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.core.state import tree_map_with_path
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+
+    cfg4 = dataclasses.replace(cfg, n_layers=PARITY_LAYERS)
+    state = steps.init_train_state(cfg4, adamw(), seed=1, device=dev)
+    stream = data.for_arch(cfg4, seq_len=PROMPT, global_batch=BATCH, seed=1)
+    batch = {k: v.to(dev) for k, v in stream.batch(0).items()}
+    out = {}
+    for bk in ("fused", "simulated"):
+        ops.reset_launch_counts()
+        quant = model.init_quant_state(cfg4, device=dev)
+        out[bk] = steps.forward_backward(
+            cfg4, QuantPolicy.w8a8g8(backend=bk), state["params"], quant,
+            batch, 0, 0)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        ok = all(counts.values()) if bk == "fused" else not any(
+            counts.values())
+        if not ok:
+            raise AssertionError(f"{bk} backend launches {counts}")
+    (lf, gf, sf, _), (ls, gs, ss, _) = out["fused"], out["simulated"]
+    loss_rel = abs(lf.item() - ls.item()) / abs(ls.item())
+    site_rel = {"act": 0.0, "grad": 0.0}
+
+    def cmp(path, a, b):
+        if not torch.equal(a[2], b[2]):
+            raise AssertionError(f"visited flags differ at {path}")
+        kind = "grad" if path[-1] == "grad" else "act"
+        rel = ((a - b).abs() / b.abs().clamp(min=1e-12)).max().item()
+        site_rel[kind] = max(site_rel[kind], rel)
+    tree_map_with_path(cmp, sf, ss)
+    grad_rel = 0.0
+    for name, g in gs.items():
+        if name.endswith("attn.bk"):       # exact gradient is zero
+            continue
+        grad_rel = max(grad_rel, ((gf[name] - g).norm()
+                                  / g.norm().clamp(min=1e-30)).item())
+    # Tolerances: the fused kernels are bit-exact to the plain versions but
+    # the attention kernel's expf may differ from torch.exp by an ulp and
+    # flip a requantized probability; a flipped level moves the next
+    # stochastic roundings by one level, which the layers below carry on.
+    limits = dict(loss=1e-3, act=1e-2, grad=5e-2, param_grad=5e-2)
+    if not (loss_rel <= limits["loss"] and site_rel["act"] <= limits["act"]
+            and site_rel["grad"] <= limits["grad"]
+            and grad_rel <= limits["param_grad"]):
+        raise AssertionError(f"train parity: loss rel {loss_rel:.3e}, site "
+                             f"rel {site_rel}, param-grad rel L2 "
+                             f"{grad_rel:.3e} (limits {limits})")
+    log("train-parity", f"{PARITY_LAYERS} layers at full width, one forward "
+                        f"+ backward, fused vs simulated: loss "
+                        f"{lf.item():.6f} vs {ls.item():.6f} (rel "
+                        f"{loss_rel:.3e}); site min/max rel act "
+                        f"{site_rel['act']:.3e}, grad {site_rel['grad']:.3e}; "
+                        f"worst param-grad rel L2 {grad_rel:.3e} "
+                        f"(limits {limits})")
+    del state, out
+    return dict(loss_rel=loss_rel, site_rel=site_rel, param_grad_rel=grad_rel)
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="",
@@ -264,6 +570,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build, ops
     from repro_torch.launch import serve
     from repro_torch.models import model
+
+    serve_kernels = ("fused_quantize", "int8_matmul_fp", "int8_attention")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -294,6 +602,7 @@ def main(argv=None) -> int:
     cfg = configs.get("starcoder2-3b")
     gen = torch.Generator(device=dev).manual_seed(0)
     records = [check_fused_quantize(dev, gen, cfg),
+               check_stochastic_quantize(dev, gen, cfg),
                check_int8_matmul(dev, gen, cfg),
                check_attention(dev, gen, cfg)]
     for r in records:
@@ -312,7 +621,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    if not all(c > 0 for c in counts.values()):
+    if not all(counts[k] > 0 for k in serve_kernels):
         raise AssertionError(f"a kernel of the path never launched: {counts}")
     if not torch.isfinite(run.prefill_logits).all():
         raise AssertionError("non-finite prefill logits")
@@ -326,7 +635,7 @@ def main(argv=None) -> int:
                             decode_tok_s=run.decode_tok_s, peak_gib=peak,
                             launches=counts)
     for r in records:
-        r["launches"] = counts[r["name"]]
+        r["serve_launches"] = counts[r["name"]]
 
     # 5. static path: every activation leaf initialized, single pass
     policy = run.policy
@@ -342,7 +651,7 @@ def main(argv=None) -> int:
     run2 = serve.generate(run.params, quant, run.prompt, run.cfg, policy, 8)
     torch.cuda.synchronize()
     counts2 = ops.launch_counts()
-    if not all(c > 0 for c in counts2.values()):
+    if not all(counts2[k] > 0 for k in serve_kernels):
         raise AssertionError(f"static path skipped a kernel: {counts2}")
     if not torch.isfinite(run2.prefill_logits).all():
         raise AssertionError("non-finite logits on the static path")
@@ -377,6 +686,17 @@ def main(argv=None) -> int:
                   f"max |d| {d_max:.3e}, {same:.6f} identical (tolerance: "
                   f"rel L2 <= 1e-2, max |d| <= 0.1)")
     results["parity"] = dict(rel_l2=rel, max_abs=d_max, identical=same)
+    del run, run2, quant, full, logits_sim, a, b
+    torch.cuda.empty_cache()
+
+    # 7. train, full width and depth, fused backend
+    results["train"] = train_phase(cfg)
+    for r in records:
+        r["launches"] = results["train"]["launches"][r["name"]]
+    torch.cuda.empty_cache()
+
+    # 8. fused vs simulated forward + backward, same params/batch/noise
+    results["train_parity"] = train_parity_phase(cfg, dev)
 
     kernels = [{k: r[k] for k in ("name", "route", "source", "replaces",
                                   "launches", "max_abs_err", "ms", "plain_ms",

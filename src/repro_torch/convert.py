@@ -7,8 +7,8 @@ port keeps one entry per layer under ``decoder/layers``.  These helpers
 take the JAX trees as nested dicts of numpy arrays (no JAX import) and
 return the port's trees of tensors, and back — so tests can feed the
 reference's parameters to the port and compare stats, quant states and
-caches site by site.  bf16 arrays round-trip exactly (to float32 on the
-way back).
+caches site by site, and start a training run from the reference's train
+state.  bf16 arrays round-trip exactly (to float32 on the way back).
 """
 from __future__ import annotations
 
@@ -52,10 +52,11 @@ def _to_tensor(a, device) -> torch.Tensor:
 
 
 def _to_numpy(t) -> np.ndarray:
+    """A copy: the training step updates parameters in place."""
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.to(torch.float32)
-    return t.numpy()
+    return t.numpy().copy()
 
 
 def unstack_decoder(dec: dict, cfg, n_layers: int) -> dict:
@@ -108,3 +109,28 @@ def to_jax_layout(tree: dict, cfg) -> dict:
 def params_from_jax(tree: dict, cfg, device=None) -> ParamTree:
     """The JAX package's ``init_params`` tree as the port's parameters."""
     return ParamTree(from_jax_layout(tree, cfg, device))
+
+
+def params_to_jax(params, cfg, named=None) -> dict:
+    """The port's ``ParamTree`` as the JAX params layout (numpy leaves).
+    With ``named`` (a dict keyed like ``named_parameters()``, e.g. the
+    gradients of a step) its tensors take the parameters' places."""
+    def plain(mod, prefix):
+        if isinstance(mod, ParamTree):
+            return {name: plain(mod[name], f"{prefix}{name}.")
+                    for name in mod._names}
+        if isinstance(mod, torch.nn.ModuleList):
+            return [plain(m, f"{prefix}{i}.") for i, m in enumerate(mod)]
+        return mod if named is None else named[prefix[:-1]]
+    return to_jax_layout(plain(params, ""), cfg)
+
+
+def train_state_from_jax(state: dict, cfg, optimizer, device=None) -> dict:
+    """A JAX train state's ``params`` and ``quant`` trees (numpy leaves) as
+    the port's train state at the same ``step``, with a fresh optimizer
+    state from ``optimizer``."""
+    from repro_torch.runtime import steps
+    params = params_from_jax(state["params"], cfg, device)
+    quant = from_jax_layout(state["quant"], cfg, device)
+    return steps.train_state(params, quant, optimizer,
+                             step=int(state.get("step", 0)))

@@ -1,5 +1,4 @@
-"""Execution-backend dispatch, forward half (port of
-``repro/core/backend.py``).
+"""Execution-backend dispatch (port of ``repro/core/backend.py``).
 
 Every quantization site has two implementations:
 
@@ -10,11 +9,18 @@ Every quantization site has two implementations:
                  plain versions for CPU tensors.  Legal only for
                  fully-static policies.
 
-Both evaluate the same arithmetic — ``round(x / s + zp)`` with shared
-registers, exact min/max, and ``alpha * (int32 contraction)`` — so they
-agree bit for bit wherever the arithmetic is exact.  The backward half
-(gradient quantizer, STE and the attention-core backward) comes with the
-training slice.
+Both evaluate the same arithmetic — ``round/floor(x / s + zp [+ u])`` with
+shared registers, exact min/max, and ``alpha * (int32 contraction)`` — so
+they agree bit for bit wherever the arithmetic is exact.
+
+Backward half: the forward quantizers take the clipped STE (gradient
+masked to the grid's ``[lo, hi]``), the gradient quantizer
+(:func:`grad_quantize`) runs in every gradient barrier's backward with the
+stochastic-rounding noise both backends draw from :func:`site_noise`, and
+the int8 contraction and attention core have the reference's custom
+backward passes as ``torch.autograd.Function``s.  The forward statistics
+and ranges are computed on detached tensors: only the on-grid values carry
+the autograd graph.
 """
 from __future__ import annotations
 
@@ -93,20 +99,40 @@ def int8_matmul_eligible(policy) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# Per-site stochastic-rounding noise (shared by both backends, so the
+# quantized gradients are identical).
+# ---------------------------------------------------------------------------
+def site_seed(seed: int, salt: int) -> int:
+    """The reference's ``site_key`` mixing, ``uint32(seed) ^ (salt *
+    0x9E3779B9)``, as a 32-bit generator seed."""
+    return (int(seed) & 0xFFFFFFFF) ^ ((salt * 0x9E3779B9) & 0xFFFFFFFF)
+
+
+def site_noise(seed: int, shape, device) -> torch.Tensor:
+    """fp32 noise ``u ~ U[0, 1)`` of one gradient site, from a generator on
+    ``device`` seeded with the mixed site seed.  Every gradient quantizer
+    draws its noise here, keyed by (site seed, shape)."""
+    gen = torch.Generator(device=device).manual_seed(site_seed(seed, 1))
+    return torch.rand(tuple(shape), generator=gen, device=device,
+                      dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
 # The quantizer forward: on-grid values, integer image, observed min/max.
 # ---------------------------------------------------------------------------
 def canonical(x: torch.Tensor) -> torch.Tensor:
-    """fp32 view of ``x`` rounded to its nominal dtype precision.
+    """fp32 view of ``x`` rounded to its nominal dtype precision, detached.
 
     The reference needs ``lax.reduce_precision`` because XLA may elide a
     ``f32 -> bf16 -> f32`` round trip.  In eager PyTorch a bf16 tensor is
     stored as bf16, so its fp32 view already holds the bf16-rounded
     values: the cast IS the round trip."""
-    return x.to(torch.float32)
+    return x.detach().to(torch.float32)
 
 
 def _quantizer_fwd(x, qmin, qmax, spec: quant.QuantSpec, fused: bool):
-    """Returns ``(xq, q, obs_min, obs_max)``."""
+    """Returns ``(xq, q, obs_min, obs_max)``; ``xq`` has ``x``'s dtype and
+    the clipped-STE gradient."""
     xf = canonical(x)
     if fused and spec.bits <= 8:
         q, mn, mx = _ops().fused_quantize(xf, qmin, qmax, spec=spec)
@@ -115,7 +141,8 @@ def _quantizer_fwd(x, qmin, qmax, spec: quant.QuantSpec, fused: bool):
         if spec.bits <= 8:
             q = q.to(spec.storage_dtype)
         mn, mx = quant.tensor_minmax(xf)
-    xq = quant.dequantize(q, qmin, qmax, spec).to(x.dtype)
+    scale, zp = quant.scale_zero_point(qmin, qmax, spec)
+    xq = quant.on_grid(x, q, scale, zp, spec)
     return xq, q, mn, mx
 
 
@@ -142,11 +169,12 @@ def site_quantize(policy, x: torch.Tensor, leaf: torch.Tensor, step, *,
         raise NotImplementedError(
             "telemetry site statistics come with the telemetry slice of the "
             "port")
-    xf = canonical(x)
     if policy.backend == FUSED:
         xq, q, used_qmin, used_qmax, obs = _fused_static_quant(
             cfg, spec, x, leaf, step, tele)
+        xf = x          # unread: the statistics are the kernel's partials
     else:
+        xf = canonical(x)
         used_qmin, used_qmax = estimators.ranges(cfg, leaf, xf, spec, step,
                                                  telemetry=tele)
         xq, q, mn, mx = _quantizer_fwd(x, used_qmin, used_qmax, spec,
@@ -182,23 +210,125 @@ def _fused_static_quant(cfg, spec, x, leaf, step, tele):
 # ---------------------------------------------------------------------------
 # Q_W: weight quantizer (current min-max).
 # ---------------------------------------------------------------------------
-def weight_quantize(policy, w: torch.Tensor) -> QTensor:
-    """The weight's int8 image and registers on the symmetric grid.
-
-    The reference also returns the dequantized weight; eager PyTorch would
-    materialize it even where only the image is consumed, so callers that
-    need values take :func:`dequantize_qtensor` (the same fp32 ops)."""
+def weight_quantize(policy, w: torch.Tensor
+                    ) -> tuple[Optional[torch.Tensor], QTensor]:
+    """``(wq, qtensor)``: the weight's int8 image and registers on the
+    symmetric grid, and its on-grid values (``w``'s dtype, clipped-STE
+    gradient) when a gradient of ``w`` is being recorded — else ``None``:
+    an inference contraction reads the image only, and a consumer that
+    needs values takes :func:`dequantize_qtensor` (the same fp32 ops)."""
     spec = policy.weight_spec
     mn, mx = quant.tensor_minmax(canonical(w))
-    _, q, _, _ = _quantizer_fwd(w, mn, mx, spec,
-                                fused=(policy.backend == FUSED))
+    xq, q, _, _ = _quantizer_fwd(w, mn, mx, spec,
+                                 fused=(policy.backend == FUSED))
     scale, zp = quant.scale_zero_point(mn, mx, spec)
-    return QTensor(q, scale, zp)
+    wq = xq if (torch.is_grad_enabled() and w.requires_grad) else None
+    return wq, QTensor(q, scale, zp)
+
+
+# ---------------------------------------------------------------------------
+# Q_G: gradient quantizer (runs inside the barrier's backward pass).
+# ---------------------------------------------------------------------------
+def grad_quantize(policy, g: torch.Tensor, leaf: torch.Tensor, seed: int,
+                  step):
+    """Quantize a cotangent; returns ``(gq, stats)``.  Both backends draw
+    the stochastic-rounding noise from :func:`site_noise` with the same
+    site seed, so the quantized gradients are bit-identical."""
+    cfg, spec = policy.grad_estimator, policy.grad_spec
+    tele = policy.telemetry
+    if tele.enabled:
+        raise NotImplementedError(
+            "telemetry site statistics come with the telemetry slice of the "
+            "port")
+    noise = site_noise(seed, g.shape, g.device) if spec.stochastic else None
+    gf = canonical(g)
+    if policy.backend == FUSED and spec.bits <= 8:
+        gq, used_qmin, used_qmax, obs = _fused_grad_quant(
+            cfg, spec, g, gf, leaf, step, tele, noise)
+    else:
+        used_qmin, used_qmax = estimators.ranges(cfg, leaf, gf, spec, step,
+                                                 telemetry=tele)
+        gq = quant.fake_quant_raw(gf, used_qmin, used_qmax, spec,
+                                  noise).to(g.dtype)
+        obs = None
+    st = estimators.stats(cfg, gf, used_qmin, used_qmax, observed=obs)
+    return gq, st
+
+
+def _kernel_quant(spec, xf, qmin, qmax, noise):
+    ops = _ops()
+    if noise is not None:
+        return ops.stochastic_quantize(xf, qmin, qmax, noise, spec=spec)
+    return ops.fused_quantize(xf, qmin, qmax, spec=spec)
+
+
+def _fused_grad_quant(cfg, spec, g, gf, leaf, step, tele, noise):
+    """Static single-pass gradient quantization; an uninitialized leaf
+    re-runs the kernel with the observed range (the reference's
+    ``lax.cond``, here a host-side branch on ``leaf[INITED]``)."""
+    if cfg.kind == estimators.FIXED:
+        qmin = torch.tensor(cfg.fixed_min, dtype=torch.float32,
+                            device=g.device)
+        qmax = torch.tensor(cfg.fixed_max, dtype=torch.float32,
+                            device=g.device)
+        q, mn, mx = _kernel_quant(spec, gf, qmin, qmax, noise)
+        gq = quant.dequantize(q, qmin, qmax, spec).to(g.dtype)
+        return gq, qmin, qmax, (mn, mx)
+    q0, mn, mx = _kernel_quant(spec, gf, leaf[QMIN], leaf[QMAX], noise)
+    qmin, qmax = estimators.ranges(cfg, leaf, gf, spec, step, telemetry=tele,
+                                   observed=(mn, mx))
+    if bool(leaf[INITED] > 0.5):
+        gq = quant.dequantize(q0, leaf[QMIN], leaf[QMAX], spec)
+    else:
+        q1 = _kernel_quant(spec, gf, mn, mx, noise)[0]
+        gq = quant.dequantize(q1, mn, mx, spec)
+    return gq.to(g.dtype), qmin, qmax, (mn, mx)
 
 
 # ---------------------------------------------------------------------------
 # The contraction.
 # ---------------------------------------------------------------------------
+class _QMatmulInt(torch.autograd.Function):
+    """``alpha * einsum(x_img - zp, w_img)`` exact in int32 (fused: the
+    int8 matmul kernel; simulated: float64).  Backward is the reference's:
+    fp32 products of the cotangent with the on-grid values ``xq``/``wq``,
+    returned in their dtypes.  TF32 stays off, so these products are full
+    fp32 on the card too."""
+
+    @staticmethod
+    def forward(ctx, xq, wq, x_img, w_img, x_zp, alpha, resolved, fused):
+        if fused:
+            ops = _ops()
+            plan = ops.plan_einsum(resolved, x_img.ndim, w_img.ndim)
+            y, _, _ = ops.int8_matmul_fp(x_img, w_img, x_zp, alpha,
+                                         plan=plan)
+        else:
+            # int32 contraction, exact in float64 (integers far below 2**53).
+            rx = x_img.to(torch.int32) - torch.round(x_zp).to(torch.int32)
+            acc = torch.einsum(resolved, rx.to(torch.float64),
+                               w_img.to(torch.float64))
+            y = alpha * acc.to(torch.float32)
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            ctx.save_for_backward(xq, wq)
+            ctx.resolved = resolved
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        xq, wq = ctx.saved_tensors
+        lhs, y = ctx.resolved.split("->")
+        xs, ws = lhs.split(",")
+        gf = g.to(torch.float32)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.einsum(f"{y},{ws}->{xs}", gf,
+                              wq.to(torch.float32)).to(xq.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.einsum(f"{xs},{y}->{ws}", xq.to(torch.float32),
+                              gf).to(wq.dtype)
+        return dx, dw, None, None, None, None, None, None
+
+
 def qmatmul(policy, espec: str, xq: torch.Tensor, xqt: Optional[QTensor],
             wq: Optional[torch.Tensor], wqt: Optional[QTensor],
             out_dtype=None) -> torch.Tensor:
@@ -206,27 +336,20 @@ def qmatmul(policy, espec: str, xq: torch.Tensor, xqt: Optional[QTensor],
 
     With int8 images of both operands the contraction runs integer-exact
     (``alpha * int32``); otherwise it is the fp32 einsum of the on-grid
-    values, for which ``wq=None`` means "dequantize ``wqt``"."""
+    values, for which ``wq=None`` means "dequantize ``wqt``".  ``wq`` (the
+    on-grid weight values) is needed only when a gradient is recorded."""
     out_dtype = out_dtype or xq.dtype
     if xqt is None or wqt is None or not int8_matmul_eligible(policy):
         if wq is None:
             wq = dequantize_qtensor(wqt).to(xq.dtype)
         return torch.einsum(espec, xq.to(torch.float32),
                             wq.to(torch.float32)).to(out_dtype)
-    ops = _ops()
-    resolved = ops.resolve_einsum_spec(espec, xq.ndim)
+    resolved = _ops().resolve_einsum_spec(espec, xq.ndim)
     alpha = (xqt.scale * wqt.scale).to(torch.float32)
-    if policy.backend == FUSED:
-        plan = ops.plan_einsum(resolved, xqt.q.ndim, wqt.q.ndim)
-        y, _, _ = ops.int8_matmul_fp(xqt.q, wqt.q, xqt.zero_point, alpha,
-                                     plan=plan)
-    else:
-        # int32 contraction, exact in float64 (integers far below 2**53).
-        rx = xqt.q.to(torch.int32) - torch.round(xqt.zero_point).to(
-            torch.int32)
-        acc = torch.einsum(resolved, rx.to(torch.float64),
-                           wqt.q.to(torch.float64))
-        y = alpha * acc.to(torch.float32)
+    if wq is None and xq.requires_grad and torch.is_grad_enabled():
+        wq = dequantize_qtensor(wqt).to(xq.dtype)     # frozen weight
+    y = _QMatmulInt.apply(xq, wq, xqt.q, wqt.q, xqt.zero_point, alpha,
+                          resolved, policy.backend == FUSED)
     return y.to(out_dtype)
 
 
@@ -254,6 +377,41 @@ def _pstats_vector(policy, stats6, p_lo, p_hi):
     return pack_stats(stats6[0], stats6[1])
 
 
+class _QAttention(torch.autograd.Function):
+    """The int8 attention core (fused: the CUDA kernel; simulated: the
+    order-pinned plain version) with the reference's recompute-based
+    backward, shared by both backends.  Inputs are the head-major on-grid
+    q/k/v values (for the backward), their integer images, the registers
+    and ``kv_len``; outputs ``(out, stats6)``, the statistics not
+    differentiable."""
+
+    @staticmethod
+    def forward(ctx, qh, kh, vh, q_img, k_img, v_img, regs, kvl, sched,
+                fused):
+        from repro_torch.kernels import int8_attention as mod
+        args = (q_img, k_img, v_img, regs, kvl)
+        if fused:
+            out, ml, ps = _ops().int8_attention_fp(*args, sched=sched)
+        else:
+            out, ml, ps = mod.attention_core_reference(*args, sched=sched)
+        stats6 = torch.stack(mod.reduce_pstats(ps))
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(qh, kh, vh, q_img, k_img, v_img, regs, kvl,
+                                  out, ml)
+            ctx.sched = sched
+        ctx.mark_non_differentiable(stats6)
+        return out, stats6
+
+    @staticmethod
+    def backward(ctx, g_out, _g_stats):
+        from repro_torch.kernels import int8_attention as mod
+        qh, kh, vh, *rest = ctx.saved_tensors
+        dq, dk, dv = mod.attention_core_backward(
+            qh, kh, vh, *rest, g_out.to(torch.float32), sched=ctx.sched)
+        return (dq.to(qh.dtype), dk.to(kh.dtype), dv.to(vh.dtype),
+                None, None, None, None, None, None, None)
+
+
 def qattention(policy, q, k, v, sites: dict, *, mode: str, window=None,
                prefix_len=None, kv_len=None, scale: float, step):
     """Backend-dispatched int8 attention core.
@@ -271,12 +429,12 @@ def qattention(policy, q, k, v, sites: dict, *, mode: str, window=None,
     skv = k.shape[1]
     cfg = policy.act_estimator
     dev = q.device
-    _, q_st, q_qt = site_quantize(policy, q, sites["q"]["act"], step,
-                                  name="attn_q")
-    _, k_st, k_qt = site_quantize(policy, k, sites["k"]["act"], step,
-                                  cfg=cfg, spec=KV_SPEC, name="attn_k")
-    _, v_st, v_qt = site_quantize(policy, v, sites["v"]["act"], step,
-                                  cfg=cfg, spec=KV_SPEC, name="attn_v")
+    qh, q_st, q_qt = site_quantize(policy, q, sites["q"]["act"], step,
+                                   name="attn_q")
+    kh, k_st, k_qt = site_quantize(policy, k, sites["k"]["act"], step,
+                                   cfg=cfg, spec=KV_SPEC, name="attn_k")
+    vh, v_st, v_qt = site_quantize(policy, v, sites["v"]["act"], step,
+                                   cfg=cfg, spec=KV_SPEC, name="attn_v")
     p_lo, p_hi = estimators.static_ranges(cfg, sites["p"]["act"])
     p_lo, p_hi = p_lo.to(torch.float32), p_hi.to(torch.float32)
     scale_p, zp_p = quant.scale_zero_point(p_lo, p_hi, P_SPEC)
@@ -302,12 +460,9 @@ def qattention(policy, q, k, v, sites: dict, *, mode: str, window=None,
     def kvflat(t):
         return t.permute(0, 2, 1, 3).reshape(b * kvh, skv, hd)
 
-    args = (qflat(q_qt.q), kvflat(k_qt.q), kvflat(v_qt.q), regs, kvl)
-    if policy.backend == FUSED:
-        out3, _, ps = _ops().int8_attention_fp(*args, sched=sched)
-    else:
-        out3, _, ps = mod.attention_core_reference(*args, sched=sched)
-    stats6 = torch.stack(mod.reduce_pstats(ps))
+    out3, stats6 = _QAttention.apply(
+        qflat(qh), kvflat(kh), kvflat(vh), qflat(q_qt.q), kvflat(k_qt.q),
+        kvflat(v_qt.q), regs, kvl, sched, policy.backend == FUSED)
     out = out3.reshape(b, kvh, g, s, hd).permute(0, 3, 1, 2, 4).to(q.dtype)
     p_st = _pstats_vector(policy, stats6, p_lo, p_hi)
     stats = {"q": {"act": q_st}, "k": {"act": k_st}, "v": {"act": v_st},

@@ -1,12 +1,18 @@
-"""Quantized linear algebra, forward half (port of
+"""Quantized linear algebra with the paper's training data path (port of
 ``repro/core/qlinear.py``).
 
 A quantized matmul site: ``x_q = Q_Y(x)`` (activation estimator),
 ``w_q = Q_W(w)`` (current min-max, symmetric), ``y = x_q @ w_q (+ b)`` as
-an int8 x int8 -> int32 contraction.  Activation sites emit their
-observed statistics; the state update runs once per step
-(:func:`update_quant_state`).  The gradient barrier is the identity in the
-forward pass; its ``autograd.Function`` comes with the training slice.
+an int8 x int8 -> int32 contraction, and ``y`` tagged with the gradient
+barrier, whose backward quantizes the cotangent (``Q_G``, stochastic
+rounding, in-hindsight range).
+
+Range state: activation sites emit their observed statistics in the
+forward pass; gradient sites emit theirs through the *cotangent channel*:
+the barrier's backward returns the statistics vector as the gradient of
+the site's state leaf, so ``torch.autograd.grad`` over the grad leaves
+delivers them.  The estimator update runs once per optimizer step
+(:func:`update_quant_state`).
 """
 from __future__ import annotations
 
@@ -27,22 +33,24 @@ from .state import INITED, QMAX, QMIN, init_range_state, tree_map, \
 def quantize_weight(w: torch.Tensor, policy: QuantPolicy) -> torch.Tensor:
     """On-grid weight values (fp32; ``w`` itself when not quantized)."""
     wq, wqt = quantize_weight_q(w, policy)
-    return wq if wqt is None else backend.dequantize_qtensor(wqt)
+    if wq is None:
+        wq = backend.dequantize_qtensor(wqt)
+    return wq
 
 
 def quantize_weight_q(w: torch.Tensor, policy: QuantPolicy
                       ) -> tuple[Optional[torch.Tensor], Optional[QTensor]]:
-    """``(w, None)`` when weights are not quantized, else ``(None,
-    qtensor)``: the dequantized copy is left to the consumer that reads it
-    (:func:`backend.qmatmul` on its fp path), so the int8 contraction never
-    materializes one."""
+    """``(w, None)`` when weights are not quantized, else ``(wq,
+    qtensor)``.  ``wq`` (on-grid values with the clipped-STE gradient) is
+    ``None`` unless a gradient of ``w`` is being recorded: an inference
+    contraction reads the int8 image only and never materializes them."""
     if not (policy.enabled and policy.quantize_weights):
         return w, None
     if policy.int8_weight_gather:
         raise NotImplementedError(
             "int8_weight_gather is a sharding option; it comes with the "
             "distribution slice of the port")
-    return None, backend.weight_quantize(policy, w)
+    return backend.weight_quantize(policy, w)
 
 
 # ---------------------------------------------------------------------------
@@ -64,11 +72,35 @@ def act_quant_site(x: torch.Tensor, leaf: torch.Tensor, policy: QuantPolicy,
     return backend.act_quantize(policy, x, leaf, step)
 
 
+class _GradBarrier(torch.autograd.Function):
+    """Identity forward; backward quantizes the cotangent and returns the
+    observed statistics as the gradient of ``leaf`` (the cotangent
+    channel)."""
+
+    @staticmethod
+    def forward(ctx, y, leaf, policy, seed, step):
+        ctx.save_for_backward(leaf)
+        ctx.policy, ctx.seed, ctx.step = policy, seed, step
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        (leaf,) = ctx.saved_tensors
+        gq, stats = backend.grad_quantize(ctx.policy, g, leaf, ctx.seed,
+                                          ctx.step)
+        return gq, stats, None, None, None
+
+
 def grad_quant_barrier(y: torch.Tensor, leaf: torch.Tensor,
-                       policy: QuantPolicy, seed, step) -> torch.Tensor:
-    """Identity in the forward pass (the backward quantizer comes with the
-    training slice)."""
-    return y
+                       policy: QuantPolicy, seed: int, step) -> torch.Tensor:
+    """Identity in the forward pass; quantizes the cotangent in the backward
+    pass and emits the observed (min, max) as the gradient of ``leaf``.
+    Read it with ``torch.autograd.grad`` over a leaf that requires grad —
+    never accumulate into ``.grad``: torch sums repeated gradients, while
+    statistics combine by min/max (:func:`combine_stats`)."""
+    if not (policy.enabled and policy.quantize_grads):
+        return y
+    return _GradBarrier.apply(y, leaf, policy, int(seed), step)
 
 
 # ---------------------------------------------------------------------------
@@ -126,6 +158,12 @@ def qeinsum(spec: str, x: torch.Tensor, w: torch.Tensor, site: dict,
 # ---------------------------------------------------------------------------
 # State plumbing.
 # ---------------------------------------------------------------------------
+def merge_stats(fwd_stats, cot_stats):
+    """Merge the forward (activation) stats tree with the cotangent-channel
+    (gradient) stats tree into one tree shaped like the quant state."""
+    return tree_map(combine_stats, fwd_stats, cot_stats)
+
+
 def combine_stats(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Combine two observations of one site: min of mins, max of maxes,
     visited-or, each side masked by its own visited flag."""

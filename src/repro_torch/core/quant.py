@@ -10,7 +10,9 @@ op, so integer images are bit-equal:
   * ``x / scale`` is a true division, never a reciprocal multiply;
   * ``torch.round`` rounds half to even, like ``jnp.round``.
 
-The clipped straight-through estimator comes with the training slice.
+The forward quantizers ``Q_W`` / ``Q_Y`` take the clipped straight-through
+estimator: the gradient passes inside the grid's representable range
+``[lo, hi]`` and is zero outside it.
 """
 from __future__ import annotations
 
@@ -107,6 +109,54 @@ def fake_quant_raw(x: torch.Tensor, qmin, qmax, spec: QuantSpec,
     if spec.bits <= 8:
         q = q.to(spec.storage_dtype)
     return dequantize(q, qmin, qmax, spec).to(x.dtype)
+
+
+def ste_mask(x: torch.Tensor, scale: torch.Tensor, zero_point: torch.Tensor,
+             spec: QuantSpec) -> torch.Tensor:
+    """True where ``x`` lies inside the grid's representable range
+    ``[(int_min - zp) * scale, (int_max - zp) * scale]``: where the clipped
+    STE passes the gradient."""
+    lo = (float(spec.int_min) - zero_point) * scale
+    hi = (float(spec.int_max) - zero_point) * scale
+    xf = x.to(torch.float32)       # compare in fp32, as the reference does
+    return (xf >= lo) & (xf <= hi)
+
+
+class _OnGrid(torch.autograd.Function):
+    """The on-grid values of ``x`` from its integer image ``q`` and the
+    registers; backward is the clipped STE: the cotangent of ``x`` is the
+    incoming one masked to the grid's ``[lo, hi]``."""
+
+    @staticmethod
+    def forward(ctx, x, q, scale, zero_point, spec, dtype):
+        if ctx.needs_input_grad[0]:
+            ctx.save_for_backward(ste_mask(x, scale, zero_point, spec))
+        return ((q.to(torch.float32) - zero_point) * scale).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (mask,) = ctx.saved_tensors
+        return (torch.where(mask, g, 0.0).to(g.dtype),
+                None, None, None, None, None)
+
+
+def on_grid(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+            zero_point: torch.Tensor, spec: QuantSpec,
+            dtype=None) -> torch.Tensor:
+    """``dequantize`` of the image ``q`` of ``x`` (in ``dtype``, default
+    ``x``'s), with the clipped-STE gradient to ``x``."""
+    return _OnGrid.apply(x, q, scale, zero_point, spec, dtype or x.dtype)
+
+
+def fake_quant_ste(x: torch.Tensor, qmin, qmax, spec: QuantSpec
+                   ) -> torch.Tensor:
+    """Fake-quant with the clipped straight-through gradient."""
+    qmin, qmax = _f32(qmin, x), _f32(qmax, x)
+    q = quantize(x.detach(), qmin, qmax, spec)
+    if spec.bits <= 8:
+        q = q.to(spec.storage_dtype)
+    scale, zp = scale_zero_point(qmin, qmax, spec)
+    return on_grid(x, q, scale, zp, spec)
 
 
 def tensor_minmax(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -308,6 +308,104 @@ def attention_core_reference(q_u8, k_i8, v_i8, regs, kvlen, *,
 
 
 # ---------------------------------------------------------------------------
+# The recompute-based backward, shared by both backends.  The reference
+# writes it in jnp (no Pallas kernel), so the port writes plain PyTorch.
+# The clipped STE through the q/k/v quantizers is applied by the enclosing
+# site quantizers; inside the core the p quantization and the softmax
+# maxima are straight-through constants, so the cotangents are the flash
+# backward evaluated on p = exp(s - m_final), with s recomputed through the
+# same exact int8 QK^T as the forward.
+# ---------------------------------------------------------------------------
+def _block_live(i: int, j: int, sched: AttnSchedule) -> bool:
+    """False when every (q, k) pair of block (i, j) is masked, so its
+    contributions are exact zeros and the block can be skipped."""
+    S = sched
+    if S.mode in ("cross", "bidir"):
+        return True
+    q_lo, q_hi = i * S.bq, i * S.bq + S.bq - 1
+    k_lo, k_hi = j * S.bkv, j * S.bkv + S.bkv - 1
+    causal_dead = k_lo > q_hi
+    if S.mode == "prefix":
+        return not causal_dead or k_lo < S.prefix_len
+    if S.mode == "sliding":
+        return not causal_dead and q_lo - k_hi < S.window
+    return not causal_dead
+
+
+def attention_core_backward(qh, kh, vh, q_u8, k_i8, v_i8, regs, kvlen,
+                            out, ml, g_out, *, sched: AttnSchedule):
+    """Returns ``(dq [BH, sq, hd], dk [ZB, skv, hd], dv [ZB, skv, hd])``,
+    fp32 cotangents w.r.t. the on-grid (dequantized) q/k/v values.  Walks
+    the reference's ``(bq, bkv)`` blocks, q blocks outer; the QK^T
+    recompute runs in float64, exact for these integer operands."""
+    S = sched
+    bh = q_u8.shape[0]
+    zb = bh // S.groups
+    dev = q_u8.device
+    f32 = torch.float32
+    sqp, skp = S.nq * S.bq, S.nkv * S.bkv
+
+    def qsplit(x, d):
+        return _pad_axis(x, sqp, 1).reshape(zb, S.groups, S.nq, S.bq, d)
+
+    def ksplit(x, d):
+        return _pad_axis(x, skp, 1).reshape(zb, S.nkv, S.bkv, d)
+
+    gf = g_out.to(f32)
+    d_row = torch.einsum("bsh,bsh->bs", gf, out.to(f32))
+    qz = qsplit(q_u8, S.hd)
+    qhz = qsplit(qh.to(f32), S.hd)
+    gz = qsplit(gf, S.hd)
+    mz = qsplit(ml[..., 0:1], 1)[..., 0]                   # [ZB, G, nq, bq]
+    lz = qsplit(ml[..., 1:2], 1)[..., 0]
+    dz = qsplit(d_row[..., None], 1)[..., 0]
+    kz = ksplit(k_i8, S.hd)
+    khz = ksplit(kh.to(f32), S.hd)
+    vhz = ksplit(vh.to(f32), S.hd)
+    regs = regs.reshape(-1).to(f32)
+    zp_q, alpha_qk = regs[0], regs[1]
+    kvl = kvlen.reshape(()).to(device=dev)
+    rows = torch.arange(S.bq, device=dev)[:, None]
+    cols = torch.arange(S.bkv, device=dev)[None, :]
+
+    dk_acc = torch.zeros((zb, S.nkv, S.bkv, S.hd), dtype=f32, device=dev)
+    dv_acc = torch.zeros_like(dk_acc)
+    dqs = []
+    for i in range(S.nq):
+        rq = (qz[:, :, i].to(torch.int32)
+              - zp_q.to(torch.int32)).to(torch.float64)
+        qh_i, g_i = qhz[:, :, i], gz[:, :, i]
+        m_i = mz[:, :, i][..., None]
+        l_i = lz[:, :, i][..., None]
+        d_i = dz[:, :, i][..., None]
+        q_pos = i * S.bq + rows
+        dq_i = torch.zeros((zb, S.groups, S.bq, S.hd), dtype=f32, device=dev)
+        for j in range(S.nkv):
+            if not _block_live(i, j, S):
+                continue
+            acc_qk = torch.einsum("zgqh,zkh->zgqk", rq,
+                                  kz[:, j].to(torch.float64))
+            s = _fence(alpha_qk * acc_qk.to(f32))
+            k_pos = j * S.bkv + cols
+            # Padded q rows (>= sq) carry zero (m, l) residuals: mask them,
+            # or p / max(l, eps) overflows into NaN cotangents.
+            mask = _element_mask(q_pos, k_pos, kvl, S) & (q_pos < S.sq)
+            p = torch.where(mask, torch.exp(s - m_i), 0.0)
+            r = p / l_i.clamp(min=1e-30)
+            d_ov = torch.einsum("zgqh,zkh->zgqk", g_i, vhz[:, j])
+            ds = (r * (d_ov - d_i)) * S.sm_scale
+            dq_i = dq_i + torch.einsum("zgqk,zkh->zgqh", ds, khz[:, j])
+            dk_acc[:, j] += torch.einsum("zgqk,zgqh->zkh", ds, qh_i)
+            dv_acc[:, j] += torch.einsum("zgqk,zgqh->zkh", r, g_i)
+        dqs.append(dq_i)
+    dq = torch.stack(dqs).permute(1, 2, 0, 3, 4).reshape(
+        bh, sqp, S.hd)[:, :S.sq]
+    dk = dk_acc.reshape(zb, skp, S.hd)[:, :S.skv]
+    dv = dv_acc.reshape(zb, skp, S.hd)[:, :S.skv]
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
 # The CUDA kernel.
 # ---------------------------------------------------------------------------
 _MODE_CODE = {"causal": 0, "sliding": 1, "prefix": 2, "cross": 3, "bidir": 4}

@@ -26,9 +26,10 @@ from repro_torch.core.quant import QuantSpec, scale_zero_point
 from . import fused_quantize as _fq
 from . import int8_attention as _attn
 from . import int8_matmul as _mm
+from . import stochastic_quantize as _sq
 from .int8_attention import AttnSchedule
 
-COUNTERS = (_fq.COUNTER, _mm.COUNTER, _attn.COUNTER)
+COUNTERS = (_fq.COUNTER, _mm.COUNTER, _attn.COUNTER, _sq.COUNTER)
 
 
 def launch_counts() -> dict:
@@ -66,6 +67,35 @@ def fused_quantize(x: torch.Tensor, qmin, qmax, *,
     if _on_cuda(xf, qp):
         return _fq.fused_quantize_cuda(xf, qp, spec)
     return _fq.fused_quantize_plain(xf, qp, spec)
+
+
+def stochastic_quantize(x: torch.Tensor, qmin, qmax, noise, *,
+                        spec: QuantSpec = QuantSpec(bits=8, symmetric=False,
+                                                    stochastic=True),
+                        on_chip_prng: bool = False, seed=None):
+    """Gradient path: stochastic rounding onto a static in-hindsight grid.
+    Returns ``(q, obs_min, obs_max)``.
+
+    ``noise`` is the fp32 ``u in [0, 1)`` of ``x``'s shape.  With
+    ``on_chip_prng=True`` the CUDA kernel draws ``u`` itself from its Philox
+    stream keyed by ``seed`` and ``noise`` is ignored; only a CUDA tensor
+    can take that form."""
+    qp = _qparams(qmin, qmax, spec).to(x.device)
+    xf = x.to(torch.float32)
+    if on_chip_prng:
+        if seed is None:
+            raise ValueError("on_chip_prng=True requires a `seed`")
+        if not _on_cuda(xf, qp):
+            raise ValueError(
+                "on_chip_prng=True draws its noise inside the CUDA kernel; "
+                "a CPU tensor has no counterpart (pass the noise operand)")
+        return _sq.stochastic_quantize_onchip_cuda(xf, qp, seed, spec)
+    if noise is None:
+        raise ValueError("stochastic rounding requires a `noise` tensor")
+    nf = noise.to(torch.float32)
+    if _on_cuda(xf, qp, nf):
+        return _sq.stochastic_quantize_cuda(xf, qp, nf, spec)
+    return _sq.stochastic_quantize_plain(xf, qp, nf, spec)
 
 
 # ---------------------------------------------------------------------------

@@ -1,16 +1,22 @@
-"""Model entry points for serving (port of ``repro/models/model.py``):
-init, the trunk, ``prefill`` and ``decode_step`` of the dense LM family.
+"""Model entry points (port of ``repro/models/model.py``): init, the
+trunk, the training loss ``loss_fn`` with the chunked quantized LM head,
+and ``prefill`` / ``decode_step`` of the dense LM family (the enc-dec and
+VLM branches come with their families).
 
-``loss_fn`` (the chunked quantized LM head) comes with the training slice;
-the enc-dec and VLM branches with their families.  As in the reference,
+The LM head evaluates the loss in sequence chunks so ``[B, S, V]`` logits
+never exist; both head quantizers act on the head *input* (``Q_Y`` on the
+way in, ``Q_G`` on the same tensor), so the cotangent that re-enters the
+trunk is quantized once, whatever the chunking.  As in the reference,
 prefill/decode project only the last position onto the vocabulary, with
 the quantized head weight, in plain fp32 (outside any quant site).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import backend, qlinear
 from repro_torch.core.policy import QuantPolicy
@@ -69,10 +75,11 @@ def init_cache(cfg, batch: int, cache_len: int, device=None) -> dict:
 # ===========================================================================
 def _embed_tokens(params, tokens, cfg, policy) -> torch.Tensor:
     """Quantizes the whole table (current min-max), then gathers rows.
-    The rows are dequantized after the gather — the same elementwise ops
-    as the reference's dequantize-then-gather, without a full fp copy."""
+    Without a recorded gradient the rows are dequantized after the gather —
+    the same elementwise ops as the reference's dequantize-then-gather,
+    without a full fp copy; with one, the on-grid table carries the STE."""
     table, qt = qlinear.quantize_weight_q(params["embed"], policy)
-    if qt is None:
+    if table is not None:
         rows = table[tokens]
     else:
         rows = backend.dequantize_qtensor(
@@ -99,14 +106,97 @@ def _trunk(params, sites, batch, cfg, policy, seed, step, caches=None):
     return x, {"decoder": dec_sites}, new_caches
 
 
+def _head_weight_raw(params, cfg) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["head"]
+
+
 def _head_weight(params, cfg, policy) -> torch.Tensor:
-    w = params["embed"].T if cfg.tie_embeddings else params["head"]
-    return qlinear.quantize_weight(w, policy)
+    return qlinear.quantize_weight(_head_weight_raw(params, cfg), policy)
 
 
 def _logits(params, x, cfg, policy) -> torch.Tensor:
     return torch.matmul(x[:, -1].to(torch.float32),
                         _head_weight(params, cfg, policy).to(torch.float32))
+
+
+# ===========================================================================
+# Training forward + chunked loss.
+# ===========================================================================
+def _chunk_loss(logits, labels, mask):
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.sum((logz - gold) * mask), torch.sum(logz.square() * mask)
+
+
+def _chunk_nll(policy, xqi, wq, wqt, xcb, qcb, lcb, mcb):
+    """One head chunk: logits ``[B, c, V]`` through the backend contraction
+    (the int8 kernel path when both images exist), then (nll, z-penalty)."""
+    if qcb is not None:
+        logits = backend.qmatmul(
+            policy, "bcd,dv->bcv", xcb,
+            backend.QTensor(qcb, xqi.scale, xqi.zero_point), wq, wqt,
+            out_dtype=torch.float32)
+    else:
+        logits = torch.einsum("bcd,dv->bcv", xcb.to(torch.float32),
+                              wq.to(torch.float32))
+    return _chunk_loss(logits, lcb, mcb)
+
+
+def loss_fn(params, quant_state, batch, cfg, policy: QuantPolicy, seed: int,
+            step):
+    """Returns ``(loss, (new_quant_state_fwd, metrics))``.
+
+    ``new_quant_state_fwd`` carries the forward (activation-site)
+    statistics; gradient-site statistics arrive as the gradients of the
+    quant state's grad leaves (see ``runtime.steps.make_train_step``).
+    As in the reference, the head's grad slot carries the head's grad
+    *leaf* itself rather than a "not visited" vector."""
+    seed = int(seed)
+    x, new_sites, _ = _trunk(params, quant_state, batch, cfg, policy, seed,
+                             step)
+    labels = batch["labels"]
+    mask = batch["mask"].to(torch.float32)
+
+    site = quant_state["head"]
+    xq, new_head_act, xqi = qlinear.act_quant_site(x, site["act"], policy,
+                                                   step)
+    xq = qlinear.grad_quant_barrier(xq, site["grad"], policy,
+                                    seed + 7_000_000, step)
+    wq, wqt = qlinear.quantize_weight_q(_head_weight_raw(params, cfg), policy)
+    if wq is not None:
+        wq = wq.to(xq.dtype)
+
+    b, s, d = xq.shape
+    c = min(cfg.loss_chunk, s)
+    if s % c:
+        raise ValueError(f"sequence {s} is not a multiple of loss_chunk {c}")
+    use_int = (xqi is not None and wqt is not None
+               and backend.int8_matmul_eligible(policy))
+    chunk = functools.partial(_chunk_nll, policy, xqi, wq, wqt)
+    nlls, zpens = [], []
+    for lo in range(0, s, c):
+        sl = slice(lo, lo + c)
+        args = (xq[:, sl], xqi.q[:, sl] if use_int else None, labels[:, sl],
+                mask[:, sl])
+        if cfg.remat and torch.is_grad_enabled():
+            nll, zpen = checkpoint(chunk, *args, use_reentrant=False)
+        else:
+            nll, zpen = chunk(*args)
+        nlls.append(nll)
+        zpens.append(zpen)
+    denom = torch.clamp(torch.sum(mask), min=1.0)
+    loss = torch.sum(torch.stack(nlls)) / denom
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    metrics = {"aux_loss": zero, "z_loss": zero,
+               "z_loss_head": cfg.logit_z_coef * torch.sum(
+                   torch.stack(zpens)) / denom}
+    total = loss + metrics["aux_loss"] + metrics["z_loss"] + \
+        metrics["z_loss_head"]
+    metrics["nll"] = loss
+
+    new_quant_state = dict(new_sites)
+    new_quant_state["head"] = {"act": new_head_act, "grad": site["grad"]}
+    return total, (new_quant_state, metrics)
 
 
 # ===========================================================================

@@ -10,7 +10,10 @@ enc-dec) come with their model families.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from . import layers
@@ -100,14 +103,22 @@ def init_stack_cache(cfg, n_layers: int, batch: int, cache_len: int,
 
 def apply_stack(params, sites, x, *, cfg, policy, seed, step, positions,
                 caches=None):
-    """Returns ``(x, stats, caches)``."""
+    """Returns ``(x, stats, caches)``.  With ``cfg.remat`` and a recorded
+    gradient each block is checkpointed (its activations are recomputed in
+    the backward pass), as the reference's ``jax.checkpoint`` of the scan
+    unit."""
+    remat = cfg.remat and torch.is_grad_enabled()
     new_sites, new_caches = [], []
     for idx, kind in enumerate(_kinds(cfg, cfg.n_layers)):
-        x, ns, nc = _apply_block(
-            kind, params["layers"][idx], sites["layers"][idx], x, cfg=cfg,
-            policy=policy, seed=seed + idx * _SEED_STRIDE, step=step,
-            positions=positions,
+        block = functools.partial(
+            _apply_block, kind, params["layers"][idx], sites["layers"][idx],
+            cfg=cfg, policy=policy, seed=seed + idx * _SEED_STRIDE,
+            step=step, positions=positions,
             cache=None if caches is None else caches["layers"][idx])
+        if remat:
+            x, ns, nc = checkpoint(block, x, use_reentrant=False)
+        else:
+            x, ns, nc = block(x)
         new_sites.append(ns)
         new_caches.append(nc)
     return (x, {"layers": new_sites},

@@ -17,6 +17,7 @@ from repro_torch.kernels import fused_quantize as fq
 from repro_torch.kernels import int8_attention as attn
 from repro_torch.kernels import int8_matmul as mm
 from repro_torch.kernels import ops
+from repro_torch.kernels import stochastic_quantize as sq
 
 pytestmark = pytest.mark.cuda
 
@@ -49,6 +50,58 @@ def test_fused_quantize_kernel_matches_plain(card, shape, sym):
         torch.cuda.synchronize()
         assert torch.equal(qk, qr)
         assert torch.equal(mnk, mnr) and torch.equal(mxk, mxr)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (7, 13), (257, 301), (4096, 256),
+                                   (3, 5, 17)])
+@pytest.mark.parametrize("sym", [False, True])
+def test_stochastic_quantize_kernel_matches_plain(card, shape, sym):
+    """Operand form: bit-exact images and min/max, aligned and misaligned
+    starts, on a bf16-canonicalized input."""
+    g = _gen(card, sum(shape) + 7)
+    x = (torch.randn(shape, generator=g, device=card) * 2.5).to(
+        torch.bfloat16).to(torch.float32)
+    u = torch.rand(shape, generator=g, device=card)
+    spec = QuantSpec(bits=8, symmetric=sym, stochastic=True)
+    qp = ops._qparams(torch.tensor(-2.0, device=card),
+                      torch.tensor(3.0, device=card), spec)
+    views = ((x, u), (x.reshape(-1)[1:], u.reshape(-1)[1:])) \
+        if x.numel() > 1 else ((x, u),)
+    for xv, uv in views:
+        qk, mnk, mxk = sq.stochastic_quantize_cuda(xv, qp, uv, spec)
+        qr, mnr, mxr = sq.stochastic_quantize_plain(xv, qp, uv, spec)
+        torch.cuda.synchronize()
+        assert torch.equal(qk, qr)
+        assert torch.equal(mnk, mnr) and torch.equal(mxk, mxr)
+
+
+def test_stochastic_quantize_onchip_statistics(card):
+    """On-chip Philox form: unbiased, seed-dependent, no repeated tiles, and
+    the same min/max as the operand form."""
+    spec = QuantSpec(bits=8, symmetric=False, stochastic=True)
+    g = _gen(card, 11)
+    x = torch.randn((4096, 3072), generator=g, device=card)
+    lo, hi = torch.aminmax(x)
+    qp = ops._qparams(lo, hi, spec)
+    q, mn, mx = ops.stochastic_quantize(x, lo, hi, None, spec=spec,
+                                        on_chip_prng=True, seed=5)
+    assert torch.equal(mn, lo) and torch.equal(mx, hi)
+    err = (q.to(torch.float32) - qp[1]) * qp[0] - x
+    tol = 4.0 * err.std() / err.numel() ** 0.5
+    assert err.mean().abs() <= tol, (err.mean().item(), tol.item())
+    q2, _, _ = ops.stochastic_quantize(x, lo, hi, None, spec=spec,
+                                       on_chip_prng=True, seed=6)
+    assert (q != q2).float().mean() > 0.2
+    # A constant input at a half-level offset: each element rounds up iff
+    # its u >= 0.5, so the image is the noise's top bit.
+    c = torch.full((1024, 1024), 0.5, device=card)
+    one = torch.tensor(1.0, device=card)
+    qc, _, _ = ops.stochastic_quantize(c, torch.tensor(0.0, device=card),
+                                       one * 255.0, None, spec=spec,
+                                       on_chip_prng=True, seed=5)
+    assert abs(qc.float().mean().item() - 0.5) < 0.01
+    tiles = qc.reshape(16, 64, 16, 64).permute(0, 2, 1, 3).reshape(256, -1)
+    assert torch.unique(tiles, dim=0).shape[0] == 256
 
 
 @pytest.mark.parametrize("b,m,k,n", [(1, 4, 64, 33), (1, 130, 300, 263),
@@ -128,9 +181,46 @@ def test_reduced_serve_on_card_uses_every_kernel(card):
             params, model.init_quant_state(cfg, device=card),
             {"tokens": tokens}, cfg, policy)
         counts = ops.launch_counts()
-        if backend == "fused":
-            assert all(c > 0 for c in counts.values()), counts
+        if backend == "fused":      # the serving path has no gradient sites
+            assert all(counts[k] > 0 for k in ("fused_quantize",
+                                               "int8_matmul_fp",
+                                               "int8_attention")), counts
+            assert counts["stochastic_quantize"] == 0, counts
         else:
             assert not any(counts.values()), counts
     torch.testing.assert_close(logits["fused"], logits["simulated"],
                                rtol=1e-3, atol=1e-3)
+
+
+def test_reduced_train_step_on_card_uses_every_kernel(card):
+    """One forward + backward of the reduced model on the card: the fused
+    backend launches all four kernels, the simulated one none, and the two
+    agree (tolerance: expf vs torch.exp may flip one requantized
+    probability level, which the stochastic roundings below carry on)."""
+    from repro_torch import configs
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+    cfg = configs.get_reduced("starcoder2-3b")
+    state = steps.init_train_state(cfg, adamw(), seed=0, device=card)
+    tokens = torch.randint(0, cfg.vocab, (2, 33), generator=_gen(card, 2),
+                           device=card)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:],
+             "mask": torch.ones((2, 32), device=card)}
+    out = {}
+    for backend in ("simulated", "fused"):
+        ops.reset_launch_counts()
+        out[backend] = steps.forward_backward(
+            cfg, QuantPolicy.w8a8g8(backend=backend), state["params"],
+            model.init_quant_state(cfg, device=card), batch, 0, 0)
+        counts = ops.launch_counts()
+        if backend == "fused":
+            assert all(c > 0 for c in counts.values()), counts
+        else:
+            assert not any(counts.values()), counts
+    (ls, gs, _, _), (lf, gf, _, _) = out["simulated"], out["fused"]
+    torch.testing.assert_close(lf, ls, rtol=1e-3, atol=0)
+    for name, g in gs.items():
+        if not name.endswith("attn.bk"):      # exact gradient is zero
+            assert (gf[name] - g).norm() <= 5e-2 * g.norm(), name

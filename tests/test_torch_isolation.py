@@ -40,6 +40,7 @@ def test_no_jax_or_reference_imports(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import repro_torch.launch.serve, "
+            "repro_torch.launch.train, repro_torch.runtime.steps, "
             "repro_torch.kernels.ops, repro_torch.convert; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
@@ -56,6 +57,9 @@ def test_serve_without_gpu_raises_unless_cpu_requested(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--reduced", "--prompt-len", "4", "--gen", "2"])
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--reduced", "--steps", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device(None)
     from repro_torch import configs
