@@ -28,6 +28,11 @@ each:
                    (device time by kernel family, the device's idle share)
   8. train parity  one forward + backward, fused vs simulated backend, same
                    params, batch and noise (4 layers at full width)
+  9. fused layers  the paper's single-pass layer through
+                   ops.int8_matmul_fused: starcoder2-3b's MLP up and down
+                   projections at full width as two chained int8 layers
+                   (B=4 x 1024 tokens), four in-hindsight steps, with the
+                   launch counters zeroed just before and read just after
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises (exit code != 0)
@@ -57,24 +62,36 @@ INT8_OPS = 1979e12
 FP32_OPS = 67e12
 
 PROMPT, GEN, BATCH = 1024, 32, 4
-TRAIN_STEPS, PARITY_LAYERS = 3, 4
+TRAIN_STEPS, PARITY_LAYERS, LAYER_STEPS = 3, 4, 4
+
+# The kernels each path launches.
+SERVE_KERNELS = ("fused_quantize", "int8_matmul_fp", "int8_attention")
+TRAIN_KERNELS = SERVE_KERNELS + ("stochastic_quantize",)
+LAYER_KERNELS = ("int8_matmul_fused",)
 
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def time_ms(fn, reps: int, warmup: int = 1) -> float:
+def time_ms(fn, reps: int, warmup: int = 1, keep: bool = False) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls.  With
+    ``keep``, every call's outputs stay allocated until the end, so no call
+    writes into memory the previous one left in L2."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    kept = []
     start.record()
     for _ in range(reps):
-        fn()
+        out = fn()
+        if keep:
+            kept.append(out)
     end.record()
     torch.cuda.synchronize()
+    del kept
     return start.elapsed_time(end) / reps
 
 
@@ -233,14 +250,18 @@ def check_int8_matmul(dev, gen, cfg):
     d, f, hd, nkv = cfg.d_model, cfg.d_ff, cfg.head_dim, cfg.n_kv
     cases = []
     for m in (BATCH * PROMPT, BATCH):
-        cases += [("q", m, d, d), ("k/v", m, d, nkv * hd), ("o", m, d, d),
-                  ("up", m, d, f), ("down", m, f, d)]
+        cases += [("q", m, d, d, 117.0), ("k/v", m, d, nkv * hd, 117.0),
+                  ("o", m, d, d, 117.0), ("up", m, d, f, 117.0),
+                  ("down", m, f, d, 117.0)]
     # the training loss's chunked LM head: [4, 512, 3072] x [3072, 49152]
-    cases.append(("head", BATCH * cfg.loss_chunk, d, cfg.vocab))
-    zp = torch.tensor(117.0, device=dev)
+    cases.append(("head", BATCH * cfg.loss_chunk, d, cfg.vocab, 117.0))
+    # a zero point off the integers: the shift round(128 - zp) is not
+    # 128 - zp (the paths' zero points are integers; the op takes any)
+    cases.append(("q, zp 117.3", BATCH * PROMPT, d, d, 117.3))
     alpha = torch.tensor(2.3e-5, device=dev)
     worst = 0.0
-    for what, m, k, n in cases:
+    for what, m, k, n, x_zp in cases:
+        zp = torch.tensor(x_zp, device=dev)
         x = torch.randint(0, 256, (1, m, k), generator=gen, device=dev,
                           dtype=torch.uint8)
         w = torch.randint(-127, 128, (1, k, n), generator=gen, device=dev,
@@ -255,8 +276,9 @@ def check_int8_matmul(dev, gen, cfg):
         worst = max(worst, err)
     log("kernels", f"int8_matmul_fp: {len(cases)} shapes bit-exact "
                    f"(y and min/max), prefill M={BATCH * PROMPT}, decode "
-                   f"M={BATCH} and the LM-head chunk M={BATCH * cfg.loss_chunk}"
-                   f" N={cfg.vocab}")
+                   f"M={BATCH}, the LM-head chunk M={BATCH * cfg.loss_chunk}"
+                   f" N={cfg.vocab} and x_zp 117.3")
+    zp = torch.tensor(117.0, device=dev)
     # Timed at the MLP up projection [4096, 3072] x [3072, 12288].
     m, k, n = BATCH * PROMPT, d, f
     x = torch.randint(0, 256, (1, m, k), generator=gen, device=dev,
@@ -289,6 +311,184 @@ def check_int8_matmul(dev, gen, cfg):
                 shape=[m, k, n], max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                 head_ms=head_ms, head_bound_ms=head_bound)
+
+
+def _fused_bounds(m, k, n):
+    """(fused, two-pass) bounds of one layer with a bias: the fused kernel
+    reads x, w and the bias and writes 1 B per output; the two-pass route
+    also writes y in fp32 and reads it back."""
+    ops_n = 2 * m * n * k
+    io = m * k + k * n + 4 * n + m * n
+    return bound(io, ops_n, INT8_OPS), bound(io + 8 * m * n, ops_n, INT8_OPS)
+
+
+def time_fused_layer(dev, gen, what, m, k, n):
+    """Times of the fused kernel, its plain version, the two-pass route
+    (int8_matmul_fp_cuda, then fused_quantize_cuda on its fp32 output) and
+    torch._int_mm (the int8 product alone) at one layer shape.  The inputs
+    rotate over copies that exceed L2 together, and every output is kept,
+    so no call finds its operands or its output lines in L2."""
+    import itertools
+
+    from repro_torch.core.quant import QuantSpec
+    from repro_torch.kernels import fused_quantize as fq
+    from repro_torch.kernels import int8_matmul as mm
+    from repro_torch.kernels import ops
+
+    spec = QuantSpec(bits=8, symmetric=False)
+    copies = max(2, -(-64 * 2 ** 20 // (m * k)))
+    xs = [torch.randint(0, 256, (m, k), generator=gen, device=dev,
+                        dtype=torch.uint8) for _ in range(copies)]
+    w = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                      dtype=torch.int8)
+    bias = torch.randn((n,), generator=gen, device=dev) * 0.5
+    zp = torch.tensor(117.0, device=dev)
+    alpha = torch.tensor(1.0 / (74.0 * 73.0 * math.sqrt(k)), device=dev)
+    qp = ops._qparams(torch.tensor(-2.5, device=dev),
+                      torch.tensor(3.0, device=dev), spec)
+    nxt = itertools.cycle(xs).__next__
+
+    def two_pass():
+        x = nxt()
+        y, _, _ = mm.int8_matmul_fp_cuda(x[None], w[None], zp, alpha)
+        return fq.fused_quantize_cuda(y, qp, spec)
+
+    y, _, _ = mm.int8_matmul_fp_cuda(xs[0][None], w[None], zp, alpha)
+    t = dict(
+        ms=time_ms(lambda: mm.int8_matmul_fused_cuda(
+            nxt(), w, zp, alpha, bias, qp, spec), 10, keep=True),
+        two_pass_ms=time_ms(two_pass, 10, keep=True),
+        # the two passes apart
+        fp_pass_ms=time_ms(lambda: mm.int8_matmul_fp_cuda(
+            nxt()[None], w[None], zp, alpha), 10, keep=True),
+        quantize_pass_ms=time_ms(lambda: fq.fused_quantize_cuda(y, qp, spec),
+                                 10, keep=True),
+        plain_ms=time_ms(lambda: mm.int8_matmul_fused_plain(
+            nxt(), w, zp, alpha, bias, qp, spec), 3, keep=True))
+    del y
+    # The two-pass bias is not folded in (int8_matmul_fp takes none): its
+    # time is a floor for that route.
+    try:   # yardstick only: one library call, the int8 product alone
+        ws = [(x.to(torch.int16) - 128).to(torch.int8) for x in xs]
+        nxs = itertools.cycle(ws).__next__
+        t["library_ms"] = time_ms(lambda: torch._int_mm(nxs(), w), 10,
+                                  keep=True)
+    except RuntimeError as e:
+        log("kernels", f"torch._int_mm yardstick unavailable at {what}: {e}")
+        t["library_ms"] = None
+    (t["bound_ms"], t["bound_by"]), (t["two_pass_bound_ms"], _) = \
+        _fused_bounds(m, k, n)
+    lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
+    log("kernels", f"int8_matmul_fused at {what} [{m}, {k}] x [{k}, {n}]: "
+                   f"fused {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} ms, "
+                   f"{t['bound_by']}) vs two-pass int8_matmul_fp + "
+                   f"fused_quantize {t['two_pass_ms']:.4f} ms (bound "
+                   f"{t['two_pass_bound_ms']:.4f} ms; the passes apart "
+                   f"{t['fp_pass_ms']:.4f} + {t['quantize_pass_ms']:.4f} ms)"
+                   f": {t['two_pass_ms'] / t['ms']:.2f}x; plain "
+                   f"{t['plain_ms']:.4f} ms; torch._int_mm (product only) "
+                   f"{lib} ms")
+    return t
+
+
+def check_int8_matmul_fused(dev, gen, cfg):
+    from repro_torch.core.quant import QuantSpec
+    from repro_torch.kernels import int8_matmul as mm
+    from repro_torch.kernels import ops
+
+    d, f, hd, nkv = cfg.d_model, cfg.d_ff, cfg.head_dim, cfg.n_kv
+    m = BATCH * PROMPT
+    imgs = 32                      # an ImageNet batch, the paper's Table 5
+    cases = [  # (what, M, K, N): LM projections; CNN layers as im2col
+        ("q/o", m, d, d), ("k/v", m, d, nkv * hd), ("up", m, d, f),
+        ("down", m, f, d), ("decode up", BATCH, d, f),
+        ("MobileNetV2 1x1 16->96 @112", imgs * 112 * 112, 16, 96),
+        ("ResNet18 3x3 64->64 @56", imgs * 56 * 56, 9 * 64, 64),
+        ("ResNet18 3x3 256->256 @14", imgs * 14 * 14, 9 * 256, 256),
+        ("ragged", 4093, 3001, 77)]
+    def hold(x, w, zp, alpha, b, qp, spec, what):
+        """The kernel against its plain version, bit for bit."""
+        qk, mnk, mxk = mm.int8_matmul_fused_cuda(x, w, zp, alpha, b, qp, spec)
+        qr, mnr, mxr = mm.int8_matmul_fused_plain(x, w, zp, alpha, b, qp,
+                                                  spec)
+        torch.cuda.synchronize()
+        if not (torch.equal(qk, qr) and torch.equal(mnk, mnr)
+                and torch.equal(mxk, mxr)):
+            raise AssertionError(
+                f"int8_matmul_fused {what}: {int((qk != qr).sum())} images "
+                f"differ, min/max {mnk.item()}/{mnr.item()} "
+                f"{mxk.item()}/{mxr.item()}")
+        return qk
+
+    # (symmetric out grid, bias, x_zp): both grids, with and without a
+    # bias, an integer and a non-integer zero point
+    variants = [(False, True, 117.0), (True, False, 117.0),
+                (False, False, 117.3), (True, True, 117.3)]
+    n_checked = 0
+    clipped = 0.0
+    for what, rows, k, n in cases:
+        x = torch.randint(0, 256, (rows, k), generator=gen, device=dev,
+                          dtype=torch.uint8)
+        w = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+        b = torch.randn((n,), generator=gen, device=dev) * 0.5
+        alpha = torch.tensor(1.0 / (74.0 * 73.0 * math.sqrt(k)), device=dev)
+        for sym, bias, x_zp in variants:
+            spec = QuantSpec(bits=8, symmetric=sym)
+            qp = ops._qparams(torch.tensor(-2.5, device=dev),
+                              torch.tensor(3.0, device=dev), spec)
+            q = hold(x, w, torch.tensor(x_zp, device=dev), alpha,
+                     b if bias else None, qp, spec,
+                     f"{what} M={rows} K={k} N={n} sym={sym} bias={bias} "
+                     f"x_zp={x_zp}").to(torch.int32)
+            clipped = max(clipped, ((q == spec.int_min)
+                                    | (q == spec.int_max)).float().mean()
+                          .item())
+            n_checked += 1
+        del x, w, q
+    # Ties: power-of-two scales put bias images and requantized values on
+    # .5; both versions round half to even.
+    rows, k, n = 4093, 3001, 77
+    x = torch.randint(0, 256, (rows, k), generator=gen, device=dev,
+                      dtype=torch.uint8)
+    w = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                      dtype=torch.int8)
+    alpha = torch.tensor(2.0 ** -16, device=dev)
+    b = (torch.arange(n, device=dev) - n // 2 + 0.5) * alpha
+    zp = torch.tensor(117.0, device=dev)
+    step = 2.0 ** -3             # out scale: y / scale + zp = v / 2**13 + zp
+    v = mm._acc_plain(x[None], w[None], zp)[0] + torch.round(b / alpha)
+    ties = int((torch.remainder(v, 2 ** 13) == 2 ** 12).sum())
+    if ties == 0:
+        raise AssertionError("the ties case has no .5 tie")
+    for sym in (False, True):
+        spec = QuantSpec(bits=8, symmetric=sym)
+        qp = ops._qparams(torch.tensor((-127 if sym else -128) * step,
+                                       device=dev),
+                          torch.tensor(127 * step, device=dev), spec)
+        hold(x, w, zp, alpha, b, qp, spec, f"ties sym={sym}")
+        n_checked += 1
+    log("kernels", f"int8_matmul_fused: {n_checked} (shape, grid, bias, "
+                   f"x_zp) cases bit-exact (q and min/max): "
+                   + ", ".join(f"{c[0]} [{c[1]}, {c[2]}] x [{c[2]}, {c[3]}]"
+                               for c in cases)
+                   + f", each with both 8-bit grids, with and without a bias"
+                   f", x_zp 117.0 and 117.3 (largest share at the grid's ends "
+                   f"{clipped:.4f}); and {ties} .5 ties (plus the bias "
+                   f"images') on both grids at [{rows}, {k}] x [{k}, {n}]")
+    del x, w, v
+    torch.cuda.empty_cache()
+    up = time_fused_layer(dev, gen, "up", m, d, f)
+    mb = imgs * 112 * 112
+    cnn = time_fused_layer(dev, gen, "MobileNetV2 1x1 16->96 @112", mb, 16,
+                           96)
+    torch.cuda.empty_cache()
+    return dict(name="int8_matmul_fused", route="cuda",
+                source="src/repro_torch/csrc/int8_matmul.cu",
+                replaces="src/repro/kernels/int8_matmul.py:196",
+                shape=[m, d, f], max_abs_err=0.0, library_note="product only",
+                **up, cnn_shape=[mb, 16, 96],
+                **{f"cnn_{k_}": v for k_, v in cnn.items()})
 
 
 def check_attention(dev, gen, cfg):
@@ -382,7 +582,7 @@ def train_phase(cfg) -> dict:
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    if not all(c > 0 for c in counts.values()):
+    if not all(counts[k] > 0 for k in TRAIN_KERNELS):
         raise AssertionError(f"a kernel of the train path never launched: "
                              f"{counts}")
     if len(run.losses) != TRAIN_STEPS or not all(
@@ -425,6 +625,7 @@ def train_phase(cfg) -> dict:
 
 KERNEL_FAMILIES = (   # (family, substrings of the kernel name), first match
     ("int8_matmul_fp (ours)", ("int8_matmul_fp_kernel",)),
+    ("int8_matmul_fused (ours)", ("int8_matmul_fused_kernel",)),
     ("int8_attention (ours)", ("int8_attention_kernel",)),
     ("fused_quantize (ours)", ("fused_quantize_kernel",)),
     ("stochastic_quantize (ours)", ("stochastic_quantize_kernel",)),
@@ -511,8 +712,8 @@ def train_parity_phase(cfg, dev) -> dict:
             batch, 0, 0)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
-        ok = all(counts.values()) if bk == "fused" else not any(
-            counts.values())
+        ok = all(counts[k] for k in TRAIN_KERNELS) if bk == "fused" \
+            else not any(counts.values())
         if not ok:
             raise AssertionError(f"{bk} backend launches {counts}")
     (lf, gf, sf, _), (ls, gs, ss, _) = out["fused"], out["simulated"]
@@ -555,6 +756,104 @@ def train_parity_phase(cfg, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: the fused layer path.
+# ---------------------------------------------------------------------------
+def fused_layer_phase(cfg, dev) -> dict:
+    """The paper's single-pass layer (Fig. 2/3) through its public op,
+    ``ops.int8_matmul_fused``: starcoder2-3b's MLP up and down projections
+    at full width, with biases, chained as two int8 layers (the up layer's
+    uint8 image and grid are the down layer's input; no activation between
+    them: the fused kernel has none) over ``LAYER_STEPS`` in-hindsight
+    steps of fresh B=4 x 1024-token inputs.  Each layer's out range is its
+    hindsight estimate (EMA of earlier steps' min/max); at step 0 the
+    estimate does not exist yet and the layer runs twice, first for its
+    statistics, as the port's fused backend does for a new site.  Every
+    step's images and statistics are held against the plain version."""
+    from repro_torch.core import estimators, quant
+    from repro_torch.core.quant import QuantSpec
+    from repro_torch.core.state import INITED, init_range_state, pack_stats
+    from repro_torch.kernels import int8_matmul as mm
+    from repro_torch.kernels import ops
+
+    est = estimators.EstimatorConfig()                 # hindsight, eta 0.9
+    act = QuantSpec(bits=8, symmetric=False)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    m, d, f = BATCH * PROMPT, cfg.d_model, cfg.d_ff
+    # the input grid: [-3, 3]; weights and biases of unit-order outputs
+    in_scale, in_zp = quant.scale_zero_point(torch.tensor(-3.0, device=dev),
+                                             torch.tensor(3.0, device=dev),
+                                             act)
+    x_std = 74.0 * float(in_scale)
+    layers = []
+    for k, n, scale in ((d, f, 1.0 / (73.0 * math.sqrt(d) * x_std)),
+                        (f, d, 1.0 / (73.0 * math.sqrt(f)))):
+        layers.append(dict(
+            w=torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                            dtype=torch.int8),
+            w_scale=torch.tensor(scale, device=dev),
+            bias=torch.randn((n,), generator=gen, device=dev) * 0.1,
+            leaf=init_range_state(device=dev)))
+
+    def run(x_q, x_scale, x_zp, layer, check):
+        w, ws, b = layer["w"], layer["w_scale"], layer["bias"]
+        if float(layer["leaf"][INITED]) < 0.5:   # no hindsight range yet
+            _, lo, hi = ops.int8_matmul_fused(x_q, w, x_scale, x_zp, ws, b,
+                                              -1.0, 1.0)
+        else:
+            lo, hi = estimators.static_ranges(est, layer["leaf"])
+        q, mn, mx = ops.int8_matmul_fused(x_q, w, x_scale, x_zp, ws, b, lo,
+                                          hi, out_spec=act)
+        qp = ops._qparams(lo, hi, act)
+        qr, mnr, mxr = mm.int8_matmul_fused_plain(
+            x_q, w, torch.as_tensor(x_zp, device=dev),
+            torch.as_tensor(x_scale, device=dev) * ws, b, qp, act)
+        check.append(torch.equal(q, qr) and torch.equal(mn, mnr)
+                     and torch.equal(mx, mxr))
+        layer["leaf"] = estimators.update(est, layer["leaf"],
+                                          pack_stats(mn, mx))
+        clip = ((q == act.int_min) | (q == act.int_max)).float().mean()
+        return q, qp[0], qp[1], clip.item()
+
+    clips, step_ms, checks = [], [], []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for _ in range(LAYER_STEPS):
+        x = torch.randint(0, 256, (m, d), generator=gen, device=dev,
+                          dtype=torch.uint8)
+        t0 = time.perf_counter()
+        h, h_scale, h_zp, c_up = run(x, in_scale, in_zp, layers[0], checks)
+        out, _, _, c_down = run(h, h_scale, h_zp, layers[1], checks)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        clips.append((c_up, c_down))
+    counts = ops.launch_counts()
+    expect = 2 * LAYER_STEPS + 2                 # + step 0's first passes
+    if counts["int8_matmul_fused"] != expect or any(
+            counts[k] for k in counts if k not in LAYER_KERNELS):
+        raise AssertionError(f"fused layer path launches {counts}, "
+                             f"expected {expect} of int8_matmul_fused only")
+    if not all(checks):
+        raise AssertionError(f"fused layer path: kernel vs plain {checks}")
+    if out.shape != (m, d) or out.dtype != torch.uint8:
+        raise AssertionError(f"fused layer output {out.dtype} "
+                             f"{tuple(out.shape)}")
+    # From step 1 on each range is in hindsight: fresh inputs of the same
+    # distribution may only just leave it.
+    worst = max(max(c) for c in clips[1:])
+    if not worst <= 1e-4:
+        raise AssertionError(f"hindsight ranges clip {clips}")
+    log("fused-layers", f"starcoder2-3b MLP up [{m}, {d}] x [{d}, {f}] and "
+                        f"down [{m}, {f}] x [{f}, {d}] as two chained fused "
+                        f"int8 layers, {LAYER_STEPS} in-hindsight steps: "
+                        f"every step bit-exact to the plain version; share "
+                        f"at the grid's ends (up, down) per step {clips}; "
+                        f"step ms "
+                        f"{[round(v, 3) for v in step_ms]} (with the plain "
+                        f"checks); launches {counts}")
+    return dict(launches=counts, clipped=clips, step_ms=step_ms)
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="",
@@ -570,8 +869,6 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build, ops
     from repro_torch.launch import serve
     from repro_torch.models import model
-
-    serve_kernels = ("fused_quantize", "int8_matmul_fp", "int8_attention")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -604,6 +901,7 @@ def main(argv=None) -> int:
     records = [check_fused_quantize(dev, gen, cfg),
                check_stochastic_quantize(dev, gen, cfg),
                check_int8_matmul(dev, gen, cfg),
+               check_int8_matmul_fused(dev, gen, cfg),
                check_attention(dev, gen, cfg)]
     for r in records:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -621,7 +919,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    if not all(counts[k] > 0 for k in serve_kernels):
+    if not all(counts[k] > 0 for k in SERVE_KERNELS):
         raise AssertionError(f"a kernel of the path never launched: {counts}")
     if not torch.isfinite(run.prefill_logits).all():
         raise AssertionError("non-finite prefill logits")
@@ -651,7 +949,7 @@ def main(argv=None) -> int:
     run2 = serve.generate(run.params, quant, run.prompt, run.cfg, policy, 8)
     torch.cuda.synchronize()
     counts2 = ops.launch_counts()
-    if not all(counts2[k] > 0 for k in serve_kernels):
+    if not all(counts2[k] > 0 for k in SERVE_KERNELS):
         raise AssertionError(f"static path skipped a kernel: {counts2}")
     if not torch.isfinite(run2.prefill_logits).all():
         raise AssertionError("non-finite logits on the static path")
@@ -692,11 +990,19 @@ def main(argv=None) -> int:
     # 7. train, full width and depth, fused backend
     results["train"] = train_phase(cfg)
     for r in records:
-        r["launches"] = results["train"]["launches"][r["name"]]
+        r["launches"] = r["train_launches"] = \
+            results["train"]["launches"][r["name"]]
     torch.cuda.empty_cache()
 
     # 8. fused vs simulated forward + backward, same params/batch/noise
     results["train_parity"] = train_parity_phase(cfg, dev)
+    torch.cuda.empty_cache()
+
+    # 9. the fused layer path: its kernel's launches are this run's
+    results["fused_layers"] = fused_layer_phase(cfg, dev)
+    for r in records:
+        if r["name"] in LAYER_KERNELS:
+            r["launches"] = results["fused_layers"]["launches"][r["name"]]
 
     kernels = [{k: r[k] for k in ("name", "route", "source", "replaces",
                                   "launches", "max_abs_err", "ms", "plain_ms",

@@ -1,24 +1,41 @@
-// Batched int8 x int8 -> int32 matmul with an fp32 epilogue and fused
-// min/max statistics.
+// The int8 x int8 -> int32 matmuls of the port, with their fused epilogues
+// and min/max statistics.  One main loop, two epilogues:
 //
-// Replaces the TPU kernel repro/kernels/int8_matmul.py
-// (int8_matmul_fp_kernel, body _fp_kernel).  For every batch slice b:
-//     acc[m, n] = sum_k (x[m, k] - 128) * w[k, n]            (exact int32)
-//     y[m, n]   = alpha * float(acc + round(128 - zp_x) * colsum_w[n])
-// which is exactly alpha * sum_k (x - zp_x) * w, the reference's integer
-// contraction and its single fp32 rounding.  x arrives as uint8 on the
-// asymmetric [0, 255] grid; it is moved onto the signed grid while the
-// tile is staged in shared memory (u8 ^ 0x80 == u8 - 128 as s8), so the
-// products run on signed __dp4a.  Per-block (min, max) partials of y are
-// emitted for the wrapper to reduce.
+//   int8_matmul_fp     replaces repro/kernels/int8_matmul.py:139
+//                      (int8_matmul_fp_kernel, body _fp_kernel): batched
+//                      [B, M, K] x [B, K, N], fp32 y out.
+//   int8_matmul_fused  replaces repro/kernels/int8_matmul.py:196
+//                      (int8_matmul_fused_kernel, body _kernel): one 2-D
+//                      [M, K] x [K, N] product with the paper's whole layer
+//                      epilogue (Fig. 2/3), the int8 image out.
 //
-// Bound on the H100: int8 operations for the prefill shapes (M = 4096),
-// bytes for decode (M = 4).  This first version is deliberately simple:
-// 128 x 128 output tiles, 32-byte K slices staged in padded shared memory
-// (conflict-free row strides), the weight slice transposed on the way in
-// so both operands are K-contiguous 32-bit words, and each of the 256
-// threads accumulating an 8 x 8 block with __dp4a (4 MACs/instruction).
-// It reaches a fraction of the tensor-core rate; wgmma + TMA come later.
+// For every batch slice b:
+//     acc[m, n]  = sum_k (x[m, k] - 128) * w[k, n]            (exact int32)
+//     corr[n]    = round(128 - zp_x) * colsum_w[n]  (+ round(bias[n] / alpha))
+//     y[m, n]    = alpha * float(acc + corr)                 (one rounding)
+// which is exactly alpha * sum_k (x - zp_x) * w (+ the int32 image of the
+// bias), the reference's integer contraction and its single fp32 rounding.
+// The fused epilogue then requantizes y statically onto the in-hindsight
+// grid of the next site, q = clamp(rint(y / scale + zp), int_min, int_max),
+// and writes the byte (uint8 asymmetric / int8 symmetric, no -128 shift).
+// Both emit per-block (min, max) partials of y for the wrapper to reduce.
+//
+// x arrives as uint8 on the asymmetric [0, 255] grid; it is moved onto the
+// signed grid while the tile is staged in shared memory (u8 ^ 0x80 ==
+// u8 - 128 as s8), so the products run on signed __dp4a.
+//
+// Bound on the H100: int8 operations at the LM shapes (M = 4096 prefill),
+// bytes at decode (M = 4) and at the CNN layers of the paper's Table 5 as
+// im2col products (K = 16..2304, N = 64..256).  The fused epilogue writes
+// 1 B per output element where the two-pass route (int8_matmul_fp, then
+// fused_quantize) writes 4, reads them back and writes 1: at MobileNetV2's
+// 1x1 16 -> 96 layer that is ~45 MB against ~353 MB of device traffic.
+// This first version is deliberately simple: 128 x 128 output tiles,
+// 32-byte K slices staged in padded shared memory (conflict-free row
+// strides), the weight slice transposed on the way in so both operands are
+// K-contiguous 32-bit words, and each of the 256 threads accumulating an
+// 8 x 8 block with __dp4a (4 MACs/instruction).  It reaches a fraction of
+// the tensor-core rate; wgmma + TMA come later, in this shared main loop.
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
@@ -30,25 +47,34 @@ constexpr int kThreads = 256;
 constexpr int kKI = kBK / 4;  // 32-bit words per K slice row
 constexpr int kLds = kKI + 1;  // padded row stride in words
 
-__global__ void __launch_bounds__(kThreads)
-int8_matmul_fp_kernel(const uint8_t* __restrict__ x,
-                      const int8_t* __restrict__ w, float* __restrict__ y,
-                      float* __restrict__ partials,
-                      const float* __restrict__ alpha_p,
-                      const float* __restrict__ zp_p, int M, int K, int N,
-                      int x_words) {
+// The requant registers of the fused epilogue.
+struct Requant {
+  const float* bias;     // fp32 [N], or null
+  const float* qparams;  // fp32 [2] = (scale, zero point) of the out grid
+  int int_min, int_max;
+};
+
+// One block's 128 x 128 output tile: the main loop, then the epilogue that
+// kRequant selects (fp32 y, or the requantized byte).
+template <bool kRequant>
+__device__ __forceinline__ void int8_matmul_tile(
+    const uint8_t* __restrict__ x, const int8_t* __restrict__ w,
+    void* __restrict__ out, float* __restrict__ partials,
+    const float* __restrict__ alpha_p, const float* __restrict__ zp_p,
+    const Requant& rq, int M, int K, int N, int x_words) {
   __shared__ int xs[kBM * kLds];
   __shared__ int ws[kBN * kLds];
-  __shared__ int colsum[kBN];
+  __shared__ int corr[kBN];
   __shared__ float red[2 * kThreads / 32];
 
   const int b = blockIdx.z;
   const int i0 = blockIdx.y * kBM, j0 = blockIdx.x * kBN;
   x += static_cast<long long>(b) * M * K;
   w += static_cast<long long>(b) * K * N;
-  y += static_cast<long long>(b) * M * N;
+  const long long out_base = static_cast<long long>(b) * M * N;
   const int t = threadIdx.x, tx = t % 16, ty = t / 16;
 
+  // ---- main loop (shared by both epilogues) ----
   int acc[8][8];
 #pragma unroll
   for (int r = 0; r < 8; ++r)
@@ -104,11 +130,25 @@ int8_matmul_fp_kernel(const uint8_t* __restrict__ x,
     }
     __syncthreads();
   }
-  if (t < kBN) colsum[t] = csum;
-  __syncthreads();
 
+  // ---- epilogue: the integer correction of each column, in int32 ----
   const float alpha = *alpha_p;
   const int shift = static_cast<int>(rintf(__fsub_rn(128.f, *zp_p)));
+  if (t < kBN) {
+    int bias_i = 0;
+    if (kRequant && rq.bias != nullptr && j0 + t < N)
+      bias_i = static_cast<int>(rintf(__fdiv_rn(rq.bias[j0 + t], alpha)));
+    corr[t] = shift * csum + bias_i;
+  }
+  __syncthreads();
+
+  float scale = 1.f, zp_out = 0.f;
+  if (kRequant) {
+    scale = rq.qparams[0];
+    zp_out = rq.qparams[1];
+  }
+  const float qlo = static_cast<float>(rq.int_min);
+  const float qhi = static_cast<float>(rq.int_max);
   float mn = FLT_MAX, mx = -FLT_MAX;
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
@@ -117,9 +157,19 @@ int8_matmul_fp_kernel(const uint8_t* __restrict__ x,
     for (int c = 0; c < 8; ++c) {
       const int col = j0 + tx + 16 * c;
       if (row < M && col < N) {
-        const int v = acc[r][c] + shift * colsum[tx + 16 * c];
+        const int v = acc[r][c] + corr[tx + 16 * c];
         const float f = __fmul_rn(alpha, __int2float_rn(v));
-        y[static_cast<long long>(row) * N + col] = f;
+        const long long idx = out_base + static_cast<long long>(row) * N + col;
+        if (kRequant) {
+          // round half to even (rintf), like torch.round / jnp.round; the
+          // low byte of the int is the uint8 or int8 image.
+          float q = rintf(__fadd_rn(__fdiv_rn(f, scale), zp_out));
+          q = fminf(fmaxf(q, qlo), qhi);
+          static_cast<uint8_t*>(out)[idx] =
+              static_cast<uint8_t>(static_cast<int>(q));
+        } else {
+          static_cast<float*>(out)[idx] = f;
+        }
         mn = fminf(mn, f);
         mx = fmaxf(mx, f);
       }
@@ -148,19 +198,64 @@ int8_matmul_fp_kernel(const uint8_t* __restrict__ x,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+int8_matmul_fp_kernel(const uint8_t* __restrict__ x,
+                      const int8_t* __restrict__ w, float* __restrict__ y,
+                      float* __restrict__ partials,
+                      const float* __restrict__ alpha_p,
+                      const float* __restrict__ zp_p, int M, int K, int N,
+                      int x_words) {
+  int8_matmul_tile<false>(x, w, y, partials, alpha_p, zp_p,
+                          Requant{nullptr, nullptr, 0, 0}, M, K, N, x_words);
+}
+
+__global__ void __launch_bounds__(kThreads)
+int8_matmul_fused_kernel(const uint8_t* __restrict__ x,
+                         const int8_t* __restrict__ w, uint8_t* __restrict__ q,
+                         float* __restrict__ partials,
+                         const float* __restrict__ alpha_p,
+                         const float* __restrict__ zp_p, Requant rq, int M,
+                         int K, int N, int x_words) {
+  int8_matmul_tile<true>(x, w, q, partials, alpha_p, zp_p, rq, M, K, N,
+                         x_words);
+}
+
+int can_load_words(const void* x, int K) {
+  return (K % 4 == 0) && (reinterpret_cast<uintptr_t>(x) % 4 == 0);
+}
+
 }  // namespace
 
 extern "C" int repro_int8_matmul_fp(const void* x, const void* w, void* y,
                                     void* partials, const void* alpha,
                                     const void* zp, int B, int M, int K, int N,
                                     void* stream) {
-  const int x_words = (K % 4 == 0) && (reinterpret_cast<uintptr_t>(x) % 4 == 0);
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, B);
   int8_matmul_fp_kernel<<<grid, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(x), static_cast<const int8_t*>(w),
       static_cast<float*>(y), static_cast<float*>(partials),
       static_cast<const float*>(alpha), static_cast<const float*>(zp), M, K, N,
-      x_words);
+      can_load_words(x, K));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q [M, N] (uint8 or int8 by the grid [int_min, int_max]) and partials
+// [gm, gn, 2] of y; bias may be null.
+extern "C" int repro_int8_matmul_fused(const void* x, const void* w, void* q,
+                                       void* partials, const void* alpha,
+                                       const void* zp, const void* bias,
+                                       const void* qparams, int M, int K,
+                                       int N, int int_min, int int_max,
+                                       void* stream) {
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, 1);
+  const Requant rq{static_cast<const float*>(bias),
+                   static_cast<const float*>(qparams), int_min, int_max};
+  int8_matmul_fused_kernel<<<grid, kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(x), static_cast<const int8_t*>(w),
+      static_cast<uint8_t*>(q), static_cast<float*>(partials),
+      static_cast<const float*>(alpha), static_cast<const float*>(zp), rq, M,
+      K, N, can_load_words(x, K));
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,7 +29,8 @@ from . import int8_matmul as _mm
 from . import stochastic_quantize as _sq
 from .int8_attention import AttnSchedule
 
-COUNTERS = (_fq.COUNTER, _mm.COUNTER, _attn.COUNTER, _sq.COUNTER)
+COUNTERS = (_fq.COUNTER, _mm.COUNTER, _attn.COUNTER, _sq.COUNTER,
+            _mm.FUSED_COUNTER)
 
 
 def launch_counts() -> dict:
@@ -191,6 +192,32 @@ def int8_matmul_fp(x_q: torch.Tensor, w_q: torch.Tensor, x_zp, alpha, *,
                                   x_zp, alpha)
     y = y3.reshape(bdims + mdims + ndims).permute(plan.y_perm)
     return y, mn, mx
+
+
+def int8_matmul_fused(x_q: torch.Tensor, w_q: torch.Tensor, x_scale, x_zp,
+                      w_scale, bias, out_qmin, out_qmax, *,
+                      out_spec: QuantSpec = QuantSpec(bits=8,
+                                                      symmetric=False)):
+    """The paper's whole layer (Fig. 2/3) in one pass: uint8 ``x_q [M, K]``
+    (asymmetric grid, zero point ``x_zp``) times int8 ``w_q [K, N]``, plus
+    the int32 image ``round(bias / alpha)`` of an optional fp32 ``bias
+    [N]``, dequantized once with ``alpha = x_scale * w_scale``, then
+    requantized statically onto the grid of ``[out_qmin, out_qmax]``.
+    Scalars are Python floats or 0-dim tensors.  Returns ``(q, obs_min,
+    obs_max)``: ``q`` on ``out_spec``'s grid, min/max of the dequantized
+    output."""
+    dev = x_q.device
+    f32 = functools.partial(torch.as_tensor, dtype=torch.float32,
+                            device=dev)
+    alpha = f32(x_scale) * f32(w_scale)
+    zp = f32(x_zp)
+    qp = _qparams(out_qmin, out_qmax, out_spec).to(dev)
+    operands = (x_q, w_q) if bias is None else (x_q, w_q, bias)
+    if _on_cuda(*operands):
+        return _mm.int8_matmul_fused_cuda(x_q, w_q, zp, alpha, bias, qp,
+                                          out_spec)
+    return _mm.int8_matmul_fused_plain(x_q, w_q, zp, alpha, bias, qp,
+                                       out_spec)
 
 
 def int8_attention_fp(q_u8, k_i8, v_i8, regs, kvlen, *, sched: AttnSchedule):

@@ -104,21 +104,88 @@ def test_stochastic_quantize_onchip_statistics(card):
     assert torch.unique(tiles, dim=0).shape[0] == 256
 
 
+@pytest.mark.parametrize("zp", [117.0, 117.3])
 @pytest.mark.parametrize("b,m,k,n", [(1, 4, 64, 33), (1, 130, 300, 263),
                                      (3, 37, 70, 129), (1, 256, 3072, 256)])
-def test_int8_matmul_kernel_matches_plain(card, b, m, k, n):
+def test_int8_matmul_kernel_matches_plain(card, b, m, k, n, zp):
     g = _gen(card, m + k + n)
     x = torch.randint(0, 256, (b, m, k), generator=g, device=card,
                       dtype=torch.uint8)
     w = torch.randint(-127, 128, (b, k, n), generator=g, device=card,
                       dtype=torch.int8)
-    zp = torch.tensor(117.0, device=card)
+    zp = torch.tensor(zp, device=card)
     alpha = torch.tensor(3.1e-4, device=card)
     yk, mnk, mxk = mm.int8_matmul_fp_cuda(x, w, zp, alpha)
     yr, mnr, mxr = mm.int8_matmul_fp_plain(x, w, zp, alpha)
     torch.cuda.synchronize()
     assert torch.equal(yk, yr)
     assert torch.equal(mnk, mnr) and torch.equal(mxk, mxr)
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("sym", [False, True], ids=["asym", "sym"])
+@pytest.mark.parametrize("m,k,n,x_zp", [(1, 1, 1, 117.0),
+                                        (4093, 3001, 77, 117.3),
+                                        (257, 16, 96, 0.5),
+                                        (4, 3072, 256, 117.0)])
+def test_int8_matmul_fused_kernel_matches_plain(card, m, k, n, x_zp, sym,
+                                                bias):
+    """q and min/max bit-exact at ragged shapes (K below one 32-byte slice,
+    M = N = 1), both out grids, with and without a bias; the range clips."""
+    g = _gen(card, m + k + n)
+    x = torch.randint(0, 256, (m, k), generator=g, device=card,
+                      dtype=torch.uint8)
+    w = torch.randint(-127, 128, (k, n), generator=g, device=card,
+                      dtype=torch.int8)
+    b = torch.randn((n,), generator=g, device=card) * 0.5 if bias else None
+    alpha = torch.tensor(1.0 / (74.0 * 73.0 * k ** 0.5), device=card)
+    spec = QuantSpec(bits=8, symmetric=sym)
+    qp = ops._qparams(torch.tensor(-1.5, device=card),
+                      torch.tensor(2.0, device=card), spec)
+    zp = torch.tensor(x_zp, device=card)
+    qk, mnk, mxk = mm.int8_matmul_fused_cuda(x, w, zp, alpha, b, qp, spec)
+    qr, mnr, mxr = mm.int8_matmul_fused_plain(x, w, zp, alpha, b, qp, spec)
+    torch.cuda.synchronize()
+    assert qk.dtype == spec.storage_dtype
+    assert torch.equal(qk, qr)
+    assert torch.equal(mnk, mnr) and torch.equal(mxk, mxr)
+
+
+@pytest.mark.parametrize("sym", [False, True], ids=["asym", "sym"])
+def test_int8_matmul_fused_kernel_ties_match_plain(card, sym):
+    """Power-of-two scales: bias images and requantized values on .5 ties
+    round half to even in both versions."""
+    m, k, n = 1000, 16, 96
+    g = _gen(card, 5)
+    x = torch.randint(0, 256, (m, k), generator=g, device=card,
+                      dtype=torch.uint8)
+    w = torch.randint(-127, 128, (k, n), generator=g, device=card,
+                      dtype=torch.int8)
+    alpha = torch.tensor(2.0 ** -16, device=card)
+    b = (torch.arange(n, device=card) - n // 2 + 0.5) * alpha
+    step = 2.0 ** -7
+    lo = -127 * step if sym else -128 * step
+    spec = QuantSpec(bits=8, symmetric=sym)
+    qp = ops._qparams(torch.tensor(lo, device=card),
+                      torch.tensor(127 * step, device=card), spec)
+    zp = torch.tensor(117.0, device=card)
+    qk, mnk, mxk = mm.int8_matmul_fused_cuda(x, w, zp, alpha, b, qp, spec)
+    qr, mnr, mxr = mm.int8_matmul_fused_plain(x, w, zp, alpha, b, qp, spec)
+    torch.cuda.synchronize()
+    assert torch.equal(qk, qr)
+    assert torch.equal(mnk, mnr) and torch.equal(mxk, mxr)
+
+
+def test_int8_matmul_fused_op_launches_the_kernel(card):
+    """A CUDA tensor given to the public op launches the kernel."""
+    x = torch.randint(0, 256, (64, 32), device=card, dtype=torch.uint8)
+    w = torch.randint(-127, 128, (32, 16), device=card, dtype=torch.int8)
+    ops.reset_launch_counts()
+    q, _, _ = ops.int8_matmul_fused(x, w, 0.02, 117.0, 0.001, None, -1.0,
+                                    1.0)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["int8_matmul_fused"] == 1
+    assert q.is_cuda and q.shape == (64, 16) and q.dtype == torch.uint8
 
 
 ATTN_CASES = [
@@ -186,6 +253,7 @@ def test_reduced_serve_on_card_uses_every_kernel(card):
                                                "int8_matmul_fp",
                                                "int8_attention")), counts
             assert counts["stochastic_quantize"] == 0, counts
+            assert counts["int8_matmul_fused"] == 0, counts
         else:
             assert not any(counts.values()), counts
     torch.testing.assert_close(logits["fused"], logits["simulated"],
@@ -194,7 +262,8 @@ def test_reduced_serve_on_card_uses_every_kernel(card):
 
 def test_reduced_train_step_on_card_uses_every_kernel(card):
     """One forward + backward of the reduced model on the card: the fused
-    backend launches all four kernels, the simulated one none, and the two
+    backend launches all four kernels of the path (not the fused layer
+    kernel, which no model site calls), the simulated one none, and the two
     agree (tolerance: expf vs torch.exp may flip one requantized
     probability level, which the stochastic roundings below carry on)."""
     from repro_torch import configs
@@ -216,7 +285,11 @@ def test_reduced_train_step_on_card_uses_every_kernel(card):
             model.init_quant_state(cfg, device=card), batch, 0, 0)
         counts = ops.launch_counts()
         if backend == "fused":
-            assert all(c > 0 for c in counts.values()), counts
+            assert all(counts[k] > 0 for k in ("fused_quantize",
+                                               "stochastic_quantize",
+                                               "int8_matmul_fp",
+                                               "int8_attention")), counts
+            assert counts["int8_matmul_fused"] == 0, counts
         else:
             assert not any(counts.values()), counts
     (ls, gs, _, _), (lf, gf, _, _) = out["simulated"], out["fused"]

@@ -1,9 +1,12 @@
-"""Port vs reference: the plain versions of the three ported kernels against
-the JAX package's Pallas kernels (interpret mode, the ``ops`` default).
+"""Port vs reference: the plain versions of the ported kernels against the
+JAX package's Pallas kernels (interpret mode, the ``ops`` default) and its
+``ref`` oracles.
 
   * fused_quantize: integer images and min/max bit-exact;
   * int8_matmul_fp: ``y`` and min/max bit-exact (exact int32 contraction,
-    one fp32 multiply);
+    one fp32 multiply), at integer and non-integer zero points;
+  * int8_matmul_fused: ``q`` and min/max bit-exact against
+    ``ref.ref_int8_matmul_fused`` and the Pallas kernel, ties included;
   * attention: the schedule is identical; the running max ``m``, the
     min/max/clip/n statistics are exact; ``out``, ``l`` and err/sig are
     compared with a tolerance because XLA's and PyTorch's ``exp`` differ
@@ -20,9 +23,11 @@ import torch
 from repro.core.quant import QuantSpec as JSpec
 from repro.kernels import int8_attention as jattn
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro.kernels import tuning as jtuning
 from repro_torch.core.quant import QuantSpec as TSpec
 from repro_torch.kernels import int8_attention as tattn
+from repro_torch.kernels import int8_matmul as tmm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import tuning as ttuning
 
@@ -63,14 +68,22 @@ MM_CASES = [
     ("...k,kn->...n", (4, 1, 64), (64, 33)),
 ]
 
+# Every case at an integer zero point (what the paths give the kernel, since
+# `scale_zero_point` rounds it) and at non-integer ones, where the shift
+# round(128 - zp) is not 128 - zp.
+MM_ZP_CASES = [c + (117.0,) for c in MM_CASES] + [
+    c + (zp,) for c in MM_CASES for zp in (117.3, 0.5, 127.5)]
 
-@pytest.mark.parametrize("spec,xs,ws", MM_CASES,
-                         ids=[f"{c[0]}-{c[1]}" for c in MM_CASES])
-def test_int8_matmul_fp_plain_matches_jax(spec, xs, ws):
+
+@pytest.mark.parametrize(
+    "spec,xs,ws,zp", MM_ZP_CASES,
+    ids=[f"{c[0]}-{c[1]}" + ("" if c[3] == 117.0 else f"-zp{c[3]}")
+         for c in MM_ZP_CASES])
+def test_int8_matmul_fp_plain_matches_jax(spec, xs, ws, zp):
     rng = np.random.default_rng(len(xs) * 100 + xs[-1])
     xq = rng.integers(0, 256, xs, dtype=np.uint8)
     wq = rng.integers(-127, 128, ws, dtype=np.int8)
-    zp, alpha = np.float32(117.0), np.float32(3.1e-4)
+    zp, alpha = np.float32(zp), np.float32(3.1e-4)
     plan_j = jops.plan_einsum(spec, len(xs), len(ws))
     plan_t = tops.plan_einsum(spec, len(xs), len(ws))
     assert (plan_j.x_perm, plan_j.w_perm, plan_j.y_perm) == \
@@ -85,6 +98,128 @@ def test_int8_matmul_fp_plain_matches_jax(spec, xs, ws):
     _eq(yj, yt, "y")
     _eq(mnj, mnt, "min")
     _eq(mxj, mxt, "max")
+
+
+# ---------------------------------------------------------------------------
+# int8_matmul_fused — the paper's single-pass layer.
+# ---------------------------------------------------------------------------
+FUSED_SHAPES = [(1, 1, 1), (33, 70, 17), (96, 160, 80), (129, 300, 77),
+                (64, 16, 96)]
+FUSED_OUT = (-1.5, 2.0)      # the out grid's range: clips both tails
+
+
+def _fused_inputs(m, k, n, bias, seed):
+    rng = np.random.default_rng(seed)
+    xq = rng.integers(0, 256, (m, k), dtype=np.uint8)
+    wq = rng.integers(-127, 128, (k, n), dtype=np.int8)
+    b = (rng.standard_normal(n) * 0.5).astype(np.float32) if bias else None
+    # alpha ~ 1 / (sqrt(K) * std(x) * std(w)): y of unit order
+    x_scale = np.float32(0.02)
+    w_scale = np.float32(1.0 / (0.02 * 74.0 * 73.0 * np.sqrt(k)))
+    return xq, wq, x_scale, w_scale, b
+
+
+def _fused_jax(xq, wq, x_scale, x_zp, w_scale, b, lo, hi, sym):
+    return jref.ref_int8_matmul_fused(
+        jnp.asarray(xq), jnp.asarray(wq), jnp.float32(x_scale),
+        jnp.float32(x_zp), jnp.float32(w_scale),
+        None if b is None else jnp.asarray(b), jnp.float32(lo),
+        jnp.float32(hi), JSpec(bits=8, symmetric=sym))
+
+
+def _fused_torch(xq, wq, x_scale, x_zp, w_scale, b, lo, hi, sym):
+    return tops.int8_matmul_fused(
+        torch.from_numpy(xq), torch.from_numpy(wq), float(x_scale),
+        float(np.float32(x_zp)), float(w_scale),
+        None if b is None else torch.from_numpy(b), lo, hi,
+        out_spec=TSpec(bits=8, symmetric=sym))
+
+
+def _eq_fused(jout, tout, sym):
+    assert tout[0].dtype == (torch.int8 if sym else torch.uint8)
+    assert tuple(tout[0].shape) == tuple(jout[0].shape)
+    _eq(jout[0], tout[0], "q")
+    _eq(jout[1], tout[1], "min")
+    _eq(jout[2], tout[2], "max")
+
+
+@pytest.mark.parametrize("x_zp", [117.0, 117.3, 0.5])
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("sym", [False, True], ids=["asym", "sym"])
+@pytest.mark.parametrize("mkn", FUSED_SHAPES, ids=str)
+def test_int8_matmul_fused_plain_matches_ref(mkn, sym, bias, x_zp):
+    xq, wq, xs, ws, b = _fused_inputs(*mkn, bias, seed=sum(mkn) + bias)
+    jout = _fused_jax(xq, wq, xs, x_zp, ws, b, *FUSED_OUT, sym)
+    tout = _fused_torch(xq, wq, xs, x_zp, ws, b, *FUSED_OUT, sym)
+    _eq_fused(jout, tout, sym)
+    spec = TSpec(bits=8, symmetric=sym)
+    if mkn[0] * mkn[2] > 100:           # the range clips both tails
+        q = tout[0].to(torch.int32)
+        assert (q == spec.int_min).any() and (q == spec.int_max).any()
+
+
+@pytest.mark.parametrize("sym", [False, True], ids=["asym", "sym"])
+def test_int8_matmul_fused_plain_ties_match_ref(sym):
+    """Power-of-two scales put half the bias images and 1/512 of the
+    requantized values exactly on .5: both round half to even."""
+    m, k, n = 64, 16, 96
+    xq, wq, _, _, _ = _fused_inputs(m, k, n, False, seed=3)
+    xs = ws = np.float32(2.0 ** -8)                  # alpha = 2**-16
+    b = ((np.arange(n) - n // 2) + 0.5).astype(np.float32) * np.float32(
+        2.0 ** -16)
+    step = 2.0 ** -7                                 # out scale
+    lo, hi = (-128 * step, 127 * step) if not sym else (-127 * step,
+                                                        127 * step)
+    jout = _fused_jax(xq, wq, xs, 117.0, ws, b, lo, hi, sym)
+    tout = _fused_torch(xq, wq, xs, 117.0, ws, b, lo, hi, sym)
+    _eq_fused(jout, tout, sym)
+    v = (xq.astype(np.int64) - 117) @ wq.astype(np.int64) + np.round(
+        b / np.float32(2.0 ** -16)).astype(np.int64)
+    assert (v % 512 == 256).sum() > 0        # y / scale + zp on a tie
+
+
+FUSED_PALLAS_CASES = [((33, 70, 17), False, True, 117.3),
+                      ((129, 300, 77), True, False, 0.5),
+                      ((64, 16, 96), False, False, 117.0),
+                      ((1, 1, 1), True, True, 117.3),
+                      ((96, 160, 80), False, True, 0.5),
+                      ((96, 160, 80), True, True, 117.0)]
+
+
+@pytest.mark.parametrize("mkn,sym,bias,x_zp", FUSED_PALLAS_CASES,
+                         ids=[f"{c[0]}-{'sym' if c[1] else 'asym'}-"
+                              f"{'bias' if c[2] else 'nobias'}-zp{c[3]}"
+                              for c in FUSED_PALLAS_CASES])
+def test_int8_matmul_fused_plain_matches_pallas(mkn, sym, bias, x_zp):
+    """Against the reference's public op, its Pallas kernel in interpret
+    mode (the block does not change its result)."""
+    xq, wq, xs, ws, b = _fused_inputs(*mkn, bias, seed=sum(mkn) + bias)
+    jout = jops.int8_matmul_fused(
+        jnp.asarray(xq), jnp.asarray(wq), xs, np.float32(x_zp), ws,
+        None if b is None else jnp.asarray(b), *FUSED_OUT,
+        out_spec=JSpec(bits=8, symmetric=sym), block=(128, 128, 128))
+    tout = tops.int8_matmul_fused(
+        torch.from_numpy(xq), torch.from_numpy(wq), torch.tensor(xs),
+        torch.tensor(np.float32(x_zp)), torch.tensor(ws),
+        None if b is None else torch.from_numpy(b),
+        torch.tensor(FUSED_OUT[0]), torch.tensor(FUSED_OUT[1]),
+        out_spec=TSpec(bits=8, symmetric=sym))
+    _eq_fused(jout, tout, sym)
+
+
+def test_int8_matmul_fused_cuda_wrapper_rejects_cpu_tensors():
+    """The fused launcher refuses what is not on the card, and the op
+    refuses operands on different devices (no silent fallback)."""
+    x = torch.zeros((4, 8), dtype=torch.uint8)
+    w = torch.zeros((8, 3), dtype=torch.int8)
+    one = torch.tensor(1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        tmm.int8_matmul_fused_cuda(x, w, one, one, None,
+                                   torch.tensor([1.0, 0.0]),
+                                   TSpec(bits=8, symmetric=False))
+    with pytest.raises(ValueError, match="CPU or all on a CUDA"):
+        tops.int8_matmul_fused(x, w, 1.0, 128.0, 1.0,
+                               torch.zeros(3, device="meta"), -1.0, 1.0)
 
 
 # ---------------------------------------------------------------------------
