@@ -38,13 +38,20 @@ The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises (exit code != 0)
 and prints no result; so does a machine without a CUDA card.
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--phases 1-3]
+
+``--phases`` runs only the named phases (a list of numbers and ranges,
+e.g. ``1-3`` to build and check the kernels without serve and train);
+phase 1 always runs, and 5-6 bring 4 along, whose serve run they reuse.
+Kernels whose path phases did not run report ``"launches": null``.  The
+default is all nine.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -64,10 +71,12 @@ FP32_OPS = 67e12
 PROMPT, GEN, BATCH = 1024, 32, 4
 TRAIN_STEPS, PARITY_LAYERS, LAYER_STEPS = 3, 4, 4
 
-# The kernels each path launches.
-SERVE_KERNELS = ("fused_quantize", "int8_matmul_fp", "int8_attention")
+# The kernels each path launches (the int8 matmuls' wrappers launch the
+# weight's K-major transpose first).
+SERVE_KERNELS = ("fused_quantize", "int8_transpose", "int8_matmul_fp",
+                 "int8_attention")
 TRAIN_KERNELS = SERVE_KERNELS + ("stochastic_quantize",)
-LAYER_KERNELS = ("int8_matmul_fused",)
+LAYER_KERNELS = ("int8_transpose", "int8_matmul_fused")
 
 
 def log(phase: str, msg: str) -> None:
@@ -77,9 +86,15 @@ def log(phase: str, msg: str) -> None:
 def time_ms(fn, reps: int, warmup: int = 1, keep: bool = False) -> float:
     """Mean device time of ``fn`` over ``reps`` back-to-back calls.  With
     ``keep``, every call's outputs stay allocated until the end, so no call
-    writes into memory the previous one left in L2."""
+    writes into memory the previous one left in L2; a first untimed round
+    of ``reps`` kept calls fills PyTorch's allocator cache, so the timed
+    round allocates no device memory (a cudaMalloc would be timed too)."""
     for _ in range(warmup):
         fn()
+    if keep:
+        kept = [fn() for _ in range(reps)]
+        torch.cuda.synchronize()
+        del kept
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -93,6 +108,19 @@ def time_ms(fn, reps: int, warmup: int = 1, keep: bool = False) -> float:
     torch.cuda.synchronize()
     del kept
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn``'s launches, captured once in a CUDA graph
+    and replayed ``reps`` times: no host time between launches."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = time_ms(graph.replay, reps)
+    del graph
+    return ms
 
 
 def bound(nbytes: float, ops: float, peak_ops: float):
@@ -279,13 +307,18 @@ def check_int8_matmul(dev, gen, cfg):
                    f"M={BATCH}, the LM-head chunk M={BATCH * cfg.loss_chunk}"
                    f" N={cfg.vocab} and x_zp 117.3")
     zp = torch.tensor(117.0, device=dev)
-    # Timed at the MLP up projection [4096, 3072] x [3072, 12288].
+    # Timed at the MLP up projection [4096, 3072] x [3072, 12288]: the
+    # wrapper (the weight's K-major transpose, then the matmul), and the
+    # matmul alone on staged operands.
     m, k, n = BATCH * PROMPT, d, f
     x = torch.randint(0, 256, (1, m, k), generator=gen, device=dev,
                       dtype=torch.uint8)
     w = torch.randint(-127, 128, (1, k, n), generator=gen, device=dev,
                       dtype=torch.int8)
     ms = time_ms(lambda: mm.int8_matmul_fp_cuda(x, w, zp, alpha), 10)
+    xk, wk = mm.stage_operands(x, w)
+    kernel_ms = time_ms(lambda: mm.int8_matmul_fp_cuda_staged(
+        xk, wk, zp, alpha), 10)
     plain_ms = time_ms(lambda: mm.int8_matmul_fp_plain(x, w, zp, alpha), 3)
     xs = (x[0].to(torch.int16) - 128).to(torch.int8)
     try:   # yardstick only: one library call, the int8 GEMM alone
@@ -294,6 +327,29 @@ def check_int8_matmul(dev, gen, cfg):
         log("kernels", f"torch._int_mm yardstick unavailable: {e}")
         lib_ms = None
     b_ms, b_by = bound(m * k + k * n + 4 * m * n, 2 * m * n * k, INT8_OPS)
+    log("kernels", f"int8_matmul_fp at up [{m}, {k}, {n}]: {ms:.4f} ms with "
+                   f"the weight's transpose, {kernel_ms:.4f} ms on staged "
+                   f"operands (bound {b_ms:.4f}, {b_by}); torch._int_mm "
+                   f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'} ms")
+    del xk, wk
+    # Decode: the up projection at M = 4 (bound by the weight's bytes).
+    xd = torch.randint(0, 256, (1, BATCH, k), generator=gen, device=dev,
+                       dtype=torch.uint8)
+    decode_ms = time_ms(lambda: mm.int8_matmul_fp_cuda(xd, w, zp, alpha), 20)
+    decode_device_ms = graph_ms(
+        lambda: mm.int8_matmul_fp_cuda(xd, w, zp, alpha), 20)
+    xk, wk = mm.stage_operands(xd, w)
+    decode_kernel_ms = graph_ms(lambda: mm.int8_matmul_fp_cuda_staged(
+        xk, wk, zp, alpha), 20)
+    decode_bound, decode_by = bound(BATCH * k + k * n + 4 * BATCH * n,
+                                    2 * BATCH * n * k, INT8_OPS)
+    log("kernels", f"int8_matmul_fp at decode up [{BATCH}, {k}, {n}]: "
+                   f"{decode_ms:.4f} ms back to back (host-bound); device "
+                   f"time from a CUDA graph {decode_device_ms:.4f} ms, of "
+                   f"which the matmul on staged operands "
+                   f"{decode_kernel_ms:.4f} ms (bound {decode_bound:.4f} ms, "
+                   f"{decode_by})")
+    del xk, wk
     # Also timed at the training loss's LM-head chunk [2048, 3072, 49152].
     hm, hn = BATCH * cfg.loss_chunk, cfg.vocab
     xh = torch.randint(0, 256, (1, hm, k), generator=gen, device=dev,
@@ -310,7 +366,45 @@ def check_int8_matmul(dev, gen, cfg):
                 replaces="src/repro/kernels/int8_matmul.py:139",
                 shape=[m, k, n], max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                head_ms=head_ms, head_bound_ms=head_bound)
+                kernel_ms=kernel_ms, decode_ms=decode_ms,
+                decode_device_ms=decode_device_ms,
+                decode_kernel_ms=decode_kernel_ms,
+                decode_bound_ms=decode_bound, head_ms=head_ms,
+                head_bound_ms=head_bound)
+
+
+def check_int8_transpose(dev, gen, cfg):
+    """The int8 matmuls' weight staging: w [K, N] -> its K-major image,
+    exact at every projection's weight shape, timed at the up weight."""
+    from repro_torch.kernels import int8_matmul as mm
+
+    d, f, hd, nkv, v = cfg.d_model, cfg.d_ff, cfg.head_dim, cfg.n_kv, cfg.vocab
+    shapes = [("q/o", d, d), ("k/v", d, nkv * hd), ("up", d, f),
+              ("down", f, d), ("head", d, v), ("ragged", 3001, 77)]
+    for what, k, n in shapes:
+        w = torch.randint(-127, 128, (1, k, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+        if not torch.equal(mm.weight_kmajor_cuda(w),
+                           mm.weight_kmajor_plain(w)):
+            raise AssertionError(f"int8_transpose {what} [{k}, {n}] differs "
+                                 f"from its plain version")
+    log("kernels", f"int8_transpose: {len(shapes)} weight shapes bit-exact: "
+                   + ", ".join(f"{s_[0]} [{s_[1]}, {s_[2]}]"
+                               for s_ in shapes))
+    k, n = d, f
+    w = torch.randint(-127, 128, (1, k, n), generator=gen, device=dev,
+                      dtype=torch.int8)
+    ms = time_ms(lambda: mm.weight_kmajor_cuda(w), 20)
+    plain_ms = time_ms(lambda: mm.weight_kmajor_plain(w), 5)
+    lib_ms = time_ms(lambda: w.mT.contiguous(), 5)   # one PyTorch call
+    b_ms, b_by = bound(2 * k * n, 0, INT8_OPS)
+    return dict(name="int8_transpose", route="cuda",
+                source="src/repro_torch/csrc/int8_matmul.cu",
+                # no TPU counterpart (the MXU takes either layout): the
+                # operand staging of the int8 matmuls' port
+                replaces="src/repro/kernels/int8_matmul.py:139",
+                shape=[k, n], max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
 
 def _fused_bounds(m, k, n):
@@ -626,6 +720,8 @@ def train_phase(cfg) -> dict:
 KERNEL_FAMILIES = (   # (family, substrings of the kernel name), first match
     ("int8_matmul_fp (ours)", ("int8_matmul_fp_kernel",)),
     ("int8_matmul_fused (ours)", ("int8_matmul_fused_kernel",)),
+    ("int8_transpose (ours: the matmuls' K-major weight)",
+     ("int8_transpose_kernel",)),
     ("int8_attention (ours)", ("int8_attention_kernel",)),
     ("fused_quantize (ours)", ("fused_quantize_kernel",)),
     ("stochastic_quantize (ours)", ("stochastic_quantize_kernel",)),
@@ -828,10 +924,11 @@ def fused_layer_phase(cfg, dev) -> dict:
         clips.append((c_up, c_down))
     counts = ops.launch_counts()
     expect = 2 * LAYER_STEPS + 2                 # + step 0's first passes
-    if counts["int8_matmul_fused"] != expect or any(
+    if any(counts[k] != expect for k in LAYER_KERNELS) or any(
             counts[k] for k in counts if k not in LAYER_KERNELS):
         raise AssertionError(f"fused layer path launches {counts}, "
-                             f"expected {expect} of int8_matmul_fused only")
+                             f"expected {expect} of each of {LAYER_KERNELS} "
+                             f"only")
     if not all(checks):
         raise AssertionError(f"fused layer path: kernel vs plain {checks}")
     if out.shape != (m, d) or out.dtype != torch.uint8:
@@ -854,61 +951,13 @@ def fused_layer_phase(cfg, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default="",
-                    help="also write the detailed results as JSON here")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 1
-
-    from repro_torch import configs
-    from repro_torch.core import qlinear
-    from repro_torch.core.state import tree_map_with_path
-    from repro_torch.kernels import build, ops
+# Phases 4-6: the serving path.
+# ---------------------------------------------------------------------------
+def serve_phases(cfg, dev, records, results, run_phase) -> None:
+    """Phase 4, serve, and the phases that reuse its run: 5 (the static
+    path) and 6 (prefill parity)."""
+    from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    from repro_torch.models import model
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-    results: dict = {}
-
-    # 1. device
-    kind = torch.cuda.get_device_name(0)
-    count = torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip()
-    print(smi, flush=True)
-    log("device", f"{kind} x{count}; torch {torch.__version__} "
-                  f"cuda {torch.version.cuda}")
-    results["device"] = dict(kind=kind, count=count, smi=smi)
-
-    # 2. build
-    t0 = time.perf_counter()
-    built = build.build_all()
-    for name, (path, secs, out) in built.items():
-        regs = [ln.strip() for ln in out.splitlines() if "registers" in ln]
-        log("build", f"{name}: {secs:.1f} s; {' | '.join(regs) or out}")
-    log("build", f"all kernels built in {time.perf_counter() - t0:.1f} s")
-
-    # 3. kernels at the slice's shapes
-    cfg = configs.get("starcoder2-3b")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    records = [check_fused_quantize(dev, gen, cfg),
-               check_stochastic_quantize(dev, gen, cfg),
-               check_int8_matmul(dev, gen, cfg),
-               check_int8_matmul_fused(dev, gen, cfg),
-               check_attention(dev, gen, cfg)]
-    for r in records:
-        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        log("kernels", f"{r['name']} {r['shape']}: {r['ms']:.4f} ms, bound "
-                       f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
-                       f"{r['plain_ms']:.4f} ms, library {lib} ms")
-    torch.cuda.empty_cache()
 
     # 4. serve, full width, fused backend
     argv_serve = ["--arch", "starcoder2-3b", "--batch", str(BATCH),
@@ -935,8 +984,23 @@ def main(argv=None) -> int:
     for r in records:
         r["serve_launches"] = counts[r["name"]]
 
-    # 5. static path: every activation leaf initialized, single pass
     policy = run.policy
+    if run_phase(5):
+        static_phase(run, policy, results)
+    if run_phase(6):
+        parity_phase(run, policy, dev, results)
+    del run
+    torch.cuda.empty_cache()
+
+
+def static_phase(run, policy, results) -> None:
+    """Phase 5: one prefill's statistics folded into the quant state, then
+    served again on the single-pass hindsight branch."""
+    from repro_torch.core import qlinear
+    from repro_torch.core.state import tree_map_with_path
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
     full = {"decoder": run.prefill_stats["decoder"],
             "head": qlinear.zero_stats_like(run.quant_state["head"])}
     quant = qlinear.update_quant_state(policy, run.quant_state, full)
@@ -961,7 +1025,12 @@ def main(argv=None) -> int:
                              decode_tok_s=run2.decode_tok_s,
                              launches=counts2)
 
-    # 6. fused vs simulated prefill logits, same params and prompt
+
+def parity_phase(run, policy, dev, results) -> None:
+    """Phase 6: fused vs simulated prefill logits, same params and prompt."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+
     sim = policy.with_backend("simulated")
     ops.reset_launch_counts()
     logits_sim, _ = model.prefill(run.params,
@@ -984,25 +1053,117 @@ def main(argv=None) -> int:
                   f"max |d| {d_max:.3e}, {same:.6f} identical (tolerance: "
                   f"rel L2 <= 1e-2, max |d| <= 0.1)")
     results["parity"] = dict(rel_l2=rel, max_abs=d_max, identical=same)
-    del run, run2, quant, full, logits_sim, a, b
-    torch.cuda.empty_cache()
 
-    # 7. train, full width and depth, fused backend
-    results["train"] = train_phase(cfg)
+
+# ---------------------------------------------------------------------------
+def parse_phases(spec: str) -> set:
+    """``"1-3,9"`` -> ``{1, 2, 3, 9}``; phase 1 always, 4 with 5 or 6."""
+    phases = {1}
+    for part in spec.split(","):
+        lo, _, hi = part.strip().partition("-")
+        phases.update(range(int(lo), int(hi or lo) + 1))
+    if not phases <= set(range(1, 10)):
+        raise argparse.ArgumentTypeError(f"phases are 1-9, got {spec!r}")
+    if phases & {5, 6}:
+        phases.add(4)
+    return phases
+
+
+def imma_count(lib: Path):
+    """The count of IMMA (integer tensor-core MMA) instructions in a built
+    library's SASS, or None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    return sum(1 for ln in sass.splitlines() if "IMMA" in ln)
+
+
+# ---------------------------------------------------------------------------
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="",
+                    help="also write the detailed results as JSON here")
+    ap.add_argument("--phases", type=parse_phases, default="1-9",
+                    help="phases to run, e.g. 1-3 or 1,2,3,9 (default all)")
+    args = ap.parse_args(argv)
+    run_phase = args.phases.__contains__
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+
+    from repro_torch import configs
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    results: dict = {}
+
+    # 1. device
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    print(smi, flush=True)
+    log("device", f"{kind} x{count}; torch {torch.__version__} "
+                  f"cuda {torch.version.cuda}")
+    results["device"] = dict(kind=kind, count=count, smi=smi)
+
+    # 2. build
+    if run_phase(2):
+        t0 = time.perf_counter()
+        built = build.build_all()
+        for name, (path, secs, out) in built.items():
+            regs = [ln.strip() for ln in out.splitlines()
+                    if "registers" in ln]
+            log("build", f"{name}: {secs:.1f} s; {' | '.join(regs) or out}")
+            imma = imma_count(path)
+            log("build", f"{name}: "
+                         + ("no cuobjdump in the toolkit" if imma is None
+                            else f"{imma} IMMA instructions in the SASS"))
+        log("build", f"all kernels built in {time.perf_counter() - t0:.1f} s")
+
+    # 3. kernels at the slice's shapes
+    cfg = configs.get("starcoder2-3b")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    records = []
+    if run_phase(3):
+        records = [check_fused_quantize(dev, gen, cfg),
+                   check_stochastic_quantize(dev, gen, cfg),
+                   check_int8_transpose(dev, gen, cfg),
+                   check_int8_matmul(dev, gen, cfg),
+                   check_int8_matmul_fused(dev, gen, cfg),
+                   check_attention(dev, gen, cfg)]
     for r in records:
-        r["launches"] = r["train_launches"] = \
-            results["train"]["launches"][r["name"]]
+        r["launches"] = None        # set by the path phases that run
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        log("kernels", f"{r['name']} {r['shape']}: {r['ms']:.4f} ms, bound "
+                       f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+                       f"{r['plain_ms']:.4f} ms, library {lib} ms")
     torch.cuda.empty_cache()
-
-    # 8. fused vs simulated forward + backward, same params/batch/noise
-    results["train_parity"] = train_parity_phase(cfg, dev)
-    torch.cuda.empty_cache()
-
-    # 9. the fused layer path: its kernel's launches are this run's
-    results["fused_layers"] = fused_layer_phase(cfg, dev)
-    for r in records:
-        if r["name"] in LAYER_KERNELS:
-            r["launches"] = results["fused_layers"]["launches"][r["name"]]
+    if run_phase(4):
+        serve_phases(cfg, dev, records, results, run_phase)
+    if run_phase(7):
+        # 7. train, full width and depth, fused backend
+        results["train"] = train_phase(cfg)
+        for r in records:
+            r["launches"] = r["train_launches"] = \
+                results["train"]["launches"][r["name"]]
+        torch.cuda.empty_cache()
+    if run_phase(8):
+        # 8. fused vs simulated forward + backward, same params/batch/noise
+        results["train_parity"] = train_parity_phase(cfg, dev)
+        torch.cuda.empty_cache()
+    if run_phase(9):
+        # 9. the fused layer path: its kernel's launches are this run's
+        results["fused_layers"] = fused_layer_phase(cfg, dev)
+        for r in records:   # the fused kernel is on this path alone
+            if r["name"] in LAYER_KERNELS and not r["launches"]:
+                r["launches"] = results["fused_layers"]["launches"][r["name"]]
 
     kernels = [{k: r[k] for k in ("name", "route", "source", "replaces",
                                   "launches", "max_abs_err", "ms", "plain_ms",

@@ -10,42 +10,76 @@
 //                      epilogue (Fig. 2/3), the int8 image out.
 //
 // For every batch slice b:
-//     acc[m, n]  = sum_k (x[m, k] - 128) * w[k, n]            (exact int32)
-//     corr[n]    = round(128 - zp_x) * colsum_w[n]  (+ round(bias[n] / alpha))
+//     acc[m, n]  = sum_k x[m, k] * w[k, n]          (u8 x s8, exact int32)
+//     corr[n]    = (round(128 - zp_x) - 128) * colsum_w[n]
+//                  (+ round(bias[n] / alpha))
 //     y[m, n]    = alpha * float(acc + corr)                 (one rounding)
-// which is exactly alpha * sum_k (x - zp_x) * w (+ the int32 image of the
-// bias), the reference's integer contraction and its single fp32 rounding.
-// The fused epilogue then requantizes y statically onto the in-hindsight
-// grid of the next site, q = clamp(rint(y / scale + zp), int_min, int_max),
-// and writes the byte (uint8 asymmetric / int8 symmetric, no -128 shift).
+// acc + corr is the integer (x - 128) . w + round(128 - zp_x) * colsum_w
+// (+ the int32 image of the bias) of the reference, rewritten: the same
+// int32, so one fp32 rounding gives the reference's y bit for bit.  The
+// fused epilogue then requantizes y statically onto the in-hindsight grid
+// of the next site, q = clamp(rint(y / scale + zp), int_min, int_max), and
+// writes the byte (uint8 asymmetric / int8 symmetric, no -128 shift).
 // Both emit per-block (min, max) partials of y for the wrapper to reduce.
 //
-// x arrives as uint8 on the asymmetric [0, 255] grid; it is moved onto the
-// signed grid while the tile is staged in shared memory (u8 ^ 0x80 ==
-// u8 - 128 as s8), so the products run on signed __dp4a.
+// Operands, as the wrapper stages them: x u8 [B, M, K], w s8 [B, N, K]
+// (K-major: mma's B operand is K-contiguous), K zero-padded to a multiple
+// of 16 in both, so every 16-byte chunk of a row is a whole cp.async copy.
+// The third kernel here, int8_transpose, writes that weight image from the
+// [B, K, N] the weight sites produce (64 x 64 byte tiles through shared
+// memory, 16-byte loads and stores; bound by bytes).
+//
+// Main loop: the tensor cores through warp-level
+// mma.sync.m16n8k32.s32.u8.s8 (mma_int8.cuh), u8 activations fed as they
+// are.  A block computes a 128 x 128 output tile with 8 warps of 64 x 32;
+// K advances in 128-byte slabs through a 3-stage cp.async ring in dynamic
+// shared memory (96 KB), rows XOR-swizzled in 16-byte chunks so the
+// ldmatrix fragment loads and the cp.async stores are free of bank
+// conflicts.  Each thread also sums half a weight row of every slab with
+// __dp4a for the column sums.  The int32 contraction is exact in any
+// order, so the tile schedule cannot change a result.
 //
 // Bound on the H100: int8 operations at the LM shapes (M = 4096 prefill),
 // bytes at decode (M = 4) and at the CNN layers of the paper's Table 5 as
-// im2col products (K = 16..2304, N = 64..256).  The fused epilogue writes
-// 1 B per output element where the two-pass route (int8_matmul_fp, then
-// fused_quantize) writes 4, reads them back and writes 1: at MobileNetV2's
-// 1x1 16 -> 96 layer that is ~45 MB against ~353 MB of device traffic.
-// This first version is deliberately simple: 128 x 128 output tiles,
-// 32-byte K slices staged in padded shared memory (conflict-free row
-// strides), the weight slice transposed on the way in so both operands are
-// K-contiguous 32-bit words, and each of the 256 threads accumulating an
-// 8 x 8 block with __dp4a (4 MACs/instruction).  It reaches a fraction of
-// the tensor-core rate; wgmma + TMA come later, in this shared main loop.
+// im2col products (K = 16..2304, N = 64..256).  What bounds this kernel is
+// the warp-level MMA: mma.sync reaches only part of Hopper's int8
+// tensor-core rate, and its register fragments cost shared-memory
+// bandwidth (each warp of a 64 x 32 tile reloads the A rows its three
+// neighbours load too; by the count of 16-byte wavefronts the loop keeps
+// shared memory two thirds to three quarters busy at the LM shapes).  The full rate needs the
+// asynchronous warpgroup MMA (wgmma), which reads its operands from shared
+// memory in the tensor cores.  mma.sync came first because its fragments
+// are register-level and the epilogues carry over unchanged; the next
+// step is wgmma + TMA loads + a persistent, warp-specialised schedule in
+// this same shared main loop, with weight sites that write the K-major
+// image directly in place of the transpose.
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
 
+#include "mma_int8.cuh"
+
 namespace {
 
-constexpr int kBM = 128, kBN = 128, kBK = 32;
+using namespace mma_int8;
+
+constexpr int kBM = 128, kBN = 128, kBK = 128;
 constexpr int kThreads = 256;
-constexpr int kKI = kBK / 4;  // 32-bit words per K slice row
-constexpr int kLds = kKI + 1;  // padded row stride in words
+constexpr int kStages = 3;
+constexpr int kTileBytes = kBM * kBK;            // one operand's slab
+constexpr int kStageBytes = 2 * kTileBytes;      // x slab, then w slab
+constexpr int kSmemBytes = kStages * kStageBytes;
+constexpr int kOutLd = kBN + 16;                 // byte-staging row stride
+static_assert(kBM == kBN, "one slab layout serves both operands");
+static_assert(kBM * kOutLd <= kSmemBytes, "byte staging fits the ring");
+
+// Byte offset of 16-byte chunk c (0..7) of slab row r: chunks XOR-swizzled
+// by r % 8, so 8 consecutive rows at one chunk (an ldmatrix read) and the
+// 8 chunks of one row (a cp.async write) fall in 8 distinct 16-byte bank
+// groups.
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * kBK + ((c ^ (r & 7)) << 4);
+}
 
 // The requant registers of the fused epilogue.
 struct Requant {
@@ -54,6 +88,29 @@ struct Requant {
   int int_min, int_max;
 };
 
+// Start the cp.async copies of K slab kt (x rows i0.., w rows j0..) into
+// one stage; rows past M / N and chunks past K are zero-filled.
+__device__ __forceinline__ void load_slab(uint8_t* stage,
+                                          const uint8_t* __restrict__ x,
+                                          const int8_t* __restrict__ w, int i0,
+                                          int j0, int M, int N, int K, int kt,
+                                          int t) {
+  const uint32_t xs = smem_addr(stage), ws = smem_addr(stage + kTileBytes);
+#pragma unroll
+  for (int i = 0; i < kBM * (kBK / 16) / kThreads; ++i) {
+    const int e = t + i * kThreads, r = e / (kBK / 16), c = e % (kBK / 16);
+    const int gk = kt * kBK + 16 * c;
+    const bool kin = gk < K;
+    const bool xin = kin && i0 + r < M, win = kin && j0 + r < N;
+    cp_async_16(xs + swz(r, c),
+                xin ? x + static_cast<long long>(i0 + r) * K + gk : x,
+                xin ? 16 : 0);
+    cp_async_16(ws + swz(r, c),
+                win ? w + static_cast<long long>(j0 + r) * K + gk : w,
+                win ? 16 : 0);
+  }
+}
+
 // One block's 128 x 128 output tile: the main loop, then the epilogue that
 // kRequant selects (fp32 y, or the requantized byte).
 template <bool kRequant>
@@ -61,86 +118,92 @@ __device__ __forceinline__ void int8_matmul_tile(
     const uint8_t* __restrict__ x, const int8_t* __restrict__ w,
     void* __restrict__ out, float* __restrict__ partials,
     const float* __restrict__ alpha_p, const float* __restrict__ zp_p,
-    const Requant& rq, int M, int K, int N, int x_words) {
-  __shared__ int xs[kBM * kLds];
-  __shared__ int ws[kBN * kLds];
+    const Requant& rq, int M, int K, int N) {
+  extern __shared__ __align__(128) uint8_t smem[];
   __shared__ int corr[kBN];
   __shared__ float red[2 * kThreads / 32];
 
   const int b = blockIdx.z;
   const int i0 = blockIdx.y * kBM, j0 = blockIdx.x * kBN;
   x += static_cast<long long>(b) * M * K;
-  w += static_cast<long long>(b) * K * N;
+  w += static_cast<long long>(b) * N * K;
   const long long out_base = static_cast<long long>(b) * M * N;
-  const int t = threadIdx.x, tx = t % 16, ty = t / 16;
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const int wm = warp >> 2, wn = warp & 3;   // warp tile rows wm*64, cols wn*32
+  const int g = lane >> 2, tq = lane & 3;
 
   // ---- main loop (shared by both epilogues) ----
-  int acc[8][8];
+  int acc[4][4][4];
 #pragma unroll
-  for (int r = 0; r < 8; ++r)
+  for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0;
-  int csum = 0;
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0;
+  int csum = 0;   // column t / 2 of the tile, over K-half t % 2 of each slab
 
-  int8_t* wsb = reinterpret_cast<int8_t*>(ws);
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    // x slice [kBM][kBK] -> signed words.  Bytes past K are paired with
-    // zero weights, so their value does not matter.
-    for (int e = t; e < kBM * kKI; e += kThreads) {
-      const int r = e / kKI, c4 = e % kKI;
-      const int gr = i0 + r, gk = k0 + 4 * c4;
-      uint32_t v = 0;
-      if (gr < M) {
-        const uint8_t* src = x + static_cast<long long>(gr) * K + gk;
-        if (x_words && gk + 3 < K) {
-          v = *reinterpret_cast<const uint32_t*>(src);
-        } else {
-          for (int bb = 0; bb < 4; ++bb)
-            if (gk + bb < K) v |= static_cast<uint32_t>(src[bb]) << (8 * bb);
-        }
-      }
-      xs[r * kLds + c4] = static_cast<int>(v ^ 0x80808080u);
-    }
-    // w slice [kBK][kBN] -> transposed [kBN][kBK] bytes, zero past K / N.
-    for (int e = t; e < kBK * kBN; e += kThreads) {
-      const int kk = e / kBN, n = e % kBN;
-      const int gk = k0 + kk, gn = j0 + n;
-      int8_t v = 0;
-      if (gk < K && gn < N) v = w[static_cast<long long>(gk) * N + gn];
-      wsb[n * kLds * 4 + kk] = v;
-    }
-    __syncthreads();
-
-    if (t < kBN) {
+  const int KT = (K + kBK - 1) / kBK;
 #pragma unroll
-      for (int kk = 0; kk < kKI; ++kk)
-        csum = __dp4a(ws[t * kLds + kk], 0x01010101, csum);
-    }
-#pragma unroll
-    for (int kk = 0; kk < kKI; ++kk) {
-      int a[8], bv[8];
-#pragma unroll
-      for (int r = 0; r < 8; ++r) a[r] = xs[(ty + 16 * r) * kLds + kk];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) bv[c] = ws[(tx + 16 * c) * kLds + kk];
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = __dp4a(a[r], bv[c], acc[r][c]);
-    }
-    __syncthreads();
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < KT) load_slab(smem + s * kStageBytes, x, w, i0, j0, M, N, K, s, t);
+    cp_async_commit();
   }
+  // Per-lane ldmatrix rows and chunk offsets (see mma_int8.cuh).
+  const int a_row = wm * 64 + (lane & 15), a_chunk = lane >> 4;
+  const int b_row = wn * 32 + (lane & 7) + 8 * (lane >> 4);
+  const int b_chunk = (lane >> 3) & 1;
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int nt = kt + kStages - 1;
+    if (nt < KT)
+      load_slab(smem + (nt % kStages) * kStageBytes, x, w, i0, j0, M, N, K,
+                nt, t);
+    cp_async_commit();
+
+    const uint8_t* xs = smem + (kt % kStages) * kStageBytes;
+    const uint8_t* ws = xs + kTileBytes;
+#pragma unroll
+    for (int h = 0; h < kBK / 32; ++h) {
+      const int c = (t & 1) * (kBK / 32) + h;
+      const uint4 v = *reinterpret_cast<const uint4*>(ws + swz(t >> 1, c));
+      csum = __dp4a(static_cast<int>(v.x), 0x01010101, csum);
+      csum = __dp4a(static_cast<int>(v.y), 0x01010101, csum);
+      csum = __dp4a(static_cast<int>(v.z), 0x01010101, csum);
+      csum = __dp4a(static_cast<int>(v.w), 0x01010101, csum);
+    }
+    const uint32_t xs_a = smem_addr(xs), ws_a = smem_addr(ws);
+#pragma unroll
+    for (int ks = 0; ks < kBK / 32; ++ks) {
+      uint32_t af[4][4], bf[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+        ldmatrix_x4(af[mi], xs_a + swz(a_row + 16 * mi, 2 * ks + a_chunk));
+#pragma unroll
+      for (int np = 0; np < 2; ++np)
+        ldmatrix_x4(bf[np], ws_a + swz(b_row + 16 * np, 2 * ks + b_chunk));
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          mma_u8s8(acc[mi][ni], af[mi], bf[ni >> 1][2 * (ni & 1)],
+                   bf[ni >> 1][2 * (ni & 1) + 1]);
+    }
+  }
+  cp_async_wait<0>();
 
   // ---- epilogue: the integer correction of each column, in int32 ----
+  csum += __shfl_xor_sync(0xffffffffu, csum, 1);
   const float alpha = *alpha_p;
   const int shift = static_cast<int>(rintf(__fsub_rn(128.f, *zp_p)));
-  if (t < kBN) {
+  if ((t & 1) == 0) {
+    const int col = t >> 1;
     int bias_i = 0;
-    if (kRequant && rq.bias != nullptr && j0 + t < N)
-      bias_i = static_cast<int>(rintf(__fdiv_rn(rq.bias[j0 + t], alpha)));
-    corr[t] = shift * csum + bias_i;
+    if (kRequant && rq.bias != nullptr && j0 + col < N)
+      bias_i = static_cast<int>(rintf(__fdiv_rn(rq.bias[j0 + col], alpha)));
+    corr[col] = (shift - 128) * csum + bias_i;
   }
-  __syncthreads();
+  __syncthreads();   // corr is set, and the ring is free for byte staging
 
   float scale = 1.f, zp_out = 0.f;
   if (kRequant) {
@@ -149,29 +212,73 @@ __device__ __forceinline__ void int8_matmul_tile(
   }
   const float qlo = static_cast<float>(rq.int_min);
   const float qhi = static_cast<float>(rq.int_max);
+  const bool pairs = (N % 2) == 0;   // float2 stores stay 8-byte aligned
   float mn = FLT_MAX, mx = -FLT_MAX;
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int row = i0 + ty + 16 * r;
+  for (int mi = 0; mi < 4; ++mi) {
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int col = j0 + tx + 16 * c;
-      if (row < M && col < N) {
-        const int v = acc[r][c] + corr[tx + 16 * c];
-        const float f = __fmul_rn(alpha, __int2float_rn(v));
-        const long long idx = out_base + static_cast<long long>(row) * N + col;
+    for (int h = 0; h < 2; ++h) {
+      const int row_l = wm * 64 + 16 * mi + g + 8 * h;
+      const int row = i0 + row_l;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int col_l = wn * 32 + 8 * ni + 2 * tq;
+        const int col = j0 + col_l;
+        const float f0 = __fmul_rn(
+            alpha, __int2float_rn(acc[mi][ni][2 * h] + corr[col_l]));
+        const float f1 = __fmul_rn(
+            alpha, __int2float_rn(acc[mi][ni][2 * h + 1] + corr[col_l + 1]));
+        const bool in0 = row < M && col < N, in1 = row < M && col + 1 < N;
         if (kRequant) {
           // round half to even (rintf), like torch.round / jnp.round; the
-          // low byte of the int is the uint8 or int8 image.
-          float q = rintf(__fadd_rn(__fdiv_rn(f, scale), zp_out));
-          q = fminf(fmaxf(q, qlo), qhi);
-          static_cast<uint8_t*>(out)[idx] =
-              static_cast<uint8_t>(static_cast<int>(q));
-        } else {
-          static_cast<float*>(out)[idx] = f;
+          // low byte of the int is the uint8 or int8 image.  Outside the
+          // matrix nothing is stored, so nothing is divided.
+          int q0 = 0, q1 = 0;
+          if (in0)
+            q0 = static_cast<int>(fminf(fmaxf(rintf(__fadd_rn(
+                __fdiv_rn(f0, scale), zp_out)), qlo), qhi));
+          if (in1)
+            q1 = static_cast<int>(fminf(fmaxf(rintf(__fadd_rn(
+                __fdiv_rn(f1, scale), zp_out)), qlo), qhi));
+          *reinterpret_cast<uint16_t*>(smem + row_l * kOutLd + col_l) =
+              static_cast<uint16_t>((q0 & 0xff) | ((q1 & 0xff) << 8));
+        } else if (row < M) {
+          float* y = static_cast<float*>(out) + out_base +
+                     static_cast<long long>(row) * N + col;
+          if (pairs && in1) {
+            *reinterpret_cast<float2*>(y) = make_float2(f0, f1);
+          } else {
+            if (in0) y[0] = f0;
+            if (in1) y[1] = f1;
+          }
         }
-        mn = fminf(mn, f);
-        mx = fmaxf(mx, f);
+        if (in0) {
+          mn = fminf(mn, f0);
+          mx = fmaxf(mx, f0);
+        }
+        if (in1) {
+          mn = fminf(mn, f1);
+          mx = fmaxf(mx, f1);
+        }
+      }
+    }
+  }
+  if (kRequant) {
+    // The staged byte tile out in 16-byte row segments.
+    __syncthreads();
+    uint8_t* q = static_cast<uint8_t*>(out) + out_base;
+    const bool vec = (N % 16) == 0;
+#pragma unroll
+    for (int i = 0; i < kBM * (kBN / 16) / kThreads; ++i) {
+      const int e = t + i * kThreads, row_l = e >> 3, c = e & 7;
+      const int row = i0 + row_l, col = j0 + 16 * c;
+      if (row >= M || col >= N) continue;
+      const uint8_t* src = smem + row_l * kOutLd + 16 * c;
+      uint8_t* dst = q + static_cast<long long>(row) * N + col;
+      if (vec) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        for (int j = 0; j < 16 && col + j < N; ++j) dst[j] = src[j];
       }
     }
   }
@@ -179,7 +286,6 @@ __device__ __forceinline__ void int8_matmul_tile(
     mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, off));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
   }
-  const int warp = t / 32, lane = t % 32;
   if (lane == 0) {
     red[2 * warp] = mn;
     red[2 * warp + 1] = mx;
@@ -198,64 +304,143 @@ __device__ __forceinline__ void int8_matmul_tile(
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 int8_matmul_fp_kernel(const uint8_t* __restrict__ x,
                       const int8_t* __restrict__ w, float* __restrict__ y,
                       float* __restrict__ partials,
                       const float* __restrict__ alpha_p,
-                      const float* __restrict__ zp_p, int M, int K, int N,
-                      int x_words) {
+                      const float* __restrict__ zp_p, int M, int K, int N) {
   int8_matmul_tile<false>(x, w, y, partials, alpha_p, zp_p,
-                          Requant{nullptr, nullptr, 0, 0}, M, K, N, x_words);
+                          Requant{nullptr, nullptr, 0, 0}, M, K, N);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 int8_matmul_fused_kernel(const uint8_t* __restrict__ x,
                          const int8_t* __restrict__ w, uint8_t* __restrict__ q,
                          float* __restrict__ partials,
                          const float* __restrict__ alpha_p,
                          const float* __restrict__ zp_p, Requant rq, int M,
-                         int K, int N, int x_words) {
-  int8_matmul_tile<true>(x, w, q, partials, alpha_p, zp_p, rq, M, K, N,
-                         x_words);
+                         int K, int N) {
+  int8_matmul_tile<true>(x, w, q, partials, alpha_p, zp_p, rq, M, K, N);
 }
 
-int can_load_words(const void* x, int K) {
-  return (K % 4 == 0) && (reinterpret_cast<uintptr_t>(x) % 4 == 0);
+// The weight's K-major image for mma's B operand: w [B, K, N] -> wt
+// [B, N, kx], kx = K rounded up to 16, zeros from K on.  A block moves one
+// 64 x 64 byte tile through shared memory: 16-byte loads along N, 16-byte
+// stores along K.
+constexpr int kTT = 64, kTLd = kTT + 4;
+__global__ void __launch_bounds__(kThreads)
+int8_transpose_kernel(const int8_t* __restrict__ w, int8_t* __restrict__ wt,
+                      int K, int N, int kx) {
+  __shared__ uint32_t tile[kTT * kTLd / 4];
+  const int k0 = blockIdx.y * kTT, n0 = blockIdx.x * kTT;
+  w += static_cast<long long>(blockIdx.z) * K * N;
+  wt += static_cast<long long>(blockIdx.z) * N * kx;
+  const int t = threadIdx.x;
+  {
+    const int r = t >> 2, c = t & 3, k = k0 + r, n = n0 + 16 * c;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (k < K) {
+      const int8_t* src = w + static_cast<long long>(k) * N + n;
+      if (N % 16 == 0 && n < N) {
+        v = *reinterpret_cast<const uint4*>(src);
+      } else {
+        uint32_t words[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          if (n + j < N)
+            words[j / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(src[j]))
+                            << (8 * (j % 4));
+        v = make_uint4(words[0], words[1], words[2], words[3]);
+      }
+    }
+    uint32_t* row = tile + (r * kTLd + 16 * c) / 4;
+    row[0] = v.x;
+    row[1] = v.y;
+    row[2] = v.z;
+    row[3] = v.w;
+  }
+  __syncthreads();
+  const int n = t >> 2, kc = t & 3;
+  if (n0 + n >= N || k0 + 16 * kc >= kx) return;
+  const uint8_t* bytes = reinterpret_cast<const uint8_t*>(tile);
+  uint32_t out[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t word = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      word |= static_cast<uint32_t>(bytes[(16 * kc + 4 * j + i) * kTLd + n])
+              << (8 * i);
+    out[j] = word;
+  }
+  *reinterpret_cast<uint4*>(wt + static_cast<long long>(n0 + n) * kx + k0 +
+                            16 * kc) = make_uint4(out[0], out[1], out[2],
+                                                  out[3]);
+}
+
+// Allow the ring's dynamic shared memory (above the 48 KB default) once
+// per kernel; returns the CUDA error code.
+template <typename Kernel>
+int allow_smem(Kernel kernel) {
+  static int status = -1;
+  if (status < 0)
+    status = static_cast<int>(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes));
+  return status;
 }
 
 }  // namespace
 
+// w s8 [B, K, N] -> its K-major image wt [B, N, kx] (kx = K rounded up to
+// 16, zero-padded), the layout the two matmuls below read.
+extern "C" int repro_int8_transpose(const void* w, void* wt, int B, int K,
+                                    int N, void* stream) {
+  const int kx = (K + 15) & ~15;
+  const dim3 grid((N + kTT - 1) / kTT, (kx + kTT - 1) / kTT, B);
+  int8_transpose_kernel<<<grid, kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(w), static_cast<int8_t*>(wt), K, N, kx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x u8 [B, M, K], w s8 [B, N, K] (K-major), K a multiple of 16; y fp32
+// [B, M, N] and partials [B, gm, gn, 2].
 extern "C" int repro_int8_matmul_fp(const void* x, const void* w, void* y,
                                     void* partials, const void* alpha,
                                     const void* zp, int B, int M, int K, int N,
                                     void* stream) {
+  if (K % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (const int s = allow_smem(int8_matmul_fp_kernel)) return s;
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, B);
-  int8_matmul_fp_kernel<<<grid, kThreads, 0,
+  int8_matmul_fp_kernel<<<grid, kThreads, kSmemBytes,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(x), static_cast<const int8_t*>(w),
       static_cast<float*>(y), static_cast<float*>(partials),
-      static_cast<const float*>(alpha), static_cast<const float*>(zp), M, K, N,
-      can_load_words(x, K));
+      static_cast<const float*>(alpha), static_cast<const float*>(zp), M, K,
+      N);
   return static_cast<int>(cudaGetLastError());
 }
 
-// q [M, N] (uint8 or int8 by the grid [int_min, int_max]) and partials
-// [gm, gn, 2] of y; bias may be null.
+// x u8 [M, K], w s8 [N, K] (K-major), K a multiple of 16; q [M, N] (uint8
+// or int8 by the grid [int_min, int_max]) and partials [gm, gn, 2] of y;
+// bias may be null.
 extern "C" int repro_int8_matmul_fused(const void* x, const void* w, void* q,
                                        void* partials, const void* alpha,
                                        const void* zp, const void* bias,
                                        const void* qparams, int M, int K,
                                        int N, int int_min, int int_max,
                                        void* stream) {
+  if (K % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (const int s = allow_smem(int8_matmul_fused_kernel)) return s;
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, 1);
   const Requant rq{static_cast<const float*>(bias),
                    static_cast<const float*>(qparams), int_min, int_max};
-  int8_matmul_fused_kernel<<<grid, kThreads, 0,
+  int8_matmul_fused_kernel<<<grid, kThreads, kSmemBytes,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(x), static_cast<const int8_t*>(w),
       static_cast<uint8_t*>(q), static_cast<float*>(partials),
       static_cast<const float*>(alpha), static_cast<const float*>(zp), rq, M,
-      K, N, can_load_words(x, K));
+      K, N);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,8 +5,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 happen at first use (or all at once, in parallel, through
 :func:`build_all`), never at import, into ``<checkout>/build/repro_torch``
 — a directory ``.gitignore`` lists.  The library name carries a hash of
-the source and the flags, so an edited source is rebuilt and stale
-libraries are never loaded.
+the source, of the headers beside it (``csrc/*.cuh``) and of the flags,
+so an edited source or header is rebuilt and stale libraries are never
+loaded.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, no fast math, and ``-fmad=false`` so
 no mul->add seam of the reference's arithmetic is contracted into an FMA.
@@ -42,9 +43,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    """Where ``csrc/<name>.cu`` builds to: the name carries a hash of the
+    source, of every header beside it (``csrc/*.cuh``, which a source may
+    include) and of the flags."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names=SOURCES) -> dict:

@@ -19,11 +19,25 @@ loop and two epilogues, replacing the two TPU kernels of the reference:
 Activations are uint8 on the asymmetric grid, weights int8 symmetric; the
 contraction is exact in int32.  On the H100 the LM prefill shapes are
 bound by int8 operations; decode (M = 4) and the paper's CNN layers as
-im2col products (small K and N) by bytes.  The kernel is a
-shared-memory-tiled ``__dp4a`` GEMM (128 x 128 tiles, 8 x 8 per thread)
-that stages the u8 activations onto the signed grid and restores the zero
-point with an in-kernel weight column sum — int32-exact, far from the
-tensor-core rate (wgmma/TMA are later work, in the shared main loop).
+im2col products (small K and N) by bytes.  The main loop runs on the
+tensor cores: warp-level ``mma.sync`` u8 x s8 -> s32 (the u8 activations
+go in as they are, and the zero point comes back as the column
+correction ``(round(128 - zp_x) - 128) * colsum(w)``), 128 x 128 tiles of
+8 warps, K in 128-byte slabs through a 3-stage ``cp.async`` ring in
+swizzled shared memory, fragments loaded with ``ldmatrix``.  ``mma``
+reads the weight K-contiguous, so the wrapper stages the operands first
+(:func:`stage_operands`): another kernel of the same source,
+``int8_transpose``, writes the weight's K-major image ``[B, N, K]``,
+and K is zero-padded to a multiple of 16.  What bounds the kernel now is
+the ``mma.sync`` instruction rate and the shared-memory traffic of its
+fragment loads: warp-level MMA reaches only part of Hopper's int8
+tensor-core rate, which takes ``wgmma`` with operands read from shared
+memory by the tensor cores.  ``mma.sync`` came first because its
+register-level fragments keep the old epilogues as they were and are
+checked element by element; ``wgmma`` + TMA with a persistent,
+warp-specialised schedule is the next step in the same shared main loop,
+and a weight site that writes the K-major image directly removes the
+transpose.
 
 ``torch.matmul`` has no int32 kernel on CUDA, so the plain versions
 compute the integer contraction in float64 in the reference's form,
@@ -43,9 +57,11 @@ from .fused_quantize import fused_quantize_plain
 
 COUNTER = LaunchCounter("int8_matmul_fp")
 FUSED_COUNTER = LaunchCounter("int8_matmul_fused")
+TRANSPOSE_COUNTER = LaunchCounter("int8_transpose")
 
 BM = BN = 128                # the CUDA kernel's output tile
 MAX_ROW_TILES = 65535        # gridDim.y
+K_ALIGN = 16                 # K padding and operand alignment, bytes
 
 
 def _acc_plain(x3: torch.Tensor, w3: torch.Tensor, x_zp: torch.Tensor):
@@ -91,6 +107,7 @@ _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {   # the C entry points of csrc/int8_matmul.cu
     "repro_int8_matmul_fp": [_VP] * 6 + [_CI] * 4 + [_VP],
     "repro_int8_matmul_fused": [_VP] * 8 + [_CI] * 5 + [_VP],
+    "repro_int8_transpose": [_VP] * 2 + [_CI] * 3 + [_VP],
 }
 
 
@@ -120,22 +137,95 @@ def _scalar(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return v.to(device=like.device, dtype=torch.float32).reshape(1)
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous, starting on a 16-byte boundary (cp.async copies
+    whole 16-byte chunks)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % K_ALIGN == 0 else t.clone()
+
+
+def _pad_k(t: torch.Tensor) -> torch.Tensor:
+    """``t [..., K]`` with K zero-padded to a multiple of 16."""
+    k = t.shape[-1]
+    kp = -(-k // K_ALIGN) * K_ALIGN
+    if kp == k:
+        return t
+    out = t.new_zeros(t.shape[:-1] + (kp,))
+    out[..., :k] = t
+    return out
+
+
+def weight_kmajor_plain(w: torch.Tensor) -> torch.Tensor:
+    """Plain version of the transpose kernel: int8 ``w [..., K, N]`` ->
+    its K-major image ``[..., N, Kp]``, K zero-padded to a multiple of
+    16."""
+    return _pad_k(w.transpose(-1, -2)).contiguous()
+
+
+def weight_kmajor_cuda(w: torch.Tensor) -> torch.Tensor:
+    """Launch the transpose kernel; same return as
+    :func:`weight_kmajor_plain`."""
+    if not w.is_cuda or w.dtype != torch.int8:
+        raise ValueError(f"weight_kmajor_cuda needs a CUDA int8 tensor, got "
+                         f"{w.dtype} on {w.device}")
+    w = _aligned(w)
+    *batch, k, n = w.shape
+    b = w.numel() // max(k * n, 1)
+    wt = torch.empty((*batch, n, -(-k // K_ALIGN) * K_ALIGN),
+                     dtype=torch.int8, device=w.device)
+    status = _lib("repro_int8_transpose")(
+        w.data_ptr(), wt.data_ptr(), b, k, n,
+        torch.cuda.current_stream(w.device).cuda_stream)
+    build.check(status, "int8_transpose")
+    TRANSPOSE_COUNTER.count += 1
+    return wt
+
+
+def stage_operands(x: torch.Tensor, w: torch.Tensor):
+    """The kernels' operand layout: uint8 ``x [..., M, K]`` and int8 ``w
+    [..., K, N]`` become ``x [..., M, Kp]`` and the K-major weight ``[...,
+    N, Kp]`` (mma's B operand is K-contiguous), contiguous and 16-byte
+    aligned, K zero-padded in both to ``Kp``, a multiple of 16.  The padded
+    bytes meet zero weights, so they add nothing to the product and leave
+    the weight column sums as they were.  The weight's transpose is a
+    kernel on the card, its plain version on the CPU."""
+    wk = weight_kmajor_cuda(w) if w.is_cuda else weight_kmajor_plain(w)
+    return _aligned(_pad_k(x)), wk
+
+
+def _check_staged(x, wk, what: str):
+    if x.shape[-1] % K_ALIGN or x.shape[-1] != wk.shape[-1] \
+            or not (x.is_contiguous() and wk.is_contiguous()) \
+            or x.data_ptr() % K_ALIGN or wk.data_ptr() % K_ALIGN:
+        raise ValueError(f"{what}: operands are not staged (see "
+                         f"stage_operands): {tuple(x.shape)} x "
+                         f"{tuple(wk.shape)}")
+
+
 def int8_matmul_fp_cuda(x3: torch.Tensor, w3: torch.Tensor,
                         x_zp: torch.Tensor, alpha: torch.Tensor):
     """Launch the CUDA kernel; same returns as :func:`int8_matmul_fp_plain`."""
     _check_operands(x3, w3, "int8_matmul_fp_cuda", 3)
-    b, m, k = x3.shape
-    n = w3.shape[2]
-    x3, w3 = x3.contiguous(), w3.contiguous()
-    alpha, zp = _scalar(alpha, x3), _scalar(x_zp, x3)
+    return int8_matmul_fp_cuda_staged(*stage_operands(x3, w3), x_zp, alpha)
+
+
+def int8_matmul_fp_cuda_staged(xk: torch.Tensor, wk: torch.Tensor,
+                               x_zp: torch.Tensor, alpha: torch.Tensor):
+    """The kernel on operands already staged by :func:`stage_operands`:
+    uint8 ``xk [B, M, Kp]``, int8 K-major ``wk [B, N, Kp]``."""
+    _check_operands(xk, wk.transpose(-1, -2), "int8_matmul_fp_cuda", 3)
+    _check_staged(xk, wk, "int8_matmul_fp_cuda")
+    b, m, k = xk.shape
+    n = wk.shape[1]
+    alpha, zp = _scalar(alpha, xk), _scalar(x_zp, xk)
     gm, gn = -(-m // BM), -(-n // BN)
-    y = torch.empty((b, m, n), dtype=torch.float32, device=x3.device)
+    y = torch.empty((b, m, n), dtype=torch.float32, device=xk.device)
     partials = torch.empty((b, gm, gn, 2), dtype=torch.float32,
-                           device=x3.device)
+                           device=xk.device)
     status = _lib("repro_int8_matmul_fp")(
-        x3.data_ptr(), w3.data_ptr(), y.data_ptr(), partials.data_ptr(),
+        xk.data_ptr(), wk.data_ptr(), y.data_ptr(), partials.data_ptr(),
         alpha.data_ptr(), zp.data_ptr(), b, m, k, n,
-        torch.cuda.current_stream(x3.device).cuda_stream)
+        torch.cuda.current_stream(xk.device).cuda_stream)
     build.check(status, "int8_matmul_fp")
     COUNTER.count += 1
     return y, partials[..., 0].amin(), partials[..., 1].amax()
@@ -149,25 +239,25 @@ def int8_matmul_fused_cuda(x2: torch.Tensor, w2: torch.Tensor,
     _check_operands(x2, w2, "int8_matmul_fused_cuda", 2)
     if spec.bits != 8:
         raise ValueError(f"the kernel stores 8-bit images, got {spec.bits}")
-    m, k = x2.shape
-    n = w2.shape[1]
-    x2, w2 = x2.contiguous(), w2.contiguous()
-    alpha, zp = _scalar(alpha, x2), _scalar(x_zp, x2)
-    qparams = qparams.to(device=x2.device,
+    xk, wk = stage_operands(x2, w2)
+    m, k = xk.shape
+    n = wk.shape[0]
+    alpha, zp = _scalar(alpha, xk), _scalar(x_zp, xk)
+    qparams = qparams.to(device=xk.device,
                          dtype=torch.float32).reshape(2).contiguous()
     if bias is not None:
         if not bias.is_cuda or bias.shape != (n,):
             raise ValueError(f"bias must be a CUDA tensor of shape ({n},)")
         bias = bias.to(torch.float32).contiguous()
     gm, gn = -(-m // BM), -(-n // BN)
-    q = torch.empty((m, n), dtype=spec.storage_dtype, device=x2.device)
-    partials = torch.empty((gm, gn, 2), dtype=torch.float32, device=x2.device)
+    q = torch.empty((m, n), dtype=spec.storage_dtype, device=xk.device)
+    partials = torch.empty((gm, gn, 2), dtype=torch.float32, device=xk.device)
     status = _lib("repro_int8_matmul_fused")(
-        x2.data_ptr(), w2.data_ptr(), q.data_ptr(), partials.data_ptr(),
+        xk.data_ptr(), wk.data_ptr(), q.data_ptr(), partials.data_ptr(),
         alpha.data_ptr(), zp.data_ptr(),
         None if bias is None else bias.data_ptr(), qparams.data_ptr(),
         m, k, n, spec.int_min, spec.int_max,
-        torch.cuda.current_stream(x2.device).cuda_stream)
+        torch.cuda.current_stream(xk.device).cuda_stream)
     build.check(status, "int8_matmul_fused")
     FUSED_COUNTER.count += 1
     return q, partials[..., 0].amin(), partials[..., 1].amax()

@@ -30,7 +30,7 @@ from . import stochastic_quantize as _sq
 from .int8_attention import AttnSchedule
 
 COUNTERS = (_fq.COUNTER, _mm.COUNTER, _attn.COUNTER, _sq.COUNTER,
-            _mm.FUSED_COUNTER)
+            _mm.FUSED_COUNTER, _mm.TRANSPOSE_COUNTER)
 
 
 def launch_counts() -> dict:

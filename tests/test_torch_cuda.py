@@ -104,9 +104,19 @@ def test_stochastic_quantize_onchip_statistics(card):
     assert torch.unique(tiles, dim=0).shape[0] == 256
 
 
-@pytest.mark.parametrize("zp", [117.0, 117.3])
+# The tensor-core loop's edges: K below, at and off the 16-byte chunk and
+# the 64-byte slab (the wrapper pads K to 16), one row or column, partial
+# row and column tiles, three batch slices.
+MM_EDGE_SHAPES = [(3, m, k, n) for k, mns in (
+    (1, ((1, 1), (129, 77))), (16, ((4, 8), (129, 129))),
+    (17, ((1, 77), (129, 8))), (31, ((4, 129), (129, 1))),
+    (48, ((1, 8), (4, 77))), (3001, ((4, 1), (129, 129)))) for m, n in mns]
+
+
+@pytest.mark.parametrize("zp", [117.0, 117.3, 0.5, 127.5])
 @pytest.mark.parametrize("b,m,k,n", [(1, 4, 64, 33), (1, 130, 300, 263),
-                                     (3, 37, 70, 129), (1, 256, 3072, 256)])
+                                     (3, 37, 70, 129), (1, 256, 3072, 256)]
+                         + MM_EDGE_SHAPES)
 def test_int8_matmul_kernel_matches_plain(card, b, m, k, n, zp):
     g = _gen(card, m + k + n)
     x = torch.randint(0, 256, (b, m, k), generator=g, device=card,
@@ -122,16 +132,42 @@ def test_int8_matmul_kernel_matches_plain(card, b, m, k, n, zp):
     assert torch.equal(mnk, mnr) and torch.equal(mxk, mxr)
 
 
+@pytest.mark.parametrize("b,k,n", [(3, 1, 1), (3, 16, 8), (3, 17, 77),
+                                   (1, 31, 129), (3, 48, 1),
+                                   (1, 3001, 77), (2, 3072, 256)])
+def test_int8_transpose_kernel_matches_plain(card, b, k, n):
+    """The weight's K-major image (K zero-padded to 16), ragged K and N
+    and a misaligned start."""
+    w = torch.randint(-127, 128, (b, k, n + 1), generator=_gen(card, k + n),
+                      device=card, dtype=torch.int8)
+    ops.reset_launch_counts()
+    for view in (w[..., :n].contiguous(), w.reshape(-1)[1:b * k * n + 1]
+                 .reshape(b, k, n)):
+        assert torch.equal(mm.weight_kmajor_cuda(view),
+                           mm.weight_kmajor_plain(view))
+    assert ops.launch_counts()["int8_transpose"] == 2
+
+
 @pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
 @pytest.mark.parametrize("sym", [False, True], ids=["asym", "sym"])
 @pytest.mark.parametrize("m,k,n,x_zp", [(1, 1, 1, 117.0),
                                         (4093, 3001, 77, 117.3),
                                         (257, 16, 96, 0.5),
-                                        (4, 3072, 256, 117.0)])
+                                        (4, 3072, 256, 117.0),
+                                        (4, 1, 8, 117.3),
+                                        (129, 16, 77, 0.5),
+                                        (1, 17, 129, 127.5),
+                                        (4, 31, 1, 117.0),
+                                        (129, 48, 129, 117.3),
+                                        (4, 3001, 77, 127.5),
+                                        (129, 17, 8, 117.0),
+                                        (1, 48, 77, 0.5),
+                                        (129, 3001, 1, 0.5)])
 def test_int8_matmul_fused_kernel_matches_plain(card, m, k, n, x_zp, sym,
                                                 bias):
-    """q and min/max bit-exact at ragged shapes (K below one 32-byte slice,
-    M = N = 1), both out grids, with and without a bias; the range clips."""
+    """q and min/max bit-exact at ragged shapes (K below, at and off the
+    16-byte chunk and the 64-byte slab, M or N = 1, partial tiles), both
+    out grids, with and without a bias; the range clips."""
     g = _gen(card, m + k + n)
     x = torch.randint(0, 256, (m, k), generator=g, device=card,
                       dtype=torch.uint8)
@@ -185,6 +221,7 @@ def test_int8_matmul_fused_op_launches_the_kernel(card):
                                     1.0)
     torch.cuda.synchronize()
     assert ops.launch_counts()["int8_matmul_fused"] == 1
+    assert ops.launch_counts()["int8_transpose"] == 1
     assert q.is_cuda and q.shape == (64, 16) and q.dtype == torch.uint8
 
 
@@ -250,6 +287,7 @@ def test_reduced_serve_on_card_uses_every_kernel(card):
         counts = ops.launch_counts()
         if backend == "fused":      # the serving path has no gradient sites
             assert all(counts[k] > 0 for k in ("fused_quantize",
+                                               "int8_transpose",
                                                "int8_matmul_fp",
                                                "int8_attention")), counts
             assert counts["stochastic_quantize"] == 0, counts
@@ -262,8 +300,9 @@ def test_reduced_serve_on_card_uses_every_kernel(card):
 
 def test_reduced_train_step_on_card_uses_every_kernel(card):
     """One forward + backward of the reduced model on the card: the fused
-    backend launches all four kernels of the path (not the fused layer
-    kernel, which no model site calls), the simulated one none, and the two
+    backend launches every kernel of the path (the int8 matmul's weight
+    transpose among them; not the fused layer kernel, which no model site
+    calls), the simulated one none, and the two
     agree (tolerance: expf vs torch.exp may flip one requantized
     probability level, which the stochastic roundings below carry on)."""
     from repro_torch import configs
@@ -287,6 +326,7 @@ def test_reduced_train_step_on_card_uses_every_kernel(card):
         if backend == "fused":
             assert all(counts[k] > 0 for k in ("fused_quantize",
                                                "stochastic_quantize",
+                                               "int8_transpose",
                                                "int8_matmul_fp",
                                                "int8_attention")), counts
             assert counts["int8_matmul_fused"] == 0, counts

@@ -5,6 +5,9 @@ JAX package's Pallas kernels (interpret mode, the ``ops`` default) and its
   * fused_quantize: integer images and min/max bit-exact;
   * int8_matmul_fp: ``y`` and min/max bit-exact (exact int32 contraction,
     one fp32 multiply), at integer and non-integer zero points;
+  * the CUDA kernels' operand staging (K and N padded to 16) leaves the
+    plain product bit for bit; the build's library name
+    follows the shared headers;
   * int8_matmul_fused: ``q`` and min/max bit-exact against
     ``ref.ref_int8_matmul_fused`` and the Pallas kernel, ties included;
   * attention: the schedule is identical; the running max ``m``, the
@@ -26,6 +29,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels import tuning as jtuning
 from repro_torch.core.quant import QuantSpec as TSpec
+from repro_torch.kernels import build as tbuild
 from repro_torch.kernels import int8_attention as tattn
 from repro_torch.kernels import int8_matmul as tmm
 from repro_torch.kernels import ops as tops
@@ -98,6 +102,55 @@ def test_int8_matmul_fp_plain_matches_jax(spec, xs, ws, zp):
     _eq(yj, yt, "y")
     _eq(mnj, mnt, "min")
     _eq(mxj, mxt, "max")
+
+
+@pytest.mark.parametrize("k", [1, 16, 3001])
+def test_int8_matmul_staged_operands_keep_the_product(k):
+    """The CUDA kernels' operand staging (the weight K-major, K zero-padded
+    to a multiple of 16 in both operands) changes no bit of the plain
+    product, and that product is the reference's."""
+    rng = np.random.default_rng(k)
+    xq = rng.integers(0, 256, (3, 37, k), dtype=np.uint8)
+    wq = rng.integers(-127, 128, (3, k, 29), dtype=np.int8)
+    zp, alpha = torch.tensor(117.3), torch.tensor(3.1e-4)
+    x, w = torch.from_numpy(xq), torch.from_numpy(wq)
+    xk, wk = tmm.stage_operands(x, w)
+    kp = -(-k // 16) * 16
+    assert xk.shape == (3, 37, kp) and wk.shape == (3, 29, kp)
+    assert xk.is_contiguous() and wk.is_contiguous()
+    assert not xk[..., k:].any() and not wk[..., k:].any()
+    assert torch.equal(wk[..., :k], w.transpose(-1, -2))
+    staged = tmm.int8_matmul_fp_plain(xk, wk.transpose(-1, -2), zp, alpha)
+    plain = tmm.int8_matmul_fp_plain(x, w, zp, alpha)
+    for a, b in zip(staged, plain):
+        assert torch.equal(a, b)
+    plan = jops.plan_einsum("bmk,bkn->bmn", 3, 3)
+    yj, mnj, mxj = jops.int8_matmul_fp(jnp.asarray(xq), jnp.asarray(wq),
+                                       np.float32(117.3), np.float32(3.1e-4),
+                                       plan=plan)
+    _eq(yj, staged[0], "y")
+    _eq(mnj, staged[1], "min")
+    _eq(mxj, staged[2], "max")
+
+
+def test_int8_transpose_cuda_wrapper_rejects_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA int8"):
+        tmm.weight_kmajor_cuda(torch.zeros((16, 8), dtype=torch.int8))
+
+
+def test_kernel_library_path_follows_the_headers(tmp_path, monkeypatch):
+    """A library's name hashes its source and every csrc/*.cuh, so an
+    edited header never loads a stale library."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(tbuild, "CSRC", tmp_path)
+    first = tbuild.library_path("k")
+    assert tbuild.library_path("k") == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    second = tbuild.library_path("k")
+    assert second != first
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    assert tbuild.library_path("k") not in (first, second)
 
 
 # ---------------------------------------------------------------------------
