@@ -76,6 +76,8 @@ TRAIN_STEPS, PARITY_LAYERS, LAYER_STEPS = 3, 4, 4
 SERVE_KERNELS = ("fused_quantize", "int8_transpose", "int8_matmul_fp",
                  "int8_attention")
 TRAIN_KERNELS = SERVE_KERNELS + ("stochastic_quantize",)
+# Sources whose products run on the tensor cores (mma_int8.cuh).
+TENSOR_CORE_SOURCES = ("int8_matmul", "int8_attention")
 LAYER_KERNELS = ("int8_transpose", "int8_matmul_fused")
 
 
@@ -589,6 +591,7 @@ def check_attention(dev, gen, cfg):
     import torch.nn.functional as F
 
     from repro_torch.kernels import int8_attention as attn
+    from repro_torch.kernels import int8_matmul as mm
     from repro_torch.kernels import tuning
 
     s, hd, nh, nkv = PROMPT, cfg.head_dim, cfg.n_heads, cfg.n_kv
@@ -604,35 +607,53 @@ def check_attention(dev, gen, cfg):
                       dtype=torch.int8)
     v = torch.randint(-127, 128, (zb, s, hd), generator=gen, device=dev,
                       dtype=torch.int8)
+    kvl = torch.tensor([s], device=dev, dtype=torch.int32)
+
+    def hold(regs, what):
+        ok, mlk, psk = attn.attention_cuda(q, k, v, regs, kvl, sched=sched)
+        orf, mlr, psr = attn.attention_core_reference(q, k, v, regs, kvl,
+                                                      sched=sched)
+        torch.cuda.synchronize()
+        if not torch.equal(mlk[..., 0], mlr[..., 0]):
+            raise AssertionError(f"attention ({what}): running max m differs")
+        if not torch.equal(psk[..., :4], psr[..., :4]):
+            raise AssertionError(f"attention ({what}): p-site "
+                                 f"min/max/clip/n differ")
+        err = (ok - orf).abs().max().item()
+        same = (ok == orf).float().mean().item()
+        # Tolerance: expf vs torch.exp may differ by an ulp, moving a
+        # requantized probability by one level (1/255 of the row's weight).
+        torch.testing.assert_close(ok, orf, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(mlk[..., 1], mlr[..., 1], rtol=1e-5,
+                                   atol=1e-5)
+        torch.testing.assert_close(psk[..., 4:], psr[..., 4:], rtol=1e-4,
+                                   atol=1e-6)
+        log("kernels", f"attention ({what}) {tuple(q.shape)} x "
+                       f"{tuple(k.shape)} G={g} (bq, bkv)=({bq}, {bkv}) "
+                       f"width={sched.width}: m, min/max/clip/n exact; out "
+                       f"max |d| {err:.3e} ({same:.6f} of elements "
+                       f"identical), l and err/sig within 1e-4")
+        return err, (ok, mlk, psk)
+
     scale_p = 1.0 / 255.0
     # scores of unit-order spread: alpha_qk * |acc| ~ 1e-5 * 6e4
     regs = torch.tensor([128.0, 1e-5, scale_p, 0.0, scale_p * 0.02, 0.0, 1.0,
                          0.0], device=dev, dtype=torch.float32)
-    kvl = torch.tensor([s], device=dev, dtype=torch.int32)
-    ok, mlk, psk = attn.attention_cuda(q, k, v, regs, kvl, sched=sched)
-    orf, mlr, psr = attn.attention_core_reference(q, k, v, regs, kvl,
-                                                  sched=sched)
-    torch.cuda.synchronize()
-    if not torch.equal(mlk[..., 0], mlr[..., 0]):
-        raise AssertionError("attention: running max m differs")
-    if not torch.equal(psk[..., :4], psr[..., :4]):
-        raise AssertionError("attention: p-site min/max/clip/n differ")
-    err = (ok - orf).abs().max().item()
-    same = (ok == orf).float().mean().item()
-    # Tolerance: expf vs torch.exp may differ by an ulp, moving a
-    # requantized probability by one level (1/255 of the row's weight).
-    torch.testing.assert_close(ok, orf, rtol=1e-4, atol=1e-4)
-    torch.testing.assert_close(mlk[..., 1], mlr[..., 1], rtol=1e-5,
-                               atol=1e-5)
-    torch.testing.assert_close(psk[..., 4:], psr[..., 4:], rtol=1e-4,
-                               atol=1e-6)
-    log("kernels", f"attention {tuple(q.shape)} x {tuple(k.shape)} G={g} "
-                   f"(bq, bkv)=({bq}, {bkv}) width={sched.width}: m, "
-                   f"min/max/clip/n exact; out max |d| {err:.3e} "
-                   f"({same:.6f} of elements identical), l and err/sig "
-                   f"within 1e-4")
+    err, (ok, mlk, psk) = hold(regs, "zp_q 128, zp_p 0")
+    # Both zero points off zero, zp_q off the integers: the reference
+    # truncates them, and p's grid [-0.1, 1.0] puts zp_p at 23.
+    scale_z = 1.1 / 255.0
+    regs_z = torch.tensor([117.7, 1e-5, scale_z, round(0.1 / scale_z),
+                           scale_z * 0.02, -0.1, 1.0, 0.0], device=dev,
+                          dtype=torch.float32)
+    err = max(err, hold(regs_z, "zp_q 117.7, zp_p 23")[0])
     ms = time_ms(lambda: attn.attention_cuda(q, k, v, regs, kvl,
                                              sched=sched), 10)
+    # The wrapper's time holds one V^T image (the P.V product's B operand,
+    # made by the int8 matmul's transpose kernel); its share apart:
+    vt_ms = time_ms(lambda: mm.weight_kmajor_cuda(v), 10)
+    log("kernels", f"attention: V^T image {vt_ms:.4f} ms of the call's "
+                   f"{ms:.4f} ms")
     plain_ms = time_ms(lambda: attn.attention_core_reference(
         q, k, v, regs, kvl, sched=sched), 2)
     qb = torch.randn((BATCH, nh, s, hd), generator=gen, device=dev,
@@ -720,7 +741,7 @@ def train_phase(cfg) -> dict:
 KERNEL_FAMILIES = (   # (family, substrings of the kernel name), first match
     ("int8_matmul_fp (ours)", ("int8_matmul_fp_kernel",)),
     ("int8_matmul_fused (ours)", ("int8_matmul_fused_kernel",)),
-    ("int8_transpose (ours: the matmuls' K-major weight)",
+    ("int8_transpose (ours: K-major weights, attention's V^T)",
      ("int8_transpose_kernel",)),
     ("int8_attention (ours)", ("int8_attention_kernel",)),
     ("fused_quantize (ours)", ("fused_quantize_kernel",)),
@@ -1117,14 +1138,21 @@ def main(argv=None) -> int:
     if run_phase(2):
         t0 = time.perf_counter()
         built = build.build_all()
+        results["build"] = {}
         for name, (path, secs, out) in built.items():
             regs = [ln.strip() for ln in out.splitlines()
-                    if "registers" in ln]
+                    if "registers" in ln or "spill" in ln]
             log("build", f"{name}: {secs:.1f} s; {' | '.join(regs) or out}")
             imma = imma_count(path)
             log("build", f"{name}: "
                          + ("no cuobjdump in the toolkit" if imma is None
                             else f"{imma} IMMA instructions in the SASS"))
+            results["build"][name] = dict(seconds=secs, ptxas=regs,
+                                          imma=imma)
+            if name in TENSOR_CORE_SOURCES and imma == 0:
+                raise AssertionError(f"{name}: no IMMA instruction in the "
+                                     f"SASS: its products are not on the "
+                                     f"tensor cores")
         log("build", f"all kernels built in {time.perf_counter() - t0:.1f} s")
 
     # 3. kernels at the slice's shapes

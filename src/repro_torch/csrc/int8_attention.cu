@@ -2,72 +2,152 @@
 //
 // Replaces the TPU kernel repro/kernels/int8_attention.py
 // (attention_kernel, body _attn_kernel).  One CUDA block owns one
-// (head, q block) pair and walks its `width` kv blocks in the reference's
+// (head, q block) pair and walks its visited kv blocks in the reference's
 // order (_kv_block_base); that loop takes the place of the TPU's
-// sequential grid axis, and the online-softmax carries (m, l, acc) live in
-// shared memory and registers across it.  GQA: head bh reads kv head
-// bh / groups.  Per visited tile:
-//   acc_qk = sum_h (q - zp_q) * k                (exact int32, __dp4a)
+// sequential grid axis, and the online-softmax carries (m, l, acc) stay in
+// registers across it.  GQA: head bh reads kv head bh / groups.  Per
+// visited tile, in the reference's integers:
+//   acc_qk = q . k - trunc(zp_q) * rowsum(k)       (exact int32, mma)
 //   s      = alpha_qk * float(acc_qk), masked to -1e30
 //   m_new  = max(m, rowmax s);  p = exp(s - m_new), masked p = 0 exactly
 //   p_int  = clip(rint(p / scale_p + zp_p), 0, 255)
-//   acc_pv = sum_kv (p_int - zp_p) * v           (exact int32, __dp4a)
-//   acc    = acc * corr + alpha_pv * float(acc_pv);  l likewise
+//   acc_pv = p_int . v - trunc(zp_p) * colsum(v)   (exact int32, mma)
+//   acc    = acc * corr + alpha_pv * float(acc_pv);  l likewise with
+//            lsum = sum(p_int - trunc(zp_p))
 // and the tile is folded into the (min, max, clip, n, err, sig) partials,
 // err/sig through the reference's pinned pairwise-halving tree
 // (_tree_sum_last2).  Every mul->add seam is rounded separately
 // (__fmul_rn / __fadd_rn, and the library is built with -fmad=false),
 // division is __fdiv_rn, rounding rintf; exp is the accurate expf.
 //
-// u8/s8 operands are moved onto the signed grid while staged in shared
-// memory (u8 ^ 0x80 == u8 - 128) and the zero points are restored with
-// row/column sums: (q - zp_q).k = (q - 128).k + (128 - zp_q) * rowsum(k),
-// (p_int - zp_p).v likewise with colsum(v).
+// Both contractions run on the tensor cores (mma.sync m16n8k32 u8 x s8,
+// mma_int8.cuh), the u8 operands (q, p_int) fed as they are, and the zero
+// points come back as the row/column-sum corrections above (the sums
+// themselves an all-ones A operand times the staged tile, on the tensor
+// cores too); the reference truncates both zero points (astype int32), so
+// the correction is -trunc(zp) * sum, not the int8 matmul's
+// rint(128 - zp) - 128.  The operands: q [BH, sq, hd] u8, k [ZB, skv, hd]
+// s8 (as stored: already mma's K-contiguous B operand), and V's K-major
+// image vt [ZB, hd, skvp] (skvp = skv rounded up to 16, zero-padded),
+// which the wrapper writes with the int8 matmul's transpose kernel.  With
+// hd and bkv multiples of 16 and 16-byte aligned rows, K and V^T tiles
+// reach shared memory by cp.async, double-buffered: the next visited tile
+// streams in while the current one is computed; other shapes (direct
+// calls, reduced tests) are staged by byte loads.
+//
+// 16 warps: row group w = warp % 8 owns q rows w + 8 j (j = 0..15), one
+// 16-row mma tile whose local rows g and g + 8 are j, and its two warps
+// (halves h = warp / 8) split the tile's kv columns for QK^T and the
+// softmax, and the out columns for P.V, 64 each; they exchange the row
+// max and the p_int row sums through shared memory at a named barrier of
+// the pair.  A row's values live in the four lanes t = 0..3 of one lane
+// group, so its max and sums are in-thread plus two shuffles, and the
+// min/max/clip/n partials (exact in any order) stay in registers until the
+// end.  An empty tile (the mask keeps no pair) takes p = 0 and p_int =
+// rint(zp_p) everywhere, as the per-element formulas give, without its
+// QK^T, exps and divisions, and its P.V is (pi0 - trunc(zp_p)) * colsum(v)
+// exactly.  The err/sig tree: for power-of-two bkv the reference's flat
+// halving tree over the [bq, bkv] tile is, bit for bit, a halving tree
+// over the rows of each column (rows zero-padded to 128, top row bit
+// first) and then over the columns; with rows w + 8 j the top four row
+// bits are j's, reduced in-thread and by a reduce-scatter over lane bits
+// 4, 3, 2; the groups' three bits and the seven column levels run on an
+// [8, 128] (err, sig) buffer in the next tile's first phase.  Other bkv
+// take the flat tree in shared memory (the choice is made per launch from
+// the shape).
 //
 // Bound on the H100: at the prefill shape (96 heads, S = 1024, hd = 128)
-// the int8 operations and the bytes both need well under a millisecond;
-// this simple version is bound by its own instruction issue: __dp4a on
-// 128 x 128 tiles (256 threads, 8 x 8 outputs each) plus the serial fp32
-// softmax and the two 13-level shared-memory tree sums per tile.
-// Tensor-core MMA, a warp-specialised pipeline and TMA are later work.
+// the int8 operations and the bytes both need ~0.02 ms; what is left is
+// the per-element fp32 softmax and requantization (accurate expf and an
+// IEEE division per probability, whose slow-path branch splits the code
+// into one block per element; no FMA), and the latency of phases that all
+// warps run between the tile's barriers.  wgmma/TMA and warp
+// specialisation are later work.
 // Tile limits: bq, bkv, hd <= 128 (the slice runs 128, 128, 128).
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "mma_int8.cuh"
+
 namespace {
 
+using namespace mma_int8;
+
 constexpr int kMax = 128;            // max bq, bkv, hd
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kLdi = kMax / 4 + 1;   // padded row stride, 32-bit words
+constexpr int kGroups = 8;           // row groups: rows w + 8 j, j < 16
+constexpr int kLd = kMax + 16;       // shared row stride, bytes (no conflicts)
+constexpr int kTile = kMax * kLd;    // one staged operand tile
 constexpr float kNegInf = -1e30f;
+constexpr unsigned kAll = 0xffffffffu;
+
+// Shared memory: K and V^T double buffers, each row group's p_int rows,
+// the q block, the tile's row/column sums, the err/sig buffer, the two
+// halves' row max / p_int sum exchange, the block reductions, then the
+// flat tree's buffer (bkv not a power of two).
+constexpr int kOffK = 0;
+constexpr int kOffV = kOffK + 2 * kTile;
+constexpr int kOffP = kOffV + 2 * kTile;
+constexpr int kOffQ = kOffP + kGroups * 16 * kLd;
+constexpr int kOffSum = kOffQ + kTile;
+constexpr int kOffTree = kOffSum + 2 * kMax * 4;
+constexpr int kTreeSig = kGroups * kMax + 16;   // sig plane, bank-shifted
+constexpr int kOffX = kOffTree + 4 * (kTreeSig + kGroups * kMax);
+constexpr int kOffRed = kOffX + 2 * kWarps * 16 * 4;
+constexpr int kOffFlat = kOffRed + 5 * kWarps * 4;
+constexpr int kSmemMax = kOffFlat + 4 * kMax * (kMax - 1);   // bkv 127
 
 enum Mode { kCausal = 0, kSliding = 1, kPrefix = 2, kCross = 3, kBidir = 4 };
 
 struct Sched {
-  int sq, skv, hd, bq, bkv, groups, mode, window, prefix_len, width, nq, nkv;
+  int sq, skv, skvp, hd, bq, bkv, groups, mode, window, prefix_len, width,
+      nq, nkv, vec, pow2;
 };
 
-constexpr size_t kTileBytes = sizeof(int) * kMax * kLdi;
-constexpr size_t kSmemBytes = 4 * kTileBytes                 // q, k, v^T, p
-                              + sizeof(float) * kMax * kMax  // s / p
-                              + sizeof(float) * kMax * kMax / 2  // tree
-                              + sizeof(int) * 2 * kMax        // rowsum, colsum
-                              + sizeof(float) * 3 * kMax      // m, l, corr
-                              + sizeof(float) * 4 * kWarps;   // reductions
-
-__device__ __forceinline__ bool elem_mask(int qp, int kp, int kvlen,
-                                          const Sched& S) {
-  bool m;
+// The mask of row qp as a key interval: kp is attended iff lo <= kp < hi
+// (the mode's rule, kp < kvlen and kp < skv; kvlim = min(kvlen, skv)).
+__device__ __forceinline__ void mask_bounds(int qp, int kvlim,
+                                            const Sched& S, int& lo,
+                                            int& hi) {
+  lo = 0;
+  hi = kvlim;
   switch (S.mode) {
     case kCross:
-    case kBidir: m = true; break;
-    case kPrefix: m = (kp <= qp) || (kp < S.prefix_len); break;
-    case kSliding: m = (kp <= qp) && (qp - kp < S.window); break;
-    default: m = kp <= qp; break;
+    case kBidir: break;
+    case kPrefix: hi = min(hi, max(qp + 1, S.prefix_len)); break;
+    case kSliding:
+      lo = qp - S.window + 1;
+      hi = min(hi, qp + 1);
+      break;
+    default: hi = min(hi, qp + 1); break;
   }
-  return m && (kp < kvlen) && (kp < S.skv);
+}
+
+// True when the mask keeps no pair of the tile's real rows [q0, q0 + bq)
+// and columns [k0, k0 + bkv).
+__device__ __forceinline__ bool tile_empty(int q0, int k0, int kvlim,
+                                           const Sched& S) {
+  const int qhi = q0 + S.bq - 1, khi = k0 + S.bkv - 1;
+  if (k0 >= kvlim) return true;
+  switch (S.mode) {
+    case kCross:
+    case kBidir: return false;
+    case kPrefix: return k0 > qhi && k0 >= S.prefix_len;
+    case kSliding: return k0 > qhi || q0 - khi >= S.window;
+    default: return k0 > qhi;
+  }
+}
+
+// The number of this lane's columns 8 nt + e (nt < nt_end, e < 2; the
+// lane's offset 2 t taken off the limit) below x.
+__device__ __forceinline__ int lane_cols(int x, int nt_end) {
+  if (x <= 0) return 0;
+  const int f = x >> 3;
+  return f >= nt_end ? 2 * nt_end : 2 * f + min(x & 7, 2);
 }
 
 __device__ __forceinline__ int kv_block_base(int i, const Sched& S) {
@@ -84,71 +164,197 @@ __device__ __forceinline__ bool block_visited(int i, int ki, const Sched& S) {
   return causal;
 }
 
-// rows x cols bytes of `src` (row stride `cols`) -> words of dst (stride
-// kLdi), rows >= valid and columns >= cols zero; `flip` = 0x80 moves a
-// u8 operand onto the signed grid (applied to real bytes only).
-__device__ void stage_rows(int* dst, const uint8_t* src, int rows, int valid,
-                           int cols, uint32_t flip, bool words) {
-  const int cw = (cols + 3) / 4;
-  for (int e = threadIdx.x; e < rows * cw; e += kThreads) {
-    const int r = e / cw, c4 = e % cw, c = 4 * c4;
-    uint32_t v = 0;
-    if (r < valid) {
-      const uint8_t* p = src + static_cast<long long>(r) * cols + c;
-      if (words && c + 3 < cols) {
-        v = *reinterpret_cast<const uint32_t*>(p) ^ (flip * 0x01010101u);
-      } else {
-        for (int b = 0; b < 4; ++b)
-          if (c + b < cols) v |= (static_cast<uint32_t>(p[b]) ^ flip) << (8 * b);
+// The first visited kv block after ki below `end`, or -1.
+__device__ __forceinline__ int next_visited(int i, int ki, int end,
+                                            const Sched& S) {
+  for (++ki; ki < end; ++ki)
+    if (block_visited(i, ki, S)) return ki;
+  return -1;
+}
+
+// Stage `rows` rows x `chunks` 16-byte chunks of a tile (row stride kLd):
+// row r of src (row stride `stride` bytes) lands in shared row r, or with
+// kQSlots in row (r % 8) * 16 + r / 8 (warp w's q rows w + 8 j are then
+// contiguous).  Rows >= valid_rows and bytes >= valid_bytes are zero.
+// `vec`: 16-byte aligned rows and valid_bytes a multiple of 16, copied by
+// cp.async; otherwise byte loads.
+template <bool kQSlots>
+__device__ __forceinline__ void stage_tile(uint8_t* dst, const uint8_t* src,
+                                           int stride, int rows,
+                                           int valid_rows, int chunks,
+                                           int valid_bytes, bool vec, int t) {
+  if (vec) {
+    const uint32_t d = smem_addr(dst);
+#pragma unroll
+    for (int it = 0; it < kMax * 8 / kThreads; ++it) {
+      const int e = t + it * kThreads, r = e >> 3, c = e & 7;
+      if (r < rows && c < chunks) {
+        const int dr = kQSlots ? ((r & 7) << 4) + (r >> 3) : r;
+        const bool in = r < valid_rows && 16 * c < valid_bytes;
+        cp_async_16(d + dr * kLd + 16 * c,
+                    in ? src + static_cast<long long>(r) * stride + 16 * c
+                       : src,
+                    in ? 16 : 0);
       }
     }
-    dst[r * kLdi + c4] = static_cast<int>(v);
+  } else {
+    const int w = t >> 5, l = t & 31;
+    for (int r = w; r < rows; r += kWarps) {
+      const int dr = kQSlots ? ((r & 7) << 4) + (r >> 3) : r;
+      for (int b = l; b < 16 * chunks; b += 32)
+        dst[dr * kLd + b] =
+            (r < valid_rows && b < valid_bytes)
+                ? src[static_cast<long long>(r) * stride + b]
+                : 0;
+    }
   }
 }
 
-// 128 x 128 tile of dot products over `kw` words: acc[r][c] = A[row] . B[col]
-// with row = ty + 16 r, col = tx + 16 c.
-__device__ __forceinline__ void tile_dot(const int* A, const int* B, int kw,
-                                         int acc[8][8], int tx, int ty) {
+// sums[r] = sum of the bytes of staged row r (ksteps * 32 of them), for
+// the 16 rows of warp w's n-tile pair (if it is below nt_end n-tiles):
+// C = ones (16 x 32) . rows^T, whose every row holds the sums.
+__device__ __forceinline__ void row_sums(uint32_t tile, int ksteps,
+                                         int nt_end, int* sums, int w,
+                                         int lane) {
+  if (2 * w >= nt_end) return;
+  const uint32_t ones[4] = {0x01010101u, 0x01010101u, 0x01010101u,
+                            0x01010101u};
+  const int b_row = (lane & 7) + 8 * (lane >> 4), b_chunk = (lane >> 3) & 1;
+  int c0[4] = {0, 0, 0, 0}, c1[4] = {0, 0, 0, 0};
 #pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0;
-  for (int kk = 0; kk < kw; ++kk) {
-    int a[8], b[8];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) a[r] = A[(ty + 16 * r) * kLdi + kk];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) b[c] = B[(tx + 16 * c) * kLdi + kk];
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[r][c] = __dp4a(a[r], b[c], acc[r][c]);
+  for (int ks = 0; ks < 4; ++ks) {
+    if (ks >= ksteps) break;
+    uint32_t bf[4];
+    ldmatrix_x4(bf, tile + (b_row + 16 * w) * kLd + (2 * ks + b_chunk) * 16);
+    mma_u8s8(c0, ones, bf[0], bf[1]);
+    mma_u8s8(c1, ones, bf[2], bf[3]);
+  }
+  if (lane < 4) {   // row g = 0 of C: columns 2 t, 2 t + 1 of each n-tile
+    sums[16 * w + 2 * lane] = c0[0];
+    sums[16 * w + 2 * lane + 1] = c0[1];
+    sums[16 * w + 8 + 2 * lane] = c1[0];
+    sums[16 * w + 8 + 2 * lane + 1] = c1[1];
   }
 }
 
-// Pinned pairwise-halving sum of f(idx) for idx < n (zero-padded to the
-// next power of two), the association of the reference's _tree_sum_last2.
-template <typename F>
-__device__ float tree_sum(float* buf, int n, F f) {
-  int p = 1;
-  while (p < n) p *= 2;
-  if (p == 1) {
-    __syncthreads();
-    const float v = f(0);
-    __syncthreads();
-    return v;
+// One halving level of the reduce-scatter over lane bit `mask`: the lower
+// lane keeps v[0..n/2), the upper v[n/2..n), each adding its partner's.
+template <int N>
+__device__ __forceinline__ void scatter_half(float (&v)[16], int mask,
+                                             bool upper) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const float send = upper ? v[i] : v[i + N / 2];
+    const float keep = upper ? v[i + N / 2] : v[i];
+    v[i] = __fadd_rn(keep, __shfl_xor_sync(kAll, send, mask));
   }
-  int h = p / 2;
-  for (int j = threadIdx.x; j < h; j += kThreads) {
-    const float a = f(j);
-    const float b = (j + h < n) ? f(j + h) : 0.f;
-    buf[j] = __fadd_rn(a, b);
+}
+
+// acc[i] += A . B_i^T on the tensor cores: A the 16 staged rows at `a`
+// (q, or the group's p_int), B_i the staged rows 8 i..8 i + 7 at `b` (K,
+// or V^T), both K-contiguous over ksteps * 32 bytes, for i < nt_end.
+__device__ __forceinline__ void tile_mma(int (&acc)[8][4], uint32_t a,
+                                         uint32_t b, int ksteps, int nt_end,
+                                         int lane) {
+  const int a_row = lane & 15, a_chunk = lane >> 4;
+  const int b_row = (lane & 7) + 8 * (lane >> 4), b_chunk = (lane >> 3) & 1;
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    if (ks >= ksteps) break;
+    uint32_t af[4];
+    ldmatrix_x4(af, a + a_row * kLd + (2 * ks + a_chunk) * 16);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      if (2 * np >= nt_end) break;
+      uint32_t bf[4];
+      ldmatrix_x4(bf, b + (b_row + 16 * np) * kLd + (2 * ks + b_chunk) * 16);
+      mma_u8s8(acc[2 * np], af, bf[0], bf[1]);
+      if (2 * np + 1 < nt_end) mma_u8s8(acc[2 * np + 1], af, bf[2], bf[3]);
+    }
   }
+}
+
+// The err/sig buffer holds, for each row group w (after its row levels)
+// and each column c, err at [w * 128 + pos(c)] and sig kTreeSig floats
+// further, pos(c) = (c % 8) * 16 + c / 8: the columns w + 8 m are then
+// contiguous for tree_cols.
+__device__ __forceinline__ int tree_pos(int c) {
+  return ((c & 7) << 4) + (c >> 3);
+}
+
+// Row bits 5, 4, 3 of the power-of-two tree (lane bits 4, 3, 2) as a
+// reduce-scatter: lane (g, t) of half h is left with columns
+// 64 h + 8 g + 2 t + {0, 1}, which it writes to its group's row of the
+// err/sig buffer.
+__device__ __forceinline__ void tree_rows(float (&te)[16], float (&ts)[16],
+                                          float* tree, int w, int h,
+                                          int lane) {
+  scatter_half<16>(te, 16, (lane >> 4) & 1);
+  scatter_half<16>(ts, 16, (lane >> 4) & 1);
+  scatter_half<8>(te, 8, (lane >> 3) & 1);
+  scatter_half<8>(ts, 8, (lane >> 3) & 1);
+  scatter_half<4>(te, 4, (lane >> 2) & 1);
+  scatter_half<4>(ts, 4, (lane >> 2) & 1);
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int at = w * kMax + tree_pos(64 * h + 8 * g + 2 * tq + e);
+    tree[at] = te[e];
+    tree[kTreeSig + at] = ts[e];
+  }
+}
+
+// Row group w's columns c = w + 8 m, m = lane % 16, err on lanes 0..15 and
+// sig on 16..31: the last three row levels (the groups' bits 2, 1, 0),
+// then column bits 6..3 (m's bits 3..0, by shuffles); the partial for
+// column bits 2..0 = w goes to part[2 w + quantity].
+__device__ __forceinline__ void tree_cols(const float* tree, float* part,
+                                          int w, int lane) {
+  const int m = lane & 15, qd = lane >> 4;
+  const float* src = tree + qd * kTreeSig + (w << 4) + m;
+  float b[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) b[r] = src[r * kMax];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) b[r] = __fadd_rn(b[r], b[r + 4]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) b[r] = __fadd_rn(b[r], b[r + 2]);
+  float v = __fadd_rn(b[0], b[1]);
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    v = __fadd_rn(v, __shfl_xor_sync(kAll, v, off));
+  if (m == 0) part[2 * w + qd] = v;
+}
+
+// Column bits 2, 1, 0 over the groups' partials, folded into (err, sig).
+__device__ __forceinline__ void tree_total(const float* part, float& st_err,
+                                           float& st_sig) {
+  float b[2][8];
+#pragma unroll
+  for (int w = 0; w < 8; ++w) {
+    b[0][w] = part[2 * w];
+    b[1][w] = part[2 * w + 1];
+  }
+#pragma unroll
+  for (int qd = 0; qd < 2; ++qd) {
+#pragma unroll
+    for (int w = 0; w < 4; ++w) b[qd][w] = __fadd_rn(b[qd][w], b[qd][w + 4]);
+#pragma unroll
+    for (int w = 0; w < 2; ++w) b[qd][w] = __fadd_rn(b[qd][w], b[qd][w + 2]);
+  }
+  st_err = __fadd_rn(st_err, __fadd_rn(b[0][0], b[0][1]));
+  st_sig = __fadd_rn(st_sig, __fadd_rn(b[1][0], b[1][1]));
+}
+
+// The flat tree over the n values of buf (zero-padded to a power of two),
+// in place, by the whole block; returns buf[0] (to every thread).
+__device__ __forceinline__ float flat_tree(float* buf, int n, int t) {
   __syncthreads();
-  for (h /= 2; h >= 1; h /= 2) {
-    for (int j = threadIdx.x; j < h; j += kThreads)
-      buf[j] = __fadd_rn(buf[j], buf[j + h]);
+  int h = 1;
+  while (h < n) h <<= 1;
+  for (h >>= 1; h >= 1; h >>= 1) {
+    for (int j = t; j < h; j += kThreads)
+      buf[j] = __fadd_rn(buf[j], j + h < n ? buf[j + h] : 0.f);
     __syncthreads();
   }
   const float v = buf[0];
@@ -156,241 +362,414 @@ __device__ float tree_sum(float* buf, int n, F f) {
   return v;
 }
 
+// The two warps of row group w (halves 0 and 1) meet at named barrier w + 1.
+__device__ __forceinline__ void pair_sync(int w) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(w + 1), "r"(64) : "memory");
+}
+
+// kFix: hd = bkv = 128 with cp.async staging (the model's shape), every
+// tile width a compile-time constant; otherwise the widths of the launch.
+template <bool kFix>
 __global__ void __launch_bounds__(kThreads, 1)
 int8_attention_kernel(const uint8_t* __restrict__ q,
                       const int8_t* __restrict__ k,
-                      const int8_t* __restrict__ v,
+                      const int8_t* __restrict__ vt,
                       const float* __restrict__ regs,
                       const int* __restrict__ kvlen_p,
                       float* __restrict__ out, float* __restrict__ ml,
-                      float* __restrict__ pstats, Sched S, int words) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int* qs = reinterpret_cast<int*>(smem);
-  int* ks = qs + kMax * kLdi;
-  int* vt = ks + kMax * kLdi;
-  int* ps = vt + kMax * kLdi;
-  float* sbuf = reinterpret_cast<float*>(ps + kMax * kLdi);
-  float* tbuf = sbuf + kMax * kMax;
-  int* rowsum_k = reinterpret_cast<int*>(tbuf + kMax * kMax / 2);
+                      float* __restrict__ pstats, Sched S) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int hd = kFix ? kMax : S.hd;
+  const int bkv = kFix ? kMax : S.bkv;
+  const bool vec = kFix || S.vec;
+  const bool pow2 = kFix || S.pow2;
+  const int nks = kFix ? 4 : (hd + 31) >> 5;    // QK^T k-steps (hd / 32)
+  const int nnt = kFix ? 16 : (bkv + 7) >> 3;   // score n-tiles
+  const int pks = kFix ? 4 : (bkv + 31) >> 5;   // PV k-steps (bkv / 32)
+  const int hnt = kFix ? 16 : (hd + 7) >> 3;    // out n-tiles
+
+  int* rowsum_k = reinterpret_cast<int*>(smem + kOffSum);
   int* colsum_v = rowsum_k + kMax;
-  float* m_s = reinterpret_cast<float*>(colsum_v + kMax);
-  float* l_s = m_s + kMax;
-  float* corr_s = l_s + kMax;
-  float* red = corr_s + kMax;
-  int8_t* psb = reinterpret_cast<int8_t*>(ps);
-  int8_t* vtb = reinterpret_cast<int8_t*>(vt);
+  float* tree = reinterpret_cast<float*>(smem + kOffTree);
+  float* xmax = reinterpret_cast<float*>(smem + kOffX);   // [warp][row j]
+  int* xsum = reinterpret_cast<int*>(xmax + kWarps * 16);
+  float* red = reinterpret_cast<float*>(smem + kOffRed);
+  float* part = red + 4 * kWarps;   // the err/sig tree's group partials
+  float* flat = reinterpret_cast<float*>(smem + kOffFlat);
 
   const int i = blockIdx.x, bh = blockIdx.y, z = bh / S.groups;
-  const int t = threadIdx.x, tx = t % 16, ty = t / 16;
-  const int warp = t / 32, lane = t % 32;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  // Row group w (q rows w + 8 j), half h: kv columns and out columns
+  // 64 h..64 h + 63 of the tile.
+  const int w = warp & 7, h = warp >> 3, partner = warp ^ 8;
+  const int g = lane >> 2, tq = lane & 3;
   const float zp_q = regs[0], alpha_qk = regs[1], scale_p = regs[2];
   const float zp_p = regs[3], alpha_pv = regs[4], p_lo = regs[5];
   const float p_hi = regs[6];
-  const int kvlen = *kvlen_p;
-  const int shift_q = 128 - static_cast<int>(zp_q);
-  const int shift_p = 128 - static_cast<int>(zp_p);
+  const int kvlim = min(*kvlen_p, S.skv);
+  const int tzq = static_cast<int>(zp_q), tzp = static_cast<int>(zp_p);
+  // p_int of a masked probability (p = 0), as the per-element formula.
+  const float pi0 = fminf(
+      fmaxf(rintf(__fadd_rn(__fdiv_rn(0.f, scale_p), zp_p)), 0.f), 255.f);
   const int q0 = i * S.bq;
-  const int hw = (S.hd + 3) / 4, kw = (S.bkv + 3) / 4;
+  const int row[2] = {w + 8 * g, w + 8 * g + 64};
+  const bool row_ok[2] = {row[0] < S.bq && q0 + row[0] < S.sq,
+                          row[1] < S.bq && q0 + row[1] < S.sq};
+  const bool rows_all = S.bq == kMax && q0 + kMax <= S.sq;   // uniform
+  const int snt = kFix ? 8 : max(0, min(8, nnt - 8 * h));   // this half's
+  const int ont = kFix ? 8 : max(0, min(8, hnt - 8 * h));    // score and
+                                                             // out n-tiles
+  const int cbase = 64 * h + 2 * tq;     // this lane's first column
 
-  stage_rows(qs, q + (static_cast<long long>(bh) * S.sq + q0) * S.hd, S.bq,
-             min(S.bq, S.sq - q0), S.hd, 0x80u, words);
-  for (int r = t; r < S.bq; r += kThreads) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
-  }
-  float o[8][8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) o[r][c] = 0.f;
-  // (min, max, clip, n, err, sig); only thread 0's copy is kept.
-  float st[6] = {FLT_MAX, -FLT_MAX, 0.f, 0.f, 0.f, 0.f};
-
-  const int base = kv_block_base(i, S);
-  for (int tt = 0; tt < S.width; ++tt) {
-    const int ki = base + tt;
-    if (!block_visited(i, ki, S)) continue;
+  auto stage_kv = [&](int ki, int buf) {
     const int k0 = ki * S.bkv;
-    const int kvalid = min(S.bkv, S.skv - k0);
-    const long long kv_off = (static_cast<long long>(z) * S.skv + k0) * S.hd;
-    __syncthreads();  // previous tile fully consumed
-    stage_rows(ks, reinterpret_cast<const uint8_t*>(k + kv_off), S.bkv, kvalid,
-               S.hd, 0u, words);
-    for (int e = t; e < 4 * kw * S.hd; e += kThreads) {
-      const int kv = e / S.hd, h = e % S.hd;
-      vtb[h * kLdi * 4 + kv] =
-          kv < kvalid ? v[kv_off + static_cast<long long>(kv) * S.hd + h] : 0;
-    }
-    __syncthreads();
-    if (t < S.bkv) {
-      int s = 0;
-      for (int kk = 0; kk < hw; ++kk) s = __dp4a(ks[t * kLdi + kk], 0x01010101, s);
-      rowsum_k[t] = s;
-    }
-    if (t < S.hd) {
-      int s = 0;
-      for (int kk = 0; kk < kw; ++kk) s = __dp4a(vt[t * kLdi + kk], 0x01010101, s);
-      colsum_v[t] = s;
-    }
-    __syncthreads();
+    stage_tile<false>(
+        smem + kOffK + buf * kTile,
+        reinterpret_cast<const uint8_t*>(k) +
+            (static_cast<long long>(z) * S.skv + k0) * hd,
+        hd, 16 * ((nnt + 1) >> 1), min(bkv, S.skv - k0), 2 * nks, hd, vec,
+        t);
+    stage_tile<false>(
+        smem + kOffV + buf * kTile,
+        reinterpret_cast<const uint8_t*>(vt) +
+            static_cast<long long>(z) * hd * S.skvp + k0,
+        S.skvp, 16 * ((hnt + 1) >> 1), hd, 2 * pks, min(bkv, S.skvp - k0),
+        vec, t);
+  };
 
-    // Scores.
-    int acc[8][8];
-    tile_dot(qs, ks, hw, acc, tx, ty);
+  stage_tile<true>(smem + kOffQ,
+                   q + (static_cast<long long>(bh) * S.sq + q0) * hd, hd,
+                   kMax, min(S.bq, S.sq - q0), 2 * nks, hd, vec, t);
+  const int end = kv_block_base(i, S) + S.width;
+  int ki = next_visited(i, kv_block_base(i, S) - 1, end, S);
+  if (ki >= 0) stage_kv(ki, 0);
+  cp_async_commit();
+
+  float o[8][4];
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int row = ty + 16 * r;
+  for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int col = tx + 16 * c;
-        if (row < S.bq && col < S.bkv) {
-          const int a = acc[r][c] + shift_q * rowsum_k[col];
-          float s = __fmul_rn(alpha_qk, __int2float_rn(a));
-          if (!elem_mask(q0 + row, k0 + col, kvlen, S)) s = kNegInf;
-          sbuf[row * S.bkv + col] = s;
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  float pmn = FLT_MAX, pmx = -FLT_MAX;
+  int nclip = 0, ncnt = 0;
+  float st_err = 0.f, st_sig = 0.f;   // thread 0's are the block's
+  const uint32_t qa = smem_addr(smem + kOffQ) + w * 16 * kLd;
+  uint8_t* pw = smem + kOffP + w * 16 * kLd;   // the group's p_int rows
+
+  int n = 0;   // visited tiles so far
+  for (; ki >= 0; ++n) {
+    const int buf = n & 1;
+    cp_async_wait<0>();
+    __syncthreads();   // tile n has landed; tile n - 1 is consumed
+    const int nk = next_visited(i, ki, end, S);
+    if (nk >= 0) stage_kv(nk, buf ^ 1);
+    cp_async_commit();
+    const uint8_t* Kb = smem + kOffK + buf * kTile;
+    const uint8_t* Vb = smem + kOffV + buf * kTile;
+    // Row sums of the K and V^T tiles on the tensor cores (an all-ones A
+    // operand; warps 0..7 K, 8..15 V^T), and the err/sig tree's last
+    // levels of tile n - 1.
+    if (h == 0) {
+      row_sums(smem_addr(Kb), nks, nnt, rowsum_k, w, lane);
+      if (pow2 && n > 0) tree_cols(tree, part, w, lane);
+    } else {
+      row_sums(smem_addr(Vb), pks, hnt, colsum_v, w, lane);
+    }
+    __syncthreads();   // the sums and partials are visible; the err/sig
+                       // buffer is free
+    if (pow2 && n > 0 && t == 0) tree_total(part, st_err, st_sig);
+
+    const int k0 = ki * S.bkv;
+    const bool live = !tile_empty(q0, k0, kvlim, S);   // uniform
+    // This lane's columns are cbase + c, c = 8 i + e: the mask keeps
+    // clo[r] <= c < chi[r] (chi also stops at bkv); the statistics see
+    // c < cvalid (kp < skv) on rows row_ok; c < creal is in the tile.
+    int clo[2], chi[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      int lo, hi;
+      mask_bounds(q0 + row[r], kvlim, S, lo, hi);
+      clo[r] = lo - k0 - cbase;
+      chi[r] = min(hi - k0, bkv) - cbase;
+    }
+    const int cvalid = min(bkv, S.skv - k0) - cbase;
+    const int creal = bkv - cbase;
+
+    // Scores of a live tile: acc = q . k - trunc(zp_q) * rowsum(k), then
+    // the row max over both halves.
+    float s[8][4];
+    float m_new[2] = {m_run[0], m_run[1]}, corr[2] = {1.f, 1.f};
+    if (live) {
+      int acc[8][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        if (nt >= snt) break;
+        const int2 rs =
+            *reinterpret_cast<const int2*>(rowsum_k + cbase + 8 * nt);
+        acc[nt][0] = acc[nt][2] = -tzq * rs.x;
+        acc[nt][1] = acc[nt][3] = -tzq * rs.y;
+      }
+      if (snt > 0)
+        tile_mma(acc, qa, smem_addr(Kb) + 64 * h * kLd, nks, snt, lane);
+      float rmax[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        if (nt >= snt) break;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = nt * 8 + (e & 1), r = e >> 1;
+          const bool kp = c >= clo[r] && c < chi[r];
+          s[nt][e] = kp ? __fmul_rn(alpha_qk, __int2float_rn(acc[nt][e]))
+                        : kNegInf;
+          rmax[r] = fmaxf(rmax[r], s[nt][e]);
         }
       }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rmax[r] = fmaxf(rmax[r], __shfl_xor_sync(kAll, rmax[r], 1));
+        rmax[r] = fmaxf(rmax[r], __shfl_xor_sync(kAll, rmax[r], 2));
+        if (tq == 0) xmax[warp * 16 + g + 8 * r] = rmax[r];
+      }
+      pair_sync(w);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rmax[r] = fmaxf(rmax[r], xmax[partner * 16 + g + 8 * r]);
+        m_new[r] = fmaxf(m_run[r], rmax[r]);
+        corr[r] = expf(__fsub_rn(m_run[r], m_new[r]));
+      }
     }
-    __syncthreads();
+    // (An empty tile's scores are all masked: m stays, corr = exp(0) = 1.)
 
-    // Online softmax, one warp per row; p requantized on [p_lo, p_hi].
-    float pmn = FLT_MAX, pmx = -FLT_MAX, clip = 0.f, cnt = 0.f;
-    for (int row = warp; row < S.bq; row += kWarps) {
-      float rmax = kNegInf;
-      for (int col = lane; col < S.bkv; col += 32)
-        rmax = fmaxf(rmax, sbuf[row * S.bkv + col]);
-      for (int off = 16; off > 0; off >>= 1)
-        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
-      const float m_prev = m_s[row];
-      const float m_new = fmaxf(m_prev, rmax);
-      const int qp = q0 + row;
-      int lsum = 0;
-      for (int col = lane; col < S.bkv; col += 32) {
-        const int kp = k0 + col;
-        float p = expf(__fsub_rn(sbuf[row * S.bkv + col], m_new));
-        if (!elem_mask(qp, kp, kvlen, S)) p = 0.f;
-        float pi = rintf(__fadd_rn(__fdiv_rn(p, scale_p), zp_p));
-        pi = fminf(fmaxf(pi, 0.f), 255.f);
-        lsum += static_cast<int>(pi) - static_cast<int>(zp_p);
-        sbuf[row * S.bkv + col] = p;
-        psb[row * kLdi * 4 + col] = static_cast<int8_t>(static_cast<int>(pi) - 128);
-        if (qp < S.sq && kp < S.skv) {
-          pmn = fminf(pmn, p);
-          pmx = fmaxf(pmx, p);
-          clip += (p < p_lo || p > p_hi) ? 1.f : 0.f;
-          cnt += 1.f;
+    // Probabilities, their 8-bit image (this half of the group's PV A
+    // operand), the p_int row sums, the order-free partials and the
+    // err/sig values.  kLive = false is the empty tile: p = 0 and p_int
+    // = pi0 everywhere, by the same formulas.  kAll: every entry of the
+    // tile is in bounds (no row past sq, no column past skv or bkv).
+    int psum[2] = {0, 0};
+    float te[16], ts[16];   // pow2: per column, rows j and j + 8 summed
+    auto probs = [&](auto live_tag, auto all_tag) {
+      constexpr bool kLive = decltype(live_tag)::value;
+      constexpr bool kAll = decltype(all_tag)::value;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        te[2 * nt] = te[2 * nt + 1] = ts[2 * nt] = ts[2 * nt + 1] = 0.f;
+        if (nt >= snt) continue;
+        float ev[4], sg[4];
+        int pb[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = nt * 8 + (e & 1), r = e >> 1;
+          float p = 0.f, pi = pi0;
+          if (kLive) {
+            const bool kp = c >= clo[r] && c < chi[r];
+            const float ex = expf(__fsub_rn(s[nt][e], m_new[r]));
+            p = kp ? ex : 0.f;
+            pi = fminf(fmaxf(rintf(__fadd_rn(__fdiv_rn(p, scale_p), zp_p)),
+                             0.f), 255.f);
+          }
+          pb[e] = static_cast<int>(pi);
+          if (kFix || c < creal) psum[r] += pb[e];
+          const bool sv = kAll || (row_ok[r] && c < cvalid);
+          pmn = fminf(pmn, sv ? p : FLT_MAX);
+          pmx = fmaxf(pmx, sv ? p : -FLT_MAX);
+          nclip += (sv && (p < p_lo || p > p_hi)) ? 1 : 0;
+          const float d =
+              __fsub_rn(p, __fmul_rn(__fsub_rn(pi, zp_p), scale_p));
+          ev[e] = sv ? __fmul_rn(d, d) : 0.f;
+          sg[e] = sv ? __fmul_rn(p, p) : 0.f;
+        }
+        const int c0 = cbase + nt * 8;
+        if (kLive) {
+          *reinterpret_cast<uint16_t*>(pw + g * kLd + c0) =
+              static_cast<uint16_t>((pb[0] & 0xff) | ((pb[1] & 0xff) << 8));
+          *reinterpret_cast<uint16_t*>(pw + (g + 8) * kLd + c0) =
+              static_cast<uint16_t>((pb[2] & 0xff) | ((pb[3] & 0xff) << 8));
+        }
+        if (pow2) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            te[2 * nt + e] = __fadd_rn(ev[e], ev[e + 2]);   // row bit 6
+            ts[2 * nt + e] = __fadd_rn(sg[e], sg[e + 2]);
+          }
+        } else {   // err now, sig after the err tree (kept in s)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = c0 + (e & 1), r = e >> 1;
+            if (row[r] < S.bq && col < bkv) flat[row[r] * bkv + col] = ev[e];
+            s[nt][e] = sg[e];
+          }
         }
       }
-      for (int off = 16; off > 0; off >>= 1)
-        lsum += __shfl_xor_sync(0xffffffffu, lsum, off);
-      if (lane == 0) {
-        const float corr = expf(__fsub_rn(m_prev, m_new));
-        corr_s[row] = corr;
-        m_s[row] = m_new;
-        l_s[row] = __fadd_rn(__fmul_rn(l_s[row], corr),
-                             __fmul_rn(scale_p, __int2float_rn(lsum)));
-      }
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      pmn = fminf(pmn, __shfl_xor_sync(0xffffffffu, pmn, off));
-      pmx = fmaxf(pmx, __shfl_xor_sync(0xffffffffu, pmx, off));
-      clip += __shfl_xor_sync(0xffffffffu, clip, off);
-      cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
-    }
-    if (lane == 0) {
-      red[warp] = pmn;
-      red[kWarps + warp] = pmx;
-      red[2 * kWarps + warp] = clip;
-      red[3 * kWarps + warp] = cnt;
-    }
-    __syncthreads();
-
-    // P.V and the carry update.
-    tile_dot(ps, vt, kw, acc, tx, ty);
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int row = ty + 16 * r;
-      if (row >= S.bq) continue;
-      const float corr = corr_s[row];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int col = tx + 16 * c;
-        if (col < S.hd) {
-          const int a = acc[r][c] + shift_p * colsum_v[col];
-          o[r][c] = __fadd_rn(__fmul_rn(o[r][c], corr),
-                              __fmul_rn(alpha_pv, __int2float_rn(a)));
-        }
-      }
-    }
-
-    // Statistics of this tile (min/max/counts exact in any order).
-    if (t == 0) {
-      float tmn = FLT_MAX, tmx = -FLT_MAX, tcl = 0.f, tcn = 0.f;
-      for (int w = 0; w < kWarps; ++w) {
-        tmn = fminf(tmn, red[w]);
-        tmx = fmaxf(tmx, red[kWarps + w]);
-        tcl += red[2 * kWarps + w];
-        tcn += red[3 * kWarps + w];
-      }
-      st[0] = fminf(st[0], tmn);
-      st[1] = fmaxf(st[1], tmx);
-      st[2] = __fadd_rn(st[2], tcl);
-      st[3] = __fadd_rn(st[3], tcn);
-    }
-    const int n = S.bq * S.bkv;
-    const int bkv = S.bkv;
-    auto in_bounds = [&](int idx) {
-      return (q0 + idx / bkv < S.sq) && (k0 + idx % bkv < S.skv);
     };
-    const float err = tree_sum(tbuf, n, [&](int idx) {
-      if (!in_bounds(idx)) return 0.f;
-      const float p = sbuf[idx];
-      const float pi = static_cast<float>(psb[(idx / bkv) * kLdi * 4 + idx % bkv] + 128);
-      const float p_hat = __fmul_rn(__fsub_rn(pi, zp_p), scale_p);
-      const float d = __fsub_rn(p, p_hat);
-      return __fmul_rn(d, d);
-    });
-    const float sig = tree_sum(tbuf, n, [&](int idx) {
-      if (!in_bounds(idx)) return 0.f;
-      const float p = sbuf[idx];
-      return __fmul_rn(p, p);
-    });
-    if (t == 0) {
-      st[4] = __fadd_rn(st[4], err);
-      st[5] = __fadd_rn(st[5], sig);
+    if (!live) {
+      probs(std::false_type{}, std::false_type{});
+    } else if (rows_all && cvalid == creal && (bkv & 7) == 0) {
+      probs(std::true_type{}, std::true_type{});
+    } else {
+      probs(std::true_type{}, std::false_type{});
     }
+    ncnt += (static_cast<int>(row_ok[0]) + static_cast<int>(row_ok[1])) *
+            lane_cols(cvalid, snt);
+
+    if (pow2) {
+      tree_rows(te, ts, tree, w, h, lane);
+    } else {   // the flat tree over bq * bkv, err then sig
+      const float err = flat_tree(flat, S.bq * bkv, t);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        if (nt >= snt) break;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = cbase + nt * 8 + (e & 1), r = e >> 1;
+          if (row[r] < S.bq && col < bkv) flat[row[r] * bkv + col] = s[nt][e];
+        }
+      }
+      const float sig = flat_tree(flat, S.bq * bkv, t);
+      if (t == 0) {
+        st_err = __fadd_rn(st_err, err);
+        st_sig = __fadd_rn(st_sig, sig);
+      }
+    }
+
+    // The carries: lsum = sum(p_int - trunc(zp_p)) over the tile's bkv
+    // columns (both halves); acc_pv = p_int . v - trunc(zp_p) * colsum(v)
+    // on this half's out columns (A = the group's p_int as u8, B = V^T);
+    // an empty tile's are bkv (pi0 - trunc(zp_p)) and (pi0 -
+    // trunc(zp_p)) * colsum(v) exactly.
+    int lsum[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      psum[r] += __shfl_xor_sync(kAll, psum[r], 1);
+      psum[r] += __shfl_xor_sync(kAll, psum[r], 2);
+      lsum[r] = bkv * (static_cast<int>(pi0) - tzp);
+    }
+    if (live) {
+      if (tq == 0) {
+        xsum[warp * 16 + g] = psum[0];
+        xsum[warp * 16 + g + 8] = psum[1];
+      }
+      pair_sync(w);   // both halves' p_int rows and sums are in
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        lsum[r] = psum[r] + xsum[partner * 16 + g + 8 * r] - bkv * tzp;
+    }
+    const int pshift = live ? -tzp : static_cast<int>(pi0) - tzp;
+    int pacc[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      if (nt >= ont) break;
+      const int2 cs =
+          *reinterpret_cast<const int2*>(colsum_v + cbase + 8 * nt);
+      pacc[nt][0] = pacc[nt][2] = pshift * cs.x;
+      pacc[nt][1] = pacc[nt][3] = pshift * cs.y;
+    }
+    if (live && ont > 0)
+      tile_mma(pacc, smem_addr(pw), smem_addr(Vb) + 64 * h * kLd, pks, ont,
+               lane);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_run[r] = __fadd_rn(__fmul_rn(l_run[r], corr[r]),
+                           __fmul_rn(scale_p, __int2float_rn(lsum[r])));
+      m_run[r] = m_new[r];
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      if (nt >= ont) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[nt][e] = __fadd_rn(__fmul_rn(o[nt][e], corr[e >> 1]),
+                             __fmul_rn(alpha_pv, __int2float_rn(pacc[nt][e])));
+    }
+    ki = nk;
+  }
+
+  // The block's partials: min/max/clip/n over its threads (exact in any
+  // order), err/sig of the last tile's tree.
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    pmn = fminf(pmn, __shfl_xor_sync(kAll, pmn, off));
+    pmx = fmaxf(pmx, __shfl_xor_sync(kAll, pmx, off));
+    nclip += __shfl_xor_sync(kAll, nclip, off);
+    ncnt += __shfl_xor_sync(kAll, ncnt, off);
+  }
+  int* redi = reinterpret_cast<int*>(red);
+  if (lane == 0) {
+    red[warp] = pmn;
+    red[kWarps + warp] = pmx;
+    redi[2 * kWarps + warp] = nclip;
+    redi[3 * kWarps + warp] = ncnt;
+  }
+  if (pow2 && n > 0) {   // the last tile's tree
+    __syncthreads();
+    if (h == 0) tree_cols(tree, part, w, lane);
   }
   __syncthreads();
+  if (t == 0) {
+    if (pow2 && n > 0) tree_total(part, st_err, st_sig);
+    int tcl = 0, tcn = 0;
+    for (int v = 0; v < kWarps; ++v) {
+      pmn = fminf(pmn, red[v]);
+      pmx = fmaxf(pmx, red[kWarps + v]);
+      tcl += redi[2 * kWarps + v];
+      tcn += redi[3 * kWarps + v];
+    }
+    float* prow = pstats + (static_cast<long long>(bh) * S.nq + i) * 6;
+    prow[0] = pmn;
+    prow[1] = pmx;
+    prow[2] = __int2float_rn(tcl);
+    prow[3] = __int2float_rn(tcn);
+    prow[4] = st_err;
+    prow[5] = st_sig;
+  }
 
-  // out = acc / max(l, 1e-30); residuals (m, l); the statistics partials.
+  // out = acc / max(l, 1e-30) on this half's columns; residuals (m, l).
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int row = ty + 16 * r;
-    if (row >= S.bq || q0 + row >= S.sq) continue;
-    const float den = fmaxf(l_s[row], 1e-30f);
-    float* orow = out + (static_cast<long long>(bh) * S.sq + q0 + row) * S.hd;
+  for (int r = 0; r < 2; ++r) {
+    if (!row_ok[r]) continue;
+    const long long qrow = static_cast<long long>(bh) * S.sq + q0 + row[r];
+    const float den = fmaxf(l_run[r], 1e-30f);
+    float* orow = out + qrow * hd;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int col = tx + 16 * c;
-      if (col < S.hd) orow[col] = __fdiv_rn(o[r][c], den);
+    for (int nt = 0; nt < 8; ++nt) {
+      if (nt >= ont) break;
+      const int col = cbase + 8 * nt;
+      const float v0 = __fdiv_rn(o[nt][2 * r], den);
+      const float v1 = __fdiv_rn(o[nt][2 * r + 1], den);
+      if ((hd & 1) == 0 && col < hd) {
+        *reinterpret_cast<float2*>(orow + col) = make_float2(v0, v1);
+      } else {
+        if (col < hd) orow[col] = v0;
+        if (col + 1 < hd) orow[col + 1] = v1;
+      }
+    }
+    if (h == 0 && tq == 0) {
+      ml[2 * qrow] = m_run[r];
+      ml[2 * qrow + 1] = l_run[r];
     }
   }
-  for (int row = t; row < S.bq; row += kThreads) {
-    if (q0 + row >= S.sq) continue;
-    float* mrow = ml + (static_cast<long long>(bh) * S.sq + q0 + row) * 2;
-    mrow[0] = m_s[row];
-    mrow[1] = l_s[row];
-  }
-  if (t == 0) {
-    float* prow = pstats + (static_cast<long long>(bh) * S.nq + i) * 6;
-    for (int s = 0; s < 6; ++s) prow[s] = st[s];
-  }
+}
+
+// Allow an instantiation's dynamic shared memory (above the 48 KB
+// default) once; returns the CUDA error code.
+template <bool kFix>
+int allow_smem() {
+  static int status = -1;
+  if (status < 0)
+    status = static_cast<int>(cudaFuncSetAttribute(
+        int8_attention_kernel<kFix>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax));
+  return status;
 }
 
 }  // namespace
 
+// q u8 [BH, sq, hd]; k s8 [ZB, skv, hd]; vt s8 [ZB, hd, skvp], V's K-major
+// image (skvp = skv rounded up to 16, zero-padded); regs fp32 [8]; kvlen
+// int32 [1].  Out: out fp32 [BH, sq, hd], ml fp32 [BH, sq, 2], pstats
+// fp32 [BH, nq, 6].
 extern "C" int repro_int8_attention(const void* q, const void* k,
-                                    const void* v, const void* regs,
+                                    const void* vt, const void* regs,
                                     const void* kvlen, void* out, void* ml,
                                     void* pstats, int bh, int sq, int skv,
                                     int hd, int bq, int bkv, int groups,
@@ -398,13 +777,10 @@ extern "C" int repro_int8_attention(const void* q, const void* k,
                                     int width, void* stream) {
   if (bq < 1 || bkv < 1 || hd < 1 || bq > kMax || bkv > kMax || hd > kMax)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      int8_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
   Sched S;
   S.sq = sq;
   S.skv = skv;
+  S.skvp = (skv + 15) & ~15;
   S.hd = hd;
   S.bq = bq;
   S.bkv = bkv;
@@ -415,14 +791,32 @@ extern "C" int repro_int8_attention(const void* q, const void* k,
   S.width = width;
   S.nq = (sq + bq - 1) / bq;
   S.nkv = (skv + bkv - 1) / bkv;
-  const int words = (hd % 4 == 0) &&
-                    (reinterpret_cast<uintptr_t>(q) % 4 == 0) &&
-                    (reinterpret_cast<uintptr_t>(k) % 4 == 0);
-  int8_attention_kernel<<<dim3(S.nq, bh), kThreads, kSmemBytes,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(q), static_cast<const int8_t*>(k),
-      static_cast<const int8_t*>(v), static_cast<const float*>(regs),
-      static_cast<const int*>(kvlen), static_cast<float*>(out),
-      static_cast<float*>(ml), static_cast<float*>(pstats), S, words);
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  S.vec = hd % 16 == 0 && bkv % 16 == 0 && aligned(q) && aligned(k) &&
+          aligned(vt);
+  S.pow2 = (bkv & (bkv - 1)) == 0;
+  const bool fix = S.vec && hd == kMax && bkv == kMax;
+  const int smem = kOffFlat + (S.pow2 ? 0 : 4 * bq * bkv);
+  const dim3 grid(S.nq, bh);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const uint8_t*>(q);
+  const auto* kp = static_cast<const int8_t*>(k);
+  const auto* vp = static_cast<const int8_t*>(vt);
+  const auto* rp = static_cast<const float*>(regs);
+  const auto* lp = static_cast<const int*>(kvlen);
+  auto* op = static_cast<float*>(out);
+  auto* mp = static_cast<float*>(ml);
+  auto* pp = static_cast<float*>(pstats);
+  if (fix) {
+    if (const int s = allow_smem<true>()) return s;
+    int8_attention_kernel<true><<<grid, kThreads, smem, st>>>(
+        qp, kp, vp, rp, lp, op, mp, pp, S);
+  } else {
+    if (const int s = allow_smem<false>()) return s;
+    int8_attention_kernel<false><<<grid, kThreads, smem, st>>>(
+        qp, kp, vp, rp, lp, op, mp, pp, S);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -53,6 +53,15 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
+def start_nvcc(src: Path, out, *extra: str) -> subprocess.Popen:
+    """Start one ``nvcc`` of ``src`` into the library ``out`` with the
+    port's flags (``extra`` before them); the compiler's output, the
+    ``ptxas -v`` lines among it, is the process's stdout."""
+    cmd = [nvcc_path(), *extra, *NVCC_FLAGS, "-o", str(out), str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
 def build_all(names=SOURCES) -> dict:
     """Compile every missing library, one ``nvcc`` per source, all started
     together.  Returns ``{name: (path, seconds, ptxas log)}``; raises with
@@ -66,9 +75,7 @@ def build_all(names=SOURCES) -> dict:
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
+        proc = start_nvcc(CSRC / f"{name}.cu", tmp)
         jobs[name] = (out, proc, tmp, time.perf_counter())
     result = {}
     for name, (out, proc, tmp, t0) in jobs.items():

@@ -18,10 +18,17 @@ Source note.  The CUDA kernel (``csrc/int8_attention.cu``) replaces the
 TPU kernel ``attention_kernel`` (``repro/kernels/int8_attention.py``,
 body ``_attn_kernel``).  One CUDA block per (head, q block) walks its
 ``width`` kv blocks in the reference's order — that loop replaces the
-TPU's sequential grid axis — with GQA through ``bh // groups``.  At the
-slice's shape it is bound by its own instruction issue (``__dp4a`` tiles,
-the serial softmax and the pinned tree sums), not by bytes or by the
-card's int8 rate; tensor-core MMA is later work.
+TPU's sequential grid axis — with GQA through ``bh // groups``.  Both
+int8 contractions run on the tensor cores (``mma.sync`` u8 x s8,
+``csrc/mma_int8.cuh``) with the reference's truncated zero points
+restored as ``-trunc(zp) * rowsum(k)`` and ``-trunc(zp_p) * colsum(v)``;
+K and V's K-major image (written by the int8 matmul's transpose kernel)
+stream in by double-buffered ``cp.async``; the softmax, the requantized
+probabilities and the statistics stay in registers, and the err/sig tree
+keeps the reference's association (a rows-then-columns tree for
+power-of-two ``bkv``, the flat tree otherwise).  At the slice's shape it
+is bound by the per-element fp32 softmax and requantization, not by bytes
+or by the card's int8 rate.
 
 Layout: q uint8 ``[BH, sq, hd]`` (BH = B * KV * G, head-major), k/v int8
 ``[ZB, skv, hd]`` (ZB = B * KV).  Registers: fp32 ``[8]`` =
@@ -38,6 +45,7 @@ import torch.nn.functional as F
 from repro_torch.core.quant import QuantSpec
 
 from . import LaunchCounter, build
+from . import int8_matmul as _mm
 
 COUNTER = LaunchCounter("int8_attention")
 
@@ -411,14 +419,39 @@ def attention_core_backward(qh, kh, vh, q_u8, k_i8, v_i8, regs, kvlen,
 _MODE_CODE = {"causal": 0, "sliding": 1, "prefix": 2, "cross": 3, "bidir": 4}
 
 
-def _lib():
-    lib = build.library("int8_attention")
+def bind(lib: ctypes.CDLL):
+    """``lib``'s C entry ``repro_int8_attention`` with its signature."""
     fn = lib.repro_int8_attention
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp] * 8 + [ci] * 11 + [vp]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _lib():
+    return bind(build.library("int8_attention"))
+
+
+def launch(fn, q_u8, k_i8, vt, regs, kvl, *, sched: AttnSchedule):
+    """One launch of the C entry ``fn`` on operands already in the
+    kernel's form: q and k 16-byte aligned, ``vt`` V's K-major image,
+    ``regs`` fp32 [8], ``kvl`` int32 [1], all on the card.  Returns
+    ``(out, ml, pstats)``; counts nothing."""
+    S = sched
+    bh, dev = q_u8.shape[0], q_u8.device
+    out = torch.empty((bh, S.sq, S.hd), dtype=torch.float32, device=dev)
+    ml = torch.empty((bh, S.sq, 2), dtype=torch.float32, device=dev)
+    pstats = torch.empty((bh, S.nq, STAT_SLOTS), dtype=torch.float32,
+                         device=dev)
+    status = fn(q_u8.data_ptr(), k_i8.data_ptr(), vt.data_ptr(),
+                regs.data_ptr(), kvl.data_ptr(), out.data_ptr(),
+                ml.data_ptr(), pstats.data_ptr(),
+                bh, S.sq, S.skv, S.hd, S.bq, S.bkv, S.groups,
+                _MODE_CODE[S.mode], S.window, S.prefix_len, S.width,
+                torch.cuda.current_stream(dev).cuda_stream)
+    build.check(status, "int8_attention")
+    return out, ml, pstats
 
 
 def attention_cuda(q_u8, k_i8, v_i8, regs, kvlen, *, sched: AttnSchedule):
@@ -441,19 +474,12 @@ def attention_cuda(q_u8, k_i8, v_i8, regs, kvlen, *, sched: AttnSchedule):
         raise ValueError(f"attention shapes {tuple(q_u8.shape)}, "
                          f"{tuple(k_i8.shape)} do not match {S}")
     dev = q_u8.device
-    q_u8, k_i8, v_i8 = q_u8.contiguous(), k_i8.contiguous(), v_i8.contiguous()
+    q_u8, k_i8 = _mm._aligned(q_u8), _mm._aligned(k_i8)
+    # V's K-major image [ZB, hd, skv rounded up to 16]: the PV product's
+    # B operand, kv contiguous.
+    vt = _mm.weight_kmajor_cuda(v_i8)
     regs = regs.to(device=dev, dtype=torch.float32).reshape(-1).contiguous()
     kvl = kvlen.to(device=dev, dtype=torch.int32).reshape(1).contiguous()
-    out = torch.empty((bh, S.sq, S.hd), dtype=torch.float32, device=dev)
-    ml = torch.empty((bh, S.sq, 2), dtype=torch.float32, device=dev)
-    pstats = torch.empty((bh, S.nq, STAT_SLOTS), dtype=torch.float32,
-                         device=dev)
-    status = _lib()(q_u8.data_ptr(), k_i8.data_ptr(), v_i8.data_ptr(),
-                    regs.data_ptr(), kvl.data_ptr(), out.data_ptr(),
-                    ml.data_ptr(), pstats.data_ptr(),
-                    bh, S.sq, S.skv, S.hd, S.bq, S.bkv, S.groups,
-                    _MODE_CODE[S.mode], S.window, S.prefix_len, S.width,
-                    torch.cuda.current_stream(dev).cuda_stream)
-    build.check(status, "int8_attention")
+    out, ml, pstats = launch(_lib(), q_u8, k_i8, vt, regs, kvl, sched=S)
     COUNTER.count += 1
     return out, ml, pstats

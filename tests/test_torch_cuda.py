@@ -226,19 +226,39 @@ def test_int8_matmul_fused_op_launches_the_kernel(card):
 
 
 ATTN_CASES = [
-    # mode, sq, skv, groups, hd, window, prefix, kv_len, (bq, bkv)
+    # mode, sq, skv, groups, hd, window, prefix, kv_len, (bq, bkv)[, zero
+    # points (zp_q, p_lo, p_hi, zp_p); default (131, 0, 1, 0)]
     ("causal", 24, 24, 3, 8, 0, 0, None, (8, 8)),
     ("causal", 200, 200, 2, 64, 0, 0, 170, (128, 128)),
     ("sliding", 300, 300, 2, 32, 100, 0, None, (64, 64)),
     ("sliding", 256, 256, 12, 128, 4096, 0, None, (128, 128)),
     ("prefix", 40, 40, 1, 16, 0, 13, None, (16, 8)),
     ("cross", 33, 70, 2, 12, 0, 0, 61, (16, 32)),
+    # The prefill tile with zp_q off the integers and p's grid [-0.1, 1.0]
+    # (zp_p 23): the zero points come back as -trunc(zp) * row/col sums.
+    ("sliding", 256, 256, 12, 128, 4096, 0, None, (128, 128),
+     (117.7, -0.1, 1.0, 23.0)),
+    # Non-integer zp_p: masked entries quantize to rint(0.6) = 1, and
+    # trunc(0.6) = 0 comes off (125.5: rint(128 - zp) - 128 would be -126).
+    ("causal", 200, 200, 2, 64, 0, 0, 170, (128, 128),
+     (125.5, 0.0, 1.0, 0.6)),
+    # bkv not a power of two: the flat err/sig tree, with byte staging
+    # (hd 12) and with cp.async staging (hd 64, bkv 48).
+    ("causal", 19, 19, 4, 12, 0, 0, None, (128, 128), (125.5, 0.0, 1.0, 0.6)),
+    ("sliding", 96, 96, 2, 64, 40, 0, None, (32, 48),
+     (117.7, -0.1, 1.0, 23.0)),
 ]
 
 
-@pytest.mark.parametrize("case", ATTN_CASES, ids=lambda c: f"{c[0]}-{c[1]}")
+def _attn_id(c):
+    return f"{c[0]}-{c[1]}" + (f"-zp{c[9][0]}" if len(c) > 9 else "")
+
+
+@pytest.mark.parametrize("case", ATTN_CASES, ids=_attn_id)
 def test_attention_kernel_matches_plain(card, case):
-    mode, sq, skv, groups, hd, window, prefix, kv_len, (bq, bkv) = case
+    mode, sq, skv, groups, hd, window, prefix, kv_len, (bq, bkv) = case[:9]
+    zp_q, p_lo, p_hi, zp_p = case[9] if len(case) > 9 else (131.0, 0.0, 1.0,
+                                                             0.0)
     g = _gen(card, sq + hd)
     zb = 2
     q = torch.randint(0, 256, (zb * groups, sq, hd), generator=g,
@@ -247,16 +267,18 @@ def test_attention_kernel_matches_plain(card, case):
                       dtype=torch.int8)
     v = torch.randint(-127, 128, (zb, skv, hd), generator=g, device=card,
                       dtype=torch.int8)
-    scale_p = torch.tensor(1.0) / torch.tensor(255.0)
-    regs = torch.tensor([131.0, hd ** -0.5 * 0.021 * 0.013, float(scale_p),
-                         0.0, float(scale_p) * 0.017, 0.0, 1.0, 0.0],
+    scale_p = torch.tensor(p_hi - p_lo) / torch.tensor(255.0)
+    regs = torch.tensor([zp_q, hd ** -0.5 * 0.021 * 0.013, float(scale_p),
+                         zp_p, float(scale_p) * 0.017, p_lo, p_hi, 0.0],
                         device=card)
     kvl = torch.tensor([skv if kv_len is None else kv_len], device=card,
                        dtype=torch.int32)
     sched = attn.make_schedule(sq=sq, skv=skv, hd=hd, bq=bq, bkv=bkv,
                                groups=groups, mode=mode, window=window,
                                prefix_len=prefix, sm_scale=hd ** -0.5)
+    ops.reset_launch_counts()
     ok, mlk, psk = attn.attention_cuda(q, k, v, regs, kvl, sched=sched)
+    assert ops.launch_counts()["int8_attention"] == 1
     orf, mlr, psr = attn.attention_core_reference(q, k, v, regs, kvl,
                                                   sched=sched)
     torch.cuda.synchronize()

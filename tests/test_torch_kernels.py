@@ -299,38 +299,65 @@ def test_attention_block_and_schedule_match_jax(sq, skv, hd, mode, window):
 
 
 ATTN_CASES = [
-    # mode, sq, skv, groups, hd, window, kv_len, block
+    # mode, sq, skv, groups, hd, window, kv_len, block[, zero points
+    # (zp_q, p_lo, p_hi, zp_p); default (131, 0, 1, 0)[, "oracle"]]
     ("causal", 24, 24, 3, 8, 0, None, (8, 8)),
     ("causal", 21, 21, 2, 16, 0, 17, (8, 8)),
     ("sliding", 40, 40, 2, 8, 12, None, (8, 8)),
     ("sliding", 29, 29, 1, 16, 9, None, (16, 8)),
     ("causal", 19, 19, 4, 12, 0, None, None),
+    # Zero points off the integers and off zero: both packages truncate
+    # zp_q and zp_p (astype int32) in the corrections and in lsum, and a
+    # masked p = 0 quantizes to rint(zp_p).
+    ("causal", 21, 21, 2, 16, 0, 17, (8, 8), (117.7, -0.1, 1.0, 23.0)),
+    ("causal", 19, 19, 4, 12, 0, None, None, (125.5, -0.1, 1.0, 0.6)),
+    ("causal", 24, 24, 3, 8, 0, 21, (8, 8), (125.5, -0.1, 1.0, 0.6)),
+    ("sliding", 32, 32, 1, 16, 9, None, (16, 8), (125.5, 0.0, 1.0, 0.6)),
+    # The one case held against the reference's pinned oracle instead of
+    # the Pallas kernel: skv is not a multiple of bkv and zp_p is not an
+    # integer.  Every masked entry then carries p_int - trunc(zp_p) = 1 into
+    # P.V, and Pallas's interpret mode fills the last kv block past skv
+    # with int8's minimum (-128) where the oracle (and the port) pad zeros.
+    # The same zero points agree with the Pallas kernel when skv fills the
+    # blocks (sliding-32 above) or when kv_len masks real rows (causal-24).
+    ("sliding", 29, 29, 1, 16, 9, None, (16, 8), (125.5, 0.0, 1.0, 0.6),
+     "oracle"),
 ]
 
 
-def _attn_inputs(sq, skv, groups, hd, seed, zb=2):
+def _attn_id(c):
+    return f"{c[0]}-{c[1]}" + (f"-zp{c[8][0]}" if len(c) > 8 else "")
+
+
+def _attn_inputs(sq, skv, groups, hd, seed, zb=2,
+                 zps=(131.0, 0.0, 1.0, 0.0)):
+    zp_q, p_lo, p_hi, zp_p = zps
     rng = np.random.default_rng(seed)
     q = rng.integers(0, 256, (zb * groups, sq, hd), dtype=np.uint8)
     k = rng.integers(-127, 128, (zb, skv, hd), dtype=np.int8)
     v = rng.integers(-127, 128, (zb, skv, hd), dtype=np.int8)
     s_q, s_k, s_v = 0.021, 0.013, 0.017
-    scale_p = np.float32(1.0) / np.float32(255.0)
-    regs = np.array([[131.0, hd ** -0.5 * s_q * s_k, scale_p, 0.0,
-                      scale_p * s_v, 0.0, 1.0, 0.0]], np.float32)
+    scale_p = np.float32(p_hi - p_lo) / np.float32(255.0)
+    regs = np.array([[zp_q, hd ** -0.5 * s_q * s_k, scale_p, zp_p,
+                      scale_p * s_v, p_lo, p_hi, 0.0]], np.float32)
     return q, k, v, regs
 
 
-@pytest.mark.parametrize("case", ATTN_CASES, ids=lambda c: f"{c[0]}-{c[1]}")
+@pytest.mark.parametrize("case", ATTN_CASES, ids=_attn_id)
 def test_attention_plain_matches_jax(case, monkeypatch):
-    mode, sq, skv, groups, hd, window, kv_len, block = case
+    mode, sq, skv, groups, hd, window, kv_len, block = case[:8]
     if block is not None:
         monkeypatch.setenv("REPRO_ATTN_BLOCK", f"{block[0]},{block[1]}")
     bq, bkv = ttuning.attention_block(sq, skv, hd)
     kw = dict(sq=sq, skv=skv, hd=hd, bq=bq, bkv=bkv, groups=groups,
               mode=mode, window=window, sm_scale=hd ** -0.5)
-    q, k, v, regs = _attn_inputs(sq, skv, groups, hd, seed=sq + hd)
+    q, k, v, regs = _attn_inputs(sq, skv, groups, hd, seed=sq + hd,
+                                 **({"zps": case[8]} if len(case) > 8
+                                    else {}))
     kvl = np.array([[skv if kv_len is None else kv_len]], np.int32)
-    oj, mlj, psj = jops.int8_attention_fp(
+    jfn = jattn.attention_core_reference if case[9:] == ("oracle",) \
+        else jops.int8_attention_fp
+    oj, mlj, psj = jfn(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(regs),
         jnp.asarray(kvl), sched=jattn.make_schedule(**kw))
     ot, mlt, pst = tops.int8_attention_fp(
@@ -353,6 +380,97 @@ def test_attention_plain_matches_jax(case, monkeypatch):
     for a, b in zip(jattn.reduce_pstats(jnp.asarray(psj)),
                     tattn.reduce_pstats(torch.from_numpy(psj))):
         _eq(a, b, "reduce_pstats")
+
+
+def test_pallas_attention_pads_past_skv_with_int8_min(monkeypatch):
+    """Why sliding-29 at zp_p 0.6 is held against the oracle: the Pallas
+    kernel's out there is the oracle's on K and V padded past skv with
+    int8's minimum (what Pallas's interpret mode fills a block past the
+    array's end with), not with the zeros the oracle and the port pad."""
+    mode, sq, skv, groups, hd, window, _, block, zps, _ = ATTN_CASES[-1]
+    monkeypatch.setenv("REPRO_ATTN_BLOCK", f"{block[0]},{block[1]}")
+    bq, bkv = ttuning.attention_block(sq, skv, hd)
+    q, k, v, regs = _attn_inputs(sq, skv, groups, hd, seed=sq + hd, zps=zps)
+    padded = -(-skv // bkv) * bkv
+    assert padded != skv
+
+    def run(fn, k, v):
+        sched = jattn.make_schedule(sq=sq, skv=k.shape[1], hd=hd, bq=bq,
+                                    bkv=bkv, groups=groups, mode=mode,
+                                    window=window, sm_scale=hd ** -0.5)
+        return np.asarray(fn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             jnp.asarray(regs),
+                             jnp.asarray(np.array([[skv]], np.int32)),
+                             sched=sched)[0])
+
+    def pad(x, fill):
+        y = np.full((x.shape[0], padded, hd), fill, np.int8)
+        y[:, :skv] = x
+        return y
+
+    pallas = run(jops.int8_attention_fp, k, v)
+    lo = np.iinfo(np.int8).min
+    np.testing.assert_array_equal(
+        pallas, run(jattn.attention_core_reference, pad(k, lo), pad(v, lo)))
+    assert not np.array_equal(pallas, run(jattn.attention_core_reference,
+                                          pad(k, 0), pad(v, 0)))
+
+
+def _kernel_tree(v: np.ndarray) -> np.float32:
+    """The CUDA kernel's err/sig association for power-of-two bkv, in
+    float32: the tile zero-padded to 128 x 128; its rows, row = w + 8 j
+    (row group w, mma row j), halved top bit first (j's bit 3 in-thread,
+    its bits 2..0 across lanes, then the groups' bits 2..0), then the
+    columns, top bit first."""
+    bq, bkv = v.shape
+    x = np.zeros((128, 128), np.float32)
+    x[:bq, :bkv] = v
+    r = x.reshape(16, 8, 128)        # [j, w, column]
+    for _ in range(4):               # j's bits 3, 2, 1, 0
+        half = r.shape[0] // 2
+        r = r[:half] + r[half:]
+    r = r[0]                         # [w, column]
+    for _ in range(3):               # w's bits 2, 1, 0
+        half = r.shape[0] // 2
+        r = r[:half] + r[half:]
+    c = r[0]
+    for _ in range(7):               # the column bits 6..0
+        half = c.shape[0] // 2
+        c = c[:half] + c[half:]
+    return c[0]
+
+
+def _tree_tiles(bq, bkv, n, seed):
+    """Tiles of non-negative float32 of spread magnitudes (like d^2 and
+    p^2), so that the association decides the last bits."""
+    rng = np.random.default_rng(seed)
+    mag = 10.0 ** rng.uniform(-8.0, 0.0, (n, bq, bkv))
+    return (rng.random((n, bq, bkv)) ** 3 * mag).astype(np.float32)
+
+
+@pytest.mark.parametrize("bq,bkv", [(1, 1), (3, 2), (8, 8), (19, 16),
+                                    (64, 64), (100, 32), (128, 128),
+                                    (128, 4), (7, 128), (128, 1)])
+def test_kernel_tree_matches_tree_sum_last2(bq, bkv):
+    """For power-of-two bkv, the kernel's rows-then-columns tree with the
+    row = w + 8 j mapping is the reference's flat pairwise-halving tree
+    (_tree_sum_last2), bit for bit, in both packages."""
+    tiles = _tree_tiles(bq, bkv, 12, seed=bq * 131 + bkv)
+    ref_t = tattn._tree_sum_last2(torch.from_numpy(tiles)).numpy()
+    ref_j = np.asarray(jattn._tree_sum_last2(jnp.asarray(tiles)))
+    got = np.array([_kernel_tree(x) for x in tiles], np.float32)
+    np.testing.assert_array_equal(got.view(np.int32), ref_t.view(np.int32))
+    np.testing.assert_array_equal(got.view(np.int32), ref_j.view(np.int32))
+
+
+def test_kernel_tree_differs_for_other_bkv():
+    """For bkv not a power of two the flat tree pairs entries of different
+    columns, so the rows-then-columns tree is not the reference's; the
+    kernel takes the flat tree for such shapes."""
+    tiles = _tree_tiles(19, 24, 40, seed=7)
+    ref = tattn._tree_sum_last2(torch.from_numpy(tiles)).numpy()
+    got = np.array([_kernel_tree(x) for x in tiles], np.float32)
+    assert (got.view(np.int32) != ref.view(np.int32)).any()
 
 
 def test_attention_cuda_wrapper_rejects_cpu_tensors():
