@@ -1,12 +1,14 @@
 """Smoke run of the PyTorch port on one CUDA card (H100).
 
-Drives the port's two paths on full-width starcoder2-3b (30 layers, random
-weights from a seed, in-hindsight W8A8G8 quantization on the fused
-backend) through the hand-written CUDA kernels: serving (batch 4 x
+Drives the port's paths through the hand-written CUDA kernels, with
+random weights from a seed and in-hindsight W8A8G8 quantization on the
+fused backend: full-width starcoder2-3b (30 layers) serving (batch 4 x
 1024-token prompts, 32 generated tokens) and training (AdamW steps on
-batch 4 x 1024 tokens, remat on).  Each kernel is checked against its
-plain PyTorch version at the shapes those paths give it.  Phases, one line
-each:
+batch 4 x 1024 tokens, remat on), and the paper's CNN training loop on
+MobileNetV2 at its Tiny ImageNet width (64 x 64 x 3 images, 200 classes,
+batch 128; ResNet18 and VGG16 one step each).  Each kernel is checked
+against its plain PyTorch version at the shapes those paths give it.
+Phases, one line each:
 
   1. device        name, count, and nvidia-smi's name and power limit
   2. build         nvcc of every kernel source, in parallel
@@ -33,8 +35,20 @@ each:
                    projections at full width as two chained int8 layers
                    (B=4 x 1024 tokens), four in-hindsight steps, with the
                    launch counters zeroed just before and read just after
+ 10. cnn train     repro_torch.cnn.train.main(...): MobileNetV2-tiny at
+                   width 1.0, batch 128, 2 calibration batches and 3 steps,
+                   with the launch counters zeroed just before and read
+                   just after; one more step under torch.profiler (device
+                   time by kernel family, the depthwise convs' share, idle
+                   share); ResNet18-tiny and VGG16-tiny one step each
+ 11. cnn parity    two steps of a reduced MobileNetV2, fused vs simulated
+                   backend, with TF32 switched on globally: bit-equal
+                   losses, quant and BN states and parameters; the conv
+                   site's fp32 products checked against float64
 
-The line before the last is the kernels' JSON record; the last line is
+Phase 3 also holds ``int8_conv_fp`` (the conv site, im2col onto the int8
+matmul kernel) against its plain version at four MobileNetV2-tiny layer
+shapes.  The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises (exit code != 0)
 and prints no result; so does a machine without a CUDA card.
 
@@ -44,11 +58,12 @@ and prints no result; so does a machine without a CUDA card.
 e.g. ``1-3`` to build and check the kernels without serve and train);
 phase 1 always runs, and 5-6 bring 4 along, whose serve run they reuse.
 Kernels whose path phases did not run report ``"launches": null``.  The
-default is all nine.
+default is all eleven.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import shutil
@@ -79,6 +94,11 @@ TRAIN_KERNELS = SERVE_KERNELS + ("stochastic_quantize",)
 # Sources whose products run on the tensor cores (mma_int8.cuh).
 TENSOR_CORE_SOURCES = ("int8_matmul", "int8_attention")
 LAYER_KERNELS = ("int8_transpose", "int8_matmul_fused")
+# The CNN train path: every conv and the fc on int8_matmul_fp (with the
+# weight's transpose), the quantizers and the gradient barriers.
+CNN_KERNELS = ("fused_quantize", "int8_transpose", "int8_matmul_fp",
+               "stochastic_quantize")
+CNN_BATCH, CNN_STEPS, CNN_PARITY_STEPS = 128, 3, 2
 
 
 def log(phase: str, msg: str) -> None:
@@ -681,6 +701,134 @@ def check_attention(dev, gen, cfg):
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
 
+def conv_plain(x, w, x_zp, alpha, plan):
+    """``ops.int8_conv_fp``'s plain version on the card: the same lowering
+    with ``int8_matmul_fp``'s plain version (exact in float64)."""
+    from repro_torch.kernels import int8_matmul as mm
+    from repro_torch.kernels import ops
+
+    patches = ops.conv_patches(x, plan, torch.round(x_zp))
+    y3, mn, mx = mm.int8_matmul_fp_plain(
+        patches, ops.conv_lower_weights(w, plan), x_zp, alpha)
+    return ops.conv_unlower_output(y3, plan).contiguous(), mn, mx
+
+
+def check_int8_conv(dev, gen):
+    """The conv site's int8 contraction, ``ops.int8_conv_fp`` (im2col of
+    the uint8 image onto ``int8_matmul_fp``'s kernel, the groups on its
+    batch dimension), against its plain version, bit for bit, at four
+    MobileNetV2-tiny layers of a batch of 128: the stem (K = 27), block
+    2's expand 1x1 (M = 524,288), its depthwise 3x3 (G = 144, K = 9,
+    N = 1) and block 3's stride-2 depthwise; zero points 117 and 117.3
+    (the padded taps take round(zp)).  Timed with CUDA events: the op,
+    its parts (im2col, the staged matmul), its plain version, and cuDNN's
+    fp32 conv of the same shapes (TF32 off) as a yardstick of another
+    function."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import int8_matmul as mm
+    from repro_torch.kernels import ops
+
+    b = CNN_BATCH
+    cases = [  # (what, x NHWC, w HWIO, stride, groups)
+        ("stem 3x3 3->32 @64", (b, 64, 64, 3), (3, 3, 3, 32), 1, 1),
+        ("b2 expand 1x1 24->144 @64", (b, 64, 64, 24), (1, 1, 24, 144), 1,
+         1),
+        ("b2 depthwise 3x3 x144 @64", (b, 64, 64, 144), (3, 3, 1, 144), 1,
+         144),
+        ("b3 depthwise 3x3 x144 s2 @64->32", (b, 64, 64, 144),
+         (3, 3, 1, 144), 2, 144)]
+    alpha = torch.tensor(2.3e-4, device=dev)
+    out = []
+    for what, xs, ws, stride, groups in cases:
+        plan = ops.plan_conv(xs, ws, stride, "SAME", 1, groups)
+        x = torch.randint(0, 256, xs, generator=gen, device=dev,
+                          dtype=torch.uint8)
+        w = torch.randint(-127, 128, ws, generator=gen, device=dev,
+                          dtype=torch.int8)
+        for zp_v in (117.0, 117.3):
+            zp = torch.tensor(zp_v, device=dev)
+            yk, mnk, mxk = ops.int8_conv_fp(x, w, zp, alpha, plan=plan)
+            yr, mnr, mxr = conv_plain(x, w, zp, alpha, plan)
+            torch.cuda.synchronize()
+            if not (torch.equal(yk, yr) and torch.equal(mnk, mnr)
+                    and torch.equal(mxk, mxr)):
+                raise AssertionError(
+                    f"int8_conv_fp {what} x_zp {zp_v}: "
+                    f"{int((yk != yr).sum())} outputs differ, min/max "
+                    f"{mnk.item()}/{mnr.item()} {mxk.item()}/{mxr.item()}")
+            del yk, yr
+        zp = torch.tensor(117.3, device=dev)
+        ms = time_ms(lambda: ops.int8_conv_fp(x, w, zp, alpha, plan=plan),
+                     10)
+        patches = ops.conv_patches(x, plan, torch.round(zp))
+        im2col_ms = time_ms(lambda: ops.conv_patches(x, plan,
+                                                     torch.round(zp)), 10)
+        w3 = ops.conv_lower_weights(w, plan)
+        stage_ms = time_ms(lambda: mm.stage_operands(patches, w3), 10)
+        xk, wk = mm.stage_operands(patches, w3)
+        kernel_ms = time_ms(lambda: mm.int8_matmul_fp_cuda_staged(
+            xk, wk, zp, alpha), 10)
+        y3, _, _ = mm.int8_matmul_fp_cuda_staged(xk, wk, zp, alpha)
+        unlower_ms = time_ms(
+            lambda: ops.conv_unlower_output(y3, plan).contiguous(), 10)
+        del patches, xk, wk, y3
+        # The site's backward (plain fp32, shared by both backends) at
+        # this shape, by part: the fp32 patches of the on-grid input, the
+        # two batched products, the col2im.
+        xq = torch.randn(xs, generator=gen, device=dev)
+        gq = torch.randn((plan.n, plan.oh, plan.ow, plan.cout),
+                         generator=gen, device=dev)
+        gl = ops.conv_lower_output(gq, plan)
+        wl = ops.conv_lower_weights(w.to(torch.float32), plan)
+        bwd = dict(patches_ms=time_ms(
+            lambda: ops.conv_patches(xq, plan, 0.0), 5))
+        xl = ops.conv_patches(xq, plan, 0.0)
+        bwd["dw_bmm_ms"] = time_ms(lambda: torch.bmm(xl.transpose(1, 2), gl),
+                                   5)
+        del xl
+        bwd["dx_bmm_ms"] = time_ms(lambda: torch.bmm(gl, wl.transpose(1, 2)),
+                                   5)
+        dp = torch.bmm(gl, wl.transpose(1, 2))
+        bwd["col2im_ms"] = time_ms(lambda: ops.conv_unpatch(dp, plan), 5)
+        del xq, gq, gl, wl, dp
+        plain_ms = time_ms(lambda: conv_plain(x, w, zp, alpha, plan), 2)
+        xf = x.to(torch.float32).permute(0, 3, 1, 2)
+        wf = w.to(torch.float32).permute(3, 2, 0, 1)
+        pads = plan.pads
+        xf = F.pad(xf, (pads[1][0], pads[1][1], pads[0][0], pads[0][1]))
+        cudnn_ms = time_ms(lambda: F.conv2d(xf, wf, stride=stride,
+                                            groups=groups), 10)
+        del xf, wf
+        ops_n = 2 * plan.m * plan.k * plan.cout_g * plan.groups
+        nbytes = x.numel() + w.numel() + 4 * plan.m * plan.cout
+        b_ms, b_by = bound(nbytes, ops_n, INT8_OPS)
+        rec = dict(what=what, x=list(xs), w=list(ws), stride=stride,
+                   groups=groups, gmkn=[plan.groups, plan.m, plan.k,
+                                        plan.cout_g],
+                   ms=ms, im2col_ms=im2col_ms, stage_ms=stage_ms,
+                   kernel_ms=kernel_ms, unlower_ms=unlower_ms,
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=None, cudnn_fp32_conv_ms=cudnn_ms,
+                   backward=bwd)
+        log("kernels", f"int8_conv_fp {what} [G {plan.groups}, M {plan.m}, "
+                       f"K {plan.k}, N {plan.cout_g}]: bit-exact at x_zp 117 "
+                       f"and 117.3; {ms:.4f} ms (im2col {im2col_ms:.4f}, "
+                       f"staging: K padded to 16 and the weight's "
+                       f"transpose {stage_ms:.4f}, matmul on staged operands "
+                       f"{kernel_ms:.4f}, NHWC copy of the output "
+                       f"{unlower_ms:.4f}), bound {b_ms:.4f} ms ({b_by}), "
+                       f"plain {plain_ms:.4f} ms; cuDNN fp32 conv (another "
+                       f"function) {cudnn_ms:.4f} ms; the site's fp32 "
+                       f"backward by part (ms): "
+                       + ", ".join(f"{k[:-3]} {v:.4f}"
+                                   for k, v in bwd.items()))
+        out.append(rec)
+        del x, w
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phases 7-8: the training path.
 # ---------------------------------------------------------------------------
@@ -753,30 +901,38 @@ KERNEL_FAMILIES = (   # (family, substrings of the kernel name), first match
 )
 
 
-def profile_step(run) -> dict:
-    """One more training step of ``run``'s state under torch.profiler
-    (CUDA activity only, to keep the host overhead low): device time by
-    kernel family and the share of the step's wall time the card idled."""
+def profile_device(run_once, tag: str, ranges=()) -> dict:
+    """``run_once()`` (one step, ending in a host read) under
+    torch.profiler: device time by kernel family and the share of the wall
+    time the card idled.  With ``ranges``, the CPU activity is traced too
+    and the device time of kernels launched inside the named
+    ``record_function`` ranges is summed per range name substring (that
+    tracing adds host time, so the idle share is then not reported)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch import data
-    from repro_torch.optim import adamw
-    from repro_torch.optim.schedules import constant
-    from repro_torch.runtime import steps
-
-    step = steps.make_train_step(run.cfg, run.policy, adamw(), constant(1e-4))
-    stream = data.for_arch(run.cfg, seq_len=PROMPT, global_batch=BATCH)
-    batch = {k: v.to("cuda") for k, v in stream.batch(TRAIN_STEPS).items()}
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ranges
+                                      else [])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        run.state, met = step(run.state, batch)
-        float(met["loss"])
+        run_once()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     fam: dict = {}
     kernels = []
+    in_ranges = {r: 0.0 for r in ranges}
     for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CPU:   # host ops and ranges
+            us = getattr(evt, "device_time_total", None)
+            if us is None:
+                us = evt.cuda_time_total
+            for r in ranges:
+                if evt.key.startswith(r):
+                    in_ranges[r] += us / 1e3
+            continue
+        if any(evt.key.startswith(r) for r in ranges):
+            continue        # a range's span on the device timeline
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = evt.self_cuda_time_total
@@ -793,16 +949,38 @@ def profile_step(run) -> dict:
         raise AssertionError("torch.profiler recorded no device time")
     kernels.sort(reverse=True)
     fam = dict(sorted(fam.items(), key=lambda kv: -kv[1][0]))
-    log("train-profile", f"one steady step under torch.profiler: wall "
-                         f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-                         f"(idle {100 * (1 - busy_ms / wall_ms):.1f}% of the "
-                         f"step); by family (ms, launches): "
-                         + "; ".join(f"{k} {v[0]:.1f} ({v[1]})"
-                                     for k, v in fam.items()))
-    log("train-profile", "top kernels (ms, launches): " + "; ".join(
+    idle = "" if ranges else \
+        f" (idle {100 * (1 - busy_ms / wall_ms):.1f}% of the step)"
+    log(tag, f"one steady step under torch.profiler: wall {wall_ms:.1f} ms, "
+             f"device busy {busy_ms:.1f} ms{idle}; by family (ms, "
+             f"launches): " + "; ".join(f"{k} {v[0]:.1f} ({v[1]})"
+                                        for k, v in fam.items()))
+    log(tag, "top kernels (ms, launches): " + "; ".join(
         f"{k[:60]} {ms:.1f} ({n})" for ms, n, k in kernels[:10]))
+    if ranges:
+        log(tag, "device time inside ranges (ms): " + "; ".join(
+            f"{r} {ms:.1f}" for r, ms in in_ranges.items()))
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, families=fam,
-                top=kernels[:25])
+                top=kernels[:25], ranges=in_ranges,
+                idle_share=None if ranges else 1 - busy_ms / wall_ms)
+
+
+def profile_step(run) -> dict:
+    """One more training step of ``run``'s state under torch.profiler
+    (CUDA activity only, to keep the host overhead low)."""
+    from repro_torch import data
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedules import constant
+    from repro_torch.runtime import steps
+
+    step = steps.make_train_step(run.cfg, run.policy, adamw(), constant(1e-4))
+    stream = data.for_arch(run.cfg, seq_len=PROMPT, global_batch=BATCH)
+    batch = {k: v.to("cuda") for k, v in stream.batch(TRAIN_STEPS).items()}
+
+    def once():
+        run.state, met = step(run.state, batch)
+        float(met["loss"])
+    return profile_device(once, "train-profile")
 
 
 def train_parity_phase(cfg, dev) -> dict:
@@ -972,6 +1150,234 @@ def fused_layer_phase(cfg, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phases 10-11: the CNN training path.
+# ---------------------------------------------------------------------------
+DW_RANGES = ("qconv_int8_fused", "qconv_int8_bwd",
+             "qconv_int8_fused_depthwise", "qconv_int8_bwd_depthwise")
+
+
+def cnn_train_phase(dev) -> dict:
+    """Phase 10: ``repro_torch.cnn.train.main`` on MobileNetV2 at its Tiny
+    ImageNet width (1.0, 64 x 64 x 3, 200 classes), batch 128 of the
+    synthetic ImageStream (seed 0), w8a8g8 hindsight on the fused backend,
+    2 calibration batches and ``CNN_STEPS`` steps, with the launch
+    counters zeroed just before and read just after; then one more step
+    under the profiler twice (kernels only: families and idle share; with
+    host ranges: the conv sites' and the depthwise convs' device time);
+    then one step each of ResNet18-tiny and VGG16-tiny."""
+    from repro_torch.cnn import models
+    from repro_torch.cnn import train as cnn_train
+    from repro_torch.core.state import INITED, tree_leaves
+    from repro_torch.data import ImageStream
+    from repro_torch.kernels import ops
+    from repro_torch.optim import sgdm
+    from repro_torch.optim.schedules import constant
+
+    argv = ["--arch", "mobilenetv2", "--width", "1.0", "--image-size", "64",
+            "--num-classes", "200", "--batch", str(CNN_BATCH), "--steps",
+            str(CNN_STEPS), "--backend", "fused", "--calibration-batches",
+            "2"]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    run = cnn_train.main(argv)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    off_path = [k for k in counts if k not in CNN_KERNELS and counts[k]]
+    if not all(counts[k] > 0 for k in CNN_KERNELS) or off_path:
+        raise AssertionError(f"cnn train path launches {counts}")
+    losses = [h["loss"] for h in run.history]
+    if len(losses) != CNN_STEPS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"cnn train losses {losses}")
+    if dataclasses.astuple(run.cfg)[1:] != \
+            dataclasses.astuple(models.MOBILENETV2_TINY)[1:]:
+        raise AssertionError(f"not MobileNetV2-tiny: {run.cfg}")
+    n_leaves = len(tree_leaves(run.state["quant"]))
+    inited = [int(h["inited_sites"]) for h in run.history]
+    if inited != [n_leaves] * CNN_STEPS:
+        raise AssertionError(f"initialized quant leaves per step {inited} "
+                             f"of {n_leaves}")
+    step_ms = [h["step_ms"] for h in run.history]
+    steady = sum(step_ms[1:]) / len(step_ms[1:])
+    img_s = CNN_BATCH / (steady / 1e3)
+    log("cnn-train", f"MobileNetV2-tiny B={CNN_BATCH} 64x64, SGD-M, 2 "
+                     f"calibration batches: losses "
+                     f"{[round(v, 4) for v in losses]}; step 0 "
+                     f"{step_ms[0]:.1f} ms (first-batch double pass), steps "
+                     f"1-{CNN_STEPS - 1} {[round(v, 1) for v in step_ms[1:]]}"
+                     f" ms, {img_s:.1f} images/s; peak {peak:.2f} GiB; "
+                     f"{inited[0]} of {n_leaves} quant leaves initialized "
+                     f"after step 0; launches {counts} (per step "
+                     f"{ {k: v / CNN_STEPS for k, v in counts.items()} }, "
+                     f"calibration and eval add none: 16-bit grids and "
+                     f"forward-only fp32 or int8 sites); eval acc "
+                     f"{run.acc:.4f}")
+    step = cnn_train.make_cnn_train_step(
+        run.cfg, run.policy, sgdm(momentum=0.9, weight_decay=1e-4),
+        constant(0.01))
+    stream = ImageStream(200, 64, 3, CNN_BATCH, seed=0)
+    batch = {k: v.to(dev) for k, v in stream.batch(CNN_STEPS).items()}
+
+    def once():
+        run.state, met = step(run.state, batch)
+        float(met["loss"])
+    ops.reset_launch_counts()
+    prof = profile_device(once, "cnn-profile")
+    per_step = ops.launch_counts()
+    ranges = profile_device(once, "cnn-profile", ranges=DW_RANGES)["ranges"]
+    conv_ms = ranges["qconv_int8_fused"] + ranges["qconv_int8_bwd"]
+    dw_ms = ranges["qconv_int8_fused_depthwise"] \
+        + ranges["qconv_int8_bwd_depthwise"]
+    log("cnn-profile", f"conv sites (forward + backward, lowering "
+                       f"included) {conv_ms:.1f} ms of the step's device "
+                       f"time, of which the 17 depthwise convs "
+                       f"{dw_ms:.1f} ms: {100 * dw_ms / prof['busy_ms']:.1f}%"
+                       f" of the busy time of the kernels-only profile; "
+                       f"launches in one step {per_step}")
+    out = dict(losses=losses, step_ms=step_ms, steady_step_ms=steady,
+               images_per_s=img_s, peak_gib=peak, launches=counts,
+               launches_per_step=per_step, inited=inited, acc=run.acc,
+               profile=prof, conv_ms=conv_ms, depthwise_ms=dw_ms,
+               depthwise_share=dw_ms / prof["busy_ms"])
+    policy = run.policy
+    del run, step, batch, prof
+    torch.cuda.empty_cache()
+
+    for cfg in (models.RESNET18_TINY, models.VGG16_TINY):
+        torch.cuda.reset_peak_memory_stats()
+        r = cnn_train.train_cnn(cfg, policy, steps=1,
+                                batch=CNN_BATCH, calibration_batches=0,
+                                eval_batches=0, device=dev)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        (h,) = r.history
+        if not math.isfinite(h["loss"]):
+            raise AssertionError(f"{cfg.name} loss {h['loss']}")
+        log("cnn-train", f"{cfg.name} B={CNN_BATCH} 64x64, one step (the "
+                         f"first: first-batch double pass): loss "
+                         f"{h['loss']:.4f}, {h['step_ms']:.1f} ms, "
+                         f"{CNN_BATCH / (h['step_ms'] / 1e3):.1f} images/s; "
+                         f"peak {peak:.2f} GiB")
+        out[cfg.name] = dict(loss=h["loss"], step_ms=h["step_ms"],
+                             peak_gib=peak)
+        del r
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tf32_guard(dev, gen) -> dict:
+    """The conv site's fp32 products with TF32 on globally: its backward
+    (``dw``) and its fp path's forward held against float64.  TF32's
+    10-bit mantissa gives errors near 1e-3; full fp32 near 1e-6."""
+    from repro_torch.core import backend
+    from repro_torch.core.calibration import observation_policy
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.kernels import ops
+
+    plan = ops.plan_conv((8, 32, 32, 64), (3, 3, 64, 64), 1, "SAME", 1, 1)
+    x = torch.randn((8, 32, 32, 64), generator=gen, device=dev)
+    w = torch.randn((3, 3, 64, 64), generator=gen, device=dev) * 0.05
+    g = torch.randn((8, 32, 32, 64), generator=gen, device=dev)
+    pol = QuantPolicy.w8a8g8(backend="fused")
+    xq = x.clone().requires_grad_(True)
+    wq = w.clone().requires_grad_(True)
+    one = torch.ones((), device=dev)
+    qx = backend.QTensor(torch.randint(0, 256, x.shape, generator=gen,
+                                       device=dev, dtype=torch.uint8),
+                         one * 0.02, one * 128.0)
+    qw = backend.QTensor(torch.randint(-127, 128, w.shape, generator=gen,
+                                       device=dev, dtype=torch.int8),
+                         one * 0.001, one * 0.0)
+    y = backend.qconv(pol, xq, qx, wq, qw)
+    (dw,) = torch.autograd.grad(y, [wq], g)
+    xl = ops.conv_patches(x.double(), plan, 0.0)
+    gl = ops.conv_lower_output(g.double(), plan)
+    dw64 = ops.conv_unlower_weights(torch.bmm(xl.transpose(1, 2), gl), plan)
+    dw_rel = ((dw.double() - dw64).abs().max() / dw64.abs().max()).item()
+    y_fp = backend.qconv(observation_policy(pol), x, None, w, None)
+    y64 = backend._conv_fp(x.double(), w.double(), plan)
+    fp_rel = ((y_fp.double() - y64).abs().max() / y64.abs().max()).item()
+    if not (dw_rel <= 1e-5 and fp_rel <= 1e-5):
+        raise AssertionError(f"fp32 products not full fp32 under global "
+                             f"TF32: dw rel {dw_rel:.3e}, fp conv rel "
+                             f"{fp_rel:.3e} (limit 1e-5)")
+    return dict(dw_rel=dw_rel, fp_conv_rel=fp_rel)
+
+
+def cnn_parity_phase(dev) -> dict:
+    """Phase 11: ``CNN_PARITY_STEPS`` steps of a reduced MobileNetV2
+    (width 0.25, 16 x 16, 4 classes, batch 4, seed 1), fused vs simulated
+    backend from the same parameters, batches and noise, with TF32
+    switched on globally so a leak into the port's fp32 products would
+    show.  Losses, quant states, BN states and parameters must be
+    bit-equal: both backends compute every int contraction exactly and
+    share every fp op."""
+    from repro_torch.cnn import models
+    from repro_torch.cnn import train as cnn_train
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.core.state import tree_leaves
+    from repro_torch.data import ImageStream
+    from repro_torch.kernels import ops
+    from repro_torch.optim import sgdm
+    from repro_torch.optim.schedules import constant
+    from repro_torch.runtime.steps import named_params
+
+    cfg = models.bench_config("mobilenetv2", num_classes=4, width=0.25,
+                              image_size=16)
+    stream = ImageStream(4, 16, 3, 4, seed=1)
+    batches = [{k: v.to(dev) for k, v in stream.batch(i).items()}
+               for i in range(CNN_PARITY_STEPS)]
+    mm, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = (mm.allow_tf32, cudnn.allow_tf32)
+    mm.allow_tf32 = cudnn.allow_tf32 = True
+    out = {}
+    try:
+        for bk in ("fused", "simulated"):
+            params, bn = models.init(cfg, seed=1, device=dev)
+            for p in params.parameters():
+                p.requires_grad_(True)
+            opt = sgdm(momentum=0.9, weight_decay=1e-4)
+            state = {"params": params, "bn": bn,
+                     "opt": opt.init(named_params(params)),
+                     "quant": models.init_sites(cfg, device=dev), "step": 0}
+            step = cnn_train.make_cnn_train_step(
+                cfg, QuantPolicy.w8a8g8(backend=bk), opt, constant(0.05))
+            ops.reset_launch_counts()
+            losses = []
+            for b in batches:
+                state, met = step(state, b)
+                losses.append(float(met["loss"]))
+            counts = ops.launch_counts()
+            ok = all(counts[k] for k in CNN_KERNELS) if bk == "fused" \
+                else not any(counts.values())
+            if not ok:
+                raise AssertionError(f"{bk} backend launches {counts}")
+            out[bk] = (losses,
+                       [t.detach().clone() for t in params.parameters()],
+                       tree_leaves(state["bn"]), tree_leaves(state["quant"]))
+        gen = torch.Generator(device=dev).manual_seed(11)
+        guard = _tf32_guard(dev, gen)
+    finally:
+        mm.allow_tf32, cudnn.allow_tf32 = saved
+    (lf, pf, bf, qf), (ls, ps, bs, qs) = out["fused"], out["simulated"]
+    diff = {name: sum(int(not torch.equal(a, b)) for a, b in zip(x, y))
+            for name, x, y in (("params", pf, ps), ("bn", bf, bs),
+                               ("quant", qf, qs))}
+    if lf != ls or any(diff.values()):
+        raise AssertionError(f"cnn parity: losses {lf} vs {ls}, differing "
+                             f"tensors {diff}")
+    log("cnn-parity", f"reduced MobileNetV2 (width 0.25, 16x16, 4 classes, "
+                      f"B=4), {CNN_PARITY_STEPS} steps with TF32 on "
+                      f"globally, fused vs simulated: losses {lf} "
+                      f"identical; all {len(pf)} parameters, {len(bf)} BN "
+                      f"and {len(qf)} quant tensors bit-equal; the conv "
+                      f"site's fp32 products against float64: dw rel "
+                      f"{guard['dw_rel']:.3e}, fp conv rel "
+                      f"{guard['fp_conv_rel']:.3e} (limit 1e-5)")
+    return dict(losses=lf, n_params=len(pf), n_bn=len(bf), n_quant=len(qf),
+                **guard)
+
+
+# ---------------------------------------------------------------------------
 # Phases 4-6: the serving path.
 # ---------------------------------------------------------------------------
 def serve_phases(cfg, dev, records, results, run_phase) -> None:
@@ -1083,8 +1489,8 @@ def parse_phases(spec: str) -> set:
     for part in spec.split(","):
         lo, _, hi = part.strip().partition("-")
         phases.update(range(int(lo), int(hi or lo) + 1))
-    if not phases <= set(range(1, 10)):
-        raise argparse.ArgumentTypeError(f"phases are 1-9, got {spec!r}")
+    if not phases <= set(range(1, 12)):
+        raise argparse.ArgumentTypeError(f"phases are 1-11, got {spec!r}")
     if phases & {5, 6}:
         phases.add(4)
     return phases
@@ -1106,7 +1512,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="",
                     help="also write the detailed results as JSON here")
-    ap.add_argument("--phases", type=parse_phases, default="1-9",
+    ap.add_argument("--phases", type=parse_phases, default="1-11",
                     help="phases to run, e.g. 1-3 or 1,2,3,9 (default all)")
     args = ap.parse_args(argv)
     run_phase = args.phases.__contains__
@@ -1166,6 +1572,7 @@ def main(argv=None) -> int:
                    check_int8_matmul(dev, gen, cfg),
                    check_int8_matmul_fused(dev, gen, cfg),
                    check_attention(dev, gen, cfg)]
+        results["conv"] = check_int8_conv(dev, gen)
     for r in records:
         r["launches"] = None        # set by the path phases that run
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -1192,6 +1599,19 @@ def main(argv=None) -> int:
         for r in records:   # the fused kernel is on this path alone
             if r["name"] in LAYER_KERNELS and not r["launches"]:
                 r["launches"] = results["fused_layers"]["launches"][r["name"]]
+        torch.cuda.empty_cache()
+    if run_phase(10):
+        # 10. the CNN train path, MobileNetV2-tiny at full width
+        results["cnn_train"] = cnn_train_phase(dev)
+        for r in records:
+            r["cnn_train_launches"] = \
+                results["cnn_train"]["launches"][r["name"]]
+            if r["launches"] is None and r["name"] in CNN_KERNELS:
+                r["launches"] = r["cnn_train_launches"]
+        torch.cuda.empty_cache()
+    if run_phase(11):
+        # 11. CNN parity: fused vs simulated, TF32 on globally
+        results["cnn_parity"] = cnn_parity_phase(dev)
 
     kernels = [{k: r[k] for k in ("name", "route", "source", "replaces",
                                   "launches", "max_abs_err", "ms", "plain_ms",

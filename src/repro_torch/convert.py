@@ -134,3 +134,15 @@ def train_state_from_jax(state: dict, cfg, optimizer, device=None) -> dict:
     quant = from_jax_layout(state["quant"], cfg, device)
     return steps.train_state(params, quant, optimizer,
                              step=int(state.get("step", 0)))
+
+
+def cnn_state_from_jax(params: dict, bn: dict, quant: dict, device=None):
+    """The JAX CNN trees (``repro.cnn.init``'s params and BN state, and
+    its quant sites; numpy leaves) as the port's ``(ParamTree, bn, quant)``
+    on ``device``.  The CNN trees have no stacked layers, and NHWC/HWIO
+    layouts are kept, so only the leaves change type."""
+    device = resolve_device(device)
+
+    def conv(tree):
+        return _map(lambda a: _to_tensor(a, device), tree)
+    return ParamTree(conv(params)), conv(bn), conv(quant)

@@ -17,16 +17,18 @@ Backward half: the forward quantizers take the clipped STE (gradient
 masked to the grid's ``[lo, hi]``), the gradient quantizer
 (:func:`grad_quantize`) runs in every gradient barrier's backward with the
 stochastic-rounding noise both backends draw from :func:`site_noise`, and
-the int8 contraction and attention core have the reference's custom
-backward passes as ``torch.autograd.Function``s.  The forward statistics
-and ranges are computed on detached tensors: only the on-grid values carry
-the autograd graph.
+the int8 contraction, the int8 convolution and the attention core have
+the reference's custom backward passes as ``torch.autograd.Function``s.
+The forward statistics and ranges are computed on detached tensors: only
+the on-grid values carry the autograd graph.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import estimators, quant
 from .state import INITED, QMAX, QMIN, pack_stats
@@ -286,14 +288,29 @@ def _fused_grad_quant(cfg, spec, g, gf, leaf, step, tele, noise):
 
 
 # ---------------------------------------------------------------------------
-# The contraction.
+# The contractions.
 # ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def full_fp32():
+    """TF32 off for the products inside the block, and restored after:
+    the reference's fp32 products (the sites' fp paths and the int8
+    contractions' backward) are full fp32, while PyTorch lets cuDNN's fp32
+    convolutions run in TF32 by default.  Nothing outside the block sees
+    a change of either flag."""
+    mm, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = (mm.allow_tf32, cudnn.allow_tf32)
+    mm.allow_tf32 = cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        mm.allow_tf32, cudnn.allow_tf32 = saved
+
+
 class _QMatmulInt(torch.autograd.Function):
     """``alpha * einsum(x_img - zp, w_img)`` exact in int32 (fused: the
     int8 matmul kernel; simulated: float64).  Backward is the reference's:
     fp32 products of the cotangent with the on-grid values ``xq``/``wq``,
-    returned in their dtypes.  TF32 stays off, so these products are full
-    fp32 on the card too."""
+    returned in their dtypes, under :func:`full_fp32`."""
 
     @staticmethod
     def forward(ctx, xq, wq, x_img, w_img, x_zp, alpha, resolved, fused):
@@ -320,12 +337,13 @@ class _QMatmulInt(torch.autograd.Function):
         xs, ws = lhs.split(",")
         gf = g.to(torch.float32)
         dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = torch.einsum(f"{y},{ws}->{xs}", gf,
-                              wq.to(torch.float32)).to(xq.dtype)
-        if ctx.needs_input_grad[1]:
-            dw = torch.einsum(f"{xs},{y}->{ws}", xq.to(torch.float32),
-                              gf).to(wq.dtype)
+        with full_fp32():
+            if ctx.needs_input_grad[0]:
+                dx = torch.einsum(f"{y},{ws}->{xs}", gf,
+                                  wq.to(torch.float32)).to(xq.dtype)
+            if ctx.needs_input_grad[1]:
+                dw = torch.einsum(f"{xs},{y}->{ws}", xq.to(torch.float32),
+                                  gf).to(wq.dtype)
         return dx, dw, None, None, None, None, None, None
 
 
@@ -342,14 +360,121 @@ def qmatmul(policy, espec: str, xq: torch.Tensor, xqt: Optional[QTensor],
     if xqt is None or wqt is None or not int8_matmul_eligible(policy):
         if wq is None:
             wq = dequantize_qtensor(wqt).to(xq.dtype)
-        return torch.einsum(espec, xq.to(torch.float32),
-                            wq.to(torch.float32)).to(out_dtype)
+        with full_fp32():
+            return torch.einsum(espec, xq.to(torch.float32),
+                                wq.to(torch.float32)).to(out_dtype)
     resolved = _ops().resolve_einsum_spec(espec, xq.ndim)
     alpha = (xqt.scale * wqt.scale).to(torch.float32)
     if wq is None and xq.requires_grad and torch.is_grad_enabled():
         wq = dequantize_qtensor(wqt).to(xq.dtype)     # frozen weight
     y = _QMatmulInt.apply(xq, wq, xqt.q, wqt.q, xqt.zero_point, alpha,
                           resolved, policy.backend == FUSED)
+    return y.to(out_dtype)
+
+
+def _conv_fp(x: torch.Tensor, w: torch.Tensor, plan) -> torch.Tensor:
+    """``F.conv2d`` of an NHWC image and an HWIO kernel on ``plan``'s
+    geometry, in ``x``'s dtype (the padding is explicit: XLA's "SAME"
+    may pad one more row after than before).  The result is a contiguous
+    NHWC tensor, laid out as ``int8_conv_fp``'s: a reduction over it in
+    the backward pass (a bias's gradient) then sums in the same order on
+    both backends."""
+    (ph0, ph1), (pw0, pw1) = plan.pads
+    xc = F.pad(x.permute(0, 3, 1, 2), (pw0, pw1, ph0, ph1))
+    y = F.conv2d(xc, w.permute(3, 2, 0, 1), stride=plan.stride,
+                 dilation=plan.dilation, groups=plan.groups)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+class _QConvInt(torch.autograd.Function):
+    """``alpha * conv(x_img - zp, w_img)`` exact in int32 (fused: im2col
+    onto the int8 matmul kernel, ``ops.int8_conv_fp``; simulated:
+    ``F.conv2d`` in float64 of ``x_img - round(zp)`` by ``w_img``, exact
+    because every partial sum is an integer far below 2**53, and zero
+    padding there is the zero point's padding, as in the reference's int32
+    XLA conv).  Both end in the same single fp32 multiply, so the outputs
+    are bit-equal.
+
+    Backward, shared by both backends, is the reference's: in the lowered
+    (im2col) space the conv is the batched matmul ``[G, M, K] x [G, K,
+    Fg]``, so ``dw`` is ``gmk,gmn->gkn`` and ``dx`` the order-pinned col2im
+    (``ops.conv_unpatch``) of ``gmn,gkn->gmk``, fp32 products of the
+    cotangent with the on-grid values ``xq``/``wq`` under
+    :func:`full_fp32`."""
+
+    @staticmethod
+    def forward(ctx, xq, wq, x_img, w_img, x_zp, alpha, plan, fused):
+        if fused:
+            y, _, _ = _ops().int8_conv_fp(x_img, w_img, x_zp, alpha,
+                                          plan=plan)
+        else:
+            rx = x_img.to(torch.float64) - torch.round(x_zp).to(torch.float64)
+            acc = _conv_fp(rx, w_img.to(torch.float64), plan)
+            # round(): a no-op on the exact sums, and a guard should a conv
+            # algorithm of the device's library not be exact in float64.
+            y = alpha * torch.round(acc).to(torch.float32)
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            ctx.save_for_backward(xq, wq)
+            ctx.plan = plan
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        xq, wq = ctx.saved_tensors
+        plan, ops = ctx.plan, _ops()
+        dx = dw = None
+        with full_fp32(), torch.profiler.record_function(
+                "qconv_int8_bwd" + _depthwise_tag(plan)):
+            gl = ops.conv_lower_output(g.to(torch.float32), plan)  # [G,M,Fg]
+            if ctx.needs_input_grad[1]:
+                xl = ops.conv_patches(xq.to(torch.float32), plan, 0.0)
+                dw = ops.conv_unlower_weights(
+                    torch.bmm(xl.transpose(1, 2), gl), plan).to(wq.dtype)
+                del xl
+            if ctx.needs_input_grad[0]:
+                wl = ops.conv_lower_weights(wq.to(torch.float32), plan)
+                dx = ops.conv_unpatch(torch.bmm(gl, wl.transpose(1, 2)),
+                                      plan).to(xq.dtype)
+        return dx, dw, None, None, None, None, None, None
+
+
+def _depthwise_tag(plan) -> str:
+    return "_depthwise" if plan.groups == plan.cin > 1 else ""
+
+
+def qconv(policy, xq: torch.Tensor, xqt: Optional[QTensor],
+          wq: Optional[torch.Tensor], wqt: Optional[QTensor], *,
+          stride=1, padding="SAME", dilation=1, groups: int = 1,
+          out_dtype=None) -> torch.Tensor:
+    """Quantized-site convolution (NHWC x HWIO -> NHWC), the conv analogue
+    of :func:`qmatmul`.
+
+    With int8 images of both operands the contraction runs integer-exact
+    on either backend (the fused backend lowers onto the batched int8
+    matmul kernel — depthwise and grouped convs ride its batch
+    dimension); otherwise it is the fp32 conv of the on-grid values (for
+    example calibration's 16-bit grids, or the ``fp32`` policy), for which
+    ``wq=None`` means "dequantize ``wqt``".  ``wq`` is needed only when a
+    gradient is recorded.  Profiles show the site as a
+    ``qconv_int8_<backend>`` range (``qconv_fp`` on the fp path; depthwise
+    convs with a ``_depthwise`` suffix), as the reference's named scopes
+    do."""
+    out_dtype = out_dtype or xq.dtype
+    plan = _ops().plan_conv(xq.shape, (wq if wq is not None else wqt.q).shape,
+                            stride, padding, dilation, groups)
+    if xqt is None or wqt is None or not int8_matmul_eligible(policy):
+        if wq is None:
+            wq = dequantize_qtensor(wqt)
+        with full_fp32(), torch.profiler.record_function("qconv_fp"):
+            return _conv_fp(xq.to(torch.float32), wq.to(torch.float32),
+                            plan).to(out_dtype)
+    alpha = (xqt.scale * wqt.scale).to(torch.float32)
+    if wq is None and xq.requires_grad and torch.is_grad_enabled():
+        wq = dequantize_qtensor(wqt).to(xq.dtype)     # frozen weight
+    with torch.profiler.record_function(
+            f"qconv_int8_{policy.backend}" + _depthwise_tag(plan)):
+        y = _QConvInt.apply(xq, wq, xqt.q, wqt.q, xqt.zero_point, alpha,
+                            plan, policy.backend == FUSED)
     return y.to(out_dtype)
 
 

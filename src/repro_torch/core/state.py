@@ -64,3 +64,10 @@ def tree_leaves(tree: Tree) -> list:
     tree_map(out.append, tree)
     return out
 
+
+
+def inited_count(tree: Tree) -> int:
+    """How many leaves of a quant-state tree hold a range (one host
+    read)."""
+    return int(torch.stack([leaf[INITED] for leaf in tree_leaves(tree)])
+               .gt(0.5).sum())

@@ -1,2 +1,2 @@
 """Synthetic data streams (port of ``repro.data``)."""
-from .pipeline import LMStream, for_arch  # noqa: F401
+from .pipeline import ImageStream, LMStream, for_arch  # noqa: F401

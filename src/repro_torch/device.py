@@ -22,3 +22,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "no CUDA device is available; pass device='cpu' "
             "(--device cpu) to run on the CPU")
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for ``device``'s queued work (a no-op on the CPU): the fence
+    of the drivers' host-clock timings."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -228,3 +228,226 @@ def int8_attention_fp(q_u8, k_i8, v_i8, regs, kvlen, *, sched: AttnSchedule):
                                     sched=sched)
     return _attn.attention_core_reference(q_u8, k_i8, v_i8, regs, kvlen,
                                           sched=sched)
+
+
+# ---------------------------------------------------------------------------
+# Convolution plumbing: lower an NHWC x HWIO conv onto the batched 3-D
+# [B, M, K] x [B, K, N] matmul kernel (B carries the groups; depthwise is
+# the G == C_in, K == KH*KW, N == multiplier corner of the same form).
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """How to run an NHWC x HWIO conv on the 3-D matmul kernel.
+
+    The conv analogue of :class:`EinsumPlan`: a hashable record of the
+    geometry — batch/spatial/channel extents, stride, kernel dilation,
+    resolved padding pairs and group split — plus the derived output
+    extents.  :func:`conv_patches` uses it to im2col the activation image
+    into ``[G, N*OH*OW, KH*KW*Cg]`` and :func:`conv_lower_weights` to fold
+    the HWIO kernel into ``[G, KH*KW*Cg, Fg]``; the contraction is then
+    exactly the batched matmul the int8 kernel executes.
+    """
+
+    n: int                   # batch
+    h: int                   # input height
+    w: int                   # input width
+    cin: int                 # input channels (total, all groups)
+    kh: int                  # kernel height
+    kw: int                  # kernel width
+    cout: int                # output channels (total, all groups)
+    groups: int              # feature_group_count
+    stride: tuple            # (sh, sw)
+    dilation: tuple          # (dh, dw) — kernel (rhs/atrous) dilation
+    pads: tuple              # ((ph0, ph1), (pw0, pw1)) resolved padding
+    oh: int                  # output height
+    ow: int                  # output width
+
+    @property
+    def cin_g(self) -> int:
+        return self.cin // self.groups
+
+    @property
+    def cout_g(self) -> int:
+        return self.cout // self.groups
+
+    @property
+    def m(self) -> int:
+        return self.n * self.oh * self.ow
+
+    @property
+    def k(self) -> int:
+        return self.kh * self.kw * self.cin_g
+
+
+def _pair(v) -> tuple:
+    return tuple(int(a) for a in v) if isinstance(v, (tuple, list)) \
+        else (int(v), int(v))
+
+
+def _padtype_to_pads(in_hw, window, strides, padding: str) -> tuple:
+    """XLA's ``padtype_to_pads``: ``"SAME"`` pads the dilated window to
+    ``ceil(in / stride)`` outputs, ``total // 2`` before and the rest
+    after; ``"VALID"`` pads nothing."""
+    if padding == "VALID":
+        return tuple((0, 0) for _ in in_hw)
+    if padding != "SAME":
+        raise ValueError(f"unknown padding {padding!r}; expected 'SAME', "
+                         f"'VALID' or explicit ((lo, hi), (lo, hi))")
+    pads = []
+    for size, win, s in zip(in_hw, window, strides):
+        out = -(-size // s)
+        total = max((out - 1) * s + win - size, 0)
+        pads.append((total // 2, total - total // 2))
+    return tuple(pads)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_conv_cached(x_shape, w_shape, stride, padding, dilation,
+                      groups) -> ConvPlan:
+    n, h, w, cin = x_shape
+    kh, kw, cin_g, cout = w_shape
+    if cin_g * groups != cin or cout % groups:
+        raise ValueError(
+            f"conv geometry mismatch: x channels {cin}, kernel input "
+            f"channels {cin_g} x groups {groups}, out channels {cout}")
+    sh, sw = stride
+    dh, dw = dilation
+    eff = ((kh - 1) * dh + 1, (kw - 1) * dw + 1)   # dilated kernel extent
+    pads = _padtype_to_pads((h, w), eff, (sh, sw), padding) \
+        if isinstance(padding, str) else padding
+    oh = (h + pads[0][0] + pads[0][1] - eff[0]) // sh + 1
+    ow = (w + pads[1][0] + pads[1][1] - eff[1]) // sw + 1
+    if oh <= 0 or ow <= 0:
+        raise ValueError(f"empty conv output ({oh}, {ow}) for input "
+                         f"{x_shape} kernel {w_shape} pads {pads}")
+    return ConvPlan(n=n, h=h, w=w, cin=cin, kh=kh, kw=kw, cout=cout,
+                    groups=groups, stride=(sh, sw), dilation=(dh, dw),
+                    pads=pads, oh=oh, ow=ow)
+
+
+def plan_conv(x_shape, w_shape, stride=1, padding="SAME", dilation=1,
+              groups: int = 1) -> ConvPlan:
+    """Resolve an NHWC x HWIO conv into a :class:`ConvPlan`.
+
+    ``padding`` is ``"SAME"`` / ``"VALID"`` (resolved with XLA's rules on
+    the dilated kernel extent, so the lowered conv matches the reference's
+    ``lax.conv_general_dilated`` exactly) or an explicit ``((ph0, ph1),
+    (pw0, pw1))``.
+    """
+    return _plan_conv_cached(tuple(map(int, x_shape)),
+                             tuple(map(int, w_shape)),
+                             _pair(stride), padding if isinstance(padding, str)
+                             else tuple((int(a), int(b)) for a, b in padding),
+                             _pair(dilation), int(groups))
+
+
+def _tap(t: torch.Tensor, plan: ConvPlan, i: int, j: int):
+    """The strided window of kernel tap ``(i, j)`` in a padded NHWC image:
+    ``[N, OH, OW, C]``, a view."""
+    (sh, sw), (dh, dw) = plan.stride, plan.dilation
+    r0, c0 = i * dh, j * dw
+    return t[:, r0:r0 + (plan.oh - 1) * sh + 1:sh,
+             c0:c0 + (plan.ow - 1) * sw + 1:sw, :]
+
+
+def conv_patches(x: torch.Tensor, plan: ConvPlan, pad_value) -> torch.Tensor:
+    """im2col: NHWC image -> ``[G, N*OH*OW, KH*KW*Cg]`` patch matrix.
+
+    Dtype-generic (runs on the uint8 integer image as well as fp), which
+    is what lets the int8 conv pad in *integer* space: padding with the
+    activation zero point makes every padded tap contribute exactly
+    ``(zp - zp) * w == 0`` after the kernel's zero-point correction —
+    bit-identical to fp zero padding.  K is laid out ``(kh, kw, cg)`` to
+    match :func:`conv_lower_weights`.  ``pad_value`` is a number or a
+    0-dim tensor on ``x``'s device (read there, with no host sync).
+    """
+    (ph0, ph1), (pw0, pw1) = plan.pads
+    shape = (plan.n, plan.h + ph0 + ph1, plan.w + pw0 + pw1, plan.cin)
+    if (ph0, ph1, pw0, pw1) == (0, 0, 0, 0):
+        xp = x
+    else:
+        if isinstance(pad_value, torch.Tensor):
+            xp = pad_value.to(x.dtype).expand(shape).clone()
+        else:
+            xp = torch.full(shape, pad_value, dtype=x.dtype, device=x.device)
+        xp[:, ph0:ph0 + plan.h, pw0:pw0 + plan.w, :] = x
+    p = torch.stack([_tap(xp, plan, i, j) for i in range(plan.kh)
+                     for j in range(plan.kw)], dim=3)  # [N,OH,OW,KHKW,C]
+    p = p.reshape(plan.n, plan.oh, plan.ow, plan.kh * plan.kw,
+                  plan.groups, plan.cin_g)
+    p = p.permute(4, 0, 1, 2, 3, 5)                  # [G,N,OH,OW,KHKW,Cg]
+    return p.reshape(plan.groups, plan.m, plan.k)
+
+
+def conv_lower_weights(w: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
+    """HWIO kernel -> ``[G, KH*KW*Cg, Fg]`` (XLA group convention: output
+    feature ``f`` belongs to group ``f // Fg``)."""
+    wk = w.reshape(plan.kh * plan.kw * plan.cin_g, plan.groups, plan.cout_g)
+    return wk.permute(1, 0, 2)
+
+
+def conv_unlower_output(y3: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
+    """Kernel output ``[G, N*OH*OW, Fg]`` -> NHWC ``[N, OH, OW, G*Fg]``."""
+    y = y3.reshape(plan.groups, plan.n, plan.oh, plan.ow, plan.cout_g)
+    return y.permute(1, 2, 3, 0, 4).reshape(plan.n, plan.oh, plan.ow,
+                                            plan.cout)
+
+
+def conv_lower_output(y: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
+    """NHWC ``[N, OH, OW, F]`` -> ``[G, N*OH*OW, Fg]`` (inverse of
+    :func:`conv_unlower_output`; used for output cotangents)."""
+    y = y.reshape(plan.n, plan.oh, plan.ow, plan.groups, plan.cout_g)
+    return y.permute(3, 0, 1, 2, 4).reshape(plan.groups, plan.m,
+                                            plan.cout_g)
+
+
+def conv_unlower_weights(wl: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
+    """``[G, KH*KW*Cg, Fg]`` -> HWIO (inverse of
+    :func:`conv_lower_weights`; used for weight cotangents)."""
+    return wl.permute(1, 0, 2).reshape(plan.kh, plan.kw, plan.cin_g,
+                                       plan.cout)
+
+
+def conv_unpatch(dp: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
+    """col2im: the linear transpose of :func:`conv_patches` (zero pad).
+
+    Adds each kernel tap's cotangent slab onto a zero padded image with a
+    strided in-place add, taps in the reference's fixed loop order, and
+    crops the padding.  Within a tap the strided elements are disjoint,
+    so every element's fp32 sum is accumulated in the same order as the
+    reference's — bit-identical to it, on either device.
+    """
+    (ph0, ph1), (pw0, pw1) = plan.pads
+    dp = dp.reshape(plan.groups, plan.n, plan.oh, plan.ow,
+                    plan.kh * plan.kw, plan.cin_g)
+    dp = dp.permute(1, 2, 3, 4, 0, 5).reshape(
+        plan.n, plan.oh, plan.ow, plan.kh * plan.kw, plan.cin)
+    xp = dp.new_zeros((plan.n, plan.h + ph0 + ph1, plan.w + pw0 + pw1,
+                       plan.cin))
+    for i in range(plan.kh):
+        for j in range(plan.kw):
+            _tap(xp, plan, i, j).add_(dp[..., i * plan.kw + j, :])
+    return xp[:, ph0:ph0 + plan.h, pw0:pw0 + plan.w, :]
+
+
+def int8_conv_fp(x_q: torch.Tensor, w_q: torch.Tensor, x_zp, alpha, *,
+                 plan: ConvPlan):
+    """Quantized conv on the int8 matmul path with an fp32 result.
+
+    im2col-lowers the uint8 NHWC image (padding with ``round(x_zp)``, see
+    :func:`conv_patches`) and the int8 HWIO kernel onto the batched
+    ``[G, M, K] x [G, K, Fg]`` layout of the int8 matmul: a CUDA tensor
+    gets ``int8_matmul_fp``'s kernel, a CPU tensor its plain version.
+    Contraction exact in int32, one fp32 multiply epilogue — the
+    arithmetic contract of :func:`int8_matmul_fp`.  Returns ``(y fp32
+    NHWC, obs_min, obs_max)``: the statistics are the min/max of ``y``,
+    and ``y`` is contiguous (for grouped convs the unlowering is a
+    strided view until copied), so what reduces over it later sums in one
+    order whichever backend made it.
+    """
+    pad_q = torch.round(torch.as_tensor(x_zp, dtype=torch.float32,
+                                        device=x_q.device))
+    patches = conv_patches(x_q, plan, pad_q)        # fp 0.0 == integer zp
+    ws = conv_lower_weights(w_q, plan)
+    y3, mn, mx = _int8_fp_batched(patches, ws, x_zp, alpha)
+    return conv_unlower_output(y3, plan).contiguous(), mn, mx

@@ -16,19 +16,24 @@ Example (H100, full width):
 CPU, reduced:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \
       --reduced --batch 2 --prompt-len 16 --gen 4 --device cpu
+
+``--trace PATH`` exports a Chrome-trace JSON of the serving phases (the
+prefill, each decode step) to PATH.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
+from typing import Optional
 
 import torch
 
 from repro_torch import configs, data
 from repro_torch.core.policy import QuantPolicy
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, synchronize
 from repro_torch.models import model
+from repro_torch.telemetry import trace
 
 
 @dataclasses.dataclass
@@ -48,37 +53,42 @@ class ServeRun:
     decode_tok_s: float
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def generate(params, quant_state, prompt: torch.Tensor, cfg,
-             policy: QuantPolicy, gen: int) -> ServeRun:
-    """Prefill ``prompt`` and greedily decode ``gen`` tokens."""
+             policy: QuantPolicy, gen: int,
+             tracer: Optional[trace.Tracer] = None) -> ServeRun:
+    """Prefill ``prompt`` and greedily decode ``gen`` tokens; with an
+    enabled ``tracer``, one span for the prefill (the first one carries
+    the kernels' build) and one per decode step, each fenced."""
+    tracer = tracer or trace.get_tracer()
     device = prompt.device
     b, prompt_len = prompt.shape
     cache_len = prompt_len + gen
-    _sync(device)
+    synchronize(device)
     t0 = time.perf_counter()
-    logits, caches, stats = model.prefill(
-        params, quant_state, {"tokens": prompt}, cfg, policy,
-        cache_len=cache_len, return_stats=True)
-    _sync(device)
+    with tracer.span("prefill (compile+execute)", batch=b,
+                     prompt_len=prompt_len):
+        logits, caches, stats = model.prefill(
+            params, quant_state, {"tokens": prompt}, cfg, policy,
+            cache_len=cache_len, return_stats=True)
+        synchronize(device)
     t_prefill = time.perf_counter() - t0
     prefill_logits = logits
 
     tok = torch.argmax(logits, dim=-1)[:, None]
     out = [tok]
     t0 = time.perf_counter()
-    for i in range(gen - 1):
-        pos = torch.full((b,), prompt_len + i, dtype=torch.int64,
-                         device=device)
-        logits, caches = model.decode_step(params, quant_state, tok, pos,
-                                           caches, cfg, policy)
-        tok = torch.argmax(logits, dim=-1)[:, None]
-        out.append(tok)
-    _sync(device)
+    with tracer.span("decode", steps=gen - 1):
+        for i in range(gen - 1):
+            with tracer.span("decode step", pos=prompt_len + i):
+                pos = torch.full((b,), prompt_len + i, dtype=torch.int64,
+                                 device=device)
+                logits, caches = model.decode_step(params, quant_state, tok,
+                                                   pos, caches, cfg, policy)
+                tok = torch.argmax(logits, dim=-1)[:, None]
+                if tracer.enabled:   # fence per span only when tracing
+                    synchronize(device)
+            out.append(tok)
+        synchronize(device)
     t_decode = time.perf_counter() - t0
     return ServeRun(
         cfg=cfg, policy=policy, params=params, quant_state=quant_state,
@@ -102,6 +112,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--int8-cache", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--trace", default="", metavar="PATH",
+                    help="export a Chrome-trace JSON of the serving phases "
+                         "(prefill / per-step decode) to PATH — view at "
+                         "https://ui.perfetto.dev")
     return ap.parse_args(argv)
 
 
@@ -126,7 +140,9 @@ def main(argv=None) -> ServeRun:
                            global_batch=args.batch, seed=args.seed)
     prompt = stream.batch(0)["tokens"][:, :args.prompt_len].to(device)
 
-    run = generate(params, quant_state, prompt, cfg, policy, args.gen)
+    tracer = trace.Tracer(enabled=bool(args.trace))
+    run = generate(params, quant_state, prompt, cfg, policy, args.gen,
+                   tracer)
     print(f"[serve] arch={cfg.name} policy={args.policy} "
           f"backend={policy.backend} cache={cfg.cache_dtype} "
           f"device={device}")
@@ -135,6 +151,10 @@ def main(argv=None) -> ServeRun:
     print(f"[serve] decode  {args.gen - 1} steps: {run.decode_ms:.1f} ms "
           f"({run.decode_tok_s:.1f} tok/s)")
     print(f"[serve] sample tokens[0]: {run.tokens[0][:12].tolist()}")
+    if args.trace:
+        tracer.export(args.trace)
+        print(f"[serve] trace: {args.trace} — load at "
+              f"https://ui.perfetto.dev")
     return run
 
 

@@ -15,6 +15,9 @@ Example (H100, full width):
 CPU, reduced:
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
       --steps 2
+
+``--trace PATH`` exports a Chrome-trace JSON of each step's phases (data,
+compile on the first step, execute) to PATH.
 """
 from __future__ import annotations
 
@@ -23,18 +26,18 @@ import dataclasses
 import json
 import signal
 import statistics
-import time
 
 import torch
 
 from repro_torch import configs, data
 from repro_torch.core.estimators import ALL_ESTIMATORS
 from repro_torch.core.policy import QuantPolicy
-from repro_torch.core.state import INITED, tree_leaves
-from repro_torch.device import resolve_device
+from repro_torch.core.state import inited_count
+from repro_torch.device import resolve_device, synchronize
 from repro_torch.optim import adamw, sgdm
 from repro_torch.optim.schedules import cosine
 from repro_torch.runtime import steps as steps_mod
+from repro_torch.telemetry import trace
 
 
 def build_policy(kind: str, backend: str) -> QuantPolicy:
@@ -103,12 +106,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--straggler-factor", type=float, default=3.0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--trace", default="", metavar="PATH",
+                    help="export a Chrome-trace JSON of the step phases "
+                         "(data/compile/execute) to PATH — viewable at "
+                         "https://ui.perfetto.dev; tracing is host-side "
+                         "only and never changes the computation")
     return ap.parse_args(argv)
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def main(argv=None) -> TrainRun:
@@ -145,20 +148,23 @@ def main(argv=None) -> TrainRun:
           f"policy={args.policy} backend={policy.backend} device={device} "
           f"batch={args.batch}x{args.seq}")
     logf = open(args.log, "a") if args.log else None
+    timer = trace.StepTimer(trace.Tracer(enabled=bool(args.trace)))
     try:
         for step in range(args.steps):
-            batch = {k: v.to(device) for k, v in stream.batch(step).items()}
-            _sync(device)
-            t0 = time.perf_counter()
-            state, met = train_step(state, batch)
-            met = {k: float(v) for k, v in met.items()}     # fences
-            _sync(device)
+            with timer.step(step) as st:
+                with st.phase("data"):
+                    batch = {k: v.to(device)
+                             for k, v in stream.batch(step).items()}
+                    synchronize(device)
+                with st.execute():   # "compile" on the first step
+                    state, met = train_step(state, batch)
+                    met = {k: float(v) for k, v in met.items()}  # fences
+                    synchronize(device)
+            phases = timer.last["phases"]
+            dt = phases.get("compile", phases.get("execute")) / 1e3
             # How many quant sites hold a range (the first-batch rule
             # initializes each one at its first visit).
-            met["inited_sites"] = int(torch.stack(
-                [leaf[INITED] for leaf in tree_leaves(state["quant"])]
-            ).gt(0.5).sum())
-            dt = time.perf_counter() - t0
+            met["inited_sites"] = inited_count(state["quant"])
             wd.step(dt, step)
             run.state = state
             run.losses.append(met["loss"])
@@ -180,6 +186,10 @@ def main(argv=None) -> TrainRun:
             signal.signal(s, h)
         if logf:
             logf.close()
+        if args.trace:
+            timer.tracer.export(args.trace)
+            print(f"[train] trace: {args.trace} — load at "
+                  f"https://ui.perfetto.dev")
     return run
 
 

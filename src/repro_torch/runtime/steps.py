@@ -61,12 +61,14 @@ def _is_grad_leaf(path) -> bool:
     return bool(path) and path[-1] == "grad"
 
 
-def forward_backward(cfg, policy, params, quant, mb, step: int, midx: int):
-    """One microbatch's forward + backward (site seed ``step * 262144 +
-    midx * 8192``).  Returns ``(loss, grads, stats, metrics)``: grads as a
-    dict like :func:`named_params`, stats shaped like ``quant`` (the
-    forward statistics merged with the cotangent channel's)."""
-    seed = step * 262144 + midx * 8192
+def grads_and_stats(loss_of_quant, params, quant):
+    """Gradients of the parameters and gradient-site statistics of one
+    forward + backward.  ``loss_of_quant(quant_in) -> (loss, fwd_stats,
+    aux)`` runs the forward on ``quant_in``, a copy of ``quant`` whose grad
+    leaves are fresh tensors that require grad; their gradients are the
+    cotangent channel's statistics.  Returns ``(loss, grads, stats, aux)``:
+    grads as a dict like :func:`named_params`, stats shaped like ``quant``
+    (the forward statistics merged with the cotangent channel's)."""
     leaves = {}
 
     def track(path, leaf):
@@ -74,9 +76,7 @@ def forward_backward(cfg, policy, params, quant, mb, step: int, midx: int):
             leaf = leaves[path] = leaf.detach().requires_grad_(True)
         return leaf
 
-    quant_in = tree_map_with_path(track, quant)
-    loss, (fwd_stats, met) = model.loss_fn(params, quant_in, mb, cfg, policy,
-                                           seed, step)
+    loss, fwd_stats, aux = loss_of_quant(tree_map_with_path(track, quant))
     named = named_params(params)
     inputs = list(named.values()) + list(leaves.values())
     grads = torch.autograd.grad(loss, inputs, allow_unused=True)
@@ -89,8 +89,22 @@ def forward_backward(cfg, policy, params, quant, mb, step: int, midx: int):
             else torch.zeros_like(leaf), quant)
         stats = qlinear.merge_stats(tree_map(torch.Tensor.detach, fwd_stats),
                                     cot_stats)
-    return (loss.detach(), pg, stats,
-            {k: v.detach() for k, v in met.items()})
+    return loss.detach(), pg, stats, aux
+
+
+def forward_backward(cfg, policy, params, quant, mb, step: int, midx: int):
+    """One microbatch's forward + backward (site seed ``step * 262144 +
+    midx * 8192``).  Returns ``(loss, grads, stats, metrics)`` as
+    :func:`grads_and_stats` does."""
+    seed = step * 262144 + midx * 8192
+
+    def loss_of_quant(quant_in):
+        loss, (fwd_stats, met) = model.loss_fn(params, quant_in, mb, cfg,
+                                               policy, seed, step)
+        return loss, fwd_stats, met
+
+    loss, pg, stats, met = grads_and_stats(loss_of_quant, params, quant)
+    return loss, pg, stats, {k: v.detach() for k, v in met.items()}
 
 
 def make_train_step(cfg, policy: QuantPolicy, optimizer, lr_schedule: Callable,

@@ -359,3 +359,93 @@ def test_reduced_train_step_on_card_uses_every_kernel(card):
     for name, g in gs.items():
         if not name.endswith("attn.bk"):      # exact gradient is zero
             assert (gf[name] - g).norm() <= 5e-2 * g.norm(), name
+
+
+# MobileNetV2-tiny's conv shapes at a reduced batch (4 of 128):
+# (what, x NHWC, w HWIO, stride, groups)
+CONV_CASES = [
+    ("stem", (4, 64, 64, 3), (3, 3, 3, 32), 1, 1),
+    ("expand-1x1", (4, 64, 64, 24), (1, 1, 24, 144), 1, 1),
+    ("depthwise", (4, 64, 64, 144), (3, 3, 1, 144), 1, 144),
+    ("depthwise-s2", (4, 64, 64, 144), (3, 3, 1, 144), 2, 144),
+]
+
+
+@pytest.mark.parametrize("zp", [117.0, 117.3])
+@pytest.mark.parametrize("case", CONV_CASES, ids=[c[0] for c in CONV_CASES])
+def test_int8_conv_fp_kernel_matches_plain(card, case, zp):
+    """The conv site's int8 contraction on the card (im2col onto the int8
+    matmul kernel) against its plain version on the CPU, bit for bit."""
+    _, xs, ws, stride, groups = case
+    g = _gen(card, sum(xs) + groups)
+    x = torch.randint(0, 256, xs, generator=g, device=card,
+                      dtype=torch.uint8)
+    w = torch.randint(-127, 128, ws, generator=g, device=card,
+                      dtype=torch.int8)
+    plan = ops.plan_conv(xs, ws, stride, "SAME", 1, groups)
+    zp_t, alpha = torch.tensor(zp), torch.tensor(2.3e-4)
+    before = ops.launch_counts()
+    yk, mnk, mxk = ops.int8_conv_fp(x, w, zp_t.to(card), alpha.to(card),
+                                    plan=plan)
+    after = ops.launch_counts()
+    yr, mnr, mxr = ops.int8_conv_fp(x.cpu(), w.cpu(), zp_t, alpha, plan=plan)
+    assert after["int8_matmul_fp"] == before["int8_matmul_fp"] + 1
+    assert after["int8_transpose"] == before["int8_transpose"] + 1
+    assert yk.is_cuda and yk.is_contiguous()
+    assert torch.equal(yk.cpu(), yr)
+    assert torch.equal(mnk.cpu(), mnr) and torch.equal(mxk.cpu(), mxr)
+
+
+def test_int8_conv_fp_beyond_the_row_tiles_raises(card):
+    """M = 2049 x 64 x 64 rows exceed the kernel's 65535 row tiles of 128:
+    an error, never a fallback."""
+    xs, ws = (2049, 64, 64, 1), (3, 3, 1, 1)
+    x = torch.zeros(xs, dtype=torch.uint8, device=card)
+    w = torch.ones(ws, dtype=torch.int8, device=card)
+    plan = ops.plan_conv(xs, ws, 1, "SAME", 1, 1)
+    with pytest.raises(ValueError, match="row tiles"):
+        ops.int8_conv_fp(x, w, torch.tensor(128.0, device=card),
+                         torch.tensor(1.0, device=card), plan=plan)
+
+
+def test_conv_site_fp32_products_ignore_global_tf32(card):
+    """With TF32 switched on globally, the conv site's backward products
+    and its fp path's conv stay full fp32: they match the CPU's within
+    1e-5 of the largest element (TF32 would be off by ~1e-3)."""
+    from repro_torch.core import backend
+    from repro_torch.core.calibration import observation_policy
+    from repro_torch.core.policy import QuantPolicy
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((4, 16, 16, 64), generator=g)
+    w = torch.randn((3, 3, 64, 64), generator=g) * 0.05
+    r = torch.randn((4, 16, 16, 64), generator=g)
+    qx = torch.randint(0, 256, x.shape, generator=g, dtype=torch.uint8)
+    qw = torch.randint(-127, 128, w.shape, generator=g, dtype=torch.int8)
+    pol = QuantPolicy.w8a8g8(backend="fused")
+
+    def run(dev):
+        one = torch.ones((), device=dev)
+        xq = x.to(dev).requires_grad_(True)
+        wq = w.to(dev).requires_grad_(True)
+        y = backend.qconv(pol, xq, backend.QTensor(qx.to(dev), one * 0.02,
+                                                   one * 128.0),
+                          wq, backend.QTensor(qw.to(dev), one * 1e-3,
+                                              one * 0.0))
+        dx, dw = torch.autograd.grad(y, [xq, wq], r.to(dev))
+        y_fp = backend.qconv(observation_policy(pol), x.to(dev), None,
+                             w.to(dev), None)
+        return [t.detach().cpu() for t in (y, dx, dw, y_fp)]
+
+    mm, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = (mm.allow_tf32, cudnn.allow_tf32)
+    mm.allow_tf32 = cudnn.allow_tf32 = True
+    try:
+        on_card = run(card)
+    finally:
+        mm.allow_tf32, cudnn.allow_tf32 = saved
+    on_cpu = run(torch.device("cpu"))
+    assert torch.equal(on_card[0], on_cpu[0])          # alpha * int32
+    for a, b in zip(on_card[1:], on_cpu[1:]):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-5 * b.abs().max().item())
