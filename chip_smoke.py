@@ -45,6 +45,29 @@ Phases, one line each:
                    backend, with TF32 switched on globally: bit-equal
                    losses, quant and BN states and parameters; the conv
                    site's fp32 products checked against float64
+ 12. tele train    phase 7's run with --telemetry --guard, the launch
+                   counters zeroed just before and read just after: the
+                   JSONL checked (finite counters, every attention p-site
+                   with the kernel's exact count) and rendered by
+                   repro_torch.telemetry.report; then the steady step with
+                   telemetry off and on, in turns (overhead, not gated)
+ 13. tele cnn      phase 10's MobileNetV2-tiny run with --guard: 106
+                   width-10 quant leaves, the JSONL rendered, the overhead
+ 14. tele serve    phase 4's prefill with --telemetry PATH: per-site
+                   records, the p-sites' exact counters
+ 15. guard parity  fused vs simulated with telemetry and a guard that fires
+                   (threshold 0, patience 1): phase 11's reduced
+                   MobileNetV2 for 3 steps, bit-equal width-10 quant trees
+                   and equal guard events (widens among them); phase 8's
+                   LM configuration, one forward + backward, the telemetry
+                   slots within stated limits
+ 16. checkpoint    starcoder2-3b at full width, depth cut to 2 layers: a
+                   3-step run uninterrupted (twice: does it repeat bit for
+                   bit?), the same run with --ckpt-dir --ckpt-every 1
+                   preempted (SIGTERM) after step 2, its restored state
+                   against its in-memory one, --resume to step 3 against
+                   the uninterrupted run, save and restore times, then
+                   launch.serve --ckpt-dir against serving from memory
 
 Phase 3 also holds ``int8_conv_fp`` (the conv site, im2col onto the int8
 matmul kernel) against its plain version at four MobileNetV2-tiny layer
@@ -58,7 +81,8 @@ and prints no result; so does a machine without a CUDA card.
 e.g. ``1-3`` to build and check the kernels without serve and train);
 phase 1 always runs, and 5-6 bring 4 along, whose serve run they reuse.
 Kernels whose path phases did not run report ``"launches": null``.  The
-default is all eleven.
+default is all sixteen; phases 12-16 write their logs and checkpoints
+under ``build/chip_smoke/`` and remove the checkpoints when done.
 """
 from __future__ import annotations
 
@@ -66,13 +90,19 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-import torch
+# Phase 16 may run under torch.use_deterministic_algorithms, which needs
+# cuBLAS's workspace configured before its first use.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -99,6 +129,9 @@ LAYER_KERNELS = ("int8_transpose", "int8_matmul_fused")
 CNN_KERNELS = ("fused_quantize", "int8_transpose", "int8_matmul_fp",
                "stochastic_quantize")
 CNN_BATCH, CNN_STEPS, CNN_PARITY_STEPS = 128, 3, 2
+GUARD_STEPS, CKPT_LAYERS = 3, 2
+# Where phases 12-16 write their JSONL logs and checkpoints (git-ignored).
+OUT_DIR = ROOT / "build" / "chip_smoke"
 
 
 def log(phase: str, msg: str) -> None:
@@ -1378,6 +1411,549 @@ def cnn_parity_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phases 12-16: telemetry, the overflow guard and checkpoints.
+# ---------------------------------------------------------------------------
+def _finite_records(records: dict, what: str) -> None:
+    bad = [k for k, r in records.items()
+           if not all(math.isfinite(v) for v in r.values())]
+    if not records or bad:
+        raise AssertionError(f"{what}: {len(records)} site records, "
+                             f"non-finite {bad[:5]}")
+
+
+def _check_psites(records: dict, n_expect: int, what: str) -> int:
+    """Every attention probability site's counters come from the kernel's
+    full-tensor partials: n counts every probability, and err and sig are
+    positive (0 < SQNR < its 99 dB cap)."""
+    ps = {k: r for k, r in records.items() if "/core/p/act" in k}
+    bad = [k for k, r in ps.items()
+           if r["n"] != n_expect or not 0 < r["sqnr_db"] < 99]
+    if not ps or bad:
+        raise AssertionError(f"{what}: p-site records {len(ps)}, wrong "
+                             f"{bad[:3]} (n expected {n_expect})")
+    return len(ps)
+
+
+def _report(path: str, tag: str) -> dict:
+    """``repro_torch.telemetry.report`` on a JSONL: the health table (the
+    worst sites) and the perf table, as a user renders them."""
+    from repro_torch.telemetry import report
+    print(f"[{tag}] python -m repro_torch.telemetry.report {path} --top 6",
+          flush=True)
+    summary = report.main([path, "--top", "6", "--events", "4"])
+    perf = report.main([path, "--perf", "--slowest", "2"])
+    if not summary:
+        raise AssertionError(f"{tag}: the report found no sites in {path}")
+    return dict(sites=len(summary), perf=perf and {
+        k: v for k, v in perf.items() if k != "records"})
+
+
+def _overhead(step_off, state_off, step_on, state_on, batch, collect,
+              pairs: int = 3) -> dict:
+    """Steady steps with telemetry off and on, in turns (off, on, on, off,
+    ...), each fenced by a host read and a synchronize; the "on" step
+    includes the driver's telemetry phase (``collect``)."""
+    times = {"off": [], "on": []}
+    order = ["off", "on", "on", "off"] * ((pairs + 1) // 2)
+    for which in order[:2 * pairs]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if which == "off":
+            state_off, met = step_off(state_off, batch)
+            float(met["loss"])
+        else:
+            state_on, met = step_on(state_on, batch)
+            float(met["loss"])
+            collect(state_on["quant"])
+        torch.cuda.synchronize()
+        times[which].append((time.perf_counter() - t0) * 1e3)
+    off = sum(times["off"]) / len(times["off"])
+    on = sum(times["on"]) / len(times["on"])
+    return dict(off_ms=times["off"], on_ms=times["on"], off_mean_ms=off,
+                on_mean_ms=on, overhead_pct=100 * (on - off) / off)
+
+
+def _narrow(quant):
+    from repro_torch.core.state import tree_map
+    return tree_map(lambda leaf: leaf[:3].clone(), quant)
+
+
+def tele_train_phase(cfg, dev, out_dir: Path) -> dict:
+    """Phase 12: ``launch.train.main`` with ``--telemetry --guard`` (widen)
+    at full width and depth, the launch counters zeroed just before and
+    read just after; the JSONL checked and rendered; then the steady step
+    with telemetry off and on, in turns."""
+    from repro_torch import data, telemetry
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedules import constant
+    from repro_torch.runtime import steps
+
+    tdir = out_dir / "tele_train"
+    shutil.rmtree(tdir, ignore_errors=True)
+    argv = ["--arch", cfg.name, "--batch", str(BATCH), "--seq", str(PROMPT),
+            "--steps", str(TRAIN_STEPS), "--log-every", "1", "--telemetry",
+            "--guard", "--telemetry-dir", str(tdir)]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    run = train.main(argv)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(counts[k] > 0 for k in TRAIN_KERNELS):
+        raise AssertionError(f"telemetry train path launches {counts}")
+    if not all(math.isfinite(v) for v in run.losses):
+        raise AssertionError(f"losses {run.losses}")
+    lines = telemetry.read_jsonl_records(run.telemetry_path)
+    if [ln["step"] for ln in lines] != list(range(TRAIN_STEPS)) or \
+            not all(ln["perf"] for ln in lines):
+        raise AssertionError(f"JSONL steps {[ln['step'] for ln in lines]}")
+    last = lines[-1]["sites"]
+    _finite_records(last, "tele-train")
+    n_p = _check_psites(last, BATCH * cfg.n_heads * PROMPT * PROMPT,
+                        "tele-train")
+    rendered = _report(run.telemetry_path, "tele-train")
+    tele_ms = [ln["perf"]["phases_ms"].get("telemetry", 0.0) for ln in lines]
+    log("tele-train", f"{cfg.n_layers} layers B={BATCH} S={PROMPT} "
+                      f"--telemetry --guard: losses "
+                      f"{[round(v, 4) for v in run.losses]}; steps "
+                      f"{[round(v, 1) for v in run.step_ms]} ms; the "
+                      f"telemetry phase (collect + events) "
+                      f"{[round(v, 2) for v in tele_ms]} ms; {len(last)} "
+                      f"site records, all finite; {n_p} p-sites with the "
+                      f"kernel's exact n = {BATCH * cfg.n_heads * PROMPT ** 2}"
+                      f"; {len(run.events)} guard events; peak {peak:.2f} "
+                      f"GiB; launches {counts}")
+    # Telemetry off vs on, in turns, on the same parameters and batch.
+    stream = data.for_arch(cfg, seq_len=PROMPT, global_batch=BATCH)
+    batch = {k: v.to(dev) for k, v in stream.batch(TRAIN_STEPS).items()}
+    step_on = steps.make_train_step(cfg, run.policy, adamw(), constant(1e-4))
+    step_off = steps.make_train_step(
+        cfg, QuantPolicy.w8a8g8(backend="fused"), adamw(), constant(1e-4))
+    state_off = dict(run.state, quant=_narrow(run.state["quant"]))
+    ov = _overhead(step_off, state_off, step_on, run.state, batch,
+                   lambda q: telemetry.collect(q, cfg=cfg))
+    log("tele-train", f"steady step, telemetry off vs on in turns: off "
+                      f"{[round(v, 1) for v in ov['off_ms']]} ms, on "
+                      f"{[round(v, 1) for v in ov['on_ms']]} ms: overhead "
+                      f"{ov['overhead_pct']:.2f}% (not gated)")
+    out = dict(losses=run.losses, step_ms=run.step_ms, telemetry_ms=tele_ms,
+               sites=len(last), psites=n_p, events=len(run.events),
+               peak_gib=peak, launches=counts,
+               launches_per_step={k: v / TRAIN_STEPS
+                                  for k, v in counts.items()},
+               report=rendered, overhead=ov)
+    del run, state_off, batch
+    return out
+
+
+def tele_cnn_phase(dev, out_dir: Path) -> dict:
+    """Phase 13: ``cnn.train.main --guard`` on MobileNetV2-tiny (phase
+    10's configuration), the JSONL checked and rendered, then the steady
+    step with telemetry off and on, in turns."""
+    from repro_torch import telemetry
+    from repro_torch.cnn import train as cnn_train
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.core.state import tree_leaves
+    from repro_torch.data import ImageStream
+    from repro_torch.kernels import ops
+    from repro_torch.optim import sgdm
+    from repro_torch.optim.schedules import constant
+
+    path = out_dir / "tele_cnn.jsonl"
+    path.unlink(missing_ok=True)
+    argv = ["--arch", "mobilenetv2", "--width", "1.0", "--image-size", "64",
+            "--num-classes", "200", "--batch", str(CNN_BATCH), "--steps",
+            str(CNN_STEPS), "--calibration-batches", "2", "--guard",
+            "--telemetry-out", str(path)]
+    ops.reset_launch_counts()
+    run = cnn_train.main(argv)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if not all(counts[k] > 0 for k in CNN_KERNELS):
+        raise AssertionError(f"telemetry cnn path launches {counts}")
+    leaves = tree_leaves(run.state["quant"])
+    if len(leaves) != 106 or any(leaf.shape != (10,) for leaf in leaves):
+        raise AssertionError(f"{len(leaves)} quant leaves, widths "
+                             f"{ {tuple(leaf.shape) for leaf in leaves} }")
+    lines = telemetry.read_jsonl_records(str(path))
+    if [ln["step"] for ln in lines] != list(range(CNN_STEPS)):
+        raise AssertionError(f"JSONL steps {[ln['step'] for ln in lines]}")
+    _finite_records(lines[-1]["sites"], "tele-cnn")
+    rendered = _report(str(path), "tele-cnn")
+    step_ms = [h["step_ms"] for h in run.history]
+    tele_ms = [ln["perf"]["phases_ms"].get("telemetry", 0.0) for ln in lines]
+    log("tele-cnn", f"MobileNetV2-tiny B={CNN_BATCH} --guard: losses "
+                    f"{[round(h['loss'], 4) for h in run.history]}; steps "
+                    f"{[round(v, 1) for v in step_ms]} ms; the telemetry "
+                    f"phase {[round(v, 2) for v in tele_ms]} ms; 106 quant "
+                    f"leaves at width 10, {len(lines[-1]['sites'])} site "
+                    f"records, all finite; launches {counts}")
+    stream = ImageStream(200, 64, 3, CNN_BATCH, seed=0)
+    batch = {k: v.to(dev) for k, v in stream.batch(CNN_STEPS).items()}
+    opt = sgdm(momentum=0.9, weight_decay=1e-4)
+    step_on = cnn_train.make_cnn_train_step(run.cfg, run.policy, opt,
+                                            constant(0.01))
+    step_off = cnn_train.make_cnn_train_step(
+        run.cfg, QuantPolicy.w8a8g8(backend="fused"), opt, constant(0.01))
+    state_off = dict(run.state, quant=_narrow(run.state["quant"]))
+    ov = _overhead(step_off, state_off, step_on, run.state, batch,
+                   telemetry.collect)
+    log("tele-cnn", f"steady step, telemetry off vs on in turns: off "
+                    f"{[round(v, 1) for v in ov['off_ms']]} ms, on "
+                    f"{[round(v, 1) for v in ov['on_ms']]} ms: overhead "
+                    f"{ov['overhead_pct']:.2f}% (not gated)")
+    out = dict(losses=[h["loss"] for h in run.history], step_ms=step_ms,
+               telemetry_ms=tele_ms, launches=counts, report=rendered,
+               overhead=ov)
+    del run, state_off, batch
+    return out
+
+
+def tele_serve_phase(cfg, out_dir: Path) -> dict:
+    """Phase 14: ``launch.serve.main --telemetry PATH`` at full width and
+    depth: per-site prefill records, the p-sites' exact counters."""
+    from repro_torch import telemetry
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    path = out_dir / "tele_serve.jsonl"
+    path.unlink(missing_ok=True)
+    ops.reset_launch_counts()
+    run = serve.main(["--arch", cfg.name, "--batch", str(BATCH),
+                      "--prompt-len", str(PROMPT), "--gen", "4",
+                      "--telemetry", str(path)])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if not all(counts[k] > 0 for k in SERVE_KERNELS):
+        raise AssertionError(f"telemetry serve path launches {counts}")
+    ((step, recs),) = telemetry.read_jsonl(str(path))
+    _finite_records(recs, "tele-serve")
+    n_p = _check_psites(recs, BATCH * cfg.n_heads * PROMPT * PROMPT,
+                        "tele-serve")
+    p0 = recs["decoder/blocks/b0/attn/core/p/act[0]"]
+    rendered = _report(str(path), "tele-serve")
+    log("tele-serve", f"prefill B={BATCH} S={PROMPT} with --telemetry: "
+                      f"{run.prefill_ms:.1f} ms; {len(recs)} site records, "
+                      f"all finite; layer 0's p-site: n {p0['n']:.0f}, "
+                      f"clipped {p0['clipped']:.0f}, SQNR "
+                      f"{p0['sqnr_db']:.2f} dB, util {p0['util']:.4f}; "
+                      f"launches {counts}")
+    out = dict(prefill_ms=run.prefill_ms, sites=len(recs), psites=n_p,
+               p0=p0, launches=counts, report=rendered)
+    del run
+    return out
+
+
+GUARD_FIRE = dict(guard=True, clip_threshold=0.0, patience=1)
+
+
+def guard_parity_phase(cfg, dev) -> dict:
+    """Phase 15: fused vs simulated with telemetry and a guard that fires
+    (threshold 0, patience 1).  (a) The reduced MobileNetV2 of phase 11,
+    TF32 on globally, 3 steps: width-10 quant trees, BN states and
+    parameters bit-equal, guard event lists equal, at least one widen.
+    (b) Phase 8's LM configuration (4 layers at full width), one forward +
+    backward: the statistics trees within phase 8's tolerances, the
+    telemetry slots within the ones stated below."""
+    from repro_torch import data, telemetry
+    from repro_torch.cnn import models
+    from repro_torch.cnn import train as cnn_train
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.core.state import tree_leaves, tree_map_with_path
+    from repro_torch.data import ImageStream
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.optim import adamw, sgdm
+    from repro_torch.optim.schedules import constant
+    from repro_torch.runtime import steps
+    from repro_torch.runtime.steps import named_params
+
+    ccfg = models.bench_config("mobilenetv2", num_classes=4, width=0.25,
+                               image_size=16)
+    stream = ImageStream(4, 16, 3, 4, seed=1)
+    batches = [{k: v.to(dev) for k, v in stream.batch(i).items()}
+               for i in range(GUARD_STEPS)]
+    mm, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = (mm.allow_tf32, cudnn.allow_tf32)
+    mm.allow_tf32 = cudnn.allow_tf32 = True
+    out = {}
+    try:
+        for bk in ("fused", "simulated"):
+            policy = QuantPolicy.w8a8g8().with_telemetry(**GUARD_FIRE) \
+                .with_backend(bk)
+            params, bn = models.init(ccfg, seed=1, device=dev)
+            for p in params.parameters():
+                p.requires_grad_(True)
+            opt = sgdm(momentum=0.9, weight_decay=1e-4)
+            state = {"params": params, "bn": bn,
+                     "opt": opt.init(named_params(params)),
+                     "quant": models.init_sites(ccfg, policy, device=dev),
+                     "step": 0}
+            step = cnn_train.make_cnn_train_step(ccfg, policy, opt,
+                                                 constant(0.05))
+            det = telemetry.GuardEventDetector(policy.telemetry, policy)
+            ops.reset_launch_counts()
+            losses, events = [], []
+            for i, b in enumerate(batches):
+                state, met = step(state, b)
+                losses.append(float(met["loss"]))
+                events += det.update(i, telemetry.collect(state["quant"]))
+            counts = ops.launch_counts()
+            ok = all(counts[k] for k in CNN_KERNELS) if bk == "fused" \
+                else not any(counts.values())
+            if not ok:
+                raise AssertionError(f"{bk} backend launches {counts}")
+            out[bk] = (losses, events,
+                       [t.detach().clone() for t in params.parameters()],
+                       tree_leaves(state["bn"]), tree_leaves(state["quant"]))
+    finally:
+        mm.allow_tf32, cudnn.allow_tf32 = saved
+    (lf, ef, pf, bf, qf), (ls, es, ps, bs, qs) = out["fused"], \
+        out["simulated"]
+    diff = {name: sum(int(not torch.equal(a, b)) for a, b in zip(x, y))
+            for name, x, y in (("params", pf, ps), ("bn", bf, bs),
+                               ("quant", qf, qs))}
+    widens = sum(e["action"] == "widen" for e in ef)
+    if lf != ls or any(diff.values()) or ef != es or not widens \
+            or any(q.shape != (10,) for q in qf):
+        raise AssertionError(f"guard parity (cnn): losses {lf} vs {ls}, "
+                             f"differing tensors {diff}, events "
+                             f"{len(ef)} vs {len(es)} ({widens} widens)")
+    log("guard-parity", f"reduced MobileNetV2, {GUARD_STEPS} steps with "
+                        f"TF32 on globally, telemetry + guard (threshold 0, "
+                        f"patience 1), fused vs simulated: losses {lf} "
+                        f"identical; {len(qf)} width-10 quant, {len(bf)} BN "
+                        f"and {len(pf)} parameter tensors bit-equal; "
+                        f"{len(ef)} guard events equal, {widens} widens")
+    res = dict(cnn=dict(losses=lf, events=len(ef), widens=widens,
+                        n_quant=len(qf)))
+    del out
+
+    # (b) The LM, phase 8's configuration, one forward + backward.
+    cfg4 = dataclasses.replace(cfg, n_layers=PARITY_LAYERS)
+    state = steps.init_train_state(cfg4, adamw(), seed=1, device=dev)
+    stream = data.for_arch(cfg4, seq_len=PROMPT, global_batch=BATCH, seed=1)
+    batch = {k: v.to(dev) for k, v in stream.batch(0).items()}
+    fb = {}
+    for bk in ("fused", "simulated"):
+        policy = QuantPolicy.w8a8g8().with_telemetry(**GUARD_FIRE) \
+            .with_backend(bk)
+        quant = model.init_quant_state(cfg4, policy, device=dev)
+        fb[bk] = steps.forward_backward(cfg4, policy, state["params"], quant,
+                                        batch, 0, 0)[2]
+        torch.cuda.synchronize()
+    worst = {}
+
+    def cmp(path, a, b):
+        kind = "grad" if path[-1] == "grad" else "act"
+        if not (torch.equal(a[2], b[2]) and torch.equal(a[4], b[4])):
+            raise AssertionError(f"visited flags or counts differ at {path}")
+        rel = ((a - b).abs() / b.abs().clamp(min=1e-12))
+        for name, idx in (("range", [0, 1]), ("err", [5]), ("sig", [6]),
+                          ("util", [7])):
+            key = f"{kind}_{name}"
+            worst[key] = max(worst.get(key, 0.0), rel[idx].max().item())
+        rate = ((a[3] - b[3]).abs() / b[4].clamp(min=1.0)).item()
+        worst[f"{kind}_clip_rate"] = max(worst.get(f"{kind}_clip_rate", 0.0),
+                                         rate)
+    tree_map_with_path(cmp, fb["fused"], fb["simulated"])
+    # Phase 8's limits for the ranges (act 1e-2, grad 5e-2 relative), the
+    # same for util (a ratio of ranges); err/sig 5e-2 / 1e-1 relative and
+    # clip rates 1e-3 absolute: one flipped probability level (expf vs
+    # torch.exp) moves the stochastic roundings below it by a level.
+    limits = dict(act_range=1e-2, grad_range=5e-2, act_util=1e-2,
+                  grad_util=5e-2, act_err=5e-2, grad_err=1e-1, act_sig=5e-2,
+                  grad_sig=1e-1, act_clip_rate=1e-3, grad_clip_rate=1e-3)
+    over = {k: v for k, v in worst.items() if v > limits[k]}
+    if over:
+        raise AssertionError(f"guard parity (LM): {over} over {limits}")
+    log("guard-parity", f"{PARITY_LAYERS} LM layers at full width, one "
+                        f"forward + backward with telemetry, fused vs "
+                        f"simulated: flags and counts equal; worst "
+                        + ", ".join(f"{k} {v:.3e}" for k, v in
+                                    sorted(worst.items()))
+                        + f" (limits {limits})")
+    res["lm"] = worst
+    del state, fb
+    return res
+
+
+def _tree_equal(a, b) -> list:
+    """Paths where two train states differ (tensors bit for bit, numbers
+    exactly)."""
+    from repro_torch.checkpoint.checkpoint import _flatten
+    la, lb = list(_flatten(a)), list(_flatten(b))
+    if [p for p, _ in la] != [p for p, _ in lb]:
+        return ["<structure>"]
+    return [p for (p, x), (_, y) in zip(la, lb)
+            if not (torch.equal(x, y) and x.dtype == y.dtype
+                    if isinstance(x, torch.Tensor) else x == y)]
+
+
+def _tree_spread(a, b) -> dict:
+    """Largest relative difference per top-level part of two states."""
+    from repro_torch.checkpoint.checkpoint import _flatten
+    out = {}
+    for (p, x), (_, y) in zip(_flatten(a), _flatten(b)):
+        if isinstance(x, torch.Tensor) and x.is_floating_point():
+            d = ((x - y).abs().max() / x.abs().max().clamp(min=1e-30)).item()
+            part = p.split("/")[0]
+            out[part] = max(out.get(part, 0.0), d)
+    return out
+
+
+class _Preempted:
+    """The driver's stream, sending this process SIGTERM while it fetches
+    batch ``at``: the driver finishes that step, checkpoints and stops
+    (the reference's preemption path), with the full run's LR schedule."""
+
+    def __init__(self, stream, at: int):
+        self.stream, self.at = stream, at
+
+    def batch(self, i):
+        if i == self.at:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return self.stream.batch(i)
+
+
+def ckpt_phase(cfg, out_dir: Path) -> dict:
+    """Phase 16: checkpoint and resume, starcoder2-3b at full width with
+    depth cut to 2 layers (~0.34 B parameters; params and AdamW moments
+    ~4.1 GB in fp32), through ``launch.train.main`` and
+    ``launch.serve.main``: a 3-step run uninterrupted; the same run
+    with ``--ckpt-dir --ckpt-every 1 --telemetry`` preempted after step 2;
+    the restored step-2 state against that run's in-memory one; ``--resume``
+    to step 3 against the uninterrupted run; then serving from the
+    checkpoint against serving the same state from memory."""
+    from repro_torch import checkpoint, configs, data, telemetry
+    from repro_torch.configs.arch import register
+    from repro_torch.launch import serve, train
+
+    cfg2 = dataclasses.replace(cfg, name=f"{cfg.name}-{CKPT_LAYERS}l",
+                               n_layers=CKPT_LAYERS)
+    configs.names()                 # load the registry before adding to it
+    register(cfg2, lambda: cfg2)
+    ck = out_dir / "ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    argv = ["--arch", cfg2.name, "--batch", str(BATCH), "--seq",
+            str(PROMPT), "--steps", "3", "--log-every", "1", "--telemetry",
+            "--telemetry-dir", str(out_dir / "ckpt_tele")]
+
+    def straight():
+        run = train.main(argv)
+        torch.cuda.synchronize()
+        return run.state
+
+    def preempted():
+        real = data.for_arch
+        data.for_arch = lambda *a, **k: _Preempted(real(*a, **k), 1)
+        try:
+            return train.main(argv + ["--ckpt-dir", str(ck),
+                                      "--ckpt-every", "1"])
+        finally:
+            data.for_arch = real
+
+    # Does a 3-step run repeat itself bit for bit on the card?  If not,
+    # the phase runs under torch.use_deterministic_algorithms; if some op
+    # has no deterministic form, the resumed run is held to the spread of
+    # two repeats.
+    ref, again = straight(), straight()
+    ref2 = None
+    differ = _tree_equal(ref, again)
+    mode, spread = "default", _tree_spread(ref, again) if differ else {}
+    if differ:
+        log("ckpt", f"two uninterrupted runs differ at {len(differ)} "
+                    f"leaves (first {differ[:3]}; spread {spread}): "
+                    f"rerunning under torch.use_deterministic_algorithms")
+        again = None
+        torch.use_deterministic_algorithms(True)
+        try:
+            ref2, again = straight(), straight()
+        except RuntimeError as e:
+            torch.use_deterministic_algorithms(False)
+            mode = f"spread; no deterministic form: {str(e)[:200]}"
+        else:
+            ref, mode = ref2, "deterministic"
+            differ = _tree_equal(ref, again)
+            spread = _tree_spread(ref, again) if differ else {}
+    again = ref2 = None
+    try:
+        shutil.rmtree(ck, ignore_errors=True)
+        first = preempted()
+        if first.state["step"] != 2 or checkpoint.all_steps(str(ck)) != [1, 2]:
+            raise AssertionError(f"preempted run ended at step "
+                                 f"{first.state['step']}, checkpoints "
+                                 f"{checkpoint.all_steps(str(ck))}")
+        nbytes = sum(os.path.getsize(ck / f"step_{2:010d}" / f)
+                     for f in ("arrays.npz", "manifest.json"))
+        save_ms = first.ckpt_ms
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = checkpoint.restore(str(ck), 2, first.state)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        bad = _tree_equal(first.state, restored)
+        if bad:
+            raise AssertionError(f"restored step-2 state differs from the "
+                                 f"saving run's at {bad[:5]}")
+        del restored, first
+        resumed = train.main(argv + ["--ckpt-dir", str(ck), "--resume"])
+        torch.cuda.synchronize()
+        res_bad = _tree_equal(ref, resumed.state)
+        res_spread = _tree_spread(ref, resumed.state) if res_bad else {}
+        # Bit-equal where two repeats are; otherwise within twice the
+        # repeats' own spread, part by part.
+        if res_bad and (not differ or any(
+                v > 2 * spread.get(k, 0.0) for k, v in res_spread.items())):
+            raise AssertionError(f"resumed step 3 differs from the "
+                                 f"uninterrupted run at {len(res_bad)} "
+                                 f"leaves ({res_bad[:3]}; spread "
+                                 f"{res_spread}, repeat spread {spread})")
+        # Serve the checkpoint (step 3) and the same state from memory.
+        spath = str(out_dir / "ckpt_serve.jsonl")
+        served = serve.main(["--arch", cfg2.name, "--batch", str(BATCH),
+                             "--prompt-len", str(PROMPT), "--gen", "2",
+                             "--ckpt-dir", str(ck), "--telemetry", spath,
+                             "--verbose"])
+        policy = served.policy
+        mem = serve.generate(resumed.state["params"], resumed.state["quant"],
+                             served.prompt, cfg2, policy, 2)
+        same = torch.equal(served.prefill_logits, mem.prefill_logits)
+        if not same or not torch.isfinite(served.prefill_logits).all():
+            d = (served.prefill_logits - mem.prefill_logits).abs().max()
+            raise AssertionError(f"served-from-checkpoint prefill logits "
+                                 f"differ from in-memory by {d.item():.3e}")
+        _finite_records(telemetry.read_jsonl(spath)[0][1], "ckpt-serve")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ck, ignore_errors=True)
+    gb = nbytes / 1e9
+    n_params = sum(p.numel() for p in ref["params"].parameters()) / 1e9
+    repeat = "bit-equal" if not differ else f"differs, spread {spread}"
+    resumed_as = "bit-equal to" if not res_bad else f"within {res_spread} of"
+    log("ckpt", f"{cfg2.name}: {n_params:.3f} B parameters; repeat of the "
+                f"uninterrupted run: {repeat} ({mode}); restored step 2 "
+                f"bit-equal to the saving run's state (params, AdamW "
+                f"m/v/count, width-10 quant, step); resumed step 3 "
+                f"{resumed_as} the uninterrupted run; checkpoint {gb:.3f} "
+                f"GB: saves {[round(v, 1) for v in save_ms]} ms "
+                f"({[round(gb / (v / 1e3), 3) for v in save_ms]} GB/s), "
+                f"restore {restore_ms:.1f} ms ({gb / (restore_ms / 1e3):.3f} "
+                f"GB/s); served from the checkpoint: prefill logits equal "
+                f"to serving the state from memory")
+    return dict(params_b=n_params, repeat_equal=not differ,
+                repeat_spread=spread,
+                mode=mode, resumed_equal=not res_bad,
+                resumed_spread=res_spread, ckpt_gb=gb, save_ms=save_ms,
+                restore_ms=restore_ms, save_gbps=[gb / (v / 1e3)
+                                                  for v in save_ms],
+                restore_gbps=gb / (restore_ms / 1e3), serve_equal=same)
+
+
+# ---------------------------------------------------------------------------
 # Phases 4-6: the serving path.
 # ---------------------------------------------------------------------------
 def serve_phases(cfg, dev, records, results, run_phase) -> None:
@@ -1489,8 +2065,8 @@ def parse_phases(spec: str) -> set:
     for part in spec.split(","):
         lo, _, hi = part.strip().partition("-")
         phases.update(range(int(lo), int(hi or lo) + 1))
-    if not phases <= set(range(1, 12)):
-        raise argparse.ArgumentTypeError(f"phases are 1-11, got {spec!r}")
+    if not phases <= set(range(1, 17)):
+        raise argparse.ArgumentTypeError(f"phases are 1-16, got {spec!r}")
     if phases & {5, 6}:
         phases.add(4)
     return phases
@@ -1512,7 +2088,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="",
                     help="also write the detailed results as JSON here")
-    ap.add_argument("--phases", type=parse_phases, default="1-11",
+    ap.add_argument("--phases", type=parse_phases, default="1-16",
                     help="phases to run, e.g. 1-3 or 1,2,3,9 (default all)")
     args = ap.parse_args(argv)
     run_phase = args.phases.__contains__
@@ -1612,6 +2188,31 @@ def main(argv=None) -> int:
     if run_phase(11):
         # 11. CNN parity: fused vs simulated, TF32 on globally
         results["cnn_parity"] = cnn_parity_phase(dev)
+        torch.cuda.empty_cache()
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    if run_phase(12):
+        # 12. LM train with telemetry and the guard, full width and depth
+        results["tele_train"] = tele_train_phase(cfg, dev, OUT_DIR)
+        for r in records:
+            r["tele_train_launches"] = \
+                results["tele_train"]["launches"][r["name"]]
+        torch.cuda.empty_cache()
+    if run_phase(13):
+        # 13. CNN train with telemetry and the guard
+        results["tele_cnn"] = tele_cnn_phase(dev, OUT_DIR)
+        torch.cuda.empty_cache()
+    if run_phase(14):
+        # 14. serve with the prefill's telemetry
+        results["tele_serve"] = tele_serve_phase(cfg, OUT_DIR)
+        torch.cuda.empty_cache()
+    if run_phase(15):
+        # 15. fused vs simulated with telemetry and a firing guard
+        results["guard_parity"] = guard_parity_phase(cfg, dev)
+        torch.cuda.empty_cache()
+    if run_phase(16):
+        # 16. checkpoint, resume and serve from the checkpoint
+        results["ckpt"] = ckpt_phase(cfg, OUT_DIR)
+        torch.cuda.empty_cache()
 
     kernels = [{k: r[k] for k in ("name", "route", "source", "replaces",
                                   "launches", "max_abs_err", "ms", "plain_ms",

@@ -31,6 +31,7 @@ from repro_torch.core import qlinear
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.device import resolve_device
 from repro_torch.models.param_tree import ParamTree
+from repro_torch.telemetry import metrics
 
 from . import layers as L
 
@@ -331,10 +332,12 @@ def init(cfg: CNNConfig, seed: int = 0, device=None):
 
 def init_sites(cfg: CNNConfig, policy: Optional[QuantPolicy] = None,
                device=None) -> dict:
-    if policy is not None and policy.stat_width != 3:
-        raise NotImplementedError(
-            "telemetry-width quant state comes with the telemetry slice")
-    return _FAMILIES[cfg.arch][1](cfg, resolve_device(device))
+    """The quant sites (width 3, widened when ``policy`` has telemetry
+    enabled) on ``device``."""
+    sites = _FAMILIES[cfg.arch][1](cfg, resolve_device(device))
+    if policy is not None:
+        sites = metrics.widen_state(sites, policy.stat_width)
+    return sites
 
 
 def apply_cfg(cfg: CNNConfig, params, bn_state, sites, images,

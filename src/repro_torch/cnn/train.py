@@ -4,9 +4,13 @@ The paper's experimental setting: SGD + momentum 0.9 (weight decay 1e-4),
 cosine schedule, a per-estimator ``QuantPolicy``, activation-range
 calibration before training (paper sec. 5.2), and the one-update-per-step
 range semantics shared with the LM path.  Each step's phases (data,
-compile on the first step, execute) go through the port's ``StepTimer``;
-``--trace PATH`` exports them as a Chrome trace.  Runs on the CUDA card
-unless ``--device cpu`` is given.
+compile on the first step, execute, telemetry) go through the port's
+``StepTimer``; ``--trace PATH`` exports them as a Chrome trace.
+``--telemetry`` (or ``--guard``, which also arms the overflow guard)
+writes each step's per-site quantization health, with its phase
+breakdown, to the JSONL file ``--telemetry-out``.  Runs on the CUDA card
+unless ``--device cpu`` is given, on the ``fused`` backend (the CUDA
+kernels) unless ``--backend simulated`` is given.
 
 Example (H100, MobileNetV2 at the Tiny ImageNet width):
   PYTHONPATH=src python -m repro_torch.cnn.train --arch mobilenetv2 \\
@@ -14,7 +18,7 @@ Example (H100, MobileNetV2 at the Tiny ImageNet width):
       --steps 3 --backend fused
 CPU, reduced:
   PYTHONPATH=src python -m repro_torch.cnn.train --device cpu --steps 2 \\
-      --batch 4 --image-size 16 --num-classes 4
+      --batch 4 --image-size 16 --num-classes 4 --arch mobilenetv2
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core import qlinear
 from repro_torch.core.calibration import calibrate
 from repro_torch.core.estimators import ALL_ESTIMATORS
@@ -109,10 +114,15 @@ class CNNRun:
 def train_cnn(cfg: models.CNNConfig, policy: QuantPolicy, *, steps: int,
               batch: int, lr: float = 0.05, seed: int = 0,
               calibration_batches: int = 2, eval_batches: int = 4,
-              lr_schedule=None, trace_path: Optional[str] = None,
-              device=None) -> CNNRun:
+              lr_schedule=None, telemetry_sink=None,
+              trace_path: Optional[str] = None, device=None) -> CNNRun:
     """Calibrate, train ``steps`` steps on the synthetic ``ImageStream``
     and evaluate ``eval_batches`` batches; returns a :class:`CNNRun`.
+
+    ``telemetry_sink``: any object with ``write(step, records,
+    perf=...)`` (``telemetry.JsonlSink``, ``MemorySink``); with a
+    telemetry-enabled policy it gets the per-site records collected from
+    the quant state after every step, and the step's phase breakdown.
 
     ``trace_path``: export a Chrome-trace JSON of the step phases (data /
     compile / execute) to this path — host-side timing only, the
@@ -135,8 +145,10 @@ def train_cnn(cfg: models.CNNConfig, policy: QuantPolicy, *, steps: int,
     step_fn = make_cnn_train_step(cfg, policy, opt, sched)
     timer = trace.StepTimer(trace.Tracer(enabled=bool(trace_path)))
 
+    collect = telemetry_sink is not None and policy.telemetry.enabled
     history = []
     for s in range(steps):
+        records = None
         with timer.step(s) as st:
             with st.phase("data"):
                 b = _on(stream.batch(s), device)
@@ -145,10 +157,16 @@ def train_cnn(cfg: models.CNNConfig, policy: QuantPolicy, *, steps: int,
                 state, met = step_fn(state, b)
                 met = {k: float(v) for k, v in met.items()}   # fences
                 synchronize(device)
+            if collect:
+                with st.phase("telemetry"):
+                    records = telemetry.collect(state["quant"])
         phases = timer.last["phases"]
         met["step_ms"] = phases.get("compile", phases.get("execute"))
         met["inited_sites"] = inited_count(state["quant"])
         history.append(met)
+        if records is not None:
+            telemetry_sink.write(s, records, perf=timer.perf_record(
+                items=batch, unit="images"))
     if trace_path:
         timer.tracer.export(trace_path)
 
@@ -180,19 +198,29 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--calibration-batches", type=int, default=2)
     ap.add_argument("--policy", default="hindsight",
                     choices=list(ALL_ESTIMATORS) + ["fp32"])
-    ap.add_argument("--backend", default="simulated",
+    ap.add_argument("--backend", default="fused",
                     choices=["simulated", "fused"],
                     help="execution backend for the quantization sites "
-                         "(incl. the int8 conv contraction): 'simulated' = "
-                         "plain fake-quant + a float64 conv, 'fused' = the "
+                         "(incl. the int8 conv contraction): 'fused' = the "
                          "CUDA kernels via im2col (their plain versions on "
                          "the CPU; requires a fully-static --policy, i.e. "
-                         "hindsight or fixed)")
+                         "hindsight or fixed), 'simulated' = plain "
+                         "fake-quant + a float64 conv")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="per-site quantization health telemetry")
+    ap.add_argument("--telemetry-out", default="",
+                    help="telemetry JSONL path (default: telemetry.jsonl "
+                         "in the cwd)")
+    ap.add_argument("--guard", action="store_true",
+                    help="arm the overflow guard (implies --telemetry)")
     ap.add_argument("--trace", default="", metavar="PATH",
                     help="export a Chrome-trace JSON of the step phases "
                          "to PATH (view at https://ui.perfetto.dev)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.guard:
+        args.telemetry = True
+    return args
 
 
 def main(argv=None) -> CNNRun:
@@ -202,16 +230,27 @@ def main(argv=None) -> CNNRun:
     if args.policy == "fp32":
         policy = QuantPolicy.disabled()
     else:
-        # Raises for illegal combinations (a dynamic estimator on 'fused').
         policy = QuantPolicy.w8a8g8(act_kind=args.policy,
-                                    grad_kind=args.policy,
-                                    backend=args.backend)
+                                    grad_kind=args.policy)
+    if args.telemetry:
+        policy = policy.with_telemetry(guard=args.guard)
+    # Raises for illegal combinations (a dynamic estimator on 'fused').
+    policy = policy.with_backend(args.backend)
     cfg = models.bench_config(args.arch, num_classes=args.num_classes,
                               width=args.width, image_size=args.image_size)
-    run = train_cnn(cfg, policy, steps=args.steps, batch=args.batch,
-                    lr=args.lr, seed=args.seed,
-                    calibration_batches=args.calibration_batches,
-                    trace_path=args.trace or None, device=device)
+    sink = None
+    if args.telemetry:
+        sink = telemetry.JsonlSink(args.telemetry_out or "telemetry.jsonl")
+        print(f"[cnn.train] telemetry -> {sink.path}")
+    try:
+        run = train_cnn(cfg, policy, steps=args.steps, batch=args.batch,
+                        lr=args.lr, seed=args.seed,
+                        calibration_batches=args.calibration_batches,
+                        telemetry_sink=sink, trace_path=args.trace or None,
+                        device=device)
+    finally:
+        if sink is not None:
+            sink.close()
     if args.trace:
         print(f"[cnn.train] trace: {args.trace} — load at "
               f"https://ui.perfetto.dev")

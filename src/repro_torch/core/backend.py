@@ -30,6 +30,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.telemetry import metrics
+
 from . import estimators, quant
 from .state import INITED, QMAX, QMIN, pack_stats
 
@@ -167,10 +169,6 @@ def site_quantize(policy, x: torch.Tensor, leaf: torch.Tensor, step, *,
     cfg = policy.act_estimator if cfg is None else cfg
     spec = policy.act_spec if spec is None else spec
     tele = policy.telemetry
-    if tele.enabled:
-        raise NotImplementedError(
-            "telemetry site statistics come with the telemetry slice of the "
-            "port")
     if policy.backend == FUSED:
         xq, q, used_qmin, used_qmax, obs = _fused_static_quant(
             cfg, spec, x, leaf, step, tele)
@@ -183,6 +181,10 @@ def site_quantize(policy, x: torch.Tensor, leaf: torch.Tensor, step, *,
                                        fused=False)
         obs = (mn, mx)
     st = estimators.stats(cfg, xf, used_qmin, used_qmax, observed=obs)
+    if tele.enabled:
+        # Sampled on a prefix of x itself: no full fp32 copy on fused.
+        st = metrics.site_stats(x, used_qmin, used_qmax, spec, st,
+                                tele.sample)
     scale, zp = quant.scale_zero_point(used_qmin, used_qmax, spec)
     return xq, st, QTensor(q, scale, zp)
 
@@ -238,10 +240,6 @@ def grad_quantize(policy, g: torch.Tensor, leaf: torch.Tensor, seed: int,
     site seed, so the quantized gradients are bit-identical."""
     cfg, spec = policy.grad_estimator, policy.grad_spec
     tele = policy.telemetry
-    if tele.enabled:
-        raise NotImplementedError(
-            "telemetry site statistics come with the telemetry slice of the "
-            "port")
     noise = site_noise(seed, g.shape, g.device) if spec.stochastic else None
     gf = canonical(g)
     if policy.backend == FUSED and spec.bits <= 8:
@@ -254,6 +252,9 @@ def grad_quantize(policy, g: torch.Tensor, leaf: torch.Tensor, seed: int,
                                   noise).to(g.dtype)
         obs = None
     st = estimators.stats(cfg, gf, used_qmin, used_qmax, observed=obs)
+    if tele.enabled:
+        st = metrics.site_stats(gf, used_qmin, used_qmax, spec, st,
+                                tele.sample)
     return gq, st
 
 
@@ -494,12 +495,17 @@ def qattention_eligible(policy) -> bool:
 
 
 def _pstats_vector(policy, stats6, p_lo, p_hi):
-    """The probability-site stats vector from ``[mn, mx, clip, n, err,
-    sig]`` (width 3 while telemetry is disabled)."""
-    if policy.telemetry.enabled:
-        raise NotImplementedError(
-            "probability-site telemetry comes with the telemetry slice")
-    return pack_stats(stats6[0], stats6[1])
+    """The probability-site stats vector of the policy's width from the
+    kernel's partials reduction ``[mn, mx, clip, n, err, sig]``.  Unlike
+    ``site_stats`` (a sampled prefix), these counters are exact
+    full-tensor values: the kernel sees every probability on its tiles."""
+    base = pack_stats(stats6[0], stats6[1])
+    if not policy.telemetry.enabled:
+        return base
+    util = (stats6[1] - stats6[0]) / torch.clamp(p_hi - p_lo, min=1e-12)
+    zero = torch.zeros_like(util)
+    return torch.cat([base, torch.stack([stats6[2], stats6[3], stats6[4],
+                                         stats6[5], util, zero, zero])])
 
 
 class _QAttention(torch.autograd.Function):

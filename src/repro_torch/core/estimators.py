@@ -14,8 +14,11 @@ and ``stats`` takes min/max statistics the caller already has — on the
 fused backend the quantize kernel's partials — so no second pass over the
 tensor runs (the single-pass dataflow of paper Fig. 4).
 
-The telemetry-enabled (width-10) paths come with the telemetry slice;
-they raise here.
+With a telemetry-enabled policy the leaves are width 10
+(``repro_torch.telemetry.config``): ``update`` writes the step's health
+counters, the range drift and the guard streak, and fires the
+``widen``-mode overflow guard; ``ranges`` honours the ``dynamic``-mode
+fallback.
 """
 from __future__ import annotations
 
@@ -23,6 +26,9 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+from repro_torch.telemetry import config as tc
+from repro_torch.telemetry import guard
 
 from . import quant
 from .state import INITED, QMAX, QMIN, pack_stats
@@ -109,15 +115,17 @@ def ranges(cfg: EstimatorConfig, leaf: torch.Tensor, x: torch.Tensor,
         return _const(cfg.fixed_min, leaf), _const(cfg.fixed_max, leaf)
 
     if cfg.kind == HINDSIGHT:
-        if (telemetry is not None and telemetry.enabled and telemetry.guard
-                and telemetry.mode == "dynamic"
-                and leaf.shape[-1] > INITED + 1):
-            raise NotImplementedError(
-                "the overflow guard's dynamic mode comes with the telemetry "
-                "slice of the port")
+        # Static: the pre-computed range; the first batch falls back to
+        # its own min/max (the paper's t=0 initialisation), and so does a
+        # site the dynamic-mode guard holds in its fallback.
         mn, mx = observed if observed is not None else quant.tensor_minmax(x)
-        return (torch.where(inited, leaf[QMIN], mn),
-                torch.where(inited, leaf[QMAX], mx))
+        use_static = inited
+        if (_telemetry_on(telemetry, leaf) and telemetry.guard
+                and telemetry.mode == "dynamic"):
+            use_static = torch.logical_and(
+                inited, torch.logical_not(guard.in_fallback(telemetry, leaf)))
+        return (torch.where(use_static, leaf[QMIN], mn),
+                torch.where(use_static, leaf[QMAX], mx))
 
     if cfg.kind == CURRENT:
         return quant.tensor_minmax(x)
@@ -170,17 +178,21 @@ def stats(cfg: EstimatorConfig, x: torch.Tensor, used_qmin: torch.Tensor,
 def update(cfg: EstimatorConfig, leaf: torch.Tensor, stat: torch.Tensor,
            telemetry=None) -> torch.Tensor:
     """Next-step state from (previous state, this step's statistics);
-    elementwise on the last axis.  Unvisited sites keep their state."""
-    if _telemetry_on(telemetry, leaf):
-        raise NotImplementedError(
-            "telemetry-width state updates come with the telemetry slice of "
-            "the port")
+    elementwise on the last axis.  Unvisited sites keep their state.
+
+    At width 10 the returned state's telemetry slots carry this step's
+    aggregated counters, the range drift and the guard streak, and the
+    ``widen``-mode guard fires here."""
     visited = stat[..., INITED] > 0.5
     inited = leaf[..., INITED] > 0.5
+    telemetry_on = _telemetry_on(telemetry, leaf)
 
     if cfg.kind == FIXED:
-        return leaf
-    if cfg.kind in (HINDSIGHT, RUNNING):
+        if not telemetry_on:
+            return leaf
+        # Fixed ranges never move, but their counters still record.
+        new_qmin, new_qmax = leaf[..., QMIN], leaf[..., QMAX]
+    elif cfg.kind in (HINDSIGHT, RUNNING):
         eta = cfg.momentum
         new_qmin = torch.where(
             inited, eta * leaf[..., QMIN] + (1 - eta) * stat[..., QMIN],
@@ -197,4 +209,21 @@ def update(cfg: EstimatorConfig, leaf: torch.Tensor, stat: torch.Tensor,
     qmax = torch.where(visited, new_qmax, leaf[..., QMAX])
     new_inited = torch.where(visited, torch.ones_like(leaf[..., INITED]),
                              leaf[..., INITED])
-    return torch.stack([qmin, qmax, new_inited], dim=-1)
+    if not telemetry_on:
+        return torch.stack([qmin, qmax, new_inited], dim=-1)
+
+    # The drift needs the pre-update leaf.  Guard actions apply only where
+    # ranges() reads the leaf (widen: hindsight/running/dsgc; the dynamic
+    # fallback: hindsight).
+    dr = guard.drift(leaf, stat)
+    streak = guard.update_streak(telemetry, leaf, stat, visited,
+                                 dynamic_capable=(cfg.kind == HINDSIGHT))
+    if cfg.kind in (HINDSIGHT, RUNNING, DSGC):
+        qmin, qmax, streak = guard.apply_widen(telemetry, stat, qmin, qmax,
+                                               streak)
+    counters = torch.where(visited[..., None],
+                           stat[..., tc.T_CLIP:tc.T_DRIFT],
+                           leaf[..., tc.T_CLIP:tc.T_DRIFT])
+    dr = torch.where(visited, dr, leaf[..., tc.T_DRIFT])
+    return torch.cat([torch.stack([qmin, qmax, new_inited], dim=-1),
+                      counters, torch.stack([dr, streak], dim=-1)], dim=-1)

@@ -62,6 +62,12 @@ class QuantPolicy:
     def stat_width(self) -> int:
         return self.telemetry.stat_width
 
+    def with_telemetry(self, **kw) -> "QuantPolicy":
+        """Copy of this policy with telemetry enabled (keywords go to
+        :class:`repro_torch.telemetry.TelemetryConfig`; validated)."""
+        kw.setdefault("enabled", True)
+        return dataclasses.replace(self, telemetry=TelemetryConfig(**kw))
+
     def with_backend(self, backend: str) -> "QuantPolicy":
         return dataclasses.replace(self, backend=backend)
 

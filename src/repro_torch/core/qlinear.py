@@ -20,6 +20,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.telemetry import metrics
+
 from . import backend, estimators
 from .backend import QTensor  # noqa: F401  (re-exported for site callers)
 from .policy import QuantPolicy
@@ -166,10 +168,9 @@ def merge_stats(fwd_stats, cot_stats):
 
 def combine_stats(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Combine two observations of one site: min of mins, max of maxes,
-    visited-or, each side masked by its own visited flag."""
-    if a.shape[-1] != 3:
-        raise NotImplementedError(
-            "telemetry-width stats come with the telemetry slice")
+    visited-or, each side masked by its own visited flag.  Width-10
+    vectors also sum the clip/n/err/sig counters and max-combine the
+    util/drift/streak slots."""
     av = a[..., INITED] > 0.5
     bv = b[..., INITED] > 0.5
     big = 3.4e38
@@ -180,7 +181,11 @@ def combine_stats(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     visited = torch.maximum(a[..., INITED], b[..., INITED])
     mn = torch.where(visited > 0.5, torch.minimum(amin, bmin), 0.0)
     mx = torch.where(visited > 0.5, torch.maximum(amax, bmax), 0.0)
-    return torch.stack([mn, mx, visited], dim=-1)
+    base = torch.stack([mn, mx, visited], dim=-1)
+    if a.shape[-1] == 3:
+        return base
+    sums, maxes = metrics.combine_tail(a, b)
+    return torch.cat([base, sums, maxes], dim=-1)
 
 
 def update_quant_state(policy: QuantPolicy, quant_state, stats):

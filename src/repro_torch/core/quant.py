@@ -165,6 +165,13 @@ def tensor_minmax(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return mn, mx
 
 
+def quant_error(x: torch.Tensor, qmin, qmax, spec: QuantSpec) -> torch.Tensor:
+    """Mean-squared quantization error of ``x`` on a candidate range (for
+    range search and diagnostics)."""
+    y = fake_quant_raw(x, qmin, qmax, spec)
+    return torch.mean((x.to(torch.float32) - y.to(torch.float32)) ** 2)
+
+
 def cosine_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """1 - cos(a, b); the DSGC objective."""
     af = a.to(torch.float32).reshape(-1)

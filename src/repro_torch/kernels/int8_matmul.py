@@ -128,9 +128,6 @@ def _check_operands(x, w, what: str, ndim: int):
             or x.shape[-1] != w.shape[-2]:
         raise ValueError(f"{what}: shape mismatch {tuple(x.shape)} x "
                          f"{tuple(w.shape)}")
-    if -(-x.shape[-2] // BM) > MAX_ROW_TILES:
-        raise ValueError(f"{what}: M = {x.shape[-2]} exceeds "
-                         f"{MAX_ROW_TILES} row tiles of {BM}")
 
 
 def _scalar(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -212,9 +209,20 @@ def int8_matmul_fp_cuda(x3: torch.Tensor, w3: torch.Tensor,
 def int8_matmul_fp_cuda_staged(xk: torch.Tensor, wk: torch.Tensor,
                                x_zp: torch.Tensor, alpha: torch.Tensor):
     """The kernel on operands already staged by :func:`stage_operands`:
-    uint8 ``xk [B, M, Kp]``, int8 K-major ``wk [B, N, Kp]``."""
+    uint8 ``xk [B, M, Kp]``, int8 K-major ``wk [B, N, Kp]``.  Past
+    ``MAX_ROW_TILES`` row tiles (the grid's y limit) M is split into
+    chunks of at most that many tiles, one launch each, in the kernel's
+    own tile order."""
     _check_operands(xk, wk.transpose(-1, -2), "int8_matmul_fp_cuda", 3)
     _check_staged(xk, wk, "int8_matmul_fp_cuda")
+    rows = MAX_ROW_TILES * BM
+    if xk.shape[1] > rows:
+        parts = [int8_matmul_fp_cuda_staged(
+            xk[:, i:i + rows].contiguous(), wk, x_zp, alpha)
+            for i in range(0, xk.shape[1], rows)]
+        return (torch.cat([p[0] for p in parts], dim=1),
+                torch.stack([p[1] for p in parts]).amin(),
+                torch.stack([p[2] for p in parts]).amax())
     b, m, k = xk.shape
     n = wk.shape[1]
     alpha, zp = _scalar(alpha, xk), _scalar(x_zp, xk)
@@ -237,6 +245,9 @@ def int8_matmul_fused_cuda(x2: torch.Tensor, w2: torch.Tensor,
     """Launch the CUDA kernel; same returns as
     :func:`int8_matmul_fused_plain`."""
     _check_operands(x2, w2, "int8_matmul_fused_cuda", 2)
+    if -(-x2.shape[0] // BM) > MAX_ROW_TILES:
+        raise ValueError(f"int8_matmul_fused_cuda: M = {x2.shape[0]} "
+                         f"exceeds {MAX_ROW_TILES} row tiles of {BM}")
     if spec.bits != 8:
         raise ValueError(f"the kernel stores 8-bit images, got {spec.bits}")
     xk, wk = stage_operands(x2, w2)

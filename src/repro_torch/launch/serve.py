@@ -18,18 +18,23 @@ CPU, reduced:
       --reduced --batch 2 --prompt-len 16 --gen 4 --device cpu
 
 ``--trace PATH`` exports a Chrome-trace JSON of the serving phases (the
-prefill, each decode step) to PATH.
+prefill, each decode step) to PATH.  ``--ckpt-dir`` serves the trained
+parameters and calibrated ranges of the newest checkpoint there (a
+failed restore serves from init, with a traceback under ``--verbose``);
+``--telemetry PATH`` writes the prefill's per-site quantization health as
+one JSONL line.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
+import traceback
 from typing import Optional
 
 import torch
 
-from repro_torch import configs, data
+from repro_torch import checkpoint, configs, data, telemetry
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.models import model
@@ -110,12 +115,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--backend", default="fused",
                     choices=["simulated", "fused"])
     ap.add_argument("--int8-cache", action="store_true")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="restore trained params + calibrated ranges")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--verbose", action="store_true",
+                    help="full tracebacks on restore failure")
+    ap.add_argument("--telemetry", default="", metavar="PATH",
+                    help="write per-site prefill quantization health "
+                         "(clip/SQNR/util) as JSONL to this path")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--trace", default="", metavar="PATH",
                     help="export a Chrome-trace JSON of the serving phases "
-                         "(prefill / per-step decode) to PATH — view at "
-                         "https://ui.perfetto.dev")
+                         "(prefill / per-step decode / telemetry) to PATH — "
+                         "view at https://ui.perfetto.dev")
     return ap.parse_args(argv)
 
 
@@ -133,9 +145,29 @@ def main(argv=None) -> ServeRun:
         cfg = dataclasses.replace(cfg, cache_dtype="int8")
     policy = QuantPolicy.disabled() if args.policy == "fp32" \
         else QuantPolicy.w8a8g8(backend=args.backend)
+    if args.telemetry:
+        policy = policy.with_telemetry()
 
     params = model.init_params(cfg, seed=args.seed, device=device)
     quant_state = model.init_quant_state(cfg, policy, device=device)
+    if args.ckpt_dir:
+        try:
+            step = checkpoint.latest_step(args.ckpt_dir)
+            if step is None:
+                raise FileNotFoundError(f"no checkpoint in "
+                                        f"{args.ckpt_dir!r}")
+            st, migrated = checkpoint.restore_migrating(
+                args.ckpt_dir, step, {"params": params,
+                                      "quant": quant_state})
+            params, quant_state = st["params"], st["quant"]
+            if migrated:
+                print("[serve] migrated width-3 quant state to telemetry "
+                      "layout")
+            print(f"[serve] restored step {step}")
+        except Exception as e:      # serving goes on from init
+            if args.verbose:
+                traceback.print_exc()
+            print(f"[serve] restore failed ({e}); serving from init")
     stream = data.for_arch(cfg, seq_len=args.prompt_len + args.gen,
                            global_batch=args.batch, seed=args.seed)
     prompt = stream.batch(0)["tokens"][:, :args.prompt_len].to(device)
@@ -143,6 +175,13 @@ def main(argv=None) -> ServeRun:
     tracer = trace.Tracer(enabled=bool(args.trace))
     run = generate(params, quant_state, prompt, cfg, policy, args.gen,
                    tracer)
+    if args.telemetry:
+        with tracer.span("telemetry flush"):
+            sink = telemetry.JsonlSink(args.telemetry, max_steps=1024)
+            sink.write(0, telemetry.collect(run.prefill_stats, cfg=cfg))
+            sink.close()
+        print(f"[serve] prefill telemetry -> {args.telemetry} — render with "
+              f"`python -m repro_torch.telemetry.report {args.telemetry}`")
     print(f"[serve] arch={cfg.name} policy={args.policy} "
           f"backend={policy.backend} cache={cfg.cache_dtype} "
           f"device={device}")

@@ -17,19 +17,31 @@ CPU, reduced:
       --steps 2
 
 ``--trace PATH`` exports a Chrome-trace JSON of each step's phases (data,
-compile on the first step, execute) to PATH.
+compile on the first step, execute, telemetry, checkpoint) to PATH.
+
+Checkpoints (``--ckpt-dir``, every ``--ckpt-every`` steps and at the end,
+the last ``--keep-last`` kept) hold the whole train state, quant ranges
+included; ``--resume`` continues from the newest one bit for bit, and
+migrates a width-3 quant state into a telemetry run.  ``--telemetry``
+widens every quant site to the width-10 health counters and writes one
+JSONL line per step (``--telemetry-dir``/telemetry.jsonl, with the step's
+phase breakdown under ``"perf"``; render it with ``python -m
+repro_torch.telemetry.report``); ``--guard`` arms the overflow guard,
+whose events are printed, logged and marked on the trace.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import signal
 import statistics
+from typing import Optional
 
 import torch
 
-from repro_torch import configs, data
+from repro_torch import checkpoint, configs, data, telemetry
 from repro_torch.core.estimators import ALL_ESTIMATORS
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.state import inited_count
@@ -40,13 +52,22 @@ from repro_torch.runtime import steps as steps_mod
 from repro_torch.telemetry import trace
 
 
-def build_policy(kind: str, backend: str) -> QuantPolicy:
+def build_policy(kind: str, backend: str, args=None) -> QuantPolicy:
+    """The ``--policy`` on ``backend``, with the telemetry and guard flags
+    of ``args`` when given.  Raises for illegal combinations (a dynamic
+    estimator, or the guard's dynamic mode, on 'fused')."""
     if kind == "fp32":
-        return QuantPolicy.disabled()
-    if kind not in ALL_ESTIMATORS:
+        policy = QuantPolicy.disabled()
+    elif kind not in ALL_ESTIMATORS:
         raise ValueError(f"unknown policy {kind!r}")
-    # Raises for illegal combinations (a dynamic estimator on 'fused').
-    return QuantPolicy.w8a8g8(act_kind=kind, grad_kind=kind, backend=backend)
+    else:
+        policy = QuantPolicy.w8a8g8(act_kind=kind, grad_kind=kind)
+    if args is not None and args.telemetry:
+        policy = policy.with_telemetry(
+            guard=args.guard, clip_threshold=args.guard_threshold,
+            patience=args.guard_patience, widen_factor=args.guard_widen,
+            mode=args.guard_mode)
+    return policy.with_backend(backend)
 
 
 class Watchdog:
@@ -80,6 +101,10 @@ class TrainRun:
     losses: list          # per-step loss
     step_ms: list         # per-step wall time, device work included
     metrics: list         # per-step metrics as floats
+    start: int = 0        # the first step run (after a resume)
+    telemetry_path: Optional[str] = None
+    events: list = dataclasses.field(default_factory=list)  # guard events
+    ckpt_ms: list = dataclasses.field(default_factory=list)  # per save
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -101,17 +126,45 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "on the CPU; needs a static --policy: hindsight or "
                          "fixed), 'simulated' = plain fake-quant")
     ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--keep-last", type=int, default=3)
+    ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log", default="", help="append per-step JSON lines")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--straggler-factor", type=float, default=3.0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--telemetry", action="store_true",
+                    help="per-site quantization health telemetry (clip "
+                         "rate / SQNR / drift; repro_torch.telemetry)")
+    ap.add_argument("--telemetry-dir", default="",
+                    help="directory for the telemetry JSONL ring log "
+                         "(default: --ckpt-dir or cwd)")
+    ap.add_argument("--telemetry-every", type=int, default=1,
+                    help="collect/log telemetry every N steps")
+    ap.add_argument("--telemetry-keep", type=int, default=1024,
+                    help="JSONL ring size in steps")
+    ap.add_argument("--guard", action="store_true",
+                    help="arm the overflow guard (implies --telemetry)")
+    ap.add_argument("--guard-threshold", type=float, default=0.01,
+                    help="clip-rate threshold that counts as unhealthy")
+    ap.add_argument("--guard-patience", type=int, default=3,
+                    help="consecutive unhealthy steps before the guard acts")
+    ap.add_argument("--guard-widen", type=float, default=1.5,
+                    help="range expansion factor in widen mode")
+    ap.add_argument("--guard-mode", default="widen",
+                    choices=list(telemetry.GUARD_MODES))
     ap.add_argument("--trace", default="", metavar="PATH",
                     help="export a Chrome-trace JSON of the step phases "
-                         "(data/compile/execute) to PATH — viewable at "
-                         "https://ui.perfetto.dev; tracing is host-side "
-                         "only and never changes the computation")
-    return ap.parse_args(argv)
+                         "(data/compile/execute/telemetry/checkpoint) to "
+                         "PATH — viewable at https://ui.perfetto.dev; "
+                         "tracing is host-side only and never changes the "
+                         "computation")
+    args = ap.parse_args(argv)
+    if args.guard:
+        args.telemetry = True
+    return args
 
 
 def main(argv=None) -> TrainRun:
@@ -124,11 +177,21 @@ def main(argv=None) -> TrainRun:
 
     cfg = configs.get_reduced(args.arch) if args.reduced \
         else configs.get(args.arch)
-    policy = build_policy(args.policy, args.backend)
+    policy = build_policy(args.policy, args.backend, args)
     opt = adamw() if args.optimizer == "adamw" else sgdm(momentum=0.9)
     sched = cosine(args.lr, args.steps, warmup=min(20, args.steps // 10))
     state = steps_mod.init_train_state(cfg, opt, policy, seed=args.seed,
                                        device=device)
+    latest = checkpoint.latest_step(args.ckpt_dir) if args.resume \
+        and args.ckpt_dir else None
+    if latest is not None:
+        state, migrated = checkpoint.restore_migrating(args.ckpt_dir,
+                                                       latest, state)
+        if migrated:
+            print("[train] migrated width-3 quant state to telemetry "
+                  "layout")
+        print(f"[train] resumed from step {state['step']}")
+    start = state["step"]
     stream = data.for_arch(cfg, seq_len=args.seq, global_batch=args.batch,
                            seed=args.seed)
     train_step = steps_mod.make_train_step(cfg, policy, opt, sched,
@@ -143,14 +206,26 @@ def main(argv=None) -> TrainRun:
 
     wd = Watchdog(args.straggler_factor)
     run = TrainRun(cfg=cfg, policy=policy, state=state, losses=[],
-                   step_ms=[], metrics=[])
+                   step_ms=[], metrics=[], start=start)
     print(f"[train] arch={cfg.name} layers={cfg.n_layers} d={cfg.d_model} "
           f"policy={args.policy} backend={policy.backend} device={device} "
           f"batch={args.batch}x{args.seq}")
     logf = open(args.log, "a") if args.log else None
-    timer = trace.StepTimer(trace.Tracer(enabled=bool(args.trace)))
+    sink = detector = None
+    if args.telemetry:
+        tdir = args.telemetry_dir or args.ckpt_dir or "."
+        run.telemetry_path = os.path.join(tdir, "telemetry.jsonl")
+        sink = telemetry.JsonlSink(run.telemetry_path,
+                                   max_steps=args.telemetry_keep)
+        detector = telemetry.GuardEventDetector(policy.telemetry, policy)
+        print(f"[train] telemetry -> {run.telemetry_path} "
+              f"(guard={'on' if policy.telemetry.guard else 'off'}, "
+              f"mode={policy.telemetry.mode})")
+    tracer = trace.Tracer(enabled=bool(args.trace))
+    timer = trace.StepTimer(tracer)
     try:
-        for step in range(args.steps):
+        for step in range(start, args.steps):
+            records = events = None
             with timer.step(step) as st:
                 with st.phase("data"):
                     batch = {k: v.to(device)
@@ -160,7 +235,31 @@ def main(argv=None) -> TrainRun:
                     state, met = train_step(state, batch)
                     met = {k: float(v) for k, v in met.items()}  # fences
                     synchronize(device)
+                if sink is not None and (step % args.telemetry_every == 0
+                                         or step == args.steps - 1):
+                    with st.phase("telemetry"):
+                        records = telemetry.collect(state["quant"], cfg=cfg)
+                        events = detector.update(step, records)
+                    for ev in events:
+                        tracer.instant(f"guard:{ev['action']}",
+                                       site=ev["site"])
+                        print(f"[guard] step {step}: {ev['action']} @ "
+                              f"{ev['site']} {ev['old']} -> {ev['new']} "
+                              f"(clip {100 * ev['clip_rate']:.2f}%)")
+                    run.events.extend(events)
+                if args.ckpt_dir and ((step + 1) % args.ckpt_every == 0
+                                      or stop["now"]
+                                      or step == args.steps - 1):
+                    with st.phase("checkpoint"):
+                        path = checkpoint.save(args.ckpt_dir, step + 1,
+                                               state,
+                                               keep_last=args.keep_last)
+                    print(f"[train] checkpoint @ {step + 1}: {path}")
             phases = timer.last["phases"]
+            if "checkpoint" in phases:
+                run.ckpt_ms.append(phases["checkpoint"])
+            # The watchdog watches the hot path (data + device step), not
+            # the telemetry/checkpoint epilogue.
             dt = phases.get("compile", phases.get("execute")) / 1e3
             # How many quant sites hold a range (the first-batch rule
             # initializes each one at its first visit).
@@ -178,6 +277,9 @@ def main(argv=None) -> TrainRun:
             if logf:
                 logf.write(json.dumps({"step": step, "dt": dt, **met}) + "\n")
                 logf.flush()
+            if records is not None:
+                sink.write(step, records, events, perf=timer.perf_record(
+                    items=args.batch * args.seq, unit="tokens"))
             if stop["now"]:
                 print("[train] stop signal received — exiting cleanly")
                 break
@@ -186,8 +288,13 @@ def main(argv=None) -> TrainRun:
             signal.signal(s, h)
         if logf:
             logf.close()
+        if sink is not None:
+            sink.close()
+            print(f"[train] telemetry log: {sink.path} — render with "
+                  f"`python -m repro_torch.telemetry.report {sink.path}` "
+                  f"(--perf for the step-phase breakdown)")
         if args.trace:
-            timer.tracer.export(args.trace)
+            tracer.export(args.trace)
             print(f"[train] trace: {args.trace} — load at "
                   f"https://ui.perfetto.dev")
     return run

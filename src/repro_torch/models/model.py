@@ -21,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core import backend, qlinear
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.device import resolve_device
+from repro_torch.telemetry import metrics
 
 from . import layers, transformer
 from .param_tree import ParamTree
@@ -55,14 +56,15 @@ def init_params(cfg, seed: int = 0, device=None) -> ParamTree:
 
 def init_quant_state(cfg, policy: Optional[QuantPolicy] = None,
                      device=None) -> dict:
+    """Width-3 site leaves, widened once here when ``policy`` has
+    telemetry enabled (no site builder knows the extended layout)."""
     _check_family(cfg)
-    if policy is not None and policy.stat_width != 3:
-        raise NotImplementedError(
-            "telemetry-width quant state comes with the telemetry slice")
     device = resolve_device(device)
-    return {"decoder": transformer.init_stack_sites(cfg, cfg.n_layers,
-                                                    device),
-            "head": qlinear.init_site(device=device)}
+    s = {"decoder": transformer.init_stack_sites(cfg, cfg.n_layers, device),
+         "head": qlinear.init_site(device=device)}
+    if policy is not None:
+        s = metrics.widen_state(s, policy.stat_width)
+    return s
 
 
 def init_cache(cfg, batch: int, cache_len: int, device=None) -> dict:

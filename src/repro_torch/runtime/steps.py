@@ -45,7 +45,9 @@ def train_state(params, quant, optimizer, step: int = 0) -> dict:
 def init_train_state(cfg, optimizer, policy: Optional[QuantPolicy] = None,
                      *, seed: int = 0, device=None) -> dict:
     """Random parameters from ``seed`` and a fresh quant state on
-    ``device`` (the card unless ``"cpu"`` is asked for)."""
+    ``device`` (the card unless ``"cpu"`` is asked for); ``policy`` only
+    matters for its telemetry flag, which widens every quant leaf from 3
+    to 10 floats."""
     params = model.init_params(cfg, seed=seed, device=device)
     quant = model.init_quant_state(cfg, policy, device=params.embed.device)
     return train_state(params, quant, optimizer)

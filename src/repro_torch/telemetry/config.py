@@ -1,10 +1,21 @@
 """Telemetry configuration (port of ``repro/telemetry/config.py``).
 
-Stdlib only.  The port keeps its own copy of the slot layout and the
-``TelemetryConfig`` dataclass; the in-step metrics, the guard and the
-sinks come with the telemetry slice.  With ``enabled=False`` (the only
-setting the serving slice uses) every per-site state/stats vector is the
-classic width-3 ``[qmin, qmax, inited]``.
+Stdlib only.  With ``enabled=False`` (the default) every per-site
+state/stats vector is the classic width-3 ``[qmin, qmax, inited]``; with
+telemetry enabled it is width 10:
+
+  idx  name      meaning                                     microbatch combine
+  ---  --------  ------------------------------------------  ------------------
+   0   QMIN      observed min (stats) / EMA min (state)      masked min
+   1   QMAX      observed max (stats) / EMA max (state)      masked max
+   2   INITED    visited flag (stats) / inited flag (state)  or
+   3   T_CLIP    #elements outside the range used            sum
+   4   T_N       #elements observed                          sum
+   5   T_ERR     sum of squared quantization error           sum
+   6   T_SIG     sum of squared signal (SQNR numerator)      sum
+   7   T_UTIL    observed-width / used-width utilization     max
+   8   T_DRIFT   |observed vs EMA range| / EMA width         max
+   9   T_STREAK  consecutive over-threshold steps (state)    max
 """
 from __future__ import annotations
 

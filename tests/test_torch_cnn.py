@@ -368,10 +368,21 @@ def test_init_shapes_and_sites_match_reference(arch):
 
 
 def test_init_sites_rejects_telemetry_width():
+    """A telemetry-enabled policy no longer raises here: every site leaf
+    is widened to the width-10 layout (zeros in the new slots), as the
+    reference's ``init_sites`` does."""
     pol = dataclasses.replace(TPolicy.w8a8g8(),
                               telemetry=TelemetryConfig(enabled=True))
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        tmodels.init_sites(tmodels.MOBILENETV2_TINY, pol, device="cpu")
+    q = tmodels.init_sites(tmodels.MOBILENETV2_TINY, pol, device="cpu")
+    q3 = tmodels.init_sites(tmodels.MOBILENETV2_TINY, device="cpu")
+    ref = _leaves(_np(jmodels.init_sites(jmodels.MOBILENETV2_TINY,
+                                         JPolicy.w8a8g8().with_telemetry())))
+    got, base = _leaves(q), _leaves(q3)
+    assert len(got) == len(ref) == 106
+    for k, v in got.items():
+        assert v.shape == ref[k].shape == (10,), k
+        np.testing.assert_array_equal(v, ref[k], err_msg=k)
+        np.testing.assert_array_equal(v[:3], base[k], err_msg=k)
 
 
 # ---------------------------------------------------------------------------

@@ -396,16 +396,25 @@ def test_int8_conv_fp_kernel_matches_plain(card, case, zp):
     assert torch.equal(mnk.cpu(), mnr) and torch.equal(mxk.cpu(), mxr)
 
 
-def test_int8_conv_fp_beyond_the_row_tiles_raises(card):
+def test_int8_conv_fp_beyond_the_row_tiles_splits(card):
     """M = 2049 x 64 x 64 rows exceed the kernel's 65535 row tiles of 128:
-    an error, never a fallback."""
+    the wrapper splits M into two launches, and the result is the plain
+    version's, bit for bit."""
     xs, ws = (2049, 64, 64, 1), (3, 3, 1, 1)
-    x = torch.zeros(xs, dtype=torch.uint8, device=card)
-    w = torch.ones(ws, dtype=torch.int8, device=card)
+    g = _gen(card, 2049)
+    x = torch.randint(0, 256, xs, generator=g, device=card,
+                      dtype=torch.uint8)
+    w = torch.randint(-127, 128, ws, generator=g, device=card,
+                      dtype=torch.int8)
     plan = ops.plan_conv(xs, ws, 1, "SAME", 1, 1)
-    with pytest.raises(ValueError, match="row tiles"):
-        ops.int8_conv_fp(x, w, torch.tensor(128.0, device=card),
-                         torch.tensor(1.0, device=card), plan=plan)
+    zp, alpha = torch.tensor(131.0), torch.tensor(2.3e-4)
+    before = ops.launch_counts()["int8_matmul_fp"]
+    yk, mnk, mxk = ops.int8_conv_fp(x, w, zp.to(card), alpha.to(card),
+                                    plan=plan)
+    assert ops.launch_counts()["int8_matmul_fp"] == before + 2
+    yr, mnr, mxr = ops.int8_conv_fp(x.cpu(), w.cpu(), zp, alpha, plan=plan)
+    assert torch.equal(yk.cpu(), yr)
+    assert torch.equal(mnk.cpu(), mnr) and torch.equal(mxk.cpu(), mxr)
 
 
 def test_conv_site_fp32_products_ignore_global_tf32(card):
