@@ -4,7 +4,9 @@ Drives the port's paths through the hand-written CUDA kernels, with
 random weights from a seed and in-hindsight W8A8G8 quantization on the
 fused backend: full-width starcoder2-3b (30 layers) serving (batch 4 x
 1024-token prompts, 32 generated tokens) and training (AdamW steps on
-batch 4 x 1024 tokens, remat on), and the paper's CNN training loop on
+batch 4 x 1024 tokens, remat on), the MoE family's qwen2-moe-a2.7b
+(serving at full width and depth, training at full width), and the
+paper's CNN training loop on
 MobileNetV2 at its Tiny ImageNet width (64 x 64 x 3 images, 200 classes,
 batch 128; ResNet18 and VGG16 one step each).  Each kernel is checked
 against its plain PyTorch version at the shapes those paths give it.
@@ -68,20 +70,38 @@ Phases, one line each:
                    against its in-memory one, --resume to step 3 against
                    the uninterrupted run, save and restore times, then
                    launch.serve --ckpt-dir against serving from memory
+ 17. moe serve     repro_torch.launch.serve.main(...) on qwen2-moe-a2.7b at
+                   full width and depth (24 layers, 60 experts top-4 on the
+                   int8 matmul's batch dimension, 14.31 B parameters), batch
+                   4 x 1024-token prompts, 32 generated, with the launch
+                   counters zeroed just before and read just after
+ 18. moe parity    phase 17's prefill logits, fused vs simulated on the
+                   same parameters, and the share of layer 0's routing
+                   decisions on which the backends agree
+ 19. moe train     repro_torch.launch.train.main(...) on qwen2-moe-a2.7b at
+                   full width with depth cut to 2 layers: 3 AdamW steps
+                   (aux and z losses), the launch counters zeroed just
+                   before and read just after; one more step profiled
+                   (families, idle share, the experts' int8 contractions);
+                   phase 8's fused-vs-simulated check at 1 layer
 
 Phase 3 also holds ``int8_conv_fp`` (the conv site, im2col onto the int8
 matmul kernel) against its plain version at four MobileNetV2-tiny layer
-shapes.  The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.  Any failure raises (exit code != 0)
+shapes, ``int8_matmul_fp`` at the MoE experts' shapes ``[B 60, M 552, K,
+N]`` and decode's ``[60, 4, 2048, 1408]``, and the attention core at
+qwen2-moe's G = 1 prefill shape.  The line before the last is the
+kernels' JSON record; the last line is ``{"ok": true, "device":
+{...}}``.  Any failure raises (exit code != 0)
 and prints no result; so does a machine without a CUDA card.
 
     python3 chip_smoke.py [--out results.json] [--phases 1-3]
 
 ``--phases`` runs only the named phases (a list of numbers and ranges,
 e.g. ``1-3`` to build and check the kernels without serve and train);
-phase 1 always runs, and 5-6 bring 4 along, whose serve run they reuse.
-Kernels whose path phases did not run report ``"launches": null``.  The
-default is all sixteen; phases 12-16 write their logs and checkpoints
+phase 1 always runs, 5-6 bring 4 along, whose serve run they reuse, and
+18 brings 17.  Kernels whose path phases did not run report
+``"launches": null``.  The default is all nineteen; phases 12-16 write
+their logs and checkpoints
 under ``build/chip_smoke/`` and remove the checkpoints when done.
 """
 from __future__ import annotations
@@ -130,6 +150,10 @@ CNN_KERNELS = ("fused_quantize", "int8_transpose", "int8_matmul_fp",
                "stochastic_quantize")
 CNN_BATCH, CNN_STEPS, CNN_PARITY_STEPS = 128, 3, 2
 GUARD_STEPS, CKPT_LAYERS = 3, 2
+# The MoE family: qwen2-moe-a2.7b served at full depth; its train step at
+# full width with depth cut (AdamW at 24 layers needs ~229 GB).
+MOE_ARCH, MOE_TRAIN_LAYERS, MOE_PARITY_LAYERS = "qwen2-moe-a2.7b", 2, 1
+N_PHASES = 19
 # Where phases 12-16 write their JSONL logs and checkpoints (git-ignored).
 OUT_DIR = ROOT / "build" / "chip_smoke"
 
@@ -428,6 +452,68 @@ def check_int8_matmul(dev, gen, cfg):
                 head_bound_ms=head_bound)
 
 
+def check_moe_matmul(dev, gen, mcfg) -> dict:
+    """``int8_matmul_fp`` at the MoE experts' shapes (B = experts, M =
+    groups x capacity): bit-exact against the plain version, with empty
+    capacity slots (rows at the zero point's image) and x_zp 117 and
+    117.3; timed with the weight's transpose, and on staged operands
+    (decode from a CUDA graph: its launches are host-bound).  No library
+    column: ``torch._int_mm`` has no batch dimension."""
+    from repro_torch.kernels import int8_matmul as mm
+
+    d, f, e = mcfg.d_model, mcfg.moe.d_expert, mcfg.moe.n_experts
+    tokens = BATCH * PROMPT
+    g = tokens // mcfg.moe.group_size
+    m = g * mcfg.moe.capacity()                     # 8 x 69 = 552
+    md = mcfg.moe.capacity(BATCH)                   # decode: 1 group of 4
+    cases = [("up/gate", m, d, f), ("down", m, f, d), ("decode up", md, d, f)]
+    alpha = torch.tensor(2.3e-5, device=dev)
+    out = {}
+    for what, rows, k, n in cases:
+        x = torch.randint(0, 256, (e, rows, k), generator=gen, device=dev,
+                          dtype=torch.uint8)
+        x[:, rows // 2:] = 117          # the empty slots' image
+        w = torch.randint(-127, 128, (e, k, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+        for x_zp in (117.0, 117.3):
+            zp = torch.tensor(x_zp, device=dev)
+            yk, mnk, mxk = mm.int8_matmul_fp_cuda(x, w, zp, alpha)
+            yr, mnr, mxr = mm.int8_matmul_fp_plain(x, w, zp, alpha)
+            torch.cuda.synchronize()
+            if not (torch.equal(yk, yr) and torch.equal(mnk, mnr)
+                    and torch.equal(mxk, mxr)):
+                raise AssertionError(
+                    f"int8_matmul_fp experts {what} [{e}, {rows}, {k}, {n}] "
+                    f"x_zp {x_zp}: max |dy| {(yk - yr).abs().max().item()}")
+            del yk, yr
+        zp = torch.tensor(117.0, device=dev)
+        decode = rows < 128
+        timer = graph_ms if decode else time_ms
+        ms = timer(lambda: mm.int8_matmul_fp_cuda(x, w, zp, alpha),
+                   20 if decode else 10)
+        xk, wk = mm.stage_operands(x, w)
+        kernel_ms = timer(lambda: mm.int8_matmul_fp_cuda_staged(
+            xk, wk, zp, alpha), 20 if decode else 10)
+        plain_ms = time_ms(lambda: mm.int8_matmul_fp_plain(x, w, zp, alpha),
+                           3)
+        b_ms, b_by = bound(e * rows * k + e * k * n + 4 * e * rows * n,
+                           2 * e * rows * n * k, INT8_OPS)
+        log("kernels", f"int8_matmul_fp experts {what} [B {e}, M {rows}, K "
+                       f"{k}, N {n}]: bit-exact at x_zp 117 and 117.3 with "
+                       f"{rows - rows // 2} empty slots per expert; "
+                       f"{ms:.4f} ms with the transpose, {kernel_ms:.4f} ms "
+                       f"staged{' (CUDA graph)' if decode else ''}, bound "
+                       f"{b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms; "
+                       f"library: none (torch._int_mm has no batch "
+                       f"dimension)")
+        out[what] = dict(shape=[e, rows, k, n], ms=ms, kernel_ms=kernel_ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None)
+        del x, w, xk, wk
+        torch.cuda.empty_cache()
+    return out
+
+
 def check_int8_transpose(dev, gen, cfg):
     """The int8 matmuls' weight staging: w [K, N] -> its K-major image,
     exact at every projection's weight shape, timed at the up weight."""
@@ -651,8 +737,9 @@ def check_attention(dev, gen, cfg):
     g = nh // nkv
     bh, zb = BATCH * nh, BATCH * nkv
     bq, bkv = tuning.attention_block(s, s, hd)
+    mode = "causal" if cfg.sliding_window is None else "sliding"
     sched = attn.make_schedule(sq=s, skv=s, hd=hd, bq=bq, bkv=bkv, groups=g,
-                               mode="sliding", window=cfg.sliding_window,
+                               mode=mode, window=cfg.sliding_window or 0,
                                sm_scale=hd ** -0.5)
     q = torch.randint(0, 256, (bh, s, hd), generator=gen, device=dev,
                       dtype=torch.uint8)
@@ -681,7 +768,7 @@ def check_attention(dev, gen, cfg):
                                    atol=1e-5)
         torch.testing.assert_close(psk[..., 4:], psr[..., 4:], rtol=1e-4,
                                    atol=1e-6)
-        log("kernels", f"attention ({what}) {tuple(q.shape)} x "
+        log("kernels", f"attention {cfg.name} ({what}) {tuple(q.shape)} x "
                        f"{tuple(k.shape)} G={g} (bq, bkv)=({bq}, {bkv}) "
                        f"width={sched.width}: m, min/max/clip/n exact; out "
                        f"max |d| {err:.3e} ({same:.6f} of elements "
@@ -715,9 +802,9 @@ def check_attention(dev, gen, cfg):
                      dtype=torch.bfloat16)
     vb = torch.randn((BATCH, nkv, s, hd), generator=gen, device=dev,
                      dtype=torch.bfloat16)
-    try:   # yardstick only: bf16 causal SDPA with GQA
+    try:   # yardstick only: bf16 causal SDPA (with GQA where G > 1)
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qb, kb, vb, is_causal=True, enable_gqa=True), 10)
+            qb, kb, vb, is_causal=True, enable_gqa=g > 1), 10)
     except (RuntimeError, TypeError) as e:
         log("kernels", f"scaled_dot_product_attention yardstick "
                        f"unavailable: {e}")
@@ -998,9 +1085,10 @@ def profile_device(run_once, tag: str, ranges=()) -> dict:
                 idle_share=None if ranges else 1 - busy_ms / wall_ms)
 
 
-def profile_step(run) -> dict:
+def profile_step(run, tag: str = "train-profile", ranges=()) -> dict:
     """One more training step of ``run``'s state under torch.profiler
-    (CUDA activity only, to keep the host overhead low)."""
+    (CUDA activity only, to keep the host overhead low, unless ``ranges``
+    are asked for)."""
     from repro_torch import data
     from repro_torch.optim import adamw
     from repro_torch.optim.schedules import constant
@@ -1013,12 +1101,12 @@ def profile_step(run) -> dict:
     def once():
         run.state, met = step(run.state, batch)
         float(met["loss"])
-    return profile_device(once, "train-profile")
+    return profile_device(once, tag, ranges)
 
 
-def train_parity_phase(cfg, dev) -> dict:
-    import dataclasses
-
+def train_parity_phase(cfg, dev, tag: str = "train-parity") -> dict:
+    """One forward + backward of ``cfg`` (its depth as given), fused vs
+    simulated backend, same params, batch and noise."""
     from repro_torch import data
     from repro_torch.core.policy import QuantPolicy
     from repro_torch.core.state import tree_map_with_path
@@ -1027,16 +1115,15 @@ def train_parity_phase(cfg, dev) -> dict:
     from repro_torch.optim import adamw
     from repro_torch.runtime import steps
 
-    cfg4 = dataclasses.replace(cfg, n_layers=PARITY_LAYERS)
-    state = steps.init_train_state(cfg4, adamw(), seed=1, device=dev)
-    stream = data.for_arch(cfg4, seq_len=PROMPT, global_batch=BATCH, seed=1)
+    state = steps.init_train_state(cfg, adamw(), seed=1, device=dev)
+    stream = data.for_arch(cfg, seq_len=PROMPT, global_batch=BATCH, seed=1)
     batch = {k: v.to(dev) for k, v in stream.batch(0).items()}
     out = {}
     for bk in ("fused", "simulated"):
         ops.reset_launch_counts()
-        quant = model.init_quant_state(cfg4, device=dev)
+        quant = model.init_quant_state(cfg, device=dev)
         out[bk] = steps.forward_backward(
-            cfg4, QuantPolicy.w8a8g8(backend=bk), state["params"], quant,
+            cfg, QuantPolicy.w8a8g8(backend=bk), state["params"], quant,
             batch, 0, 0)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
@@ -1072,13 +1159,11 @@ def train_parity_phase(cfg, dev) -> dict:
         raise AssertionError(f"train parity: loss rel {loss_rel:.3e}, site "
                              f"rel {site_rel}, param-grad rel L2 "
                              f"{grad_rel:.3e} (limits {limits})")
-    log("train-parity", f"{PARITY_LAYERS} layers at full width, one forward "
-                        f"+ backward, fused vs simulated: loss "
-                        f"{lf.item():.6f} vs {ls.item():.6f} (rel "
-                        f"{loss_rel:.3e}); site min/max rel act "
-                        f"{site_rel['act']:.3e}, grad {site_rel['grad']:.3e}; "
-                        f"worst param-grad rel L2 {grad_rel:.3e} "
-                        f"(limits {limits})")
+    log(tag, f"{cfg.name}: {cfg.n_layers} layers at full width, one "
+             f"forward + backward, fused vs simulated: loss {lf.item():.6f} "
+             f"vs {ls.item():.6f} (rel {loss_rel:.3e}); site min/max rel act "
+             f"{site_rel['act']:.3e}, grad {site_rel['grad']:.3e}; worst "
+             f"param-grad rel L2 {grad_rel:.3e} (limits {limits})")
     del state, out
     return dict(loss_rel=loss_rel, site_rel=site_rel, param_grad_rel=grad_rel)
 
@@ -1733,7 +1818,7 @@ def guard_parity_phase(cfg, dev) -> dict:
     del out
 
     # (b) The LM, phase 8's configuration, one forward + backward.
-    cfg4 = dataclasses.replace(cfg, n_layers=PARITY_LAYERS)
+    cfg4 = cfg
     state = steps.init_train_state(cfg4, adamw(), seed=1, device=dev)
     stream = data.for_arch(cfg4, seq_len=PROMPT, global_batch=BATCH, seed=1)
     batch = {k: v.to(dev) for k, v in stream.batch(0).items()}
@@ -1954,6 +2039,235 @@ def ckpt_phase(cfg, out_dir: Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phases 17-19: the MoE LM family (qwen2-moe-a2.7b).
+# ---------------------------------------------------------------------------
+class _MoeSpy:
+    """Records, without launching anything, the batch dimension and rows of
+    every ``int8_matmul_fp`` launch and the first router call's top-k
+    selection (layer 0 of a prefill)."""
+
+    def __init__(self):
+        from repro_torch.kernels import int8_matmul as mm
+        from repro_torch.models import moe
+        self.mm, self.moe = mm, moe
+        self.real_mm = mm.int8_matmul_fp_cuda_staged
+        self.real_gating = moe._top_k_gating
+        self.shapes: set = set()
+        self.layer0 = None
+
+    def __enter__(self):
+        def staged(xk, wk, zp, alpha):
+            self.shapes.add(tuple(xk.shape[:2]))
+            return self.real_mm(xk, wk, zp, alpha)
+
+        def gating(logits, spec):
+            out = self.real_gating(logits, spec)
+            if self.layer0 is None:
+                self.layer0 = out[0] > 0
+            return out
+        self.mm.int8_matmul_fp_cuda_staged = staged
+        self.moe._top_k_gating = gating
+        return self
+
+    def __exit__(self, *exc):
+        self.mm.int8_matmul_fp_cuda_staged = self.real_mm
+        self.moe._top_k_gating = self.real_gating
+
+
+def moe_serve_phase(mcfg, records, results):
+    """Phase 17: ``launch.serve.main`` on qwen2-moe-a2.7b at full width and
+    depth (24 layers, 14.31 B parameters, 57.3 GB in fp32), batch 4 x
+    1024-token prompts, 32 generated, fused backend, with the launch
+    counters zeroed just before and read just after.  Returns the run
+    (its parameters are phase 18's)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    argv = ["--arch", mcfg.name, "--batch", str(BATCH), "--prompt-len",
+            str(PROMPT), "--gen", str(GEN)]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with _MoeSpy() as spy:
+        run = serve.main(argv)
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(counts[k] > 0 for k in SERVE_KERNELS):
+        raise AssertionError(f"a kernel of the MoE serve path never "
+                             f"launched: {counts}")
+    e = mcfg.moe.n_experts
+    want = {(e, mcfg.moe.capacity() * BATCH * PROMPT
+             // mcfg.moe.group_size), (e, mcfg.moe.capacity(BATCH))}
+    if not want <= spy.shapes:
+        raise AssertionError(f"the experts never ran on the kernel's batch "
+                             f"dimension as {want}: {sorted(spy.shapes)}")
+    if not torch.isfinite(run.prefill_logits).all():
+        raise AssertionError("non-finite MoE prefill logits")
+    n_params = sum(p.numel() for p in run.params.parameters())
+    log("moe-serve", f"{mcfg.name}: {mcfg.n_layers} layers d="
+                     f"{mcfg.d_model}, {n_params / 1e9:.3f} B parameters, "
+                     f"B={BATCH} S={PROMPT} gen={GEN}: prefill "
+                     f"{run.prefill_ms:.1f} ms, decode "
+                     f"{run.decode_tok_s:.1f} tok/s ({run.decode_ms:.1f} ms "
+                     f"for {GEN - 1} steps), peak {peak:.2f} GiB, launches "
+                     f"{counts}; int8_matmul_fp (B, M) with B > 1: "
+                     f"{sorted(x for x in spy.shapes if x[0] > 1)}")
+    results["moe_serve"] = dict(prefill_ms=run.prefill_ms,
+                                decode_ms=run.decode_ms,
+                                decode_tok_s=run.decode_tok_s,
+                                peak_gib=peak, launches=counts,
+                                params_b=n_params / 1e9,
+                                expert_shapes=sorted(spy.shapes),
+                                **moe_serve_profiles(run))
+    for r in records:
+        r["moe_serve_launches"] = counts[r["name"]]
+    return run, spy.layer0
+
+
+def moe_serve_profiles(run) -> dict:
+    """One more prefill and one decode step of phase 17's state under the
+    profiler (kernels only): device time by family and the idle share."""
+    from repro_torch.models import model
+
+    args = (run.params, run.quant_state)
+    logits, caches = model.prefill(*args, {"tokens": run.prompt}, run.cfg,
+                                   run.policy, cache_len=PROMPT + 1)
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    pos = torch.full((BATCH,), PROMPT, dtype=torch.int64, device=tok.device)
+
+    def prefill_once():
+        out, _ = model.prefill(*args, {"tokens": run.prompt}, run.cfg,
+                               run.policy)
+        float(out[0, 0])
+
+    def decode_once():      # rewrites the same cache slot each call
+        out, _ = model.decode_step(*args, tok, pos, caches, run.cfg,
+                                   run.policy)
+        float(out[0, 0])
+    out = dict(profile_prefill=profile_device(prefill_once,
+                                              "moe-prefill-profile"),
+               profile_decode=profile_device(decode_once,
+                                             "moe-decode-profile"))
+    del caches
+    return out
+
+
+def moe_parity_phase(run, layer0_fused, dev, results) -> None:
+    """Phase 18: phase 17's prefill logits, fused vs simulated backend on
+    the same parameters (no second copy) and prompt, under phase 6's
+    tolerance; and the share of layer 0's routing decisions (tokens whose
+    top-k selection is the same) on which the backends agree."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+
+    sim = run.policy.with_backend("simulated")
+    ops.reset_launch_counts()
+    with _MoeSpy() as spy:
+        logits_sim, _ = model.prefill(
+            run.params, model.init_quant_state(run.cfg, device=dev),
+            {"tokens": run.prompt}, run.cfg, sim)
+        torch.cuda.synchronize()
+    if any(ops.launch_counts().values()):
+        raise AssertionError("the simulated backend launched a kernel")
+    a, b = run.prefill_logits, logits_sim
+    d_max = (a - b).abs().max().item()
+    rel = ((a - b).norm() / b.norm()).item()
+    same = torch.all(layer0_fused == spy.layer0, dim=-1).float().mean().item()
+    if not (rel <= 1e-2 and d_max <= 0.1 and math.isfinite(rel)):
+        raise AssertionError(f"MoE fused vs simulated: rel L2 {rel:.3e}, "
+                             f"max |d| {d_max:.3e}")
+    log("moe-parity", f"prefill logits fused vs simulated ({run.cfg.n_layers}"
+                      f" layers, same parameters): rel L2 {rel:.3e}, max |d| "
+                      f"{d_max:.3e} (tolerance: rel L2 <= 1e-2, max |d| <= "
+                      f"0.1); layer-0 routing: {same:.6f} of "
+                      f"{spy.layer0.shape[0] * spy.layer0.shape[1]} tokens "
+                      f"select the same experts")
+    results["moe_parity"] = dict(rel_l2=rel, max_abs=d_max,
+                                 layer0_routing_agree=same)
+
+
+MOE_RANGES = ("qmatmul_int8_fused egcd,edf->egcf",
+              "qmatmul_int8_fused egcf,efd->egcd", "qmatmul_int8_fused")
+
+
+def moe_train_phase(mcfg, dev, records) -> dict:
+    """Phase 19: ``launch.train.main`` on qwen2-moe-a2.7b at full width
+    with depth cut to ``MOE_TRAIN_LAYERS`` (its AdamW state at 24 layers,
+    ~229 GB, fits no card), batch 4 x 1024, AdamW, ``TRAIN_STEPS`` steps,
+    fused, the launch counters zeroed just before and read just after;
+    one more step under the profiler twice (kernels only: families and
+    idle share; with host ranges: the experts' int8 contractions); then
+    phase 8's fused-vs-simulated check at ``MOE_PARITY_LAYERS`` layer."""
+    from repro_torch import configs
+    from repro_torch.configs.arch import register
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    cfg2 = dataclasses.replace(mcfg, name=f"{mcfg.name}-{MOE_TRAIN_LAYERS}l",
+                               n_layers=MOE_TRAIN_LAYERS)
+    configs.names()                 # load the registry before adding to it
+    register(cfg2, lambda: cfg2)
+    argv = ["--arch", cfg2.name, "--batch", str(BATCH), "--seq", str(PROMPT),
+            "--steps", str(TRAIN_STEPS), "--log-every", "1"]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    run = train.main(argv)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(counts[k] > 0 for k in TRAIN_KERNELS):
+        raise AssertionError(f"a kernel of the MoE train path never "
+                             f"launched: {counts}")
+    if len(run.losses) != TRAIN_STEPS or not all(
+            math.isfinite(v) for v in run.losses):
+        raise AssertionError(f"MoE train losses {run.losses}")
+    aux = [m["aux_loss"] for m in run.metrics]
+    zl = [m["z_loss"] for m in run.metrics]
+    if not (all(v > 0 for v in aux) and all(math.isfinite(v) for v in zl)):
+        raise AssertionError(f"MoE aux losses {aux}, z losses {zl}")
+    n_params = sum(p.numel() for p in run.state["params"].parameters())
+    steady = run.step_ms[1:]
+    step_ms = sum(steady) / len(steady)
+    tok_s = BATCH * PROMPT / (step_ms / 1e3)
+    per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+    log("moe-train", f"{cfg2.name}: {MOE_TRAIN_LAYERS} layers d="
+                     f"{mcfg.d_model}, {n_params / 1e9:.3f} B parameters, "
+                     f"B={BATCH} S={PROMPT}, AdamW, remat: losses "
+                     f"{[round(v, 4) for v in run.losses]}, aux "
+                     f"{[round(v, 5) for v in aux]}, z "
+                     f"{[round(v, 5) for v in zl]}; step 0 "
+                     f"{run.step_ms[0]:.1f} ms, steps 1-{TRAIN_STEPS - 1} "
+                     f"{[round(v, 1) for v in steady]} ms, {tok_s:.1f} "
+                     f"tokens/s; peak {peak:.2f} GiB; launches per step "
+                     f"{per_step}")
+    prof = profile_step(run, "moe-train-profile")
+    ranges = profile_step(run, "moe-train-profile",
+                          ranges=MOE_RANGES)["ranges"]
+    experts_ms = ranges[MOE_RANGES[0]] + ranges[MOE_RANGES[1]]
+    fam_ms = prof["families"].get("int8_matmul_fp (ours)", (0.0, 0))[0]
+    log("moe-train-profile", f"the experts' int8 contractions (forward and "
+                             f"remat recompute; staging and partials "
+                             f"included) {experts_ms:.1f} ms of all int8 "
+                             f"contractions' {ranges[MOE_RANGES[2]]:.1f} ms; "
+                             f"int8_matmul_fp kernels {fam_ms:.1f} ms of "
+                             f"{prof['busy_ms']:.1f} ms busy "
+                             f"({100 * fam_ms / prof['busy_ms']:.1f}%)")
+    out = dict(losses=run.losses, step_ms=run.step_ms, steady_step_ms=step_ms,
+               tokens_per_s=tok_s, peak_gib=peak, launches=counts,
+               launches_per_step=per_step, aux_loss=aux, z_loss=zl,
+               params_b=n_params / 1e9, profile=prof, ranges=ranges,
+               experts_int8_ms=experts_ms)
+    for r in records:
+        r["moe_train_launches_per_step"] = per_step[r["name"]]
+    del run, prof
+    torch.cuda.empty_cache()
+    cfg1 = dataclasses.replace(mcfg, n_layers=MOE_PARITY_LAYERS)
+    out["parity"] = train_parity_phase(cfg1, dev, tag="moe-train-parity")
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phases 4-6: the serving path.
 # ---------------------------------------------------------------------------
 def serve_phases(cfg, dev, records, results, run_phase) -> None:
@@ -2060,15 +2374,19 @@ def parity_phase(run, policy, dev, results) -> None:
 
 # ---------------------------------------------------------------------------
 def parse_phases(spec: str) -> set:
-    """``"1-3,9"`` -> ``{1, 2, 3, 9}``; phase 1 always, 4 with 5 or 6."""
+    """``"1-3,9"`` -> ``{1, 2, 3, 9}``; phase 1 always, 4 with 5 or 6, 17
+    with 18."""
     phases = {1}
     for part in spec.split(","):
         lo, _, hi = part.strip().partition("-")
         phases.update(range(int(lo), int(hi or lo) + 1))
-    if not phases <= set(range(1, 17)):
-        raise argparse.ArgumentTypeError(f"phases are 1-16, got {spec!r}")
+    if not phases <= set(range(1, N_PHASES + 1)):
+        raise argparse.ArgumentTypeError(
+            f"phases are 1-{N_PHASES}, got {spec!r}")
     if phases & {5, 6}:
         phases.add(4)
+    if 18 in phases:
+        phases.add(17)
     return phases
 
 
@@ -2088,7 +2406,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="",
                     help="also write the detailed results as JSON here")
-    ap.add_argument("--phases", type=parse_phases, default="1-16",
+    ap.add_argument("--phases", type=parse_phases, default=f"1-{N_PHASES}",
                     help="phases to run, e.g. 1-3 or 1,2,3,9 (default all)")
     args = ap.parse_args(argv)
     run_phase = args.phases.__contains__
@@ -2139,6 +2457,7 @@ def main(argv=None) -> int:
 
     # 3. kernels at the slice's shapes
     cfg = configs.get("starcoder2-3b")
+    mcfg = configs.get(MOE_ARCH)
     gen = torch.Generator(device=dev).manual_seed(0)
     records = []
     if run_phase(3):
@@ -2149,6 +2468,14 @@ def main(argv=None) -> int:
                    check_int8_matmul_fused(dev, gen, cfg),
                    check_attention(dev, gen, cfg)]
         results["conv"] = check_int8_conv(dev, gen)
+        # the MoE family's new operand regimes: the experts on the int8
+        # matmul's batch dimension, and MHA attention (G = 1)
+        by_name = {r["name"]: r for r in records}
+        by_name["int8_matmul_fp"]["moe"] = check_moe_matmul(dev, gen, mcfg)
+        moe_attn = check_attention(dev, gen, mcfg)
+        by_name["int8_attention"]["moe"] = {
+            k: moe_attn[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")}
     for r in records:
         r["launches"] = None        # set by the path phases that run
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -2167,7 +2494,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if run_phase(8):
         # 8. fused vs simulated forward + backward, same params/batch/noise
-        results["train_parity"] = train_parity_phase(cfg, dev)
+        results["train_parity"] = train_parity_phase(
+            dataclasses.replace(cfg, n_layers=PARITY_LAYERS), dev)
         torch.cuda.empty_cache()
     if run_phase(9):
         # 9. the fused layer path: its kernel's launches are this run's
@@ -2213,6 +2541,32 @@ def main(argv=None) -> int:
         # 16. checkpoint, resume and serve from the checkpoint
         results["ckpt"] = ckpt_phase(cfg, OUT_DIR)
         torch.cuda.empty_cache()
+    if run_phase(17):
+        # 17. MoE serve at full width and depth; 18. its prefill parity
+        t0 = time.perf_counter()
+        run, layer0 = moe_serve_phase(mcfg, records, results)
+        results["moe_serve"]["seconds"] = time.perf_counter() - t0
+        if run_phase(18):
+            t0 = time.perf_counter()
+            moe_parity_phase(run, layer0, dev, results)
+            results["moe_parity"]["seconds"] = time.perf_counter() - t0
+        del run, layer0
+        torch.cuda.empty_cache()
+        for r in records:
+            if r["launches"] is None and r["name"] in SERVE_KERNELS:
+                r["launches"] = r["moe_serve_launches"]
+    if run_phase(19):
+        # 19. the MoE train step, full width, depth cut
+        t0 = time.perf_counter()
+        results["moe_train"] = moe_train_phase(mcfg, dev, records)
+        results["moe_train"]["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        for r in records:
+            if r["launches"] is None and r["name"] in TRAIN_KERNELS:
+                r["launches"] = results["moe_train"]["launches"][r["name"]]
+    for phase in ("moe_serve", "moe_parity", "moe_train"):
+        if phase in results:
+            log("moe", f"{phase}: {results[phase]['seconds']:.1f} s")
 
     kernels = [{k: r[k] for k in ("name", "route", "source", "replaces",
                                   "launches", "max_abs_err", "ms", "plain_ms",

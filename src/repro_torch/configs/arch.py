@@ -7,6 +7,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
+from repro_torch.models.moe import MoeSpec
+
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
@@ -33,7 +35,7 @@ class ArchConfig:
     local_window: Optional[int] = None
     lru_width: Optional[int] = None
     rwkv_chunk: int = 32
-    moe: Optional[object] = None   # MoE spec: ported with the MoE family
+    moe: Optional[MoeSpec] = None
     enc_pattern: tuple = ("enc",)
     enc_layers: int = 0
     frontend_dim: Optional[int] = None
@@ -78,4 +80,5 @@ def names() -> list:
 
 def _ensure_loaded():
     if not _REGISTRY:
+        from . import moonshot_v1_16b_a3b, qwen2_moe_a2_7b  # noqa: F401
         from . import starcoder2_3b  # noqa: F401

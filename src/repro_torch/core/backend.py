@@ -356,7 +356,10 @@ def qmatmul(policy, espec: str, xq: torch.Tensor, xqt: Optional[QTensor],
     With int8 images of both operands the contraction runs integer-exact
     (``alpha * int32``); otherwise it is the fp32 einsum of the on-grid
     values, for which ``wq=None`` means "dequantize ``wqt``".  ``wq`` (the
-    on-grid weight values) is needed only when a gradient is recorded."""
+    on-grid weight values) is needed only when a gradient is recorded.
+    Profiles show the integer contraction as a ``qmatmul_int8_<backend>
+    <spec>`` range (the MoE experts' as ``...egcd,edf->egcf`` and
+    ``...egcf,efd->egcd``)."""
     out_dtype = out_dtype or xq.dtype
     if xqt is None or wqt is None or not int8_matmul_eligible(policy):
         if wq is None:
@@ -368,8 +371,10 @@ def qmatmul(policy, espec: str, xq: torch.Tensor, xqt: Optional[QTensor],
     alpha = (xqt.scale * wqt.scale).to(torch.float32)
     if wq is None and xq.requires_grad and torch.is_grad_enabled():
         wq = dequantize_qtensor(wqt).to(xq.dtype)     # frozen weight
-    y = _QMatmulInt.apply(xq, wq, xqt.q, wqt.q, xqt.zero_point, alpha,
-                          resolved, policy.backend == FUSED)
+    with torch.profiler.record_function(
+            f"qmatmul_int8_{policy.backend} {resolved}"):
+        y = _QMatmulInt.apply(xq, wq, xqt.q, wqt.q, xqt.zero_point, alpha,
+                              resolved, policy.backend == FUSED)
     return y.to(out_dtype)
 
 

@@ -94,8 +94,9 @@ class ImageStream:
 
 
 def for_arch(cfg, seq_len: int, global_batch: int, seed: int = 0):
-    """Stream matching an ArchConfig's batch convention (dense LMs)."""
-    if cfg.family != "dense":
+    """Stream matching an ArchConfig's batch convention (the dense and MoE
+    LMs take token streams)."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.family} streams come with that model family's slice")
     return LMStream(cfg.vocab, seq_len, global_batch, seed)

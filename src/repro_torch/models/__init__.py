@@ -1,1 +1,1 @@
-"""Models (port of ``repro.models``): the dense LM family for serving."""
+"""Models (port of ``repro.models``): the dense and MoE LM families."""

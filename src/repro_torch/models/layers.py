@@ -92,7 +92,12 @@ def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
         # jax.nn.gelu defaults to the tanh approximation.
         return F.gelu(x, approximate="tanh")
     if kind == "silu":
-        return F.silu(x)
+        # jax.nn.silu is x * logistic(x).  XLA computes a bf16 logistic as
+        # 1 / (1 + exp(-x)) with every step rounded to bf16, an fp32 one
+        # as torch.sigmoid does; F.silu rounds differently in both.
+        if x.dtype == torch.bfloat16:
+            return x * (1 / (1 + torch.exp(-x)))
+        return x * torch.sigmoid(x)
     if kind == "relu":
         return F.relu(x)
     if kind == "sq_relu":

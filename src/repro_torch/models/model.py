@@ -1,7 +1,9 @@
 """Model entry points (port of ``repro/models/model.py``): init, the
 trunk, the training loss ``loss_fn`` with the chunked quantized LM head,
-and ``prefill`` / ``decode_step`` of the dense LM family (the enc-dec and
-VLM branches come with their families).
+and ``prefill`` / ``decode_step`` of the dense and MoE LM families (the
+enc-dec and VLM branches come with their families).  The MoE family has
+no branch of its own here: its ``"moe"`` blocks live in the stack, whose
+summed ``aux_loss`` / ``z_loss`` the loss adds.
 
 The LM head evaluates the loss in sequence chunks so ``[B, S, V]`` logits
 never exist; both head quantizers act on the head *input* (``Q_Y`` on the
@@ -27,8 +29,11 @@ from . import layers, transformer
 from .param_tree import ParamTree
 
 
+_FAMILIES = ("dense", "moe")
+
+
 def _check_family(cfg) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"the {cfg.family} family is not ported yet")
 
@@ -94,18 +99,19 @@ def _embed_tokens(params, tokens, cfg, policy) -> torch.Tensor:
 
 
 def _trunk(params, sites, batch, cfg, policy, seed, step, caches=None):
-    """Returns ``(hidden [B, S, D], stats, caches)``."""
+    """Returns ``(hidden [B, S, D], stats, caches, metrics{aux_loss,
+    z_loss})``."""
     _check_family(cfg)
     x = _embed_tokens(params, batch["tokens"], cfg, policy)
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device).expand(
             x.shape[:2])
-    x, dec_sites, new_caches = transformer.apply_stack(
+    x, dec_sites, new_caches, metrics = transformer.apply_stack(
         params["decoder"], sites["decoder"], x, cfg=cfg, policy=policy,
         seed=seed, step=step, positions=positions, caches=caches)
     x = layers.apply_norm(x, params["final_norm"], cfg.norm_kind)
-    return x, {"decoder": dec_sites}, new_caches
+    return x, {"decoder": dec_sites}, new_caches, metrics
 
 
 def _head_weight_raw(params, cfg) -> torch.Tensor:
@@ -154,8 +160,8 @@ def loss_fn(params, quant_state, batch, cfg, policy: QuantPolicy, seed: int,
     As in the reference, the head's grad slot carries the head's grad
     *leaf* itself rather than a "not visited" vector."""
     seed = int(seed)
-    x, new_sites, _ = _trunk(params, quant_state, batch, cfg, policy, seed,
-                             step)
+    x, new_sites, _, metrics = _trunk(params, quant_state, batch, cfg,
+                                      policy, seed, step)
     labels = batch["labels"]
     mask = batch["mask"].to(torch.float32)
 
@@ -188,10 +194,8 @@ def loss_fn(params, quant_state, batch, cfg, policy: QuantPolicy, seed: int,
         zpens.append(zpen)
     denom = torch.clamp(torch.sum(mask), min=1.0)
     loss = torch.sum(torch.stack(nlls)) / denom
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    metrics = {"aux_loss": zero, "z_loss": zero,
-               "z_loss_head": cfg.logit_z_coef * torch.sum(
-                   torch.stack(zpens)) / denom}
+    metrics["z_loss_head"] = cfg.logit_z_coef * torch.sum(
+        torch.stack(zpens)) / denom
     total = loss + metrics["aux_loss"] + metrics["z_loss"] + \
         metrics["z_loss_head"]
     metrics["nll"] = loss
@@ -213,9 +217,9 @@ def prefill(params, quant_state, batch, cfg, policy: QuantPolicy,
     tokens = batch["tokens"]
     b, s = tokens.shape
     caches = init_cache(cfg, b, cache_len or s, tokens.device)
-    x, fwd_stats, new_caches = _trunk(params, quant_state, batch, cfg,
-                                      policy, 0, 0,
-                                      caches=caches["decoder"])
+    x, fwd_stats, new_caches, _ = _trunk(params, quant_state, batch, cfg,
+                                         policy, 0, 0,
+                                         caches=caches["decoder"])
     logits = _logits(params, x, cfg, policy)
     if return_stats:
         return logits, {"decoder": new_caches}, fwd_stats
@@ -229,6 +233,6 @@ def decode_step(params, quant_state, token, pos, caches, cfg,
     [B]``.  Returns ``(logits [B, V], caches)``; the caches are updated
     in place."""
     batch = {"tokens": token, "positions": pos[:, None].expand(token.shape)}
-    x, _, new_caches = _trunk(params, quant_state, batch, cfg, policy, 0, 0,
-                              caches=caches["decoder"])
+    x, _, new_caches, _ = _trunk(params, quant_state, batch, cfg, policy,
+                                 0, 0, caches=caches["decoder"])
     return _logits(params, x, cfg, policy), {"decoder": new_caches}

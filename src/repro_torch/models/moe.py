@@ -1,0 +1,183 @@
+"""Mixture-of-Experts FFN (port of ``repro/models/moe.py``: the
+Qwen2-MoE / Moonlight family).
+
+GShard-style capacity-bounded einsum dispatch, as the reference:
+
+  * router: fp32 dense, not quantized (the top-k boundary is numerically
+    sensitive and the matmul is tiny),
+  * top-k gating, probabilities renormalized over the selected experts,
+  * tokens grouped into fixed-size groups, capacity
+    ``C = ceil(group_size * top_k / E * capacity_factor)`` clamped to
+    ``[4, group_size]``; tokens past an expert's capacity are dropped,
+  * dispatch/combine einsums over the ``[G, T, E, C]`` one-hot tensors,
+  * the expert FFNs as one batched quantized einsum each
+    (``egcd,edf->egcf`` and ``egcf,efd->egcd``): ``kernels.ops``
+    plans them as the int8 matmul kernel's ``[B, M, K] x [B, K, N]`` with
+    the experts on B and ``M = G * C``,
+  * optional shared experts as a plain dense quantized GLU MLP on every
+    token,
+  * the Shazeer load-balancing loss and the router z-loss.
+
+The router, softmax/top-k, dispatch, combine and the losses are plain
+PyTorch, as the reference computes them with ``jnp`` outside any kernel.
+The expert weights are quantized per tensor (one range per site, shared
+by all experts: the per-tensor setting the paper studies).
+
+The reference's ``hint(expert_in, "model", "batch", ...)`` sharding
+annotation (experts over the model axis) has no counterpart: the port
+runs on one device until the distribution slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core import backend, qlinear
+from repro_torch.core.policy import QuantPolicy
+
+from .layers import GLU_KINDS, _GLU_ACT, activation, apply_mlp, init_mlp, \
+    init_mlp_sites, init_normal
+
+
+@dataclasses.dataclass(frozen=True)
+class MoeSpec:
+    n_experts: int
+    top_k: int
+    d_expert: int              # per-expert FFN hidden size
+    n_shared: int = 0          # shared experts (always on)
+    d_shared: int = 0          # shared-expert hidden size (total)
+    capacity_factor: float = 2.0
+    group_size: int = 512      # tokens per dispatch group
+    mlp_kind: str = "swiglu"
+    aux_loss_coef: float = 0.01
+    z_loss_coef: float = 1e-3
+
+    def capacity(self, group_size: Optional[int] = None) -> int:
+        """The reference's float floor division, clamped to ``[4, g]``."""
+        g = group_size or self.group_size
+        c = int(-(-g * self.top_k * self.capacity_factor // self.n_experts))
+        return max(4, min(c, g))
+
+
+def init_moe(gen: torch.Generator, d_model: int, spec: MoeSpec,
+             dtype=torch.float32) -> dict:
+    """The reference's shapes and scales; the router is fp32."""
+    e, f = spec.n_experts, spec.d_expert
+    s_in, s_out = d_model ** -0.5, f ** -0.5
+    p = {"router": init_normal(gen, (d_model, e), s_in, torch.float32),
+         "w_up": init_normal(gen, (e, d_model, f), s_in, dtype),
+         "w_down": init_normal(gen, (e, f, d_model), s_out, dtype)}
+    if spec.mlp_kind in GLU_KINDS:
+        p["w_gate"] = init_normal(gen, (e, d_model, f), s_in, dtype)
+    if spec.n_shared:
+        p["shared"] = init_mlp(gen, d_model, spec.d_shared, spec.mlp_kind,
+                               use_bias=False, dtype=dtype)
+    return p
+
+
+def init_moe_sites(spec: MoeSpec, device=None) -> dict:
+    sites = {"up": qlinear.init_site(device=device),
+             "down": qlinear.init_site(device=device)}
+    if spec.mlp_kind in GLU_KINDS:
+        sites["gate"] = qlinear.init_site(device=device)
+    if spec.n_shared:
+        sites["shared"] = init_mlp_sites(spec.mlp_kind, device)
+    return sites
+
+
+def _top_k_gating(logits: torch.Tensor, spec: MoeSpec):
+    """logits: fp32 ``[G, T, E]``.  Returns ``(gates [G, T, E], aux, z)``;
+    ``gates`` is zero outside the selected top-k and renormalized over
+    it."""
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_idx = torch.topk(probs, spec.top_k, dim=-1)        # [G, T, K]
+    mask = torch.zeros_like(probs).scatter_(-1, top_idx, 1.0)     # [G, T, E]
+    denom = torch.clamp(torch.sum(top_p, dim=-1, keepdim=True), min=1e-9)
+    gates = probs * mask / denom
+
+    # Shazeer load-balance loss: E * mean(fraction routed) . mean(prob).
+    frac = torch.mean(mask, dim=(0, 1))
+    prob = torch.mean(probs, dim=(0, 1))
+    aux = spec.n_experts * torch.sum(frac * prob)
+    z = torch.mean(torch.logsumexp(logits, dim=-1).square())
+    return gates, aux, z
+
+
+def _dispatch_tensors(gates: torch.Tensor, capacity: int):
+    """GShard position-in-expert bookkeeping.
+
+    gates: ``[G, T, E]`` (zero outside top-k).  Returns ``(combine,
+    dispatch)``, both ``[G, T, E, C]`` in ``gates``' dtype: the gate weight
+    at the token's capacity slot, and 1 there.  A token's slot is its
+    position among the group's tokens routed to that expert; tokens past
+    the capacity are dropped.  The reference one-hots ``-1`` (an all-zero
+    row) for a dropped token; ``F.one_hot`` rejects negative indices, so
+    the slot is a comparison with ``arange(C)`` masked by ``keep``."""
+    active = (gates > 0).to(torch.int32)                          # [G, T, E]
+    pos = torch.cumsum(active, dim=1) - 1                         # in expert
+    keep = (active > 0) & (pos < capacity)
+    slots = torch.arange(capacity, device=gates.device)
+    slot = ((pos[..., None] == slots) & keep[..., None]).to(gates.dtype)
+    combine = gates[..., None] * slot
+    return combine, slot
+
+
+def apply_moe(params, sites: dict, x: torch.Tensor, spec: MoeSpec, *,
+              policy: QuantPolicy, seed: int, step
+              ) -> tuple[torch.Tensor, dict, dict]:
+    """``x [B, S, D]`` -> ``(y, stats, metrics{aux_loss, z_loss})``."""
+    b, s, d = x.shape
+    tokens = b * s
+    g_size = min(spec.group_size, tokens)
+    if tokens % g_size:
+        raise ValueError(f"{tokens} tokens do not split into groups of "
+                         f"{g_size}")
+    n_groups = tokens // g_size
+    cap = spec.capacity(g_size)
+
+    xg = x.reshape(n_groups, g_size, d)
+    with backend.full_fp32():                                     # fp32 router
+        logits = torch.einsum("gtd,de->gte", xg.to(torch.float32),
+                              params["router"])
+    gates, aux, z = _top_k_gating(logits, spec)
+    combine, dispatch = _dispatch_tensors(gates, cap)
+
+    comp = x.dtype
+    expert_in = torch.einsum("gtec,gtd->egcd", dispatch.to(comp), xg)
+
+    new_sites = dict(sites)
+    # One shared input quantization for the expert up/gate matmuls (empty
+    # capacity slots are zero rows and enter its statistics).
+    eq, e_stats, eqi = qlinear.act_quant_site(expert_in, sites["up"]["act"],
+                                              policy, step)
+    up, s_up = qlinear.qdense_pre(
+        eq, params["w_up"], sites["up"], policy,
+        einsum_spec="egcd,edf->egcf", seed=seed, step=step, qinfo=eqi)
+    if spec.mlp_kind in GLU_KINDS:
+        gate, new_sites["gate"] = qlinear.qdense_pre(
+            eq, params["w_gate"], sites["gate"], policy,
+            einsum_spec="egcd,edf->egcf", seed=seed + 1, step=step,
+            qinfo=eqi)
+        h = activation(gate, _GLU_ACT[spec.mlp_kind]) * up
+    else:
+        h = activation(up, spec.mlp_kind)
+    s_up["act"] = e_stats
+    new_sites["up"] = s_up
+    out, new_sites["down"] = qlinear.qeinsum(
+        "egcf,efd->egcd", h, params["w_down"], sites["down"], policy,
+        seed=seed + 2, step=step)
+
+    y = torch.einsum("gtec,egcd->gtd", combine.to(comp), out)
+    y = y.reshape(b, s, d)
+
+    if spec.n_shared:
+        ys, new_sites["shared"] = apply_mlp(
+            params["shared"], sites["shared"], x, spec.mlp_kind, policy,
+            seed=seed + 3, step=step)
+        y = y + ys
+
+    metrics = {"aux_loss": spec.aux_loss_coef * aux,
+               "z_loss": spec.z_loss_coef * z}
+    return y, new_sites, metrics

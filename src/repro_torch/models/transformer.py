@@ -1,11 +1,12 @@
 """The transformer stack (port of ``repro/models/transformer.py``, the
-``"attn"`` block).
+``"attn"`` block of the dense LMs and the ``"moe"`` block of the MoE LMs:
+the same attention, with :mod:`.moe` in place of the MLP).
 
 The reference scans a pattern unit with ``lax.scan`` and stacks per-layer
 state into ``[repeats, ...]`` leaves; the port runs a Python loop over
 the layers and keeps one entry per layer: params, quant sites and caches
 are ``{"layers": [layer 0, layer 1, ...]}``.  ``repro_torch.convert``
-maps between the two layouts.  The other block kinds (MoE, RG-LRU, RWKV,
+maps between the two layouts.  The other block kinds (RG-LRU, RWKV,
 enc-dec) come with their model families.
 """
 from __future__ import annotations
@@ -17,13 +18,15 @@ from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from . import layers
+from . import moe as moe_mod
 
 # Seed stride reserved per layer (matches the reference).
 _SEED_STRIDE = 64
+_KINDS = ("attn", "moe")
 
 
 def _check_kind(kind: str) -> None:
-    if kind != "attn":
+    if kind not in _KINDS:
         raise NotImplementedError(
             f"block kind {kind!r} comes with its model family's slice")
 
@@ -32,18 +35,25 @@ def _init_block(gen: torch.Generator, kind: str, cfg) -> dict:
     _check_kind(kind)
     dt = getattr(torch, cfg.param_dtype)
     dev = gen.device
-    return {
+    p = {
         "ln1": layers.init_norm(cfg.d_model, cfg.norm_kind, cfg.use_bias, dev),
         "attn": attn.init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv,
                                     cfg.head_dim, cfg.use_bias, dt),
         "ln2": layers.init_norm(cfg.d_model, cfg.norm_kind, cfg.use_bias, dev),
-        "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind,
-                               cfg.use_bias, dt),
     }
+    if kind == "moe":
+        p["moe"] = moe_mod.init_moe(gen, cfg.d_model, cfg.moe, dt)
+    else:
+        p["mlp"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind,
+                                   cfg.use_bias, dt)
+    return p
 
 
 def _init_block_sites(kind: str, cfg, device=None) -> dict:
     _check_kind(kind)
+    if kind == "moe":
+        return {"attn": attn.init_attention_sites(device),
+                "moe": moe_mod.init_moe_sites(cfg.moe, device)}
     return {"attn": attn.init_attention_sites(device),
             "mlp": layers.init_mlp_sites(cfg.mlp_kind, device)}
 
@@ -60,7 +70,8 @@ def _init_block_cache(kind: str, cfg, batch: int, cache_len: int,
 
 def _apply_block(kind: str, params, sites, x, *, cfg, policy, seed, step,
                  positions, cache=None):
-    """Returns ``(x, stats, cache)``."""
+    """Returns ``(x, stats, cache, metrics)``: the MoE block's
+    ``{aux_loss, z_loss}``, ``None`` for the others."""
     _check_kind(kind)
     window = cfg.sliding_window
     mode = "sliding" if window is not None else "causal"
@@ -74,11 +85,17 @@ def _apply_block(kind: str, params, sites, x, *, cfg, policy, seed, step,
         seed=seed, step=step, dense_attn_max=cfg.dense_attn_max)
     x = x + a
     h = layers.apply_norm(x, params["ln2"], cfg.norm_kind)
-    m, new_sites["mlp"] = layers.apply_mlp(params["mlp"], sites["mlp"], h,
-                                           cfg.mlp_kind, policy, seed + 16,
-                                           step)
+    if kind == "moe":
+        m, new_sites["moe"], metrics = moe_mod.apply_moe(
+            params["moe"], sites["moe"], h, cfg.moe, policy=policy,
+            seed=seed + 16, step=step)
+    else:
+        m, new_sites["mlp"] = layers.apply_mlp(params["mlp"], sites["mlp"],
+                                               h, cfg.mlp_kind, policy,
+                                               seed + 16, step)
+        metrics = None
     x = x + m
-    return x, new_sites, (None if cache is None else {"kv": kv})
+    return x, new_sites, (None if cache is None else {"kv": kv}), metrics
 
 
 def _kinds(cfg, n_layers: int) -> list:
@@ -103,12 +120,15 @@ def init_stack_cache(cfg, n_layers: int, batch: int, cache_len: int,
 
 def apply_stack(params, sites, x, *, cfg, policy, seed, step, positions,
                 caches=None):
-    """Returns ``(x, stats, caches)``.  With ``cfg.remat`` and a recorded
-    gradient each block is checkpointed (its activations are recomputed in
-    the backward pass), as the reference's ``jax.checkpoint`` of the scan
-    unit."""
+    """Returns ``(x, stats, caches, metrics)``, the blocks' ``aux_loss``
+    and ``z_loss`` summed over the layers.  With ``cfg.remat`` and a
+    recorded gradient each block is checkpointed (its activations are
+    recomputed in the backward pass), as the reference's
+    ``jax.checkpoint`` of the scan unit."""
     remat = cfg.remat and torch.is_grad_enabled()
     new_sites, new_caches = [], []
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    metrics = {"aux_loss": zero, "z_loss": zero}
     for idx, kind in enumerate(_kinds(cfg, cfg.n_layers)):
         block = functools.partial(
             _apply_block, kind, params["layers"][idx], sites["layers"][idx],
@@ -116,10 +136,12 @@ def apply_stack(params, sites, x, *, cfg, policy, seed, step, positions,
             step=step, positions=positions,
             cache=None if caches is None else caches["layers"][idx])
         if remat:
-            x, ns, nc = checkpoint(block, x, use_reentrant=False)
+            x, ns, nc, met = checkpoint(block, x, use_reentrant=False)
         else:
-            x, ns, nc = block(x)
+            x, ns, nc, met = block(x)
         new_sites.append(ns)
         new_caches.append(nc)
+        if met is not None:
+            metrics = {k: metrics[k] + met[k] for k in metrics}
     return (x, {"layers": new_sites},
-            None if caches is None else {"layers": new_caches})
+            None if caches is None else {"layers": new_caches}, metrics)

@@ -132,6 +132,33 @@ def test_int8_matmul_kernel_matches_plain(card, b, m, k, n, zp):
     assert torch.equal(mnk, mnr) and torch.equal(mxk, mxr)
 
 
+@pytest.mark.parametrize("zp", [117.0, 117.3])
+@pytest.mark.parametrize("b,m,k,n", [(8, 32, 64, 64), (8, 276, 64, 128),
+                                     (8, 4, 64, 64), (8, 552, 256, 176)],
+                         ids=["C16", "G4xC69", "decode", "ragged-N"])
+def test_int8_matmul_batched_experts_match_plain(card, b, m, k, n, zp):
+    """The MoE experts' contraction on the kernel's batch dimension (B =
+    experts, M = groups x capacity, not a multiple of 128), with empty
+    capacity slots: rows of zeros (the zero value's image is the zero
+    point) and rows of zero bytes."""
+    g = _gen(card, b * m + k + n)
+    x = torch.randint(0, 256, (b, m, k), generator=g, device=card,
+                      dtype=torch.uint8)
+    x[:, m // 2:m // 2 + 3] = round(zp)
+    x[1:, -2:] = 0
+    w = torch.randint(-127, 128, (b, k, n), generator=g, device=card,
+                      dtype=torch.int8)
+    zp = torch.tensor(zp, device=card)
+    alpha = torch.tensor(3.1e-4, device=card)
+    ops.reset_launch_counts()
+    yk, mnk, mxk = mm.int8_matmul_fp_cuda(x, w, zp, alpha)
+    yr, mnr, mxr = mm.int8_matmul_fp_plain(x, w, zp, alpha)
+    torch.cuda.synchronize()
+    assert torch.equal(yk, yr)
+    assert torch.equal(mnk, mnr) and torch.equal(mxk, mxr)
+    assert ops.launch_counts()["int8_matmul_fp"] == 1
+
+
 @pytest.mark.parametrize("b,k,n", [(3, 1, 1), (3, 16, 8), (3, 17, 77),
                                    (1, 31, 129), (3, 48, 1),
                                    (1, 3001, 77), (2, 3072, 256)])
@@ -232,6 +259,8 @@ ATTN_CASES = [
     ("causal", 200, 200, 2, 64, 0, 0, 170, (128, 128)),
     ("sliding", 300, 300, 2, 32, 100, 0, None, (64, 64)),
     ("sliding", 256, 256, 12, 128, 4096, 0, None, (128, 128)),
+    # qwen2-moe's prefill tile: MHA (G = 1), causal, hd 128
+    ("causal", 256, 256, 1, 128, 0, 0, None, (128, 128)),
     ("prefix", 40, 40, 1, 16, 0, 13, None, (16, 8)),
     ("cross", 33, 70, 2, 12, 0, 0, 61, (16, 32)),
     # The prefill tile with zp_q off the integers and p's grid [-0.1, 1.0]
@@ -316,6 +345,46 @@ def test_reduced_serve_on_card_uses_every_kernel(card):
             assert counts["int8_matmul_fused"] == 0, counts
         else:
             assert not any(counts.values()), counts
+    torch.testing.assert_close(logits["fused"], logits["simulated"],
+                               rtol=1e-3, atol=1e-3)
+
+
+def test_reduced_moe_serve_on_card_uses_every_kernel(card):
+    """Reduced qwen2-moe prefill on the card: the experts' contractions
+    launch the int8 matmul with B = 8 experts, the attention core runs at
+    G = 1 (MHA), and the fused backend agrees with the simulated one
+    (tolerance as the dense serve test's)."""
+    from repro_torch import configs
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.models import model
+    cfg = configs.get_reduced("qwen2-moe-a2.7b")
+    params = model.init_params(cfg, seed=0, device=card)
+    tokens = torch.randint(0, cfg.vocab, (2, 32), generator=_gen(card, 3),
+                           device=card)
+    batches = []
+    real = mm.int8_matmul_fp_cuda_staged
+
+    def spy(xk, wk, zp, alpha):
+        batches.append(xk.shape[0])
+        return real(xk, wk, zp, alpha)
+    mm.int8_matmul_fp_cuda_staged = spy
+    try:
+        logits = {}
+        for backend in ("simulated", "fused"):
+            ops.reset_launch_counts()
+            logits[backend], _ = model.prefill(
+                params, model.init_quant_state(cfg, device=card),
+                {"tokens": tokens}, cfg, QuantPolicy.w8a8g8(backend=backend))
+            counts = ops.launch_counts()
+            if backend == "fused":
+                assert all(counts[k] > 0 for k in (
+                    "fused_quantize", "int8_transpose", "int8_matmul_fp",
+                    "int8_attention")), counts
+            else:
+                assert not any(counts.values()), counts
+    finally:
+        mm.int8_matmul_fp_cuda_staged = real
+    assert cfg.moe.n_experts in batches
     torch.testing.assert_close(logits["fused"], logits["simulated"],
                                rtol=1e-3, atol=1e-3)
 
