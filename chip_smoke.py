@@ -8,8 +8,12 @@ batch 4 x 1024 tokens, remat on), the MoE family's qwen2-moe-a2.7b
 (serving at full width and depth, training at full width), and the
 paper's CNN training loop on
 MobileNetV2 at its Tiny ImageNet width (64 x 64 x 3 images, 200 classes,
-batch 128; ResNet18 and VGG16 one step each).  Each kernel is checked
-against its plain PyTorch version at the shapes those paths give it.
+batch 128; ResNet18 and VGG16 one step each), and the dense family past
+its window: starcoder2-7b at full size (4 x 1024 and 1 x 8192 prompts,
+fused, simulated and fp32), command-r-35b and nemotron-4-340b at full
+width, the long-sequence train step and the paper's grad_only /
+act_only policies.  Each kernel is checked against its plain PyTorch
+version at the shapes those paths give it.
 Phases, one line each:
 
   1. device        name, count, and nvidia-smi's name and power limit
@@ -84,12 +88,37 @@ Phases, one line each:
                    before and read just after; one more step profiled
                    (families, idle share, the experts' int8 contractions);
                    phase 8's fused-vs-simulated check at 1 layer
+ 20. sc7 serve     starcoder2-7b at full size (32 layers, 7.40 B
+                   parameters): launch.serve.main fused at 4 x 1024, then
+                   serve.generate at 1 x 8192 (two windows: the int8 core's
+                   sliding mask masks; decode on a wrapped 4096-slot ring),
+                   32 generated each, the launch counters zeroed just
+                   before and read just after each
+ 21. sc7 parity    phase 20's 1 x 8192 run, fused vs simulated on the same
+                   parameters: prefill logits and the 32 greedy tokens
+ 22. sc7 fp32      the fp32 policy (serve --policy fp32) at 1 x 8192 on
+                   phase 20's parameters: every layer's prefill attention
+                   through _local_attn, layer 0's held against _dense_attn
+ 23. command-r     command-r-35b at full width, 8 layers: serve --policy
+                   fp32 at 1 x 8192 (_chunked_attn, layer 0 held against
+                   _dense_attn), then fused at 4 x 1024 on the same
+                   parameters
+ 24. nemotron      nemotron-4-340b at full width, 1 layer (12.89 B
+                   parameters): serve.main fused at 1 x 1024, 4 generated;
+                   the attention kernel at hd 192 on a model path
+ 25. long train    launch.train.main on starcoder2-7b at full width, 2
+                   layers, --policy current --backend simulated at 1 x 8192
+                   (3 steps through _local_attn, forward and backward); one
+                   step each under QuantPolicy.grad_only / act_only
+                   ("hindsight", fused), whose turned-off sites stay
+                   uninitialized
 
 Phase 3 also holds ``int8_conv_fp`` (the conv site, im2col onto the int8
 matmul kernel) against its plain version at four MobileNetV2-tiny layer
 shapes, ``int8_matmul_fp`` at the MoE experts' shapes ``[B 60, M 552, K,
 N]`` and decode's ``[60, 4, 2048, 1408]``, and the attention core at
-qwen2-moe's G = 1 prefill shape.  The line before the last is the
+qwen2-moe's G = 1 prefill shape and above hd 128: nemotron-4-340b's
+``[96, 1024, 192]`` (G = 12) and hd 256 at G = 8.  The line before the last is the
 kernels' JSON record; the last line is ``{"ok": true, "device":
 {...}}``.  Any failure raises (exit code != 0)
 and prints no result; so does a machine without a CUDA card.
@@ -98,9 +127,9 @@ and prints no result; so does a machine without a CUDA card.
 
 ``--phases`` runs only the named phases (a list of numbers and ranges,
 e.g. ``1-3`` to build and check the kernels without serve and train);
-phase 1 always runs, 5-6 bring 4 along, whose serve run they reuse, and
-18 brings 17.  Kernels whose path phases did not run report
-``"launches": null``.  The default is all nineteen; phases 12-16 write
+phase 1 always runs, 5-6 bring 4 along, whose serve run they reuse, 18
+brings 17, and 21-22 bring 20.  Kernels whose path phases did not run
+report ``"launches": null``.  The default is all 25; phases 12-16 write
 their logs and checkpoints
 under ``build/chip_smoke/`` and remove the checkpoints when done.
 """
@@ -153,7 +182,13 @@ GUARD_STEPS, CKPT_LAYERS = 3, 2
 # The MoE family: qwen2-moe-a2.7b served at full depth; its train step at
 # full width with depth cut (AdamW at 24 layers needs ~229 GB).
 MOE_ARCH, MOE_TRAIN_LAYERS, MOE_PARITY_LAYERS = "qwen2-moe-a2.7b", 2, 1
-N_PHASES = 19
+# The dense family past its window: starcoder2-7b at full size (its train
+# step at full width, depth cut), command-r-35b at full width with depth
+# cut to what fits beside a 17 GB score tile, nemotron-4-340b at 1 layer.
+LONG_ARCH, LONG_SEQ, LONG_TRAIN_LAYERS = "starcoder2-7b", 8192, 2
+CMDR_ARCH, CMDR_LAYERS = "command-r-35b", 8
+NEMO_ARCH, NEMO_GEN = "nemotron-4-340b", 4
+N_PHASES = 25
 # Where phases 12-16 write their JSONL logs and checkpoints (git-ignored).
 OUT_DIR = ROOT / "build" / "chip_smoke"
 
@@ -726,7 +761,9 @@ def check_int8_matmul_fused(dev, gen, cfg):
                 **{f"cnn_{k_}": v for k_, v in cnn.items()})
 
 
-def check_attention(dev, gen, cfg):
+def check_attention(dev, gen, cfg, batch=BATCH):
+    """The attention kernel at ``cfg``'s prefill head layout, ``batch`` x
+    ``PROMPT`` tokens."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import int8_attention as attn
@@ -735,7 +772,7 @@ def check_attention(dev, gen, cfg):
 
     s, hd, nh, nkv = PROMPT, cfg.head_dim, cfg.n_heads, cfg.n_kv
     g = nh // nkv
-    bh, zb = BATCH * nh, BATCH * nkv
+    bh, zb = batch * nh, batch * nkv
     bq, bkv = tuning.attention_block(s, s, hd)
     mode = "causal" if cfg.sliding_window is None else "sliding"
     sched = attn.make_schedule(sq=s, skv=s, hd=hd, bq=bq, bkv=bkv, groups=g,
@@ -796,11 +833,11 @@ def check_attention(dev, gen, cfg):
                    f"{ms:.4f} ms")
     plain_ms = time_ms(lambda: attn.attention_core_reference(
         q, k, v, regs, kvl, sched=sched), 2)
-    qb = torch.randn((BATCH, nh, s, hd), generator=gen, device=dev,
+    qb = torch.randn((batch, nh, s, hd), generator=gen, device=dev,
                      dtype=torch.bfloat16)
-    kb = torch.randn((BATCH, nkv, s, hd), generator=gen, device=dev,
+    kb = torch.randn((batch, nkv, s, hd), generator=gen, device=dev,
                      dtype=torch.bfloat16)
-    vb = torch.randn((BATCH, nkv, s, hd), generator=gen, device=dev,
+    vb = torch.randn((batch, nkv, s, hd), generator=gen, device=dev,
                      dtype=torch.bfloat16)
     try:   # yardstick only: bf16 causal SDPA (with GQA where G > 1)
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
@@ -2268,6 +2305,422 @@ def moe_train_phase(mcfg, dev, records) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phases 20-25: the dense family past its window, the fp attention paths,
+# command-r-35b and nemotron-4-340b at full width, the paper's policies.
+# ---------------------------------------------------------------------------
+class _FpSpy:
+    """Records the first call of each fp attention path (``_local_attn``,
+    ``_chunked_attn``, ``_dense_attn``): its q/k/v and keywords (layer 0),
+    and counts every call."""
+
+    NAMES = ("_local_attn", "_chunked_attn", "_dense_attn")
+
+    def __init__(self):
+        from repro_torch.models import attention
+        self.mod = attention
+        self.real = {n: getattr(attention, n) for n in self.NAMES}
+        self.first: dict = {}
+        self.calls = {n: 0 for n in self.NAMES}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            def wrapped(q, k, v, *, _n=name, **kw):
+                self.calls[_n] += 1
+                if _n not in self.first:
+                    self.first[_n] = (q.detach().clone(), k.detach().clone(),
+                                      v.detach().clone(), kw)
+                return self.real[_n](q, k, v, **kw)
+            setattr(self.mod, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.mod, name, fn)
+
+
+def _register_cut(cfg, n_layers: int):
+    """``cfg`` with its depth cut to ``n_layers``, registered under a name
+    of its own so the drivers' ``--arch`` reaches it."""
+    from repro_torch import configs
+    from repro_torch.configs.arch import register
+
+    cut = dataclasses.replace(cfg, name=f"{cfg.name}-{n_layers}l",
+                              n_layers=n_layers)
+    configs.names()                 # load the registry before adding to it
+    register(cut, lambda: cut)
+    return cut
+
+
+def _prompt(cfg, batch: int, seq: int, dev):
+    """The serve driver's prompt: the config's data stream, seed 0."""
+    from repro_torch import data
+    stream = data.for_arch(cfg, seq_len=seq + GEN, global_batch=batch,
+                           seed=0)
+    return stream.batch(0)["tokens"][:, :seq].to(dev)
+
+
+def _serve_record(tag, what, run, counts, peak, kernels=SERVE_KERNELS):
+    """Checks one serve run (every kernel of ``kernels`` launched, or none
+    when ``kernels`` is empty; finite logits), logs and returns it."""
+    if kernels and not all(counts[k] > 0 for k in kernels):
+        raise AssertionError(f"{what}: a kernel of the path never "
+                             f"launched: {counts}")
+    if not kernels and any(counts.values()):
+        raise AssertionError(f"{what}: launched a kernel: {counts}")
+    if not torch.isfinite(run.prefill_logits).all():
+        raise AssertionError(f"{what}: non-finite prefill logits")
+    b, s = run.prompt.shape
+    gen = run.tokens.shape[1]
+    log(tag, f"{what} B={b} S={s} gen={gen}: prefill {run.prefill_ms:.1f} "
+             f"ms, decode {run.decode_tok_s:.2f} tok/s ({run.decode_ms:.1f} "
+             f"ms for {gen - 1} steps), peak {peak:.2f} GiB, launches "
+             f"{counts}")
+    return dict(prefill_ms=run.prefill_ms, decode_ms=run.decode_ms,
+                decode_tok_s=run.decode_tok_s, peak_gib=peak,
+                launches=counts, batch=b, seq=s)
+
+
+def _generate(params, quant, prompt, cfg, policy):
+    """``serve.generate`` with the launch counters zeroed just before and
+    read just after; returns ``(run, counts, peak GiB)``."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    run = serve.generate(params, quant, prompt, cfg, policy, GEN)
+    torch.cuda.synchronize()
+    return run, ops.launch_counts(), \
+        torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def sc7_serve_phase(dev, records, results):
+    """Phase 20: starcoder2-7b at full size (32 layers, 7.40 B parameters,
+    29.6 GB fp32), fused hindsight: ``launch.serve.main`` at batch 4 x 1024
+    and ``serve.generate`` at 1 x 8192 (two windows: the int8 core's
+    sliding mask masks, and decode wraps the 4096-slot ring), 32
+    generated each, launch counters zeroed just before each and read just
+    after.  Returns the run (phases 21-22 reuse its parameters)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+
+    argv = ["--arch", LONG_ARCH, "--batch", str(BATCH), "--prompt-len",
+            str(PROMPT), "--gen", str(GEN)]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    run = serve.main(argv)
+    torch.cuda.synchronize()
+    out = {"short": _serve_record(
+        "sc7-serve", f"{run.cfg.name} {run.cfg.n_layers} layers fused",
+        run, ops.launch_counts(),
+        torch.cuda.max_memory_allocated() / 2 ** 30)}
+    out["params_b"] = sum(p.numel() for p in run.params.parameters()) / 1e9
+    cfg, policy = run.cfg, run.policy
+    prompt = _prompt(cfg, 1, LONG_SEQ, dev)
+    quant = model.init_quant_state(cfg, device=dev)
+    long, counts, peak = _generate(run.params, quant, prompt, cfg, policy)
+    out["long"] = _serve_record("sc7-serve", f"{cfg.name} fused, two "
+                                f"windows", long, counts, peak)
+    for r in records:
+        r["sc7_serve_launches"] = counts[r["name"]]
+    log("sc7-serve", f"{out['params_b']:.3f} B parameters; ring cache "
+                     f"{cfg.sliding_window} slots, {LONG_SEQ + GEN - 1} "
+                     f"positions written")
+    results["sc7_serve"] = out
+    return long
+
+
+def _tokens_agree(run_a, run_b, cfg, dev) -> dict:
+    """The two runs' greedy tokens: identical, or the first differing step
+    is a near-tie: on the common prefix both backends' next-token logits
+    (a prefill of prompt + the agreed tokens) differ by more than the
+    fused run's top-2 margin there."""
+    from repro_torch.models import model
+    ta, tb = run_a.tokens, run_b.tokens
+    same = (ta == tb).all(dim=0)
+    if bool(same.all()):
+        return dict(identical=True, first_diff=None)
+    i = int((~same).nonzero()[0])
+    seq = torch.cat([run_a.prompt, ta[:, :i]], dim=1)
+    la, _ = model.prefill(run_a.params, model.init_quant_state(cfg,
+                                                               device=dev),
+                          {"tokens": seq}, cfg, run_a.policy)
+    lb, _ = model.prefill(run_b.params, model.init_quant_state(cfg,
+                                                               device=dev),
+                          {"tokens": seq}, cfg, run_b.policy)
+    top = la.topk(2, dim=-1).values
+    margin = (top[:, 0] - top[:, 1]).min().item()
+    d = (la - lb).abs().max().item()
+    if margin > 2 * d:
+        raise AssertionError(f"greedy tokens differ at step {i} with top-2 "
+                             f"margin {margin:.3e} > 2 x max |d| {d:.3e}")
+    return dict(identical=False, first_diff=i, margin=margin, max_abs=d)
+
+
+def sc7_parity_phase(long, dev, results) -> None:
+    """Phase 21: phase 20's 1 x 8192 fused run against the simulated
+    backend on the same parameters and prompt: prefill logits under phase
+    6's tolerance, and the 32 greedy tokens."""
+    from repro_torch.models import model
+
+    sim = long.policy.with_backend("simulated")
+    run_s, counts, _ = _generate(long.params, model.init_quant_state(
+        long.cfg, device=dev), long.prompt, long.cfg, sim)
+    if any(counts.values()):
+        raise AssertionError("the simulated backend launched a kernel")
+    a, b = long.prefill_logits, run_s.prefill_logits
+    d_max = (a - b).abs().max().item()
+    rel = ((a - b).norm() / b.norm()).item()
+    if not (rel <= 1e-2 and d_max <= 0.1 and math.isfinite(rel)):
+        raise AssertionError(f"fused vs simulated at S {LONG_SEQ}: rel L2 "
+                             f"{rel:.3e}, max |d| {d_max:.3e}")
+    tok = _tokens_agree(long, run_s, long.cfg, dev)
+    log("sc7-parity", f"S={LONG_SEQ} prefill logits fused vs simulated: rel "
+                      f"L2 {rel:.3e}, max |d| {d_max:.3e} (tolerance: rel L2 "
+                      f"<= 1e-2, max |d| <= 0.1); {GEN} greedy tokens: "
+                      + ("identical" if tok["identical"] else
+                         f"first differ at step {tok['first_diff']}, a "
+                         f"near-tie (top-2 margin {tok['margin']:.3e}, "
+                         f"max |d| {tok['max_abs']:.3e})")
+                      + f"; simulated prefill {run_s.prefill_ms:.1f} ms")
+    results["sc7_parity"] = dict(rel_l2=rel, max_abs=d_max, tokens=tok,
+                                 simulated_prefill_ms=run_s.prefill_ms)
+
+
+def _hold_fp_path(spy, name: str, tag: str) -> dict:
+    """Layer 0's fp path (``name``) against ``_dense_attn`` on the same
+    q/k/v, in fp32.  Tolerance: 2e-5 absolute + 1e-4 relative (the paths'
+    exp and products sum in other orders over up to 8192 keys)."""
+    from repro_torch.models import attention
+
+    if spy.calls[name] == 0:
+        raise AssertionError(f"{name} never ran: {spy.calls}")
+    q, k, v, kw = spy.first[name]
+    q, k, v = (t.to(torch.float32) for t in (q, k, v))
+    with torch.no_grad():
+        got = spy.real[name](q, k, v, **kw)
+        torch.cuda.synchronize()
+        dense = attention._dense_attn(
+            q, k, v, mode=kw.get("mode", "sliding"),
+            window=kw.get("window"), prefix_len=kw.get("prefix_len"),
+            kv_len=kw.get("kv_len"), scale=kw["scale"])
+        torch.cuda.synchronize()
+    err = (got - dense).abs().max().item()
+    torch.testing.assert_close(got, dense, rtol=1e-4, atol=2e-5)
+    log(tag, f"{name} on layer 0's q {tuple(q.shape)} vs _dense_attn: max "
+             f"|d| {err:.3e} (tolerance 2e-5 + 1e-4 relative); calls "
+             f"{spy.calls}")
+    return dict(max_abs=err, calls=dict(spy.calls))
+
+
+def sc7_fp_phase(long, dev, results) -> None:
+    """Phase 22: starcoder2-7b at full size with the fp32 policy (``launch
+    .serve --policy fp32``'s policy) at 1 x 8192 on phase 20's parameters:
+    every layer's prefill attention through ``_local_attn``; layer 0's
+    held against ``_dense_attn`` (a 9.7 GB score tile)."""
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.models import model
+
+    fp = QuantPolicy.disabled()
+    with _FpSpy() as spy:
+        run, counts, peak = _generate(long.params, model.init_quant_state(
+            long.cfg, device=dev), long.prompt, long.cfg, fp)
+    out = _serve_record("sc7-fp", f"{long.cfg.name} fp32, _local_attn", run,
+                        counts, peak, kernels=())
+    if spy.calls["_local_attn"] != long.cfg.n_layers:
+        raise AssertionError(f"_local_attn calls {spy.calls}")
+    out["hold"] = _hold_fp_path(spy, "_local_attn", "sc7-fp")
+    results["sc7_fp"] = out
+
+
+def cmdr_phase(dev, records, results) -> None:
+    """Phase 23: command-r-35b at full width (d 8192, 64/8 heads, SwiGLU,
+    the tied 256000-wide vocabulary), depth cut to ``CMDR_LAYERS``
+    (7.73 B parameters, 30.9 GB fp32): ``launch.serve.main --policy
+    fp32`` at 1 x 8192, every layer's attention through ``_chunked_attn``
+    (layer 0's held against ``_dense_attn``, a 17.2 GB score tile), then
+    fused hindsight at 4 x 1024 on the same parameters, launch counters
+    zeroed just before and read just after."""
+    from repro_torch import configs
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+
+    cut = _register_cut(configs.get(CMDR_ARCH), CMDR_LAYERS)
+    argv = ["--arch", cut.name, "--policy", "fp32", "--batch", "1",
+            "--prompt-len", str(LONG_SEQ), "--gen", str(GEN)]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with _FpSpy() as spy:
+        run = serve.main(argv)
+        torch.cuda.synchronize()
+    out = {"fp32": _serve_record(
+        "cmdr", f"{cut.name} fp32, _chunked_attn", run, ops.launch_counts(),
+        torch.cuda.max_memory_allocated() / 2 ** 30, kernels=())}
+    if spy.calls["_chunked_attn"] != cut.n_layers:
+        raise AssertionError(f"_chunked_attn calls {spy.calls}")
+    out["params_b"] = sum(p.numel() for p in run.params.parameters()) / 1e9
+    params = run.params
+    del run
+    torch.cuda.empty_cache()
+    out["hold"] = _hold_fp_path(spy, "_chunked_attn", "cmdr")
+    del spy
+    torch.cuda.empty_cache()
+    fused, counts, peak = _generate(
+        params, model.init_quant_state(cut, device=dev),
+        _prompt(cut, BATCH, PROMPT, dev), cut,
+        QuantPolicy.w8a8g8(backend="fused"))
+    out["fused"] = _serve_record("cmdr", f"{cut.name} fused", fused, counts,
+                                 peak)
+    for r in records:
+        r["cmdr_serve_launches"] = counts[r["name"]]
+    log("cmdr", f"{out['params_b']:.3f} B parameters (tied embeddings: no "
+                f"head leaf)")
+    results["cmdr"] = out
+
+
+def nemotron_phase(dev, records, results) -> None:
+    """Phase 24: nemotron-4-340b at full width (d 18432, 96/8 heads of hd
+    192, d_ff 73728, squared ReLU, untied 256000-wide vocabulary), depth
+    cut to 1 layer (12.89 B parameters, 51.6 GB fp32): ``launch.serve.main``
+    fused hindsight at 1 x 1024 with a few decode steps, the launch
+    counters zeroed just before and read just after; the attention kernel
+    runs at hd 192 on a model path."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    cut = _register_cut(configs.get(NEMO_ARCH), 1)
+    argv = ["--arch", cut.name, "--batch", "1", "--prompt-len", str(PROMPT),
+            "--gen", str(NEMO_GEN)]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    run = serve.main(argv)
+    torch.cuda.synchronize()
+    out = _serve_record("nemotron", f"{cut.name} hd={cut.head_dim} fused",
+                        run, ops.launch_counts(),
+                        torch.cuda.max_memory_allocated() / 2 ** 30)
+    out["params_b"] = sum(p.numel() for p in run.params.parameters()) / 1e9
+    out["card_gib"] = torch.cuda.get_device_properties(0).total_memory \
+        / 2 ** 30
+    log("nemotron", f"{out['params_b']:.3f} B parameters; peak "
+                    f"{out['peak_gib']:.2f} of the card's "
+                    f"{out['card_gib']:.2f} GiB")
+    results["nemotron"] = out
+    for r in records:
+        r["nemotron_serve_launches"] = out["launches"][r["name"]]
+
+
+def long_train_phase(dev, records, results) -> None:
+    """Phase 25: ``launch.train.main`` on starcoder2-7b at full width, depth
+    cut to ``LONG_TRAIN_LAYERS``, ``--policy current --backend simulated``
+    (the paper's dynamic row; ``fused`` refuses it) at 1 x 8192: forward
+    and backward through ``_local_attn``.  Then one step each under
+    ``QuantPolicy.grad_only("hindsight")`` and ``act_only("hindsight")``
+    through ``runtime.steps.make_train_step`` on the fused backend (the
+    policies are static, so ``backend.validate`` admits it), each on a
+    fresh state: the sites of the quantizers each policy turns off stay
+    uninitialized."""
+    from repro_torch import configs, data
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.core.state import INITED, tree_map_with_path
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedules import constant
+    from repro_torch.runtime import steps
+
+    cut = _register_cut(configs.get(LONG_ARCH), LONG_TRAIN_LAYERS)
+    argv = ["--arch", cut.name, "--policy", "current", "--backend",
+            "simulated", "--seq", str(LONG_SEQ), "--batch", "1", "--steps",
+            str(TRAIN_STEPS), "--log-every", "1"]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with _FpSpy() as spy:
+        run = train.main(argv)
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if any(counts.values()):
+        raise AssertionError(f"the simulated train step launched a kernel: "
+                             f"{counts}")
+    if len(run.losses) != TRAIN_STEPS or not all(
+            math.isfinite(v) for v in run.losses):
+        raise AssertionError(f"long train losses {run.losses}")
+    # forward, and remat's recompute in the backward
+    if spy.calls["_local_attn"] < 2 * cut.n_layers * TRAIN_STEPS:
+        raise AssertionError(f"_local_attn calls {spy.calls}")
+    steady = run.step_ms[1:]
+    step_ms = sum(steady) / len(steady)
+    log("long-train", f"{cut.name} current/simulated B=1 S={LONG_SEQ}, "
+                      f"AdamW, remat: losses "
+                      f"{[round(v, 4) for v in run.losses]}; step 0 "
+                      f"{run.step_ms[0]:.1f} ms, steps 1-{TRAIN_STEPS - 1} "
+                      f"{[round(v, 1) for v in steady]} ms, "
+                      f"{LONG_SEQ / (step_ms / 1e3):.1f} tokens/s; peak "
+                      f"{peak:.2f} GiB; fp path calls {spy.calls}")
+    out = dict(losses=run.losses, step_ms=run.step_ms, steady_step_ms=step_ms,
+               tokens_per_s=LONG_SEQ / (step_ms / 1e3), peak_gib=peak,
+               fp_calls=dict(spy.calls))
+    del run, spy
+    torch.cuda.empty_cache()
+
+    stream = data.for_arch(cut, seq_len=LONG_SEQ, global_batch=1, seed=0)
+    batch = {k: v.to(dev) for k, v in stream.batch(0).items()}
+    for ctor in ("grad_only", "act_only"):
+        policy = getattr(QuantPolicy, ctor)("hindsight").with_backend(
+            "fused")
+        opt = adamw()
+        state = steps.init_train_state(cut, opt, policy, seed=0, device=dev)
+        step = steps.make_train_step(cut, policy, opt, constant(1e-4))
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = ops.launch_counts()
+        flags = {}
+        tree_map_with_path(lambda p, leaf: flags.__setitem__(
+            "/".join(map(str, p)), float(leaf[INITED])), state["quant"])
+        # (the core's p-site starts on [0, 1]; the k/v input sites are
+        # never visited: q/k/v share one, on "q")
+        act = {k: v for k, v in flags.items() if k.endswith("act")
+               and not k.endswith(("core/p/act", "attn/k/act",
+                                   "attn/v/act"))}
+        grad = {k: v for k, v in flags.items() if k.endswith("grad")}
+        off, on = (act, grad) if ctor == "grad_only" else (grad, act)
+        if any(off.values()) or not all(on.values()):
+            raise AssertionError(f"{ctor}: initialized flags off {off}, on "
+                                 f"{on}")
+        # grad_only: the gradient barriers; act_only: the activation sites
+        # and the attention core on their static ranges
+        need = (("stochastic_quantize",) if ctor == "grad_only"
+                else ("fused_quantize", "int8_attention"))
+        if not all(counts[k] > 0 for k in need):
+            raise AssertionError(f"{ctor}: a kernel of the path never "
+                                 f"launched: {counts}")
+        loss = float(met["loss"])
+        if not math.isfinite(loss):
+            raise AssertionError(f"{ctor}: loss {loss}")
+        log("long-train", f"{ctor}('hindsight') on fused, {cut.name} B=1 "
+                          f"S={LONG_SEQ}: loss {loss:.4f}, step {ms:.1f} ms "
+                          f"(first use), peak "
+                          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+                          f" GiB; {len(off)} turned-off sites uninitialized, "
+                          f"{len(on)} initialized; launches {counts}")
+        out[ctor] = dict(loss=loss, step_ms=ms, launches=counts,
+                         off_sites=len(off), on_sites=len(on))
+        for r in records:
+            r[f"{ctor}_launches"] = counts[r["name"]]
+        del state, step, opt
+        torch.cuda.empty_cache()
+    results["long_train"] = out
+
+
+# ---------------------------------------------------------------------------
 # Phases 4-6: the serving path.
 # ---------------------------------------------------------------------------
 def serve_phases(cfg, dev, records, results, run_phase) -> None:
@@ -2375,7 +2828,7 @@ def parity_phase(run, policy, dev, results) -> None:
 # ---------------------------------------------------------------------------
 def parse_phases(spec: str) -> set:
     """``"1-3,9"`` -> ``{1, 2, 3, 9}``; phase 1 always, 4 with 5 or 6, 17
-    with 18."""
+    with 18, 20 with 21 or 22."""
     phases = {1}
     for part in spec.split(","):
         lo, _, hi = part.strip().partition("-")
@@ -2387,6 +2840,8 @@ def parse_phases(spec: str) -> set:
         phases.add(4)
     if 18 in phases:
         phases.add(17)
+    if phases & {21, 22}:
+        phases.add(20)
     return phases
 
 
@@ -2472,10 +2927,25 @@ def main(argv=None) -> int:
         # matmul's batch dimension, and MHA attention (G = 1)
         by_name = {r["name"]: r for r in records}
         by_name["int8_matmul_fp"]["moe"] = check_moe_matmul(dev, gen, mcfg)
+        keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")
         moe_attn = check_attention(dev, gen, mcfg)
-        by_name["int8_attention"]["moe"] = {
-            k: moe_attn[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by", "library_ms")}
+        by_name["int8_attention"]["moe"] = {k: moe_attn[k] for k in keys}
+        # head dims above 128: nemotron-4-340b's prefill layout (hd 192,
+        # G = 12, batch 1) and hd 256 at G = 8
+        ncfg = configs.get(NEMO_ARCH)
+        for tag, c in (("hd192", ncfg),
+                       ("hd256", dataclasses.replace(
+                           ncfg, name="hd256-g8", n_heads=64, head_dim=256))):
+            wide = check_attention(dev, gen, c, batch=1)
+            by_name["int8_attention"][tag] = {k: wide[k] for k in keys}
+            lib = wide["library_ms"]
+            log("kernels", f"int8_attention {tag} {wide['shape']}: "
+                           f"{wide['ms']:.4f} ms, bound "
+                           f"{wide['bound_ms']:.4f} ms ({wide['bound_by']}), "
+                           f"plain {wide['plain_ms']:.4f} ms, library "
+                           + ("n/a" if lib is None else f"{lib:.4f}")
+                           + " ms")
     for r in records:
         r["launches"] = None        # set by the path phases that run
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -2567,6 +3037,38 @@ def main(argv=None) -> int:
     for phase in ("moe_serve", "moe_parity", "moe_train"):
         if phase in results:
             log("moe", f"{phase}: {results[phase]['seconds']:.1f} s")
+    if run_phase(20):
+        # 20. starcoder2-7b at full size past its window; 21. its parity;
+        # 22. its fp32 path through _local_attn
+        t0 = time.perf_counter()
+        long = sc7_serve_phase(dev, records, results)
+        results["sc7_serve"]["seconds"] = time.perf_counter() - t0
+        for n, key, fn in ((21, "sc7_parity", sc7_parity_phase),
+                           (22, "sc7_fp", sc7_fp_phase)):
+            if run_phase(n):
+                t0 = time.perf_counter()
+                fn(long, dev, results)
+                results[key]["seconds"] = time.perf_counter() - t0
+        del long
+        torch.cuda.empty_cache()
+    for n, key, fn in ((23, "cmdr", cmdr_phase),
+                       (24, "nemotron", nemotron_phase),
+                       (25, "long_train", long_train_phase)):
+        if run_phase(n):
+            t0 = time.perf_counter()
+            fn(dev, records, results)
+            results[key]["seconds"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    for key in ("sc7_serve", "sc7_parity", "sc7_fp", "cmdr", "nemotron",
+                "long_train"):
+        if key in results:
+            log("dense", f"{key}: {results[key]['seconds']:.1f} s")
+    for r in records:       # the kernels' launches where no earlier path ran
+        for key in ("sc7_serve_launches", "cmdr_serve_launches",
+                    "nemotron_serve_launches", "grad_only_launches",
+                    "act_only_launches"):
+            if not r["launches"] and r.get(key):
+                r["launches"] = r[key]
 
     kernels = [{k: r[k] for k in ("name", "route", "source", "replaces",
                                   "launches", "max_abs_err", "ms", "plain_ms",

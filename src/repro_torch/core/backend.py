@@ -55,8 +55,10 @@ class QTensor(NamedTuple):
 
 def dequantize_qtensor(qt: QTensor) -> torch.Tensor:
     """fp32 values of an image: ``quant.dequantize``'s two ops, from the
-    registers already derived from the range."""
-    return (qt.q.to(torch.float32) - qt.zero_point) * qt.scale
+    registers already derived from the range (in place on the fp32 copy:
+    one tensor of transients, not two)."""
+    v = qt.q.to(torch.float32, copy=True)
+    return v.sub_(qt.zero_point).mul_(qt.scale)
 
 
 # ---------------------------------------------------------------------------
@@ -134,9 +136,10 @@ def canonical(x: torch.Tensor) -> torch.Tensor:
     return x.detach().to(torch.float32)
 
 
-def _quantizer_fwd(x, qmin, qmax, spec: quant.QuantSpec, fused: bool):
+def _quantizer_fwd(x, qmin, qmax, spec: quant.QuantSpec, fused: bool,
+                   values: bool = True):
     """Returns ``(xq, q, obs_min, obs_max)``; ``xq`` has ``x``'s dtype and
-    the clipped-STE gradient."""
+    the clipped-STE gradient (``None`` unless ``values``)."""
     xf = canonical(x)
     if fused and spec.bits <= 8:
         q, mn, mx = _ops().fused_quantize(xf, qmin, qmax, spec=spec)
@@ -146,7 +149,7 @@ def _quantizer_fwd(x, qmin, qmax, spec: quant.QuantSpec, fused: bool):
             q = q.to(spec.storage_dtype)
         mn, mx = quant.tensor_minmax(xf)
     scale, zp = quant.scale_zero_point(qmin, qmax, spec)
-    xq = quant.on_grid(x, q, scale, zp, spec)
+    xq = quant.on_grid(x, q, scale, zp, spec) if values else None
     return xq, q, mn, mx
 
 
@@ -223,10 +226,10 @@ def weight_quantize(policy, w: torch.Tensor
     needs values takes :func:`dequantize_qtensor` (the same fp32 ops)."""
     spec = policy.weight_spec
     mn, mx = quant.tensor_minmax(canonical(w))
-    xq, q, _, _ = _quantizer_fwd(w, mn, mx, spec,
-                                 fused=(policy.backend == FUSED))
+    wq, q, _, _ = _quantizer_fwd(
+        w, mn, mx, spec, fused=(policy.backend == FUSED),
+        values=torch.is_grad_enabled() and w.requires_grad)
     scale, zp = quant.scale_zero_point(mn, mx, spec)
-    wq = xq if (torch.is_grad_enabled() and w.requires_grad) else None
     return wq, QTensor(q, scale, zp)
 
 

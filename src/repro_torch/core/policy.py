@@ -58,6 +58,20 @@ class QuantPolicy:
             grad_estimator=EstimatorConfig(kind=grad_kind, momentum=momentum),
             backend=backend)
 
+    @staticmethod
+    def grad_only(kind: str, momentum: float = 0.9) -> "QuantPolicy":
+        """Paper Table 1: forward in FP, only gradients quantized."""
+        return QuantPolicy(
+            quantize_weights=False, quantize_acts=False,
+            grad_estimator=EstimatorConfig(kind=kind, momentum=momentum))
+
+    @staticmethod
+    def act_only(kind: str, momentum: float = 0.9) -> "QuantPolicy":
+        """Paper Table 2: only activations quantized (backward in FP)."""
+        return QuantPolicy(
+            quantize_weights=False, quantize_grads=False,
+            act_estimator=EstimatorConfig(kind=kind, momentum=momentum))
+
     @property
     def stat_width(self) -> int:
         return self.telemetry.stat_width

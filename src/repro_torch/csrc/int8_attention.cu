@@ -63,7 +63,16 @@
 // into one block per element; no FMA), and the latency of phases that all
 // warps run between the tile's barriers.  wgmma/TMA and warp
 // specialisation are later work.
-// Tile limits: bq, bkv, hd <= 128 (the slice runs 128, 128, 128).
+//
+// Head dims above 128 (nemotron-4-340b's 192; 256) take a wide
+// instantiation: hd in (128, 256], a multiple of 16, bq and bkv still <=
+// 128.  The Q and K tiles' rows grow to hd + 16 bytes and V^T to hd rows
+// (the shared layout is computed from the launch's hd), QK^T takes up to 8
+// k-steps, and each half keeps up to 16 out n-tiles (half 0 the first
+// `osplit`, half 1 the rest) whose P.V runs in chunks of 8 n-tiles.  At hd
+// 256 the layout takes 204 KB before the flat tree's buffer; a non-power-
+// of-two bkv whose buffer does not fit the card's 227 KB is refused.
+// Tile limits: bq, bkv <= 128; hd <= 128, or <= 256 in multiples of 16.
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
@@ -76,30 +85,56 @@ namespace {
 
 using namespace mma_int8;
 
-constexpr int kMax = 128;            // max bq, bkv, hd
+constexpr int kMax = 128;            // max bq, bkv; hd of the narrow kernel
+constexpr int kWideMax = 256;        // max hd of the wide kernel
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kGroups = 8;           // row groups: rows w + 8 j, j < 16
 constexpr int kLd = kMax + 16;       // shared row stride, bytes (no conflicts)
-constexpr int kTile = kMax * kLd;    // one staged operand tile
+constexpr int kTreeSig = kGroups * kMax + 16;   // sig plane, bank-shifted
+constexpr int kSmemOptin = 232448;   // a block's shared memory on the H100
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kAll = 0xffffffffu;
 
 // Shared memory: K and V^T double buffers, each row group's p_int rows,
 // the q block, the tile's row/column sums, the err/sig buffer, the two
 // halves' row max / p_int sum exchange, the block reductions, then the
-// flat tree's buffer (bkv not a power of two).
-constexpr int kOffK = 0;
-constexpr int kOffV = kOffK + 2 * kTile;
-constexpr int kOffP = kOffV + 2 * kTile;
-constexpr int kOffQ = kOffP + kGroups * 16 * kLd;
-constexpr int kOffSum = kOffQ + kTile;
-constexpr int kOffTree = kOffSum + 2 * kMax * 4;
-constexpr int kTreeSig = kGroups * kMax + 16;   // sig plane, bank-shifted
-constexpr int kOffX = kOffTree + 4 * (kTreeSig + kGroups * kMax);
-constexpr int kOffRed = kOffX + 2 * kWarps * 16 * 4;
-constexpr int kOffFlat = kOffRed + 5 * kWarps * 4;
-constexpr int kSmemMax = kOffFlat + 4 * kMax * (kMax - 1);   // bkv 127
+// flat tree's buffer (bkv not a power of two).  Q and K rows are hd + 16
+// bytes (`ld`), V^T has hd rows of kLd; hd = kMax for the narrow kernel.
+struct Layout {
+  int ld, tile, vtile;   // Q/K row stride, one Q or K tile, one V^T tile
+  int k, v, p, q, sum, tree, x, red, flat;   // offsets
+};
+
+__host__ __device__ constexpr Layout layout(int hd) {
+  Layout L{};
+  L.ld = hd + 16;
+  L.tile = kMax * L.ld;
+  L.vtile = hd * kLd;
+  L.k = 0;
+  L.v = L.k + 2 * L.tile;
+  L.p = L.v + 2 * L.vtile;
+  L.q = L.p + kGroups * 16 * kLd;
+  L.sum = L.q + L.tile;
+  L.tree = L.sum + (kMax + hd) * 4;
+  L.x = L.tree + 4 * (kTreeSig + kGroups * kMax);
+  L.red = L.x + 2 * kWarps * 16 * 4;
+  L.flat = L.red + 5 * kWarps * 4;
+  return L;
+}
+
+constexpr int kSmemMax = layout(kMax).flat + 4 * kMax * (kMax - 1);   // bkv 127
+
+// The kernel's layout: compile-time constants unless wide.
+template <bool kWide>
+__device__ __forceinline__ Layout kernel_layout(int hd) {
+  if constexpr (kWide) {
+    return layout(hd);
+  } else {
+    constexpr Layout L = layout(kMax);
+    return L;
+  }
+}
 
 enum Mode { kCausal = 0, kSliding = 1, kPrefix = 2, kCross = 3, kBidir = 4 };
 
@@ -172,26 +207,28 @@ __device__ __forceinline__ int next_visited(int i, int ki, int end,
   return -1;
 }
 
-// Stage `rows` rows x `chunks` 16-byte chunks of a tile (row stride kLd):
-// row r of src (row stride `stride` bytes) lands in shared row r, or with
-// kQSlots in row (r % 8) * 16 + r / 8 (warp w's q rows w + 8 j are then
-// contiguous).  Rows >= valid_rows and bytes >= valid_bytes are zero.
-// `vec`: 16-byte aligned rows and valid_bytes a multiple of 16, copied by
-// cp.async; otherwise byte loads.
-template <bool kQSlots>
+// Stage `rows` <= kRows rows x `chunks` <= kChunks 16-byte chunks of a
+// tile (shared row stride `ld`): row r of src (row stride `stride` bytes)
+// lands in shared row r, or with kQSlots in row (r % 8) * 16 + r / 8 (warp
+// w's q rows w + 8 j are then contiguous).  Rows >= valid_rows and bytes
+// >= valid_bytes are zero.  `vec`: 16-byte aligned rows and valid_bytes a
+// multiple of 16, copied by cp.async; otherwise byte loads.
+template <bool kQSlots, int kRows, int kChunks>
 __device__ __forceinline__ void stage_tile(uint8_t* dst, const uint8_t* src,
                                            int stride, int rows,
                                            int valid_rows, int chunks,
-                                           int valid_bytes, bool vec, int t) {
+                                           int valid_bytes, bool vec, int t,
+                                           int ld) {
   if (vec) {
     const uint32_t d = smem_addr(dst);
 #pragma unroll
-    for (int it = 0; it < kMax * 8 / kThreads; ++it) {
-      const int e = t + it * kThreads, r = e >> 3, c = e & 7;
+    for (int it = 0; it < kRows * kChunks / kThreads; ++it) {
+      const unsigned e = t + it * kThreads;
+      const int r = e / kChunks, c = e % kChunks;
       if (r < rows && c < chunks) {
         const int dr = kQSlots ? ((r & 7) << 4) + (r >> 3) : r;
         const bool in = r < valid_rows && 16 * c < valid_bytes;
-        cp_async_16(d + dr * kLd + 16 * c,
+        cp_async_16(d + dr * ld + 16 * c,
                     in ? src + static_cast<long long>(r) * stride + 16 * c
                        : src,
                     in ? 16 : 0);
@@ -202,7 +239,7 @@ __device__ __forceinline__ void stage_tile(uint8_t* dst, const uint8_t* src,
     for (int r = w; r < rows; r += kWarps) {
       const int dr = kQSlots ? ((r & 7) << 4) + (r >> 3) : r;
       for (int b = l; b < 16 * chunks; b += 32)
-        dst[dr * kLd + b] =
+        dst[dr * ld + b] =
             (r < valid_rows && b < valid_bytes)
                 ? src[static_cast<long long>(r) * stride + b]
                 : 0;
@@ -210,10 +247,12 @@ __device__ __forceinline__ void stage_tile(uint8_t* dst, const uint8_t* src,
   }
 }
 
-// sums[r] = sum of the bytes of staged row r (ksteps * 32 of them), for
-// the 16 rows of warp w's n-tile pair (if it is below nt_end n-tiles):
-// C = ones (16 x 32) . rows^T, whose every row holds the sums.
-__device__ __forceinline__ void row_sums(uint32_t tile, int ksteps,
+// sums[r] = sum of the bytes of staged row r (ksteps <= kKs times 32 of
+// them, row stride ld), for the 16 rows of warp w's n-tile pair (if it is
+// below nt_end n-tiles): C = ones (16 x 32) . rows^T, whose every row
+// holds the sums.
+template <int kKs>
+__device__ __forceinline__ void row_sums(uint32_t tile, int ld, int ksteps,
                                          int nt_end, int* sums, int w,
                                          int lane) {
   if (2 * w >= nt_end) return;
@@ -222,10 +261,10 @@ __device__ __forceinline__ void row_sums(uint32_t tile, int ksteps,
   const int b_row = (lane & 7) + 8 * (lane >> 4), b_chunk = (lane >> 3) & 1;
   int c0[4] = {0, 0, 0, 0}, c1[4] = {0, 0, 0, 0};
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
+  for (int ks = 0; ks < kKs; ++ks) {
     if (ks >= ksteps) break;
     uint32_t bf[4];
-    ldmatrix_x4(bf, tile + (b_row + 16 * w) * kLd + (2 * ks + b_chunk) * 16);
+    ldmatrix_x4(bf, tile + (b_row + 16 * w) * ld + (2 * ks + b_chunk) * 16);
     mma_u8s8(c0, ones, bf[0], bf[1]);
     mma_u8s8(c1, ones, bf[2], bf[3]);
   }
@@ -252,22 +291,24 @@ __device__ __forceinline__ void scatter_half(float (&v)[16], int mask,
 
 // acc[i] += A . B_i^T on the tensor cores: A the 16 staged rows at `a`
 // (q, or the group's p_int), B_i the staged rows 8 i..8 i + 7 at `b` (K,
-// or V^T), both K-contiguous over ksteps * 32 bytes, for i < nt_end.
+// or V^T), both K-contiguous over ksteps <= kKs times 32 bytes with row
+// stride ld, for i < nt_end.
+template <int kKs>
 __device__ __forceinline__ void tile_mma(int (&acc)[8][4], uint32_t a,
-                                         uint32_t b, int ksteps, int nt_end,
-                                         int lane) {
+                                         uint32_t b, int ld, int ksteps,
+                                         int nt_end, int lane) {
   const int a_row = lane & 15, a_chunk = lane >> 4;
   const int b_row = (lane & 7) + 8 * (lane >> 4), b_chunk = (lane >> 3) & 1;
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
+  for (int ks = 0; ks < kKs; ++ks) {
     if (ks >= ksteps) break;
     uint32_t af[4];
-    ldmatrix_x4(af, a + a_row * kLd + (2 * ks + a_chunk) * 16);
+    ldmatrix_x4(af, a + a_row * ld + (2 * ks + a_chunk) * 16);
 #pragma unroll
     for (int np = 0; np < 4; ++np) {
       if (2 * np >= nt_end) break;
       uint32_t bf[4];
-      ldmatrix_x4(bf, b + (b_row + 16 * np) * kLd + (2 * ks + b_chunk) * 16);
+      ldmatrix_x4(bf, b + (b_row + 16 * np) * ld + (2 * ks + b_chunk) * 16);
       mma_u8s8(acc[2 * np], af, bf[0], bf[1]);
       if (2 * np + 1 < nt_end) mma_u8s8(acc[2 * np + 1], af, bf[2], bf[3]);
     }
@@ -369,7 +410,8 @@ __device__ __forceinline__ void pair_sync(int w) {
 
 // kFix: hd = bkv = 128 with cp.async staging (the model's shape), every
 // tile width a compile-time constant; otherwise the widths of the launch.
-template <bool kFix>
+// kWide: hd in (128, 256], the shared layout from the launch's hd.
+template <bool kFix, bool kWide>
 __global__ void __launch_bounds__(kThreads, 1)
 int8_attention_kernel(const uint8_t* __restrict__ q,
                       const int8_t* __restrict__ k,
@@ -379,6 +421,10 @@ int8_attention_kernel(const uint8_t* __restrict__ q,
                       float* __restrict__ out, float* __restrict__ ml,
                       float* __restrict__ pstats, Sched S) {
   extern __shared__ __align__(128) uint8_t smem[];
+  constexpr int kDh = kWide ? kWideMax : kMax;   // the widest hd
+  constexpr int kKs = kDh / 32;                  // QK^T k-steps at most
+  constexpr int kOnt = kDh / 16;                 // a half's out n-tiles
+  const Layout L = kernel_layout<kWide>(S.hd);
   const int hd = kFix ? kMax : S.hd;
   const int bkv = kFix ? kMax : S.bkv;
   const bool vec = kFix || S.vec;
@@ -387,20 +433,22 @@ int8_attention_kernel(const uint8_t* __restrict__ q,
   const int nnt = kFix ? 16 : (bkv + 7) >> 3;   // score n-tiles
   const int pks = kFix ? 4 : (bkv + 31) >> 5;   // PV k-steps (bkv / 32)
   const int hnt = kFix ? 16 : (hd + 7) >> 3;    // out n-tiles
+  // The wide kernel's halves: out n-tiles [0, osplit) and [osplit, hnt).
+  const int osplit = ((hnt + 3) >> 2) << 1;
 
-  int* rowsum_k = reinterpret_cast<int*>(smem + kOffSum);
+  int* rowsum_k = reinterpret_cast<int*>(smem + L.sum);
   int* colsum_v = rowsum_k + kMax;
-  float* tree = reinterpret_cast<float*>(smem + kOffTree);
-  float* xmax = reinterpret_cast<float*>(smem + kOffX);   // [warp][row j]
+  float* tree = reinterpret_cast<float*>(smem + L.tree);
+  float* xmax = reinterpret_cast<float*>(smem + L.x);   // [warp][row j]
   int* xsum = reinterpret_cast<int*>(xmax + kWarps * 16);
-  float* red = reinterpret_cast<float*>(smem + kOffRed);
+  float* red = reinterpret_cast<float*>(smem + L.red);
   float* part = red + 4 * kWarps;   // the err/sig tree's group partials
-  float* flat = reinterpret_cast<float*>(smem + kOffFlat);
+  float* flat = reinterpret_cast<float*>(smem + L.flat);
 
   const int i = blockIdx.x, bh = blockIdx.y, z = bh / S.groups;
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  // Row group w (q rows w + 8 j), half h: kv columns and out columns
-  // 64 h..64 h + 63 of the tile.
+  // Row group w (q rows w + 8 j), half h: kv columns 64 h..64 h + 63 of
+  // the tile, and out columns from ocol0 (below).
   const int w = warp & 7, h = warp >> 3, partner = warp ^ 8;
   const int g = lane >> 2, tq = lane & 3;
   const float zp_q = regs[0], alpha_qk = regs[1], scale_p = regs[2];
@@ -417,45 +465,49 @@ int8_attention_kernel(const uint8_t* __restrict__ q,
                           row[1] < S.bq && q0 + row[1] < S.sq};
   const bool rows_all = S.bq == kMax && q0 + kMax <= S.sq;   // uniform
   const int snt = kFix ? 8 : max(0, min(8, nnt - 8 * h));   // this half's
-  const int ont = kFix ? 8 : max(0, min(8, hnt - 8 * h));    // score and
-                                                             // out n-tiles
+  const int ont = kFix ? 8                                    // score and
+                  : kWide ? (h == 0 ? osplit : hnt - osplit)  // out n-tiles
+                          : max(0, min(8, hnt - 8 * h));
   const int cbase = 64 * h + 2 * tq;     // this lane's first column
+  // The wide kernel's half: its first out column, and this lane's.
+  const int ocol0 = 8 * osplit * h;
+  const int obase = kWide ? ocol0 + 2 * tq : cbase;
 
   auto stage_kv = [&](int ki, int buf) {
     const int k0 = ki * S.bkv;
-    stage_tile<false>(
-        smem + kOffK + buf * kTile,
+    stage_tile<false, kMax, kDh / 16>(
+        smem + L.k + buf * L.tile,
         reinterpret_cast<const uint8_t*>(k) +
             (static_cast<long long>(z) * S.skv + k0) * hd,
         hd, 16 * ((nnt + 1) >> 1), min(bkv, S.skv - k0), 2 * nks, hd, vec,
-        t);
-    stage_tile<false>(
-        smem + kOffV + buf * kTile,
+        t, L.ld);
+    stage_tile<false, kDh, kMax / 16>(
+        smem + L.v + buf * L.vtile,
         reinterpret_cast<const uint8_t*>(vt) +
             static_cast<long long>(z) * hd * S.skvp + k0,
         S.skvp, 16 * ((hnt + 1) >> 1), hd, 2 * pks, min(bkv, S.skvp - k0),
-        vec, t);
+        vec, t, kLd);
   };
 
-  stage_tile<true>(smem + kOffQ,
-                   q + (static_cast<long long>(bh) * S.sq + q0) * hd, hd,
-                   kMax, min(S.bq, S.sq - q0), 2 * nks, hd, vec, t);
+  stage_tile<true, kMax, kDh / 16>(
+      smem + L.q, q + (static_cast<long long>(bh) * S.sq + q0) * hd, hd,
+      kMax, min(S.bq, S.sq - q0), 2 * nks, hd, vec, t, L.ld);
   const int end = kv_block_base(i, S) + S.width;
   int ki = next_visited(i, kv_block_base(i, S) - 1, end, S);
   if (ki >= 0) stage_kv(ki, 0);
   cp_async_commit();
 
-  float o[8][4];
+  float o[kOnt][4];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int nt = 0; nt < kOnt; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
   float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
   float pmn = FLT_MAX, pmx = -FLT_MAX;
   int nclip = 0, ncnt = 0;
   float st_err = 0.f, st_sig = 0.f;   // thread 0's are the block's
-  const uint32_t qa = smem_addr(smem + kOffQ) + w * 16 * kLd;
-  uint8_t* pw = smem + kOffP + w * 16 * kLd;   // the group's p_int rows
+  const uint32_t qa = smem_addr(smem + L.q) + w * 16 * L.ld;
+  uint8_t* pw = smem + L.p + w * 16 * kLd;   // the group's p_int rows
 
   int n = 0;   // visited tiles so far
   for (; ki >= 0; ++n) {
@@ -465,16 +517,19 @@ int8_attention_kernel(const uint8_t* __restrict__ q,
     const int nk = next_visited(i, ki, end, S);
     if (nk >= 0) stage_kv(nk, buf ^ 1);
     cp_async_commit();
-    const uint8_t* Kb = smem + kOffK + buf * kTile;
-    const uint8_t* Vb = smem + kOffV + buf * kTile;
+    const uint8_t* Kb = smem + L.k + buf * L.tile;
+    const uint8_t* Vb = smem + L.v + buf * L.vtile;
     // Row sums of the K and V^T tiles on the tensor cores (an all-ones A
     // operand; warps 0..7 K, 8..15 V^T), and the err/sig tree's last
     // levels of tile n - 1.
     if (h == 0) {
-      row_sums(smem_addr(Kb), nks, nnt, rowsum_k, w, lane);
+      row_sums<kKs>(smem_addr(Kb), L.ld, nks, nnt, rowsum_k, w, lane);
       if (pow2 && n > 0) tree_cols(tree, part, w, lane);
-    } else {
-      row_sums(smem_addr(Vb), pks, hnt, colsum_v, w, lane);
+    } else {   // V^T's rows in blocks of 128
+#pragma unroll
+      for (int rb = 0; rb < kDh / kMax; ++rb)
+        row_sums<4>(smem_addr(Vb) + rb * kMax * kLd, kLd, pks, hnt - 16 * rb,
+                    colsum_v + rb * kMax, w, lane);
     }
     __syncthreads();   // the sums and partials are visible; the err/sig
                        // buffer is free
@@ -511,7 +566,8 @@ int8_attention_kernel(const uint8_t* __restrict__ q,
         acc[nt][1] = acc[nt][3] = -tzq * rs.y;
       }
       if (snt > 0)
-        tile_mma(acc, qa, smem_addr(Kb) + 64 * h * kLd, nks, snt, lane);
+        tile_mma<kKs>(acc, qa, smem_addr(Kb) + 64 * h * L.ld, L.ld, nks, snt,
+                      lane);
       float rmax[2] = {kNegInf, kNegInf};
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
@@ -655,31 +711,69 @@ int8_attention_kernel(const uint8_t* __restrict__ q,
         lsum[r] = psum[r] + xsum[partner * 16 + g + 8 * r] - bkv * tzp;
     }
     const int pshift = live ? -tzp : static_cast<int>(pi0) - tzp;
-    int pacc[8][4];
+    if constexpr (kWide) {
+      // P.V on this half's out n-tiles, 8 at a time.
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      if (nt >= ont) break;
-      const int2 cs =
-          *reinterpret_cast<const int2*>(colsum_v + cbase + 8 * nt);
-      pacc[nt][0] = pacc[nt][2] = pshift * cs.x;
-      pacc[nt][1] = pacc[nt][3] = pshift * cs.y;
-    }
-    if (live && ont > 0)
-      tile_mma(pacc, smem_addr(pw), smem_addr(Vb) + 64 * h * kLd, pks, ont,
-               lane);
+      for (int oc = 0; oc < kOnt / 8; ++oc) {
+        const int cnt = min(8, ont - 8 * oc);
+        if (cnt <= 0) break;
+        int pacc[8][4];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l_run[r] = __fadd_rn(__fmul_rn(l_run[r], corr[r]),
-                           __fmul_rn(scale_p, __int2float_rn(lsum[r])));
-      m_run[r] = m_new[r];
-    }
+        for (int nt = 0; nt < 8; ++nt) {
+          if (nt >= cnt) break;
+          const int2 cs = *reinterpret_cast<const int2*>(
+              colsum_v + obase + 64 * oc + 8 * nt);
+          pacc[nt][0] = pacc[nt][2] = pshift * cs.x;
+          pacc[nt][1] = pacc[nt][3] = pshift * cs.y;
+        }
+        if (live)
+          tile_mma<4>(pacc, smem_addr(pw),
+                      smem_addr(Vb) + (ocol0 + 64 * oc) * kLd, kLd, pks, cnt,
+                      lane);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      if (nt >= ont) break;
+        for (int nt = 0; nt < 8; ++nt) {
+          if (nt >= cnt) break;
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        o[nt][e] = __fadd_rn(__fmul_rn(o[nt][e], corr[e >> 1]),
-                             __fmul_rn(alpha_pv, __int2float_rn(pacc[nt][e])));
+          for (int e = 0; e < 4; ++e)
+            o[8 * oc + nt][e] = __fadd_rn(
+                __fmul_rn(o[8 * oc + nt][e], corr[e >> 1]),
+                __fmul_rn(alpha_pv, __int2float_rn(pacc[nt][e])));
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l_run[r] = __fadd_rn(__fmul_rn(l_run[r], corr[r]),
+                             __fmul_rn(scale_p, __int2float_rn(lsum[r])));
+        m_run[r] = m_new[r];
+      }
+    } else {
+      int pacc[8][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        if (nt >= ont) break;
+        const int2 cs =
+            *reinterpret_cast<const int2*>(colsum_v + cbase + 8 * nt);
+        pacc[nt][0] = pacc[nt][2] = pshift * cs.x;
+        pacc[nt][1] = pacc[nt][3] = pshift * cs.y;
+      }
+      if (live && ont > 0)
+        tile_mma<4>(pacc, smem_addr(pw), smem_addr(Vb) + 64 * h * kLd, kLd,
+                    pks, ont, lane);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l_run[r] = __fadd_rn(__fmul_rn(l_run[r], corr[r]),
+                             __fmul_rn(scale_p, __int2float_rn(lsum[r])));
+        m_run[r] = m_new[r];
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        if (nt >= ont) break;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[nt][e] = __fadd_rn(__fmul_rn(o[nt][e], corr[e >> 1]),
+                               __fmul_rn(alpha_pv,
+                                         __int2float_rn(pacc[nt][e])));
+      }
     }
     ki = nk;
   }
@@ -731,9 +825,9 @@ int8_attention_kernel(const uint8_t* __restrict__ q,
     const float den = fmaxf(l_run[r], 1e-30f);
     float* orow = out + qrow * hd;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < kOnt; ++nt) {
       if (nt >= ont) break;
-      const int col = cbase + 8 * nt;
+      const int col = obase + 8 * nt;
       const float v0 = __fdiv_rn(o[nt][2 * r], den);
       const float v1 = __fdiv_rn(o[nt][2 * r + 1], den);
       if ((hd & 1) == 0 && col < hd) {
@@ -752,17 +846,37 @@ int8_attention_kernel(const uint8_t* __restrict__ q,
 
 // Allow an instantiation's dynamic shared memory (above the 48 KB
 // default) once; returns the CUDA error code.
-template <bool kFix>
+template <bool kFix, bool kWide>
 int allow_smem() {
   static int status = -1;
   if (status < 0)
     status = static_cast<int>(cudaFuncSetAttribute(
-        int8_attention_kernel<kFix>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax));
+        int8_attention_kernel<kFix, kWide>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kWide ? kSmemOptin : kSmemMax));
   return status;
 }
 
+template <bool kFix, bool kWide>
+int start(dim3 grid, int smem, cudaStream_t st, const void* q, const void* k,
+          const void* vt, const void* regs, const void* kvlen, void* out,
+          void* ml, void* pstats, const Sched& S) {
+  if (const int s = allow_smem<kFix, kWide>()) return s;
+  int8_attention_kernel<kFix, kWide><<<grid, kThreads, smem, st>>>(
+      static_cast<const uint8_t*>(q), static_cast<const int8_t*>(k),
+      static_cast<const int8_t*>(vt), static_cast<const float*>(regs),
+      static_cast<const int*>(kvlen), static_cast<float*>(out),
+      static_cast<float*>(ml), static_cast<float*>(pstats), S);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// The dynamic shared memory a launch at (hd, bq, bkv) needs, in bytes.
+extern "C" int repro_int8_attention_smem(int hd, int bq, int bkv) {
+  const bool pow2 = (bkv & (bkv - 1)) == 0;
+  return layout(hd > kMax ? hd : kMax).flat + (pow2 ? 0 : 4 * bq * bkv);
+}
 
 // q u8 [BH, sq, hd]; k s8 [ZB, skv, hd]; vt s8 [ZB, hd, skvp], V's K-major
 // image (skvp = skv rounded up to 16, zero-padded); regs fp32 [8]; kvlen
@@ -775,7 +889,9 @@ extern "C" int repro_int8_attention(const void* q, const void* k,
                                     int hd, int bq, int bkv, int groups,
                                     int mode, int window, int prefix_len,
                                     int width, void* stream) {
-  if (bq < 1 || bkv < 1 || hd < 1 || bq > kMax || bkv > kMax || hd > kMax)
+  const bool wide = hd > kMax;
+  if (bq < 1 || bkv < 1 || hd < 1 || bq > kMax || bkv > kMax ||
+      hd > kWideMax || (wide && hd % 16 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   Sched S;
   S.sq = sq;
@@ -798,25 +914,16 @@ extern "C" int repro_int8_attention(const void* q, const void* k,
           aligned(vt);
   S.pow2 = (bkv & (bkv - 1)) == 0;
   const bool fix = S.vec && hd == kMax && bkv == kMax;
-  const int smem = kOffFlat + (S.pow2 ? 0 : 4 * bq * bkv);
+  const int smem = repro_int8_attention_smem(hd, bq, bkv);
+  if (smem > kSmemOptin) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(S.nq, bh);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const uint8_t*>(q);
-  const auto* kp = static_cast<const int8_t*>(k);
-  const auto* vp = static_cast<const int8_t*>(vt);
-  const auto* rp = static_cast<const float*>(regs);
-  const auto* lp = static_cast<const int*>(kvlen);
-  auto* op = static_cast<float*>(out);
-  auto* mp = static_cast<float*>(ml);
-  auto* pp = static_cast<float*>(pstats);
-  if (fix) {
-    if (const int s = allow_smem<true>()) return s;
-    int8_attention_kernel<true><<<grid, kThreads, smem, st>>>(
-        qp, kp, vp, rp, lp, op, mp, pp, S);
-  } else {
-    if (const int s = allow_smem<false>()) return s;
-    int8_attention_kernel<false><<<grid, kThreads, smem, st>>>(
-        qp, kp, vp, rp, lp, op, mp, pp, S);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (fix)
+    return start<true, false>(grid, smem, st, q, k, vt, regs, kvlen, out, ml,
+                              pstats, S);
+  if (wide)
+    return start<false, true>(grid, smem, st, q, k, vt, regs, kvlen, out, ml,
+                              pstats, S);
+  return start<false, false>(grid, smem, st, q, k, vt, regs, kvlen, out, ml,
+                             pstats, S);
 }

@@ -40,14 +40,16 @@ from repro_torch.kernels import int8_matmul as mm
 EDITS = {
     "general": [("  const bool fix = S.vec && hd == kMax && bkv == kMax;\n",
                  "  const bool fix = false;\n")],
-    "no_qk": [("        tile_mma(acc, qa, smem_addr(Kb) + 64 * h * kLd, nks, snt, "
-               "lane);\n", "        ;\n")],
-    "no_pv": [("      tile_mma(pacc, smem_addr(pw), smem_addr(Vb) + 64 * h * kLd, "
-               "pks, ont,\n               lane);\n", "      ;\n")],
-    "no_rowsums": [("      row_sums(smem_addr(Kb), nks, nnt, rowsum_k, w, lane);\n",
-                    ""),
-                   ("      row_sums(smem_addr(Vb), pks, hnt, colsum_v, w, lane);\n",
-                    "")],
+    "no_qk": [("        tile_mma<kKs>(acc, qa, smem_addr(Kb) + 64 * h * L.ld, "
+               "L.ld, nks, snt,\n                      lane);\n", "        ;\n")],
+    "no_pv": [("      if (live && ont > 0)\n        tile_mma<4>(pacc, smem_addr(pw), "
+               "smem_addr(Vb) + 64 * h * kLd,", "      if (0)\n        tile_mma<4>"
+               "(pacc, smem_addr(pw), smem_addr(Vb) + 64 * h * kLd,")],
+    "no_rowsums": [("      row_sums<kKs>(smem_addr(Kb), L.ld, nks, nnt, rowsum_k, w, "
+                    "lane);\n", ""),
+                   ("        row_sums<4>(smem_addr(Vb) + rb * kMax * kLd, kLd, pks, "
+                    "hnt - 16 * rb,\n                    colsum_v + rb * kMax, w, "
+                    "lane);\n", "        ;\n")],
     "no_tree": [("      tree_rows(te, ts, tree, w, h, lane);\n", ""),
                 ("                                          int w, int lane) {\n",
                  "                                          int w, int lane) {\n"
@@ -61,8 +63,8 @@ EDITS = {
     "no_stage": [("    if (nk >= 0) stage_kv(nk, buf ^ 1);\n", "")],
     "no_stats": [("          const bool sv = kAll || (row_ok[r] && c < cvalid);",
                   "          const bool sv = false;")],
-    "no_oupd": [("      for (int e = 0; e < 4; ++e)\n        o[nt][e] = __fadd_rn(",
-                 "      for (int e = 0; e < 4 * 0; ++e)\n        o[nt][e] = __fadd_rn(")],
+    "no_oupd": [("        for (int e = 0; e < 4; ++e)\n          o[nt][e] = __fadd_rn(",
+                 "        for (int e = 0; e < 4 * 0; ++e)\n          o[nt][e] = __fadd_rn(")],
     # every tile's probabilities by the empty tile's path (the products run)
     "no_probs": [("      probs(std::true_type{}, std::true_type{});",
                   "      probs(std::false_type{}, std::false_type{});")],
@@ -78,9 +80,10 @@ EDITS = {
               "consumed\n", "    PROF(9);\n    __syncthreads();\n    PROF(0);\n"),
              ("    __syncthreads();   // the sums and partials are visible; "
               "the err/sig\n", "    PROF(1);\n    __syncthreads();\n    PROF(2);\n"),
-             ("        tile_mma(acc, qa, smem_addr(Kb) + 64 * h * kLd, nks, "
-              "snt, lane);\n", "        tile_mma(acc, qa, smem_addr(Kb) + "
-              "64 * h * kLd, nks, snt, lane);\n      PROF(3);\n"),
+             ("        tile_mma<kKs>(acc, qa, smem_addr(Kb) + 64 * h * L.ld, "
+              "L.ld, nks, snt,\n                      lane);\n",
+              "        tile_mma<kKs>(acc, qa, smem_addr(Kb) + 64 * h * L.ld, "
+              "L.ld, nks, snt,\n                      lane);\n      PROF(3);\n"),
              ("      pair_sync(w);\n", "      PROF(4);\n      pair_sync(w);\n"
               "      PROF(5);\n"),
              ("    if (pow2) {\n      tree_rows(", "    PROF(6);\n    if (pow2) "

@@ -53,7 +53,9 @@ NEG_INF = -1e30
 P_SPEC = QuantSpec(bits=8, symmetric=False)
 STAT_SLOTS = 6
 MASK_MODES = ("causal", "sliding", "prefix", "cross", "bidir")
-KERNEL_MAX_TILE = 128        # bq, bkv, hd limit of the CUDA kernel
+KERNEL_MAX_TILE = 128        # bq, bkv limit of the CUDA kernel
+KERNEL_MAX_HD = 256          # its hd limit (above 128: multiples of 16)
+SMEM_LIMIT = 232448          # a block's shared memory on the H100, bytes
 
 
 # ---------------------------------------------------------------------------
@@ -257,7 +259,10 @@ def attention_core_reference(q_u8, k_i8, v_i8, regs, kvlen, *,
                              sched: AttnSchedule):
     """Returns ``(out fp32 [BH, sq, hd], ml fp32 [BH, sq, 2], pstats fp32
     [BH, nq, 6])``.  The int contractions run in float64, exact for these
-    integer operands in any summation order."""
+    integer operands in any summation order.  Every q block walks its
+    ``width`` kv blocks from its own base in the kernel's order; the q
+    blocks advance together, one kv step at a time, and a block the
+    schedule skips keeps its carries (the same values as skipping it)."""
     S = sched
     bh = q_u8.shape[0]
     zb = bh // S.groups
@@ -271,47 +276,46 @@ def attention_core_reference(q_u8, k_i8, v_i8, regs, kvlen, *,
     zp_q, alpha_qk, scale_p, zp_p, alpha_pv, p_lo, p_hi = (
         regs[j] for j in range(7))
     kvl = kvlen.reshape(()).to(device=dev)
-    rows = torch.arange(S.bq, device=dev)[:, None]
-    cols = torch.arange(S.bkv, device=dev)[None, :]
+    # q block i's rows and kv block ki's columns: [nq, bq, 1], [nq, 1, bkv]
+    q_pos = (torch.arange(S.nq, device=dev) * S.bq)[:, None, None] + \
+        torch.arange(S.bq, device=dev)[None, :, None]
+    cols = torch.arange(S.bkv, device=dev)[None, None, :]
+    base = [_kv_block_base(i, S) for i in range(S.nq)]
 
-    outs, mls, sts = [], [], []
-    for i in range(S.nq):
-        rq = (qz[:, :, i].to(torch.int32) - zp_q.to(torch.int32)).to(f64)
-        m = torch.full((zb, S.groups, S.bq, 1), NEG_INF, dtype=torch.float32,
-                       device=dev)
-        l = torch.zeros((zb, S.groups, S.bq, 1), dtype=torch.float32,
-                        device=dev)
-        acc = torch.zeros((zb, S.groups, S.bq, S.hd), dtype=torch.float32,
-                          device=dev)
-        st = _stats_init((zb, S.groups), dev)
-        base = _kv_block_base(i, S)
-        for t in range(S.width):
-            ki = base + t
-            if not _block_visited(i, ki, S):
-                continue
-            rk = kz[:, ki].to(f64)
-            rv = vz[:, ki].to(f64)
-            acc_qk = torch.einsum("zgqh,zkh->zgqk", rq, rk)
-            q_pos = i * S.bq + rows
-            k_pos = ki * S.bkv + cols
-            mask = _element_mask(q_pos, k_pos, kvl, S)
-            rp, p, p_hat, m_new, corr = _scores_to_probs(
-                acc_qk, mask, m, alpha_qk, scale_p, zp_p)
-            acc_pv = torch.einsum("zgqk,zkh->zgqh", rp.to(f64), rv)
-            acc, l = _accumulate(acc, l, corr, acc_pv, rp, alpha_pv, scale_p)
-            m = m_new
-            sv = (q_pos < S.sq) & (k_pos < S.skv)
-            st = _stats_update(st, p, p_hat, sv, p_lo, p_hi)
-        outs.append(acc / l.clamp(min=1e-30))
-        mls.append(torch.cat([m, l], dim=-1))
-        sts.append(st)
-    # [nq, ZB, G, bq, ...] -> kernel element order [BH, sq, ...]
-    out = torch.stack(outs).permute(1, 2, 0, 3, 4).reshape(
-        bh, S.nq * S.bq, S.hd)[:, :S.sq]
-    ml = torch.stack(mls).permute(1, 2, 0, 3, 4).reshape(
-        bh, S.nq * S.bq, 2)[:, :S.sq]
-    pstats = torch.stack(sts).permute(1, 2, 0, 3).reshape(bh, S.nq,
-                                                          STAT_SLOTS)
+    rq = (qz.to(torch.int32) - zp_q.to(torch.int32)).to(f64)
+    m = torch.full((zb, S.groups, S.nq, S.bq, 1), NEG_INF,
+                   dtype=torch.float32, device=dev)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((zb, S.groups, S.nq, S.bq, S.hd), dtype=torch.float32,
+                      device=dev)
+    st = _stats_init((zb, S.groups, S.nq), dev)
+    for t in range(S.width):
+        kis = [b + t for b in base]
+        vis = [_block_visited(i, ki, S) for i, ki in enumerate(kis)]
+        if not any(vis):
+            continue
+        ki = torch.tensor(kis, device=dev)
+        rk = kz[:, ki].to(f64)                        # [zb, nq, bkv, hd]
+        rv = vz[:, ki].to(f64)
+        acc_qk = torch.einsum("zgiqh,zikh->zgiqk", rq, rk)
+        k_pos = (ki * S.bkv)[:, None, None] + cols
+        mask = _element_mask(q_pos, k_pos, kvl, S)
+        rp, p, p_hat, m_new, corr = _scores_to_probs(
+            acc_qk, mask, m, alpha_qk, scale_p, zp_p)
+        acc_pv = torch.einsum("zgiqk,zikh->zgiqh", rp.to(f64), rv)
+        acc_new, l_new = _accumulate(acc, l, corr, acc_pv, rp, alpha_pv,
+                                     scale_p)
+        sv = (q_pos < S.sq) & (k_pos < S.skv)
+        st_new = _stats_update(st, p, p_hat, sv, p_lo, p_hi)
+        keep = torch.tensor(vis, device=dev)
+        m = torch.where(keep[:, None, None], m_new, m)
+        l = torch.where(keep[:, None, None], l_new, l)
+        acc = torch.where(keep[:, None, None], acc_new, acc)
+        st = torch.where(keep[:, None], st_new, st)
+    # [ZB, G, nq, bq, ...] is the kernel's element order [BH, sq, ...]
+    out = (acc / l.clamp(min=1e-30)).reshape(bh, S.nq * S.bq, S.hd)[:, :S.sq]
+    ml = torch.cat([m, l], dim=-1).reshape(bh, S.nq * S.bq, 2)[:, :S.sq]
+    pstats = st.reshape(bh, S.nq, STAT_SLOTS)
     return out.contiguous(), ml.contiguous(), pstats.contiguous()
 
 
@@ -426,11 +430,24 @@ def bind(lib: ctypes.CDLL):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp] * 8 + [ci] * 11 + [vp]
         fn.restype = ctypes.c_int
+        smem = lib.repro_int8_attention_smem
+        smem.argtypes = [ci] * 3
+        smem.restype = ci
     return fn
 
 
-def _lib():
-    return bind(build.library("int8_attention"))
+def check_kernel_tiles(sched: AttnSchedule) -> None:
+    """Raise unless the CUDA kernel takes ``sched``'s tile: bq, bkv <=
+    128 and hd <= 256, a multiple of 16 above 128."""
+    S = sched
+    if max(S.bq, S.bkv) > KERNEL_MAX_TILE:
+        raise ValueError(
+            f"the CUDA attention kernel takes bq, bkv <= {KERNEL_MAX_TILE}; "
+            f"got ({S.bq}, {S.bkv})")
+    if S.hd > KERNEL_MAX_HD or (S.hd > KERNEL_MAX_TILE and S.hd % 16):
+        raise ValueError(
+            f"the CUDA attention kernel takes head_dim <= {KERNEL_MAX_TILE}, "
+            f"or <= {KERNEL_MAX_HD} in multiples of 16; got {S.hd}")
 
 
 def launch(fn, q_u8, k_i8, vt, regs, kvl, *, sched: AttnSchedule):
@@ -463,16 +480,22 @@ def attention_cuda(q_u8, k_i8, v_i8, regs, kvlen, *, sched: AttnSchedule):
     if (q_u8.dtype, k_i8.dtype, v_i8.dtype) != (torch.uint8, torch.int8,
                                                 torch.int8):
         raise TypeError("attention_cuda takes uint8 q and int8 k/v")
-    if max(S.bq, S.bkv, S.hd) > KERNEL_MAX_TILE:
-        raise ValueError(
-            f"the CUDA attention kernel takes bq, bkv, hd <= "
-            f"{KERNEL_MAX_TILE}; got ({S.bq}, {S.bkv}, {S.hd})")
+    check_kernel_tiles(S)
     bh = q_u8.shape[0]
     if q_u8.shape != (bh, S.sq, S.hd) or bh % S.groups or \
             k_i8.shape != (bh // S.groups, S.skv, S.hd) or \
             v_i8.shape != k_i8.shape:
         raise ValueError(f"attention shapes {tuple(q_u8.shape)}, "
                          f"{tuple(k_i8.shape)} do not match {S}")
+    lib = build.library("int8_attention")
+    fn = bind(lib)
+    smem = lib.repro_int8_attention_smem(S.hd, S.bq, S.bkv)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"the CUDA attention kernel at hd {S.hd} with (bq, bkv) = "
+            f"({S.bq}, {S.bkv}) needs {smem} bytes of shared memory, above "
+            f"the card's {SMEM_LIMIT} (a bkv that is not a power of two "
+            f"adds the flat err/sig tree's bq * bkv floats)")
     dev = q_u8.device
     q_u8, k_i8 = _mm._aligned(q_u8), _mm._aligned(k_i8)
     # V's K-major image [ZB, hd, skv rounded up to 16]: the PV product's
@@ -480,6 +503,6 @@ def attention_cuda(q_u8, k_i8, v_i8, regs, kvlen, *, sched: AttnSchedule):
     vt = _mm.weight_kmajor_cuda(v_i8)
     regs = regs.to(device=dev, dtype=torch.float32).reshape(-1).contiguous()
     kvl = kvlen.to(device=dev, dtype=torch.int32).reshape(1).contiguous()
-    out, ml, pstats = launch(_lib(), q_u8, k_i8, vt, regs, kvl, sched=S)
+    out, ml, pstats = launch(fn, q_u8, k_i8, vt, regs, kvl, sched=S)
     COUNTER.count += 1
     return out, ml, pstats

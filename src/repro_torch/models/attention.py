@@ -9,9 +9,15 @@ caches are ring buffers).  Unlike the reference's functional updates, the
 cache functions write into the cache tensors in place (a full-size cache
 copy per layer and token would double its memory), and return the dict.
 
-Not ported yet: cross attention (``kv_x``, the enc-dec family) and the
-long-sequence fp paths ``_chunked_attn`` / ``_local_attn`` (S > 4096 or
-S > window on a non-static policy), which raise.
+The fp paths of non-static policies (fp32, the dynamic estimators,
+``grad_only``) follow the reference's dispatch: ``_dense_attn`` (one
+score tile) up to ``dense_attn_max``, ``_local_attn`` (each block of
+``window`` queries against its own and the previous kv block) past a
+sliding window, and ``_chunked_attn`` (online softmax over ``q_chunk`` x
+``kv_chunk`` blocks) otherwise.  Without a recorded gradient they update
+their score tiles in place (the same values, one tile's memory).
+
+Not ported yet: cross attention (``kv_x``, the enc-dec family).
 """
 from __future__ import annotations
 
@@ -88,9 +94,19 @@ def _mask_block(q_pos, kv_pos, mode: str, window: Optional[int],
     return m
 
 
+def _softmax_numerator(s, keep):
+    """``exp(where(keep, s, NEG_INF) - rowmax)``; in place on ``s`` when no
+    gradient is recorded."""
+    if torch.is_grad_enabled():
+        s = torch.where(keep, s, NEG_INF)
+        return torch.exp(s - s.amax(dim=-1, keepdim=True))
+    s.masked_fill_(~keep, NEG_INF)
+    return s.sub_(s.amax(dim=-1, keepdim=True)).exp_()
+
+
 def _dense_attn(q, k, v, *, mode: str, window, prefix_len, kv_len,
                 scale: float):
-    """Single-tile fp32 attention (the path of non-static policies)."""
+    """Single-tile fp32 attention (S <= ``dense_attn_max``)."""
     sq, skv = q.shape[1], k.shape[1]
     s = torch.einsum("bqngh,bknh->bngqk", q.to(torch.float32) * scale,
                      k.to(torch.float32))
@@ -98,12 +114,79 @@ def _dense_attn(q, k, v, *, mode: str, window, prefix_len, kv_len,
     mask = _mask_block(torch.arange(sq, device=dev),
                        torch.arange(skv, device=dev), mode, window,
                        prefix_len, kv_len)
-    s = torch.where(mask, s, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
+    p = _softmax_numerator(s, mask)
     out = torch.einsum("bngqk,bknh->bngqh", p, v.to(torch.float32))
     out = out / p.sum(dim=-1).clamp(min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+
+
+def _chunked_attn(q, k, v, *, mode: str, window, prefix_len, kv_len,
+                  q_start: int, q_chunk: int, kv_chunk: int, scale: float):
+    """Online-softmax attention over ``q_chunk`` x ``kv_chunk`` blocks
+    (fp32 running ``m``, ``l`` and accumulator), the reference's order:
+    each q block walks every kv block (masked blocks included), and the
+    divide comes last.  q ``[B, Sq, KV, G, hd]`` at absolute positions
+    from ``q_start``; k/v ``[B, Skv, KV, hd]``."""
+    b, sq, nkv, g, hd = q.shape
+    skv = k.shape[1]
+    qc, kc = min(q_chunk, sq), min(kv_chunk, skv)
+    if sq % qc or skv % kc:
+        raise ValueError(f"chunks ({qc}, {kc}) must divide the sequence "
+                         f"lengths ({sq}, {skv})")
+    dev, f32 = q.device, torch.float32
+    outs = []
+    for q0 in range(0, sq, qc):
+        qblk = q[:, q0:q0 + qc].to(f32) * scale
+        q_pos = q_start + q0 + torch.arange(qc, device=dev)
+        m = torch.full((b, nkv, g, qc), NEG_INF, dtype=f32, device=dev)
+        l = torch.zeros((b, nkv, g, qc), dtype=f32, device=dev)
+        acc = torch.zeros((b, nkv, g, qc, hd), dtype=f32, device=dev)
+        for k0 in range(0, skv, kc):
+            s = torch.einsum("bqngh,bknh->bngqk", qblk,
+                             k[:, k0:k0 + kc].to(f32))
+            mask = _mask_block(q_pos, k0 + torch.arange(kc, device=dev),
+                               mode, window, prefix_len, kv_len)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bngqk,bknh->bngqh", p, v[:, k0:k0 + kc].to(f32))
+            m = m_new
+        out = acc / l.clamp(min=1e-30)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def _local_attn(q, k, v, *, window: int, scale: float):
+    """Block-local sliding-window attention (S a multiple of ``window``):
+    each block of ``window`` queries attends its own kv block and the one
+    before it, all blocks in one batch, O(S * 2 window) work; block 0's
+    first half (no previous block) is masked."""
+    b, s, nkv, g, hd = q.shape
+    if s % window:
+        raise ValueError(f"sequence {s} is not a multiple of window "
+                         f"{window}")
+    nblk, w, dev = s // window, window, q.device
+    qb = q.reshape(b, nblk, w, nkv, g, hd).to(torch.float32) * scale
+    kb = k.reshape(b, nblk, w, nkv, hd).to(torch.float32)
+    vb = v.reshape(b, nblk, w, nkv, hd).to(torch.float32)
+    k2 = torch.cat([torch.cat([torch.zeros_like(kb[:, :1]), kb[:, :-1]], 1),
+                    kb], dim=2)                         # [B, nblk, 2w, KV, hd]
+    v2 = torch.cat([torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]], 1),
+                    vb], dim=2)
+    del kb, vb
+    s_ = torch.einsum("bnqkgh,bnmkh->bnkgqm", qb, k2)   # [B, nblk, KV, G, w, 2w]
+    qpos = torch.arange(w, device=dev)[:, None]
+    kpos = torch.arange(2 * w, device=dev)[None, :] - w
+    valid = (kpos <= qpos) & (qpos - kpos < w)
+    blk = torch.arange(nblk, device=dev)[:, None, None]
+    valid = valid[None] & ((blk > 0) | (kpos >= 0))    # [nblk, w, 2w]
+    p = _softmax_numerator(s_, valid[:, None, None])
+    den = p.sum(dim=-1).clamp(min=1e-30)[..., None].permute(0, 1, 4, 2, 3, 5)
+    out = torch.einsum("bnkgqm,bnmkh->bnqkgh", p, v2) / den
+    return out.reshape(b, s, nkv, g, hd).to(q.dtype)
 
 
 def _decode_attn(q, k_cache, v_cache, cache_pos, cur_pos, *, mode: str,
@@ -204,6 +287,7 @@ def attention_layer(params, sites: dict, x: torch.Tensor, *, n_heads: int,
                     positions: Optional[torch.Tensor] = None,
                     kv_len=None, cache: Optional[dict] = None,
                     policy: QuantPolicy, seed=0, step=0,
+                    q_chunk: int = 2048, kv_chunk: int = 1024,
                     dense_attn_max: int = 4096):
     """Self-attention layer; returns ``(y, stats, cache)``."""
     b, s, _ = x.shape
@@ -250,17 +334,16 @@ def attention_layer(params, sites: dict, x: torch.Tensor, *, n_heads: int,
                 prefix_len=prefix_len, kv_len=kv_len, scale=scale, step=step)
         elif mode == "sliding" and window is not None and s > window \
                 and s % window == 0:
-            raise NotImplementedError(
-                "the block-local sliding fp path (_local_attn, S > window) "
-                "is not ported yet")
+            out = _local_attn(q, k, v, window=window, scale=scale)
         elif max(s, k.shape[1]) <= dense_attn_max:
             out = _dense_attn(q, k, v, mode=mode, window=window,
                               prefix_len=prefix_len, kv_len=kv_len,
                               scale=scale)
         else:
-            raise NotImplementedError(
-                "the chunked fp attention path (_chunked_attn, S > "
-                f"{dense_attn_max}) is not ported yet")
+            out = _chunked_attn(q, k, v, mode=mode, window=window,
+                                prefix_len=prefix_len, kv_len=kv_len,
+                                q_start=0, q_chunk=q_chunk,
+                                kv_chunk=kv_chunk, scale=scale)
         if cache is not None:
             cache = cache_fill(cache, k, v)
 

@@ -7,6 +7,7 @@ dtype, like the reference; every weight-bearing matmul goes through
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -87,10 +88,43 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 # ---------------------------------------------------------------------------
 # Activations.
 # ---------------------------------------------------------------------------
+def _in_dtype(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to ``dtype``, as a Python float (exact in fp32)."""
+    return torch.tensor(v, dtype=torch.float64).to(dtype).item()
+
+
+class _Gelu(torch.autograd.Function):
+    """``jax.nn.gelu``'s tanh form, ``x * (0.5 * (1 + tanh(c * (x +
+    0.044715 * x**3))))``, step by step in ``x``'s dtype with its constants
+    rounded to that dtype as jnp's weak types are: bit-equal to the
+    reference's written ops in bf16 (``F.gelu`` rounds once and differs in
+    ~40% of bf16 elements), and in fp32 off only where XLA's ``tanh``
+    approximation is (a few ulps).  The backward is JAX's vjp of the same
+    form, op for op (``jax.make_jaxpr`` of ``jax.vjp(jax.nn.gelu, x)``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        c = _in_dtype(math.sqrt(2.0 / math.pi), x.dtype)
+        a = _in_dtype(0.044715, x.dtype)
+        inner = c * (x + a * (x * x * x))
+        return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        c = _in_dtype(math.sqrt(2.0 / math.pi), x.dtype)
+        a = _in_dtype(0.044715, x.dtype)
+        t = torch.tanh(c * (x + a * (x * x * x)))
+        cdf = 0.5 * (1.0 + t)
+        p = (0.5 * (x * g)) * (1.0 - t)
+        s = c * (p + p * t)
+        return (g * cdf + s) + (a * s) * (3.0 * (x * x))
+
+
 def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "gelu":
-        # jax.nn.gelu defaults to the tanh approximation.
-        return F.gelu(x, approximate="tanh")
+        return _Gelu.apply(x)
     if kind == "silu":
         # jax.nn.silu is x * logistic(x).  XLA computes a bf16 logistic as
         # 1 / (1 + exp(-x)) with every step rounded to bf16, an fp32 one

@@ -82,7 +82,8 @@ def _apply_block(kind: str, params, sites, x, *, cfg, policy, seed, step,
         n_kv=cfg.n_kv, head_dim=cfg.head_dim, mode=mode, window=window,
         rope_theta=cfg.rope_theta, positions=positions,
         cache=None if cache is None else cache["kv"], policy=policy,
-        seed=seed, step=step, dense_attn_max=cfg.dense_attn_max)
+        seed=seed, step=step, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+        dense_attn_max=cfg.dense_attn_max)
     x = x + a
     h = layers.apply_norm(x, params["ln2"], cfg.norm_kind)
     if kind == "moe":

@@ -80,6 +80,17 @@ def jit_as_written(fn, *args):
         "xla_backend_optimization_level": 0})(*args)
 
 
+def compile_as_written_bf16(fn, *args):
+    """``fn`` compiled for ``args``' shapes as ``jit_as_written`` compiles
+    it, with XLA's bf16 excess precision off as well: every bf16 op's
+    result is rounded to bf16, as the written ops (and the port) compute
+    them, not kept in fp32 across a fusion."""
+    return jax.jit(fn).lower(*args).compile(compiler_options={
+        "xla_disable_hlo_passes": "algsimp",
+        "xla_backend_optimization_level": 0,
+        "xla_allow_excess_precision": False})
+
+
 def _eq(a, b, what=""):
     np.testing.assert_array_equal(np.asarray(a), b.detach().numpy(),
                                   err_msg=what)

@@ -285,6 +285,51 @@ def _attn_id(c):
 
 @pytest.mark.parametrize("case", ATTN_CASES, ids=_attn_id)
 def test_attention_kernel_matches_plain(card, case):
+    _hold_attention(card, case)
+
+
+# Head dims above 128 (the wide kernel): nemotron-4-340b's hd 192 at its
+# head layout (G = 12), hd 256 at G = 8, with the zero points off, a
+# kv_len, the prefix mask, and bkv not a power of two (the flat tree).
+WIDE_CASES = [
+    ("causal", 256, 256, 12, 192, 0, 0, None, (128, 128)),
+    ("sliding", 300, 300, 8, 256, 100, 0, None, (64, 64)),
+    ("causal", 256, 256, 8, 256, 0, 0, 250, (128, 128),
+     (117.7, -0.1, 1.0, 23.0)),
+    ("prefix", 200, 200, 3, 160, 0, 70, None, (128, 64),
+     (125.5, 0.0, 1.0, 0.6)),
+    ("causal", 100, 100, 2, 192, 0, 0, 90, (128, 128),
+     (117.7, -0.1, 1.0, 23.0)),
+]
+
+
+@pytest.mark.parametrize("case", WIDE_CASES,
+                         ids=lambda c: f"{_attn_id(c)}-hd{c[4]}")
+def test_attention_kernel_wide_head_dims_match_plain(card, case):
+    _hold_attention(card, case)
+
+
+@pytest.mark.parametrize("hd, blocks, what", [
+    (272, (128, 128), "head_dim"), (200, (128, 128), "head_dim"),
+    (256, (100, 100), "shared memory")])
+def test_attention_kernel_refuses_what_it_cannot_take(card, hd, blocks,
+                                                      what):
+    """hd above 256 (or above 128 off the multiples of 16), and a wide
+    tile whose flat err/sig buffer does not fit the card, raise with a
+    message that names the limit."""
+    s = blocks[0]
+    sched = attn.make_schedule(sq=s, skv=s, hd=hd, bq=blocks[0],
+                               bkv=blocks[1], groups=1, mode="causal",
+                               sm_scale=hd ** -0.5)
+    q = torch.zeros((1, s, hd), dtype=torch.uint8, device=card)
+    k = torch.zeros((1, s, hd), dtype=torch.int8, device=card)
+    regs = torch.zeros(8, device=card)
+    kvl = torch.tensor([s], device=card, dtype=torch.int32)
+    with pytest.raises(ValueError, match=what):
+        attn.attention_cuda(q, k, k, regs, kvl, sched=sched)
+
+
+def _hold_attention(card, case):
     mode, sq, skv, groups, hd, window, prefix, kv_len, (bq, bkv) = case[:9]
     zp_q, p_lo, p_hi, zp_p = case[9] if len(case) > 9 else (131.0, 0.0, 1.0,
                                                              0.0)

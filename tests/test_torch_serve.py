@@ -14,11 +14,15 @@ min/max statistics are exact, but exp/tanh/cos/rsqrt and the norms'
 reductions differ by ulps between XLA and PyTorch, which can move an
 activation across a rounding boundary of its 8-bit grid (one level) — so
 values are compared at 1e-4 relative.  ``bfloat16`` (the default): the
-same ulp differences now flip the bf16 rounding of an activation (2**-8
-relative) and with it its 8-bit level, and such flips compound through
-the layers — so tensors are held to a relative L2 error of 3e-2 and an
-elementwise bound of 0.1 absolute + 5e-2 relative (logits have unit
-scale at init; one flipped level moves a logit by about 0.03).
+jitted reference keeps some fused bf16 intermediates in fp32 where its
+written ops round them (compiled without that excess precision it equals
+the port's prefill site for site, ``tests/test_torch_gelu.py``); such a
+difference flips the bf16 rounding
+of an activation (2**-8 relative) and with it its 8-bit level, and the
+flips compound through the layers — so tensors are held to a relative L2
+error of 2e-2 (observed <= 1.67e-2) and an elementwise bound of 0.1
+absolute + 5e-2 relative (logits have unit scale at init; one flipped
+level moves a logit by about 0.03).
 """
 import dataclasses
 
@@ -50,7 +54,7 @@ def _close(actual, desired, compute_dtype, what):
     np.testing.assert_allclose(actual, desired, rtol=5e-2, atol=0.1,
                                err_msg=what)
     err = np.linalg.norm(actual - desired)
-    assert err <= 3e-2 * max(np.linalg.norm(desired), 1e-6), what
+    assert err <= 2e-2 * max(np.linalg.norm(desired), 1e-6), what
 
 
 def _cfgs(compute_dtype, cache_dtype):

@@ -19,7 +19,10 @@ Tolerances, stated per test:
   * a guarded site driven through a distribution shift: ranges, counts,
     utilization, drift and streak bit-equal; err/sig rtol 1e-5;
   * two reduced-starcoder2 train steps (bf16 compute, the guard armed)
-    against the JAX simulated backend: the ranges as
+    against the JAX simulated backend, compiled as written with XLA's
+    bf16 excess precision off (``test_torch_conv.compile_as_written_bf16``:
+    every bf16 op rounded, as the port computes; plain ``jax.jit`` keeps
+    fused bf16 intermediates such as gelu's in fp32): the ranges as
     ``tests/test_torch_train.py`` holds them (activation 2e-2, gradient
     1e-1 relative); flags, T_N and streaks exact at every site and step;
     after the first step (uninitialized ranges clip nothing) T_CLIP exact
@@ -81,7 +84,7 @@ from repro_torch.telemetry import metrics as tmetrics
 from repro_torch.telemetry import report as treport
 from test_torch_cnn import _block_apply, _block_init  # noqa: F401
 from test_torch_cnn import ref_rsqrt_as_division  # noqa: F401
-from test_torch_conv import jit_as_written
+from test_torch_conv import compile_as_written_bf16, jit_as_written
 from test_torch_train import _jax_noise, _np, _torch_batch
 
 ARCH = "starcoder2-3b"
@@ -560,8 +563,10 @@ def tele_steps():
         jax.random.PRNGKey(0)))
     stream = jdata.for_arch(cfg_j, seq_len=SEQ, global_batch=BATCH, seed=0)
     batches = [_np(stream.batch(i)) for i in range(2)]
-    ts = jax.jit(jsteps.make_train_step(cfg_j, pj, opt, jsched.constant(LR)))
     state = jax.tree_util.tree_map(jnp.asarray, init)
+    ts = compile_as_written_bf16(
+        jsteps.make_train_step(cfg_j, pj, opt, jsched.constant(LR)), state,
+        batches[0])
     ref = []
     for b in batches:
         state, met = ts(state, b)
