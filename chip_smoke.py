@@ -12,8 +12,11 @@ batch 128; ResNet18 and VGG16 one step each), and the dense family past
 its window: starcoder2-7b at full size (4 x 1024 and 1 x 8192 prompts,
 fused, simulated and fp32), command-r-35b and nemotron-4-340b at full
 width, the long-sequence train step and the paper's grad_only /
-act_only policies.  Each kernel is checked against its plain PyTorch
-version at the shapes those paths give it.
+act_only policies, and the hybrid family: recurrentgemma-9b (RG-LRU
+blocks and local attention at hd 256, MQA) serving at full width and
+depth past its 2048 window, and its train step at full width.  Each
+kernel is checked against its plain PyTorch version at the shapes those
+paths give it.
 Phases, one line each:
 
   1. device        name, count, and nvidia-smi's name and power limit
@@ -112,13 +115,39 @@ Phases, one line each:
                    step each under QuantPolicy.grad_only / act_only
                    ("hindsight", fused), whose turned-off sites stay
                    uninitialized
+ 26. hybrid serve  recurrentgemma-9b at full width and depth (38 layers:
+                   26 RG-LRU blocks and 12 local-attention blocks at hd
+                   256, 16 q heads on 1 kv head; 9.40 B parameters):
+                   launch.serve.main fused at 4 x 1024, then
+                   serve.generate at 1 x 8192 (four windows: the int8
+                   core's sliding mask masks, each 2048-slot ring wraps,
+                   the recurrent state carries through decode), 32
+                   generated each, the launch counters zeroed just before
+                   and read just after each; one 1 x 8192 prefill and one
+                   decode step profiled (families, idle share, the scan's
+                   share)
+ 27. hybrid parity phase 26's 1 x 8192 run, fused vs simulated on the same
+                   parameters (prefill logits, the 32 greedy tokens);
+                   rglru_scan against a sequential fp32 loop on the first
+                   RG-LRU block's operands of that prefill [1, 8192,
+                   4096]; prefill-then-decode consistency at full width,
+                   depth cut to 3 layers, under QuantPolicy.disabled()
+ 28. hybrid train  launch.train.main on recurrentgemma-9b at full width,
+                   depth cut to 3 layers (one rec, rec, local unit), fused
+                   hindsight W8A8G8 at 2 x 4096 (past the window), AdamW,
+                   3 steps, the launch counters zeroed just before and
+                   read just after; one more step profiled
 
 Phase 3 also holds ``int8_conv_fp`` (the conv site, im2col onto the int8
 matmul kernel) against its plain version at four MobileNetV2-tiny layer
 shapes, ``int8_matmul_fp`` at the MoE experts' shapes ``[B 60, M 552, K,
 N]`` and decode's ``[60, 4, 2048, 1408]``, and the attention core at
 qwen2-moe's G = 1 prefill shape and above hd 128: nemotron-4-340b's
-``[96, 1024, 192]`` (G = 12) and hd 256 at G = 8.  The line before the last is the
+``[96, 1024, 192]`` (G = 12) and hd 256 at G = 8, and the hybrid's
+shapes: the attention core at ``[64, 1024, 256]`` and ``[16, 8192, 256]``
+(G = 16, sliding at window 2048) and ``int8_matmul_fp`` at the RG-LRU's
+4096 x 4096 x 4096 and the GeGLU's 4096 x 4096 x 12288.  The line before
+the last is the
 kernels' JSON record; the last line is ``{"ok": true, "device":
 {...}}``.  Any failure raises (exit code != 0)
 and prints no result; so does a machine without a CUDA card.
@@ -128,8 +157,9 @@ and prints no result; so does a machine without a CUDA card.
 ``--phases`` runs only the named phases (a list of numbers and ranges,
 e.g. ``1-3`` to build and check the kernels without serve and train);
 phase 1 always runs, 5-6 bring 4 along, whose serve run they reuse, 18
-brings 17, and 21-22 bring 20.  Kernels whose path phases did not run
-report ``"launches": null``.  The default is all 25; phases 12-16 write
+brings 17, 21-22 bring 20 and 27 brings 26.  Kernels whose path phases
+did not run report ``"launches": null``.  The default is all 28; phases
+12-16 write
 their logs and checkpoints
 under ``build/chip_smoke/`` and remove the checkpoints when done.
 """
@@ -188,7 +218,13 @@ MOE_ARCH, MOE_TRAIN_LAYERS, MOE_PARITY_LAYERS = "qwen2-moe-a2.7b", 2, 1
 LONG_ARCH, LONG_SEQ, LONG_TRAIN_LAYERS = "starcoder2-7b", 8192, 2
 CMDR_ARCH, CMDR_LAYERS = "command-r-35b", 8
 NEMO_ARCH, NEMO_GEN = "nemotron-4-340b", 4
-N_PHASES = 25
+# The hybrid family: recurrentgemma-9b served at full depth (9.40 B
+# parameters fit one card); its train step at full width, depth cut to
+# one (rec, rec, local) unit (~27 GB with its AdamW state), past the window.
+HYB_ARCH, HYB_CUT, HYB_TRAIN_BATCH, HYB_TRAIN_SEQ = \
+    "recurrentgemma-9b", 3, 2, 4096
+SCAN_RANGE = "rglru_scan"
+N_PHASES = 28
 # Where phases 12-16 write their JSONL logs and checkpoints (git-ignored).
 OUT_DIR = ROOT / "build" / "chip_smoke"
 
@@ -421,31 +457,11 @@ def check_int8_matmul(dev, gen, cfg):
                    f"M={BATCH}, the LM-head chunk M={BATCH * cfg.loss_chunk}"
                    f" N={cfg.vocab} and x_zp 117.3")
     zp = torch.tensor(117.0, device=dev)
-    # Timed at the MLP up projection [4096, 3072] x [3072, 12288]: the
-    # wrapper (the weight's K-major transpose, then the matmul), and the
-    # matmul alone on staged operands.
+    # Timed at the MLP up projection [4096, 3072] x [3072, 12288]
     m, k, n = BATCH * PROMPT, d, f
-    x = torch.randint(0, 256, (1, m, k), generator=gen, device=dev,
-                      dtype=torch.uint8)
+    up = check_matmul_shape(dev, gen, "up", m, k, n)
     w = torch.randint(-127, 128, (1, k, n), generator=gen, device=dev,
                       dtype=torch.int8)
-    ms = time_ms(lambda: mm.int8_matmul_fp_cuda(x, w, zp, alpha), 10)
-    xk, wk = mm.stage_operands(x, w)
-    kernel_ms = time_ms(lambda: mm.int8_matmul_fp_cuda_staged(
-        xk, wk, zp, alpha), 10)
-    plain_ms = time_ms(lambda: mm.int8_matmul_fp_plain(x, w, zp, alpha), 3)
-    xs = (x[0].to(torch.int16) - 128).to(torch.int8)
-    try:   # yardstick only: one library call, the int8 GEMM alone
-        lib_ms = time_ms(lambda: torch._int_mm(xs, w[0]), 10)
-    except RuntimeError as e:
-        log("kernels", f"torch._int_mm yardstick unavailable: {e}")
-        lib_ms = None
-    b_ms, b_by = bound(m * k + k * n + 4 * m * n, 2 * m * n * k, INT8_OPS)
-    log("kernels", f"int8_matmul_fp at up [{m}, {k}, {n}]: {ms:.4f} ms with "
-                   f"the weight's transpose, {kernel_ms:.4f} ms on staged "
-                   f"operands (bound {b_ms:.4f}, {b_by}); torch._int_mm "
-                   f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'} ms")
-    del xk, wk
     # Decode: the up projection at M = 4 (bound by the weight's bytes).
     xd = torch.randint(0, 256, (1, BATCH, k), generator=gen, device=dev,
                        dtype=torch.uint8)
@@ -478,13 +494,55 @@ def check_int8_matmul(dev, gen, cfg):
     return dict(name="int8_matmul_fp", route="cuda",
                 source="src/repro_torch/csrc/int8_matmul.cu",
                 replaces="src/repro/kernels/int8_matmul.py:139",
-                shape=[m, k, n], max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                kernel_ms=kernel_ms, decode_ms=decode_ms,
+                **dict(up, max_abs_err=worst), decode_ms=decode_ms,
                 decode_device_ms=decode_device_ms,
                 decode_kernel_ms=decode_kernel_ms,
                 decode_bound_ms=decode_bound, head_ms=head_ms,
                 head_bound_ms=head_bound)
+
+
+def check_matmul_shape(dev, gen, what, m, k, n) -> dict:
+    """``int8_matmul_fp`` at one ``[1, M, K] x [1, K, N]`` shape: bit-exact
+    against its plain version (x_zp 117), then timed with the weight's
+    transpose and on staged operands beside its bound, its plain version
+    and ``torch._int_mm`` (the int8 product alone)."""
+    from repro_torch.kernels import int8_matmul as mm
+
+    zp = torch.tensor(117.0, device=dev)
+    alpha = torch.tensor(2.3e-5, device=dev)
+    x = torch.randint(0, 256, (1, m, k), generator=gen, device=dev,
+                      dtype=torch.uint8)
+    w = torch.randint(-127, 128, (1, k, n), generator=gen, device=dev,
+                      dtype=torch.int8)
+    yk, mnk, mxk = mm.int8_matmul_fp_cuda(x, w, zp, alpha)
+    yr, mnr, mxr = mm.int8_matmul_fp_plain(x, w, zp, alpha)
+    torch.cuda.synchronize()
+    if not (torch.equal(yk, yr) and torch.equal(mnk, mnr)
+            and torch.equal(mxk, mxr)):
+        raise AssertionError(f"int8_matmul_fp {what} [{m}, {k}, {n}]: max "
+                             f"|dy| {(yk - yr).abs().max().item()}")
+    del yk, yr
+    ms = time_ms(lambda: mm.int8_matmul_fp_cuda(x, w, zp, alpha), 10)
+    xk, wk = mm.stage_operands(x, w)
+    kernel_ms = time_ms(lambda: mm.int8_matmul_fp_cuda_staged(
+        xk, wk, zp, alpha), 10)
+    del xk, wk
+    plain_ms = time_ms(lambda: mm.int8_matmul_fp_plain(x, w, zp, alpha), 3)
+    xs = (x[0].to(torch.int16) - 128).to(torch.int8)
+    try:   # yardstick only: one library call, the int8 GEMM alone
+        lib_ms = time_ms(lambda: torch._int_mm(xs, w[0]), 10)
+    except RuntimeError as e:
+        log("kernels", f"torch._int_mm yardstick unavailable: {e}")
+        lib_ms = None
+    b_ms, b_by = bound(m * k + k * n + 4 * m * n, 2 * m * n * k, INT8_OPS)
+    log("kernels", f"int8_matmul_fp at {what} [{m}, {k}, {n}]: bit-exact; "
+                   f"{ms:.4f} ms with the weight's transpose, "
+                   f"{kernel_ms:.4f} ms staged (bound {b_ms:.4f} ms, "
+                   f"{b_by}), plain {plain_ms:.4f} ms, torch._int_mm "
+                   + ("n/a" if lib_ms is None else f"{lib_ms:.4f}") + " ms")
+    return dict(shape=[m, k, n], max_abs_err=0.0, ms=ms, kernel_ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
 
 
 def check_moe_matmul(dev, gen, mcfg) -> dict:
@@ -761,22 +819,24 @@ def check_int8_matmul_fused(dev, gen, cfg):
                 **{f"cnn_{k_}": v for k_, v in cnn.items()})
 
 
-def check_attention(dev, gen, cfg, batch=BATCH):
+def check_attention(dev, gen, cfg, batch=BATCH, seq=PROMPT, window=None):
     """The attention kernel at ``cfg``'s prefill head layout, ``batch`` x
-    ``PROMPT`` tokens."""
+    ``seq`` tokens, under a sliding mask of ``window`` (default: the
+    config's ``sliding_window``) or causal."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import int8_attention as attn
     from repro_torch.kernels import int8_matmul as mm
     from repro_torch.kernels import tuning
 
-    s, hd, nh, nkv = PROMPT, cfg.head_dim, cfg.n_heads, cfg.n_kv
+    s, hd, nh, nkv = seq, cfg.head_dim, cfg.n_heads, cfg.n_kv
     g = nh // nkv
     bh, zb = batch * nh, batch * nkv
     bq, bkv = tuning.attention_block(s, s, hd)
-    mode = "causal" if cfg.sliding_window is None else "sliding"
+    window = window or cfg.sliding_window
+    mode = "causal" if window is None else "sliding"
     sched = attn.make_schedule(sq=s, skv=s, hd=hd, bq=bq, bkv=bkv, groups=g,
-                               mode=mode, window=cfg.sliding_window or 0,
+                               mode=mode, window=window or 0,
                                sm_scale=hd ** -0.5)
     q = torch.randint(0, 256, (bh, s, hd), generator=gen, device=dev,
                       dtype=torch.uint8)
@@ -806,7 +866,8 @@ def check_attention(dev, gen, cfg, batch=BATCH):
         torch.testing.assert_close(psk[..., 4:], psr[..., 4:], rtol=1e-4,
                                    atol=1e-6)
         log("kernels", f"attention {cfg.name} ({what}) {tuple(q.shape)} x "
-                       f"{tuple(k.shape)} G={g} (bq, bkv)=({bq}, {bkv}) "
+                       f"{tuple(k.shape)} G={g} {mode} (window {window}) "
+                       f"(bq, bkv)=({bq}, {bkv}) "
                        f"width={sched.width}: m, min/max/clip/n exact; out "
                        f"max |d| {err:.3e} ({same:.6f} of elements "
                        f"identical), l and err/sig within 1e-4")
@@ -839,14 +900,24 @@ def check_attention(dev, gen, cfg, batch=BATCH):
                      dtype=torch.bfloat16)
     vb = torch.randn((batch, nkv, s, hd), generator=gen, device=dev,
                      dtype=torch.bfloat16)
-    try:   # yardstick only: bf16 causal SDPA (with GQA where G > 1)
+    # yardstick only: bf16 SDPA (with GQA where G > 1), causal, or under
+    # an explicit boolean sliding mask where the window masks
+    mask = None
+    if mode == "sliding" and window < s:
+        pos = torch.arange(s, device=dev)
+        mask = (pos[None, :] <= pos[:, None]) & \
+            (pos[:, None] - pos[None, :] < window)
+    try:
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qb, kb, vb, is_causal=True, enable_gqa=g > 1), 10)
+            qb, kb, vb, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=g > 1), 10)
     except (RuntimeError, TypeError) as e:
         log("kernels", f"scaled_dot_product_attention yardstick "
                        f"unavailable: {e}")
         lib_ms = None
-    pairs = bh * s * (s + 1) // 2         # unmasked (q, k) pairs: causal
+    # unmasked (q, k) pairs: causal, or at most ``window`` keys a query
+    w = s if window is None else window
+    pairs = bh * sum(min(i + 1, w) for i in range(s))
     nbytes = q.numel() + k.numel() + v.numel() + 4 * (ok.numel()
                                                       + mlk.numel()
                                                       + psk.numel())
@@ -855,7 +926,8 @@ def check_attention(dev, gen, cfg, batch=BATCH):
                 source="src/repro_torch/csrc/int8_attention.cu",
                 replaces="src/repro/kernels/int8_attention.py:367",
                 shape=[bh, s, hd], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                groups=g, mode=mode, window=window, block=[bq, bkv])
 
 
 def conv_plain(x, w, x_zp, alpha, plan):
@@ -1122,17 +1194,18 @@ def profile_device(run_once, tag: str, ranges=()) -> dict:
                 idle_share=None if ranges else 1 - busy_ms / wall_ms)
 
 
-def profile_step(run, tag: str = "train-profile", ranges=()) -> dict:
-    """One more training step of ``run``'s state under torch.profiler
-    (CUDA activity only, to keep the host overhead low, unless ``ranges``
-    are asked for)."""
+def profile_step(run, tag: str = "train-profile", ranges=(), batch=BATCH,
+                 seq=PROMPT) -> dict:
+    """One more training step of ``run``'s state at ``batch`` x ``seq``
+    under torch.profiler (CUDA activity only, to keep the host overhead
+    low, unless ``ranges`` are asked for)."""
     from repro_torch import data
     from repro_torch.optim import adamw
     from repro_torch.optim.schedules import constant
     from repro_torch.runtime import steps
 
     step = steps.make_train_step(run.cfg, run.policy, adamw(), constant(1e-4))
-    stream = data.for_arch(run.cfg, seq_len=PROMPT, global_batch=BATCH)
+    stream = data.for_arch(run.cfg, seq_len=seq, global_batch=batch)
     batch = {k: v.to("cuda") for k, v in stream.batch(TRAIN_STEPS).items()}
 
     def once():
@@ -2155,22 +2228,25 @@ def moe_serve_phase(mcfg, records, results):
                                 peak_gib=peak, launches=counts,
                                 params_b=n_params / 1e9,
                                 expert_shapes=sorted(spy.shapes),
-                                **moe_serve_profiles(run))
+                                **serve_profiles(run, "moe"))
     for r in records:
         r["moe_serve_launches"] = counts[r["name"]]
     return run, spy.layer0
 
 
-def moe_serve_profiles(run) -> dict:
-    """One more prefill and one decode step of phase 17's state under the
-    profiler (kernels only): device time by family and the idle share."""
+def serve_profiles(run, tag: str, prefill_ranges=()) -> dict:
+    """One more prefill and one decode step of a serve run's state under
+    the profiler (kernels only): device time by family and the idle share;
+    with ``prefill_ranges``, the prefill once more with host ranges (the
+    device time inside them)."""
     from repro_torch.models import model
 
     args = (run.params, run.quant_state)
+    b, s = run.prompt.shape
     logits, caches = model.prefill(*args, {"tokens": run.prompt}, run.cfg,
-                                   run.policy, cache_len=PROMPT + 1)
+                                   run.policy, cache_len=s + 1)
     tok = torch.argmax(logits, dim=-1)[:, None]
-    pos = torch.full((BATCH,), PROMPT, dtype=torch.int64, device=tok.device)
+    pos = torch.full((b,), s, dtype=torch.int64, device=tok.device)
 
     def prefill_once():
         out, _ = model.prefill(*args, {"tokens": run.prompt}, run.cfg,
@@ -2182,9 +2258,12 @@ def moe_serve_profiles(run) -> dict:
                                    run.policy)
         float(out[0, 0])
     out = dict(profile_prefill=profile_device(prefill_once,
-                                              "moe-prefill-profile"),
+                                              f"{tag}-prefill-profile"),
                profile_decode=profile_device(decode_once,
-                                             "moe-decode-profile"))
+                                             f"{tag}-decode-profile"))
+    if prefill_ranges:
+        out["ranges_prefill"] = profile_device(
+            prefill_once, f"{tag}-prefill-profile", prefill_ranges)["ranges"]
     del caches
     return out
 
@@ -2462,6 +2541,14 @@ def sc7_parity_phase(long, dev, results) -> None:
     """Phase 21: phase 20's 1 x 8192 fused run against the simulated
     backend on the same parameters and prompt: prefill logits under phase
     6's tolerance, and the 32 greedy tokens."""
+    results["sc7_parity"] = long_parity(long, dev, "sc7-parity")
+
+
+def long_parity(long, dev, tag: str) -> dict:
+    """A fused 1 x ``LONG_SEQ`` serve run against the simulated backend on
+    the same parameters and prompt: prefill logits under phase 6's
+    tolerance (rel L2 <= 1e-2, max |d| <= 0.1), and the 32 greedy tokens
+    (identical, or the first difference a near-tie)."""
     from repro_torch.models import model
 
     sim = long.policy.with_backend("simulated")
@@ -2476,16 +2563,16 @@ def sc7_parity_phase(long, dev, results) -> None:
         raise AssertionError(f"fused vs simulated at S {LONG_SEQ}: rel L2 "
                              f"{rel:.3e}, max |d| {d_max:.3e}")
     tok = _tokens_agree(long, run_s, long.cfg, dev)
-    log("sc7-parity", f"S={LONG_SEQ} prefill logits fused vs simulated: rel "
-                      f"L2 {rel:.3e}, max |d| {d_max:.3e} (tolerance: rel L2 "
-                      f"<= 1e-2, max |d| <= 0.1); {GEN} greedy tokens: "
-                      + ("identical" if tok["identical"] else
-                         f"first differ at step {tok['first_diff']}, a "
-                         f"near-tie (top-2 margin {tok['margin']:.3e}, "
-                         f"max |d| {tok['max_abs']:.3e})")
-                      + f"; simulated prefill {run_s.prefill_ms:.1f} ms")
-    results["sc7_parity"] = dict(rel_l2=rel, max_abs=d_max, tokens=tok,
-                                 simulated_prefill_ms=run_s.prefill_ms)
+    log(tag, f"S={LONG_SEQ} prefill logits fused vs simulated: rel L2 "
+             f"{rel:.3e}, max |d| {d_max:.3e} (tolerance: rel L2 <= 1e-2, "
+             f"max |d| <= 0.1); {GEN} greedy tokens: "
+             + ("identical" if tok["identical"] else
+                f"first differ at step {tok['first_diff']}, a near-tie "
+                f"(top-2 margin {tok['margin']:.3e}, max |d| "
+                f"{tok['max_abs']:.3e})")
+             + f"; simulated prefill {run_s.prefill_ms:.1f} ms")
+    return dict(rel_l2=rel, max_abs=d_max, tokens=tok,
+                simulated_prefill_ms=run_s.prefill_ms)
 
 
 def _hold_fp_path(spy, name: str, tag: str) -> dict:
@@ -2721,6 +2808,257 @@ def long_train_phase(dev, records, results) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phases 26-28: the hybrid family (recurrentgemma-9b).
+# ---------------------------------------------------------------------------
+class _ScanSpy:
+    """Wraps ``rglru.rglru_scan`` in a ``record_function`` range (the
+    profiler's scan share) and counts its calls; with ``keep``, the first
+    call's operands are kept (layer 0 of a prefill)."""
+
+    def __init__(self, keep: bool = False):
+        from repro_torch.models import rglru
+        self.mod, self.real, self.keep = rglru, rglru.rglru_scan, keep
+        self.first = None
+        self.calls = 0
+
+    def __enter__(self):
+        def wrapped(a, b, h0=None):
+            self.calls += 1
+            if self.keep and self.first is None:
+                self.first = tuple(None if t is None else t.detach().clone()
+                                   for t in (a, b, h0))
+            with torch.profiler.record_function(SCAN_RANGE):
+                return self.real(a, b, h0)
+        self.mod.rglru_scan = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.rglru_scan = self.real
+
+
+def _scan_share(prof: dict, ranges: dict, tag: str, what: str) -> float:
+    share = ranges[SCAN_RANGE] / prof["busy_ms"]
+    log(tag, f"{what}: rglru_scan {ranges[SCAN_RANGE]:.1f} ms of "
+             f"{prof['busy_ms']:.1f} ms device time ({100 * share:.1f}%)")
+    return share
+
+
+def hyb_serve_phase(dev, records, results):
+    """Phase 26: recurrentgemma-9b at full width and depth (38 layers, 9.40
+    B parameters, 37.6 GB fp32; cut: none), fused hindsight:
+    ``launch.serve.main`` at 4 x 1024 and ``serve.generate`` at 1 x 8192
+    (four windows: the int8 core's sliding mask masks, each 2048-slot
+    local ring wraps, the recurrent state carries through decode), 32
+    generated each, launch counters zeroed just before each and read just
+    after; one prefill and one decode step of the long run profiled.
+    Returns the long run and the first RG-LRU block's scan operands of its prefill
+    (phase 27 uses both)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+
+    argv = ["--arch", HYB_ARCH, "--batch", str(BATCH), "--prompt-len",
+            str(PROMPT), "--gen", str(GEN)]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    run = serve.main(argv)
+    torch.cuda.synchronize()
+    cfg, policy = run.cfg, run.policy
+    n_rec = sum(k == "rec" for k in (cfg.pattern * cfg.n_layers)
+                [:cfg.n_layers])
+    out = {"short": _serve_record(
+        "hyb-serve", f"{cfg.name} {cfg.n_layers} layers fused", run,
+        ops.launch_counts(), torch.cuda.max_memory_allocated() / 2 ** 30)}
+    out["params_b"] = sum(p.numel() for p in run.params.parameters()) / 1e9
+    params = run.params
+    del run
+    torch.cuda.empty_cache()
+    prompt = _prompt(cfg, 1, LONG_SEQ, dev)
+    quant = model.init_quant_state(cfg, device=dev)
+    with _ScanSpy(keep=True) as spy:
+        long, counts, peak = _generate(params, quant, prompt, cfg, policy)
+    out["long"] = _serve_record("hyb-serve", f"{cfg.name} fused, four "
+                                f"windows", long, counts, peak)
+    # one scan per rec block in the prefill; decode's s == 1 branch has none
+    if spy.calls != n_rec:
+        raise AssertionError(f"rglru_scan ran {spy.calls} times in the "
+                             f"prefill, expected {n_rec}")
+    for r in records:
+        r["hyb_serve_launches"] = counts[r["name"]]
+    with _ScanSpy():       # (decode's s == 1 branch runs no scan)
+        out["long"].update(serve_profiles(long, "hyb-long",
+                                          prefill_ranges=(SCAN_RANGE,)))
+    out["long"]["scan_share_prefill"] = _scan_share(
+        out["long"]["profile_prefill"], out["long"]["ranges_prefill"],
+        "hyb-long", "prefill")
+    log("hyb-serve", f"{out['params_b']:.3f} B parameters; {n_rec} RG-LRU "
+                     f"blocks, {cfg.n_layers - n_rec} local blocks on "
+                     f"{cfg.local_window}-slot rings, {LONG_SEQ + GEN - 1} "
+                     f"positions written")
+    results["hyb_serve"] = out
+    return long, spy.first
+
+
+def hyb_parity_phase(scan_ops, dev, out: dict) -> None:
+    """Phase 27, after (a) phase 26's 1 x 8192 fused run against the
+    simulated backend on the same parameters (phase 21's check,
+    ``long_parity``): (b) ``rglru_scan``
+    against a sequential fp32 loop on the first RG-LRU block's operands
+    of that prefill, ``[1, 8192, 4096]`` (the reference's
+    ``test_rglru_scan_matches_loop`` at full width); (c) prefill-then-
+    decode consistency at full width, depth cut to one unit, under
+    ``QuantPolicy.disabled()``: decode past the local ring's wrap, each
+    step's logits against a prefill of the extended prompt within the
+    reference's rtol 2e-2, atol 2e-3, in fp32 compute.  (In bf16 compute
+    the two paths round differently; at full width that moves logits
+    past the tolerance the reference chose at its reduced width, in the
+    reference as in the port, so the bf16 run is measured, not held.)"""
+    from repro_torch import configs
+    from repro_torch.models import model, rglru
+
+    # (b) Tolerance: |h_scan - h_loop| <= 1e-5 max |h| + 1e-6 per element
+    # (the tree and the loop round in other orders; each rounding decays
+    # with a < 1).
+    a, b, h0 = scan_ops
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hs = rglru.rglru_scan(a, b, h0)
+        torch.cuda.synchronize()
+        scan_ms = (time.perf_counter() - t0) * 1e3
+        h = torch.zeros_like(b[:, 0]) if h0 is None else h0.clone()
+        loop = torch.empty_like(b)
+        for t in range(b.shape[1]):
+            h = a[:, t] * h + b[:, t]
+            loop[:, t] = h
+        torch.cuda.synchronize()
+    err = (hs - loop).abs().max().item()
+    hmax = loop.abs().max().item()
+    if not err <= 1e-5 * hmax + 1e-6:
+        raise AssertionError(f"rglru_scan vs loop at {tuple(a.shape)}: max "
+                             f"|d| {err:.3e}, max |h| {hmax:.3e}")
+    log("hyb-parity", f"rglru_scan vs a sequential fp32 loop on layer 0's "
+                      f"operands {tuple(a.shape)}: max |d| {err:.3e} "
+                      f"(max |h| {hmax:.3e}; tolerance 1e-5 max |h| + "
+                      f"1e-6); the scan {scan_ms:.2f} ms")
+    out["scan_vs_loop"] = dict(shape=list(a.shape), max_abs=err,
+                               max_h=hmax, scan_ms=scan_ms)
+    del a, b, h0, hs, loop, scan_ops
+    torch.cuda.empty_cache()
+
+    # (c) one (rec, rec, local) unit at full width
+    cut = _register_cut(configs.get(HYB_ARCH), HYB_CUT)
+    params = model.init_params(cut, seed=0, device=dev)
+    s = cut.local_window + 32
+    out["decode_consistency"] = {}
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cut, compute_dtype=dtype, cache_dtype=dtype)
+        worst, outside = _decode_consistency(params, c, s, dev)
+        held = dtype == "float32"
+        if held and outside:
+            raise AssertionError(f"decode vs prefill in {dtype}: max |d| "
+                                 f"{worst:.3e}, {outside:.4f} of the logits "
+                                 f"outside rtol 2e-2, atol 2e-3")
+        log("hyb-parity", f"{cut.name} (full width, QuantPolicy.disabled()"
+                          f", {dtype} compute): 4 decode steps after a "
+                          f"{s}-token prefill (the {cut.local_window}-slot "
+                          f"ring wrapped) against prefills of the extended "
+                          f"prompt: max |d| {worst:.3e}, {outside:.4f} of "
+                          f"the logits outside rtol 2e-2, atol 2e-3"
+                          + (" (held)" if held else " (measured)"))
+        out["decode_consistency"][dtype] = dict(
+            prompt=s, steps=4, max_abs=worst, outside=outside)
+
+
+def _decode_consistency(params, cfg, s: int, dev, steps: int = 4):
+    """Decode ``steps`` tokens after an ``s``-token prefill; after each,
+    the logits against a prefill of the extended prompt.  Returns the
+    largest |d| and the largest share of logits outside rtol 2e-2, atol
+    2e-3."""
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.models import model
+
+    policy = QuantPolicy.disabled()
+    quant = model.init_quant_state(cfg, device=dev)
+    tokens = _prompt(cfg, 1, s, dev)
+    worst = outside = 0.0
+    with torch.no_grad():
+        logits, cache = model.prefill(params, quant, {"tokens": tokens}, cfg,
+                                      policy, cache_len=s + steps)
+        for i in range(steps):
+            tok = torch.argmax(logits, dim=-1)[:, None]
+            logits, cache = model.decode_step(
+                params, quant, tok, torch.full((1,), s + i, device=dev),
+                cache, cfg, policy)
+            tokens = torch.cat([tokens, tok], dim=1)
+            again, _ = model.prefill(params, quant, {"tokens": tokens}, cfg,
+                                     policy, cache_len=s + steps)
+            d = (logits - again).abs()
+            worst = max(worst, d.max().item())
+            outside = max(outside, (d > 2e-3 + 2e-2 * again.abs()).float()
+                          .mean().item())
+    return worst, outside
+
+
+def hyb_train_phase(dev, records, results) -> None:
+    """Phase 28: ``launch.train.main`` on recurrentgemma-9b at full width,
+    depth cut to ``HYB_CUT`` layers (one rec, rec, local unit, 1.70 B
+    parameters; AdamW at 38 layers needs ~150 GB), fused hindsight W8A8G8
+    at ``HYB_TRAIN_BATCH`` x ``HYB_TRAIN_SEQ`` (past the 2048 window),
+    AdamW, ``TRAIN_STEPS`` steps, the launch counters zeroed just before
+    and read just after; one more step profiled (families and idle share,
+    then with host ranges: the scan's share)."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    cut = _register_cut(configs.get(HYB_ARCH), HYB_CUT)
+    bsz, seq = HYB_TRAIN_BATCH, HYB_TRAIN_SEQ
+    argv = ["--arch", cut.name, "--batch", str(bsz), "--seq", str(seq),
+            "--steps", str(TRAIN_STEPS), "--log-every", "1"]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    run = train.main(argv)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(counts[k] > 0 for k in TRAIN_KERNELS):
+        raise AssertionError(f"a kernel of the hybrid train path never "
+                             f"launched: {counts}")
+    if len(run.losses) != TRAIN_STEPS or not all(
+            math.isfinite(v) for v in run.losses):
+        raise AssertionError(f"hybrid train losses {run.losses}")
+    n_params = sum(p.numel() for p in run.state["params"].parameters())
+    steady = run.step_ms[1:]
+    step_ms = sum(steady) / len(steady)
+    tok_s = bsz * seq / (step_ms / 1e3)
+    per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+    log("hyb-train", f"{cut.name}: {cut.n_layers} layers d={cut.d_model}, "
+                     f"{n_params / 1e9:.3f} B parameters, B={bsz} S={seq}, "
+                     f"AdamW, remat: losses "
+                     f"{[round(v, 4) for v in run.losses]}; step 0 "
+                     f"{run.step_ms[0]:.1f} ms, steps 1-{TRAIN_STEPS - 1} "
+                     f"{[round(v, 1) for v in steady]} ms, {tok_s:.1f} "
+                     f"tokens/s; peak {peak:.2f} GiB; launches per step "
+                     f"{per_step}")
+    with _ScanSpy():
+        prof = profile_step(run, "hyb-train-profile", batch=bsz, seq=seq)
+        ranges = profile_step(run, "hyb-train-profile", ranges=(SCAN_RANGE,),
+                              batch=bsz, seq=seq)["ranges"]
+    out = dict(losses=run.losses, step_ms=run.step_ms, steady_step_ms=step_ms,
+               tokens_per_s=tok_s, peak_gib=peak, launches=counts,
+               launches_per_step=per_step, params_b=n_params / 1e9,
+               profile=prof, ranges=ranges,
+               scan_share=_scan_share(
+                   prof, ranges, "hyb-train-profile",
+                   "forward and remat recompute (its backward runs outside "
+                   "the range)"))
+    for r in records:
+        r["hyb_train_launches_per_step"] = per_step[r["name"]]
+    results["hyb_train"] = out
+
+
+# ---------------------------------------------------------------------------
 # Phases 4-6: the serving path.
 # ---------------------------------------------------------------------------
 def serve_phases(cfg, dev, records, results, run_phase) -> None:
@@ -2828,7 +3166,7 @@ def parity_phase(run, policy, dev, results) -> None:
 # ---------------------------------------------------------------------------
 def parse_phases(spec: str) -> set:
     """``"1-3,9"`` -> ``{1, 2, 3, 9}``; phase 1 always, 4 with 5 or 6, 17
-    with 18, 20 with 21 or 22."""
+    with 18, 20 with 21 or 22, 26 with 27."""
     phases = {1}
     for part in spec.split(","):
         lo, _, hi = part.strip().partition("-")
@@ -2842,6 +3180,8 @@ def parse_phases(spec: str) -> set:
         phases.add(17)
     if phases & {21, 22}:
         phases.add(20)
+    if 27 in phases:
+        phases.add(26)
     return phases
 
 
@@ -2932,13 +3272,22 @@ def main(argv=None) -> int:
         moe_attn = check_attention(dev, gen, mcfg)
         by_name["int8_attention"]["moe"] = {k: moe_attn[k] for k in keys}
         # head dims above 128: nemotron-4-340b's prefill layout (hd 192,
-        # G = 12, batch 1) and hd 256 at G = 8
-        ncfg = configs.get(NEMO_ARCH)
-        for tag, c in (("hd192", ncfg),
-                       ("hd256", dataclasses.replace(
-                           ncfg, name="hd256-g8", n_heads=64, head_dim=256))):
-            wide = check_attention(dev, gen, c, batch=1)
-            by_name["int8_attention"][tag] = {k: wide[k] for k in keys}
+        # G = 12, batch 1) and hd 256 at G = 8; the hybrid's MQA (G = 16)
+        # at hd 256 under its local window, at 4 x 1024 (nothing masked
+        # beyond causal) and 1 x 8192 (~17 kv blocks a q block)
+        ncfg, hcfg = configs.get(NEMO_ARCH), configs.get(HYB_ARCH)
+        hw = hcfg.local_window
+        for tag, c, b, sq, win in (
+                ("hd192", ncfg, 1, PROMPT, None),
+                ("hd256", dataclasses.replace(
+                    ncfg, name="hd256-g8", n_heads=64, head_dim=256), 1,
+                 PROMPT, None),
+                ("hyb1024", hcfg, BATCH, PROMPT, hw),
+                ("hyb8192", hcfg, 1, LONG_SEQ, hw)):
+            wide = check_attention(dev, gen, c, batch=b, seq=sq, window=win)
+            by_name["int8_attention"][tag] = {
+                k: wide[k] for k in keys + ("groups", "mode", "window",
+                                            "block")}
             lib = wide["library_ms"]
             log("kernels", f"int8_attention {tag} {wide['shape']}: "
                            f"{wide['ms']:.4f} ms, bound "
@@ -2946,6 +3295,15 @@ def main(argv=None) -> int:
                            f"plain {wide['plain_ms']:.4f} ms, library "
                            + ("n/a" if lib is None else f"{lib:.4f}")
                            + " ms")
+        # the hybrid's projections: the RG-LRU's 4096 x 4096 and the
+        # GeGLU's 4096 x 12288 at 4 x 1024 tokens
+        mmrec = by_name["int8_matmul_fp"]
+        mmrec["rglru"] = check_matmul_shape(
+            dev, gen, "RG-LRU w_a", BATCH * PROMPT, hcfg.lru_width,
+            hcfg.lru_width)
+        mmrec["geglu"] = check_matmul_shape(
+            dev, gen, "GeGLU up", BATCH * PROMPT, hcfg.d_model, hcfg.d_ff)
+        torch.cuda.empty_cache()
     for r in records:
         r["launches"] = None        # set by the path phases that run
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -3063,10 +3421,37 @@ def main(argv=None) -> int:
                 "long_train"):
         if key in results:
             log("dense", f"{key}: {results[key]['seconds']:.1f} s")
+    if run_phase(26):
+        # 26. recurrentgemma-9b at full size past its window; 27. its
+        # parity checks (the fused-vs-simulated one on phase 26's
+        # parameters, the others after they are freed)
+        t0 = time.perf_counter()
+        long, scan_ops = hyb_serve_phase(dev, records, results)
+        results["hyb_serve"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if run_phase(27):
+            results["hyb_parity"] = {"fused_vs_simulated": long_parity(
+                long, dev, "hyb-parity")}
+        del long
+        torch.cuda.empty_cache()
+        if run_phase(27):
+            hyb_parity_phase(scan_ops, dev, results["hyb_parity"])
+            results["hyb_parity"]["seconds"] = time.perf_counter() - t0
+        del scan_ops
+        torch.cuda.empty_cache()
+    if run_phase(28):
+        t0 = time.perf_counter()
+        hyb_train_phase(dev, records, results)
+        results["hyb_train"]["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    for key in ("hyb_serve", "hyb_parity", "hyb_train"):
+        if key in results:
+            log("hybrid", f"{key}: {results[key]['seconds']:.1f} s")
     for r in records:       # the kernels' launches where no earlier path ran
         for key in ("sc7_serve_launches", "cmdr_serve_launches",
                     "nemotron_serve_launches", "grad_only_launches",
-                    "act_only_launches"):
+                    "act_only_launches", "hyb_serve_launches",
+                    "hyb_train_launches_per_step"):
             if not r["launches"] and r.get(key):
                 r["launches"] = r[key]
 

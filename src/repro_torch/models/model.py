@@ -1,9 +1,10 @@
 """Model entry points (port of ``repro/models/model.py``): init, the
 trunk, the training loss ``loss_fn`` with the chunked quantized LM head,
-and ``prefill`` / ``decode_step`` of the dense and MoE LM families (the
-enc-dec and VLM branches come with their families).  The MoE family has
-no branch of its own here: its ``"moe"`` blocks live in the stack, whose
-summed ``aux_loss`` / ``z_loss`` the loss adds.
+and ``prefill`` / ``decode_step`` of the dense, MoE and hybrid LM
+families (the enc-dec and VLM branches come with their families).
+Neither the MoE nor the hybrid family has a branch of its own here:
+their ``"moe"`` and ``"rec"`` / ``"local"`` blocks live in the stack,
+whose summed ``aux_loss`` / ``z_loss`` the loss adds.
 
 The LM head evaluates the loss in sequence chunks so ``[B, S, V]`` logits
 never exist; both head quantizers act on the head *input* (``Q_Y`` on the
@@ -29,7 +30,7 @@ from . import layers, transformer
 from .param_tree import ParamTree
 
 
-_FAMILIES = ("dense", "moe")
+_FAMILIES = ("dense", "moe", "hybrid")
 
 
 def _check_family(cfg) -> None:

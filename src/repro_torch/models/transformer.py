@@ -1,13 +1,17 @@
-"""The transformer stack (port of ``repro/models/transformer.py``, the
-``"attn"`` block of the dense LMs and the ``"moe"`` block of the MoE LMs:
-the same attention, with :mod:`.moe` in place of the MLP).
+"""The transformer stack (port of ``repro/models/transformer.py``): the
+``"attn"`` block of the dense LMs, the ``"moe"`` block of the MoE LMs
+(the same attention, with :mod:`.moe` in place of the MLP), and the
+hybrid family's ``"rec"`` (:mod:`.rglru` in place of the attention) and
+``"local"`` (attention under a sliding mask of ``local_window``, its
+cache a ring of that length) blocks.
 
 The reference scans a pattern unit with ``lax.scan`` and stacks per-layer
-state into ``[repeats, ...]`` leaves; the port runs a Python loop over
-the layers and keeps one entry per layer: params, quant sites and caches
-are ``{"layers": [layer 0, layer 1, ...]}``.  ``repro_torch.convert``
-maps between the two layouts.  The other block kinds (RG-LRU, RWKV,
-enc-dec) come with their model families.
+state into ``[repeats, ...]`` leaves, applying a ragged tail (e.g.
+recurrentgemma's 38 = 12 x 3 + 2) unrolled; the port runs a Python loop
+over the layers and keeps one entry per layer: params, quant sites and
+caches are ``{"layers": [layer 0, layer 1, ...]}``.
+``repro_torch.convert`` maps between the two layouts.  The other block
+kinds (RWKV, enc-dec) come with their model families.
 """
 from __future__ import annotations
 
@@ -19,10 +23,11 @@ from torch.utils.checkpoint import checkpoint
 from . import attention as attn
 from . import layers
 from . import moe as moe_mod
+from . import rglru
 
 # Seed stride reserved per layer (matches the reference).
 _SEED_STRIDE = 64
-_KINDS = ("attn", "moe")
+_KINDS = ("attn", "moe", "local", "rec")
 
 
 def _check_kind(kind: str) -> None:
@@ -35,12 +40,16 @@ def _init_block(gen: torch.Generator, kind: str, cfg) -> dict:
     _check_kind(kind)
     dt = getattr(torch, cfg.param_dtype)
     dev = gen.device
-    p = {
-        "ln1": layers.init_norm(cfg.d_model, cfg.norm_kind, cfg.use_bias, dev),
-        "attn": attn.init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv,
-                                    cfg.head_dim, cfg.use_bias, dt),
-        "ln2": layers.init_norm(cfg.d_model, cfg.norm_kind, cfg.use_bias, dev),
-    }
+    p = {"ln1": layers.init_norm(cfg.d_model, cfg.norm_kind, cfg.use_bias,
+                                 dev)}
+    if kind == "rec":
+        p["rglru"] = rglru.init_rglru(gen, cfg.d_model, cfg.lru_width, dt)
+    else:
+        p["attn"] = attn.init_attention(gen, cfg.d_model, cfg.n_heads,
+                                        cfg.n_kv, cfg.head_dim, cfg.use_bias,
+                                        dt)
+    p["ln2"] = layers.init_norm(cfg.d_model, cfg.norm_kind, cfg.use_bias,
+                                dev)
     if kind == "moe":
         p["moe"] = moe_mod.init_moe(gen, cfg.d_model, cfg.moe, dt)
     else:
@@ -54,6 +63,9 @@ def _init_block_sites(kind: str, cfg, device=None) -> dict:
     if kind == "moe":
         return {"attn": attn.init_attention_sites(device),
                 "moe": moe_mod.init_moe_sites(cfg.moe, device)}
+    if kind == "rec":
+        return {"rglru": rglru.init_rglru_sites(device),
+                "mlp": layers.init_mlp_sites(cfg.mlp_kind, device)}
     return {"attn": attn.init_attention_sites(device),
             "mlp": layers.init_mlp_sites(cfg.mlp_kind, device)}
 
@@ -61,11 +73,41 @@ def _init_block_sites(kind: str, cfg, device=None) -> dict:
 def _init_block_cache(kind: str, cfg, batch: int, cache_len: int,
                       device=None) -> dict:
     _check_kind(kind)
+    cdt = getattr(torch, cfg.cache_dtype)
+    if kind == "rec":
+        return {"h": torch.zeros((batch, cfg.lru_width), dtype=torch.float32,
+                                 device=device),
+                "conv": torch.zeros((batch, 3, cfg.lru_width), dtype=cdt,
+                                    device=device)}
     length = cache_len
-    if cfg.sliding_window is not None:
+    if kind == "local":
+        length = min(cache_len, cfg.local_window)
+    elif cfg.sliding_window is not None:
         length = min(cache_len, cfg.sliding_window)
     return {"kv": attn.init_kv_cache(batch, length, cfg.n_kv, cfg.head_dim,
-                                     getattr(torch, cfg.cache_dtype), device)}
+                                     cdt, device)}
+
+
+def _apply_rec_block(params, sites, x, *, cfg, policy, seed, step,
+                     cache=None):
+    """The ``"rec"`` block: the RG-LRU in the attention's place.  A cache's
+    (zero) state enters a prefill as the reference passes it."""
+    new_sites: dict = {}
+    h = layers.apply_norm(x, params["ln1"], cfg.norm_kind)
+    st = None if cache is None else (cache["h"],
+                                     cache["conv"].to(h.dtype))
+    a, new_sites["rglru"], (hstate, tail) = rglru.apply_rglru(
+        params["rglru"], sites["rglru"], h, policy=policy, seed=seed,
+        step=step, state=st)
+    x = x + a
+    h = layers.apply_norm(x, params["ln2"], cfg.norm_kind)
+    m, new_sites["mlp"] = layers.apply_mlp(params["mlp"], sites["mlp"], h,
+                                           cfg.mlp_kind, policy, seed + 16,
+                                           step)
+    x = x + m
+    new_cache = None if cache is None else {
+        "h": hstate, "conv": tail.to(cache["conv"].dtype)}
+    return x, new_sites, new_cache, None
 
 
 def _apply_block(kind: str, params, sites, x, *, cfg, policy, seed, step,
@@ -73,7 +115,10 @@ def _apply_block(kind: str, params, sites, x, *, cfg, policy, seed, step,
     """Returns ``(x, stats, cache, metrics)``: the MoE block's
     ``{aux_loss, z_loss}``, ``None`` for the others."""
     _check_kind(kind)
-    window = cfg.sliding_window
+    if kind == "rec":
+        return _apply_rec_block(params, sites, x, cfg=cfg, policy=policy,
+                                seed=seed, step=step, cache=cache)
+    window = cfg.local_window if kind == "local" else cfg.sliding_window
     mode = "sliding" if window is not None else "causal"
     new_sites: dict = {}
     h = layers.apply_norm(x, params["ln1"], cfg.norm_kind)
