@@ -12,9 +12,12 @@ batch 128; ResNet18 and VGG16 one step each), and the dense family past
 its window: starcoder2-7b at full size (4 x 1024 and 1 x 8192 prompts,
 fused, simulated and fp32), command-r-35b and nemotron-4-340b at full
 width, the long-sequence train step and the paper's grad_only /
-act_only policies, and the hybrid family: recurrentgemma-9b (RG-LRU
+act_only policies, the hybrid family: recurrentgemma-9b (RG-LRU
 blocks and local attention at hd 256, MQA) serving at full width and
-depth past its 2048 window, and its train step at full width.  Each
+depth past its 2048 window, and its train step at full width, and the
+RWKV-6 family: rwkv6-7b (attention-free: the chunked WKV recurrence with
+data-dependent decay) serving at full width and depth up to a 32768-token
+prompt, and its train step at full width.  Each
 kernel is checked against its plain PyTorch version at the shapes those
 paths give it.
 Phases, one line each:
@@ -137,6 +140,30 @@ Phases, one line each:
                    hindsight W8A8G8 at 2 x 4096 (past the window), AdamW,
                    3 steps, the launch counters zeroed just before and
                    read just after; one more step profiled
+ 29. rwkv serve    rwkv6-7b at full width and depth (32 layers, 7.58 B
+                   parameters): launch.serve.main fused at 4 x 1024, then
+                   serve.generate at 1 x 32768 (the WKV state and the
+                   token-shift rows carry through decode), 32 generated
+                   each, the launch counters zeroed just before and read
+                   just after each (int8_matmul_fp: 8 projections x 32
+                   layers x 32 forwards = 8192); one 1 x 32768 prefill and
+                   one decode step profiled (families, idle share, the
+                   WKV's share)
+ 30. rwkv parity   on phase 29's parameters, a fused 1 x 8192 run against
+                   the simulated backend (prefill logits rel L2 <= 1e-3,
+                   the 32 greedy tokens); wkv_chunked against wkv_step
+                   token by token on layer 0's operands of that prefill
+                   [1, 64, 8192, 64]; prefill-then-decode consistency at
+                   full width, depth cut to 3 layers, under
+                   QuantPolicy.disabled() (fp32 compute with fp32 mixes
+                   held; the model's bf16 mixes in fp32 and bf16 compute
+                   reported)
+ 31. rwkv train    launch.train.main on rwkv6-7b at full width, depth cut
+                   to 4 layers (1.42 B parameters), fused hindsight W8A8G8
+                   at 2 x 4096, AdamW, 3 steps, the launch counters zeroed
+                   just before and read just after; one more step
+                   profiled (with the WKV's share); phase 8's fused vs
+                   simulated forward and backward at 1 layer
 
 Phase 3 also holds ``int8_conv_fp`` (the conv site, im2col onto the int8
 matmul kernel) against its plain version at four MobileNetV2-tiny layer
@@ -146,8 +173,9 @@ qwen2-moe's G = 1 prefill shape and above hd 128: nemotron-4-340b's
 ``[96, 1024, 192]`` (G = 12) and hd 256 at G = 8, and the hybrid's
 shapes: the attention core at ``[64, 1024, 256]`` and ``[16, 8192, 256]``
 (G = 16, sliding at window 2048) and ``int8_matmul_fp`` at the RG-LRU's
-4096 x 4096 x 4096 and the GeGLU's 4096 x 4096 x 12288.  The line before
-the last is the
+4096 x 4096 x 4096 and the GeGLU's 4096 x 4096 x 12288, and rwkv6-7b's
+channel mix: 4096 x 4096 x 14336 (key) and 4096 x 14336 x 4096 (value).
+The line before the last is the
 kernels' JSON record; the last line is ``{"ok": true, "device":
 {...}}``.  Any failure raises (exit code != 0)
 and prints no result; so does a machine without a CUDA card.
@@ -157,8 +185,9 @@ and prints no result; so does a machine without a CUDA card.
 ``--phases`` runs only the named phases (a list of numbers and ranges,
 e.g. ``1-3`` to build and check the kernels without serve and train);
 phase 1 always runs, 5-6 bring 4 along, whose serve run they reuse, 18
-brings 17, 21-22 bring 20 and 27 brings 26.  Kernels whose path phases
-did not run report ``"launches": null``.  The default is all 28; phases
+brings 17, 21-22 bring 20, 27 brings 26 and 30 brings 29.  Kernels whose
+path phases did not run report ``"launches": null``.  The default is all
+31; phases
 12-16 write
 their logs and checkpoints
 under ``build/chip_smoke/`` and remove the checkpoints when done.
@@ -224,7 +253,17 @@ NEMO_ARCH, NEMO_GEN = "nemotron-4-340b", 4
 HYB_ARCH, HYB_CUT, HYB_TRAIN_BATCH, HYB_TRAIN_SEQ = \
     "recurrentgemma-9b", 3, 2, 4096
 SCAN_RANGE = "rglru_scan"
-N_PHASES = 28
+# The RWKV-6 family: rwkv6-7b served at full depth (7.58 B parameters) at 4
+# x 1024 and 1 x 32768 (the reference's prefill_32k length, batch cut to
+# 1); parity at 1 x 8192; decode-vs-prefill at 3 layers; its train step at
+# full width, depth cut to 4 layers (~23 GB with AdamW; 32 layers need
+# ~121 GB).  The path is attention-free: no int8_attention launch.
+RWKV_ARCH, RWKV_LONG, RWKV_CUT = "rwkv6-7b", 32768, 3
+RWKV_TRAIN_LAYERS, RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ = 4, 2, 4096
+RWKV_PARITY_LAYERS = 1
+RWKV_SERVE_KERNELS = ("fused_quantize", "int8_transpose", "int8_matmul_fp")
+RWKV_TRAIN_KERNELS = RWKV_SERVE_KERNELS + ("stochastic_quantize",)
+N_PHASES = 31
 # Where phases 12-16 write their JSONL logs and checkpoints (git-ignored).
 OUT_DIR = ROOT / "build" / "chip_smoke"
 
@@ -1195,10 +1234,11 @@ def profile_device(run_once, tag: str, ranges=()) -> dict:
 
 
 def profile_step(run, tag: str = "train-profile", ranges=(), batch=BATCH,
-                 seq=PROMPT) -> dict:
+                 seq=PROMPT, profiled: bool = True):
     """One more training step of ``run``'s state at ``batch`` x ``seq``
     under torch.profiler (CUDA activity only, to keep the host overhead
-    low, unless ``ranges`` are asked for)."""
+    low, unless ``ranges`` are asked for); with ``profiled=False`` the
+    step runs bare (for a caller's own timing)."""
     from repro_torch import data
     from repro_torch.optim import adamw
     from repro_torch.optim.schedules import constant
@@ -1211,12 +1251,16 @@ def profile_step(run, tag: str = "train-profile", ranges=(), batch=BATCH,
     def once():
         run.state, met = step(run.state, batch)
         float(met["loss"])
+    if not profiled:
+        return once()
     return profile_device(once, tag, ranges)
 
 
-def train_parity_phase(cfg, dev, tag: str = "train-parity") -> dict:
+def train_parity_phase(cfg, dev, tag: str = "train-parity",
+                       kernels=TRAIN_KERNELS) -> dict:
     """One forward + backward of ``cfg`` (its depth as given), fused vs
-    simulated backend, same params, batch and noise."""
+    simulated backend, same params, batch and noise; the fused run
+    launches every kernel of ``kernels``."""
     from repro_torch import data
     from repro_torch.core.policy import QuantPolicy
     from repro_torch.core.state import tree_map_with_path
@@ -1237,7 +1281,7 @@ def train_parity_phase(cfg, dev, tag: str = "train-parity") -> dict:
             batch, 0, 0)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
-        ok = all(counts[k] for k in TRAIN_KERNELS) if bk == "fused" \
+        ok = all(counts[k] for k in kernels) if bk == "fused" \
             else not any(counts.values())
         if not ok:
             raise AssertionError(f"{bk} backend launches {counts}")
@@ -2544,11 +2588,12 @@ def sc7_parity_phase(long, dev, results) -> None:
     results["sc7_parity"] = long_parity(long, dev, "sc7-parity")
 
 
-def long_parity(long, dev, tag: str) -> dict:
+def long_parity(long, dev, tag: str, rel_max: float = 1e-2) -> dict:
     """A fused 1 x ``LONG_SEQ`` serve run against the simulated backend on
     the same parameters and prompt: prefill logits under phase 6's
-    tolerance (rel L2 <= 1e-2, max |d| <= 0.1), and the 32 greedy tokens
-    (identical, or the first difference a near-tie)."""
+    tolerance (rel L2 <= ``rel_max``, 1e-2 by default, max |d| <= 0.1),
+    and the 32 greedy tokens (identical, or the first difference a
+    near-tie)."""
     from repro_torch.models import model
 
     sim = long.policy.with_backend("simulated")
@@ -2559,13 +2604,13 @@ def long_parity(long, dev, tag: str) -> dict:
     a, b = long.prefill_logits, run_s.prefill_logits
     d_max = (a - b).abs().max().item()
     rel = ((a - b).norm() / b.norm()).item()
-    if not (rel <= 1e-2 and d_max <= 0.1 and math.isfinite(rel)):
+    if not (rel <= rel_max and d_max <= 0.1 and math.isfinite(rel)):
         raise AssertionError(f"fused vs simulated at S {LONG_SEQ}: rel L2 "
                              f"{rel:.3e}, max |d| {d_max:.3e}")
     tok = _tokens_agree(long, run_s, long.cfg, dev)
     log(tag, f"S={LONG_SEQ} prefill logits fused vs simulated: rel L2 "
-             f"{rel:.3e}, max |d| {d_max:.3e} (tolerance: rel L2 <= 1e-2, "
-             f"max |d| <= 0.1); {GEN} greedy tokens: "
+             f"{rel:.3e}, max |d| {d_max:.3e} (tolerance: rel L2 <= "
+             f"{rel_max:.0e}, max |d| <= 0.1); {GEN} greedy tokens: "
              + ("identical" if tok["identical"] else
                 f"first differ at step {tok['first_diff']}, a near-tie "
                 f"(top-2 margin {tok['margin']:.3e}, max |d| "
@@ -3059,6 +3104,318 @@ def hyb_train_phase(dev, records, results) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phases 29-31: the RWKV-6 family (rwkv6-7b).
+# ---------------------------------------------------------------------------
+class _WkvSpy:
+    """Counts the calls of ``rwkv6.wkv_chunked``; with ``keep``, the first
+    call's operands are kept (layer 0 of a prefill); with ``timed``, each
+    call is bracketed by CUDA events (its span on the device's stream).
+    (A ``record_function`` range around it read 3x the prefill's device
+    time: the profiler attributes the decay tile's work to it several
+    times over.)"""
+
+    def __init__(self, keep: bool = False, timed: bool = False):
+        from repro_torch.models import rwkv6
+        self.mod, self.real = rwkv6, rwkv6.wkv_chunked
+        self.keep, self.timed = keep, timed
+        self.first = None
+        self.calls = 0
+        self.events = []
+
+    def __enter__(self):
+        def wrapped(r, k, v, logw, u, state, chunk=32):
+            self.calls += 1
+            if self.keep and self.first is None:
+                self.first = tuple(t.detach().clone()
+                                   for t in (r, k, v, logw, u, state))
+            if not self.timed:
+                return self.real(r, k, v, logw, u, state, chunk=chunk)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = self.real(r, k, v, logw, u, state, chunk=chunk)
+            ev[1].record()
+            self.events.append(ev)
+            return out
+        self.mod.wkv_chunked = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.wkv_chunked = self.real
+
+
+def _wkv_share(run_once, tag: str, what: str) -> dict:
+    """``run_once()`` with every ``wkv_chunked`` call bracketed by CUDA
+    events: the calls' summed span against the whole run's (both on the
+    device's stream, so host gaps inside either count to it)."""
+    with _WkvSpy(timed=True) as spy:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        run_once()
+        ev[1].record()
+        torch.cuda.synchronize()
+    wkv_ms = sum(s.elapsed_time(e) for s, e in spy.events)
+    total_ms = ev[0].elapsed_time(ev[1])
+    log(tag, f"{what}: wkv_chunked {wkv_ms:.1f} ms in {spy.calls} calls of "
+             f"{total_ms:.1f} ms ({100 * wkv_ms / total_ms:.1f}%; CUDA "
+             f"events)")
+    return dict(wkv_ms=wkv_ms, total_ms=total_ms, calls=spy.calls,
+                share=wkv_ms / total_ms)
+
+
+def _rwkv_matmuls(cfg, counts, runs: int, what: str) -> None:
+    """Eight int8 projections a layer (time mix r, k, v, g, o; channel mix
+    k, v, r) in each of ``runs`` forwards: the int8 matmul's count."""
+    want = 8 * cfg.n_layers * runs
+    if counts["int8_matmul_fp"] != want:
+        raise AssertionError(f"{what}: int8_matmul_fp launched "
+                             f"{counts['int8_matmul_fp']} times, expected "
+                             f"8 x {cfg.n_layers} x {runs} = {want}")
+
+
+def rwkv_serve_phase(dev, records, results):
+    """Phase 29: rwkv6-7b at full width and depth (32 layers, 7.577 B
+    parameters, 30.3 GB fp32; cut: none), fused hindsight:
+    ``launch.serve.main`` at 4 x 1024 and ``serve.generate`` at
+    ``RWKV_LONG`` = 1 x 32768 (the reference's ``prefill_32k`` length, its
+    batch cut to 1; the WKV state and the token-shift rows carry through
+    decode), 32 generated each, launch counters zeroed just before each
+    and read just after; one prefill and one decode step of the long run
+    profiled (families, idle share, then the WKV's share).  Returns the
+    parameters and the policy (phase 30 reuses them)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+
+    argv = ["--arch", RWKV_ARCH, "--batch", str(BATCH), "--prompt-len",
+            str(PROMPT), "--gen", str(GEN)]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    run = serve.main(argv)
+    torch.cuda.synchronize()
+    cfg, policy = run.cfg, run.policy
+    counts = ops.launch_counts()
+    _rwkv_matmuls(cfg, counts, GEN, "rwkv serve 4 x 1024")
+    out = {"short": _serve_record(
+        "rwkv-serve", f"{cfg.name} {cfg.n_layers} layers fused", run, counts,
+        torch.cuda.max_memory_allocated() / 2 ** 30,
+        kernels=RWKV_SERVE_KERNELS)}
+    out["params_b"] = sum(p.numel() for p in run.params.parameters()) / 1e9
+    params = run.params
+    del run
+    torch.cuda.empty_cache()
+    prompt = _prompt(cfg, 1, RWKV_LONG, dev)
+    quant = model.init_quant_state(cfg, device=dev)
+    with _WkvSpy() as spy:
+        long, counts, peak = _generate(params, quant, prompt, cfg, policy)
+    _rwkv_matmuls(cfg, counts, GEN, f"rwkv serve 1 x {RWKV_LONG}")
+    out["long"] = _serve_record("rwkv-serve", f"{cfg.name} fused, 1 x "
+                                f"{RWKV_LONG}", long, counts, peak,
+                                kernels=RWKV_SERVE_KERNELS)
+    # one chunked WKV per layer in the prefill; decode's s == 1 runs wkv_step
+    if spy.calls != cfg.n_layers:
+        raise AssertionError(f"wkv_chunked ran {spy.calls} times in the "
+                             f"prefill, expected {cfg.n_layers}")
+    for r in records:
+        r["rwkv_serve_launches"] = counts[r["name"]]
+    out["long"].update(serve_profiles(long, "rwkv-long"))
+
+    def prefill_once():
+        lg, _ = model.prefill(long.params, long.quant_state,
+                              {"tokens": long.prompt}, cfg, policy)
+        float(lg[0, 0])
+    out["long"]["wkv_prefill"] = _wkv_share(prefill_once, "rwkv-long",
+                                            f"1 x {RWKV_LONG} prefill")
+    log("rwkv-serve", f"{out['params_b']:.3f} B parameters; {cfg.n_layers} "
+                      f"WKV states of [{cfg.n_heads}, {cfg.head_dim}, "
+                      f"{cfg.head_dim}] and two token-shift rows a layer, "
+                      f"{RWKV_LONG + GEN - 1} positions")
+    results["rwkv_serve"] = out
+    del long
+    return params, policy
+
+
+def rwkv_parity_phase(params, policy, dev, out: dict) -> None:
+    """Phase 30 on phase 29's parameters: (a) a fused 1 x ``LONG_SEQ``
+    serve run against the simulated backend (prefill logits rel L2 <=
+    1e-3, the 32 greedy tokens identical or a near-tie), its layer-0
+    ``wkv_chunked`` operands kept; (b) ``wkv_chunked`` against
+    ``wkv_step`` applied token by token on those operands ``[1, 64, 8192,
+    64]``: max |d| <= 1e-4 max |y|; then, once phase 29's parameters are
+    freed, (c) :func:`rwkv_decode_phase`."""
+    from repro_torch import configs
+    from repro_torch.models import model, rwkv6
+
+    cfg = configs.get(RWKV_ARCH)
+    prompt = _prompt(cfg, 1, LONG_SEQ, dev)
+    with _WkvSpy(keep=True) as spy:
+        long, counts, _ = _generate(params, model.init_quant_state(
+            cfg, device=dev), prompt, cfg, policy)
+    _rwkv_matmuls(cfg, counts, GEN, f"rwkv fused 1 x {LONG_SEQ}")
+    out["fused_vs_simulated"] = long_parity(long, dev, "rwkv-parity",
+                                            rel_max=1e-3)
+    del long
+    torch.cuda.empty_cache()
+
+    # (b) the chunked WKV against the recurrence, token by token
+    r, k, v, lw, u, s0 = spy.first
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, s = rwkv6.wkv_chunked(r, k, v, lw, u, s0, chunk=cfg.rwkv_chunk)
+        torch.cuda.synchronize()
+        chunked_ms = (time.perf_counter() - t0) * 1e3
+        ys = torch.empty_like(y)
+        st = s0
+        for t in range(r.shape[2]):
+            ys[:, :, t], st = rwkv6.wkv_step(r[:, :, t], k[:, :, t],
+                                             v[:, :, t], lw[:, :, t], u, st)
+        torch.cuda.synchronize()
+    err = (y - ys).abs().max().item()
+    ymax = ys.abs().max().item()
+    serr = (s - st).abs().max().item()
+    if not (err <= 1e-4 * ymax and math.isfinite(err)):
+        raise AssertionError(f"wkv_chunked vs wkv_step at {tuple(r.shape)}: "
+                             f"max |d| {err:.3e}, max |y| {ymax:.3e}")
+    log("rwkv-parity", f"wkv_chunked vs wkv_step token by token on layer "
+                       f"0's operands {tuple(r.shape)}: max |d| {err:.3e} "
+                       f"(max |y| {ymax:.3e}; tolerance 1e-4 max |y|), "
+                       f"final state max |d| {serr:.3e}; chunked "
+                       f"{chunked_ms:.2f} ms")
+    out["wkv_vs_step"] = dict(shape=list(r.shape), max_abs=err, max_y=ymax,
+                              state_max_abs=serr, chunked_ms=chunked_ms)
+    del spy, r, k, v, lw, u, s0, y, s, ys, st
+
+
+class _Fp32Mixes:
+    """``rwkv6._ddlerp`` with its mixes kept in fp32 (the module's
+    ``torch.bfloat16`` read as float32).  A diagnostic: the model rounds
+    the mixes to bf16 whatever the compute dtype, as the reference does,
+    and that rounding turns the WKV's ulp-level chunked-vs-stepwise
+    difference into bf16-sized differences in the next layer."""
+
+    def __enter__(self):
+        from repro_torch.models import rwkv6
+
+        class _Torch:
+            bfloat16 = torch.float32
+
+            def __getattr__(self, name):
+                return getattr(torch, name)
+        self.mod = rwkv6
+        rwkv6.torch = _Torch()
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.torch = torch
+
+
+def rwkv_decode_phase(dev, out: dict) -> None:
+    """Phase 30 (c): prefill-then-decode against a re-prefill at full
+    width, depth cut to ``RWKV_CUT``, under ``QuantPolicy.disabled()``,
+    after a prompt of 64 chunks and a ragged tail.  Held to the
+    reference's rtol 2e-2, atol 2e-3 in fp32 compute with the mixes kept
+    in fp32 (``_Fp32Mixes``); the model as written (bf16 mixes) in fp32
+    and in bf16 compute is measured beside it: at full width its bf16
+    mixes part the two paths by bf16-sized amounts, in the reference as
+    in the port (``tests/test_torch_rwkv.py::
+    test_bf16_mixes_set_the_fp32_decode_gap``)."""
+    import contextlib
+
+    from repro_torch import configs
+    from repro_torch.models import model
+
+    cut = _register_cut(configs.get(RWKV_ARCH), RWKV_CUT)
+    params = model.init_params(cut, seed=0, device=dev)
+    s = 64 * cut.rwkv_chunk + 5          # 64 chunks and a ragged tail
+    out["decode_consistency"] = {}
+    for dtype, mixes in (("float32", "float32"), ("float32", "bfloat16"),
+                         ("bfloat16", "bfloat16")):
+        c = dataclasses.replace(cut, compute_dtype=dtype, cache_dtype=dtype)
+        with (_Fp32Mixes() if mixes == "float32"
+              else contextlib.nullcontext()):
+            worst, outside = _decode_consistency(params, c, s, dev)
+        held = mixes == "float32"
+        if held and outside:
+            raise AssertionError(f"decode vs prefill in {dtype} with fp32 "
+                                 f"mixes: max |d| {worst:.3e}, {outside:.4f} "
+                                 f"of the logits outside rtol 2e-2, atol "
+                                 f"2e-3")
+        what = f"{dtype} compute, {mixes} mixes"
+        log("rwkv-parity", f"{cut.name} (full width, QuantPolicy.disabled()"
+                           f", {what}): 4 decode steps after a {s}-token "
+                           f"prefill against prefills of the extended "
+                           f"prompt: max |d| {worst:.3e}, {outside:.4f} of "
+                           f"the logits outside rtol 2e-2, atol 2e-3"
+                           + (" (held)" if held else " (measured)"))
+        out["decode_consistency"][what] = dict(
+            prompt=s, steps=4, max_abs=worst, outside=outside)
+
+
+def rwkv_train_phase(dev, records, results) -> None:
+    """Phase 31: ``launch.train.main`` on rwkv6-7b at full width, depth cut
+    to ``RWKV_TRAIN_LAYERS`` (1.417 B parameters; AdamW at 32 layers needs
+    ~121 GB), fused hindsight W8A8G8 at ``RWKV_TRAIN_BATCH`` x
+    ``RWKV_TRAIN_SEQ``, AdamW, ``TRAIN_STEPS`` steps, the launch counters
+    zeroed just before and read just after; one more step profiled
+    (families and idle share, then with host ranges: the WKV's share of
+    the forward and remat recompute); phase 8's fused-vs-simulated
+    forward and backward at 1 layer."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    cut = _register_cut(configs.get(RWKV_ARCH), RWKV_TRAIN_LAYERS)
+    bsz, seq = RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ
+    argv = ["--arch", cut.name, "--batch", str(bsz), "--seq", str(seq),
+            "--steps", str(TRAIN_STEPS), "--log-every", "1"]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    run = train.main(argv)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(counts[k] > 0 for k in RWKV_TRAIN_KERNELS):
+        raise AssertionError(f"a kernel of the rwkv train path never "
+                             f"launched: {counts}")
+    if len(run.losses) != TRAIN_STEPS or not all(
+            math.isfinite(v) for v in run.losses):
+        raise AssertionError(f"rwkv train losses {run.losses}")
+    n_params = sum(p.numel() for p in run.state["params"].parameters())
+    steady = run.step_ms[1:]
+    step_ms = sum(steady) / len(steady)
+    tok_s = bsz * seq / (step_ms / 1e3)
+    per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+    log("rwkv-train", f"{cut.name}: {cut.n_layers} layers d={cut.d_model}, "
+                      f"{n_params / 1e9:.3f} B parameters, B={bsz} S={seq}, "
+                      f"AdamW, remat: losses "
+                      f"{[round(v, 4) for v in run.losses]}; step 0 "
+                      f"{run.step_ms[0]:.1f} ms, steps 1-{TRAIN_STEPS - 1} "
+                      f"{[round(v, 1) for v in steady]} ms, {tok_s:.1f} "
+                      f"tokens/s; peak {peak:.2f} GiB; launches per step "
+                      f"{per_step}")
+    prof = profile_step(run, "rwkv-train-profile", batch=bsz, seq=seq)
+    out = dict(losses=run.losses, step_ms=run.step_ms, steady_step_ms=step_ms,
+               tokens_per_s=tok_s, peak_gib=peak, launches=counts,
+               launches_per_step=per_step, params_b=n_params / 1e9,
+               profile=prof,
+               wkv=_wkv_share(
+                   lambda: profile_step(run, "rwkv-train-profile", batch=bsz,
+                                        seq=seq, profiled=False),
+                   "rwkv-train-profile",
+                   "one step: the forward and remat recompute (the WKV's "
+                   "backward runs outside its calls)"))
+    for r in records:
+        r["rwkv_train_launches_per_step"] = per_step[r["name"]]
+    del run
+    torch.cuda.empty_cache()
+    out["parity"] = train_parity_phase(
+        dataclasses.replace(cut, n_layers=RWKV_PARITY_LAYERS), dev,
+        tag="rwkv-train-parity", kernels=RWKV_TRAIN_KERNELS)
+    results["rwkv_train"] = out
+
+
+# ---------------------------------------------------------------------------
 # Phases 4-6: the serving path.
 # ---------------------------------------------------------------------------
 def serve_phases(cfg, dev, records, results, run_phase) -> None:
@@ -3166,7 +3523,7 @@ def parity_phase(run, policy, dev, results) -> None:
 # ---------------------------------------------------------------------------
 def parse_phases(spec: str) -> set:
     """``"1-3,9"`` -> ``{1, 2, 3, 9}``; phase 1 always, 4 with 5 or 6, 17
-    with 18, 20 with 21 or 22, 26 with 27."""
+    with 18, 20 with 21 or 22, 26 with 27, 29 with 30."""
     phases = {1}
     for part in spec.split(","):
         lo, _, hi = part.strip().partition("-")
@@ -3182,6 +3539,8 @@ def parse_phases(spec: str) -> set:
         phases.add(20)
     if 27 in phases:
         phases.add(26)
+    if 30 in phases:
+        phases.add(29)
     return phases
 
 
@@ -3303,6 +3662,15 @@ def main(argv=None) -> int:
             hcfg.lru_width)
         mmrec["geglu"] = check_matmul_shape(
             dev, gen, "GeGLU up", BATCH * PROMPT, hcfg.d_model, hcfg.d_ff)
+        # rwkv6-7b's channel mix at 4 x 1024 tokens: key (d -> d_ff) and
+        # value (d_ff -> d); its time mix's 4096 x 4096 is the RG-LRU's
+        rcfg = configs.get(RWKV_ARCH)
+        mmrec["rwkv_key"] = check_matmul_shape(
+            dev, gen, "channel-mix key", BATCH * PROMPT, rcfg.d_model,
+            rcfg.d_ff)
+        mmrec["rwkv_value"] = check_matmul_shape(
+            dev, gen, "channel-mix value", BATCH * PROMPT, rcfg.d_ff,
+            rcfg.d_model)
         torch.cuda.empty_cache()
     for r in records:
         r["launches"] = None        # set by the path phases that run
@@ -3447,11 +3815,37 @@ def main(argv=None) -> int:
     for key in ("hyb_serve", "hyb_parity", "hyb_train"):
         if key in results:
             log("hybrid", f"{key}: {results[key]['seconds']:.1f} s")
+    if run_phase(29):
+        # 29. rwkv6-7b at full size, 4 x 1024 and 1 x 32768; 30. its
+        # parity checks (fused vs simulated and the WKV on phase 29's
+        # parameters, decode vs prefill after they are freed)
+        t0 = time.perf_counter()
+        params, policy = rwkv_serve_phase(dev, records, results)
+        results["rwkv_serve"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if run_phase(30):
+            results["rwkv_parity"] = {}
+            rwkv_parity_phase(params, policy, dev, results["rwkv_parity"])
+        del params
+        torch.cuda.empty_cache()
+        if run_phase(30):
+            rwkv_decode_phase(dev, results["rwkv_parity"])
+            results["rwkv_parity"]["seconds"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    if run_phase(31):
+        t0 = time.perf_counter()
+        rwkv_train_phase(dev, records, results)
+        results["rwkv_train"]["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    for key in ("rwkv_serve", "rwkv_parity", "rwkv_train"):
+        if key in results:
+            log("rwkv", f"{key}: {results[key]['seconds']:.1f} s")
     for r in records:       # the kernels' launches where no earlier path ran
         for key in ("sc7_serve_launches", "cmdr_serve_launches",
                     "nemotron_serve_launches", "grad_only_launches",
                     "act_only_launches", "hyb_serve_launches",
-                    "hyb_train_launches_per_step"):
+                    "hyb_train_launches_per_step", "rwkv_serve_launches",
+                    "rwkv_train_launches_per_step"):
             if not r["launches"] and r.get(key):
                 r["launches"] = r[key]
 

@@ -82,5 +82,5 @@ def _ensure_loaded():
     if not _REGISTRY:
         from . import moonshot_v1_16b_a3b, qwen2_moe_a2_7b  # noqa: F401
         from . import command_r_35b, nemotron_4_340b  # noqa: F401
-        from . import recurrentgemma_9b  # noqa: F401
+        from . import recurrentgemma_9b, rwkv6_7b  # noqa: F401
         from . import starcoder2_3b, starcoder2_7b  # noqa: F401

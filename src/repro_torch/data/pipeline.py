@@ -94,9 +94,9 @@ class ImageStream:
 
 
 def for_arch(cfg, seq_len: int, global_batch: int, seed: int = 0):
-    """Stream matching an ArchConfig's batch convention (the dense, MoE and
-    hybrid LMs take token streams)."""
-    if cfg.family not in ("dense", "moe", "hybrid"):
+    """Stream matching an ArchConfig's batch convention (the dense, MoE,
+    hybrid and RWKV-6 LMs take token streams)."""
+    if cfg.family not in ("dense", "moe", "hybrid", "rwkv"):
         raise NotImplementedError(
             f"{cfg.family} streams come with that model family's slice")
     return LMStream(cfg.vocab, seq_len, global_batch, seed)

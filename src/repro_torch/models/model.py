@@ -1,9 +1,10 @@
 """Model entry points (port of ``repro/models/model.py``): init, the
 trunk, the training loss ``loss_fn`` with the chunked quantized LM head,
-and ``prefill`` / ``decode_step`` of the dense, MoE and hybrid LM
+and ``prefill`` / ``decode_step`` of the dense, MoE, hybrid and RWKV-6 LM
 families (the enc-dec and VLM branches come with their families).
-Neither the MoE nor the hybrid family has a branch of its own here:
-their ``"moe"`` and ``"rec"`` / ``"local"`` blocks live in the stack,
+None of the MoE, hybrid and RWKV-6 families has a branch of its own here:
+their ``"moe"``, ``"rec"`` / ``"local"`` and ``"rwkv"`` blocks live in
+the stack (an attention-free stack reads no positions),
 whose summed ``aux_loss`` / ``z_loss`` the loss adds.
 
 The LM head evaluates the loss in sequence chunks so ``[B, S, V]`` logits
@@ -30,7 +31,7 @@ from . import layers, transformer
 from .param_tree import ParamTree
 
 
-_FAMILIES = ("dense", "moe", "hybrid")
+_FAMILIES = ("dense", "moe", "hybrid", "rwkv")
 
 
 def _check_family(cfg) -> None:

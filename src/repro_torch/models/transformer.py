@@ -3,7 +3,9 @@
 (the same attention, with :mod:`.moe` in place of the MLP), and the
 hybrid family's ``"rec"`` (:mod:`.rglru` in place of the attention) and
 ``"local"`` (attention under a sliding mask of ``local_window``, its
-cache a ring of that length) blocks.
+cache a ring of that length) blocks, and RWKV-6's ``"rwkv"`` block (the
+:mod:`.rwkv6` time mix and channel mix, its cache the WKV state and the
+two sublayers' last normed rows).
 
 The reference scans a pattern unit with ``lax.scan`` and stacks per-layer
 state into ``[repeats, ...]`` leaves, applying a ragged tail (e.g.
@@ -11,7 +13,7 @@ recurrentgemma's 38 = 12 x 3 + 2) unrolled; the port runs a Python loop
 over the layers and keeps one entry per layer: params, quant sites and
 caches are ``{"layers": [layer 0, layer 1, ...]}``.
 ``repro_torch.convert`` maps between the two layouts.  The other block
-kinds (RWKV, enc-dec) come with their model families.
+kinds (enc-dec) come with their model family.
 """
 from __future__ import annotations
 
@@ -23,11 +25,11 @@ from torch.utils.checkpoint import checkpoint
 from . import attention as attn
 from . import layers
 from . import moe as moe_mod
-from . import rglru
+from . import rglru, rwkv6
 
 # Seed stride reserved per layer (matches the reference).
 _SEED_STRIDE = 64
-_KINDS = ("attn", "moe", "local", "rec")
+_KINDS = ("attn", "moe", "local", "rec", "rwkv")
 
 
 def _check_kind(kind: str) -> None:
@@ -42,6 +44,14 @@ def _init_block(gen: torch.Generator, kind: str, cfg) -> dict:
     dev = gen.device
     p = {"ln1": layers.init_norm(cfg.d_model, cfg.norm_kind, cfg.use_bias,
                                  dev)}
+    if kind == "rwkv":
+        p["time"] = rwkv6.init_rwkv_time_mix(gen, cfg.d_model, cfg.n_heads,
+                                             dtype=dt)
+        p["ln2"] = layers.init_norm(cfg.d_model, cfg.norm_kind, cfg.use_bias,
+                                    dev)
+        p["chan"] = rwkv6.init_rwkv_channel_mix(gen, cfg.d_model, cfg.d_ff,
+                                                dt)
+        return p
     if kind == "rec":
         p["rglru"] = rglru.init_rglru(gen, cfg.d_model, cfg.lru_width, dt)
     else:
@@ -63,6 +73,9 @@ def _init_block_sites(kind: str, cfg, device=None) -> dict:
     if kind == "moe":
         return {"attn": attn.init_attention_sites(device),
                 "moe": moe_mod.init_moe_sites(cfg.moe, device)}
+    if kind == "rwkv":
+        return {"time": rwkv6.init_rwkv_time_sites(device),
+                "chan": rwkv6.init_rwkv_channel_sites(device)}
     if kind == "rec":
         return {"rglru": rglru.init_rglru_sites(device),
                 "mlp": layers.init_mlp_sites(cfg.mlp_kind, device)}
@@ -74,6 +87,14 @@ def _init_block_cache(kind: str, cfg, batch: int, cache_len: int,
                       device=None) -> dict:
     _check_kind(kind)
     cdt = getattr(torch, cfg.cache_dtype)
+    if kind == "rwkv":
+        hd = cfg.d_model // cfg.n_heads
+        return {"state": torch.zeros((batch, cfg.n_heads, hd, hd),
+                                     dtype=torch.float32, device=device),
+                "x_time": torch.zeros((batch, cfg.d_model), dtype=cdt,
+                                      device=device),
+                "x_chan": torch.zeros((batch, cfg.d_model), dtype=cdt,
+                                      device=device)}
     if kind == "rec":
         return {"h": torch.zeros((batch, cfg.lru_width), dtype=torch.float32,
                                  device=device),
@@ -110,11 +131,43 @@ def _apply_rec_block(params, sites, x, *, cfg, policy, seed, step,
     return x, new_sites, new_cache, None
 
 
+def _apply_rwkv_block(params, sites, x, *, cfg, policy, seed, step,
+                      cache=None):
+    """The ``"rwkv"`` block: time mix (seeds ``seed + 0..4``) and channel
+    mix (``seed + 16..18``), each after its norm.  The cache keeps the
+    WKV state and each sublayer's last *normed* input row (in the cache
+    dtype, cast back to the compute dtype on the way in)."""
+    new_sites: dict = {}
+    h = layers.apply_norm(x, params["ln1"], cfg.norm_kind)
+    st = None if cache is None else cache["state"]
+    xp = None if cache is None else cache["x_time"].to(h.dtype)
+    a, new_sites["time"], (st, x_last) = rwkv6.rwkv_time_mix(
+        params["time"], sites["time"], h, n_heads=cfg.n_heads, policy=policy,
+        seed=seed, step=step, chunk=cfg.rwkv_chunk, state=st, x_prev=xp)
+    x = x + a
+    h = layers.apply_norm(x, params["ln2"], cfg.norm_kind)
+    xp = None if cache is None else cache["x_chan"].to(h.dtype)
+    c, new_sites["chan"], c_last = rwkv6.rwkv_channel_mix(
+        params["chan"], sites["chan"], h, policy=policy, seed=seed + 16,
+        step=step, x_prev=xp)
+    x = x + c
+    # copies: a view of the last row would keep the whole [B, S, D]
+    # normed input alive in the cache
+    new_cache = None if cache is None else {
+        "state": st,
+        "x_time": x_last.to(cache["x_time"].dtype, copy=True),
+        "x_chan": c_last.to(cache["x_chan"].dtype, copy=True)}
+    return x, new_sites, new_cache, None
+
+
 def _apply_block(kind: str, params, sites, x, *, cfg, policy, seed, step,
                  positions, cache=None):
     """Returns ``(x, stats, cache, metrics)``: the MoE block's
     ``{aux_loss, z_loss}``, ``None`` for the others."""
     _check_kind(kind)
+    if kind == "rwkv":
+        return _apply_rwkv_block(params, sites, x, cfg=cfg, policy=policy,
+                                 seed=seed, step=step, cache=cache)
     if kind == "rec":
         return _apply_rec_block(params, sites, x, cfg=cfg, policy=policy,
                                 seed=seed, step=step, cache=cache)

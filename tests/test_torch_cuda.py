@@ -475,6 +475,90 @@ def test_reduced_train_step_on_card_uses_every_kernel(card):
             assert (gf[name] - g).norm() <= 5e-2 * g.norm(), name
 
 
+@pytest.mark.parametrize("m,k,n", [(4096, 4096, 14336), (4096, 14336, 4096)],
+                         ids=["rwkv-key", "rwkv-value"])
+def test_int8_matmul_rwkv_channel_mix_shapes_match_plain(card, m, k, n):
+    """rwkv6-7b's channel mix at 4 x 1024 tokens: the key (d -> d_ff) and
+    value (d_ff -> d) projections, bit-exact with their statistics."""
+    g = _gen(card, m + k + n)
+    x = torch.randint(0, 256, (1, m, k), generator=g, device=card,
+                      dtype=torch.uint8)
+    w = torch.randint(-127, 128, (1, k, n), generator=g, device=card,
+                      dtype=torch.int8)
+    zp = torch.tensor(117.0, device=card)
+    alpha = torch.tensor(2.3e-5, device=card)
+    ops.reset_launch_counts()
+    yk, mnk, mxk = mm.int8_matmul_fp_cuda(x, w, zp, alpha)
+    yr, mnr, mxr = mm.int8_matmul_fp_plain(x, w, zp, alpha)
+    torch.cuda.synchronize()
+    assert torch.equal(yk, yr)
+    assert torch.equal(mnk, mnr) and torch.equal(mxk, mxr)
+    assert ops.launch_counts()["int8_matmul_fp"] == 1
+
+
+def test_reduced_rwkv_on_card_fused_matches_simulated(card):
+    """The reduced rwkv6-7b on the card (2 layers, chunk 8; a 21-token
+    prompt runs two chunks and a tail, then 3 decode steps through
+    ``wkv_step``): the fused backend launches the quantizer, the weight
+    transpose and the int8 matmul (8 per layer and forward) and no
+    attention, the simulated one nothing; both give the same logits
+    (tolerance as the dense serve test's); then one forward + backward,
+    which adds the gradient quantizer, within the train test's bounds."""
+    from repro_torch import configs
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+    cfg = configs.get_reduced("rwkv6-7b")
+    params = model.init_params(cfg, seed=0, device=card)
+    tokens = torch.randint(0, cfg.vocab, (2, 21), generator=_gen(card, 4),
+                           device=card)
+    logits = {}
+    for backend in ("simulated", "fused"):
+        policy = QuantPolicy.w8a8g8(backend=backend)
+        quant = model.init_quant_state(cfg, device=card)
+        ops.reset_launch_counts()
+        lg, cache = model.prefill(params, quant, {"tokens": tokens}, cfg,
+                                  policy, cache_len=24)
+        steps_out = [lg]
+        for i in range(3):
+            tok = torch.argmax(lg, dim=-1)[:, None]
+            lg, cache = model.decode_step(
+                params, quant, tok, torch.full((2,), 21 + i, device=card),
+                cache, cfg, policy)
+            steps_out.append(lg)
+        counts = ops.launch_counts()
+        if backend == "fused":
+            assert counts["int8_matmul_fp"] == 8 * cfg.n_layers * 4, counts
+            assert counts["fused_quantize"] > 0, counts
+            assert counts["int8_transpose"] > 0, counts
+            assert counts["int8_attention"] == 0, counts
+            assert counts["stochastic_quantize"] == 0, counts
+        else:
+            assert not any(counts.values()), counts
+        logits[backend] = torch.stack(steps_out)
+    torch.testing.assert_close(logits["fused"], logits["simulated"],
+                               rtol=1e-3, atol=1e-3)
+    state = steps.init_train_state(cfg, adamw(), seed=0, device=card)
+    batch = {"tokens": tokens[:, :16], "labels": tokens[:, 1:17],
+             "mask": torch.ones((2, 16), device=card)}
+    out = {}
+    for backend in ("simulated", "fused"):
+        ops.reset_launch_counts()
+        out[backend] = steps.forward_backward(
+            cfg, QuantPolicy.w8a8g8(backend=backend), state["params"],
+            model.init_quant_state(cfg, device=card), batch, 0, 0)
+        counts = ops.launch_counts()
+        if backend == "fused":
+            assert counts["stochastic_quantize"] > 0, counts
+        else:
+            assert not any(counts.values()), counts
+    (ls, gs, _, _), (lf, gf, _, _) = out["simulated"], out["fused"]
+    torch.testing.assert_close(lf, ls, rtol=1e-3, atol=0)
+    for name, g in gs.items():
+        assert (gf[name] - g).norm() <= 5e-2 * g.norm(), name
+
+
 # MobileNetV2-tiny's conv shapes at a reduced batch (4 of 128):
 # (what, x NHWC, w HWIO, stride, groups)
 CONV_CASES = [
