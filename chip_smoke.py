@@ -3,7 +3,7 @@
 Drives the port's paths through the hand-written CUDA kernels, with
 random weights from a seed and in-hindsight W8A8G8 quantization on the
 fused backend: full-width starcoder2-3b (30 layers) serving (batch 4 x
-1024-token prompts, 32 generated tokens) and training (AdamW steps on
+1024-token prompts, 8 generated tokens) and training (AdamW steps on
 batch 4 x 1024 tokens, remat on), the MoE family's qwen2-moe-a2.7b
 (serving at full width and depth, training at full width), and the
 paper's CNN training loop on
@@ -17,9 +17,14 @@ blocks and local attention at hd 256, MQA) serving at full width and
 depth past its 2048 window, and its train step at full width, and the
 RWKV-6 family: rwkv6-7b (attention-free: the chunked WKV recurrence with
 data-dependent decay) serving at full width and depth up to a 32768-token
-prompt, and its train step at full width.  Each
+prompt, and its train step at full width, and the enc-dec and VLM
+families: seamless-m4t-medium (a bidirectional encoder on stub frame
+embeddings, a decoder with cross attention) and paligemma-3b (an image
+prefix of stub patch embeddings under the prefix-LM mask, MQA at hd 256)
+serving and training at full width and depth.  Each
 kernel is checked against its plain PyTorch version at the shapes those
-paths give it.
+paths give it.  Every phase prints its wall seconds as it ends
+(``[time] phase N ...``), and the run its total.
 Phases, one line each:
 
   1. device        name, count, and nvidia-smi's name and power limit
@@ -83,7 +88,7 @@ Phases, one line each:
  17. moe serve     repro_torch.launch.serve.main(...) on qwen2-moe-a2.7b at
                    full width and depth (24 layers, 60 experts top-4 on the
                    int8 matmul's batch dimension, 14.31 B parameters), batch
-                   4 x 1024-token prompts, 32 generated, with the launch
+                   4 x 1024-token prompts, 8 generated, with the launch
                    counters zeroed just before and read just after
  18. moe parity    phase 17's prefill logits, fused vs simulated on the
                    same parameters, and the share of layer 0's routing
@@ -98,7 +103,7 @@ Phases, one line each:
                    parameters): launch.serve.main fused at 4 x 1024, then
                    serve.generate at 1 x 8192 (two windows: the int8 core's
                    sliding mask masks; decode on a wrapped 4096-slot ring),
-                   32 generated each, the launch counters zeroed just
+                   8 and 32 generated, the launch counters zeroed just
                    before and read just after each
  21. sc7 parity    phase 20's 1 x 8192 run, fused vs simulated on the same
                    parameters: prefill logits and the 32 greedy tokens
@@ -124,8 +129,8 @@ Phases, one line each:
                    launch.serve.main fused at 4 x 1024, then
                    serve.generate at 1 x 8192 (four windows: the int8
                    core's sliding mask masks, each 2048-slot ring wraps,
-                   the recurrent state carries through decode), 32
-                   generated each, the launch counters zeroed just before
+                   the recurrent state carries through decode), 8 and 32
+                   generated, the launch counters zeroed just before
                    and read just after each; one 1 x 8192 prefill and one
                    decode step profiled (families, idle share, the scan's
                    share)
@@ -143,10 +148,10 @@ Phases, one line each:
  29. rwkv serve    rwkv6-7b at full width and depth (32 layers, 7.58 B
                    parameters): launch.serve.main fused at 4 x 1024, then
                    serve.generate at 1 x 32768 (the WKV state and the
-                   token-shift rows carry through decode), 32 generated
+                   token-shift rows carry through decode), 8 generated
                    each, the launch counters zeroed just before and read
                    just after each (int8_matmul_fp: 8 projections x 32
-                   layers x 32 forwards = 8192); one 1 x 32768 prefill and
+                   layers x 8 forwards = 2048); one 1 x 32768 prefill and
                    one decode step profiled (families, idle share, the
                    WKV's share)
  30. rwkv parity   on phase 29's parameters, a fused 1 x 8192 run against
@@ -164,6 +169,43 @@ Phases, one line each:
                    just before and read just after; one more step
                    profiled (with the WKV's share); phase 8's fused vs
                    simulated forward and backward at 1 layer
+ 32. encdec serve  seamless-m4t-medium at full width and depth (12
+                   encoder + 12 decoder layers, 0.878 B parameters):
+                   launch.serve.main fused at 4 x 1024 with 32 generated
+                   (1056 frames: the encoder bidir, the cross core at
+                   1024 x 1056), then serve.generate at 1 x 32768 frames
+                   with a 1-token decoder prompt and cache_len 32768, 8
+                   generated (cross decode attends the whole cached
+                   encoder), the launch counters zeroed just before and
+                   read just after each (int8_attention 36 and 12); the
+                   32768 prefill and one decode step profiled (families,
+                   idle share, the encoder attention's share)
+ 33. encdec parity phase 32's 4 x 1024 run, fused vs simulated on the same
+                   parameters (prefill logits rel L2 <= 1e-3, the 32
+                   greedy tokens); prefill-then-decode consistency at full
+                   width, depth cut to 3 + 3 layers, under
+                   QuantPolicy.disabled() (fp32 held, bf16 reported)
+ 34. encdec train  launch.train.main on seamless-m4t-medium at full width
+                   and depth, fused hindsight W8A8G8 at 2 x 4096 (4096
+                   frames and tokens; the head's N = 256206 on the int8
+                   matmul), AdamW, 3 steps, the launch counters zeroed just
+                   before and read just after; one more step profiled;
+                   phase 8's fused vs simulated at 1 + 1 layers
+ 35. vlm serve     paligemma-3b at full width and depth (18 layers, 2.511
+                   B parameters): launch.serve.main fused at 4 x 1024 with
+                   32 generated as the reference's driver does it (256
+                   patches + 800 text tokens; decode from position 1280),
+                   the prefix core on the wide kernel (hd 256, G = 8; 18
+                   launches); one prefill and one decode step profiled
+ 36. vlm parity    phase 35's run, fused vs simulated (prefill logits, the
+                   32 greedy tokens); prefill-then-decode consistency at
+                   full width, 3 layers, fp32 held (bf16 reported), at the
+                   true position
+ 37. vlm train     launch.train.main on paligemma-3b at full width and
+                   depth, fused hindsight W8A8G8 at 2 x 2048 (256 patches +
+                   1792 text tokens), AdamW, 3 steps, the launch counters
+                   zeroed just before and read just after; one more step
+                   profiled; phase 8's fused vs simulated at 1 layer
 
 Phase 3 also holds ``int8_conv_fp`` (the conv site, im2col onto the int8
 matmul kernel) against its plain version at four MobileNetV2-tiny layer
@@ -174,7 +216,12 @@ qwen2-moe's G = 1 prefill shape and above hd 128: nemotron-4-340b's
 shapes: the attention core at ``[64, 1024, 256]`` and ``[16, 8192, 256]``
 (G = 16, sliding at window 2048) and ``int8_matmul_fp`` at the RG-LRU's
 4096 x 4096 x 4096 and the GeGLU's 4096 x 4096 x 12288, and rwkv6-7b's
-channel mix: 4096 x 4096 x 14336 (key) and 4096 x 14336 x 4096 (value).
+channel mix: 4096 x 4096 x 14336 (key) and 4096 x 14336 x 4096 (value),
+and the frontend families': the attention core bidir at ``[64, 1056,
+64]`` and ``[16, 32768, 64]``, cross at ``[64, 1024 x 1056, 64]`` and
+prefix at ``[32, 1056, 256]`` (G = 8, prefix 256), ``int8_matmul_fp`` at
+``enc_in`` 8192 x 160 x 1024, ``patch_proj`` 1024 x 1152 x 2048 and
+seamless's head chunk 1024 x 1024 x 256206 (N not a multiple of 8).
 The line before the last is the
 kernels' JSON record; the last line is ``{"ok": true, "device":
 {...}}``.  Any failure raises (exit code != 0)
@@ -185,9 +232,9 @@ and prints no result; so does a machine without a CUDA card.
 ``--phases`` runs only the named phases (a list of numbers and ranges,
 e.g. ``1-3`` to build and check the kernels without serve and train);
 phase 1 always runs, 5-6 bring 4 along, whose serve run they reuse, 18
-brings 17, 21-22 bring 20, 27 brings 26 and 30 brings 29.  Kernels whose
-path phases did not run report ``"launches": null``.  The default is all
-31; phases
+brings 17, 21-22 bring 20, 27 brings 26, 30 brings 29, 33 brings 32 and
+36 brings 35.  Kernels whose path phases did not run report
+``"launches": null``.  The default is all 37; phases
 12-16 write
 their logs and checkpoints
 under ``build/chip_smoke/`` and remove the checkpoints when done.
@@ -222,6 +269,9 @@ INT8_OPS = 1979e12
 FP32_OPS = 67e12
 
 PROMPT, GEN, BATCH = 1024, 32, 4
+# Decode steps of the serve runs that read only throughput (the runs whose
+# greedy tokens a parity phase compares keep GEN).
+GEN_RATE = 8
 TRAIN_STEPS, PARITY_LAYERS, LAYER_STEPS = 3, 4, 4
 
 # The kernels each path launches (the int8 matmuls' wrappers launch the
@@ -263,7 +313,20 @@ RWKV_TRAIN_LAYERS, RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ = 4, 2, 4096
 RWKV_PARITY_LAYERS = 1
 RWKV_SERVE_KERNELS = ("fused_quantize", "int8_transpose", "int8_matmul_fp")
 RWKV_TRAIN_KERNELS = RWKV_SERVE_KERNELS + ("stochastic_quantize",)
-N_PHASES = 31
+# The enc-dec family: seamless-m4t-medium served at full width and depth
+# (12 + 12 layers) at 4 x 1024 (1056 frames) and at 1 x 32768 frames with
+# a 1-token decoder prompt (the reference's prefill_32k input, batch cut
+# to 1); decode-vs-prefill at 3 + 3 layers; its train step at full width
+# and depth (0.878 B parameters, ~14 GB with AdamW), 2 x 4096.
+ENC_ARCH, ENC_LONG, ENC_CUT = "seamless-m4t-medium", 32768, 3
+ENC_TRAIN_BATCH, ENC_TRAIN_SEQ = 2, 4096
+# The VLM family: paligemma-3b (256 image patches as a prefix) served at
+# full width and depth; decode-vs-prefill at 3 layers; its train step at
+# full width and depth (2.511 B parameters, ~40 GB with AdamW), 2 x 2048
+# (256 patches + 1792 text tokens).
+VLM_ARCH, VLM_CUT = "paligemma-3b", 3
+VLM_TRAIN_LAYERS, VLM_TRAIN_BATCH, VLM_TRAIN_SEQ = 18, 2, 2048
+N_PHASES = 37
 # Where phases 12-16 write their JSONL logs and checkpoints (git-ignored).
 OUT_DIR = ROOT / "build" / "chip_smoke"
 
@@ -568,8 +631,12 @@ def check_matmul_shape(dev, gen, what, m, k, n) -> dict:
     del xk, wk
     plain_ms = time_ms(lambda: mm.int8_matmul_fp_plain(x, w, zp, alpha), 3)
     xs = (x[0].to(torch.int16) - 128).to(torch.int8)
+    # torch._int_mm takes N only in multiples of 8: pad the weight's
+    # columns (2 more of 256206 for the seamless head)
+    wl = w[0] if n % 8 == 0 else torch.nn.functional.pad(
+        w[0], (0, -n % 8))
     try:   # yardstick only: one library call, the int8 GEMM alone
-        lib_ms = time_ms(lambda: torch._int_mm(xs, w[0]), 10)
+        lib_ms = time_ms(lambda: torch._int_mm(xs, wl), 10)
     except RuntimeError as e:
         log("kernels", f"torch._int_mm yardstick unavailable: {e}")
         lib_ms = None
@@ -858,10 +925,25 @@ def check_int8_matmul_fused(dev, gen, cfg):
                 **{f"cnn_{k_}": v for k_, v in cnn.items()})
 
 
-def check_attention(dev, gen, cfg, batch=BATCH, seq=PROMPT, window=None):
+def _mask_pairs(mode, sq, skv, window, prefix_len) -> int:
+    """The unmasked (q, k) pairs of one head: causal, at most ``window``
+    keys a query, the prefix-LM mask, or every pair (bidir, cross)."""
+    if mode in ("bidir", "cross"):
+        return sq * skv
+    if mode == "prefix":
+        return sum(min(max(i + 1, prefix_len), skv) for i in range(sq))
+    w = skv if window is None else window
+    return sum(min(i + 1, w) for i in range(sq))
+
+
+def check_attention(dev, gen, cfg, batch=BATCH, seq=PROMPT, window=None,
+                    skv=None, mode=None, prefix_len=0, light=False):
     """The attention kernel at ``cfg``'s prefill head layout, ``batch`` x
-    ``seq`` tokens, under a sliding mask of ``window`` (default: the
-    config's ``sliding_window``) or causal."""
+    ``seq`` queries against ``skv`` keys (default ``seq``), under a
+    sliding mask of ``window`` (default: the config's ``sliding_window``)
+    or causal, or under ``mode`` (bidir, cross, or prefix with
+    ``prefix_len``).  ``light`` (a long shape, whose plain version takes
+    seconds): held once, the plain version timed once."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import int8_attention as attn
@@ -869,21 +951,22 @@ def check_attention(dev, gen, cfg, batch=BATCH, seq=PROMPT, window=None):
     from repro_torch.kernels import tuning
 
     s, hd, nh, nkv = seq, cfg.head_dim, cfg.n_heads, cfg.n_kv
+    skv = skv or s
     g = nh // nkv
     bh, zb = batch * nh, batch * nkv
-    bq, bkv = tuning.attention_block(s, s, hd)
+    bq, bkv = tuning.attention_block(s, skv, hd)
     window = window or cfg.sliding_window
-    mode = "causal" if window is None else "sliding"
-    sched = attn.make_schedule(sq=s, skv=s, hd=hd, bq=bq, bkv=bkv, groups=g,
-                               mode=mode, window=window or 0,
-                               sm_scale=hd ** -0.5)
+    mode = mode or ("causal" if window is None else "sliding")
+    sched = attn.make_schedule(sq=s, skv=skv, hd=hd, bq=bq, bkv=bkv,
+                               groups=g, mode=mode, window=window or 0,
+                               prefix_len=prefix_len, sm_scale=hd ** -0.5)
     q = torch.randint(0, 256, (bh, s, hd), generator=gen, device=dev,
                       dtype=torch.uint8)
-    k = torch.randint(-127, 128, (zb, s, hd), generator=gen, device=dev,
+    k = torch.randint(-127, 128, (zb, skv, hd), generator=gen, device=dev,
                       dtype=torch.int8)
-    v = torch.randint(-127, 128, (zb, s, hd), generator=gen, device=dev,
+    v = torch.randint(-127, 128, (zb, skv, hd), generator=gen, device=dev,
                       dtype=torch.int8)
-    kvl = torch.tensor([s], device=dev, dtype=torch.int32)
+    kvl = torch.tensor([skv], device=dev, dtype=torch.int32)
 
     def hold(regs, what):
         ok, mlk, psk = attn.attention_cuda(q, k, v, regs, kvl, sched=sched)
@@ -905,7 +988,8 @@ def check_attention(dev, gen, cfg, batch=BATCH, seq=PROMPT, window=None):
         torch.testing.assert_close(psk[..., 4:], psr[..., 4:], rtol=1e-4,
                                    atol=1e-6)
         log("kernels", f"attention {cfg.name} ({what}) {tuple(q.shape)} x "
-                       f"{tuple(k.shape)} G={g} {mode} (window {window}) "
+                       f"{tuple(k.shape)} G={g} {mode} (window {window}, "
+                       f"prefix {prefix_len}) "
                        f"(bq, bkv)=({bq}, {bkv}) "
                        f"width={sched.width}: m, min/max/clip/n exact; out "
                        f"max |d| {err:.3e} ({same:.6f} of elements "
@@ -923,7 +1007,8 @@ def check_attention(dev, gen, cfg, batch=BATCH, seq=PROMPT, window=None):
     regs_z = torch.tensor([117.7, 1e-5, scale_z, round(0.1 / scale_z),
                            scale_z * 0.02, -0.1, 1.0, 0.0], device=dev,
                           dtype=torch.float32)
-    err = max(err, hold(regs_z, "zp_q 117.7, zp_p 23")[0])
+    if not light:
+        err = max(err, hold(regs_z, "zp_q 117.7, zp_p 23")[0])
     ms = time_ms(lambda: attn.attention_cuda(q, k, v, regs, kvl,
                                              sched=sched), 10)
     # The wrapper's time holds one V^T image (the P.V product's B operand,
@@ -932,31 +1017,34 @@ def check_attention(dev, gen, cfg, batch=BATCH, seq=PROMPT, window=None):
     log("kernels", f"attention: V^T image {vt_ms:.4f} ms of the call's "
                    f"{ms:.4f} ms")
     plain_ms = time_ms(lambda: attn.attention_core_reference(
-        q, k, v, regs, kvl, sched=sched), 2)
+        q, k, v, regs, kvl, sched=sched), 1 if light else 2,
+        warmup=0 if light else 1)
     qb = torch.randn((batch, nh, s, hd), generator=gen, device=dev,
                      dtype=torch.bfloat16)
-    kb = torch.randn((batch, nkv, s, hd), generator=gen, device=dev,
+    kb = torch.randn((batch, nkv, skv, hd), generator=gen, device=dev,
                      dtype=torch.bfloat16)
-    vb = torch.randn((batch, nkv, s, hd), generator=gen, device=dev,
+    vb = torch.randn((batch, nkv, skv, hd), generator=gen, device=dev,
                      dtype=torch.bfloat16)
-    # yardstick only: bf16 SDPA (with GQA where G > 1), causal, or under
-    # an explicit boolean sliding mask where the window masks
+    # yardstick only: bf16 SDPA (with GQA where G > 1), causal, unmasked
+    # (bidir, cross), or under an explicit boolean mask where a sliding
+    # window masks or for the prefix-LM mask
     mask = None
+    pos = torch.arange(s, device=dev)
     if mode == "sliding" and window < s:
-        pos = torch.arange(s, device=dev)
         mask = (pos[None, :] <= pos[:, None]) & \
             (pos[:, None] - pos[None, :] < window)
+    elif mode == "prefix":
+        mask = (pos[None, :] <= pos[:, None]) | (pos[None, :] < prefix_len)
+    causal = mode in ("causal", "sliding") and mask is None
     try:
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qb, kb, vb, attn_mask=mask, is_causal=mask is None,
+            qb, kb, vb, attn_mask=mask, is_causal=causal,
             enable_gqa=g > 1), 10)
     except (RuntimeError, TypeError) as e:
         log("kernels", f"scaled_dot_product_attention yardstick "
                        f"unavailable: {e}")
         lib_ms = None
-    # unmasked (q, k) pairs: causal, or at most ``window`` keys a query
-    w = s if window is None else window
-    pairs = bh * sum(min(i + 1, w) for i in range(s))
+    pairs = bh * _mask_pairs(mode, s, skv, window, prefix_len)
     nbytes = q.numel() + k.numel() + v.numel() + 4 * (ok.numel()
                                                       + mlk.numel()
                                                       + psk.numel())
@@ -964,9 +1052,11 @@ def check_attention(dev, gen, cfg, batch=BATCH, seq=PROMPT, window=None):
     return dict(name="int8_attention", route="cuda",
                 source="src/repro_torch/csrc/int8_attention.cu",
                 replaces="src/repro/kernels/int8_attention.py:367",
-                shape=[bh, s, hd], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                shape=[bh, s, hd] if skv == s else [bh, s, skv, hd],
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                groups=g, mode=mode, window=window, block=[bq, bkv])
+                groups=g, mode=mode, window=window, prefix_len=prefix_len,
+                block=[bq, bkv])
 
 
 def conv_plain(x, w, x_zp, alpha, plan):
@@ -1688,7 +1778,7 @@ def _report(path: str, tag: str) -> dict:
 
 
 def _overhead(step_off, state_off, step_on, state_on, batch, collect,
-              pairs: int = 3) -> dict:
+              pairs: int = 2) -> dict:
     """Steady steps with telemetry off and on, in turns (off, on, on, off,
     ...), each fenced by a host read and a synchronize; the "on" step
     includes the driver's telemetry phase (``collect``)."""
@@ -2231,14 +2321,14 @@ class _MoeSpy:
 def moe_serve_phase(mcfg, records, results):
     """Phase 17: ``launch.serve.main`` on qwen2-moe-a2.7b at full width and
     depth (24 layers, 14.31 B parameters, 57.3 GB in fp32), batch 4 x
-    1024-token prompts, 32 generated, fused backend, with the launch
+    1024-token prompts, ``GEN_RATE`` generated, fused backend, with the launch
     counters zeroed just before and read just after.  Returns the run
     (its parameters are phase 18's)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
     argv = ["--arch", mcfg.name, "--batch", str(BATCH), "--prompt-len",
-            str(PROMPT), "--gen", str(GEN)]
+            str(PROMPT), "--gen", str(GEN_RATE)]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     with _MoeSpy() as spy:
@@ -2260,10 +2350,11 @@ def moe_serve_phase(mcfg, records, results):
     n_params = sum(p.numel() for p in run.params.parameters())
     log("moe-serve", f"{mcfg.name}: {mcfg.n_layers} layers d="
                      f"{mcfg.d_model}, {n_params / 1e9:.3f} B parameters, "
-                     f"B={BATCH} S={PROMPT} gen={GEN}: prefill "
+                     f"B={BATCH} S={PROMPT} gen={GEN_RATE}: prefill "
                      f"{run.prefill_ms:.1f} ms, decode "
                      f"{run.decode_tok_s:.1f} tok/s ({run.decode_ms:.1f} ms "
-                     f"for {GEN - 1} steps), peak {peak:.2f} GiB, launches "
+                     f"for {GEN_RATE - 1} steps), peak {peak:.2f} GiB, "
+                     f"launches "
                      f"{counts}; int8_matmul_fp (B, M) with B > 1: "
                      f"{sorted(x for x in spy.shapes if x[0] > 1)}")
     results["moe_serve"] = dict(prefill_ms=run.prefill_ms,
@@ -2286,15 +2377,19 @@ def serve_profiles(run, tag: str, prefill_ranges=()) -> dict:
     from repro_torch.models import model
 
     args = (run.params, run.quant_state)
+    inputs = _inputs(run)
     b, s = run.prompt.shape
-    logits, caches = model.prefill(*args, {"tokens": run.prompt}, run.cfg,
-                                   run.policy, cache_len=s + 1)
+    if "patches" in inputs:
+        s += inputs["patches"].shape[1]
+    # an enc-dec cross cache holds every frame, as the served run's did
+    cache_len = run.cache_len if "frames" in inputs else s + 1
+    logits, caches = model.prefill(*args, inputs, run.cfg, run.policy,
+                                   cache_len=cache_len)
     tok = torch.argmax(logits, dim=-1)[:, None]
     pos = torch.full((b,), s, dtype=torch.int64, device=tok.device)
 
     def prefill_once():
-        out, _ = model.prefill(*args, {"tokens": run.prompt}, run.cfg,
-                               run.policy)
+        out, _ = model.prefill(*args, inputs, run.cfg, run.policy)
         float(out[0, 0])
 
     def decode_once():      # rewrites the same cache slot each call
@@ -2476,10 +2571,19 @@ def _register_cut(cfg, n_layers: int):
 
 def _prompt(cfg, batch: int, seq: int, dev):
     """The serve driver's prompt: the config's data stream, seed 0."""
+    return _prompt_batch(cfg, batch, seq, dev)["tokens"]
+
+
+def _prompt_batch(cfg, batch: int, seq: int, dev, stream_len=None):
+    """The serve driver's prompt batch: ``seq`` tokens of the config's
+    stream at ``stream_len`` (default ``seq + GEN``; seed 0), and its
+    frames (enc-dec, ``stream_len`` of them) or image patches (VLM)."""
     from repro_torch import data
-    stream = data.for_arch(cfg, seq_len=seq + GEN, global_batch=batch,
-                           seed=0)
-    return stream.batch(0)["tokens"][:, :seq].to(dev)
+    stream = data.for_arch(cfg, seq_len=stream_len or seq + GEN,
+                           global_batch=batch, seed=0)
+    return {k: (v[:, :seq] if k == "tokens" else v).to(dev)
+            for k, v in stream.batch(0).items()
+            if k in ("tokens", "frames", "patches")}
 
 
 def _serve_record(tag, what, run, counts, peak, kernels=SERVE_KERNELS):
@@ -2503,15 +2607,16 @@ def _serve_record(tag, what, run, counts, peak, kernels=SERVE_KERNELS):
                 launches=counts, batch=b, seq=s)
 
 
-def _generate(params, quant, prompt, cfg, policy):
-    """``serve.generate`` with the launch counters zeroed just before and
-    read just after; returns ``(run, counts, peak GiB)``."""
+def _generate(params, quant, prompt, cfg, policy, gen=GEN, **kw):
+    """``serve.generate`` (``kw``: its ``cache_len`` / ``pos0``) with the
+    launch counters zeroed just before and read just after; returns
+    ``(run, counts, peak GiB)``."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    run = serve.generate(params, quant, prompt, cfg, policy, GEN)
+    run = serve.generate(params, quant, prompt, cfg, policy, gen, **kw)
     torch.cuda.synchronize()
     return run, ops.launch_counts(), \
         torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2521,15 +2626,15 @@ def sc7_serve_phase(dev, records, results):
     """Phase 20: starcoder2-7b at full size (32 layers, 7.40 B parameters,
     29.6 GB fp32), fused hindsight: ``launch.serve.main`` at batch 4 x 1024
     and ``serve.generate`` at 1 x 8192 (two windows: the int8 core's
-    sliding mask masks, and decode wraps the 4096-slot ring), 32
-    generated each, launch counters zeroed just before each and read just
-    after.  Returns the run (phases 21-22 reuse its parameters)."""
+    sliding mask masks, and decode wraps the 4096-slot ring), ``GEN_RATE``
+    and 32 generated (phase 21 compares the long run's tokens), launch
+    counters zeroed just before each and read just after.  Returns the run (phases 21-22 reuse its parameters)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import model
 
     argv = ["--arch", LONG_ARCH, "--batch", str(BATCH), "--prompt-len",
-            str(PROMPT), "--gen", str(GEN)]
+            str(PROMPT), "--gen", str(GEN_RATE)]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     run = serve.main(argv)
@@ -2565,13 +2670,14 @@ def _tokens_agree(run_a, run_b, cfg, dev) -> dict:
     if bool(same.all()):
         return dict(identical=True, first_diff=None)
     i = int((~same).nonzero()[0])
-    seq = torch.cat([run_a.prompt, ta[:, :i]], dim=1)
+    inputs = dict(_inputs(run_a), tokens=torch.cat([run_a.prompt,
+                                                    ta[:, :i]], dim=1))
     la, _ = model.prefill(run_a.params, model.init_quant_state(cfg,
                                                                device=dev),
-                          {"tokens": seq}, cfg, run_a.policy)
+                          inputs, cfg, run_a.policy)
     lb, _ = model.prefill(run_b.params, model.init_quant_state(cfg,
                                                                device=dev),
-                          {"tokens": seq}, cfg, run_b.policy)
+                          inputs, cfg, run_b.policy)
     top = la.topk(2, dim=-1).values
     margin = (top[:, 0] - top[:, 1]).min().item()
     d = (la - lb).abs().max().item()
@@ -2588,29 +2694,38 @@ def sc7_parity_phase(long, dev, results) -> None:
     results["sc7_parity"] = long_parity(long, dev, "sc7-parity")
 
 
+def _inputs(run) -> dict:
+    """A serve run's prompt batch (tokens, and frames or patches)."""
+    return run.inputs or {"tokens": run.prompt}
+
+
 def long_parity(long, dev, tag: str, rel_max: float = 1e-2) -> dict:
-    """A fused 1 x ``LONG_SEQ`` serve run against the simulated backend on
-    the same parameters and prompt: prefill logits under phase 6's
+    """A fused serve run (1 x ``LONG_SEQ``, or a frontend family's 4 x
+    1024) against the simulated backend on the same parameters, prompt
+    batch, cache length and positions: prefill logits under phase 6's
     tolerance (rel L2 <= ``rel_max``, 1e-2 by default, max |d| <= 0.1),
-    and the 32 greedy tokens (identical, or the first difference a
+    and the greedy tokens (identical, or the first difference a
     near-tie)."""
     from repro_torch.models import model
 
     sim = long.policy.with_backend("simulated")
     run_s, counts, _ = _generate(long.params, model.init_quant_state(
-        long.cfg, device=dev), long.prompt, long.cfg, sim)
+        long.cfg, device=dev), _inputs(long), long.cfg, sim,
+        gen=long.tokens.shape[1], cache_len=long.cache_len, pos0=long.pos0)
     if any(counts.values()):
         raise AssertionError("the simulated backend launched a kernel")
     a, b = long.prefill_logits, run_s.prefill_logits
     d_max = (a - b).abs().max().item()
     rel = ((a - b).norm() / b.norm()).item()
+    shape = "x".join(map(str, long.prompt.shape))
     if not (rel <= rel_max and d_max <= 0.1 and math.isfinite(rel)):
-        raise AssertionError(f"fused vs simulated at S {LONG_SEQ}: rel L2 "
+        raise AssertionError(f"fused vs simulated at {shape}: rel L2 "
                              f"{rel:.3e}, max |d| {d_max:.3e}")
     tok = _tokens_agree(long, run_s, long.cfg, dev)
-    log(tag, f"S={LONG_SEQ} prefill logits fused vs simulated: rel L2 "
+    log(tag, f"{shape} prefill logits fused vs simulated: rel L2 "
              f"{rel:.3e}, max |d| {d_max:.3e} (tolerance: rel L2 <= "
-             f"{rel_max:.0e}, max |d| <= 0.1); {GEN} greedy tokens: "
+             f"{rel_max:.0e}, max |d| <= 0.1); {long.tokens.shape[1]} "
+             f"greedy tokens: "
              + ("identical" if tok["identical"] else
                 f"first differ at step {tok['first_diff']}, a near-tie "
                 f"(top-2 margin {tok['margin']:.3e}, max |d| "
@@ -2703,7 +2818,7 @@ def cmdr_phase(dev, records, results) -> None:
     fused, counts, peak = _generate(
         params, model.init_quant_state(cut, device=dev),
         _prompt(cut, BATCH, PROMPT, dev), cut,
-        QuantPolicy.w8a8g8(backend="fused"))
+        QuantPolicy.w8a8g8(backend="fused"), gen=GEN_RATE)
     out["fused"] = _serve_record("cmdr", f"{cut.name} fused", fused, counts,
                                  peak)
     for r in records:
@@ -2893,9 +3008,9 @@ def hyb_serve_phase(dev, records, results):
     B parameters, 37.6 GB fp32; cut: none), fused hindsight:
     ``launch.serve.main`` at 4 x 1024 and ``serve.generate`` at 1 x 8192
     (four windows: the int8 core's sliding mask masks, each 2048-slot
-    local ring wraps, the recurrent state carries through decode), 32
-    generated each, launch counters zeroed just before each and read just
-    after; one prefill and one decode step of the long run profiled.
+    local ring wraps, the recurrent state carries through decode),
+    ``GEN_RATE`` and 32 generated (phase 27 compares the long run's
+    tokens), launch counters zeroed just before each and read just after; one prefill and one decode step of the long run profiled.
     Returns the long run and the first RG-LRU block's scan operands of its prefill
     (phase 27 uses both)."""
     from repro_torch.kernels import ops
@@ -2903,7 +3018,7 @@ def hyb_serve_phase(dev, records, results):
     from repro_torch.models import model
 
     argv = ["--arch", HYB_ARCH, "--batch", str(BATCH), "--prompt-len",
-            str(PROMPT), "--gen", str(GEN)]
+            str(PROMPT), "--gen", str(GEN_RATE)]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     run = serve.main(argv)
@@ -3015,29 +3130,32 @@ def hyb_parity_phase(scan_ops, dev, out: dict) -> None:
             prompt=s, steps=4, max_abs=worst, outside=outside)
 
 
-def _decode_consistency(params, cfg, s: int, dev, steps: int = 4):
-    """Decode ``steps`` tokens after an ``s``-token prefill; after each,
-    the logits against a prefill of the extended prompt.  Returns the
-    largest |d| and the largest share of logits outside rtol 2e-2, atol
-    2e-3."""
+def _decode_consistency(params, cfg, s: int, dev, steps: int = 4,
+                        prompt=None):
+    """Decode ``steps`` tokens after a prefill of ``s`` positions
+    (``prompt``: a batch with frames or patches; default ``s`` tokens),
+    each at its true position; after each, the logits against a prefill
+    of the extended prompt.  Returns the largest |d| and the largest
+    share of logits outside rtol 2e-2, atol 2e-3."""
     from repro_torch.core.policy import QuantPolicy
     from repro_torch.models import model
 
     policy = QuantPolicy.disabled()
     quant = model.init_quant_state(cfg, device=dev)
-    tokens = _prompt(cfg, 1, s, dev)
+    prompt = prompt or {"tokens": _prompt(cfg, 1, s, dev)}
     worst = outside = 0.0
     with torch.no_grad():
-        logits, cache = model.prefill(params, quant, {"tokens": tokens}, cfg,
-                                      policy, cache_len=s + steps)
+        logits, cache = model.prefill(params, quant, prompt, cfg, policy,
+                                      cache_len=s + steps)
         for i in range(steps):
             tok = torch.argmax(logits, dim=-1)[:, None]
             logits, cache = model.decode_step(
                 params, quant, tok, torch.full((1,), s + i, device=dev),
                 cache, cfg, policy)
-            tokens = torch.cat([tokens, tok], dim=1)
-            again, _ = model.prefill(params, quant, {"tokens": tokens}, cfg,
-                                     policy, cache_len=s + steps)
+            prompt = dict(prompt, tokens=torch.cat([prompt["tokens"], tok],
+                                                   dim=1))
+            again, _ = model.prefill(params, quant, prompt, cfg, policy,
+                                     cache_len=s + steps)
             d = (logits - again).abs()
             worst = max(worst, d.max().item())
             outside = max(outside, (d > 2e-3 + 2e-2 * again.abs()).float()
@@ -3179,23 +3297,23 @@ def rwkv_serve_phase(dev, records, results):
     ``launch.serve.main`` at 4 x 1024 and ``serve.generate`` at
     ``RWKV_LONG`` = 1 x 32768 (the reference's ``prefill_32k`` length, its
     batch cut to 1; the WKV state and the token-shift rows carry through
-    decode), 32 generated each, launch counters zeroed just before each
-    and read just after; one prefill and one decode step of the long run
-    profiled (families, idle share, then the WKV's share).  Returns the
-    parameters and the policy (phase 30 reuses them)."""
+    decode), ``GEN_RATE`` generated each, launch counters zeroed just
+    before each and read just after; one prefill and one decode step of
+    the long run profiled (families, idle share, then the WKV's share).
+    Returns the parameters and the policy (phase 30 reuses them)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import model
 
     argv = ["--arch", RWKV_ARCH, "--batch", str(BATCH), "--prompt-len",
-            str(PROMPT), "--gen", str(GEN)]
+            str(PROMPT), "--gen", str(GEN_RATE)]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     run = serve.main(argv)
     torch.cuda.synchronize()
     cfg, policy = run.cfg, run.policy
     counts = ops.launch_counts()
-    _rwkv_matmuls(cfg, counts, GEN, "rwkv serve 4 x 1024")
+    _rwkv_matmuls(cfg, counts, GEN_RATE, "rwkv serve 4 x 1024")
     out = {"short": _serve_record(
         "rwkv-serve", f"{cfg.name} {cfg.n_layers} layers fused", run, counts,
         torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -3207,8 +3325,9 @@ def rwkv_serve_phase(dev, records, results):
     prompt = _prompt(cfg, 1, RWKV_LONG, dev)
     quant = model.init_quant_state(cfg, device=dev)
     with _WkvSpy() as spy:
-        long, counts, peak = _generate(params, quant, prompt, cfg, policy)
-    _rwkv_matmuls(cfg, counts, GEN, f"rwkv serve 1 x {RWKV_LONG}")
+        long, counts, peak = _generate(params, quant, prompt, cfg, policy,
+                                       gen=GEN_RATE)
+    _rwkv_matmuls(cfg, counts, GEN_RATE, f"rwkv serve 1 x {RWKV_LONG}")
     out["long"] = _serve_record("rwkv-serve", f"{cfg.name} fused, 1 x "
                                 f"{RWKV_LONG}", long, counts, peak,
                                 kernels=RWKV_SERVE_KERNELS)
@@ -3229,7 +3348,7 @@ def rwkv_serve_phase(dev, records, results):
     log("rwkv-serve", f"{out['params_b']:.3f} B parameters; {cfg.n_layers} "
                       f"WKV states of [{cfg.n_heads}, {cfg.head_dim}, "
                       f"{cfg.head_dim}] and two token-shift rows a layer, "
-                      f"{RWKV_LONG + GEN - 1} positions")
+                      f"{RWKV_LONG + GEN_RATE - 1} positions")
     results["rwkv_serve"] = out
     del long
     return params, policy
@@ -3416,17 +3535,291 @@ def rwkv_train_phase(dev, records, results) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phases 32-37: the enc-dec and VLM families.
+# ---------------------------------------------------------------------------
+def _attention_launches(counts, want: int, what: str) -> None:
+    """The int8 attention core's launches in one serve run: one per
+    attention layer of the prefill (decode's s == 1 paths run none)."""
+    if counts["int8_attention"] != want:
+        raise AssertionError(f"{what}: int8_attention launched "
+                             f"{counts['int8_attention']} times, expected "
+                             f"{want}")
+
+
+def _family_share(prof: dict, family: str, tag: str, what: str) -> float:
+    ms = prof["families"].get(family, (0.0, 0))[0]
+    share = ms / prof["busy_ms"]
+    log(tag, f"{what}: {family} {ms:.1f} ms of {prof['busy_ms']:.1f} ms "
+             f"device time ({100 * share:.1f}%)")
+    return share
+
+
+def encdec_serve_phase(dev, records, results):
+    """Phase 32: seamless-m4t-medium at full width and depth (12 encoder +
+    12 decoder layers, 0.878 B parameters; cut: none), fused hindsight:
+    ``launch.serve.main`` at 4 x 1024 with ``GEN`` generated (the
+    driver's 1056 frames: the encoder runs the int8 core bidir at (1056,
+    1056), the cross core at (1024, 1056), a half-padded last kv tile),
+    then ``serve.generate`` at 1 x ``ENC_LONG`` frames with a 1-token
+    decoder prompt and ``cache_len`` ``ENC_LONG`` (the reference's
+    ``prefill_32k`` input, batch cut to 1: the encoder bidir at 32768 on
+    the kernel, the decoder's cross attention at s = 1 through
+    ``_chunked_attn``), ``GEN_RATE`` generated, the launch counters
+    zeroed just before and read just after each; the 32768 prefill and
+    one decode step profiled.  Returns the 4 x 1024 run (phase 33's)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+
+    argv = ["--arch", ENC_ARCH, "--batch", str(BATCH), "--prompt-len",
+            str(PROMPT), "--gen", str(GEN)]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    run = serve.main(argv)
+    torch.cuda.synchronize()
+    cfg, policy = run.cfg, run.policy
+    counts = ops.launch_counts()
+    # per prefill: the encoder's bidir, the decoder's causal and cross cores
+    _attention_launches(counts, cfg.enc_layers + 2 * cfg.n_layers,
+                        "encdec serve 4 x 1024")
+    frames = run.inputs["frames"].shape[1]
+    out = {"short": _serve_record(
+        "encdec-serve", f"{cfg.name} {cfg.enc_layers} + {cfg.n_layers} "
+        f"layers fused, {frames} frames", run, counts,
+        torch.cuda.max_memory_allocated() / 2 ** 30)}
+    out["params_b"] = sum(p.numel() for p in run.params.parameters()) / 1e9
+    for r in records:
+        r["encdec_serve_launches"] = counts[r["name"]]
+    prompt = _prompt_batch(cfg, 1, 1, dev, stream_len=ENC_LONG)
+    quant = model.init_quant_state(cfg, device=dev)
+    long, counts, peak = _generate(run.params, quant, prompt, cfg, policy,
+                                   gen=GEN_RATE, cache_len=ENC_LONG)
+    _attention_launches(counts, cfg.enc_layers,
+                        f"encdec serve 1 x {ENC_LONG} frames")
+    out["long"] = _serve_record(
+        "encdec-serve", f"{cfg.name} fused, {ENC_LONG} frames, a 1-token "
+        f"decoder prompt", long, counts, peak)
+    xkv = cfg.enc_len(long.cache_len)
+    out["long"].update(serve_profiles(long, "encdec-long"))
+    out["long"]["attention_share_prefill"] = _family_share(
+        out["long"]["profile_prefill"], "int8_attention (ours)",
+        "encdec-long", f"1 x {ENC_LONG} prefill: the encoder's bidir core")
+    log("encdec-serve", f"{out['params_b']:.3f} B parameters; the cross "
+                        f"caches hold {xkv} encoder positions a layer")
+    results["encdec_serve"] = out
+    del long
+    return run
+
+
+def _frontend_decode(cfg, cut_kw: dict, s: int, dev, tag: str,
+                     prompt) -> dict:
+    """Prefill-then-decode against a re-prefill at full width, depth cut
+    (``cut_kw``), under ``QuantPolicy.disabled()``, ``prompt`` prefilling
+    ``s`` positions: held to the reference's rtol 2e-2, atol 2e-3 in fp32
+    compute; the bf16 run measured beside it."""
+    from repro_torch.models import model
+
+    cut = dataclasses.replace(cfg, name=f"{cfg.name}-cut", **cut_kw)
+    params = model.init_params(cut, seed=0, device=dev)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cut, compute_dtype=dtype, cache_dtype=dtype)
+        worst, outside = _decode_consistency(params, c, s, dev,
+                                             prompt=dict(prompt))
+        held = dtype == "float32"
+        if held and outside:
+            raise AssertionError(f"{tag}: decode vs prefill in fp32: max "
+                                 f"|d| {worst:.3e}, {outside:.4f} of the "
+                                 f"logits outside rtol 2e-2, atol 2e-3")
+        log(tag, f"{cfg.name} at {cut_kw} (full width, "
+                 f"QuantPolicy.disabled(), {dtype} compute): 4 decode steps "
+                 f"after a prefill of {s} positions against prefills of the "
+                 f"extended prompt: max |d| {worst:.3e}, {outside:.4f} of "
+                 f"the logits outside rtol 2e-2, atol 2e-3"
+                 + (" (held)" if held else " (measured)"))
+        out[dtype] = dict(positions=s, steps=4, max_abs=worst,
+                          outside=outside)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def encdec_parity_phase(run, dev, results) -> None:
+    """Phase 33: (a) phase 32's 4 x 1024 fused run against the simulated
+    backend on the same parameters, prompt batch and cache (prefill
+    logits rel L2 <= 1e-3, max |d| <= 0.1; the 32 greedy tokens identical
+    or the first difference a near-tie); (b) prefill-then-decode at 3 + 3
+    layers after 1024 tokens and 1024 frames."""
+    from repro_torch import configs
+
+    out = {"fused_vs_simulated": long_parity(run, dev, "encdec-parity",
+                                             rel_max=1e-3)}
+    cfg = configs.get(ENC_ARCH)
+    prompt = _prompt_batch(cfg, 1, PROMPT, dev, stream_len=PROMPT)
+    out["decode_consistency"] = _frontend_decode(
+        cfg, dict(n_layers=ENC_CUT, enc_layers=ENC_CUT), PROMPT, dev,
+        "encdec-parity", prompt)
+    results["encdec_parity"] = out
+
+
+def _family_train(cut, bsz: int, seq: int, tag: str, parity_cfg,
+                  dev) -> dict:
+    """``launch.train.main`` on ``cut`` (a registered config) at ``bsz`` x
+    ``seq``,
+    fused hindsight W8A8G8, AdamW, ``TRAIN_STEPS`` steps, the launch
+    counters zeroed just before and read just after; one more step
+    profiled; phase 8's fused vs simulated forward and backward on
+    ``parity_cfg``."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    argv = ["--arch", cut.name, "--batch", str(bsz), "--seq", str(seq),
+            "--steps", str(TRAIN_STEPS), "--log-every", "1"]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    run = train.main(argv)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(counts[k] > 0 for k in TRAIN_KERNELS):
+        raise AssertionError(f"{tag}: a kernel of the train path never "
+                             f"launched: {counts}")
+    if len(run.losses) != TRAIN_STEPS or not all(
+            math.isfinite(v) for v in run.losses):
+        raise AssertionError(f"{tag}: losses {run.losses}")
+    n_params = sum(p.numel() for p in run.state["params"].parameters())
+    steady = run.step_ms[1:]
+    step_ms = sum(steady) / len(steady)
+    tok_s = bsz * seq / (step_ms / 1e3)
+    per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+    depth = f"{cut.enc_layers} + {cut.n_layers}" \
+        if cut.family == "encdec" else f"{cut.n_layers}"
+    log(tag, f"{cut.name}: {depth} layers "
+             f"d={cut.d_model}, {n_params / 1e9:.3f} B parameters, B={bsz} "
+             f"S={seq}, AdamW, remat: losses "
+             f"{[round(v, 4) for v in run.losses]}; step 0 "
+             f"{run.step_ms[0]:.1f} ms, steps 1-{TRAIN_STEPS - 1} "
+             f"{[round(v, 1) for v in steady]} ms, {tok_s:.1f} tokens/s "
+             f"(frontend rows included); peak {peak:.2f} GiB; launches per "
+             f"step {per_step}")
+    out = dict(losses=run.losses, step_ms=run.step_ms, steady_step_ms=step_ms,
+               tokens_per_s=tok_s, peak_gib=peak, launches=counts,
+               launches_per_step=per_step, params_b=n_params / 1e9,
+               profile=profile_step(run, f"{tag}-profile", batch=bsz,
+                                    seq=seq))
+    del run
+    torch.cuda.empty_cache()
+    out["parity"] = train_parity_phase(parity_cfg, dev, tag=f"{tag}-parity")
+    return out
+
+
+def encdec_train_phase(dev, records, results) -> None:
+    """Phase 34: the train step on seamless-m4t-medium at full width and
+    depth (0.878 B parameters; cut: none), ``ENC_TRAIN_BATCH`` x
+    ``ENC_TRAIN_SEQ`` (as many frames as tokens; the head's chunked
+    int8 product at N = 256206); parity at 1 + 1 layers."""
+    from repro_torch import configs
+
+    cfg = configs.get(ENC_ARCH)
+    out = _family_train(cfg, ENC_TRAIN_BATCH, ENC_TRAIN_SEQ, "encdec-train",
+                        dataclasses.replace(cfg, n_layers=1, enc_layers=1),
+                        dev)
+    for r in records:
+        r["encdec_train_launches_per_step"] = \
+            out["launches_per_step"][r["name"]]
+    results["encdec_train"] = out
+
+
+def vlm_serve_phase(dev, records, results):
+    """Phase 35: paligemma-3b at full width and depth (18 layers, 2.511 B
+    parameters; cut: none), fused hindsight: ``launch.serve.main`` at 4 x
+    1024 with ``GEN`` generated, as the reference's driver serves it:
+    256 patches and ``PROMPT + GEN - 256`` = 800 text tokens prefilled
+    (the prefix core on the wide kernel, hd 256, G = 8), decode from
+    position ``PROMPT + 256`` = 1280 (the reference's position gap),
+    launch counters zeroed just before and read just after; one prefill
+    and one decode step profiled.  Returns the run (phase 36's)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    argv = ["--arch", VLM_ARCH, "--batch", str(BATCH), "--prompt-len",
+            str(PROMPT), "--gen", str(GEN)]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    run = serve.main(argv)
+    torch.cuda.synchronize()
+    cfg = run.cfg
+    counts = ops.launch_counts()
+    _attention_launches(counts, cfg.n_layers, "vlm serve 4 x 1024")
+    text = run.prompt.shape[1]
+    if run.pos0 != PROMPT + cfg.n_patches or text + cfg.n_patches != \
+            PROMPT + GEN:
+        raise AssertionError(f"vlm serve: {text} text tokens, decode from "
+                             f"{run.pos0}")
+    out = {"short": _serve_record(
+        "vlm-serve", f"{cfg.name} {cfg.n_layers} layers fused, "
+        f"{cfg.n_patches} patches", run, counts,
+        torch.cuda.max_memory_allocated() / 2 ** 30)}
+    out["params_b"] = sum(p.numel() for p in run.params.parameters()) / 1e9
+    out["short"].update(serve_profiles(run, "vlm"))
+    for r in records:
+        r["vlm_serve_launches"] = counts[r["name"]]
+    log("vlm-serve", f"{out['params_b']:.3f} B parameters; prefill of "
+                     f"{cfg.n_patches} patches + {text} text tokens, decode "
+                     f"from position {run.pos0} (positions "
+                     f"{cfg.n_patches + text}-{run.pos0 - 1} never filled, "
+                     f"as in the reference's driver)")
+    results["vlm_serve"] = out
+    return run
+
+
+def vlm_parity_phase(run, dev, results) -> None:
+    """Phase 36: (a) phase 35's fused run against the simulated backend
+    on the same parameters, prompt batch, cache and positions (prefill
+    logits rel L2 <= 1e-3, the 32 greedy tokens); (b) prefill-then-decode
+    at 3 layers after 256 patches and 768 text tokens, decode at the true
+    positions from 1024."""
+    from repro_torch import configs
+
+    out = {"fused_vs_simulated": long_parity(run, dev, "vlm-parity",
+                                             rel_max=1e-3)}
+    cfg = configs.get(VLM_ARCH)
+    prompt = _prompt_batch(cfg, 1, PROMPT - cfg.n_patches, dev,
+                           stream_len=PROMPT)
+    out["decode_consistency"] = _frontend_decode(
+        cfg, dict(n_layers=VLM_CUT), PROMPT, dev, "vlm-parity", prompt)
+    results["vlm_parity"] = out
+
+
+def vlm_train_phase(dev, records, results) -> None:
+    """Phase 37: the train step on paligemma-3b at full width, depth
+    ``VLM_TRAIN_LAYERS``, ``VLM_TRAIN_BATCH`` x ``VLM_TRAIN_SEQ`` (256
+    patches and the text; the loss over the text); parity at 1 layer."""
+    from repro_torch import configs
+
+    cfg = configs.get(VLM_ARCH)
+    cut = _register_cut(cfg, VLM_TRAIN_LAYERS)
+    out = _family_train(cut, VLM_TRAIN_BATCH, VLM_TRAIN_SEQ, "vlm-train",
+                        dataclasses.replace(cfg, n_layers=1), dev)
+    for r in records:
+        r["vlm_train_launches_per_step"] = \
+            out["launches_per_step"][r["name"]]
+    results["vlm_train"] = out
+
+
+# ---------------------------------------------------------------------------
 # Phases 4-6: the serving path.
 # ---------------------------------------------------------------------------
-def serve_phases(cfg, dev, records, results, run_phase) -> None:
+def serve_phases(cfg, dev, records, results, run_phase, clock) -> None:
     """Phase 4, serve, and the phases that reuse its run: 5 (the static
-    path) and 6 (prefill parity)."""
+    path) and 6 (prefill parity); ``clock`` times each."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
     # 4. serve, full width, fused backend
+    clock.start(4, "serve")
     argv_serve = ["--arch", "starcoder2-3b", "--batch", str(BATCH),
-                  "--prompt-len", str(PROMPT), "--gen", str(GEN)]
+                  "--prompt-len", str(PROMPT), "--gen", str(GEN_RATE)]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     run = serve.main(argv_serve)
@@ -3438,9 +3831,9 @@ def serve_phases(cfg, dev, records, results, run_phase) -> None:
     if not torch.isfinite(run.prefill_logits).all():
         raise AssertionError("non-finite prefill logits")
     log("serve", f"{cfg.n_layers} layers d={cfg.d_model} B={BATCH} "
-                 f"S={PROMPT} gen={GEN}: prefill {run.prefill_ms:.1f} ms, "
+                 f"S={PROMPT} gen={GEN_RATE}: prefill {run.prefill_ms:.1f} ms, "
                  f"decode {run.decode_tok_s:.1f} tok/s "
-                 f"({run.decode_ms:.1f} ms for {GEN - 1} steps), peak "
+                 f"({run.decode_ms:.1f} ms for {GEN_RATE - 1} steps), peak "
                  f"{peak:.2f} GiB, launches {counts}")
     results["serve"] = dict(prefill_ms=run.prefill_ms,
                             decode_ms=run.decode_ms,
@@ -3450,10 +3843,13 @@ def serve_phases(cfg, dev, records, results, run_phase) -> None:
         r["serve_launches"] = counts[r["name"]]
 
     policy = run.policy
+    clock.stop()
     if run_phase(5):
-        static_phase(run, policy, results)
+        with clock(5, "static path"):
+            static_phase(run, policy, results)
     if run_phase(6):
-        parity_phase(run, policy, dev, results)
+        with clock(6, "parity"):
+            parity_phase(run, policy, dev, results)
     del run
     torch.cuda.empty_cache()
 
@@ -3521,9 +3917,57 @@ def parity_phase(run, policy, dev, results) -> None:
 
 
 # ---------------------------------------------------------------------------
+class PhaseClock:
+    """Wall seconds of each phase, logged as it ends (``[time] phase N
+    name: s``) and kept in ``seconds``; a phase timed in parts sums
+    them."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.seconds: dict = {}
+        self.names: dict = {}
+        self._open = None
+
+    def start(self, n: int, name: str) -> None:
+        self._open = (n, name, time.perf_counter())
+
+    def stop(self) -> None:
+        n, name, t0 = self._open
+        self._open = None
+        self.seconds[n] = self.seconds.get(n, 0.0) + time.perf_counter() - t0
+        self.names[n] = name
+        log("time", f"phase {n} {name}: {self.seconds[n]:.1f} s")
+
+    def __call__(self, n: int, name: str):
+        clock = self
+
+        class _Span:
+            def __enter__(self):
+                clock.start(n, name)
+
+            def __exit__(self, *exc):
+                if exc[0] is None:
+                    clock.stop()
+        return _Span()
+
+    def summary(self) -> dict:
+        total = time.perf_counter() - self.t0
+        log("time", "phases (s): " + "; ".join(
+            f"{n} {self.names[n]} {sec:.1f}"
+            for n, sec in sorted(self.seconds.items()))
+            + f"; phases 1-31 {self.part(1, 31):.1f}, 32-37 "
+            f"{self.part(32, 37):.1f}; the whole run {total:.1f} s")
+        return dict(seconds={str(n): sec for n, sec in self.seconds.items()},
+                    total_s=total)
+
+    def part(self, lo: int, hi: int) -> float:
+        return sum(sec for n, sec in self.seconds.items() if lo <= n <= hi)
+
+
 def parse_phases(spec: str) -> set:
     """``"1-3,9"`` -> ``{1, 2, 3, 9}``; phase 1 always, 4 with 5 or 6, 17
-    with 18, 20 with 21 or 22, 26 with 27, 29 with 30."""
+    with 18, 20 with 21 or 22, 26 with 27, 29 with 30, 32 with 33, 35
+    with 36."""
     phases = {1}
     for part in spec.split(","):
         lo, _, hi = part.strip().partition("-")
@@ -3541,6 +3985,10 @@ def parse_phases(spec: str) -> set:
         phases.add(26)
     if 30 in phases:
         phases.add(29)
+    if 33 in phases:
+        phases.add(32)
+    if 36 in phases:
+        phases.add(35)
     return phases
 
 
@@ -3577,6 +4025,8 @@ def main(argv=None) -> int:
     results: dict = {}
 
     # 1. device
+    clock = PhaseClock()
+    clock.start(1, "device")
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = subprocess.run(
@@ -3587,9 +4037,11 @@ def main(argv=None) -> int:
     log("device", f"{kind} x{count}; torch {torch.__version__} "
                   f"cuda {torch.version.cuda}")
     results["device"] = dict(kind=kind, count=count, smi=smi)
+    clock.stop()
 
     # 2. build
     if run_phase(2):
+        clock.start(2, "build")
         t0 = time.perf_counter()
         built = build.build_all()
         results["build"] = {}
@@ -3608,6 +4060,7 @@ def main(argv=None) -> int:
                                      f"SASS: its products are not on the "
                                      f"tensor cores")
         log("build", f"all kernels built in {time.perf_counter() - t0:.1f} s")
+        clock.stop()
 
     # 3. kernels at the slice's shapes
     cfg = configs.get("starcoder2-3b")
@@ -3615,6 +4068,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     records = []
     if run_phase(3):
+        clock.start(3, "kernels")
         records = [check_fused_quantize(dev, gen, cfg),
                    check_stochastic_quantize(dev, gen, cfg),
                    check_int8_transpose(dev, gen, cfg),
@@ -3633,20 +4087,31 @@ def main(argv=None) -> int:
         # head dims above 128: nemotron-4-340b's prefill layout (hd 192,
         # G = 12, batch 1) and hd 256 at G = 8; the hybrid's MQA (G = 16)
         # at hd 256 under its local window, at 4 x 1024 (nothing masked
-        # beyond causal) and 1 x 8192 (~17 kv blocks a q block)
+        # beyond causal) and 1 x 8192 (~17 kv blocks a q block); the
+        # enc-dec family's bidir and cross cores at hd 64 (1056 frames:
+        # a half-padded last kv tile of 64) and its encoder at 1 x 32768;
+        # the VLM's prefix core at hd 256, G = 8, on 256 patches
         ncfg, hcfg = configs.get(NEMO_ARCH), configs.get(HYB_ARCH)
-        hw = hcfg.local_window
-        for tag, c, b, sq, win in (
-                ("hd192", ncfg, 1, PROMPT, None),
+        ecfg, vcfg = configs.get(ENC_ARCH), configs.get(VLM_ARCH)
+        hw, nf = hcfg.local_window, PROMPT + GEN
+        for tag, c, b, sq, kw in (
+                ("hd192", ncfg, 1, PROMPT, {}),
                 ("hd256", dataclasses.replace(
                     ncfg, name="hd256-g8", n_heads=64, head_dim=256), 1,
-                 PROMPT, None),
-                ("hyb1024", hcfg, BATCH, PROMPT, hw),
-                ("hyb8192", hcfg, 1, LONG_SEQ, hw)):
-            wide = check_attention(dev, gen, c, batch=b, seq=sq, window=win)
+                 PROMPT, {}),
+                ("hyb1024", hcfg, BATCH, PROMPT, dict(window=hw)),
+                ("hyb8192", hcfg, 1, LONG_SEQ, dict(window=hw)),
+                ("encdec_bidir", ecfg, BATCH, nf, dict(mode="bidir")),
+                ("encdec_cross", ecfg, BATCH, PROMPT,
+                 dict(mode="cross", skv=nf)),
+                ("encdec_bidir32k", ecfg, 1, ENC_LONG,
+                 dict(mode="bidir", light=True)),
+                ("vlm_prefix", vcfg, BATCH, nf,
+                 dict(mode="prefix", prefix_len=vcfg.n_patches))):
+            wide = check_attention(dev, gen, c, batch=b, seq=sq, **kw)
             by_name["int8_attention"][tag] = {
                 k: wide[k] for k in keys + ("groups", "mode", "window",
-                                            "block")}
+                                            "prefix_len", "block")}
             lib = wide["library_ms"]
             log("kernels", f"int8_attention {tag} {wide['shape']}: "
                            f"{wide['ms']:.4f} ms, bound "
@@ -3654,6 +4119,8 @@ def main(argv=None) -> int:
                            f"plain {wide['plain_ms']:.4f} ms, library "
                            + ("n/a" if lib is None else f"{lib:.4f}")
                            + " ms")
+            del wide
+            torch.cuda.empty_cache()
         # the hybrid's projections: the RG-LRU's 4096 x 4096 and the
         # GeGLU's 4096 x 12288 at 4 x 1024 tokens
         mmrec = by_name["int8_matmul_fp"]
@@ -3671,7 +4138,21 @@ def main(argv=None) -> int:
         mmrec["rwkv_value"] = check_matmul_shape(
             dev, gen, "channel-mix value", BATCH * PROMPT, rcfg.d_ff,
             rcfg.d_model)
+        # the frontends' projections and seamless's head: enc_in over the
+        # train step's 2 x 4096 frames (K = 160), patch_proj over 4 x 256
+        # patches (K = 1152), and one head chunk of the train step (2 x
+        # 512 rows against the 256206-wide vocabulary)
+        mmrec["enc_in"] = check_matmul_shape(
+            dev, gen, "enc_in", ENC_TRAIN_BATCH * ENC_TRAIN_SEQ,
+            ecfg.frontend_dim, ecfg.d_model)
+        mmrec["patch_proj"] = check_matmul_shape(
+            dev, gen, "patch_proj", BATCH * vcfg.n_patches,
+            vcfg.frontend_dim, vcfg.d_model)
+        mmrec["encdec_head"] = check_matmul_shape(
+            dev, gen, "seamless head chunk",
+            ENC_TRAIN_BATCH * ecfg.loss_chunk, ecfg.d_model, ecfg.vocab)
         torch.cuda.empty_cache()
+        clock.stop()
     for r in records:
         r["launches"] = None        # set by the path phases that run
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -3680,29 +4161,33 @@ def main(argv=None) -> int:
                        f"{r['plain_ms']:.4f} ms, library {lib} ms")
     torch.cuda.empty_cache()
     if run_phase(4):
-        serve_phases(cfg, dev, records, results, run_phase)
+        serve_phases(cfg, dev, records, results, run_phase, clock)
     if run_phase(7):
         # 7. train, full width and depth, fused backend
-        results["train"] = train_phase(cfg)
+        with clock(7, "train"):
+            results["train"] = train_phase(cfg)
         for r in records:
             r["launches"] = r["train_launches"] = \
                 results["train"]["launches"][r["name"]]
         torch.cuda.empty_cache()
     if run_phase(8):
         # 8. fused vs simulated forward + backward, same params/batch/noise
-        results["train_parity"] = train_parity_phase(
-            dataclasses.replace(cfg, n_layers=PARITY_LAYERS), dev)
+        with clock(8, "train parity"):
+            results["train_parity"] = train_parity_phase(
+                dataclasses.replace(cfg, n_layers=PARITY_LAYERS), dev)
         torch.cuda.empty_cache()
     if run_phase(9):
         # 9. the fused layer path: its kernel's launches are this run's
-        results["fused_layers"] = fused_layer_phase(cfg, dev)
+        with clock(9, "fused layers"):
+            results["fused_layers"] = fused_layer_phase(cfg, dev)
         for r in records:   # the fused kernel is on this path alone
             if r["name"] in LAYER_KERNELS and not r["launches"]:
                 r["launches"] = results["fused_layers"]["launches"][r["name"]]
         torch.cuda.empty_cache()
     if run_phase(10):
         # 10. the CNN train path, MobileNetV2-tiny at full width
-        results["cnn_train"] = cnn_train_phase(dev)
+        with clock(10, "cnn train"):
+            results["cnn_train"] = cnn_train_phase(dev)
         for r in records:
             r["cnn_train_launches"] = \
                 results["cnn_train"]["launches"][r["name"]]
@@ -3711,41 +4196,37 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if run_phase(11):
         # 11. CNN parity: fused vs simulated, TF32 on globally
-        results["cnn_parity"] = cnn_parity_phase(dev)
+        with clock(11, "cnn parity"):
+            results["cnn_parity"] = cnn_parity_phase(dev)
         torch.cuda.empty_cache()
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     if run_phase(12):
         # 12. LM train with telemetry and the guard, full width and depth
-        results["tele_train"] = tele_train_phase(cfg, dev, OUT_DIR)
+        with clock(12, "tele train"):
+            results["tele_train"] = tele_train_phase(cfg, dev, OUT_DIR)
         for r in records:
             r["tele_train_launches"] = \
                 results["tele_train"]["launches"][r["name"]]
         torch.cuda.empty_cache()
-    if run_phase(13):
-        # 13. CNN train with telemetry and the guard
-        results["tele_cnn"] = tele_cnn_phase(dev, OUT_DIR)
-        torch.cuda.empty_cache()
-    if run_phase(14):
-        # 14. serve with the prefill's telemetry
-        results["tele_serve"] = tele_serve_phase(cfg, OUT_DIR)
-        torch.cuda.empty_cache()
-    if run_phase(15):
-        # 15. fused vs simulated with telemetry and a firing guard
-        results["guard_parity"] = guard_parity_phase(cfg, dev)
-        torch.cuda.empty_cache()
-    if run_phase(16):
-        # 16. checkpoint, resume and serve from the checkpoint
-        results["ckpt"] = ckpt_phase(cfg, OUT_DIR)
-        torch.cuda.empty_cache()
+    for n, name, key, fn in (
+            (13, "tele cnn", "tele_cnn", lambda: tele_cnn_phase(dev,
+                                                                OUT_DIR)),
+            (14, "tele serve", "tele_serve",
+             lambda: tele_serve_phase(cfg, OUT_DIR)),
+            (15, "guard parity", "guard_parity",
+             lambda: guard_parity_phase(cfg, dev)),
+            (16, "checkpoint", "ckpt", lambda: ckpt_phase(cfg, OUT_DIR))):
+        if run_phase(n):
+            with clock(n, name):
+                results[key] = fn()
+            torch.cuda.empty_cache()
     if run_phase(17):
         # 17. MoE serve at full width and depth; 18. its prefill parity
-        t0 = time.perf_counter()
-        run, layer0 = moe_serve_phase(mcfg, records, results)
-        results["moe_serve"]["seconds"] = time.perf_counter() - t0
+        with clock(17, "moe serve"):
+            run, layer0 = moe_serve_phase(mcfg, records, results)
         if run_phase(18):
-            t0 = time.perf_counter()
-            moe_parity_phase(run, layer0, dev, results)
-            results["moe_parity"]["seconds"] = time.perf_counter() - t0
+            with clock(18, "moe parity"):
+                moe_parity_phase(run, layer0, dev, results)
         del run, layer0
         torch.cuda.empty_cache()
         for r in records:
@@ -3753,99 +4234,103 @@ def main(argv=None) -> int:
                 r["launches"] = r["moe_serve_launches"]
     if run_phase(19):
         # 19. the MoE train step, full width, depth cut
-        t0 = time.perf_counter()
-        results["moe_train"] = moe_train_phase(mcfg, dev, records)
-        results["moe_train"]["seconds"] = time.perf_counter() - t0
+        with clock(19, "moe train"):
+            results["moe_train"] = moe_train_phase(mcfg, dev, records)
         torch.cuda.empty_cache()
         for r in records:
             if r["launches"] is None and r["name"] in TRAIN_KERNELS:
                 r["launches"] = results["moe_train"]["launches"][r["name"]]
-    for phase in ("moe_serve", "moe_parity", "moe_train"):
-        if phase in results:
-            log("moe", f"{phase}: {results[phase]['seconds']:.1f} s")
     if run_phase(20):
         # 20. starcoder2-7b at full size past its window; 21. its parity;
         # 22. its fp32 path through _local_attn
-        t0 = time.perf_counter()
-        long = sc7_serve_phase(dev, records, results)
-        results["sc7_serve"]["seconds"] = time.perf_counter() - t0
-        for n, key, fn in ((21, "sc7_parity", sc7_parity_phase),
-                           (22, "sc7_fp", sc7_fp_phase)):
+        with clock(20, "sc7 serve"):
+            long = sc7_serve_phase(dev, records, results)
+        for n, name, fn in ((21, "sc7 parity", sc7_parity_phase),
+                            (22, "sc7 fp32", sc7_fp_phase)):
             if run_phase(n):
-                t0 = time.perf_counter()
-                fn(long, dev, results)
-                results[key]["seconds"] = time.perf_counter() - t0
+                with clock(n, name):
+                    fn(long, dev, results)
         del long
         torch.cuda.empty_cache()
-    for n, key, fn in ((23, "cmdr", cmdr_phase),
-                       (24, "nemotron", nemotron_phase),
-                       (25, "long_train", long_train_phase)):
+    for n, name, fn in ((23, "command-r", cmdr_phase),
+                        (24, "nemotron", nemotron_phase),
+                        (25, "long train", long_train_phase)):
         if run_phase(n):
-            t0 = time.perf_counter()
-            fn(dev, records, results)
-            results[key]["seconds"] = time.perf_counter() - t0
+            with clock(n, name):
+                fn(dev, records, results)
             torch.cuda.empty_cache()
-    for key in ("sc7_serve", "sc7_parity", "sc7_fp", "cmdr", "nemotron",
-                "long_train"):
-        if key in results:
-            log("dense", f"{key}: {results[key]['seconds']:.1f} s")
     if run_phase(26):
         # 26. recurrentgemma-9b at full size past its window; 27. its
         # parity checks (the fused-vs-simulated one on phase 26's
         # parameters, the others after they are freed)
-        t0 = time.perf_counter()
-        long, scan_ops = hyb_serve_phase(dev, records, results)
-        results["hyb_serve"]["seconds"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
+        with clock(26, "hybrid serve"):
+            long, scan_ops = hyb_serve_phase(dev, records, results)
         if run_phase(27):
-            results["hyb_parity"] = {"fused_vs_simulated": long_parity(
-                long, dev, "hyb-parity")}
+            with clock(27, "hybrid parity"):
+                results["hyb_parity"] = {"fused_vs_simulated": long_parity(
+                    long, dev, "hyb-parity")}
         del long
         torch.cuda.empty_cache()
         if run_phase(27):
-            hyb_parity_phase(scan_ops, dev, results["hyb_parity"])
-            results["hyb_parity"]["seconds"] = time.perf_counter() - t0
+            with clock(27, "hybrid parity"):
+                hyb_parity_phase(scan_ops, dev, results["hyb_parity"])
         del scan_ops
         torch.cuda.empty_cache()
     if run_phase(28):
-        t0 = time.perf_counter()
-        hyb_train_phase(dev, records, results)
-        results["hyb_train"]["seconds"] = time.perf_counter() - t0
+        with clock(28, "hybrid train"):
+            hyb_train_phase(dev, records, results)
         torch.cuda.empty_cache()
-    for key in ("hyb_serve", "hyb_parity", "hyb_train"):
-        if key in results:
-            log("hybrid", f"{key}: {results[key]['seconds']:.1f} s")
     if run_phase(29):
         # 29. rwkv6-7b at full size, 4 x 1024 and 1 x 32768; 30. its
         # parity checks (fused vs simulated and the WKV on phase 29's
         # parameters, decode vs prefill after they are freed)
-        t0 = time.perf_counter()
-        params, policy = rwkv_serve_phase(dev, records, results)
-        results["rwkv_serve"]["seconds"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
+        with clock(29, "rwkv serve"):
+            params, policy = rwkv_serve_phase(dev, records, results)
         if run_phase(30):
-            results["rwkv_parity"] = {}
-            rwkv_parity_phase(params, policy, dev, results["rwkv_parity"])
+            with clock(30, "rwkv parity"):
+                results["rwkv_parity"] = {}
+                rwkv_parity_phase(params, policy, dev, results["rwkv_parity"])
         del params
         torch.cuda.empty_cache()
         if run_phase(30):
-            rwkv_decode_phase(dev, results["rwkv_parity"])
-            results["rwkv_parity"]["seconds"] = time.perf_counter() - t0
+            with clock(30, "rwkv parity"):
+                rwkv_decode_phase(dev, results["rwkv_parity"])
             torch.cuda.empty_cache()
     if run_phase(31):
-        t0 = time.perf_counter()
-        rwkv_train_phase(dev, records, results)
-        results["rwkv_train"]["seconds"] = time.perf_counter() - t0
+        with clock(31, "rwkv train"):
+            rwkv_train_phase(dev, records, results)
         torch.cuda.empty_cache()
-    for key in ("rwkv_serve", "rwkv_parity", "rwkv_train"):
-        if key in results:
-            log("rwkv", f"{key}: {results[key]['seconds']:.1f} s")
+    for first, second, serve_fn, parity_fn, names in (
+            (32, 33, encdec_serve_phase, encdec_parity_phase,
+             ("encdec serve", "encdec parity")),
+            (35, 36, vlm_serve_phase, vlm_parity_phase,
+             ("vlm serve", "vlm parity"))):
+        # 32 / 35. the enc-dec / VLM family served at full width and depth;
+        # 33 / 36. its parity checks on the served run's parameters
+        if run_phase(first):
+            with clock(first, names[0]):
+                run = serve_fn(dev, records, results)
+            if run_phase(second):
+                with clock(second, names[1]):
+                    parity_fn(run, dev, results)
+            del run
+            torch.cuda.empty_cache()
+        # 34 / 37. its train step at full width
+        n, name, fn = ((34, "encdec train", encdec_train_phase)
+                       if first == 32 else
+                       (37, "vlm train", vlm_train_phase))
+        if run_phase(n):
+            with clock(n, name):
+                fn(dev, records, results)
+            torch.cuda.empty_cache()
     for r in records:       # the kernels' launches where no earlier path ran
         for key in ("sc7_serve_launches", "cmdr_serve_launches",
                     "nemotron_serve_launches", "grad_only_launches",
                     "act_only_launches", "hyb_serve_launches",
                     "hyb_train_launches_per_step", "rwkv_serve_launches",
-                    "rwkv_train_launches_per_step"):
+                    "rwkv_train_launches_per_step", "encdec_serve_launches",
+                    "encdec_train_launches_per_step", "vlm_serve_launches",
+                    "vlm_train_launches_per_step"):
             if not r["launches"] and r.get(key):
                 r["launches"] = r[key]
 
@@ -3854,6 +4339,7 @@ def main(argv=None) -> int:
                                   "bound_ms", "bound_by", "library_ms")}
                for r in records]
     results["kernels"] = records
+    results["time"] = clock.summary()
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(results, indent=1))
@@ -3861,7 +4347,6 @@ def main(argv=None) -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -54,6 +54,11 @@ class ArchConfig:
     grad_accum: tuple = (("train_4k", 1),)
     optimizer: str = "adamw"
 
+    def enc_len(self, dec_len: int) -> int:
+        """Cross-attention cache length paired with a decoder cache of
+        ``dec_len`` (= the encoder sequence the cell feeds)."""
+        return dec_len
+
 
 _REGISTRY: dict = {}
 
@@ -84,3 +89,4 @@ def _ensure_loaded():
         from . import command_r_35b, nemotron_4_340b  # noqa: F401
         from . import recurrentgemma_9b, rwkv6_7b  # noqa: F401
         from . import starcoder2_3b, starcoder2_7b  # noqa: F401
+        from . import paligemma_3b, seamless_m4t_medium  # noqa: F401

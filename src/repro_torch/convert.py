@@ -1,9 +1,13 @@
 """Layout conversion between the JAX package's trees and the port's.
 
-The JAX package scans its decoder: per-layer params, quant state, stats
+The JAX package scans its stacks: per-layer params, quant state, stats
 and caches live under ``decoder/blocks/b<j>`` with a leading
-``[repeats, ...]`` axis (plus an unrolled ``decoder/tail/t<j>``).  The
-port keeps one entry per layer under ``decoder/layers``.  These helpers
+``[repeats, ...]`` axis (plus an unrolled ``decoder/tail/t<j>``), and
+the enc-dec family's encoder likewise under ``encoder/`` (its pattern
+``cfg.enc_pattern``, ``cfg.enc_layers`` deep).  The port keeps one entry
+per layer under ``decoder/layers`` and ``encoder/layers``; every other
+subtree (``enc_in``, ``enc_norm``, ``patch_proj``, the head) is carried
+across as it is.  These helpers
 take the JAX trees as nested dicts of numpy arrays (no JAX import) and
 return the port's trees of tensors, and back — so tests can feed the
 reference's parameters to the port and compare stats, quant states and
@@ -19,10 +23,18 @@ from repro_torch.device import resolve_device
 from repro_torch.models.param_tree import ParamTree
 
 
-def _split(cfg, n_layers: int):
-    u = len(cfg.pattern)
+def _split(pattern, n_layers: int):
+    u = len(pattern)
     repeats = n_layers // u
     return u, repeats, n_layers - repeats * u
+
+
+def _stacks(cfg) -> dict:
+    """The scanned subtrees: name -> (pattern, depth)."""
+    out = {"decoder": (cfg.pattern, cfg.n_layers)}
+    if cfg.family == "encdec":
+        out["encoder"] = (cfg.enc_pattern, cfg.enc_layers)
+    return out
 
 
 def _map(fn, tree):
@@ -59,9 +71,9 @@ def _to_numpy(t) -> np.ndarray:
     return t.numpy().copy()
 
 
-def unstack_decoder(dec: dict, cfg, n_layers: int) -> dict:
+def unstack(dec: dict, pattern, n_layers: int) -> dict:
     """JAX ``{"blocks": ..., "tail": ...}`` -> ``{"layers": [...]}``."""
-    u, repeats, n_tail = _split(cfg, n_layers)
+    u, repeats, n_tail = _split(pattern, n_layers)
     layers = []
     for idx in range(n_layers):
         r, j = divmod(idx, u)
@@ -72,9 +84,9 @@ def unstack_decoder(dec: dict, cfg, n_layers: int) -> dict:
     return {"layers": layers}
 
 
-def stack_decoder(dec: dict, cfg, n_layers: int) -> dict:
+def stack(dec: dict, pattern, n_layers: int) -> dict:
     """Port ``{"layers": [...]}`` -> JAX ``{"blocks": ..., "tail": ...}``."""
-    u, repeats, n_tail = _split(cfg, n_layers)
+    u, repeats, n_tail = _split(pattern, n_layers)
     layers = dec["layers"]
     blocks = {} if repeats == 0 else {
         f"b{j}": _stack([layers[r * u + j] for r in range(repeats)])
@@ -87,21 +99,23 @@ def from_jax_layout(tree: dict, cfg, device=None) -> dict:
     """A JAX params / quant-state / stats / cache tree (numpy leaves) as
     the port's tree of tensors on ``device`` (the card unless ``"cpu"``)."""
     device = resolve_device(device)
+    stacks = _stacks(cfg)
     out = {}
     for k, v in tree.items():
-        if k == "decoder":
-            v = unstack_decoder(v, cfg, cfg.n_layers)
+        if k in stacks:
+            v = unstack(v, *stacks[k])
         out[k] = _map(lambda a: _to_tensor(a, device), v)
     return out
 
 
 def to_jax_layout(tree: dict, cfg) -> dict:
     """The port's tree as the JAX layout, with numpy leaves."""
+    stacks = _stacks(cfg)
     out = {}
     for k, v in tree.items():
         v = _map(_to_numpy, v)
-        if k == "decoder":
-            v = stack_decoder(v, cfg, cfg.n_layers)
+        if k in stacks:
+            v = stack(v, *stacks[k])
         out[k] = v
     return out
 

@@ -1,2 +1,3 @@
 """Synthetic data streams (port of ``repro.data``)."""
-from .pipeline import ImageStream, LMStream, for_arch  # noqa: F401
+from .pipeline import (FrontendLMStream, ImageStream, LMStream,  # noqa: F401
+                       for_arch)

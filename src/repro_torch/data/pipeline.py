@@ -1,8 +1,12 @@
 """Deterministic synthetic batches (port of ``repro/data/pipeline.py``:
-``LMStream``, ``ImageStream`` and ``for_arch``).
+``LMStream``, ``FrontendLMStream``, ``ImageStream`` and ``for_arch``).
 
 ``LMStream``: a fixed random Markov chain over the vocabulary (``branch``
-successors per token) walked from a random start.  ``ImageStream``: the
+successors per token) walked from a random start.  ``FrontendLMStream``:
+an ``LMStream`` batch plus the stub frontend's features (audio frames of
+the enc-dec family, image patches of the VLM family), standard normal
+plus ``0.1 * (first token % 7)`` so the frontend carries signal.
+``ImageStream``: the
 paper's CNN family's classification stream, a fixed random pattern per
 class plus noise.  Both are keyed only by ``(seed, step, shard)``.  The
 port draws from its own ``torch.Generator`` (CPU, so a stream is the same
@@ -60,6 +64,26 @@ class LMStream:
                 "mask": torch.ones_like(labels, dtype=torch.float32)}
 
 
+@dataclasses.dataclass(frozen=True)
+class FrontendLMStream:
+    lm: LMStream
+    frontend_dim: int
+    frontend_len: int        # frames (enc-dec) or patches (VLM)
+    kind: str = "frames"     # "frames" | "patches"
+
+    def batch(self, step: int, shard: int = 0, num_shards: int = 1) -> dict:
+        """The ``LMStream`` batch plus ``kind``: fp32 ``[B, frontend_len,
+        frontend_dim]`` (CPU)."""
+        b = self.lm.batch(step, shard, num_shards)
+        per_shard = b["tokens"].shape[0]
+        g = _generator(self.lm.seed + 77, step * 131 + shard)
+        feats = torch.randn((per_shard, self.frontend_len,
+                             self.frontend_dim), generator=g)
+        phase = (b["tokens"][:, :1, None] % 7).to(torch.float32)
+        b[self.kind] = feats + 0.1 * phase
+        return b
+
+
 @functools.lru_cache(maxsize=4)
 def _class_basis(seed: int, num_classes: int, image_size: int,
                  channels: int) -> torch.Tensor:
@@ -94,9 +118,14 @@ class ImageStream:
 
 
 def for_arch(cfg, seq_len: int, global_batch: int, seed: int = 0):
-    """Stream matching an ArchConfig's batch convention (the dense, MoE,
-    hybrid and RWKV-6 LMs take token streams)."""
-    if cfg.family not in ("dense", "moe", "hybrid", "rwkv"):
-        raise NotImplementedError(
-            f"{cfg.family} streams come with that model family's slice")
+    """Stream matching an ArchConfig's batch convention: enc-dec batches
+    carry ``seq_len`` frames beside ``seq_len`` tokens; VLM batches
+    ``n_patches`` patches and ``seq_len - n_patches`` tokens."""
+    if cfg.family == "encdec":
+        lm = LMStream(cfg.vocab, seq_len, global_batch, seed)
+        return FrontendLMStream(lm, cfg.frontend_dim, seq_len, "frames")
+    if cfg.family == "vlm":
+        lm = LMStream(cfg.vocab, seq_len - cfg.n_patches, global_batch, seed)
+        return FrontendLMStream(lm, cfg.frontend_dim, cfg.n_patches,
+                                "patches")
     return LMStream(cfg.vocab, seq_len, global_batch, seed)

@@ -328,33 +328,21 @@ def attention_core_reference(q_u8, k_i8, v_i8, regs, kvlen, *,
 # backward evaluated on p = exp(s - m_final), with s recomputed through the
 # same exact int8 QK^T as the forward.
 # ---------------------------------------------------------------------------
-def _block_live(i: int, j: int, sched: AttnSchedule) -> bool:
-    """False when every (q, k) pair of block (i, j) is masked, so its
-    contributions are exact zeros and the block can be skipped."""
-    S = sched
-    if S.mode in ("cross", "bidir"):
-        return True
-    q_lo, q_hi = i * S.bq, i * S.bq + S.bq - 1
-    k_lo, k_hi = j * S.bkv, j * S.bkv + S.bkv - 1
-    causal_dead = k_lo > q_hi
-    if S.mode == "prefix":
-        return not causal_dead or k_lo < S.prefix_len
-    if S.mode == "sliding":
-        return not causal_dead and q_lo - k_hi < S.window
-    return not causal_dead
-
-
 def attention_core_backward(qh, kh, vh, q_u8, k_i8, v_i8, regs, kvlen,
                             out, ml, g_out, *, sched: AttnSchedule):
     """Returns ``(dq [BH, sq, hd], dk [ZB, skv, hd], dv [ZB, skv, hd])``,
-    fp32 cotangents w.r.t. the on-grid (dequantized) q/k/v values.  Walks
-    the reference's ``(bq, bkv)`` blocks, q blocks outer; the QK^T
+    fp32 cotangents w.r.t. the on-grid (dequantized) q/k/v values, over
+    the reference's ``(bq, bkv)`` blocks.  Each block pair's terms are
+    computed for a chunk of q blocks against every kv block at once (a
+    pair the mask kills gives exact zeros), then summed in the
+    reference's order: ``dq_i`` over the kv blocks ``j`` in order,
+    ``dk_j`` and ``dv_j`` over the q blocks ``i`` in order.  The QK^T
     recompute runs in float64, exact for these integer operands."""
     S = sched
     bh = q_u8.shape[0]
     zb = bh // S.groups
     dev = q_u8.device
-    f32 = torch.float32
+    f32, f64 = torch.float32, torch.float64
     sqp, skp = S.nq * S.bq, S.nkv * S.bkv
 
     def qsplit(x, d):
@@ -368,50 +356,62 @@ def attention_core_backward(qh, kh, vh, q_u8, k_i8, v_i8, regs, kvlen,
     qz = qsplit(q_u8, S.hd)
     qhz = qsplit(qh.to(f32), S.hd)
     gz = qsplit(gf, S.hd)
-    mz = qsplit(ml[..., 0:1], 1)[..., 0]                   # [ZB, G, nq, bq]
-    lz = qsplit(ml[..., 1:2], 1)[..., 0]
-    dz = qsplit(d_row[..., None], 1)[..., 0]
-    kz = ksplit(k_i8, S.hd)
+    mz = qsplit(ml[..., 0:1], 1)                       # [ZB, G, nq, bq, 1]
+    lz = qsplit(ml[..., 1:2], 1)
+    dz = qsplit(d_row[..., None], 1)
+    kz = ksplit(k_i8, S.hd).to(f64)
     khz = ksplit(kh.to(f32), S.hd)
     vhz = ksplit(vh.to(f32), S.hd)
     regs = regs.reshape(-1).to(f32)
     zp_q, alpha_qk = regs[0], regs[1]
     kvl = kvlen.reshape(()).to(device=dev)
+    # kv positions [nkv, 1, bkv]; q positions per chunk [ci, 1, bq, 1]
+    k_pos = (torch.arange(S.nkv, device=dev) * S.bkv)[:, None, None] + \
+        torch.arange(S.bkv, device=dev)[None, None, :]
     rows = torch.arange(S.bq, device=dev)[:, None]
-    cols = torch.arange(S.bkv, device=dev)[None, :]
+    # q blocks per chunk: ~2**26 score elements at a time
+    per_block = zb * S.groups * S.nkv * S.bq * S.bkv
+    ci = max(1, min(S.nq, (1 << 26) // per_block))
 
     dk_acc = torch.zeros((zb, S.nkv, S.bkv, S.hd), dtype=f32, device=dev)
     dv_acc = torch.zeros_like(dk_acc)
     dqs = []
-    for i in range(S.nq):
-        rq = (qz[:, :, i].to(torch.int32)
-              - zp_q.to(torch.int32)).to(torch.float64)
-        qh_i, g_i = qhz[:, :, i], gz[:, :, i]
-        m_i = mz[:, :, i][..., None]
-        l_i = lz[:, :, i][..., None]
-        d_i = dz[:, :, i][..., None]
-        q_pos = i * S.bq + rows
-        dq_i = torch.zeros((zb, S.groups, S.bq, S.hd), dtype=f32, device=dev)
+    for i0 in range(0, S.nq, ci):
+        sl = slice(i0, min(i0 + ci, S.nq))
+        n = sl.stop - i0
+        rq = (qz[:, :, sl].to(torch.int32) - zp_q.to(torch.int32)).to(f64)
+        qh_i, g_i = qhz[:, :, sl], gz[:, :, sl]      # [ZB, G, n, bq, hd]
+        # [ZB, G, n, 1, bq, 1] against [ZB, G, n, nkv, bq, bkv] blocks
+        m_i, l_i, d_i = (t[:, :, sl, None] for t in (mz, lz, dz))
+        acc_qk = torch.einsum("zgiqh,zjkh->zgijqk", rq, kz)
+        s = _fence(alpha_qk * acc_qk.to(f32))
+        del acc_qk
+        q_pos = (torch.arange(i0, i0 + n, device=dev) * S.bq)[
+            :, None, None, None] + rows[None, None]
+        # Padded q rows (>= sq) carry zero (m, l) residuals: mask them,
+        # or p / max(l, eps) overflows into NaN cotangents.
+        mask = _element_mask(q_pos, k_pos[None], kvl, S) & (q_pos < S.sq)
+        p = torch.where(mask, torch.exp(s - m_i), 0.0)
+        del s, mask
+        r = p / l_i.clamp(min=1e-30)
+        del p
+        d_ov = torch.einsum("zgiqh,zjkh->zgijqk", g_i, vhz)
+        ds = (r * (d_ov - d_i)) * S.sm_scale
+        del d_ov
+        cq = torch.einsum("zgijqk,zjkh->zgijqh", ds, khz)
+        ck = torch.einsum("zgijqk,zgiqh->zijkh", ds, qh_i)
+        cv = torch.einsum("zgijqk,zgiqh->zijkh", r, g_i)
+        del ds, r
+        dq_c = torch.zeros((zb, S.groups, n, S.bq, S.hd), dtype=f32,
+                           device=dev)
         for j in range(S.nkv):
-            if not _block_live(i, j, S):
-                continue
-            acc_qk = torch.einsum("zgqh,zkh->zgqk", rq,
-                                  kz[:, j].to(torch.float64))
-            s = _fence(alpha_qk * acc_qk.to(f32))
-            k_pos = j * S.bkv + cols
-            # Padded q rows (>= sq) carry zero (m, l) residuals: mask them,
-            # or p / max(l, eps) overflows into NaN cotangents.
-            mask = _element_mask(q_pos, k_pos, kvl, S) & (q_pos < S.sq)
-            p = torch.where(mask, torch.exp(s - m_i), 0.0)
-            r = p / l_i.clamp(min=1e-30)
-            d_ov = torch.einsum("zgqh,zkh->zgqk", g_i, vhz[:, j])
-            ds = (r * (d_ov - d_i)) * S.sm_scale
-            dq_i = dq_i + torch.einsum("zgqk,zkh->zgqh", ds, khz[:, j])
-            dk_acc[:, j] += torch.einsum("zgqk,zgqh->zkh", ds, qh_i)
-            dv_acc[:, j] += torch.einsum("zgqk,zgqh->zkh", r, g_i)
-        dqs.append(dq_i)
-    dq = torch.stack(dqs).permute(1, 2, 0, 3, 4).reshape(
-        bh, sqp, S.hd)[:, :S.sq]
+            dq_c = dq_c + cq[:, :, :, j]
+        for t in range(n):
+            dk_acc = dk_acc + ck[:, t]
+            dv_acc = dv_acc + cv[:, t]
+        dqs.append(dq_c)
+        del cq, ck, cv
+    dq = torch.cat(dqs, dim=2).reshape(bh, sqp, S.hd)[:, :S.sq]
     dk = dk_acc.reshape(zb, skp, S.hd)[:, :S.skv]
     dv = dv_acc.reshape(zb, skp, S.hd)[:, :S.skv]
     return dq, dk, dv

@@ -56,25 +56,41 @@ class ServeRun:
     prefill_ms: float
     decode_ms: float
     decode_tok_s: float
+    # the prompt batch: "tokens" and the frontend's "frames" / "patches"
+    inputs: dict = dataclasses.field(default_factory=dict)
+    cache_len: int = 0
+    pos0: int = 0                   # the first decode step's position
 
 
-def generate(params, quant_state, prompt: torch.Tensor, cfg,
-             policy: QuantPolicy, gen: int,
-             tracer: Optional[trace.Tracer] = None) -> ServeRun:
-    """Prefill ``prompt`` and greedily decode ``gen`` tokens; with an
-    enabled ``tracer``, one span for the prefill (the first one carries
-    the kernels' build) and one per decode step, each fenced."""
+def generate(params, quant_state, prompt, cfg, policy: QuantPolicy,
+             gen: int, tracer: Optional[trace.Tracer] = None, *,
+             cache_len: Optional[int] = None,
+             pos0: Optional[int] = None) -> ServeRun:
+    """Prefill ``prompt`` (a token tensor ``[B, S]``, or a batch dict of
+    ``"tokens"`` and the frontend's ``"frames"`` / ``"patches"``) and
+    greedily decode ``gen`` tokens, the first at position ``pos0``
+    (default: the positions the prefill filled), into a cache of
+    ``cache_len`` slots (default: those positions plus ``gen``; an
+    enc-dec cross cache of ``cfg.enc_len(cache_len)`` slots keeps the
+    last frames of a longer source).  With an enabled ``tracer``, one
+    span for the prefill (the first one carries the kernels' build) and
+    one per decode step, each fenced."""
     tracer = tracer or trace.get_tracer()
-    device = prompt.device
-    b, prompt_len = prompt.shape
-    cache_len = prompt_len + gen
+    inputs = prompt if isinstance(prompt, dict) else {"tokens": prompt}
+    tokens = inputs["tokens"]
+    device = tokens.device
+    b, prompt_len = tokens.shape
+    filled = prompt_len + (inputs["patches"].shape[1]
+                           if "patches" in inputs else 0)
+    cache_len = cache_len or filled + gen
+    pos0 = filled if pos0 is None else pos0
     synchronize(device)
     t0 = time.perf_counter()
     with tracer.span("prefill (compile+execute)", batch=b,
                      prompt_len=prompt_len):
         logits, caches, stats = model.prefill(
-            params, quant_state, {"tokens": prompt}, cfg, policy,
-            cache_len=cache_len, return_stats=True)
+            params, quant_state, inputs, cfg, policy, cache_len=cache_len,
+            return_stats=True)
         synchronize(device)
     t_prefill = time.perf_counter() - t0
     prefill_logits = logits
@@ -84,8 +100,8 @@ def generate(params, quant_state, prompt: torch.Tensor, cfg,
     t0 = time.perf_counter()
     with tracer.span("decode", steps=gen - 1):
         for i in range(gen - 1):
-            with tracer.span("decode step", pos=prompt_len + i):
-                pos = torch.full((b,), prompt_len + i, dtype=torch.int64,
+            with tracer.span("decode step", pos=pos0 + i):
+                pos = torch.full((b,), pos0 + i, dtype=torch.int64,
                                  device=device)
                 logits, caches = model.decode_step(params, quant_state, tok,
                                                    pos, caches, cfg, policy)
@@ -97,10 +113,11 @@ def generate(params, quant_state, prompt: torch.Tensor, cfg,
     t_decode = time.perf_counter() - t0
     return ServeRun(
         cfg=cfg, policy=policy, params=params, quant_state=quant_state,
-        prompt=prompt, tokens=torch.cat(out, dim=1),
+        prompt=tokens, tokens=torch.cat(out, dim=1),
         prefill_logits=prefill_logits, prefill_stats=stats,
         prefill_ms=t_prefill * 1e3, decode_ms=t_decode * 1e3,
-        decode_tok_s=(gen - 1) * b / max(t_decode, 1e-9))
+        decode_tok_s=(gen - 1) * b / max(t_decode, 1e-9), inputs=inputs,
+        cache_len=cache_len, pos0=pos0)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -170,11 +187,19 @@ def main(argv=None) -> ServeRun:
             print(f"[serve] restore failed ({e}); serving from init")
     stream = data.for_arch(cfg, seq_len=args.prompt_len + args.gen,
                            global_batch=args.batch, seed=args.seed)
-    prompt = stream.batch(0)["tokens"][:, :args.prompt_len].to(device)
-
+    batch = stream.batch(0)
+    prompt = {k: (v[:, :args.prompt_len] if k == "tokens" else v).to(device)
+              for k, v in batch.items() if k in ("tokens", "frames",
+                                                 "patches")}
+    # As the reference's driver: the VLM's cache and first decode
+    # position count n_patches beyond the prompt length, although its
+    # text stream is already n_patches short, so decode starts past
+    # positions the prefill never filled (n_patches - gen of them).
+    extra = cfg.n_patches if cfg.family == "vlm" else 0
     tracer = trace.Tracer(enabled=bool(args.trace))
     run = generate(params, quant_state, prompt, cfg, policy, args.gen,
-                   tracer)
+                   tracer, cache_len=args.prompt_len + args.gen + extra,
+                   pos0=args.prompt_len + extra)
     if args.telemetry:
         with tracer.span("telemetry flush"):
             sink = telemetry.JsonlSink(args.telemetry, max_steps=1024)

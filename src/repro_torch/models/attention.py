@@ -17,7 +17,11 @@ sliding window, and ``_chunked_attn`` (online softmax over ``q_chunk`` x
 ``kv_chunk`` blocks) otherwise.  Without a recorded gradient they update
 their score tiles in place (the same values, one tile's memory).
 
-Not ported yet: cross attention (``kv_x``, the enc-dec family).
+Cross attention (the enc-dec family) takes its keys and values from
+``kv_x``, the encoder's output, with an activation site of its own on the
+``k`` site and no RoPE; a prefill fills the cross cache with the encoder's
+projections, and decode (``kv_x=None``) attends that cache whole without
+running a k/v projection.
 """
 from __future__ import annotations
 
@@ -285,13 +289,18 @@ def attention_layer(params, sites: dict, x: torch.Tensor, *, n_heads: int,
                     prefix_len: Optional[int] = None,
                     rope_theta: Optional[float] = 10000.0,
                     positions: Optional[torch.Tensor] = None,
+                    kv_x: Optional[torch.Tensor] = None,
                     kv_len=None, cache: Optional[dict] = None,
                     policy: QuantPolicy, seed=0, step=0,
                     q_chunk: int = 2048, kv_chunk: int = 1024,
                     dense_attn_max: int = 4096):
-    """Self-attention layer; returns ``(y, stats, cache)``."""
+    """Self- or cross-attention layer (``kv_x [B, Skv, D]``, the encoder's
+    output, as the k/v source); returns ``(y, stats, cache)``."""
     b, s, _ = x.shape
     scale = head_dim ** -0.5
+    # Cross decode: the encoder's projections were cached at prefill
+    # (signalled by kv_x=None); no k/v projection runs.
+    cross_decode = cache is not None and mode == "cross" and kv_x is None
     new_sites = {}
     core_stats = None
     # One shared activation quantization for q/k/v; its range state lives
@@ -304,20 +313,41 @@ def attention_layer(params, sites: dict, x: torch.Tensor, *, n_heads: int,
                                qinfo=xqi)
     sq["act"] = in_stats
     new_sites["q"] = sq
-    k, new_sites["k"] = qlinear.qdense_pre(
-        xq, params["wk"], sites["k"], policy, einsum_spec="bsd,dkh->bskh",
-        bias=params.get("bk"), seed=seed + 1, step=step, qinfo=xqi)
-    v, new_sites["v"] = qlinear.qdense_pre(
-        xq, params["wv"], sites["v"], policy, einsum_spec="bsd,dkh->bskh",
-        bias=params.get("bv"), seed=seed + 2, step=step, qinfo=xqi)
+    if cross_decode:
+        k = v = None
+        new_sites["k"], new_sites["v"] = sites["k"], sites["v"]
+    else:
+        if kv_x is None:
+            src_q, src_stats, src_qi = xq, None, xqi
+        else:
+            # the encoder's output gets its own site, on "k"
+            src_q, src_stats, src_qi = qlinear.act_quant_site(
+                kv_x, sites["k"]["act"], policy, step)
+        k, new_sites["k"] = qlinear.qdense_pre(
+            src_q, params["wk"], sites["k"], policy,
+            einsum_spec="bsd,dkh->bskh", bias=params.get("bk"),
+            seed=seed + 1, step=step, qinfo=src_qi)
+        v, new_sites["v"] = qlinear.qdense_pre(
+            src_q, params["wv"], sites["v"], policy,
+            einsum_spec="bsd,dkh->bskh", bias=params.get("bv"),
+            seed=seed + 2, step=step, qinfo=src_qi)
+        if src_stats is not None:
+            new_sites["k"]["act"] = src_stats
 
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
+    # no rotation across the encoder/decoder boundary
     if rope_theta is not None and mode != "cross":
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
 
-    if cache is not None and s == 1:
+    if cross_decode:
+        # the whole cached encoder: every filled slot is at or before 2**30
+        out = _decode_attn(q, cache["k"], cache["v"], cache["pos"],
+                           torch.full((b,), 2 ** 30, device=x.device),
+                           mode="cross_dec", window=None, prefix_len=None,
+                           scale=scale, kv_scale=cache.get("scale"))
+    elif cache is not None and s == 1 and mode != "cross":
         cur = positions[:, 0]
         cache = cache_insert(cache, k, v, cur)
         out = _decode_attn(q, cache["k"], cache["v"], cache["pos"], cur,

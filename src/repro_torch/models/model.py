@@ -1,11 +1,20 @@
 """Model entry points (port of ``repro/models/model.py``): init, the
 trunk, the training loss ``loss_fn`` with the chunked quantized LM head,
-and ``prefill`` / ``decode_step`` of the dense, MoE, hybrid and RWKV-6 LM
-families (the enc-dec and VLM branches come with their families).
-None of the MoE, hybrid and RWKV-6 families has a branch of its own here:
-their ``"moe"``, ``"rec"`` / ``"local"`` and ``"rwkv"`` blocks live in
-the stack (an attention-free stack reads no positions),
-whose summed ``aux_loss`` / ``z_loss`` the loss adds.
+and ``prefill`` / ``decode_step`` of every LM family.  The MoE, hybrid
+and RWKV-6 families have no branch of their own here: their ``"moe"``,
+``"rec"`` / ``"local"`` and ``"rwkv"`` blocks live in the stack (an
+attention-free stack reads no positions), whose summed ``aux_loss`` /
+``z_loss`` the loss adds.  The enc-dec family runs an encoder stack on
+its ``frames`` (a stub frontend: precomputed frame embeddings through the
+quantized linear ``enc_in``) and hands its output to the decoder's cross
+attention; the VLM family puts its ``patches`` (through ``patch_proj``)
+before the token embeddings as a prefix the decoder attends
+bidirectionally.
+
+Batches: ``{"tokens", "labels", "mask"}`` (``[B, S]``), plus ``"frames"
+[B, Senc, frontend_dim]`` (enc-dec) or ``"patches" [B, P,
+frontend_dim]`` (VLM; the loss covers the text suffix only).  Decode
+takes no frontend: enc-dec decode reads the cross cache.
 
 The LM head evaluates the loss in sequence chunks so ``[B, S, V]`` logits
 never exist; both head quantizers act on the head *input* (``Q_Y`` on the
@@ -31,30 +40,33 @@ from . import layers, transformer
 from .param_tree import ParamTree
 
 
-_FAMILIES = ("dense", "moe", "hybrid", "rwkv")
-
-
-def _check_family(cfg) -> None:
-    if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family} family is not ported yet")
-
-
 # ===========================================================================
 # Init.
 # ===========================================================================
 def init_params(cfg, seed: int = 0, device=None) -> ParamTree:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
     (the CUDA card unless ``"cpu"`` is asked for)."""
-    _check_family(cfg)
     gen = torch.Generator(device=resolve_device(device)).manual_seed(
         int(seed))
     dt = getattr(torch, cfg.param_dtype)
     p: dict = {"embed": layers.init_embedding(gen, cfg.vocab, cfg.d_model,
                                               dt)}
-    p["decoder"] = transformer.init_stack(gen, cfg, cfg.n_layers)
+    dev = gen.device
+    if cfg.family == "encdec":
+        p["enc_in"] = layers.init_normal(gen, (cfg.frontend_dim, cfg.d_model),
+                                         cfg.frontend_dim ** -0.5, dt)
+        p["encoder"] = transformer.init_stack(gen, cfg, cfg.enc_pattern,
+                                              cfg.enc_layers)
+        p["enc_norm"] = layers.init_norm(cfg.d_model, cfg.norm_kind,
+                                         cfg.use_bias, dev)
+    if cfg.family == "vlm":
+        p["patch_proj"] = layers.init_normal(
+            gen, (cfg.frontend_dim, cfg.d_model), cfg.frontend_dim ** -0.5,
+            dt)
+    p["decoder"] = transformer.init_stack(gen, cfg, cfg.pattern,
+                                          cfg.n_layers)
     p["final_norm"] = layers.init_norm(cfg.d_model, cfg.norm_kind,
-                                       cfg.use_bias, gen.device)
+                                       cfg.use_bias, dev)
     if not cfg.tie_embeddings:
         p["head"] = layers.init_normal(gen, (cfg.d_model, cfg.vocab),
                                    cfg.d_model ** -0.5, dt)
@@ -65,10 +77,16 @@ def init_quant_state(cfg, policy: Optional[QuantPolicy] = None,
                      device=None) -> dict:
     """Width-3 site leaves, widened once here when ``policy`` has
     telemetry enabled (no site builder knows the extended layout)."""
-    _check_family(cfg)
     device = resolve_device(device)
-    s = {"decoder": transformer.init_stack_sites(cfg, cfg.n_layers, device),
+    s = {"decoder": transformer.init_stack_sites(cfg, cfg.pattern,
+                                                 cfg.n_layers, device),
          "head": qlinear.init_site(device=device)}
+    if cfg.family == "encdec":
+        s["enc_in"] = qlinear.init_site(device=device)
+        s["encoder"] = transformer.init_stack_sites(cfg, cfg.enc_pattern,
+                                                    cfg.enc_layers, device)
+    if cfg.family == "vlm":
+        s["patch_proj"] = qlinear.init_site(device=device)
     if policy is not None:
         s = metrics.widen_state(s, policy.stat_width)
     return s
@@ -76,7 +94,8 @@ def init_quant_state(cfg, policy: Optional[QuantPolicy] = None,
 
 def init_cache(cfg, batch: int, cache_len: int, device=None) -> dict:
     return {"decoder": transformer.init_stack_cache(
-        cfg, cfg.n_layers, batch, cache_len, resolve_device(device))}
+        cfg, cfg.pattern, cfg.n_layers, batch, cache_len,
+        resolve_device(device))}
 
 
 # ===========================================================================
@@ -102,18 +121,51 @@ def _embed_tokens(params, tokens, cfg, policy) -> torch.Tensor:
 
 def _trunk(params, sites, batch, cfg, policy, seed, step, caches=None):
     """Returns ``(hidden [B, S, D], stats, caches, metrics{aux_loss,
-    z_loss})``."""
-    _check_family(cfg)
-    x = _embed_tokens(params, batch["tokens"], cfg, policy)
+    z_loss})``; for the VLM family ``S`` counts the image prefix."""
+    new_sites: dict = {}
+    enc_out = enc_len = prefix_len = None
+    metrics = None
+    dt = getattr(torch, cfg.compute_dtype)
+
+    if cfg.family == "encdec" and "frames" in batch:
+        frames = batch["frames"].to(dt)
+        ex, new_sites["enc_in"] = qlinear.qdense(
+            frames, params["enc_in"], sites["enc_in"], policy,
+            seed=seed + 1_000_000, step=step)
+        epos = torch.arange(ex.shape[1], device=ex.device).expand(
+            ex.shape[:2])
+        enc_out, new_sites["encoder"], _, metrics = transformer.apply_stack(
+            params["encoder"], sites["encoder"], ex, cfg=cfg,
+            pattern=cfg.enc_pattern, policy=policy, seed=seed + 2_000_000,
+            step=step, positions=epos)
+        enc_out = layers.apply_norm(enc_out, params["enc_norm"],
+                                    cfg.norm_kind)
+        enc_len = batch.get("frame_len")
+
+    if cfg.family == "vlm" and "patches" in batch:
+        patches = batch["patches"].to(dt)
+        px, new_sites["patch_proj"] = qlinear.qdense(
+            patches, params["patch_proj"], sites["patch_proj"], policy,
+            seed=seed + 3_000_000, step=step)
+        tx = _embed_tokens(params, batch["tokens"], cfg, policy)
+        x = torch.cat([px, tx], dim=1)
+        prefix_len = patches.shape[1]
+    else:
+        x = _embed_tokens(params, batch["tokens"], cfg, policy)
+
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device).expand(
             x.shape[:2])
-    x, dec_sites, new_caches, metrics = transformer.apply_stack(
-        params["decoder"], sites["decoder"], x, cfg=cfg, policy=policy,
-        seed=seed, step=step, positions=positions, caches=caches)
+    x, new_sites["decoder"], new_caches, dmet = transformer.apply_stack(
+        params["decoder"], sites["decoder"], x, cfg=cfg, pattern=cfg.pattern,
+        policy=policy, seed=seed, step=step, positions=positions,
+        caches=caches, enc_out=enc_out, enc_len=enc_len,
+        prefix_len=prefix_len)
+    if metrics is not None:
+        dmet = {k: metrics[k] + dmet[k] for k in dmet}
     x = layers.apply_norm(x, params["final_norm"], cfg.norm_kind)
-    return x, {"decoder": dec_sites}, new_caches, metrics
+    return x, new_sites, new_caches, dmet
 
 
 def _head_weight_raw(params, cfg) -> torch.Tensor:
@@ -166,6 +218,9 @@ def loss_fn(params, quant_state, batch, cfg, policy: QuantPolicy, seed: int,
                                       policy, seed, step)
     labels = batch["labels"]
     mask = batch["mask"].to(torch.float32)
+    if cfg.family == "vlm":
+        # the loss covers the text suffix; the hidden states hold the prefix
+        x = x[:, batch["patches"].shape[1]:]
 
     site = quant_state["head"]
     xq, new_head_act, xqi = qlinear.act_quant_site(x, site["act"], policy,
@@ -215,9 +270,14 @@ def prefill(params, quant_state, batch, cfg, policy: QuantPolicy,
             cache_len: Optional[int] = None, return_stats: bool = False):
     """Run the prompt and build the decode cache.  Returns ``(last_logits
     [B, V], caches)`` (plus the forward stats tree with
-    ``return_stats``)."""
+    ``return_stats``).  ``cache_len`` defaults to the prompt's length (the
+    VLM's patches counted); an enc-dec cross cache has
+    ``cfg.enc_len(cache_len)`` slots and keeps the last of a longer
+    encoder sequence."""
     tokens = batch["tokens"]
     b, s = tokens.shape
+    if cfg.family == "vlm":
+        s = s + batch["patches"].shape[1]
     caches = init_cache(cfg, b, cache_len or s, tokens.device)
     x, fwd_stats, new_caches, _ = _trunk(params, quant_state, batch, cfg,
                                          policy, 0, 0,

@@ -1,19 +1,23 @@
 """The transformer stack (port of ``repro/models/transformer.py``): the
-``"attn"`` block of the dense LMs, the ``"moe"`` block of the MoE LMs
+``"attn"`` block of the dense LMs (under the prefix-LM mask when the VLM
+family's image prefix is set), the ``"moe"`` block of the MoE LMs
 (the same attention, with :mod:`.moe` in place of the MLP), and the
 hybrid family's ``"rec"`` (:mod:`.rglru` in place of the attention) and
 ``"local"`` (attention under a sliding mask of ``local_window``, its
-cache a ring of that length) blocks, and RWKV-6's ``"rwkv"`` block (the
+cache a ring of that length) blocks, RWKV-6's ``"rwkv"`` block (the
 :mod:`.rwkv6` time mix and channel mix, its cache the WKV state and the
-two sublayers' last normed rows).
+two sublayers' last normed rows), and the enc-dec family's ``"enc"``
+(bidirectional self-attention, RoPE kept) and ``"xattn"`` (causal
+self-attention, then cross attention on the encoder's output, then the
+MLP; its cache the self-attention's ``kv`` and the encoder's projections
+``xkv``) blocks.
 
 The reference scans a pattern unit with ``lax.scan`` and stacks per-layer
 state into ``[repeats, ...]`` leaves, applying a ragged tail (e.g.
 recurrentgemma's 38 = 12 x 3 + 2) unrolled; the port runs a Python loop
 over the layers and keeps one entry per layer: params, quant sites and
-caches are ``{"layers": [layer 0, layer 1, ...]}``.
-``repro_torch.convert`` maps between the two layouts.  The other block
-kinds (enc-dec) come with their model family.
+caches are ``{"layers": [layer 0, layer 1, ...]}``, for the decoder and
+the encoder alike.  ``repro_torch.convert`` maps between the two layouts.
 """
 from __future__ import annotations
 
@@ -29,13 +33,12 @@ from . import rglru, rwkv6
 
 # Seed stride reserved per layer (matches the reference).
 _SEED_STRIDE = 64
-_KINDS = ("attn", "moe", "local", "rec", "rwkv")
+_KINDS = ("attn", "moe", "local", "rec", "rwkv", "enc", "xattn")
 
 
 def _check_kind(kind: str) -> None:
     if kind not in _KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} comes with its model family's slice")
+        raise ValueError(f"unknown block kind {kind!r}")
 
 
 def _init_block(gen: torch.Generator, kind: str, cfg) -> dict:
@@ -58,6 +61,12 @@ def _init_block(gen: torch.Generator, kind: str, cfg) -> dict:
         p["attn"] = attn.init_attention(gen, cfg.d_model, cfg.n_heads,
                                         cfg.n_kv, cfg.head_dim, cfg.use_bias,
                                         dt)
+    if kind == "xattn":
+        p["lnx"] = layers.init_norm(cfg.d_model, cfg.norm_kind, cfg.use_bias,
+                                    dev)
+        p["xattn"] = attn.init_attention(gen, cfg.d_model, cfg.n_heads,
+                                         cfg.n_kv, cfg.head_dim,
+                                         cfg.use_bias, dt)
     p["ln2"] = layers.init_norm(cfg.d_model, cfg.norm_kind, cfg.use_bias,
                                 dev)
     if kind == "moe":
@@ -79,8 +88,11 @@ def _init_block_sites(kind: str, cfg, device=None) -> dict:
     if kind == "rec":
         return {"rglru": rglru.init_rglru_sites(device),
                 "mlp": layers.init_mlp_sites(cfg.mlp_kind, device)}
-    return {"attn": attn.init_attention_sites(device),
-            "mlp": layers.init_mlp_sites(cfg.mlp_kind, device)}
+    sites = {"attn": attn.init_attention_sites(device)}
+    if kind == "xattn":
+        sites["xattn"] = attn.init_attention_sites(device)
+    sites["mlp"] = layers.init_mlp_sites(cfg.mlp_kind, device)
+    return sites
 
 
 def _init_block_cache(kind: str, cfg, batch: int, cache_len: int,
@@ -103,10 +115,15 @@ def _init_block_cache(kind: str, cfg, batch: int, cache_len: int,
     length = cache_len
     if kind == "local":
         length = min(cache_len, cfg.local_window)
-    elif cfg.sliding_window is not None:
+    elif cfg.sliding_window is not None and kind != "xattn":
         length = min(cache_len, cfg.sliding_window)
-    return {"kv": attn.init_kv_cache(batch, length, cfg.n_kv, cfg.head_dim,
-                                     cdt, device)}
+    cache = {"kv": attn.init_kv_cache(batch, length, cfg.n_kv, cfg.head_dim,
+                                      cdt, device)}
+    if kind == "xattn":
+        # the encoder's projections; a longer source keeps its last slots
+        cache["xkv"] = attn.init_kv_cache(batch, cfg.enc_len(cache_len),
+                                          cfg.n_kv, cfg.head_dim, cdt, device)
+    return cache
 
 
 def _apply_rec_block(params, sites, x, *, cfg, policy, seed, step,
@@ -161,9 +178,13 @@ def _apply_rwkv_block(params, sites, x, *, cfg, policy, seed, step,
 
 
 def _apply_block(kind: str, params, sites, x, *, cfg, policy, seed, step,
-                 positions, cache=None):
+                 positions, cache=None, enc_out=None, enc_len=None,
+                 prefix_len=None):
     """Returns ``(x, stats, cache, metrics)``: the MoE block's
-    ``{aux_loss, z_loss}``, ``None`` for the others."""
+    ``{aux_loss, z_loss}``, ``None`` for the others.  ``enc_out`` /
+    ``enc_len`` feed an ``"xattn"`` block's cross attention (``None`` in
+    decode: it reads its ``xkv`` cache); ``prefix_len`` puts ``"attn"``
+    and ``"moe"`` blocks under the prefix-LM mask."""
     _check_kind(kind)
     if kind == "rwkv":
         return _apply_rwkv_block(params, sites, x, cfg=cfg, policy=policy,
@@ -173,16 +194,35 @@ def _apply_block(kind: str, params, sites, x, *, cfg, policy, seed, step,
                                 seed=seed, step=step, cache=cache)
     window = cfg.local_window if kind == "local" else cfg.sliding_window
     mode = "sliding" if window is not None else "causal"
+    if kind == "enc":
+        mode = "sliding" if window is not None else "bidir"
+    if prefix_len is not None and kind in ("attn", "moe"):
+        mode = "prefix"
     new_sites: dict = {}
+    new_cache = None if cache is None else {}
     h = layers.apply_norm(x, params["ln1"], cfg.norm_kind)
     a, new_sites["attn"], kv = attn.attention_layer(
         params["attn"], sites["attn"], h, n_heads=cfg.n_heads,
         n_kv=cfg.n_kv, head_dim=cfg.head_dim, mode=mode, window=window,
-        rope_theta=cfg.rope_theta, positions=positions,
-        cache=None if cache is None else cache["kv"], policy=policy,
-        seed=seed, step=step, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
-        dense_attn_max=cfg.dense_attn_max)
+        prefix_len=prefix_len, rope_theta=cfg.rope_theta,
+        positions=positions, cache=None if cache is None else cache["kv"],
+        policy=policy, seed=seed, step=step, q_chunk=cfg.q_chunk,
+        kv_chunk=cfg.kv_chunk, dense_attn_max=cfg.dense_attn_max)
     x = x + a
+    if cache is not None:
+        new_cache["kv"] = kv
+    if kind == "xattn":
+        h = layers.apply_norm(x, params["lnx"], cfg.norm_kind)
+        a, new_sites["xattn"], xkv = attn.attention_layer(
+            params["xattn"], sites["xattn"], h, n_heads=cfg.n_heads,
+            n_kv=cfg.n_kv, head_dim=cfg.head_dim, mode="cross",
+            rope_theta=None, positions=positions, kv_x=enc_out,
+            kv_len=enc_len, cache=None if cache is None else cache["xkv"],
+            policy=policy, seed=seed + 8, step=step, q_chunk=cfg.q_chunk,
+            kv_chunk=cfg.kv_chunk)
+        x = x + a
+        if cache is not None:
+            new_cache["xkv"] = xkv
     h = layers.apply_norm(x, params["ln2"], cfg.norm_kind)
     if kind == "moe":
         m, new_sites["moe"], metrics = moe_mod.apply_moe(
@@ -194,46 +234,57 @@ def _apply_block(kind: str, params, sites, x, *, cfg, policy, seed, step,
                                                seed + 16, step)
         metrics = None
     x = x + m
-    return x, new_sites, (None if cache is None else {"kv": kv}), metrics
+    return x, new_sites, new_cache, metrics
 
 
-def _kinds(cfg, n_layers: int) -> list:
-    return [cfg.pattern[i % len(cfg.pattern)] for i in range(n_layers)]
+def _kinds(pattern, n_layers: int) -> list:
+    return [pattern[i % len(pattern)] for i in range(n_layers)]
 
 
-def init_stack(gen: torch.Generator, cfg, n_layers: int) -> dict:
+def stack_depth(cfg, pattern) -> int:
+    """The layers of the stack of ``pattern``: the encoder's ``enc_layers``
+    (enc-dec), else ``n_layers``."""
+    if cfg.family == "encdec" and pattern == cfg.enc_pattern:
+        return cfg.enc_layers
+    return cfg.n_layers
+
+
+def init_stack(gen: torch.Generator, cfg, pattern, n_layers: int) -> dict:
     return {"layers": [_init_block(gen, kind, cfg)
-                       for kind in _kinds(cfg, n_layers)]}
+                       for kind in _kinds(pattern, n_layers)]}
 
 
-def init_stack_sites(cfg, n_layers: int, device=None) -> dict:
+def init_stack_sites(cfg, pattern, n_layers: int, device=None) -> dict:
     return {"layers": [_init_block_sites(kind, cfg, device)
-                       for kind in _kinds(cfg, n_layers)]}
+                       for kind in _kinds(pattern, n_layers)]}
 
 
-def init_stack_cache(cfg, n_layers: int, batch: int, cache_len: int,
-                     device=None) -> dict:
+def init_stack_cache(cfg, pattern, n_layers: int, batch: int,
+                     cache_len: int, device=None) -> dict:
     return {"layers": [_init_block_cache(kind, cfg, batch, cache_len, device)
-                       for kind in _kinds(cfg, n_layers)]}
+                       for kind in _kinds(pattern, n_layers)]}
 
 
-def apply_stack(params, sites, x, *, cfg, policy, seed, step, positions,
-                caches=None):
+def apply_stack(params, sites, x, *, cfg, pattern, policy, seed, step,
+                positions, caches=None, enc_out=None, enc_len=None,
+                prefix_len=None):
     """Returns ``(x, stats, caches, metrics)``, the blocks' ``aux_loss``
-    and ``z_loss`` summed over the layers.  With ``cfg.remat`` and a
-    recorded gradient each block is checkpointed (its activations are
-    recomputed in the backward pass), as the reference's
-    ``jax.checkpoint`` of the scan unit."""
+    and ``z_loss`` summed over the layers; the stack of ``pattern`` has
+    :func:`stack_depth` layers.  With ``cfg.remat`` and a recorded
+    gradient each block is checkpointed (its activations are recomputed
+    in the backward pass), as the reference's ``jax.checkpoint`` of the
+    scan unit."""
     remat = cfg.remat and torch.is_grad_enabled()
     new_sites, new_caches = [], []
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     metrics = {"aux_loss": zero, "z_loss": zero}
-    for idx, kind in enumerate(_kinds(cfg, cfg.n_layers)):
+    for idx, kind in enumerate(_kinds(pattern, stack_depth(cfg, pattern))):
         block = functools.partial(
             _apply_block, kind, params["layers"][idx], sites["layers"][idx],
             cfg=cfg, policy=policy, seed=seed + idx * _SEED_STRIDE,
             step=step, positions=positions,
-            cache=None if caches is None else caches["layers"][idx])
+            cache=None if caches is None else caches["layers"][idx],
+            enc_out=enc_out, enc_len=enc_len, prefix_len=prefix_len)
         if remat:
             x, ns, nc, met = checkpoint(block, x, use_reentrant=False)
         else:

@@ -27,8 +27,9 @@ v1 and still parse):
               "throughput": f, "throughput_unit": "tokens/s"|"images/s"}}
 
 Site paths are the reference's: given the model config, the port's
-per-layer ``decoder/layers/<i>/...`` leaves are named as the reference's
-scanned ``decoder/blocks/b<j>/...[r]`` rows (``decoder/tail/t<k>/...``
+per-layer ``decoder/layers/<i>/...`` (and ``encoder/layers/<i>/...``)
+leaves are named as the reference's scanned ``decoder/blocks/b<j>/...[r]``
+rows (``decoder/tail/t<k>/...``
 for unrolled layers), so logs of the two packages compare site by site
 and either package's ``report`` reads both.
 """
@@ -74,18 +75,23 @@ def _flatten(tree, path: tuple = ()):
 
 def site_name(path: tuple, cfg=None) -> str:
     """The reference's record name of the port's leaf at ``path``: with
-    ``cfg``, layer ``i`` of ``decoder/layers`` is row ``r`` of the scanned
-    block ``b<j>`` (``i = r * len(cfg.pattern) + j``) or unrolled tail
-    layer ``t<k>``, as ``repro_torch.convert`` stacks them."""
-    if cfg is not None and len(path) > 3 and path[:2] == ("decoder",
-                                                          "layers"):
-        u = len(cfg.pattern)
-        repeats = cfg.n_layers // u
+    ``cfg``, layer ``i`` of ``decoder/layers`` (``encoder/layers`` of
+    the enc-dec family, by ``cfg.enc_pattern`` and ``cfg.enc_layers``) is
+    row ``r`` of the scanned block ``b<j>`` (``i = r * len(pattern) + j``)
+    or unrolled tail layer ``t<k>``, as ``repro_torch.convert`` stacks
+    them."""
+    stacks = {"decoder": (cfg.pattern, cfg.n_layers)} if cfg else {}
+    if cfg is not None and cfg.family == "encdec":
+        stacks["encoder"] = (cfg.enc_pattern, cfg.enc_layers)
+    if len(path) > 3 and path[0] in stacks and path[1] == "layers":
+        pattern, n_layers = stacks[path[0]]
+        u = len(pattern)
+        repeats = n_layers // u
         r, j = divmod(path[2], u)
         rest = "/".join(map(str, path[3:]))
         if r < repeats:
-            return f"decoder/blocks/b{j}/{rest}[{r}]"
-        return f"decoder/tail/t{path[2] - repeats * u}/{rest}"
+            return f"{path[0]}/blocks/b{j}/{rest}[{r}]"
+        return f"{path[0]}/tail/t{path[2] - repeats * u}/{rest}"
     return "/".join(map(str, path))
 
 

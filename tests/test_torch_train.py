@@ -225,6 +225,99 @@ def test_attention_core_backward_matches_jax(case):
                                    atol=1e-5, err_msg=f"d{name}")
 
 
+
+def _block_walk_backward(qh, kh, vh, q_u8, k_i8, regs, kvlen, out, ml,
+                         g_out, sched):
+    """The backward as the reference's scan writes it, one ``(bq, bkv)``
+    block pair at a time (q blocks outer): the oracle of the port's
+    chunked form."""
+    S = sched
+    bh = q_u8.shape[0]
+    zb = bh // S.groups
+    f32, f64 = torch.float32, torch.float64
+    sqp, skp = S.nq * S.bq, S.nkv * S.bkv
+
+    def qsplit(x, d):
+        return tattn._pad_axis(x, sqp, 1).reshape(zb, S.groups, S.nq, S.bq,
+                                                  d)
+
+    def ksplit(x, d):
+        return tattn._pad_axis(x, skp, 1).reshape(zb, S.nkv, S.bkv, d)
+    gf = g_out.to(f32)
+    d_row = torch.einsum("bsh,bsh->bs", gf, out)
+    qz, qhz, gz = qsplit(q_u8, S.hd), qsplit(qh, S.hd), qsplit(gf, S.hd)
+    mz, lz = qsplit(ml[..., 0:1], 1)[..., 0], qsplit(ml[..., 1:2], 1)[..., 0]
+    dz = qsplit(d_row[..., None], 1)[..., 0]
+    kz, khz, vhz = ksplit(k_i8, S.hd), ksplit(kh, S.hd), ksplit(vh, S.hd)
+    zp_q, alpha = regs.reshape(-1)[0], regs.reshape(-1)[1]
+    rows = torch.arange(S.bq)[:, None]
+    cols = torch.arange(S.bkv)[None, :]
+    dk = torch.zeros((zb, S.nkv, S.bkv, S.hd))
+    dv = torch.zeros_like(dk)
+    dqs = []
+    for i in range(S.nq):
+        rq = (qz[:, :, i].to(torch.int32) - zp_q.to(torch.int32)).to(f64)
+        dq_i = torch.zeros((zb, S.groups, S.bq, S.hd))
+        for j in range(S.nkv):
+            s = alpha * torch.einsum("zgqh,zkh->zgqk", rq,
+                                     kz[:, j].to(f64)).to(f32)
+            q_pos = i * S.bq + rows
+            mask = tattn._element_mask(q_pos, j * S.bkv + cols,
+                                       kvlen.reshape(()), S) & (q_pos < S.sq)
+            p = torch.where(mask, torch.exp(s - mz[:, :, i][..., None]), 0.0)
+            r = p / lz[:, :, i][..., None].clamp(min=1e-30)
+            d_ov = torch.einsum("zgqh,zkh->zgqk", gz[:, :, i], vhz[:, j])
+            ds = (r * (d_ov - dz[:, :, i][..., None])) * S.sm_scale
+            dq_i = dq_i + torch.einsum("zgqk,zkh->zgqh", ds, khz[:, j])
+            dk[:, j] += torch.einsum("zgqk,zgqh->zkh", ds, qhz[:, :, i])
+            dv[:, j] += torch.einsum("zgqk,zgqh->zkh", r, gz[:, :, i])
+        dqs.append(dq_i)
+    dq = torch.stack(dqs).permute(1, 2, 0, 3, 4).reshape(bh, sqp, S.hd)
+    return (dq[:, :S.sq], dk.reshape(zb, skp, S.hd)[:, :S.skv],
+            dv.reshape(zb, skp, S.hd)[:, :S.skv])
+
+
+@pytest.mark.parametrize("case", [
+    ("causal", 24, 24, 3, 8, 0, 0, None, (8, 8)),
+    ("sliding", 29, 29, 2, 16, 9, 0, None, (16, 8)),
+    ("prefix", 132, 132, 4, 16, 0, 100, None, (64, 64)),
+    ("cross", 33, 70, 2, 12, 0, 0, 61, (16, 32)),
+    ("bidir", 132, 132, 1, 16, 0, 0, None, (64, 64))],
+    ids=lambda c: f"{c[0]}-{c[1]}x{c[2]}")
+def test_attention_core_backward_is_the_block_walk(case):
+    """The backward computes the block pairs of a chunk of q blocks at
+    once and sums them in the reference's order: bit for bit the pair by
+    pair walk of the reference's scan, masked pairs, padded rows and
+    tiles included."""
+    mode, sq, skv, groups, hd, window, prefix, kv_len, (bq, bkv) = case
+    rng = np.random.default_rng(sq + skv + hd)
+    zb = 2
+    q = torch.from_numpy(rng.integers(0, 256, (zb * groups, sq, hd),
+                                      dtype=np.uint8))
+    k = torch.from_numpy(rng.integers(-127, 128, (zb, skv, hd),
+                                      dtype=np.int8))
+    v = torch.from_numpy(rng.integers(-127, 128, (zb, skv, hd),
+                                      dtype=np.int8))
+    sp = 1.0 / 255.0
+    regs = torch.tensor([131.0, hd ** -0.5 * 0.021 * 0.013, sp, 0.0,
+                         sp * 0.017, 0.0, 1.0, 0.0])
+    kvl = torch.tensor([skv if kv_len is None else kv_len],
+                       dtype=torch.int32)
+    qh, kh, vh = (q.float() - 131.0) * 0.021, k.float() * 0.013, \
+        v.float() * 0.017
+    sched = tattn.make_schedule(sq=sq, skv=skv, hd=hd, bq=bq, bkv=bkv,
+                                groups=groups, mode=mode, window=window,
+                                prefix_len=prefix, sm_scale=hd ** -0.5)
+    out, ml, _ = tattn.attention_core_reference(q, k, v, regs, kvl,
+                                                sched=sched)
+    g = torch.from_numpy(rng.standard_normal(out.shape).astype(np.float32))
+    got = tattn.attention_core_backward(qh, kh, vh, q, k, v, regs, kvl, out,
+                                        ml, g, sched=sched)
+    want = _block_walk_backward(qh, kh, vh, q, k, regs, kvl, out, ml, g,
+                                sched)
+    for name, a, b in zip("qkv", want, got):
+        assert torch.equal(a, b), f"d{name}"
+
 # ---------------------------------------------------------------------------
 # (d) optimizers and schedules.
 # ---------------------------------------------------------------------------
