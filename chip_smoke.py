@@ -206,6 +206,28 @@ Phases, one line each:
                    1792 text tokens), AdamW, 3 steps, the launch counters
                    zeroed just before and read just after; one more step
                    profiled; phase 8's fused vs simulated at 1 layer
+ 38. tall serve    launch.serve.main on starcoder2-3b at full width and
+                   depth, 4 x 200 prompt (the tuner's (256, 128): q blocks
+                   of 200 rows on the attention kernel's tall
+                   instantiation), 7 decode steps, the launch counters
+                   zeroed just before and read just after (30 attention
+                   launches); fused vs simulated on the same parameters
+                   (prefill logits, the greedy tokens)
+ 39. compress      runtime.compress on one full-width starcoder2-3b
+                   layer's gradient-shaped leaves: 2 gloo ranks on the card
+                   (spawned, FileStore under build/chip_smoke/), then a
+                   1-rank NCCL group; the step-0 and hindsight calls bit
+                   for bit against the plain one-process emulation,
+                   stochastic_quantize launches counted, the mean over 10
+                   seeds within 5% of the fp32 mean; quantize / dequantize
+                   ms per tree and the intra-card gloo collective's ms
+ 40. dp train      runtime.steps' data-parallel step on starcoder2-3b at
+                   full width, 2 layers, 4 x 1024, 2 gloo ranks against one
+                   process on the whole batch: the quant state bit for bit,
+                   the loss within 1e-6, the parameters after one AdamW
+                   step within 2 lr (tests/test_torch_dp.py's bound), the
+                   train kernels counted; then once with compress against
+                   its emulation
 
 Phase 3 also holds ``int8_conv_fp`` (the conv site, im2col onto the int8
 matmul kernel) against its plain version at four MobileNetV2-tiny layer
@@ -234,7 +256,7 @@ e.g. ``1-3`` to build and check the kernels without serve and train);
 phase 1 always runs, 5-6 bring 4 along, whose serve run they reuse, 18
 brings 17, 21-22 bring 20, 27 brings 26, 30 brings 29, 33 brings 32 and
 36 brings 35.  Kernels whose path phases did not run report
-``"launches": null``.  The default is all 37; phases
+``"launches": null``.  The default is all 40; phases
 12-16 write
 their logs and checkpoints
 under ``build/chip_smoke/`` and remove the checkpoints when done.
@@ -326,7 +348,15 @@ ENC_TRAIN_BATCH, ENC_TRAIN_SEQ = 2, 4096
 # (256 patches + 1792 text tokens).
 VLM_ARCH, VLM_CUT = "paligemma-3b", 3
 VLM_TRAIN_LAYERS, VLM_TRAIN_BATCH, VLM_TRAIN_SEQ = 18, 2, 2048
-N_PHASES = 37
+# The repaired tall attention tile: starcoder2-3b served at full width
+# and depth on a 4 x 200 prompt (the tuner's (256, 128): bq 200), 7 decode
+# steps.  Distribution: the int8 gradient collective on one full-width
+# starcoder2-3b layer's gradient-shaped leaves (2 gloo ranks on the card,
+# then a 1-rank NCCL group), 10 seeds for its mean; the data-parallel
+# train step at full width, depth cut to 2 layers, 4 x 1024, 2 gloo ranks.
+TALL_SEQ, TALL_GEN = 200, 8
+COMP_SEEDS, DP_LAYERS, DP_LR = 10, 2, 1e-3
+N_PHASES = 40
 # Where phases 12-16 write their JSONL logs and checkpoints (git-ignored).
 OUT_DIR = ROOT / "build" / "chip_smoke"
 
@@ -3956,12 +3986,359 @@ class PhaseClock:
             f"{n} {self.names[n]} {sec:.1f}"
             for n, sec in sorted(self.seconds.items()))
             + f"; phases 1-31 {self.part(1, 31):.1f}, 32-37 "
-            f"{self.part(32, 37):.1f}; the whole run {total:.1f} s")
+            f"{self.part(32, 37):.1f}, 38-40 {self.part(38, 40):.1f}; the "
+            f"whole run {total:.1f} s")
         return dict(seconds={str(n): sec for n, sec in self.seconds.items()},
                     total_s=total)
 
     def part(self, lo: int, hi: int) -> float:
         return sum(sec for n, sec in self.seconds.items() if lo <= n <= hi)
+
+
+def tall_serve_phase(dev, records, results) -> None:
+    """Phase 38: starcoder2-3b at full width and depth served on a 4 x 200
+    prompt through ``launch.serve.main``: the tuner picks (256, 128), so
+    every prefill attention launch runs q blocks of 200 rows on the
+    kernel's tall instantiation (which raised before it existed); the
+    launch counters zeroed just before and read just after (one attention
+    launch a layer, decode none); then fused vs simulated on the same
+    parameters (``long_parity``: prefill logits, the greedy tokens)."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops, tuning
+    from repro_torch.launch import serve
+
+    cfg = configs.get("starcoder2-3b")
+    if tuning.attention_block(TALL_SEQ, TALL_SEQ, cfg.head_dim) != (256, 128):
+        raise AssertionError("the tuner does not pick (256, 128) at S = "
+                             f"{TALL_SEQ}")
+    argv = ["--arch", cfg.name, "--batch", str(BATCH), "--prompt-len",
+            str(TALL_SEQ), "--gen", str(TALL_GEN)]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    run = serve.main(argv)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    out = _serve_record("tall-serve", f"{cfg.name} {cfg.n_layers} layers "
+                        f"fused, q blocks of {TALL_SEQ} rows", run, counts,
+                        torch.cuda.max_memory_allocated() / 2 ** 30)
+    if counts["int8_attention"] != cfg.n_layers:
+        raise AssertionError(f"tall serve: {counts['int8_attention']} "
+                             f"attention launches, not {cfg.n_layers}")
+    for r in records:
+        r["tall_serve_launches"] = counts[r["name"]]
+    out["parity"] = long_parity(run, dev, "tall-parity")
+    results["tall_serve"] = out
+
+
+def _layer_grad_shapes() -> dict:
+    """One full-width starcoder2-3b decoder layer's parameter shapes (its
+    gradients' shapes), by name."""
+    from repro_torch import configs
+    from repro_torch.models import model
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    cfg = dataclasses.replace(configs.get("starcoder2-3b"), n_layers=1)
+    with FakeTensorMode():
+        params = model.init_params(cfg, device="cpu")
+        return {k: tuple(p.shape) for k, p in params.named_parameters()
+                if k.startswith("decoder.")}
+
+
+def _rank_grads(shapes: dict, rank: int, dev) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(1000 + rank)
+    return {k: torch.randn(s, generator=gen, device=dev) * 1e-3
+            for k, s in shapes.items()}
+
+
+def _events_ms(fn, reps: int = 3) -> float:
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def _compress_rank(rank: int, world: int, backend: str, out: str) -> None:
+    """One rank of phase 39 (a spawned process)."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import compress
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda")
+    shapes = _layer_grad_shapes()
+    grads = _rank_grads(shapes, rank, dev)
+    every = [_rank_grads(shapes, r, dev) for r in range(world)]
+    reduce_fn, update_fn, init_fn = compress.make_compressor()
+    state = init_fn(grads)
+    rec = {"leaves": len(grads), "elements": sum(g.numel()
+                                                 for g in grads.values())}
+    for call in range(2):       # the step-0 bootstrap, then hindsight
+        ops.reset_launch_counts()
+        got, st = reduce_fn(grads, state, call)
+        torch.cuda.synchronize()
+        n = ops.launch_counts()["stochastic_quantize"]
+        if n != len(grads):
+            raise AssertionError(f"{backend} rank {rank}: {n} "
+                                 f"stochastic_quantize launches for "
+                                 f"{len(grads)} leaves")
+        want, wst = compress.emulate_all_reduce_tree(every, state, call)
+        for k in want:
+            if not (torch.equal(got[k], want[k])
+                    and torch.equal(st[k], wst[k])):
+                raise AssertionError(f"{backend} rank {rank} call {call} "
+                                     f"{k}: differs from the emulation")
+        state = update_fn(state, st)
+        rec[f"launches_call{call}"] = n
+    mean = {k: sum(g[k] for g in every) / world for k in grads}
+    acc = {k: torch.zeros_like(g) for k, g in grads.items()}
+    for s in range(COMP_SEEDS):
+        got, _ = reduce_fn(grads, state, 2 + s)
+        for k in acc:
+            acc[k] += got[k] / COMP_SEEDS
+    rec["bias"] = max(float((acc[k] - mean[k]).abs().max()
+                            / mean[k].abs().max()) for k in acc)
+    if rec["bias"] >= 0.05:
+        raise AssertionError(f"{backend}: mean over {COMP_SEEDS} seeds "
+                             f"{rec['bias']:.3e} off the fp32 mean")
+    # the local halves apart: noise, quantize (the kernel), dequantize
+    scales = {k: torch.clamp(torch.maximum(state[k][0].abs(),
+                                           state[k][1].abs()) / 127.0,
+                             min=1e-12) for k in grads}
+    noise = {k: compress.leaf_noise(0, i, rank, g.shape, dev)
+             for i, (k, g) in enumerate(grads.items())}
+    images = {k: compress._quantize_leaf(g, scales[k], noise[k])[0]
+              for k, g in grads.items()}
+    rec["noise_ms"] = _events_ms(lambda: [compress.leaf_noise(
+        0, i, rank, g.shape, dev) for i, (k, g) in enumerate(grads.items())])
+    rec["quantize_ms"] = _events_ms(lambda: [compress._quantize_leaf(
+        g, scales[k], noise[k]) for k, g in grads.items()])
+    rec["dequantize_ms"] = _events_ms(lambda: [
+        images[k].to(torch.int32).to(torch.float32) * scales[k] / world
+        for k in grads])
+    rec["call_ms"] = _events_ms(lambda: reduce_fn(grads, state, 0))
+    rec["collective_ms"] = rec["call_ms"] - rec["noise_ms"] - \
+        rec["quantize_ms"] - rec["dequantize_ms"]
+    if rank == 0:
+        Path(out).write_text(json.dumps(rec))
+
+
+def compress_phase(records) -> dict:
+    """Phase 39: the int8 in-hindsight gradient collective on the card."""
+    from repro_torch.launch import mesh
+
+    out = {}
+    for backend, world in (("gloo", 2), ("nccl", 1)):
+        path = OUT_DIR / f"compress_{backend}.json"
+        mesh.spawn_ranks(_compress_rank, world, OUT_DIR / "store",
+                         backend=backend, args=(backend, str(path)))
+        rec = json.loads(path.read_text())
+        label = ("2 gloo ranks on one card (intra-card gloo: host copies "
+                 "over loopback, not a link number)" if backend == "gloo"
+                 else "a 1-rank NCCL group")
+        log("compress", f"{label}: {rec['leaves']} leaves, "
+                        f"{rec['elements'] / 1e6:.1f} M elements; both calls "
+                        f"bit for bit the plain emulation; "
+                        f"stochastic_quantize {rec['launches_call0']} + "
+                        f"{rec['launches_call1']} launches; {COMP_SEEDS}-seed "
+                        f"mean {rec['bias']:.3e} of the fp32 mean's largest "
+                        f"element off it (< 5e-2); per tree: noise "
+                        f"{rec['noise_ms']:.3f} ms, quantize "
+                        f"{rec['quantize_ms']:.3f} ms, dequantize "
+                        f"{rec['dequantize_ms']:.3f} ms, the whole call "
+                        f"{rec['call_ms']:.3f} ms, so the collective "
+                        f"{rec['collective_ms']:.3f} ms")
+        out[backend] = rec
+    for r in records:
+        if r["name"] == "stochastic_quantize":
+            r["compress_launches"] = out["gloo"]["launches_call0"]
+    return out
+
+
+def _grad_ratio(got: dict, want: dict) -> float:
+    """The largest ``max |got - want|`` over ``2**-7`` of ``max |want|``
+    over the gradient tensors: at most 1 passes.  Each rank's weight
+    gradients are bf16 contractions over its rows before the fp32 sum
+    (one bf16 rounding is 2**-8 of the largest element)."""
+    worst = 0.0
+    for k, w in want.items():
+        bound = max(2.0 ** -7 * float(w.abs().max()), 1e-30)
+        worst = max(worst, float((got[k] - w).abs().max()) / bound)
+    return worst
+
+
+def _dp_rank(rank: int, world: int, out: str) -> None:
+    """One rank of phase 40 (a spawned process): the DP step, rank 0's
+    one-process step on the whole batch, warm steps of both, then the
+    step with compress."""
+    import torch.distributed as dist
+
+    from repro_torch import configs, data
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.core.state import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.optim import Optimizer, adamw
+    from repro_torch.optim.schedules import constant
+    from repro_torch.runtime import compress, steps
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(configs.get("starcoder2-3b"),
+                              n_layers=DP_LAYERS)
+    pol = QuantPolicy.w8a8g8(backend="fused")
+    batch = {k: v.to(dev) for k, v in data.for_arch(
+        cfg, seq_len=PROMPT, global_batch=BATCH, seed=0).batch(0).items()}
+    group = dist.group.WORLD
+    seen = {}
+
+    def update(grads, state, params, lr):     # the gradients handed over
+        seen["grads"] = {k: g.detach().clone() for k, g in grads.items()}
+        return base.update(grads, state, params, lr)
+
+    base = adamw()
+    opt = Optimizer(init=base.init, update=update)
+
+    def make(grp, hook=None):
+        # clipping off: the optimizer is handed the reduced gradient
+        st = steps.init_train_state(cfg, opt, pol, seed=0, device=dev)
+        return st, steps.make_train_step(cfg, pol, opt, constant(DP_LR),
+                                         clip_norm=None, compress=hook,
+                                         group=grp)
+
+    def run(ts, st):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, met = ts(st, batch)
+        torch.cuda.synchronize()
+        return st, float(met["loss"]), ops.launch_counts(), \
+            (time.perf_counter() - t0) * 1e3
+
+    st, ts = make(group)
+    st, loss, counts, ms = run(ts, st)
+    if not all(counts[k] > 0 for k in TRAIN_KERNELS):
+        raise AssertionError(f"dp rank {rank}: a kernel of the path never "
+                             f"launched: {counts}")
+    rec = {"loss": loss, "launches": counts, "dp_step_ms": ms}
+    if rank == 0:
+        dp_grads = seen.pop("grads")
+        one, ts1 = make(None)
+        one, loss1, _, ms1 = run(ts1, one)
+        one_grads = seen.pop("grads")
+        rec.update(single_loss=loss1, single_step_ms=ms1)
+        bad = [i for i, (a, b) in enumerate(zip(tree_leaves(st["quant"]),
+                                                tree_leaves(one["quant"])))
+               if not torch.equal(a, b)]
+        if bad:
+            raise AssertionError(f"dp: {len(bad)} quant leaves differ from "
+                                 f"the one-process step")
+        if abs(loss - loss1) > 1e-6 * abs(loss1):
+            raise AssertionError(f"dp loss {loss} vs one process {loss1}")
+        rec["grad_ratio"] = _grad_ratio(dp_grads, one_grads)
+        if rec["grad_ratio"] > 1.0:
+            raise AssertionError(f"dp gradients {rec['grad_ratio']:.3f} x "
+                                 f"their bound off the one-process step's")
+        # the check can fail: a step that averages instead of summing
+        rec["grad_ratio_averaged"] = _grad_ratio(
+            {k: g / world for k, g in dp_grads.items()}, one_grads)
+        del dp_grads
+        p1 = dict(one["params"].named_parameters())
+        worst = max(float((p - p1[k]).abs().max())
+                    for k, p in st["params"].named_parameters())
+        if worst > 2 * DP_LR * 1.001:
+            raise AssertionError(f"dp params {worst:.3e} off, above 2 lr")
+        rec["param_max_abs"] = worst
+        rec["quant_leaves"] = len(tree_leaves(st["quant"]))
+        del p1
+        rec["single_warm_ms"] = run(ts1, one)[3]
+        del one
+        seen.clear()
+    torch.cuda.empty_cache()
+    dist.barrier(group)
+    rec["dp_warm_ms"] = run(ts, st)[3]
+    del st
+    seen.clear()
+    torch.cuda.empty_cache()
+    dist.barrier(group)
+
+    class Recording(compress.Compressor):
+        def __call__(self, grads, stats):     # what it was given, returned
+            self.seen = {k: g.clone() for k, g in grads.items()}
+            got = super().__call__(grads, stats)
+            self.out = {k: g.clone() for k, g in got[0].items()}
+            return got
+
+    hook = Recording(group, seed=3)
+    st, ts = make(group, hook)
+    st, loss_c, counts_c, ms_c = run(ts, st)
+    every = []
+    for r in range(world):      # every rank's per-replica gradients
+        t = {k: (g if r == rank else torch.empty_like(g))
+             for k, g in hook.seen.items()}
+        for g in t.values():
+            dist.broadcast(g, src=r, group=group)
+        every.append(t)
+    want, _ = compress.emulate_all_reduce_tree(
+        every, compress.init_compress_state(hook.seen), hook.seed)
+    for k in want:
+        if not torch.equal(hook.out[k], want[k]):
+            raise AssertionError(f"dp compress rank {rank} {k}: differs "
+                                 f"from the emulation")
+    if rank == 0:
+        # the check can fail: rank 0's own share, the all_reduce skipped
+        rec["grad_ratio_unreduced"] = _grad_ratio(
+            {k: g / world for k, g in hook.seen.items()}, one_grads)
+        del one_grads
+        for key in ("grad_ratio_averaged", "grad_ratio_unreduced"):
+            if rec[key] <= 1.0:
+                raise AssertionError(f"dp: the gradient check passes "
+                                     f"{key[11:]} gradients "
+                                     f"({rec[key]:.3f} x the bound)")
+    del every, want, hook
+    seen.clear()
+    rec["compress_warm_ms"] = run(ts, st)[3]
+    rec.update(compress_loss=loss_c, compress_launches=counts_c,
+               compress_step_ms=ms_c)
+    if rank == 0:
+        Path(out).write_text(json.dumps(rec))
+
+
+def dp_train_phase(records) -> dict:
+    """Phase 40: the data-parallel train step on 2 gloo ranks on the card
+    against one process on the whole batch, then with compress."""
+    from repro_torch.launch import mesh
+
+    path = OUT_DIR / "dp_train.json"
+    mesh.spawn_ranks(_dp_rank, 2, OUT_DIR / "store", backend="gloo",
+                     args=(str(path),))
+    rec = json.loads(path.read_text())
+    log("dp-train", f"starcoder2-3b full width, {DP_LAYERS} layers, "
+                    f"{BATCH} x {PROMPT} over 2 gloo ranks on one card: quant "
+                    f"state ({rec['quant_leaves']} leaves) bit for bit the "
+                    f"one-process step's, loss {rec['loss']:.7f} vs "
+                    f"{rec['single_loss']:.7f}; the reduced gradients "
+                    f"within {rec['grad_ratio']:.4f} x the bound (2**-7 "
+                    f"of each tensor's largest), while averaged ones are "
+                    f"{rec['grad_ratio_averaged']:.1f} x and rank 0's "
+                    f"unreduced share {rec['grad_ratio_unreduced']:.1f} x "
+                    f"it; AdamW params within {rec['param_max_abs']:.3e} "
+                    f"(<= 2 lr = {2 * DP_LR:.0e}); step (host clock) "
+                    f"first {rec['dp_step_ms']:.1f} ms, warm "
+                    f"{rec['dp_warm_ms']:.1f} ms (DP, rank 0) vs first "
+                    f"{rec['single_step_ms']:.1f}, warm "
+                    f"{rec['single_warm_ms']:.1f} ms (one process); "
+                    f"launches {rec['launches']}; with compress: bit for "
+                    f"bit its emulation, stochastic_quantize "
+                    f"{rec['compress_launches']['stochastic_quantize']} "
+                    f"launches, step first {rec['compress_step_ms']:.1f} "
+                    f"ms, warm {rec['compress_warm_ms']:.1f} ms")
+    for r in records:
+        r["dp_train_launches"] = rec["launches"][r["name"]]
+    return rec
 
 
 def parse_phases(spec: str) -> set:
@@ -4107,8 +4484,17 @@ def main(argv=None) -> int:
                 ("encdec_bidir32k", ecfg, 1, ENC_LONG,
                  dict(mode="bidir", light=True)),
                 ("vlm_prefix", vcfg, BATCH, nf,
-                 dict(mode="prefix", prefix_len=vcfg.n_patches))):
+                 dict(mode="prefix", prefix_len=vcfg.n_patches)),
+                # q blocks past 128 rows: the tuner's own (256, 128) at S =
+                # 200 (starcoder2-3b's causal prefill, hd 128, G = 12) and
+                # S = 132 (hd 256, prefix, G = 8): the tall instantiation
+                ("tall200", cfg, BATCH, TALL_SEQ, dict(mode="causal")),
+                ("tall132", vcfg, BATCH, 132,
+                 dict(mode="prefix", prefix_len=64))):
             wide = check_attention(dev, gen, c, batch=b, seq=sq, **kw)
+            if tag.startswith("tall") and wide["block"] != [256, 128]:
+                raise AssertionError(f"{tag}: the tuner picked "
+                                     f"{wide['block']}, not (256, 128)")
             by_name["int8_attention"][tag] = {
                 k: wide[k] for k in keys + ("groups", "mode", "window",
                                             "prefix_len", "block")}
@@ -4323,6 +4709,18 @@ def main(argv=None) -> int:
             with clock(n, name):
                 fn(dev, records, results)
             torch.cuda.empty_cache()
+    if run_phase(38):
+        with clock(38, "tall serve"):
+            tall_serve_phase(dev, records, results)
+        torch.cuda.empty_cache()
+    if run_phase(39):
+        with clock(39, "compress"):
+            results["compress"] = compress_phase(records)
+        torch.cuda.empty_cache()
+    if run_phase(40):
+        with clock(40, "dp train"):
+            results["dp_train"] = dp_train_phase(records)
+        torch.cuda.empty_cache()
     for r in records:       # the kernels' launches where no earlier path ran
         for key in ("sc7_serve_launches", "cmdr_serve_launches",
                     "nemotron_serve_launches", "grad_only_launches",
@@ -4330,7 +4728,8 @@ def main(argv=None) -> int:
                     "hyb_train_launches_per_step", "rwkv_serve_launches",
                     "rwkv_train_launches_per_step", "encdec_serve_launches",
                     "encdec_train_launches_per_step", "vlm_serve_launches",
-                    "vlm_train_launches_per_step"):
+                    "vlm_train_launches_per_step", "tall_serve_launches",
+                    "dp_train_launches"):
             if not r["launches"] and r.get(key):
                 r["launches"] = r[key]
 

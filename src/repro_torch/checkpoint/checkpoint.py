@@ -147,35 +147,54 @@ def nest(by_path: dict) -> dict:
     return out
 
 
-def _rebuild(template, path: str, load):
+def _sub(shard, key):
+    """The part of a shardings tree under ``key``: a dict's entry, or of
+    a flat dict keyed by dotted parameter names (``sharding.named`` of
+    ``param_pspecs``) the entries below ``key``."""
+    if shard is None or isinstance(shard, tuple):
+        return None
+    if isinstance(shard, dict):
+        if key in shard:
+            return shard[key]
+        pre = f"{key}."
+        return {k[len(pre):]: v for k, v in shard.items()
+                if k.startswith(pre)} or None
+    return shard[key]
+
+
+def _rebuild(template, path: str, load, shard=None):
     """``template``'s structure with every leaf replaced by ``load(path,
-    leaf)``; a ``ParamTree`` comes back as a new one whose parameters
-    require grad as the template's do."""
+    leaf, placement)`` (``placement`` the leaf's ``(mesh, placements)``
+    in ``shard``, or None); a ``ParamTree`` comes back as a new one whose
+    parameters require grad as the template's do."""
     if isinstance(template, ParamTree):
         new = ParamTree({name: _plain(template[name], _join(path, name),
-                                      load)
+                                      load, _sub(shard, name))
                          for name in template._names})
         for p_new, p_old in zip(new.parameters(), template.parameters()):
             p_new.requires_grad_(p_old.requires_grad)
         return new
     kids = _children(template)
     if kids is None:
-        return load(path, template)
-    out = [(k, _rebuild(c, _join(path, k), load)) for k, c in kids]
+        return load(path, template, shard)
+    out = [(k, _rebuild(c, _join(path, k), load, _sub(shard, k)))
+           for k, c in kids]
     if isinstance(template, dict):
         return dict(out)
     return type(template)(v for _, v in out)
 
 
-def _plain(module, path: str, load):
+def _plain(module, path: str, load, shard=None):
     """A sub-tree of a ``ParamTree`` as the plain dicts, lists and tensors
     its constructor takes."""
     if isinstance(module, ParamTree):
-        return {name: _plain(module[name], _join(path, name), load)
+        return {name: _plain(module[name], _join(path, name), load,
+                             _sub(shard, name))
                 for name in module._names}
     if isinstance(module, nn.ModuleList):
-        return [_plain(m, _join(path, i), load) for i, m in enumerate(module)]
-    return load(path, module.detach())
+        return [_plain(m, _join(path, i), load, _sub(shard, str(i)))
+                for i, m in enumerate(module)]
+    return load(path, module.detach(), shard)
 
 
 def _join(path: str, key) -> str:
@@ -183,15 +202,19 @@ def _join(path: str, key) -> str:
 
 
 def restore(ckpt_dir: str, step: int, template: Any,
-            device=None) -> Any:
+            device=None, shardings: Optional[Any] = None) -> Any:
     """Load ``step`` into the structure of ``template``.  Each tensor goes
     to ``device`` (default: its template leaf's device) with its template
     leaf's dtype; a Python number in the template comes back as one.
-    Raises ``KeyError`` for a leaf the checkpoint lacks and ``ValueError``
-    for a shape that differs from the template's."""
+    ``shardings``: a tree of ``(mesh, placements)`` leaves shaped like
+    ``template`` (``runtime.sharding.named``; parameter trees keyed by
+    dotted names): each tensor is placed with ``distribute_tensor`` on
+    that mesh instead, an elastic restore onto another mesh than the
+    writer's.  Raises ``KeyError`` for a leaf the checkpoint lacks and
+    ``ValueError`` for a shape that differs from the template's."""
     by_path = load_arrays(ckpt_dir, step)
 
-    def load(path, leaf):
+    def load(path, leaf, placed):
         if path not in by_path:
             raise KeyError(f"checkpoint missing leaf {path!r}")
         arr = by_path[path]
@@ -200,13 +223,19 @@ def restore(ckpt_dir: str, step: int, template: Any,
         if tuple(arr.shape) != want:
             raise ValueError(f"{path}: checkpoint shape {arr.shape} != "
                              f"template {want}")
-        if isinstance(leaf, torch.Tensor):
-            return torch.from_numpy(arr).to(
-                device=leaf.device if device is None else device,
-                dtype=leaf.dtype)
-        return type(leaf)(arr)
+        if not isinstance(leaf, torch.Tensor):
+            return type(leaf)(arr)
+        if placed is not None:
+            from torch.distributed.tensor import distribute_tensor
+            mesh, placements = placed
+            t = torch.from_numpy(arr).to(device=mesh.device_type,
+                                         dtype=leaf.dtype)
+            return distribute_tensor(t, mesh, list(placements))
+        return torch.from_numpy(arr).to(
+            device=leaf.device if device is None else device,
+            dtype=leaf.dtype)
 
-    return _rebuild(template, "", load)
+    return _rebuild(template, "", load, shardings)
 
 
 def restore_migrating(ckpt_dir: str, step: int, template: dict,

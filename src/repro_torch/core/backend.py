@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.runtime import sharding
 from repro_torch.telemetry import metrics
 
 from . import estimators, quant
@@ -123,6 +124,35 @@ def site_noise(seed: int, shape, device) -> torch.Tensor:
                       dtype=torch.float32)
 
 
+def shard_noise(seed: int, shape, device, batch_dim: int = 0
+                ) -> torch.Tensor:
+    """:func:`site_noise` of a gradient site whose ``batch_dim`` is this
+    rank's shard under data parallelism: the global site's noise (``N``
+    times the rows) drawn, and this rank's rows of it kept, so a rank's
+    stochastic rounding is the single-device step's on the same rows."""
+    shard = sharding.dp_shard()
+    if shard is None:
+        return site_noise(seed, shape, device)
+    full = list(shape)
+    full[batch_dim] *= shard[1]
+    return sharding.shard_rows(site_noise(seed, full, device), batch_dim)
+
+
+def _global_minmax(cfg, leaf, tele, xf, local=None):
+    """Under data parallelism, the (min, max) over every rank where the
+    site's range reads the tensor this step (``estimators.
+    reads_current``): one blocking all_reduce.  Elsewhere ``local`` (the
+    kernel's partials, or ``None``: the caller reduces ``xf`` itself),
+    which ``steps.dp_combine_stats`` merges over the ranks once a step,
+    so an initialized hindsight site waits on no collective."""
+    if sharding.dp_shard() is None or \
+            not estimators.reads_current(cfg, leaf, tele):
+        return local
+    if local is None:
+        local = quant.tensor_minmax(xf)
+    return sharding.dp_minmax(*local)
+
+
 # ---------------------------------------------------------------------------
 # The quantizer forward: on-grid values, integer image, observed min/max.
 # ---------------------------------------------------------------------------
@@ -178,11 +208,13 @@ def site_quantize(policy, x: torch.Tensor, leaf: torch.Tensor, step, *,
         xf = x          # unread: the statistics are the kernel's partials
     else:
         xf = canonical(x)
+        obs = _global_minmax(cfg, leaf, tele, xf)
         used_qmin, used_qmax = estimators.ranges(cfg, leaf, xf, spec, step,
-                                                 telemetry=tele)
+                                                 telemetry=tele,
+                                                 observed=obs)
         xq, q, mn, mx = _quantizer_fwd(x, used_qmin, used_qmax, spec,
                                        fused=False)
-        obs = (mn, mx)
+        obs = (mn, mx) if obs is None else obs
     st = estimators.stats(cfg, xf, used_qmin, used_qmax, observed=obs)
     if tele.enabled:
         # Sampled on a prefix of x itself: no full fp32 copy on fused.
@@ -207,6 +239,7 @@ def _fused_static_quant(cfg, spec, x, leaf, step, tele):
         return xq, q, qmin, qmax, (mn, mx)
     xq, q, mn, mx = _quantizer_fwd(x, leaf[QMIN], leaf[QMAX], spec,
                                    fused=True)
+    mn, mx = _global_minmax(cfg, leaf, tele, None, (mn, mx))
     qmin, qmax = estimators.ranges(cfg, leaf, x, spec, step, telemetry=tele,
                                    observed=(mn, mx))
     if not bool(leaf[INITED] > 0.5):
@@ -237,23 +270,27 @@ def weight_quantize(policy, w: torch.Tensor
 # Q_G: gradient quantizer (runs inside the barrier's backward pass).
 # ---------------------------------------------------------------------------
 def grad_quantize(policy, g: torch.Tensor, leaf: torch.Tensor, seed: int,
-                  step):
+                  step, batch_dim: int = 0):
     """Quantize a cotangent; returns ``(gq, stats)``.  Both backends draw
     the stochastic-rounding noise from :func:`site_noise` with the same
-    site seed, so the quantized gradients are bit-identical."""
+    site seed, so the quantized gradients are bit-identical; ``batch_dim``
+    is the dim a data-parallel rank holds a shard of
+    (:func:`shard_noise`)."""
     cfg, spec = policy.grad_estimator, policy.grad_spec
     tele = policy.telemetry
-    noise = site_noise(seed, g.shape, g.device) if spec.stochastic else None
+    noise = shard_noise(seed, g.shape, g.device, batch_dim) \
+        if spec.stochastic else None
     gf = canonical(g)
     if policy.backend == FUSED and spec.bits <= 8:
         gq, used_qmin, used_qmax, obs = _fused_grad_quant(
             cfg, spec, g, gf, leaf, step, tele, noise)
     else:
+        obs = _global_minmax(cfg, leaf, tele, gf)
         used_qmin, used_qmax = estimators.ranges(cfg, leaf, gf, spec, step,
-                                                 telemetry=tele)
+                                                 telemetry=tele,
+                                                 observed=obs)
         gq = quant.fake_quant_raw(gf, used_qmin, used_qmax, spec,
                                   noise).to(g.dtype)
-        obs = None
     st = estimators.stats(cfg, gf, used_qmin, used_qmax, observed=obs)
     if tele.enabled:
         st = metrics.site_stats(gf, used_qmin, used_qmax, spec, st,
@@ -281,6 +318,7 @@ def _fused_grad_quant(cfg, spec, g, gf, leaf, step, tele, noise):
         gq = quant.dequantize(q, qmin, qmax, spec).to(g.dtype)
         return gq, qmin, qmax, (mn, mx)
     q0, mn, mx = _kernel_quant(spec, gf, leaf[QMIN], leaf[QMAX], noise)
+    mn, mx = _global_minmax(cfg, leaf, tele, None, (mn, mx))
     qmin, qmax = estimators.ranges(cfg, leaf, gf, spec, step, telemetry=tele,
                                    observed=(mn, mx))
     if bool(leaf[INITED] > 0.5):
@@ -310,14 +348,32 @@ def full_fp32():
         mm.allow_tf32, cudnn.allow_tf32 = saved
 
 
+# The rows of one batch index from which the backward's fp32 ``dx``
+# products run one batch index at a time.  On the H100 cuBLAS picks
+# split-K by shape: a row of a 49152-deep product took other bits in a
+# 2048-row call than in a 4096-row one, and splitting only the products
+# 4096 or more deep still moved two quant leaves of the data-parallel
+# step.  Below this an index holds a GEMV's worth of rows (a classifier's
+# one row a sample), where B calls would cost B launches for nothing
+# measurable: such a product runs whole, and is not batch-invariant.
+SPLIT_MIN_ROWS = 16
+
+
 class _QMatmulInt(torch.autograd.Function):
     """``alpha * einsum(x_img - zp, w_img)`` exact in int32 (fused: the
     int8 matmul kernel; simulated: float64).  Backward is the reference's:
     fp32 products of the cotangent with the on-grid values ``xq``/``wq``,
-    returned in their dtypes, under :func:`full_fp32`."""
+    returned in their dtypes, under :func:`full_fp32`.  The cotangent of
+    ``xq`` is computed one index of the output's ``batch_dim`` at a time
+    where an index holds :data:`SPLIT_MIN_ROWS` rows or more: the card's
+    GEMMs pick their algorithm (split-K over a long contraction) by
+    shape, so a whole-batch product would make a row's cotangent depend
+    on how many rows share the call, and a data-parallel rank's differ
+    from the one-process step's."""
 
     @staticmethod
-    def forward(ctx, xq, wq, x_img, w_img, x_zp, alpha, resolved, fused):
+    def forward(ctx, xq, wq, x_img, w_img, x_zp, alpha, resolved, fused,
+                batch_dim):
         if fused:
             ops = _ops()
             plan = ops.plan_einsum(resolved, x_img.ndim, w_img.ndim)
@@ -331,7 +387,7 @@ class _QMatmulInt(torch.autograd.Function):
             y = alpha * acc.to(torch.float32)
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
             ctx.save_for_backward(xq, wq)
-            ctx.resolved = resolved
+            ctx.resolved, ctx.batch_dim = resolved, batch_dim
         return y
 
     @staticmethod
@@ -343,17 +399,30 @@ class _QMatmulInt(torch.autograd.Function):
         dx = dw = None
         with full_fp32():
             if ctx.needs_input_grad[0]:
-                dx = torch.einsum(f"{y},{ws}->{xs}", gf,
-                                  wq.to(torch.float32)).to(xq.dtype)
+                spec, wf = f"{y},{ws}->{xs}", wq.to(torch.float32)
+                b = y[ctx.batch_dim]
+                rows = 1
+                for c, n in zip(y, gf.shape):
+                    rows *= n if c in xs and c != b else 1
+                # not a batch axis of the activation alone, or GEMV rows
+                if b in ws or rows < SPLIT_MIN_ROWS:
+                    dx = torch.einsum(spec, gf, wf)
+                else:
+                    d = y.index(b)
+                    dx = torch.cat([torch.einsum(spec, gf.narrow(d, i, 1),
+                                                 wf)
+                                    for i in range(gf.shape[d])],
+                                   dim=xs.index(b))
+                dx = dx.to(xq.dtype)
             if ctx.needs_input_grad[1]:
                 dw = torch.einsum(f"{xs},{y}->{ws}", xq.to(torch.float32),
                                   gf).to(wq.dtype)
-        return dx, dw, None, None, None, None, None, None
+        return dx, dw, None, None, None, None, None, None, None
 
 
 def qmatmul(policy, espec: str, xq: torch.Tensor, xqt: Optional[QTensor],
             wq: Optional[torch.Tensor], wqt: Optional[QTensor],
-            out_dtype=None) -> torch.Tensor:
+            out_dtype=None, batch_dim: int = 0) -> torch.Tensor:
     """Quantized-site contraction ``einsum(espec, xq, wq)``.
 
     With int8 images of both operands the contraction runs integer-exact
@@ -377,7 +446,7 @@ def qmatmul(policy, espec: str, xq: torch.Tensor, xqt: Optional[QTensor],
     with torch.profiler.record_function(
             f"qmatmul_int8_{policy.backend} {resolved}"):
         y = _QMatmulInt.apply(xq, wq, xqt.q, wqt.q, xqt.zero_point, alpha,
-                              resolved, policy.backend == FUSED)
+                              resolved, policy.backend == FUSED, batch_dim)
     return y.to(out_dtype)
 
 
@@ -526,7 +595,7 @@ class _QAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, qh, kh, vh, q_img, k_img, v_img, regs, kvl, sched,
-                fused):
+                fused, z_chunk):
         from repro_torch.kernels import int8_attention as mod
         args = (q_img, k_img, v_img, regs, kvl)
         if fused:
@@ -537,7 +606,7 @@ class _QAttention(torch.autograd.Function):
         if any(ctx.needs_input_grad[:3]):
             ctx.save_for_backward(qh, kh, vh, q_img, k_img, v_img, regs, kvl,
                                   out, ml)
-            ctx.sched = sched
+            ctx.sched, ctx.z_chunk = sched, z_chunk
         ctx.mark_non_differentiable(stats6)
         return out, stats6
 
@@ -546,9 +615,10 @@ class _QAttention(torch.autograd.Function):
         from repro_torch.kernels import int8_attention as mod
         qh, kh, vh, *rest = ctx.saved_tensors
         dq, dk, dv = mod.attention_core_backward(
-            qh, kh, vh, *rest, g_out.to(torch.float32), sched=ctx.sched)
+            qh, kh, vh, *rest, g_out.to(torch.float32), sched=ctx.sched,
+            z_chunk=ctx.z_chunk)
         return (dq.to(qh.dtype), dk.to(kh.dtype), dv.to(vh.dtype),
-                None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None)
 
 
 def qattention(policy, q, k, v, sites: dict, *, mode: str, window=None,
@@ -601,7 +671,7 @@ def qattention(policy, q, k, v, sites: dict, *, mode: str, window=None,
 
     out3, stats6 = _QAttention.apply(
         qflat(qh), kvflat(kh), kvflat(vh), qflat(q_qt.q), kvflat(k_qt.q),
-        kvflat(v_qt.q), regs, kvl, sched, policy.backend == FUSED)
+        kvflat(v_qt.q), regs, kvl, sched, policy.backend == FUSED, kvh)
     out = out3.reshape(b, kvh, g, s, hd).permute(0, 3, 1, 2, 4).to(q.dtype)
     p_st = _pstats_vector(policy, stats6, p_lo, p_hi)
     stats = {"q": {"act": q_st}, "k": {"act": k_st}, "v": {"act": v_st},

@@ -128,10 +128,10 @@ def ranges(cfg: EstimatorConfig, leaf: torch.Tensor, x: torch.Tensor,
                 torch.where(use_static, leaf[QMAX], mx))
 
     if cfg.kind == CURRENT:
-        return quant.tensor_minmax(x)
+        return observed if observed is not None else quant.tensor_minmax(x)
 
     if cfg.kind == RUNNING:
-        mn, mx = quant.tensor_minmax(x)
+        mn, mx = observed if observed is not None else quant.tensor_minmax(x)
         eta = cfg.momentum
         qmin = torch.where(inited, eta * leaf[QMIN] + (1 - eta) * mn, mn)
         qmax = torch.where(inited, eta * leaf[QMAX] + (1 - eta) * mx, mx)
@@ -144,6 +144,24 @@ def ranges(cfg: EstimatorConfig, leaf: torch.Tensor, x: torch.Tensor,
         return leaf[QMIN], leaf[QMAX]
 
     raise ValueError(cfg.kind)
+
+
+def reads_current(cfg: EstimatorConfig, leaf: torch.Tensor,
+                  telemetry=None) -> bool:
+    """Whether :func:`ranges` takes this step's range from the tensor
+    itself: a dynamic estimator, or a hindsight leaf on its first batch
+    or held in the dynamic-mode guard's fallback (one host read of the
+    leaf).  Otherwise the range is the leaf's and the tensor's (min, max)
+    feed the statistics only."""
+    if cfg.kind in (CURRENT, RUNNING, DSGC):
+        return True
+    if cfg.kind != HINDSIGHT:
+        return False
+    if not bool(leaf[INITED] > 0.5):
+        return True
+    return bool(_telemetry_on(telemetry, leaf) and telemetry.guard
+                and telemetry.mode == "dynamic"
+                and bool(guard.in_fallback(telemetry, leaf)))
 
 
 def static_ranges(cfg: EstimatorConfig, leaf: torch.Tensor

@@ -22,7 +22,9 @@ import torch
 
 from repro_torch.telemetry import metrics
 
-from . import backend, estimators
+from repro_torch.runtime import sharding
+
+from . import backend, estimators, quant
 from .backend import QTensor  # noqa: F401  (re-exported for site callers)
 from .policy import QuantPolicy
 from .state import INITED, QMAX, QMIN, init_range_state, tree_map, \
@@ -48,11 +50,37 @@ def quantize_weight_q(w: torch.Tensor, policy: QuantPolicy
     contraction reads the int8 image only and never materializes them."""
     if not (policy.enabled and policy.quantize_weights):
         return w, None
-    if policy.int8_weight_gather:
-        raise NotImplementedError(
-            "int8_weight_gather is a sharding option; it comes with the "
-            "distribution slice of the port")
+    if policy.int8_weight_gather and policy.weight_spec.bits <= 8:
+        mn, mx = quant.tensor_minmax(w.detach())
+        return _GatheredSTE.apply(w, mn, mx, policy.weight_spec), None
     return backend.weight_quantize(policy, w)
+
+
+class _GatheredSTE(torch.autograd.Function):
+    """The weight's fake-quant whose int8 image is pinned replicated
+    (:func:`sharding.replicate_hint`) before it is dequantized: under a
+    ZeRO-3 layout the weight all-gather then moves the 1-byte tensor (the
+    reference's ``_fake_quant_ste_gathered``).  Numerically the
+    fake-quant; the clipped STE backward (gradient masked to the grid's
+    ``[lo, hi]``).  With parameters replicated (a data-only mesh) the
+    gather is the identity."""
+
+    @staticmethod
+    def forward(ctx, x, qmin, qmax, spec):
+        q = quant.quantize(x, qmin, qmax, spec).to(spec.storage_dtype)
+        q = sharding.replicate_hint(q)
+        y = quant.dequantize(q, qmin, qmax, spec).to(x.dtype)
+        scale, zp = quant.scale_zero_point(qmin, qmax, spec)
+        lo = (spec.int_min - zp) * scale
+        hi = (spec.int_max - zp) * scale
+        xf = x.detach().to(torch.float32)
+        ctx.save_for_backward(torch.logical_and(xf >= lo, xf <= hi))
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (mask,) = ctx.saved_tensors
+        return torch.where(mask, g, 0.0).to(g.dtype), None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -80,29 +108,33 @@ class _GradBarrier(torch.autograd.Function):
     channel)."""
 
     @staticmethod
-    def forward(ctx, y, leaf, policy, seed, step):
+    def forward(ctx, y, leaf, policy, seed, step, batch_dim):
         ctx.save_for_backward(leaf)
         ctx.policy, ctx.seed, ctx.step = policy, seed, step
+        ctx.batch_dim = batch_dim
         return y.view_as(y)
 
     @staticmethod
     def backward(ctx, g):
         (leaf,) = ctx.saved_tensors
         gq, stats = backend.grad_quantize(ctx.policy, g, leaf, ctx.seed,
-                                          ctx.step)
-        return gq, stats, None, None, None
+                                          ctx.step, ctx.batch_dim)
+        return gq, stats, None, None, None, None
 
 
 def grad_quant_barrier(y: torch.Tensor, leaf: torch.Tensor,
-                       policy: QuantPolicy, seed: int, step) -> torch.Tensor:
+                       policy: QuantPolicy, seed: int, step,
+                       batch_dim: int = 0) -> torch.Tensor:
     """Identity in the forward pass; quantizes the cotangent in the backward
     pass and emits the observed (min, max) as the gradient of ``leaf``.
     Read it with ``torch.autograd.grad`` over a leaf that requires grad —
     never accumulate into ``.grad``: torch sums repeated gradients, while
-    statistics combine by min/max (:func:`combine_stats`)."""
+    statistics combine by min/max (:func:`combine_stats`).  ``batch_dim``:
+    the dim of ``y`` that a data-parallel rank holds a shard of (the MoE
+    experts' ``[E, G, C, F]`` outputs shard their groups, dim 1)."""
     if not (policy.enabled and policy.quantize_grads):
         return y
-    return _GradBarrier.apply(y, leaf, policy, int(seed), step)
+    return _GradBarrier.apply(y, leaf, policy, int(seed), step, batch_dim)
 
 
 # ---------------------------------------------------------------------------
@@ -115,11 +147,11 @@ def init_site(policy: Optional[QuantPolicy] = None, device=None) -> dict:
             "grad": init_range_state(width, device)}
 
 
-def _contract(policy, espec, xq, xqt, w, bias, dtype):
+def _contract(policy, espec, xq, xqt, w, bias, dtype, batch_dim=0):
     wq, wqt = quantize_weight_q(w, policy)
     if wq is not None:
         wq = wq.to(dtype)
-    y = backend.qmatmul(policy, espec, xq, xqt, wq, wqt)
+    y = backend.qmatmul(policy, espec, xq, xqt, wq, wqt, batch_dim=batch_dim)
     if bias is not None:
         y = y + bias.to(dtype)
     return y
@@ -128,11 +160,13 @@ def _contract(policy, espec, xq, xqt, w, bias, dtype):
 def qdense_pre(xq: torch.Tensor, w: torch.Tensor, site: dict,
                policy: QuantPolicy, *, einsum_spec: str = "...k,kn->...n",
                bias: Optional[torch.Tensor] = None, seed=0, step=0,
-               qinfo: Optional[QTensor] = None) -> tuple[torch.Tensor, dict]:
+               qinfo: Optional[QTensor] = None, batch_dim: int = 0
+               ) -> tuple[torch.Tensor, dict]:
     """Quantized matmul whose input was already quantized by a shared
     activation site; ``qinfo`` is that site's :class:`QTensor`."""
-    y = _contract(policy, einsum_spec, xq, qinfo, w, bias, xq.dtype)
-    y = grad_quant_barrier(y, site["grad"], policy, seed, step)
+    y = _contract(policy, einsum_spec, xq, qinfo, w, bias, xq.dtype,
+                  batch_dim)
+    y = grad_quant_barrier(y, site["grad"], policy, seed, step, batch_dim)
     z = stats_zeros(policy, xq.device)
     return y, {"act": z, "grad": z.clone()}
 
@@ -148,12 +182,12 @@ def qdense(x: torch.Tensor, w: torch.Tensor, site: dict,
 
 
 def qeinsum(spec: str, x: torch.Tensor, w: torch.Tensor, site: dict,
-            policy: QuantPolicy, *, seed=0, step=0
+            policy: QuantPolicy, *, seed=0, step=0, batch_dim: int = 0
             ) -> tuple[torch.Tensor, dict]:
     """Quantized einsum for non-2D contractions (attention projections)."""
     xq, act_stats, xqt = act_quant_site(x, site["act"], policy, step)
-    y = _contract(policy, spec, xq, xqt, w, None, x.dtype)
-    y = grad_quant_barrier(y, site["grad"], policy, seed, step)
+    y = _contract(policy, spec, xq, xqt, w, None, x.dtype, batch_dim)
+    y = grad_quant_barrier(y, site["grad"], policy, seed, step, batch_dim)
     return y, {"act": act_stats, "grad": stats_zeros(policy, x.device)}
 
 

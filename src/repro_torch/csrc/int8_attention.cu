@@ -72,7 +72,19 @@
 // `osplit`, half 1 the rest) whose P.V runs in chunks of 8 n-tiles.  At hd
 // 256 the layout takes 204 KB before the flat tree's buffer; a non-power-
 // of-two bkv whose buffer does not fit the card's 227 KB is refused.
-// Tile limits: bq, bkv <= 128; hd <= 128, or <= 256 in multiples of 16.
+//
+// q blocks of 129-256 rows (the tuner's (256, 128) below S = 256) take a
+// tall instantiation of either width: row group w owns rows w + 8 j for
+// j < 32, as two 16-row mma tiles u = 0, 1 (rows 128 u + w + 8 j', j' <
+// 16) whose scores, softmax, P.V and carries run side by side in the same
+// warps.  The reference's tree over the [bq, bkv] tile zero-pads the rows
+// to 256, so its first level adds row r + 128 to row r: the two tiles'
+// values of one element meet in-thread before the row bit 6 level, and
+// the rest of the tree is the 128-row one.  The 256-row Q tile takes the
+// second K/V buffer's room (at hd 256 both would not fit): the tall
+// kernel stages a visited tile after the last one is consumed.
+// Tile limits: bq <= 256, bkv <= 128; hd <= 128, or <= 256 in multiples
+// of 16.
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
@@ -85,7 +97,9 @@ namespace {
 
 using namespace mma_int8;
 
-constexpr int kMax = 128;            // max bq, bkv; hd of the narrow kernel
+constexpr int kMax = 128;            // max bkv (and bq but for the tall
+                                     // kernel); hd of the narrow kernel
+constexpr int kTallMax = 256;        // max bq of the tall kernel
 constexpr int kWideMax = 256;        // max hd of the wide kernel
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
@@ -96,29 +110,32 @@ constexpr int kSmemOptin = 232448;   // a block's shared memory on the H100
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kAll = 0xffffffffu;
 
-// Shared memory: K and V^T double buffers, each row group's p_int rows,
-// the q block, the tile's row/column sums, the err/sig buffer, the two
-// halves' row max / p_int sum exchange, the block reductions, then the
-// flat tree's buffer (bkv not a power of two).  Q and K rows are hd + 16
-// bytes (`ld`), V^T has hd rows of kLd; hd = kMax for the narrow kernel.
+// Shared memory: K and V^T double buffers (one of each when tall), each
+// row group's p_int rows (per mma tile), the q block, the tile's row/column
+// sums, the err/sig buffer, the two halves' row max / p_int sum exchange
+// (per mma tile), the block reductions, then the flat tree's buffer (bkv
+// not a power of two).  Q and K rows are hd + 16 bytes (`ld`), V^T has hd
+// rows of kLd; hd = kMax for the narrow kernel.  `tall`: 256 q rows.
 struct Layout {
-  int ld, tile, vtile;   // Q/K row stride, one Q or K tile, one V^T tile
+  int ld, tile, vtile;   // Q/K row stride, one 128-row Q or K tile, one V^T
   int k, v, p, q, sum, tree, x, red, flat;   // offsets
 };
 
-__host__ __device__ constexpr Layout layout(int hd) {
+__host__ __device__ constexpr Layout layout(int hd, bool tall = false) {
+  const int u = tall ? 2 : 1;   // mma row tiles a row group owns
+  const int nbuf = tall ? 1 : 2;
   Layout L{};
   L.ld = hd + 16;
   L.tile = kMax * L.ld;
   L.vtile = hd * kLd;
   L.k = 0;
-  L.v = L.k + 2 * L.tile;
-  L.p = L.v + 2 * L.vtile;
-  L.q = L.p + kGroups * 16 * kLd;
-  L.sum = L.q + L.tile;
+  L.v = L.k + nbuf * L.tile;
+  L.p = L.v + nbuf * L.vtile;
+  L.q = L.p + u * kGroups * 16 * kLd;
+  L.sum = L.q + u * L.tile;
   L.tree = L.sum + (kMax + hd) * 4;
   L.x = L.tree + 4 * (kTreeSig + kGroups * kMax);
-  L.red = L.x + 2 * kWarps * 16 * 4;
+  L.red = L.x + u * 2 * kWarps * 16 * 4;
   L.flat = L.red + 5 * kWarps * 4;
   return L;
 }
@@ -126,12 +143,12 @@ __host__ __device__ constexpr Layout layout(int hd) {
 constexpr int kSmemMax = layout(kMax).flat + 4 * kMax * (kMax - 1);   // bkv 127
 
 // The kernel's layout: compile-time constants unless wide.
-template <bool kWide>
+template <bool kWide, bool kTall>
 __device__ __forceinline__ Layout kernel_layout(int hd) {
   if constexpr (kWide) {
-    return layout(hd);
+    return layout(hd, kTall);
   } else {
-    constexpr Layout L = layout(kMax);
+    constexpr Layout L = layout(kMax, kTall);
     return L;
   }
 }
@@ -207,10 +224,15 @@ __device__ __forceinline__ int next_visited(int i, int ki, int end,
   return -1;
 }
 
+// Shared row of q row r: 128-row tiles, within one (r % 8) * 16 + (r %
+// 128) / 8 (row group w's rows w + 8 j of a tile are then contiguous).
+__device__ __forceinline__ int q_slot(int r) {
+  return ((r >> 7) << 7) + ((r & 7) << 4) + ((r & 127) >> 3);
+}
+
 // Stage `rows` <= kRows rows x `chunks` <= kChunks 16-byte chunks of a
 // tile (shared row stride `ld`): row r of src (row stride `stride` bytes)
-// lands in shared row r, or with kQSlots in row (r % 8) * 16 + r / 8 (warp
-// w's q rows w + 8 j are then contiguous).  Rows >= valid_rows and bytes
+// lands in shared row r, or with kQSlots in row q_slot(r).  Rows >= valid_rows and bytes
 // >= valid_bytes are zero.  `vec`: 16-byte aligned rows and valid_bytes a
 // multiple of 16, copied by cp.async; otherwise byte loads.
 template <bool kQSlots, int kRows, int kChunks>
@@ -226,7 +248,7 @@ __device__ __forceinline__ void stage_tile(uint8_t* dst, const uint8_t* src,
       const unsigned e = t + it * kThreads;
       const int r = e / kChunks, c = e % kChunks;
       if (r < rows && c < chunks) {
-        const int dr = kQSlots ? ((r & 7) << 4) + (r >> 3) : r;
+        const int dr = kQSlots ? q_slot(r) : r;
         const bool in = r < valid_rows && 16 * c < valid_bytes;
         cp_async_16(d + dr * ld + 16 * c,
                     in ? src + static_cast<long long>(r) * stride + 16 * c
@@ -237,7 +259,7 @@ __device__ __forceinline__ void stage_tile(uint8_t* dst, const uint8_t* src,
   } else {
     const int w = t >> 5, l = t & 31;
     for (int r = w; r < rows; r += kWarps) {
-      const int dr = kQSlots ? ((r & 7) << 4) + (r >> 3) : r;
+      const int dr = kQSlots ? q_slot(r) : r;
       for (int b = l; b < 16 * chunks; b += 32)
         dst[dr * ld + b] =
             (r < valid_rows && b < valid_bytes)
@@ -411,7 +433,8 @@ __device__ __forceinline__ void pair_sync(int w) {
 // kFix: hd = bkv = 128 with cp.async staging (the model's shape), every
 // tile width a compile-time constant; otherwise the widths of the launch.
 // kWide: hd in (128, 256], the shared layout from the launch's hd.
-template <bool kFix, bool kWide>
+// kTall: bq in (128, 256], two mma row tiles per row group, one K/V buffer.
+template <bool kFix, bool kWide, bool kTall>
 __global__ void __launch_bounds__(kThreads, 1)
 int8_attention_kernel(const uint8_t* __restrict__ q,
                       const int8_t* __restrict__ k,
@@ -424,7 +447,8 @@ int8_attention_kernel(const uint8_t* __restrict__ q,
   constexpr int kDh = kWide ? kWideMax : kMax;   // the widest hd
   constexpr int kKs = kDh / 32;                  // QK^T k-steps at most
   constexpr int kOnt = kDh / 16;                 // a half's out n-tiles
-  const Layout L = kernel_layout<kWide>(S.hd);
+  constexpr int kU = kTall ? 2 : 1;              // a row group's mma tiles
+  const Layout L = kernel_layout<kWide, kTall>(S.hd);
   const int hd = kFix ? kMax : S.hd;
   const int bkv = kFix ? kMax : S.bkv;
   const bool vec = kFix || S.vec;
@@ -439,8 +463,9 @@ int8_attention_kernel(const uint8_t* __restrict__ q,
   int* rowsum_k = reinterpret_cast<int*>(smem + L.sum);
   int* colsum_v = rowsum_k + kMax;
   float* tree = reinterpret_cast<float*>(smem + L.tree);
-  float* xmax = reinterpret_cast<float*>(smem + L.x);   // [warp][row j]
-  int* xsum = reinterpret_cast<int*>(xmax + kWarps * 16);
+  // [tile u][warp][row j]
+  float* xmax = reinterpret_cast<float*>(smem + L.x);
+  int* xsum = reinterpret_cast<int*>(xmax + kU * kWarps * 16);
   float* red = reinterpret_cast<float*>(smem + L.red);
   float* part = red + 4 * kWarps;   // the err/sig tree's group partials
   float* flat = reinterpret_cast<float*>(smem + L.flat);
@@ -460,10 +485,17 @@ int8_attention_kernel(const uint8_t* __restrict__ q,
   const float pi0 = fminf(
       fmaxf(rintf(__fadd_rn(__fdiv_rn(0.f, scale_p), zp_p)), 0.f), 255.f);
   const int q0 = i * S.bq;
-  const int row[2] = {w + 8 * g, w + 8 * g + 64};
-  const bool row_ok[2] = {row[0] < S.bq && q0 + row[0] < S.sq,
-                          row[1] < S.bq && q0 + row[1] < S.sq};
-  const bool rows_all = S.bq == kMax && q0 + kMax <= S.sq;   // uniform
+  // Tile u's rows of this lane: 128 u + w + 8 g (+ 64).
+  int row[kU][2];
+  bool row_ok[kU][2];
+#pragma unroll
+  for (int u = 0; u < kU; ++u)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      row[u][r] = kMax * u + w + 8 * g + 64 * r;
+      row_ok[u][r] = row[u][r] < S.bq && q0 + row[u][r] < S.sq;
+    }
+  const bool rows_all = S.bq == kU * kMax && q0 + kU * kMax <= S.sq;
   const int snt = kFix ? 8 : max(0, min(8, nnt - 8 * h));   // this half's
   const int ont = kFix ? 8                                    // score and
                   : kWide ? (h == 0 ? osplit : hnt - osplit)  // out n-tiles
@@ -489,34 +521,51 @@ int8_attention_kernel(const uint8_t* __restrict__ q,
         vec, t, kLd);
   };
 
-  stage_tile<true, kMax, kDh / 16>(
+  stage_tile<true, kU * kMax, kDh / 16>(
       smem + L.q, q + (static_cast<long long>(bh) * S.sq + q0) * hd, hd,
-      kMax, min(S.bq, S.sq - q0), 2 * nks, hd, vec, t, L.ld);
+      kU * kMax, min(S.bq, S.sq - q0), 2 * nks, hd, vec, t, L.ld);
   const int end = kv_block_base(i, S) + S.width;
   int ki = next_visited(i, kv_block_base(i, S) - 1, end, S);
   if (ki >= 0) stage_kv(ki, 0);
   cp_async_commit();
 
-  float o[kOnt][4];
+  float o[kU][kOnt][4];
 #pragma unroll
-  for (int nt = 0; nt < kOnt; ++nt)
+  for (int u = 0; u < kU; ++u)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
-  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+    for (int nt = 0; nt < kOnt; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[u][nt][e] = 0.f;
+  float m_run[kU][2], l_run[kU][2];
+#pragma unroll
+  for (int u = 0; u < kU; ++u)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m_run[u][r] = kNegInf;
+      l_run[u][r] = 0.f;
+    }
   float pmn = FLT_MAX, pmx = -FLT_MAX;
   int nclip = 0, ncnt = 0;
   float st_err = 0.f, st_sig = 0.f;   // thread 0's are the block's
-  const uint32_t qa = smem_addr(smem + L.q) + w * 16 * L.ld;
-  uint8_t* pw = smem + L.p + w * 16 * kLd;   // the group's p_int rows
+  // Tile u's q rows and p_int rows of the group.
+  uint32_t qa[kU];
+  uint8_t* pw[kU];
+#pragma unroll
+  for (int u = 0; u < kU; ++u) {
+    qa[u] = smem_addr(smem + L.q) + (kMax * u + w * 16) * L.ld;
+    pw[u] = smem + L.p + (u * kGroups + w) * 16 * kLd;
+  }
 
   int n = 0;   // visited tiles so far
   for (; ki >= 0; ++n) {
-    const int buf = n & 1;
+    const int buf = kTall ? 0 : n & 1;
     cp_async_wait<0>();
     __syncthreads();   // tile n has landed; tile n - 1 is consumed
     const int nk = next_visited(i, ki, end, S);
-    if (nk >= 0) stage_kv(nk, buf ^ 1);
-    cp_async_commit();
+    if constexpr (!kTall) {
+      if (nk >= 0) stage_kv(nk, buf ^ 1);
+      cp_async_commit();
+    }
     const uint8_t* Kb = smem + L.k + buf * L.tile;
     const uint8_t* Vb = smem + L.v + buf * L.vtile;
     // Row sums of the K and V^T tiles on the tensor cores (an all-ones A
@@ -538,62 +587,79 @@ int8_attention_kernel(const uint8_t* __restrict__ q,
     const int k0 = ki * S.bkv;
     const bool live = !tile_empty(q0, k0, kvlim, S);   // uniform
     // This lane's columns are cbase + c, c = 8 i + e: the mask keeps
-    // clo[r] <= c < chi[r] (chi also stops at bkv); the statistics see
-    // c < cvalid (kp < skv) on rows row_ok; c < creal is in the tile.
-    int clo[2], chi[2];
+    // clo[u][r] <= c < chi[u][r] (chi also stops at bkv); the statistics
+    // see c < cvalid (kp < skv) on rows row_ok; c < creal is in the tile.
+    int clo[kU][2], chi[kU][2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      int lo, hi;
-      mask_bounds(q0 + row[r], kvlim, S, lo, hi);
-      clo[r] = lo - k0 - cbase;
-      chi[r] = min(hi - k0, bkv) - cbase;
-    }
+    for (int u = 0; u < kU; ++u)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        int lo, hi;
+        mask_bounds(q0 + row[u][r], kvlim, S, lo, hi);
+        clo[u][r] = lo - k0 - cbase;
+        chi[u][r] = min(hi - k0, bkv) - cbase;
+      }
     const int cvalid = min(bkv, S.skv - k0) - cbase;
     const int creal = bkv - cbase;
 
     // Scores of a live tile: acc = q . k - trunc(zp_q) * rowsum(k), then
     // the row max over both halves.
-    float s[8][4];
-    float m_new[2] = {m_run[0], m_run[1]}, corr[2] = {1.f, 1.f};
-    if (live) {
-      int acc[8][4];
+    float s[kU][8][4];
+    float m_new[kU][2], corr[kU][2];
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        if (nt >= snt) break;
-        const int2 rs =
-            *reinterpret_cast<const int2*>(rowsum_k + cbase + 8 * nt);
-        acc[nt][0] = acc[nt][2] = -tzq * rs.x;
-        acc[nt][1] = acc[nt][3] = -tzq * rs.y;
-      }
-      if (snt > 0)
-        tile_mma<kKs>(acc, qa, smem_addr(Kb) + 64 * h * L.ld, L.ld, nks, snt,
-                      lane);
-      float rmax[2] = {kNegInf, kNegInf};
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        if (nt >= snt) break;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = nt * 8 + (e & 1), r = e >> 1;
-          const bool kp = c >= clo[r] && c < chi[r];
-          s[nt][e] = kp ? __fmul_rn(alpha_qk, __int2float_rn(acc[nt][e]))
-                        : kNegInf;
-          rmax[r] = fmaxf(rmax[r], s[nt][e]);
-        }
-      }
+    for (int u = 0; u < kU; ++u)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        rmax[r] = fmaxf(rmax[r], __shfl_xor_sync(kAll, rmax[r], 1));
-        rmax[r] = fmaxf(rmax[r], __shfl_xor_sync(kAll, rmax[r], 2));
-        if (tq == 0) xmax[warp * 16 + g + 8 * r] = rmax[r];
+        m_new[u][r] = m_run[u][r];
+        corr[u][r] = 1.f;
+      }
+    if (live) {
+      float rmax[kU][2];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        int acc[8][4];
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          if (nt >= snt) break;
+          const int2 rs =
+              *reinterpret_cast<const int2*>(rowsum_k + cbase + 8 * nt);
+          acc[nt][0] = acc[nt][2] = -tzq * rs.x;
+          acc[nt][1] = acc[nt][3] = -tzq * rs.y;
+        }
+        if (snt > 0)
+          tile_mma<kKs>(acc, qa[u], smem_addr(Kb) + 64 * h * L.ld, L.ld, nks,
+                        snt, lane);
+        rmax[u][0] = rmax[u][1] = kNegInf;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          if (nt >= snt) break;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = nt * 8 + (e & 1), r = e >> 1;
+            const bool kp = c >= clo[u][r] && c < chi[u][r];
+            s[u][nt][e] = kp ? __fmul_rn(alpha_qk,
+                                         __int2float_rn(acc[nt][e]))
+                             : kNegInf;
+            rmax[u][r] = fmaxf(rmax[u][r], s[u][nt][e]);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          rmax[u][r] = fmaxf(rmax[u][r], __shfl_xor_sync(kAll, rmax[u][r], 1));
+          rmax[u][r] = fmaxf(rmax[u][r], __shfl_xor_sync(kAll, rmax[u][r], 2));
+          if (tq == 0) xmax[(u * kWarps + warp) * 16 + g + 8 * r] = rmax[u][r];
+        }
       }
       pair_sync(w);
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        rmax[r] = fmaxf(rmax[r], xmax[partner * 16 + g + 8 * r]);
-        m_new[r] = fmaxf(m_run[r], rmax[r]);
-        corr[r] = expf(__fsub_rn(m_run[r], m_new[r]));
-      }
+      for (int u = 0; u < kU; ++u)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          rmax[u][r] = fmaxf(rmax[u][r],
+                             xmax[(u * kWarps + partner) * 16 + g + 8 * r]);
+          m_new[u][r] = fmaxf(m_run[u][r], rmax[u][r]);
+          corr[u][r] = expf(__fsub_rn(m_run[u][r], m_new[u][r]));
+        }
     }
     // (An empty tile's scores are all masked: m stays, corr = exp(0) = 1.)
 
@@ -602,7 +668,9 @@ int8_attention_kernel(const uint8_t* __restrict__ q,
     // err/sig values.  kLive = false is the empty tile: p = 0 and p_int
     // = pi0 everywhere, by the same formulas.  kAll: every entry of the
     // tile is in bounds (no row past sq, no column past skv or bkv).
-    int psum[2] = {0, 0};
+    int psum[kU][2];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) psum[u][0] = psum[u][1] = 0;
     float te[16], ts[16];   // pow2: per column, rows j and j + 8 summed
     auto probs = [&](auto live_tag, auto all_tag) {
       constexpr bool kLive = decltype(live_tag)::value;
@@ -611,50 +679,63 @@ int8_attention_kernel(const uint8_t* __restrict__ q,
       for (int nt = 0; nt < 8; ++nt) {
         te[2 * nt] = te[2 * nt + 1] = ts[2 * nt] = ts[2 * nt + 1] = 0.f;
         if (nt >= snt) continue;
-        float ev[4], sg[4];
-        int pb[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = nt * 8 + (e & 1), r = e >> 1;
-          float p = 0.f, pi = pi0;
-          if (kLive) {
-            const bool kp = c >= clo[r] && c < chi[r];
-            const float ex = expf(__fsub_rn(s[nt][e], m_new[r]));
-            p = kp ? ex : 0.f;
-            pi = fminf(fmaxf(rintf(__fadd_rn(__fdiv_rn(p, scale_p), zp_p)),
-                             0.f), 255.f);
-          }
-          pb[e] = static_cast<int>(pi);
-          if (kFix || c < creal) psum[r] += pb[e];
-          const bool sv = kAll || (row_ok[r] && c < cvalid);
-          pmn = fminf(pmn, sv ? p : FLT_MAX);
-          pmx = fmaxf(pmx, sv ? p : -FLT_MAX);
-          nclip += (sv && (p < p_lo || p > p_hi)) ? 1 : 0;
-          const float d =
-              __fsub_rn(p, __fmul_rn(__fsub_rn(pi, zp_p), scale_p));
-          ev[e] = sv ? __fmul_rn(d, d) : 0.f;
-          sg[e] = sv ? __fmul_rn(p, p) : 0.f;
-        }
+        float ev[kU][4], sg[kU][4];
         const int c0 = cbase + nt * 8;
-        if (kLive) {
-          *reinterpret_cast<uint16_t*>(pw + g * kLd + c0) =
-              static_cast<uint16_t>((pb[0] & 0xff) | ((pb[1] & 0xff) << 8));
-          *reinterpret_cast<uint16_t*>(pw + (g + 8) * kLd + c0) =
-              static_cast<uint16_t>((pb[2] & 0xff) | ((pb[3] & 0xff) << 8));
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          int pb[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = nt * 8 + (e & 1), r = e >> 1;
+            float p = 0.f, pi = pi0;
+            if (kLive) {
+              const bool kp = c >= clo[u][r] && c < chi[u][r];
+              const float ex = expf(__fsub_rn(s[u][nt][e], m_new[u][r]));
+              p = kp ? ex : 0.f;
+              pi = fminf(fmaxf(rintf(__fadd_rn(__fdiv_rn(p, scale_p), zp_p)),
+                               0.f), 255.f);
+            }
+            pb[e] = static_cast<int>(pi);
+            if (kFix || c < creal) psum[u][r] += pb[e];
+            const bool sv = kAll || (row_ok[u][r] && c < cvalid);
+            pmn = fminf(pmn, sv ? p : FLT_MAX);
+            pmx = fmaxf(pmx, sv ? p : -FLT_MAX);
+            nclip += (sv && (p < p_lo || p > p_hi)) ? 1 : 0;
+            const float d =
+                __fsub_rn(p, __fmul_rn(__fsub_rn(pi, zp_p), scale_p));
+            ev[u][e] = sv ? __fmul_rn(d, d) : 0.f;
+            sg[u][e] = sv ? __fmul_rn(p, p) : 0.f;
+          }
+          if (kLive) {
+            *reinterpret_cast<uint16_t*>(pw[u] + g * kLd + c0) =
+                static_cast<uint16_t>((pb[0] & 0xff) | ((pb[1] & 0xff) << 8));
+            *reinterpret_cast<uint16_t*>(pw[u] + (g + 8) * kLd + c0) =
+                static_cast<uint16_t>((pb[2] & 0xff) | ((pb[3] & 0xff) << 8));
+          }
         }
         if (pow2) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            te[2 * nt + e] = __fadd_rn(ev[e], ev[e + 2]);   // row bit 6
-            ts[2 * nt + e] = __fadd_rn(sg[e], sg[e + 2]);
+            float ea = ev[0][e], eb = ev[0][e + 2];
+            float sa = sg[0][e], sb = sg[0][e + 2];
+            if constexpr (kTall) {   // row bit 7: rows r and r + 128
+              ea = __fadd_rn(ea, ev[1][e]);
+              eb = __fadd_rn(eb, ev[1][e + 2]);
+              sa = __fadd_rn(sa, sg[1][e]);
+              sb = __fadd_rn(sb, sg[1][e + 2]);
+            }
+            te[2 * nt + e] = __fadd_rn(ea, eb);   // row bit 6
+            ts[2 * nt + e] = __fadd_rn(sa, sb);
           }
         } else {   // err now, sig after the err tree (kept in s)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = c0 + (e & 1), r = e >> 1;
-            if (row[r] < S.bq && col < bkv) flat[row[r] * bkv + col] = ev[e];
-            s[nt][e] = sg[e];
-          }
+          for (int u = 0; u < kU; ++u)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = c0 + (e & 1), rr = row[u][e >> 1];
+              if (rr < S.bq && col < bkv) flat[rr * bkv + col] = ev[u][e];
+              s[u][nt][e] = sg[u][e];
+            }
         }
       }
     };
@@ -665,22 +746,27 @@ int8_attention_kernel(const uint8_t* __restrict__ q,
     } else {
       probs(std::true_type{}, std::false_type{});
     }
-    ncnt += (static_cast<int>(row_ok[0]) + static_cast<int>(row_ok[1])) *
-            lane_cols(cvalid, snt);
+#pragma unroll
+    for (int u = 0; u < kU; ++u)
+      ncnt += (static_cast<int>(row_ok[u][0]) +
+               static_cast<int>(row_ok[u][1])) *
+              lane_cols(cvalid, snt);
 
     if (pow2) {
       tree_rows(te, ts, tree, w, h, lane);
     } else {   // the flat tree over bq * bkv, err then sig
       const float err = flat_tree(flat, S.bq * bkv, t);
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        if (nt >= snt) break;
+      for (int u = 0; u < kU; ++u)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = cbase + nt * 8 + (e & 1), r = e >> 1;
-          if (row[r] < S.bq && col < bkv) flat[row[r] * bkv + col] = s[nt][e];
+        for (int nt = 0; nt < 8; ++nt) {
+          if (nt >= snt) break;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = cbase + nt * 8 + (e & 1), rr = row[u][e >> 1];
+            if (rr < S.bq && col < bkv) flat[rr * bkv + col] = s[u][nt][e];
+          }
         }
-      }
       const float sig = flat_tree(flat, S.bq * bkv, t);
       if (t == 0) {
         st_err = __fadd_rn(st_err, err);
@@ -693,87 +779,106 @@ int8_attention_kernel(const uint8_t* __restrict__ q,
     // on this half's out columns (A = the group's p_int as u8, B = V^T);
     // an empty tile's are bkv (pi0 - trunc(zp_p)) and (pi0 -
     // trunc(zp_p)) * colsum(v) exactly.
-    int lsum[2];
+    int lsum[kU][2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      psum[r] += __shfl_xor_sync(kAll, psum[r], 1);
-      psum[r] += __shfl_xor_sync(kAll, psum[r], 2);
-      lsum[r] = bkv * (static_cast<int>(pi0) - tzp);
-    }
+    for (int u = 0; u < kU; ++u)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        psum[u][r] += __shfl_xor_sync(kAll, psum[u][r], 1);
+        psum[u][r] += __shfl_xor_sync(kAll, psum[u][r], 2);
+        lsum[u][r] = bkv * (static_cast<int>(pi0) - tzp);
+      }
     if (live) {
       if (tq == 0) {
-        xsum[warp * 16 + g] = psum[0];
-        xsum[warp * 16 + g + 8] = psum[1];
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          xsum[(u * kWarps + warp) * 16 + g] = psum[u][0];
+          xsum[(u * kWarps + warp) * 16 + g + 8] = psum[u][1];
+        }
       }
       pair_sync(w);   // both halves' p_int rows and sums are in
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
-        lsum[r] = psum[r] + xsum[partner * 16 + g + 8 * r] - bkv * tzp;
+      for (int u = 0; u < kU; ++u)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          lsum[u][r] = psum[u][r] +
+                       xsum[(u * kWarps + partner) * 16 + g + 8 * r] -
+                       bkv * tzp;
     }
     const int pshift = live ? -tzp : static_cast<int>(pi0) - tzp;
-    if constexpr (kWide) {
-      // P.V on this half's out n-tiles, 8 at a time.
 #pragma unroll
-      for (int oc = 0; oc < kOnt / 8; ++oc) {
-        const int cnt = min(8, ont - 8 * oc);
-        if (cnt <= 0) break;
+    for (int u = 0; u < kU; ++u) {
+      if constexpr (kWide) {
+        // P.V on this half's out n-tiles, 8 at a time.
+#pragma unroll
+        for (int oc = 0; oc < kOnt / 8; ++oc) {
+          const int cnt = min(8, ont - 8 * oc);
+          if (cnt <= 0) break;
+          int pacc[8][4];
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            if (nt >= cnt) break;
+            const int2 cs = *reinterpret_cast<const int2*>(
+                colsum_v + obase + 64 * oc + 8 * nt);
+            pacc[nt][0] = pacc[nt][2] = pshift * cs.x;
+            pacc[nt][1] = pacc[nt][3] = pshift * cs.y;
+          }
+          if (live)
+            tile_mma<4>(pacc, smem_addr(pw[u]),
+                        smem_addr(Vb) + (ocol0 + 64 * oc) * kLd, kLd, pks,
+                        cnt, lane);
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            if (nt >= cnt) break;
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              o[u][8 * oc + nt][e] = __fadd_rn(
+                  __fmul_rn(o[u][8 * oc + nt][e], corr[u][e >> 1]),
+                  __fmul_rn(alpha_pv, __int2float_rn(pacc[nt][e])));
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          l_run[u][r] = __fadd_rn(__fmul_rn(l_run[u][r], corr[u][r]),
+                                  __fmul_rn(scale_p,
+                                            __int2float_rn(lsum[u][r])));
+          m_run[u][r] = m_new[u][r];
+        }
+      } else {
         int pacc[8][4];
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt) {
-          if (nt >= cnt) break;
-          const int2 cs = *reinterpret_cast<const int2*>(
-              colsum_v + obase + 64 * oc + 8 * nt);
+          if (nt >= ont) break;
+          const int2 cs =
+              *reinterpret_cast<const int2*>(colsum_v + cbase + 8 * nt);
           pacc[nt][0] = pacc[nt][2] = pshift * cs.x;
           pacc[nt][1] = pacc[nt][3] = pshift * cs.y;
         }
-        if (live)
-          tile_mma<4>(pacc, smem_addr(pw),
-                      smem_addr(Vb) + (ocol0 + 64 * oc) * kLd, kLd, pks, cnt,
-                      lane);
+        if (live && ont > 0)
+          tile_mma<4>(pacc, smem_addr(pw[u]), smem_addr(Vb) + 64 * h * kLd,
+                      kLd, pks, ont, lane);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          l_run[u][r] = __fadd_rn(__fmul_rn(l_run[u][r], corr[u][r]),
+                                  __fmul_rn(scale_p,
+                                            __int2float_rn(lsum[u][r])));
+          m_run[u][r] = m_new[u][r];
+        }
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt) {
-          if (nt >= cnt) break;
+          if (nt >= ont) break;
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            o[8 * oc + nt][e] = __fadd_rn(
-                __fmul_rn(o[8 * oc + nt][e], corr[e >> 1]),
-                __fmul_rn(alpha_pv, __int2float_rn(pacc[nt][e])));
+            o[u][nt][e] = __fadd_rn(__fmul_rn(o[u][nt][e], corr[u][e >> 1]),
+                                    __fmul_rn(alpha_pv,
+                                              __int2float_rn(pacc[nt][e])));
         }
       }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        l_run[r] = __fadd_rn(__fmul_rn(l_run[r], corr[r]),
-                             __fmul_rn(scale_p, __int2float_rn(lsum[r])));
-        m_run[r] = m_new[r];
-      }
-    } else {
-      int pacc[8][4];
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        if (nt >= ont) break;
-        const int2 cs =
-            *reinterpret_cast<const int2*>(colsum_v + cbase + 8 * nt);
-        pacc[nt][0] = pacc[nt][2] = pshift * cs.x;
-        pacc[nt][1] = pacc[nt][3] = pshift * cs.y;
-      }
-      if (live && ont > 0)
-        tile_mma<4>(pacc, smem_addr(pw), smem_addr(Vb) + 64 * h * kLd, kLd,
-                    pks, ont, lane);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        l_run[r] = __fadd_rn(__fmul_rn(l_run[r], corr[r]),
-                             __fmul_rn(scale_p, __int2float_rn(lsum[r])));
-        m_run[r] = m_new[r];
-      }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        if (nt >= ont) break;
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          o[nt][e] = __fadd_rn(__fmul_rn(o[nt][e], corr[e >> 1]),
-                               __fmul_rn(alpha_pv,
-                                         __int2float_rn(pacc[nt][e])));
-      }
+    }
+    if constexpr (kTall) {   // one K/V buffer: the next tile after this one
+      __syncthreads();
+      if (nk >= 0) stage_kv(nk, 0);
+      cp_async_commit();
     }
     ki = nk;
   }
@@ -819,50 +924,53 @@ int8_attention_kernel(const uint8_t* __restrict__ q,
 
   // out = acc / max(l, 1e-30) on this half's columns; residuals (m, l).
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (!row_ok[r]) continue;
-    const long long qrow = static_cast<long long>(bh) * S.sq + q0 + row[r];
-    const float den = fmaxf(l_run[r], 1e-30f);
-    float* orow = out + qrow * hd;
+  for (int u = 0; u < kU; ++u)
 #pragma unroll
-    for (int nt = 0; nt < kOnt; ++nt) {
-      if (nt >= ont) break;
-      const int col = obase + 8 * nt;
-      const float v0 = __fdiv_rn(o[nt][2 * r], den);
-      const float v1 = __fdiv_rn(o[nt][2 * r + 1], den);
-      if ((hd & 1) == 0 && col < hd) {
-        *reinterpret_cast<float2*>(orow + col) = make_float2(v0, v1);
-      } else {
-        if (col < hd) orow[col] = v0;
-        if (col + 1 < hd) orow[col + 1] = v1;
+    for (int r = 0; r < 2; ++r) {
+      if (!row_ok[u][r]) continue;
+      const long long qrow =
+          static_cast<long long>(bh) * S.sq + q0 + row[u][r];
+      const float den = fmaxf(l_run[u][r], 1e-30f);
+      float* orow = out + qrow * hd;
+#pragma unroll
+      for (int nt = 0; nt < kOnt; ++nt) {
+        if (nt >= ont) break;
+        const int col = obase + 8 * nt;
+        const float v0 = __fdiv_rn(o[u][nt][2 * r], den);
+        const float v1 = __fdiv_rn(o[u][nt][2 * r + 1], den);
+        if ((hd & 1) == 0 && col < hd) {
+          *reinterpret_cast<float2*>(orow + col) = make_float2(v0, v1);
+        } else {
+          if (col < hd) orow[col] = v0;
+          if (col + 1 < hd) orow[col + 1] = v1;
+        }
+      }
+      if (h == 0 && tq == 0) {
+        ml[2 * qrow] = m_run[u][r];
+        ml[2 * qrow + 1] = l_run[u][r];
       }
     }
-    if (h == 0 && tq == 0) {
-      ml[2 * qrow] = m_run[r];
-      ml[2 * qrow + 1] = l_run[r];
-    }
-  }
 }
 
 // Allow an instantiation's dynamic shared memory (above the 48 KB
 // default) once; returns the CUDA error code.
-template <bool kFix, bool kWide>
+template <bool kFix, bool kWide, bool kTall>
 int allow_smem() {
   static int status = -1;
   if (status < 0)
     status = static_cast<int>(cudaFuncSetAttribute(
-        int8_attention_kernel<kFix, kWide>,
+        int8_attention_kernel<kFix, kWide, kTall>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kWide ? kSmemOptin : kSmemMax));
+        kWide || kTall ? kSmemOptin : kSmemMax));
   return status;
 }
 
-template <bool kFix, bool kWide>
+template <bool kFix, bool kWide, bool kTall>
 int start(dim3 grid, int smem, cudaStream_t st, const void* q, const void* k,
           const void* vt, const void* regs, const void* kvlen, void* out,
           void* ml, void* pstats, const Sched& S) {
-  if (const int s = allow_smem<kFix, kWide>()) return s;
-  int8_attention_kernel<kFix, kWide><<<grid, kThreads, smem, st>>>(
+  if (const int s = allow_smem<kFix, kWide, kTall>()) return s;
+  int8_attention_kernel<kFix, kWide, kTall><<<grid, kThreads, smem, st>>>(
       static_cast<const uint8_t*>(q), static_cast<const int8_t*>(k),
       static_cast<const int8_t*>(vt), static_cast<const float*>(regs),
       static_cast<const int*>(kvlen), static_cast<float*>(out),
@@ -875,7 +983,8 @@ int start(dim3 grid, int smem, cudaStream_t st, const void* q, const void* k,
 // The dynamic shared memory a launch at (hd, bq, bkv) needs, in bytes.
 extern "C" int repro_int8_attention_smem(int hd, int bq, int bkv) {
   const bool pow2 = (bkv & (bkv - 1)) == 0;
-  return layout(hd > kMax ? hd : kMax).flat + (pow2 ? 0 : 4 * bq * bkv);
+  return layout(hd > kMax ? hd : kMax, bq > kMax).flat +
+         (pow2 ? 0 : 4 * bq * bkv);
 }
 
 // q u8 [BH, sq, hd]; k s8 [ZB, skv, hd]; vt s8 [ZB, hd, skvp], V's K-major
@@ -889,8 +998,8 @@ extern "C" int repro_int8_attention(const void* q, const void* k,
                                     int hd, int bq, int bkv, int groups,
                                     int mode, int window, int prefix_len,
                                     int width, void* stream) {
-  const bool wide = hd > kMax;
-  if (bq < 1 || bkv < 1 || hd < 1 || bq > kMax || bkv > kMax ||
+  const bool wide = hd > kMax, tall = bq > kMax;
+  if (bq < 1 || bkv < 1 || hd < 1 || bq > kTallMax || bkv > kMax ||
       hd > kWideMax || (wide && hd % 16 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   Sched S;
@@ -913,17 +1022,22 @@ extern "C" int repro_int8_attention(const void* q, const void* k,
   S.vec = hd % 16 == 0 && bkv % 16 == 0 && aligned(q) && aligned(k) &&
           aligned(vt);
   S.pow2 = (bkv & (bkv - 1)) == 0;
-  const bool fix = S.vec && hd == kMax && bkv == kMax;
+  const bool fix = S.vec && hd == kMax && bkv == kMax && !tall;
   const int smem = repro_int8_attention_smem(hd, bq, bkv);
   if (smem > kSmemOptin) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(S.nq, bh);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tall)
+    return wide ? start<false, true, true>(grid, smem, st, q, k, vt, regs,
+                                           kvlen, out, ml, pstats, S)
+                : start<false, false, true>(grid, smem, st, q, k, vt, regs,
+                                            kvlen, out, ml, pstats, S);
   if (fix)
-    return start<true, false>(grid, smem, st, q, k, vt, regs, kvlen, out, ml,
-                              pstats, S);
+    return start<true, false, false>(grid, smem, st, q, k, vt, regs, kvlen,
+                                     out, ml, pstats, S);
   if (wide)
-    return start<false, true>(grid, smem, st, q, k, vt, regs, kvlen, out, ml,
-                              pstats, S);
-  return start<false, false>(grid, smem, st, q, k, vt, regs, kvlen, out, ml,
-                             pstats, S);
+    return start<false, true, false>(grid, smem, st, q, k, vt, regs, kvlen,
+                                     out, ml, pstats, S);
+  return start<false, false, false>(grid, smem, st, q, k, vt, regs, kvlen,
+                                    out, ml, pstats, S);
 }

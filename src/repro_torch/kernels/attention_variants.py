@@ -18,6 +18,10 @@ A name may repeat, to interleave runs of the same build.
     python3 -m repro_torch.kernels.attention_variants \\
         [--variants base,general,base,general] [--check] [--reps 20]
 
+``file:PATH`` as a variant name builds the kernel source at PATH (a parent
+checkout's ``csrc/int8_attention.cu``, with this checkout's headers):
+``--variants base,file:P,file:P,base`` compares the two in turns.
+
 It prints the card's name and power limit, each build's ptxas lines and
 one line per run.
 """
@@ -38,13 +42,15 @@ from repro_torch.kernels import int8_matmul as mm
 
 # name -> [(text, replacement)]; every text must occur in the source.
 EDITS = {
-    "general": [("  const bool fix = S.vec && hd == kMax && bkv == kMax;\n",
+    "general": [("  const bool fix = S.vec && hd == kMax && bkv == kMax && !tall;\n",
                  "  const bool fix = false;\n")],
-    "no_qk": [("        tile_mma<kKs>(acc, qa, smem_addr(Kb) + 64 * h * L.ld, "
-               "L.ld, nks, snt,\n                      lane);\n", "        ;\n")],
-    "no_pv": [("      if (live && ont > 0)\n        tile_mma<4>(pacc, smem_addr(pw), "
-               "smem_addr(Vb) + 64 * h * kLd,", "      if (0)\n        tile_mma<4>"
-               "(pacc, smem_addr(pw), smem_addr(Vb) + 64 * h * kLd,")],
+    "no_qk": [("          tile_mma<kKs>(acc, qa[u], smem_addr(Kb) + 64 * h * L.ld, "
+               "L.ld, nks,\n                        snt, lane);\n",
+               "          ;\n")],
+    "no_pv": [("        if (live && ont > 0)\n          tile_mma<4>(pacc, "
+               "smem_addr(pw[u]), smem_addr(Vb) + 64 * h * kLd,",
+               "        if (0)\n          tile_mma<4>(pacc, smem_addr(pw[u]), "
+               "smem_addr(Vb) + 64 * h * kLd,")],
     "no_rowsums": [("      row_sums<kKs>(smem_addr(Kb), L.ld, nks, nnt, rowsum_k, w, "
                     "lane);\n", ""),
                    ("        row_sums<4>(smem_addr(Vb) + rb * kMax * kLd, kLd, pks, "
@@ -57,14 +63,16 @@ EDITS = {
                 ("                                           float& st_sig) {\n",
                  "                                           float& st_sig) {\n"
                  "  return;\n")],
-    "no_exp": [("const float ex = expf(__fsub_rn(s[nt][e], m_new[r]));",
-                "const float ex = __fsub_rn(s[nt][e], m_new[r]);")],
+    "no_exp": [("const float ex = expf(__fsub_rn(s[u][nt][e], m_new[u][r]));",
+                "const float ex = __fsub_rn(s[u][nt][e], m_new[u][r]);")],
     "no_div": [("__fdiv_rn(p, scale_p)", "__fmul_rn(p, scale_p)")],
-    "no_stage": [("    if (nk >= 0) stage_kv(nk, buf ^ 1);\n", "")],
-    "no_stats": [("          const bool sv = kAll || (row_ok[r] && c < cvalid);",
-                  "          const bool sv = false;")],
-    "no_oupd": [("        for (int e = 0; e < 4; ++e)\n          o[nt][e] = __fadd_rn(",
-                 "        for (int e = 0; e < 4 * 0; ++e)\n          o[nt][e] = __fadd_rn(")],
+    "no_stage": [("      if (nk >= 0) stage_kv(nk, buf ^ 1);\n", "")],
+    "no_stats": [("            const bool sv = kAll || (row_ok[u][r] && c < cvalid);",
+                  "            const bool sv = false;")],
+    "no_oupd": [("          for (int e = 0; e < 4; ++e)\n            o[u][nt][e] = "
+                 "__fadd_rn(__fmul_rn(o[u][nt][e], corr[u][e >> 1]),",
+                 "          for (int e = 0; e < 4 * 0; ++e)\n            o[u][nt][e] "
+                 "= __fadd_rn(__fmul_rn(o[u][nt][e], corr[u][e >> 1]),")],
     # every tile's probabilities by the empty tile's path (the products run)
     "no_probs": [("      probs(std::true_type{}, std::true_type{});",
                   "      probs(std::false_type{}, std::false_type{});")],
@@ -80,20 +88,20 @@ EDITS = {
               "consumed\n", "    PROF(9);\n    __syncthreads();\n    PROF(0);\n"),
              ("    __syncthreads();   // the sums and partials are visible; "
               "the err/sig\n", "    PROF(1);\n    __syncthreads();\n    PROF(2);\n"),
-             ("        tile_mma<kKs>(acc, qa, smem_addr(Kb) + 64 * h * L.ld, "
-              "L.ld, nks, snt,\n                      lane);\n",
-              "        tile_mma<kKs>(acc, qa, smem_addr(Kb) + 64 * h * L.ld, "
-              "L.ld, nks, snt,\n                      lane);\n      PROF(3);\n"),
+             ("          tile_mma<kKs>(acc, qa[u], smem_addr(Kb) + 64 * h * L.ld, "
+              "L.ld, nks,\n                        snt, lane);\n",
+              "          tile_mma<kKs>(acc, qa[u], smem_addr(Kb) + 64 * h * L.ld, "
+              "L.ld, nks,\n                        snt, lane);\n        PROF(3);\n"),
              ("      pair_sync(w);\n", "      PROF(4);\n      pair_sync(w);\n"
               "      PROF(5);\n"),
              ("    if (pow2) {\n      tree_rows(", "    PROF(6);\n    if (pow2) "
               "{\n      tree_rows("),
              ("      pair_sync(w);   // both halves' p_int rows and sums are in\n",
               "      PROF(7);\n      pair_sync(w);\n      PROF(8);\n"),
-             ("    if (h == 0 && tq == 0) {\n      ml[2 * qrow] = m_run[r];\n"
-              "      ml[2 * qrow + 1] = l_run[r];\n    }\n  }\n",
-              "    if (h == 0 && tq == 0) {\n      ml[2 * qrow] = m_run[r];\n"
-              "      ml[2 * qrow + 1] = l_run[r];\n    }\n  }\n"
+             ("      if (h == 0 && tq == 0) {\n        ml[2 * qrow] = m_run[u][r];\n"
+              "        ml[2 * qrow + 1] = l_run[u][r];\n      }\n    }\n",
+              "      if (h == 0 && tq == 0) {\n        ml[2 * qrow] = m_run[u][r];\n"
+              "        ml[2 * qrow + 1] = l_run[u][r];\n      }\n    }\n"
               "  if (t == 0)\n    for (int k_ = 0; k_ < 10; ++k_)\n"
               "      out[(static_cast<long long>(bh) * S.sq + q0) * hd + k_] = "
               "static_cast<float>(prof[k_]);\n")],
@@ -101,7 +109,12 @@ EDITS = {
 
 
 def variant_source(text: str, name: str) -> str:
-    """The kernel's source with the edits of ``name`` (``a+b`` joins)."""
+    """The kernel's source with the edits of ``name`` (``a+b`` joins);
+    ``file:PATH`` is the kernel source at PATH as it is (another
+    checkout's, for a comparison inside one call)."""
+    if name.startswith("file:"):
+        from pathlib import Path
+        return Path(name[5:]).read_text()
     for part in name.split("+"):
         if part == "base":
             continue

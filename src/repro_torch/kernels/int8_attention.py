@@ -26,7 +26,11 @@ K and V's K-major image (written by the int8 matmul's transpose kernel)
 stream in by double-buffered ``cp.async``; the softmax, the requantized
 probabilities and the statistics stay in registers, and the err/sig tree
 keeps the reference's association (a rows-then-columns tree for
-power-of-two ``bkv``, the flat tree otherwise).  At the slice's shape it
+power-of-two ``bkv``, the flat tree otherwise).  A q block of 129-256
+rows (the tuner's ``(256, 128)`` below S = 256) takes the kernel's tall
+instantiation: each row group owns two 16-row mma tiles, whose values of
+one element meet first in the tree (its rows padded to 256), and K/V
+stream through one buffer.  At the slice's shape it
 is bound by the per-element fp32 softmax and requantization, not by bytes
 or by the card's int8 rate.
 
@@ -38,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -53,7 +58,9 @@ NEG_INF = -1e30
 P_SPEC = QuantSpec(bits=8, symmetric=False)
 STAT_SLOTS = 6
 MASK_MODES = ("causal", "sliding", "prefix", "cross", "bidir")
-KERNEL_MAX_TILE = 128        # bq, bkv limit of the CUDA kernel
+KERNEL_MAX_BQ = 256          # bq limit of the CUDA kernel (above 128: tall)
+KERNEL_MAX_BKV = 128         # its bkv limit
+KERNEL_MAX_NARROW_HD = 128   # its narrow instantiation's hd
 KERNEL_MAX_HD = 256          # its hd limit (above 128: multiples of 16)
 SMEM_LIMIT = 232448          # a block's shared memory on the H100, bytes
 
@@ -329,7 +336,8 @@ def attention_core_reference(q_u8, k_i8, v_i8, regs, kvlen, *,
 # same exact int8 QK^T as the forward.
 # ---------------------------------------------------------------------------
 def attention_core_backward(qh, kh, vh, q_u8, k_i8, v_i8, regs, kvlen,
-                            out, ml, g_out, *, sched: AttnSchedule):
+                            out, ml, g_out, *, sched: AttnSchedule,
+                            z_chunk: Optional[int] = None):
     """Returns ``(dq [BH, sq, hd], dk [ZB, skv, hd], dv [ZB, skv, hd])``,
     fp32 cotangents w.r.t. the on-grid (dequantized) q/k/v values, over
     the reference's ``(bq, bkv)`` blocks.  Each block pair's terms are
@@ -337,7 +345,30 @@ def attention_core_backward(qh, kh, vh, q_u8, k_i8, v_i8, regs, kvlen,
     pair the mask kills gives exact zeros), then summed in the
     reference's order: ``dq_i`` over the kv blocks ``j`` in order,
     ``dk_j`` and ``dv_j`` over the q blocks ``i`` in order.  The QK^T
-    recompute runs in float64, exact for these integer operands."""
+    recompute runs in float64, exact for these integer operands.
+
+    ``z_chunk`` kv heads (default: all ``ZB``) go through the products at
+    once.  The model passes one batch row's kv heads: every product then
+    has the same shapes whatever the batch, so a row's cotangents do not
+    depend on the rows beside it (the card's batched GEMMs pick their
+    algorithms by shape), and a data-parallel rank's are the one-process
+    step's."""
+    zb = k_i8.shape[0]
+    zc = zb if z_chunk is None else z_chunk
+    if zc >= zb:
+        return _core_backward(qh, kh, vh, q_u8, k_i8, regs, kvlen, out, ml,
+                              g_out, sched)
+    g, parts = sched.groups, []
+    for z0 in range(0, zb, zc):
+        zs, qs = slice(z0, z0 + zc), slice(z0 * g, (z0 + zc) * g)
+        parts.append(_core_backward(
+            qh[qs], kh[zs], vh[zs], q_u8[qs], k_i8[zs], regs, kvlen,
+            out[qs], ml[qs], g_out[qs], sched))
+    return tuple(torch.cat(t) for t in zip(*parts))
+
+
+def _core_backward(qh, kh, vh, q_u8, k_i8, regs, kvlen, out, ml, g_out,
+                   sched: AttnSchedule):
     S = sched
     bh = q_u8.shape[0]
     zb = bh // S.groups
@@ -437,17 +468,19 @@ def bind(lib: ctypes.CDLL):
 
 
 def check_kernel_tiles(sched: AttnSchedule) -> None:
-    """Raise unless the CUDA kernel takes ``sched``'s tile: bq, bkv <=
-    128 and hd <= 256, a multiple of 16 above 128."""
+    """Raise unless the CUDA kernel takes ``sched``'s tile: bq <= 256 (the
+    tall instantiation above 128), bkv <= 128 and hd <= 256, a multiple
+    of 16 above 128."""
     S = sched
-    if max(S.bq, S.bkv) > KERNEL_MAX_TILE:
+    if S.bq > KERNEL_MAX_BQ or S.bkv > KERNEL_MAX_BKV:
         raise ValueError(
-            f"the CUDA attention kernel takes bq, bkv <= {KERNEL_MAX_TILE}; "
-            f"got ({S.bq}, {S.bkv})")
-    if S.hd > KERNEL_MAX_HD or (S.hd > KERNEL_MAX_TILE and S.hd % 16):
+            f"the CUDA attention kernel takes bq <= {KERNEL_MAX_BQ} and "
+            f"bkv <= {KERNEL_MAX_BKV}; got ({S.bq}, {S.bkv})")
+    if S.hd > KERNEL_MAX_HD or (S.hd > KERNEL_MAX_NARROW_HD and S.hd % 16):
         raise ValueError(
-            f"the CUDA attention kernel takes head_dim <= {KERNEL_MAX_TILE}, "
-            f"or <= {KERNEL_MAX_HD} in multiples of 16; got {S.hd}")
+            f"the CUDA attention kernel takes head_dim <= "
+            f"{KERNEL_MAX_NARROW_HD}, or <= {KERNEL_MAX_HD} in multiples of "
+            f"16; got {S.hd}")
 
 
 def launch(fn, q_u8, k_i8, vt, regs, kvl, *, sched: AttnSchedule):

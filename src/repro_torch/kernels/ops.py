@@ -93,6 +93,16 @@ def stochastic_quantize(x: torch.Tensor, qmin, qmax, noise, *,
         return _sq.stochastic_quantize_onchip_cuda(xf, qp, seed, spec)
     if noise is None:
         raise ValueError("stochastic rounding requires a `noise` tensor")
+    return stochastic_quantize_registers(xf, qp, noise, spec=spec)
+
+
+def stochastic_quantize_registers(x: torch.Tensor, qparams: torch.Tensor,
+                                  noise: torch.Tensor, *, spec: QuantSpec):
+    """:func:`stochastic_quantize`'s operand form with the registers
+    ``qparams = [scale, zero_point]`` given (the int8 gradient collective
+    derives its own scale): ``floor(x / scale + zero_point + u)``,
+    clipped, and the (min, max) of ``x``."""
+    xf, qp = x.to(torch.float32), qparams.to(x.device, torch.float32)
     nf = noise.to(torch.float32)
     if _on_cuda(xf, qp, nf):
         return _sq.stochastic_quantize_cuda(xf, qp, nf, spec)

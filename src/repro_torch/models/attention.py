@@ -32,6 +32,7 @@ import torch
 from repro_torch.core import backend, qlinear
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.state import init_range_state, make_range_state
+from repro_torch.runtime import sharding
 
 from .layers import apply_rope, init_normal
 
@@ -341,31 +342,41 @@ def attention_layer(params, sites: dict, x: torch.Tensor, *, n_heads: int,
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
 
+    # The dispatch, decided once.  Sequence sharding of the core
+    # (sharding.attn_hints) only on the dense path without a cache (the
+    # chunked path walks the sequence, and decode has S = 1).
+    decode = cache is not None and s == 1 and mode != "cross"
+    use_core = (not (cross_decode or decode) and "core" in sites and s > 1
+                and backend.qattention_eligible(policy)
+                and (mode != "sliding" or isinstance(window, int))
+                and (mode != "prefix" or isinstance(prefix_len, int)))
+    local = (mode == "sliding" and window is not None and s > window
+             and s % window == 0)
+    dense = (not (cross_decode or decode or use_core or local)
+             and max(s, k.shape[1]) <= dense_attn_max)
+    q, k, v = sharding.attn_hints(q, k, v,
+                                  allow_seq=dense and cache is None and s > 1)
+
     if cross_decode:
         # the whole cached encoder: every filled slot is at or before 2**30
         out = _decode_attn(q, cache["k"], cache["v"], cache["pos"],
                            torch.full((b,), 2 ** 30, device=x.device),
                            mode="cross_dec", window=None, prefix_len=None,
                            scale=scale, kv_scale=cache.get("scale"))
-    elif cache is not None and s == 1 and mode != "cross":
+    elif decode:
         cur = positions[:, 0]
         cache = cache_insert(cache, k, v, cur)
         out = _decode_attn(q, cache["k"], cache["v"], cache["pos"], cur,
                            mode=mode, window=window, prefix_len=prefix_len,
                            scale=scale, kv_scale=cache.get("scale"))
     else:
-        use_core = ("core" in sites and s > 1
-                    and backend.qattention_eligible(policy)
-                    and (mode != "sliding" or isinstance(window, int))
-                    and (mode != "prefix" or isinstance(prefix_len, int)))
         if use_core:
             out, core_stats = backend.qattention(
                 policy, q, k, v, sites["core"], mode=mode, window=window,
                 prefix_len=prefix_len, kv_len=kv_len, scale=scale, step=step)
-        elif mode == "sliding" and window is not None and s > window \
-                and s % window == 0:
+        elif local:
             out = _local_attn(q, k, v, window=window, scale=scale)
-        elif max(s, k.shape[1]) <= dense_attn_max:
+        elif dense:
             out = _dense_attn(q, k, v, mode=mode, window=window,
                               prefix_len=prefix_len, kv_len=kv_len,
                               scale=scale)

@@ -34,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core import backend, qlinear
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.device import resolve_device
+from repro_torch.runtime import sharding
 from repro_torch.telemetry import metrics
 
 from . import layers, transformer
@@ -249,7 +250,9 @@ def loss_fn(params, quant_state, batch, cfg, policy: QuantPolicy, seed: int,
             nll, zpen = chunk(*args)
         nlls.append(nll)
         zpens.append(zpen)
-    denom = torch.clamp(torch.sum(mask), min=1.0)
+    # the global batch's token count under data parallelism: every rank's
+    # loss is its share of the global mean
+    denom = torch.clamp(sharding.dp_sum(torch.sum(mask)), min=1.0)
     loss = torch.sum(torch.stack(nlls)) / denom
     metrics["z_loss_head"] = cfg.logit_z_coef * torch.sum(
         torch.stack(zpens)) / denom

@@ -23,9 +23,14 @@ PyTorch, as the reference computes them with ``jnp`` outside any kernel.
 The expert weights are quantized per tensor (one range per site, shared
 by all experts: the per-tensor setting the paper studies).
 
-The reference's ``hint(expert_in, "model", "batch", ...)`` sharding
-annotation (experts over the model axis) has no counterpart: the port
-runs on one device until the distribution slice.
+Under data parallelism (``runtime.sharding.data_parallel``) the
+load-balance loss takes the global means of ``frac`` and ``prob`` and the
+z-loss the global mean, as the reference's global program under GSPMD,
+each rank's share of the loss being ``1 / N`` of them; a rank's tokens
+must fill whole groups of ``group_size`` (the global program's groups
+are then the ranks' in order), or the layer raises.  ``hint(expert_in,
+"model", "batch", ...)`` (experts over the model axis) is the
+reference's; the model axis is not realized yet.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ import torch
 
 from repro_torch.core import backend, qlinear
 from repro_torch.core.policy import QuantPolicy
+from repro_torch.runtime import sharding
 
 from .layers import GLU_KINDS, _GLU_ACT, activation, apply_mlp, init_mlp, \
     init_mlp_sites, init_normal
@@ -98,10 +104,10 @@ def _top_k_gating(logits: torch.Tensor, spec: MoeSpec):
     gates = probs * mask / denom
 
     # Shazeer load-balance loss: E * mean(fraction routed) . mean(prob).
-    frac = torch.mean(mask, dim=(0, 1))
-    prob = torch.mean(probs, dim=(0, 1))
+    frac = sharding.dp_mean(mask, (0, 1))
+    prob = sharding.dp_mean(probs, (0, 1))
     aux = spec.n_experts * torch.sum(frac * prob)
-    z = torch.mean(torch.logsumexp(logits, dim=-1).square())
+    z = sharding.dp_mean(torch.logsumexp(logits, dim=-1).square())
     return gates, aux, z
 
 
@@ -130,6 +136,11 @@ def apply_moe(params, sites: dict, x: torch.Tensor, spec: MoeSpec, *,
     """``x [B, S, D]`` -> ``(y, stats, metrics{aux_loss, z_loss})``."""
     b, s, d = x.shape
     tokens = b * s
+    if sharding.dp_shard() is not None and tokens % spec.group_size:
+        # the global program's groups are the ranks' in order only when
+        # every rank's tokens fill whole groups of the configured size
+        raise ValueError(f"a data-parallel rank's {tokens} tokens do not "
+                         f"fill whole groups of {spec.group_size}")
     g_size = min(spec.group_size, tokens)
     if tokens % g_size:
         raise ValueError(f"{tokens} tokens do not split into groups of "
@@ -146,6 +157,8 @@ def apply_moe(params, sites: dict, x: torch.Tensor, spec: MoeSpec, *,
 
     comp = x.dtype
     expert_in = torch.einsum("gtec,gtd->egcd", dispatch.to(comp), xg)
+    # expert parallelism: E over the model axis, groups over data
+    expert_in = sharding.hint(expert_in, "model", "batch", None, None)
 
     new_sites = dict(sites)
     # One shared input quantization for the expert up/gate matmuls (empty
@@ -154,12 +167,13 @@ def apply_moe(params, sites: dict, x: torch.Tensor, spec: MoeSpec, *,
                                               policy, step)
     up, s_up = qlinear.qdense_pre(
         eq, params["w_up"], sites["up"], policy,
-        einsum_spec="egcd,edf->egcf", seed=seed, step=step, qinfo=eqi)
+        einsum_spec="egcd,edf->egcf", seed=seed, step=step, qinfo=eqi,
+        batch_dim=1)
     if spec.mlp_kind in GLU_KINDS:
         gate, new_sites["gate"] = qlinear.qdense_pre(
             eq, params["w_gate"], sites["gate"], policy,
             einsum_spec="egcd,edf->egcf", seed=seed + 1, step=step,
-            qinfo=eqi)
+            qinfo=eqi, batch_dim=1)
         h = activation(gate, _GLU_ACT[spec.mlp_kind]) * up
     else:
         h = activation(up, spec.mlp_kind)
@@ -167,7 +181,7 @@ def apply_moe(params, sites: dict, x: torch.Tensor, spec: MoeSpec, *,
     new_sites["up"] = s_up
     out, new_sites["down"] = qlinear.qeinsum(
         "egcf,efd->egcd", h, params["w_down"], sites["down"], policy,
-        seed=seed + 2, step=step)
+        seed=seed + 2, step=step, batch_dim=1)
 
     y = torch.einsum("gtec,egcd->gtd", combine.to(comp), out)
     y = y.reshape(b, s, d)
@@ -178,6 +192,6 @@ def apply_moe(params, sites: dict, x: torch.Tensor, spec: MoeSpec, *,
             seed=seed + 3, step=step)
         y = y + ys
 
-    metrics = {"aux_loss": spec.aux_loss_coef * aux,
-               "z_loss": spec.z_loss_coef * z}
+    metrics = {"aux_loss": spec.aux_loss_coef * sharding.dp_share(aux),
+               "z_loss": spec.z_loss_coef * sharding.dp_share(z)}
     return y, new_sites, metrics

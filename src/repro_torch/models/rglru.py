@@ -26,8 +26,8 @@ reference's, in its order, and autograd through it is the train step's
 backward.  The gates write each of the reference's ops: ``softplus`` as
 ``jnp.logaddexp(x, 0)`` computes it (no threshold), ``sqrt(1 - a^2)`` from
 ``log a``.  The reference's ``hint`` (the channel axis over the model
-mesh axis) has no counterpart: the port runs on one device until the
-distribution slice.
+mesh axis) is called at its place (``runtime.sharding``; the model axis
+is not realized yet).
 """
 from __future__ import annotations
 
@@ -37,6 +37,7 @@ import torch
 
 from repro_torch.core import qlinear
 from repro_torch.core.policy import QuantPolicy
+from repro_torch.runtime import sharding
 
 from .layers import activation, init_normal
 
@@ -169,6 +170,8 @@ def apply_rglru(params, sites: dict, x: torch.Tensor, *,
     r = torch.sigmoid(ra.to(f32) + params["b_a"])
     i = torch.sigmoid(rx.to(f32) + params["b_x"])
     log_a = -_C * _softplus(params["lambda"]) * r          # [B, S, C] fp32
+    # the recurrence is channel-parallel: C over the model axis
+    log_a = sharding.hint(log_a, "batch", None, "model")
     a = torch.exp(log_a)
     # sqrt(1 - a^2) computed stably via log: 1 - exp(2 log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))

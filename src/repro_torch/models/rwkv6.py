@@ -29,8 +29,8 @@ at once (at most ``_TILE_BYTES`` of decay tiles a group); only the state
 recurrence ``S <- exp(cs_last) S + kdec^T v`` loops over the chunks, and
 its contribution to ``y`` is one batched product after the loop.  The
 reference scans the chunks with ``lax.scan``.  Its ``hint`` /
-``hint_heads`` sharding hints have no counterpart: the port runs on one
-device until the distribution slice.
+``hint_heads`` sharding hints are called at their places
+(``runtime.sharding``; the model axis is not realized yet).
 """
 from __future__ import annotations
 
@@ -38,6 +38,7 @@ import torch
 
 from repro_torch.core import qlinear
 from repro_torch.core.policy import QuantPolicy
+from repro_torch.runtime import sharding
 
 from .layers import activation, init_normal
 
@@ -210,7 +211,10 @@ def _ddlerp(x, xprev, p):
     lora = torch.einsum("bszr,zrd->bszd", lora, p["B_mix"].to(f32))
     mix = p["mu"] + lora                                  # [B, S, 5, D]
     out = xf[:, :, None, :] + delta[:, :, None, :] * mix
-    return out.to(torch.bfloat16)
+    out = out.to(torch.bfloat16)
+    if x.shape[1] > 1 and x.shape[1] % 16 == 0:
+        out = sharding.hint(out, "batch", "model", None, None)
+    return out
 
 
 def _group_norm(y, scale, bias, n_heads, eps=1e-5):
@@ -258,7 +262,10 @@ def rwkv_time_mix(params, sites: dict, x: torch.Tensor, *, n_heads: int,
     logw = -torch.exp(params["w0"] + dw)                  # [B, S, D], < 0
 
     def heads(z):
-        return z.reshape(b, s, n_heads, hd).transpose(1, 2).to(f32)
+        # the WKV recurrence is head-parallel: H over the model axis
+        return sharding.hint_heads(
+            z.reshape(b, s, n_heads, hd).transpose(1, 2).to(f32),
+            kv_axis=1, g_axis=1)
 
     if state is None:
         state = torch.zeros((b, n_heads, hd, hd), dtype=f32, device=x.device)

@@ -26,6 +26,8 @@ import functools
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.runtime import sharding
+
 from . import attention as attn
 from . import layers
 from . import moe as moe_mod
@@ -279,6 +281,8 @@ def apply_stack(params, sites, x, *, cfg, pattern, policy, seed, step,
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     metrics = {"aux_loss": zero, "z_loss": zero}
     for idx, kind in enumerate(_kinds(pattern, stack_depth(cfg, pattern))):
+        if idx % len(pattern) == 0:     # a pattern unit starts
+            x = sharding.hint(x, "batch", "seq", "embed")
         block = functools.partial(
             _apply_block, kind, params["layers"][idx], sites["layers"][idx],
             cfg=cfg, policy=policy, seed=seed + idx * _SEED_STRIDE,

@@ -1,0 +1,493 @@
+"""Logical-axis sharding rules, activation hints and the data-parallel
+context (port of ``repro/runtime/sharding.py``).
+
+Mesh axes (see ``repro_torch.launch.mesh``):
+
+    single-pod   (data=16, model=16)
+    multi-pod    (pod=2, data=16, model=16)
+
+The rule table is the reference's, rule for rule (MaxText-style 2D "fsdp x
+tensor"): batch over the DP axes ``(pod, data)``; a weight's wide matmul
+dim over ``model`` (Megatron column-parallel qkv/up, row-parallel o/down),
+the other over ``data`` (ZeRO-3 storage); MoE experts over ``model``;
+quantization-range state replicated.  A spec is :class:`P`, a tuple of
+per-dim entries (a mesh axis name, a tuple of them, or ``None``): the port
+cannot import JAX's ``PartitionSpec``.  :func:`placements` maps one onto
+``torch.distributed`` DTensor placements (``Shard(d)`` / ``Replicate()``)
+and :func:`named` does so for a tree, as the reference's ``named`` builds
+``NamedSharding``\\s.
+
+Layout.  The port stores one entry per layer (``repro_torch.convert``);
+the reference stacks ``decoder/blocks`` and prepends ``None`` for the
+repeats dim.  A per-layer leaf's spec here is the reference's without that
+leading entry.  Paths are the parameters' dotted names read with ``/``
+(``decoder/layers/3/moe/w_up``), so the reference's path tests
+(``/moe/``, ``/time/``, ``/chan/``, ``/rglru/``, ``shared``) read the
+same.
+
+Hints.  ``hint``, ``hint_heads``, ``attn_hints`` and ``replicate_hint``
+return their input objects unchanged when no mapping is active, as the
+reference's do.  Under an active mapping they compute the reference's
+spec and record it (``activation_hints(..., record=list)``) and still
+return the input: on a data-only mesh the batch dim is already local to a
+rank, and the ``model`` axis (Megatron pairs, expert parallelism, the
+sequence-parallel attention core) is not realized by this port yet
+(ROADMAP.md §1 item 7b).
+
+Data parallelism.  ``torch.distributed`` runs one controller per rank,
+where the reference's ``jit`` over the ``data`` axis is one program.
+:func:`data_parallel` makes a process group the active data-parallel
+group of the train step (``runtime.steps``); inside it the helpers below
+give what GSPMD gives the reference's global program: the sum / mean of a
+per-rank partial over every rank (autograd-aware), the global (min, max)
+of an observed tensor, and the rank's rows of a global batch.  Outside it
+each is the single-device computation, op for op.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Optional
+
+import torch
+
+Tree = Any
+
+
+class P(tuple):
+    """A partition spec: one entry per tensor dim (a mesh axis name, a
+    tuple of names, or ``None``); ``P()`` is replicated."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+# ---------------------------------------------------------------------------
+# Activation hints.
+# ---------------------------------------------------------------------------
+_HINTS: Optional[dict] = None
+_RECORD: Optional[list] = None
+
+
+@contextlib.contextmanager
+def activation_hints(mapping: dict, record: Optional[list] = None):
+    """mapping: logical axis name -> mesh axis (str/tuple) or None (plus
+    ``model_size``).  ``record``: a list that receives ``(site, spec)`` of
+    every hint taken inside the block."""
+    global _HINTS, _RECORD
+    prev = _HINTS, _RECORD
+    _HINTS, _RECORD = mapping, record
+    try:
+        yield
+    finally:
+        _HINTS, _RECORD = prev
+
+
+def _note(site: str, spec: P) -> None:
+    if _RECORD is not None:
+        _RECORD.append((site, spec))
+
+
+def hint(x, *logical_axes):
+    """The active mapping of ``logical_axes`` (one per dim; None =
+    unconstrained) for ``x``; ``x`` itself is returned."""
+    if _HINTS is None:
+        return x
+    _note("hint", P(*[None if a is None else _HINTS.get(a)
+                      for a in logical_axes]))
+    return x
+
+
+def choose_head_axis(kv: int, g: int, msize: int) -> str:
+    """'kv' or 'g': which head dim to shard over the model axis.  Exact
+    division wins; otherwise the larger dim (GSPMD pads the remainder)."""
+    if kv % msize == 0:
+        return "kv"
+    if g % msize == 0:
+        return "g"
+    return "g" if g >= kv else "kv"
+
+
+def replicate_hint(x):
+    """Full replication at this point (the int8 weight gather's pin)."""
+    if _HINTS is None:
+        return x
+    _note("replicate", P())
+    return x
+
+
+def attn_hints(q, k, v, *, allow_seq: bool):
+    """The reference's layout choice for the attention core ``[B, S, KV,
+    G, hd]`` / ``[B, S, KV, hd]``: exact head sharding, else the sequence
+    (context-parallel) core where ``allow_seq`` and S divides, else padded
+    head sharding.  Returns ``(q, k, v)`` unchanged."""
+    if _HINTS is None:
+        return q, k, v
+    maxis, msize = _HINTS.get("model"), _HINTS.get("model_size")
+    bspec = _HINTS.get("batch")
+    if maxis is None or not msize:
+        return q, k, v
+    kv, g, s = q.shape[2], q.shape[3], q.shape[1]
+    if kv % msize == 0 or g % msize == 0:
+        hint_heads(q, kv_axis=2, g_axis=3)
+        if k is not None:
+            hint_heads(k, kv_axis=2, g_axis=2)
+            hint_heads(v, kv_axis=2, g_axis=2)
+        return q, k, v
+    if allow_seq and s % msize == 0:
+        _note("attn_seq", P(bspec, maxis, None, None, None))
+        return q, k, v
+    hint_heads(q, kv_axis=2, g_axis=3)
+    return q, k, v
+
+
+def hint_heads(q, kv_axis: int, g_axis: int):
+    """Heads over the ``model`` axis: whichever of the KV / G dims divides
+    its size (otherwise the larger, padded); a single head dim only when
+    it divides.  Returns ``q``."""
+    if _HINTS is None:
+        return q
+    maxis, msize = _HINTS.get("model"), _HINTS.get("model_size")
+    if maxis is None or not msize:
+        return q
+    kv, g = q.shape[kv_axis], q.shape[g_axis]
+    axes = [None] * q.dim()
+    axes[0] = _HINTS.get("batch")
+    if kv_axis == g_axis:
+        if kv % msize:
+            return q
+        axes[kv_axis] = maxis
+    else:
+        which = choose_head_axis(kv, g, msize)
+        axes[kv_axis if which == "kv" else g_axis] = maxis
+    _note("heads", P(*axes))
+    return q
+
+
+# ---------------------------------------------------------------------------
+# Parameter rules.
+# ---------------------------------------------------------------------------
+DEFAULT_MODEL_SIZE = 16   # model-axis extent of the production meshes
+
+
+def _param_rule(pathstr: str, name: str, shape: tuple) -> Optional[tuple]:
+    """Spec entries for the TRAILING logical dims of a leaf."""
+    moe_routed = "/moe/" in pathstr + "/" and "shared" not in pathstr
+    ms = DEFAULT_MODEL_SIZE
+    if name == "embed":
+        return ("model", "data")          # [V, D]
+    if name == "head":
+        return ("data", "model")          # [D, V]
+    if name in ("patch_proj", "enc_in"):
+        return (None, "model")
+    if name == "wq":                      # [D, KV, G, hd] head-major
+        kv, g = shape[-3], shape[-2]
+        if kv % ms == 0:
+            return ("data", "model", None, None)
+        if g % ms == 0:
+            return ("data", None, "model", None)
+        # head counts that do not divide the model axis (nemotron KV=8,
+        # G=12): d_model over both axes, so parameters and optimizer state
+        # still scale with the full chip count
+        return (("data", "model"), None, None, None)
+    if name in ("wk", "wv"):              # [D, KV, hd]
+        kv = shape[-2]
+        if kv % ms == 0:
+            return ("data", "model", None)
+        return (("data", "model"), None, None)
+    if name == "wo":                      # [KV, G, hd, D]
+        kv, g = shape[-4], shape[-3]
+        if kv % ms == 0:
+            return ("model", None, None, "data")
+        if g % ms == 0:
+            return (None, "model", None, "data")
+        return (None, None, None, ("data", "model"))
+    if name == "bq":                      # [KV, G, hd]
+        kv, g = shape[-3], shape[-2]
+        if choose_head_axis(kv, g, ms) == "kv":
+            return ("model", None, None)
+        return (None, "model", None)
+    if name in ("bk", "bv"):              # [KV, hd]
+        return ("model" if shape[-2] % ms == 0 else None, None)
+    if name == "b_up":
+        return ("model",)
+    if name in ("bo", "b_down"):
+        return (None,)
+    if moe_routed:
+        if name in ("w_up", "w_gate"):
+            return ("model", "data", None)   # [E, D, F]
+        if name == "w_down":
+            return ("model", None, "data")   # [E, F, D]
+        if name == "router":
+            return (None, None)
+    if name in ("w_up", "w_gate"):
+        return ("data", "model")
+    if name == "w_down":
+        return ("model", "data")
+    if "/time/" in pathstr + "/":
+        if name in ("w_r", "w_k", "w_v", "w_g"):
+            return ("data", "model")
+        if name == "w_o":
+            return ("model", "data")
+    if "/chan/" in pathstr + "/":
+        if name in ("w_k", "w_r"):
+            return ("data", "model")
+        if name == "w_v":
+            return ("model", "data")
+    if "/rglru/" in pathstr + "/":
+        if name in ("w_in", "w_gate"):
+            return ("data", "model")
+        if name == "w_out":
+            return ("model", "data")
+        if name in ("w_a", "w_x"):
+            return ("model", None)
+        if name == "conv_w":
+            return (None, "model")
+        if name in ("conv_b", "b_a", "b_x", "lambda"):
+            return ("model",)
+    return None  # replicated (norms, small vectors, scalars)
+
+
+def _pad_spec(rule: Optional[tuple], shape: tuple, axis_sizes: dict) -> P:
+    """Left-pad the rule to the leaf rank and DROP any axis that does not
+    divide the dimension (a placement must divide exactly)."""
+    if rule is None:
+        return P()
+    ndim = len(shape)
+    assert ndim >= len(rule), (rule, shape)
+    full = (None,) * (ndim - len(rule)) + tuple(rule)
+    out = []
+    for dim, ax in zip(shape, full):
+        if ax is None:
+            out.append(None)
+            continue
+        size = 1
+        for a in (ax if isinstance(ax, tuple) else (ax,)):
+            size *= axis_sizes.get(a, DEFAULT_MODEL_SIZE)
+        out.append(ax if dim % size == 0 else None)
+    return P(*out)
+
+
+def axis_sizes(mesh=None) -> dict:
+    """``{axis name: extent}`` of a ``DeviceMesh`` or of such a dict; the
+    production mesh's 16 x 16 without one."""
+    if mesh is None:
+        return {"data": DEFAULT_MODEL_SIZE, "model": DEFAULT_MODEL_SIZE}
+    if isinstance(mesh, dict):
+        return dict(mesh)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def _walk(tree, path: tuple, fn):
+    """``fn(path, leaf)`` over a parameter-shaped tree: a module (its
+    named parameters, dotted names split), a dict, a list."""
+    if isinstance(tree, torch.nn.Module):
+        return {name: fn(path + tuple(name.split(".")), p)
+                for name, p in tree.named_parameters()}
+    if isinstance(tree, dict):
+        return {k: _walk(v, path + tuple(str(k).split(".")), fn)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_walk(v, path + (str(i),), fn)
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def param_pspecs(params: Tree, mesh=None) -> Tree:
+    """Spec tree for a parameter-shaped tree (a ``ParamTree``: ``{dotted
+    name: P}``; or optimizer moments keyed by those names): rules match by
+    trailing path names.  Non-tensor leaves (a step count) are ``P()``."""
+    sizes = axis_sizes(mesh)
+
+    def spec(path, leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return P()
+        return _pad_spec(_param_rule("/".join(path), path[-1],
+                                     tuple(leaf.shape)),
+                         tuple(leaf.shape), sizes)
+    return _walk(params, (), spec)
+
+
+def replicated_pspecs(tree: Tree) -> Tree:
+    return _walk(tree, (), lambda path, leaf: P())
+
+
+def train_state_pspecs(state: dict, mesh=None) -> dict:
+    """``{params, opt, quant, step}`` -> specs (quant/step replicated)."""
+    return {"params": param_pspecs(state["params"], mesh),
+            "opt": param_pspecs(state["opt"], mesh),
+            "quant": replicated_pspecs(state["quant"]),
+            "step": P()}
+
+
+# ---------------------------------------------------------------------------
+# Batch / cache rules.
+# ---------------------------------------------------------------------------
+def _divides(n: int, sizes: dict, axes) -> bool:
+    if axes is None:
+        return False
+    size = 1
+    for a in (axes if isinstance(axes, tuple) else (axes,)):
+        size *= sizes[a]
+    return n % size == 0
+
+
+def _dp_entry(dp_axes):
+    dp_axes = tuple(dp_axes)
+    return dp_axes if len(dp_axes) > 1 else dp_axes[0]
+
+
+def batch_pspecs(batch: Tree, mesh, dp_axes) -> Tree:
+    """Dim 0 (the global batch) over the DP axes when they divide it."""
+    sizes = axis_sizes(mesh)
+    lead_axes = _dp_entry(dp_axes)
+
+    def spec(path, leaf):
+        if leaf.dim() == 0:
+            return P()
+        lead = lead_axes if _divides(leaf.shape[0], sizes, lead_axes) \
+            else None
+        return P(lead, *((None,) * (leaf.dim() - 1)))
+    return _walk(batch, (), spec)
+
+
+def cache_pspecs(cache: Tree, mesh, dp_axes) -> Tree:
+    """Decode caches (one entry per layer): batch over DP; heads, the
+    cache length or state channels over ``model``."""
+    sizes = axis_sizes(mesh)
+    bax = _dp_entry(dp_axes)
+
+    def spec(path, leaf):
+        name, core = path[-1], tuple(leaf.shape)
+        bdim = bax if _divides(core[0], sizes, bax) else None
+        if name in ("k", "v"):                       # [B, L, KV, hd]
+            # KV heads over model; when they do not divide, the cache
+            # length (the decode memory bill scales with the mesh)
+            if _divides(core[2], sizes, "model"):
+                sp = (bdim, None, "model", None)
+            elif _divides(core[1], sizes, "model"):
+                sp = (bdim, "model", None, None)
+            else:
+                sp = (bdim, None, None, None)
+        elif name == "pos":                          # [B, L]
+            sp = (bdim, "model" if _divides(core[1], sizes, "model")
+                  else None)
+        elif name == "state":                        # [B, H, hd, hd]
+            sp = (bdim, "model" if _divides(core[1], sizes, "model")
+                  else None, None, None)
+        elif name == "h":                            # [B, C]
+            sp = (bdim, "model" if _divides(core[1], sizes, "model")
+                  else None)
+        elif name == "conv":                         # [B, 3, C]
+            sp = (bdim, None, "model" if _divides(core[2], sizes, "model")
+                  else None)
+        elif name in ("x_time", "x_chan"):           # [B, D]
+            sp = (bdim, None)
+        else:
+            sp = (None,) * len(core)
+        return P(*sp)
+    return _walk(cache, (), spec)
+
+
+# ---------------------------------------------------------------------------
+# DTensor placements.
+# ---------------------------------------------------------------------------
+def placements(spec: P, mesh) -> tuple:
+    """``spec`` as one DTensor placement per mesh dim: ``Shard(d)`` where
+    tensor dim d names that mesh axis (alone or in a tuple, major first),
+    ``Replicate()`` elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for name in mesh.mesh_dim_names:
+        dims = [d for d, ax in enumerate(spec)
+                if ax == name or (isinstance(ax, tuple) and name in ax)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return tuple(out)
+
+
+def named(tree_pspecs: Tree, mesh) -> Tree:
+    """A spec tree as ``(mesh, placements)`` leaves: what
+    ``checkpoint.restore(shardings=...)`` and ``distribute_tensor``
+    take."""
+    if isinstance(tree_pspecs, P):
+        return (mesh, placements(tree_pspecs, mesh))
+    if isinstance(tree_pspecs, dict):
+        return {k: named(v, mesh) for k, v in tree_pspecs.items()}
+    if isinstance(tree_pspecs, (list, tuple)):
+        return type(tree_pspecs)(named(v, mesh) for v in tree_pspecs)
+    raise TypeError(f"not a spec tree leaf: {tree_pspecs!r}")
+
+
+# ---------------------------------------------------------------------------
+# The data-parallel context of the train step.
+# ---------------------------------------------------------------------------
+_DP: Optional[tuple] = None     # (group, rank, world)
+
+
+@contextlib.contextmanager
+def data_parallel(group):
+    """Make ``group`` (a ``torch.distributed`` process group, one rank per
+    batch shard) the active data-parallel group inside the block."""
+    import torch.distributed as dist
+    global _DP
+    prev = _DP
+    _DP = (group, dist.get_rank(group), dist.get_world_size(group))
+    try:
+        yield
+    finally:
+        _DP = prev
+
+
+def dp_shard() -> Optional[tuple]:
+    """``(rank, world)`` of the active data-parallel group, or None."""
+    return None if _DP is None else _DP[1:]
+
+
+def dp_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the active group's ranks (gradients flow back to
+    every rank's partial); ``x`` without one."""
+    if _DP is None:
+        return x
+    from torch.distributed.nn.functional import all_reduce
+    return all_reduce(x, group=_DP[0])
+
+
+def dp_mean(x: torch.Tensor, dims=None) -> torch.Tensor:
+    """``torch.mean(x, dims)`` (all dims with None) over the global batch:
+    every rank's sums, over every rank's count of elements."""
+    if _DP is None:
+        return torch.mean(x) if dims is None else torch.mean(x, dim=dims)
+    if dims is None:
+        return dp_sum(torch.sum(x)) / (x.numel() * _DP[2])
+    n = 1
+    for d in (dims if isinstance(dims, tuple) else (dims,)):
+        n *= x.shape[d]
+    return dp_sum(torch.sum(x, dim=dims)) / (n * _DP[2])
+
+
+def dp_share(x: torch.Tensor) -> torch.Tensor:
+    """A term every rank computes from global values, as this rank's
+    share of the loss (its gradients are summed over the ranks)."""
+    return x if _DP is None else x / _DP[2]
+
+
+def dp_minmax(mn: torch.Tensor, mx: torch.Tensor):
+    """The (min, max) over every rank's observation (one all_reduce MAX of
+    ``(-min, max)``, exact in any order)."""
+    if _DP is None:
+        return mn, mx
+    import torch.distributed as dist
+    buf = torch.stack([-mn.to(torch.float32), mx.to(torch.float32)])
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=_DP[0])
+    return (-buf[0]).to(mn.dtype), buf[1].to(mx.dtype)
+
+
+def shard_rows(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """This rank's rows ``[r n / N, (r + 1) n / N)`` of a global tensor."""
+    if _DP is None:
+        return x
+    _, r, world = _DP
+    n = x.shape[dim] // world
+    return x.narrow(dim, r * n, n)

@@ -309,15 +309,50 @@ def test_attention_kernel_wide_head_dims_match_plain(card, case):
     _hold_attention(card, case)
 
 
+# q blocks of 129-256 rows (the tall instantiation): S = 129, 200 and 255
+# under every mask mode at hd 64, 128 and 256, on the tuner's (256, 128)
+# (bq clamps to S); cross also against 100 keys (bkv 100: the flat tree,
+# narrow only: at hd 256 its buffer does not fit), and a kv_len.
+TALL_CASES = [
+    (mode, s, skv, groups, hd, 100 if mode == "sliding" else 0,
+     70 if mode == "prefix" else 0, kvl, (256, 128)) + zp
+    for hd, groups in ((64, 2), (128, 12), (256, 8))
+    for s in (129, 200, 255)
+    for mode, skv, kvl, zp in (
+        ("causal", s, None, ()), ("sliding", s, None, ()),
+        ("prefix", s, None, ((117.7, -0.1, 1.0, 23.0),)),
+        ("cross", s + 45, s + 30, ()), ("bidir", s, None, ()))
+] + [("cross", s, 100, 2, hd, 0, 0, None, (256, 128),
+      (125.5, 0.0, 1.0, 0.6)) for hd in (64, 128) for s in (129, 200, 255)]
+
+
+@pytest.mark.parametrize(
+    "case", TALL_CASES,
+    ids=lambda c: f"{_attn_id(c)}x{c[2]}-hd{c[4]}")
+def test_attention_kernel_tall_q_blocks_match_plain(card, case):
+    _hold_attention(card, case)
+
+
+def test_attention_kernel_tall_is_the_tuners_pick(card):
+    """The tuner's own block at S = 132 and 200 is (256, 128): the kernel
+    runs it (bq 132 / 200) at hd 128 and 256."""
+    from repro_torch.kernels import tuning
+    for s, hd, groups in ((200, 128, 12), (132, 256, 8)):
+        assert tuning.attention_block(s, s, hd) == (256, 128)
+        _hold_attention(card, ("causal", s, s, groups, hd, 0, 0, None,
+                               (256, 128)))
+
+
 @pytest.mark.parametrize("hd, blocks, what", [
     (272, (128, 128), "head_dim"), (200, (128, 128), "head_dim"),
-    (256, (100, 100), "shared memory")])
+    (256, (100, 100), "shared memory"), (128, (257, 128), "bq <= 256"),
+    (128, (256, 256), "bkv <= 128")])
 def test_attention_kernel_refuses_what_it_cannot_take(card, hd, blocks,
                                                       what):
-    """hd above 256 (or above 128 off the multiples of 16), and a wide
-    tile whose flat err/sig buffer does not fit the card, raise with a
-    message that names the limit."""
-    s = blocks[0]
+    """hd above 256 (or above 128 off the multiples of 16), bq above 256,
+    bkv above 128, and a wide tile whose flat err/sig buffer does not fit
+    the card, raise with a message that names the limit."""
+    s = max(blocks)
     sched = attn.make_schedule(sq=s, skv=s, hd=hd, bq=blocks[0],
                                bkv=blocks[1], groups=1, mode="causal",
                                sm_scale=hd ** -0.5)
@@ -701,12 +736,15 @@ def test_int8_matmul_odd_vocabulary_matches_plain(card):
     assert torch.equal(mnk, mnr) and torch.equal(mxk, mxr)
 
 
+@pytest.mark.parametrize("block", [None, "64,64"],
+                         ids=["tuner", "64x64"])
 @pytest.mark.parametrize("arch", ["seamless-m4t-medium", "paligemma-3b"])
 def test_reduced_frontend_models_on_card_fused_match_simulated(card, arch,
+                                                               block,
                                                                monkeypatch):
     """The reduced enc-dec and VLM models on the card: a prefill with
-    frames (132 of them on (64, 64) tiles: a padded last kv tile; the
-    tuner's own pick there, (256, 128), is past the kernel's bq <= 128)
+    frames (132 of them: on the tuner's own (256, 128), bq 132 on the
+    kernel's tall instantiation; on (64, 64) tiles, a padded last kv tile)
     or patches, then 3 decode
     steps (cross decode reads the cached encoder), fused against
     simulated; the fused prefill launches the attention core once per
@@ -719,7 +757,8 @@ def test_reduced_frontend_models_on_card_fused_match_simulated(card, arch,
     from repro_torch.models import model
     from repro_torch.optim import adamw
     from repro_torch.runtime import steps
-    monkeypatch.setenv("REPRO_ATTN_BLOCK", "64,64")
+    if block:
+        monkeypatch.setenv("REPRO_ATTN_BLOCK", block)
     cfg = configs.get_reduced(arch)
     params = model.init_params(cfg, seed=0, device=card)
     g = _gen(card, 5)
@@ -778,3 +817,51 @@ def test_reduced_frontend_models_on_card_fused_match_simulated(card, arch,
     for name, gr in gs.items():
         if not name.endswith("attn.bk"):      # exact gradient is zero
             assert (gf[name] - gr).norm() <= 5e-2 * gr.norm(), name
+
+
+def _compress_ranks(rank, world, out_dir, backend):
+    """One rank of the card's compressor check: two calls (the step-0
+    bootstrap, then the hindsight range) on full-width-like leaves."""
+    from repro_torch.runtime import compress
+    torch.cuda.set_device(0)
+    gen = torch.Generator(device="cuda").manual_seed(17 + rank)
+    grads = {"w": torch.randn((3072, 768), generator=gen, device="cuda")
+             * 0.01,
+             "b": torch.randn((3072,), generator=gen, device="cuda") * 0.1}
+    reduce_fn, update_fn, init_fn = compress.make_compressor()
+    state = init_fn(grads)
+    ops.reset_launch_counts()
+    res = {"grads": {k: v.cpu() for k, v in grads.items()}, "calls": []}
+    for seed in (0, 1):
+        out, st = reduce_fn(grads, state, seed)
+        res["calls"].append(({k: v.cpu() for k, v in out.items()},
+                             {k: v.cpu() for k, v in st.items()},
+                             {k: v.cpu() for k, v in state.items()}))
+        state = update_fn(state, st)
+    res["launches"] = ops.launch_counts()["stochastic_quantize"]
+    torch.save(res, f"{out_dir}/{backend}{rank}.pt")
+
+
+@pytest.mark.parametrize("backend, world", [("gloo", 2), ("nccl", 1)])
+def test_compressor_on_card_matches_emulation(card, tmp_path, backend,
+                                              world):
+    """``runtime.compress`` on the card: 2 gloo ranks (gloo reduces CUDA
+    tensors; NCCL refuses two ranks on one device), and the 1-rank NCCL
+    group a multi-card job's path takes; the quantize on the
+    ``stochastic_quantize`` kernel (one launch a leaf a call), each call
+    bit for bit the plain one-process emulation on the card."""
+    from repro_torch.launch import mesh
+    from repro_torch.runtime import compress
+    mesh.spawn_ranks(_compress_ranks, world, tmp_path / "store",
+                     backend=backend, args=(str(tmp_path), backend))
+    ranks = [torch.load(tmp_path / f"{backend}{r}.pt") for r in range(world)]
+    grads = [{k: v.to(card) for k, v in r["grads"].items()} for r in ranks]
+    for call, seed in enumerate((0, 1)):
+        state = {k: v.to(card) for k, v in ranks[0]["calls"][call][2].items()}
+        want, wst = compress.emulate_all_reduce_tree(grads, state, seed)
+        for r in ranks:
+            out, st, _ = r["calls"][call]
+            for k in want:
+                assert torch.equal(out[k], want[k].cpu()), (call, k)
+                assert torch.equal(st[k], wst[k].cpu()), (call, k)
+    assert all(r["launches"] == 4 for r in ranks)

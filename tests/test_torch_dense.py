@@ -202,3 +202,21 @@ def test_kernel_tile_limits(hd, ok):
     else:
         with pytest.raises(ValueError, match="head_dim <= 128, or <= 256"):
             tkattn.check_kernel_tiles(sched)
+
+
+@pytest.mark.parametrize("s, blocks, ok", [
+    (200, (256, 128), True), (132, (256, 128), True), (256, (256, 128), True),
+    (257, (257, 128), False), (256, (128, 256), False),
+    (300, (300, 300), False)])
+def test_kernel_q_block_limits(s, blocks, ok):
+    """The tall instantiation takes bq up to 256 (the tuner's (256, 128)
+    clamps to S = 132 or 200); bq 257 and bkv 256 still raise."""
+    sched = tkattn.make_schedule(sq=s, skv=s, hd=128, bq=blocks[0],
+                                 bkv=blocks[1], groups=1, mode="causal",
+                                 sm_scale=1.0)
+    if ok:
+        tkattn.check_kernel_tiles(sched)
+        assert sched.bq == min(blocks[0], s)
+    else:
+        with pytest.raises(ValueError, match="bq <= 256 and bkv <= 128"):
+            tkattn.check_kernel_tiles(sched)
