@@ -228,6 +228,24 @@ Phases, one line each:
                    step within 2 lr (tests/test_torch_dp.py's bound), the
                    train kernels counted; then once with compress against
                    its emulation
+ 41. decode cells  the reference's shape matrix: configs.cells() admits
+                   long_500k for the four sub-quadratic archs and refuses
+                   it for the six others with the reference's reason; the
+                   decode cells one card holds, at full width and depth,
+                   through runtime.steps.make_decode_step on inputs shaped
+                   by configs.input_specs: long_500k (B 1 from position
+                   524287) on starcoder2-3b, starcoder2-7b,
+                   recurrentgemma-9b and rwkv6-7b, decode_32k (B 128 from
+                   position 32767, a 4096-slot ring) on starcoder2-3b; the
+                   cache one window prefilled through make_prefill_step
+                   and re-based to end one position before (K rotated with
+                   the port's apply_rope, the ring's slots rolled); 7 steps
+                   past the ring's wrap, simulated vs fused on the same
+                   cache (logits, greedy tokens), ms a step, peak GiB, the
+                   re-basing gap, every int8 product of a step on the row
+                   tile the tuner and the clamp give (16 at B 1, 128 at
+                   B 128), the launch counters zeroed just before and read
+                   just after
 
 Phase 3 also holds ``int8_conv_fp`` (the conv site, im2col onto the int8
 matmul kernel) against its plain version at four MobileNetV2-tiny layer
@@ -243,7 +261,16 @@ and the frontend families': the attention core bidir at ``[64, 1056,
 64]`` and ``[16, 32768, 64]``, cross at ``[64, 1024 x 1056, 64]`` and
 prefix at ``[32, 1056, 256]`` (G = 8, prefix 256), ``int8_matmul_fp`` at
 ``enc_in`` 8192 x 160 x 1024, ``patch_proj`` 1024 x 1152 x 2048 and
-seamless's head chunk 1024 x 1024 x 256206 (N not a multiple of 8).
+seamless's head chunk 1024 x 1024 x 256206 (N not a multiple of 8),
+and every tile of the int8 matmul (row tiles 128, 64, 32 and 16, which
+``kernels.tuning.matmul_block`` and the row clamp choose among) at
+decode ``[1, 4, 3072, 12288]``, the experts' ``[60, 4, 2048, 1408]``,
+``[1, 128, 3072, 12288]``, ``[1, 552, 2048, 1408]`` and ``4096 x 3072 x
+12288`` and at one MobileNetV2-tiny conv (with a ``REPRO_MM_BLOCK`` pin
+honoured, a bad one refused and ``REPRO_TUNE=benchmark``), and the
+attention core at hd 200 (padded to 208 by its wrapper).  The
+``int8_matmul_fp`` and ``int8_matmul_fused`` records carry a ``tiles``
+list: every tile with its time, bound and launches.
 The line before the last is the
 kernels' JSON record; the last line is ``{"ok": true, "device":
 {...}}``.  Any failure raises (exit code != 0)
@@ -256,7 +283,7 @@ e.g. ``1-3`` to build and check the kernels without serve and train);
 phase 1 always runs, 5-6 bring 4 along, whose serve run they reuse, 18
 brings 17, 21-22 bring 20, 27 brings 26, 30 brings 29, 33 brings 32 and
 36 brings 35.  Kernels whose path phases did not run report
-``"launches": null``.  The default is all 40; phases
+``"launches": null``.  The default is all 41; phases
 12-16 write
 their logs and checkpoints
 under ``build/chip_smoke/`` and remove the checkpoints when done.
@@ -356,7 +383,26 @@ VLM_TRAIN_LAYERS, VLM_TRAIN_BATCH, VLM_TRAIN_SEQ = 18, 2, 2048
 # train step at full width, depth cut to 2 layers, 4 x 1024, 2 gloo ranks.
 TALL_SEQ, TALL_GEN = 200, 8
 COMP_SEEDS, DP_LAYERS, DP_LR = 10, 2, 1e-3
-N_PHASES = 40
+# The reference's shape matrix (configs.SHAPES): the decode cells one card
+# holds at full width and depth, through runtime.steps.make_decode_step on
+# inputs shaped by configs.input_specs: long_500k (B 1 at position
+# 524287) on the four archs configs.supports admits, and decode_32k (B
+# 128 against a 32768-position cache, a 4096-slot ring) on starcoder2-3b.
+# The cache is one real window, prefilled (decode_32k's for 8 rows, tiled
+# to 128), re-based to end at the position before the cell's.
+DECODE_CELLS = (("long_500k", "starcoder2-3b"), ("long_500k", "starcoder2-7b"),
+                ("long_500k", "recurrentgemma-9b"), ("long_500k", "rwkv6-7b"),
+                ("decode_32k", "starcoder2-3b"))
+LONG_500K_ARCHS = {"starcoder2-3b", "starcoder2-7b", "recurrentgemma-9b",
+                   "rwkv6-7b"}
+LONG_500K_REFUSED = {"command-r-35b", "moonshot-v1-16b-a3b", "nemotron-4-340b",
+                     "paligemma-3b", "qwen2-moe-a2.7b", "seamless-m4t-medium"}
+CELL_REFUSAL = ("full attention: 512k decode needs an O(S) KV cache per "
+                "token; skipped per assignment rules")
+CELL_STEPS, CELL_PREFILL_ROWS, RWKV_CELL_WINDOW = 7, 8, 2048
+# The decode path's kernels (decode attention is the plain core).
+DECODE_KERNELS = ("fused_quantize", "int8_transpose", "int8_matmul_fp")
+N_PHASES = 41
 # Where phases 12-16 write their JSONL logs and checkpoints (git-ignored).
 OUT_DIR = ROOT / "build" / "chip_smoke"
 
@@ -741,6 +787,253 @@ def check_moe_matmul(dev, gen, mcfg) -> dict:
         del x, w, xk, wk
         torch.cuda.empty_cache()
     return out
+
+
+def check_matmul_tiles(dev, gen, cfg, mcfg) -> dict:
+    """Every tile of the int8 matmul (``tuning.MATMUL_TILES``: row tiles
+    128, 64, 32 and 16) at the slice's shapes ``[B, M, K, N]``: decode
+    ``[1, 4, 3072, 12288]`` and the MoE experts' ``[60, 4, 2048, 1408]``,
+    ``[1, 128, 3072, 12288]`` (decode_32k's B 128), ``[1, 552, 2048,
+    1408]`` and the prefill's ``[1, 4096, 3072, 12288]``, and one
+    MobileNetV2-tiny conv.  ``int8_matmul_fp``: each tile runs as it is
+    (the row clamp off), held bit for bit against the plain version (y
+    and min/max) and timed with CUDA events on staged operands (from a
+    CUDA graph below 128 rows: those launches are host-bound) beside its
+    bound; ``int8_matmul_fused`` at the 2-D shapes: each tile as the op
+    runs it (the clamp on), its bytes and min/max bit for bit.  Logs which tile ``matmul_block`` and
+    the clamp pick at each shape, checks that a ``REPRO_MM_BLOCK`` pin is
+    honoured and a bad one raises, and runs ``REPRO_TUNE=benchmark`` with
+    a thunk that launches the kernel."""
+    from repro_torch.core.quant import QuantSpec
+    from repro_torch.kernels import int8_matmul as mm
+    from repro_torch.kernels import ops, tuning
+
+    d, f = cfg.d_model, cfg.d_ff
+    md, mf, e = mcfg.d_model, mcfg.moe.d_expert, mcfg.moe.n_experts
+    shapes = [("decode", 1, BATCH, d, f), ("experts decode", e, BATCH, md, mf),
+              ("decode B128", 1, 128, d, f), ("MoE prefill", 1, 552, md, mf),
+              ("prefill", 1, BATCH * PROMPT, d, f)]
+    zp = torch.tensor(117.3, device=dev)
+    alpha = torch.tensor(2.3e-5, device=dev)
+    spec = QuantSpec(bits=8, symmetric=False)
+    qp = ops._qparams(torch.tensor(-3.0, device=dev),
+                      torch.tensor(3.0, device=dev), spec)
+    out = {}
+    for what, b, m, k, n in shapes:
+        x = torch.randint(0, 256, (b, m, k), generator=gen, device=dev,
+                          dtype=torch.uint8)
+        w = torch.randint(-127, 128, (b, k, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+        yr, mnr, mxr = mm.int8_matmul_fp_plain(x, w, zp, alpha)
+        xk, wk = mm.stage_operands(x, w)
+        timer = graph_ms if m < 128 else time_ms
+        reps = 20 if m < 128 else 10
+        rec = dict(shape=[b, m, k, n], tiles={}, fused_tiles={})
+        bias = torch.randn((n,), generator=gen, device=dev) * 0.05
+        if b == 1:
+            qr, qmnr, qmxr = mm.int8_matmul_fused_plain(x[0], w[0], zp, alpha,
+                                                        bias, qp, spec)
+        for tile in tuning.MATMUL_TILES:
+            yk, mnk, mxk = mm.int8_matmul_fp_cuda_staged(
+                xk, wk, zp, alpha, block=tile, clamp=False)
+            torch.cuda.synchronize()
+            if not (torch.equal(yk, yr) and torch.equal(mnk, mnr)
+                    and torch.equal(mxk, mxr)):
+                raise AssertionError(
+                    f"int8_matmul_fp tile {tile} at {what} {rec['shape']}: "
+                    f"{int((yk != yr).sum())} outputs differ")
+            del yk
+            rec["tiles"][tile[0]] = timer(
+                lambda: mm.int8_matmul_fp_cuda_staged(
+                    xk, wk, zp, alpha, block=tile, clamp=False), reps)
+            run = mm.row_tile(tile[0], m)    # the fused op clamps its rows
+            if b == 1 and run not in rec["fused_tiles"]:
+                qk, qmnk, qmxk = mm.int8_matmul_fused_cuda(
+                    x[0], w[0], zp, alpha, bias, qp, spec, block=tile)
+                torch.cuda.synchronize()
+                if not (torch.equal(qk, qr) and torch.equal(qmnk, qmnr)
+                        and torch.equal(qmxk, qmxr)):
+                    raise AssertionError(
+                        f"int8_matmul_fused tile {tile} at {what} "
+                        f"{rec['shape']}: {int((qk != qr).sum())} bytes "
+                        f"differ")
+                del qk
+                rec["fused_tiles"][run] = timer(
+                    lambda: mm.int8_matmul_fused_cuda(
+                        x[0], w[0], zp, alpha, bias, qp, spec, block=tile),
+                    reps)
+        pick = tuning.matmul_block(m, n, k, dtype="uint8")
+        runs = mm.row_tile(pick[0], m)
+        rec.update(pick=list(pick), runs=runs, ms=rec["tiles"][runs])
+        rec["plain_ms"] = time_ms(
+            lambda: mm.int8_matmul_fp_plain(x, w, zp, alpha), 3)
+        rec["bound_ms"], rec["bound_by"] = bound(
+            b * (m * k + k * n + 4 * m * n), 2 * b * m * n * k, INT8_OPS)
+        (rec["fused_bound_ms"], rec["fused_bound_by"]), _ = \
+            _fused_bounds(m, k, n)
+        if b == 1:
+            rec["fused_plain_ms"] = time_ms(lambda: mm.int8_matmul_fused_plain(
+                x[0], w[0], zp, alpha, bias, qp, spec), 2)
+        lib = None
+        if b == 1 and m > 16:     # torch._int_mm takes M > 16 only
+            xs = (x[0].to(torch.int16) - 128).to(torch.int8)
+            try:
+                lib = time_ms(lambda: torch._int_mm(xs, w[0]), reps)
+            except RuntimeError as err:
+                log("kernels", f"torch._int_mm yardstick unavailable: {err}")
+            del xs
+        rec["library_ms"] = lib
+        log("kernels", f"int8_matmul_fp tiles at {what} {rec['shape']} "
+                       f"(bit-exact each, the clamp off): "
+                       + ", ".join(f"bm{bm} {ms:.4f}"
+                                   for bm, ms in rec["tiles"].items())
+                       + f" ms; bound {rec['bound_ms']:.4f} ms "
+                       f"({rec['bound_by']}), plain {rec['plain_ms']:.4f} "
+                       f"ms, torch._int_mm "
+                       + ("n/a" if lib is None else f"{lib:.4f}") + " ms; "
+                       f"matmul_block picks {tuple(pick)}, the clamp runs "
+                       f"bm{runs}"
+                       + ("; int8_matmul_fused (with the transpose): "
+                          + ", ".join(f"bm{bm} {ms:.4f}" for bm, ms in
+                                      rec["fused_tiles"].items()) + " ms"
+                          if rec["fused_tiles"] else ""))
+        out[what] = rec
+        del x, w, xk, wk, yr
+        torch.cuda.empty_cache()
+
+    # one MobileNetV2-tiny conv of a batch of 128 (block 2's expand 1x1,
+    # M = 524288 rows, K = 24, N = 144) on every tile
+    xs, ws = (CNN_BATCH, 64, 64, 24), (1, 1, 24, 144)
+    plan = ops.plan_conv(xs, ws, 1, "SAME", 1, 1)
+    x = torch.randint(0, 256, xs, generator=gen, device=dev,
+                      dtype=torch.uint8)
+    w = torch.randint(-127, 128, ws, generator=gen, device=dev,
+                      dtype=torch.int8)
+    yr, mnr, mxr = conv_plain(x, w, zp, alpha, plan)
+    conv = dict(shape=[plan.groups, plan.m, plan.k, plan.cout_g], tiles={})
+    for tile in tuning.MATMUL_TILES:
+        yk, mnk, mxk = ops.int8_conv_fp(x, w, zp, alpha, plan=plan,
+                                        block=tile)
+        torch.cuda.synchronize()
+        if not (torch.equal(yk, yr) and torch.equal(mnk, mnr)
+                and torch.equal(mxk, mxr)):
+            raise AssertionError(f"int8_conv_fp tile {tile}: "
+                                 f"{int((yk != yr).sum())} outputs differ")
+        del yk
+        conv["tiles"][tile[0]] = time_ms(lambda: ops.int8_conv_fp(
+            x, w, zp, alpha, plan=plan, block=tile), 5)
+    conv["pick"] = list(tuning.matmul_block(plan.m, plan.cout_g, plan.k,
+                                            dtype="uint8"))
+    log("kernels", f"int8_conv_fp tiles at b2 expand 1x1 {conv['shape']} "
+                   f"(bit-exact each): "
+                   + ", ".join(f"bm{bm} {ms:.4f}"
+                               for bm, ms in conv["tiles"].items())
+                   + f" ms; matmul_block picks {tuple(conv['pick'])}")
+    out["conv"] = conv
+    del x, w, yr
+
+    # a pin is honoured, a pin of no instantiated tile raises, and the
+    # benchmark mode times the candidates through a thunk that launches
+    # the kernel
+    b, m, k, n = shapes[-1][1:]
+    x = torch.randint(0, 256, (m, k), generator=gen, device=dev,
+                      dtype=torch.uint8)
+    w = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                      dtype=torch.int8)
+    plan2 = ops.plan_einsum("mk,kn->mn", 2, 2)
+    yr, _, _ = mm.int8_matmul_fp_plain(x[None], w[None], zp, alpha)
+    saved = {v: os.environ.pop(v, None) for v in ("REPRO_MM_BLOCK",
+                                                  "REPRO_TUNE")}
+    try:
+        os.environ["REPRO_MM_BLOCK"] = "64,128,128"
+        tuning.clear_cache()
+        ops.reset_launch_counts()
+        y, _, _ = ops.int8_matmul_fp(x, w, zp, alpha, plan=plan2)
+        tiles = ops.tile_launch_counts()
+        if tiles[("int8_matmul_fp", 64)] != 1 or not torch.equal(y, yr[0]):
+            raise AssertionError(f"the pin 64,128,128 was not honoured: "
+                                 f"{tiles}")
+        os.environ["REPRO_MM_BLOCK"] = "256,256,256"
+        try:
+            ops.int8_matmul_fp(x, w, zp, alpha, plan=plan2)
+        except ValueError as err:
+            refused = str(err)
+        else:
+            raise AssertionError("the pin 256,256,256 was not refused")
+        del os.environ["REPRO_MM_BLOCK"]
+        os.environ["REPRO_TUNE"] = "benchmark"
+        tuning.clear_cache()
+        bench = {}
+        for what, b, m, k, n in (shapes[3], shapes[4]):
+            xb = torch.randint(0, 256, (b, m, k), generator=gen, device=dev,
+                               dtype=torch.uint8)
+            wb = torch.randint(-127, 128, (b, k, n), generator=gen,
+                               device=dev, dtype=torch.int8)
+            xk, wk = mm.stage_operands(xb, wb)
+
+            def thunk(tile, xk=xk, wk=wk):
+                return lambda: mm.int8_matmul_fp_cuda_staged(
+                    xk, wk, zp, alpha, block=tile)
+            choice = tuning.matmul_block(m, n, k, dtype="uint8",
+                                         bench_thunk=thunk)
+            if choice not in tuning.MATMUL_CANDIDATES:
+                raise AssertionError(f"benchmark mode chose {choice}")
+            bench[what] = list(choice)
+            del xb, wb, xk, wk
+    finally:
+        for v, val in saved.items():
+            os.environ.pop(v, None)
+            if val is not None:
+                os.environ[v] = val
+        tuning.clear_cache()
+    log("kernels", f"REPRO_MM_BLOCK=64,128,128 honoured (one bm64 launch, "
+                   f"bit-exact); 256,256,256 refused: {refused}; "
+                   f"REPRO_TUNE=benchmark with a thunk launching the kernel "
+                   f"picks: {bench}")
+    out["pin_honoured"], out["benchmark"] = True, bench
+    del x, w, yr
+    torch.cuda.empty_cache()
+    return out
+
+
+def _note_tiles(results, what: str) -> None:
+    """The int8 matmuls' launches by row tile of the path run just read
+    (the counters were zeroed just before it)."""
+    from repro_torch.kernels import ops
+
+    results.setdefault("tile_launches", {})[what] = {
+        f"{k}:{bm}": n for (k, bm), n in ops.tile_launch_counts().items()}
+
+
+def tile_records(tiles: dict) -> tuple:
+    """The ``tiles`` lists of the ``int8_matmul_fp`` and
+    ``int8_matmul_fused`` records: each tile timed as it is at decode
+    ``[1, 4, 3072, 12288]`` (``int8_matmul_fp``) and at the prefill's
+    ``[1, 4096, 3072, 12288]`` (the fused kernel), its times at the other
+    shapes in ``by_shape``; ``launches`` are set by the path phases."""
+    from repro_torch.kernels import tuning
+
+    fp, fused = [], []
+    dec, pre = tiles["decode"], tiles["prefill"]
+    for tile in tuning.MATMUL_TILES:
+        bm = tile[0]
+        common = dict(tile=list(tile), route="cuda", max_abs_err=0.0,
+                      launches=None)
+        fp.append(dict(common, shape=dec["shape"], ms=dec["tiles"][bm],
+                       plain_ms=dec["plain_ms"], bound_ms=dec["bound_ms"],
+                       bound_by=dec["bound_by"], library_ms=None,
+                       by_shape={w: r["tiles"][bm] for w, r in tiles.items()
+                                 if isinstance(r, dict) and "tiles" in r}))
+        fused.append(dict(common, shape=pre["shape"],
+                          ms=pre["fused_tiles"][bm],
+                          plain_ms=pre["fused_plain_ms"],
+                          bound_ms=pre["fused_bound_ms"],
+                          bound_by=pre["fused_bound_by"], library_ms=None,
+                          by_shape={w: r["fused_tiles"][bm]
+                                    for w, r in tiles.items()
+                                    if isinstance(r, dict)
+                                    and bm in r.get("fused_tiles", {})}))
+    return fp, fused
 
 
 def check_int8_transpose(dev, gen, cfg):
@@ -2330,9 +2623,9 @@ class _MoeSpy:
         self.layer0 = None
 
     def __enter__(self):
-        def staged(xk, wk, zp, alpha):
+        def staged(xk, wk, zp, alpha, **kw):
             self.shapes.add(tuple(xk.shape[:2]))
-            return self.real_mm(xk, wk, zp, alpha)
+            return self.real_mm(xk, wk, zp, alpha, **kw)
 
         def gating(logits, spec):
             out = self.real_gating(logits, spec)
@@ -2396,6 +2689,7 @@ def moe_serve_phase(mcfg, records, results):
                                 **serve_profiles(run, "moe"))
     for r in records:
         r["moe_serve_launches"] = counts[r["name"]]
+    _note_tiles(results, "moe serve")
     return run, spy.layer0
 
 
@@ -3871,6 +4165,7 @@ def serve_phases(cfg, dev, records, results, run_phase, clock) -> None:
                             launches=counts)
     for r in records:
         r["serve_launches"] = counts[r["name"]]
+    _note_tiles(results, "serve")
 
     policy = run.policy
     clock.stop()
@@ -3986,8 +4281,8 @@ class PhaseClock:
             f"{n} {self.names[n]} {sec:.1f}"
             for n, sec in sorted(self.seconds.items()))
             + f"; phases 1-31 {self.part(1, 31):.1f}, 32-37 "
-            f"{self.part(32, 37):.1f}, 38-40 {self.part(38, 40):.1f}; the "
-            f"whole run {total:.1f} s")
+            f"{self.part(32, 37):.1f}, 38-40 {self.part(38, 40):.1f}, 41 "
+            f"{self.part(41, 41):.1f}; the whole run {total:.1f} s")
         return dict(seconds={str(n): sec for n, sec in self.seconds.items()},
                     total_s=total)
 
@@ -4026,6 +4321,7 @@ def tall_serve_phase(dev, records, results) -> None:
                              f"attention launches, not {cfg.n_layers}")
     for r in records:
         r["tall_serve_launches"] = counts[r["name"]]
+    _note_tiles(results, "tall serve")
     out["parity"] = long_parity(run, dev, "tall-parity")
     results["tall_serve"] = out
 
@@ -4341,6 +4637,265 @@ def dp_train_phase(records) -> dict:
     return rec
 
 
+def _cell_window(cfg) -> int:
+    """The window a decode cell prefills: the sliding or local ring's
+    length; rwkv's state has no ring (``RWKV_CELL_WINDOW`` tokens)."""
+    return cfg.sliding_window or cfg.local_window or RWKV_CELL_WINDOW
+
+
+def rebase_caches(caches: dict, delta: int, theta) -> None:
+    """Re-base a prefilled cache by ``delta`` positions, in place: every
+    ring's ``pos`` entries shifted by ``delta``, its K rotated by
+    ``delta`` with the port's ``apply_rope`` (RoPE is relative, so this
+    stands in for a prompt that really reached there), and the slots
+    rolled by ``delta % L`` so each position sits at its slot ``pos %
+    L``.  Recurrent states (RG-LRU, WKV) carry no position."""
+    from repro_torch.models.layers import apply_rope
+
+    for layer in caches["decoder"]["layers"]:
+        kv = layer.get("kv")
+        if kv is None:
+            continue
+        b, length = kv["pos"].shape
+        roll = delta % length
+        shift = torch.full((b, length), delta, dtype=torch.int32,
+                           device=kv["pos"].device)
+        pos = torch.where(kv["pos"] >= 0, kv["pos"] + delta, kv["pos"])
+        kv["pos"] = pos.roll(roll, 1)
+        kv["k"] = apply_rope(kv["k"], shift, theta).roll(roll, 1)
+        kv["v"] = kv["v"].roll(roll, 1)
+
+
+def _map_caches(caches: dict, fn) -> dict:
+    """A decoder cache with ``fn`` applied to every tensor."""
+    return {"decoder": {"layers": [
+        {k: ({kk: fn(vv) for kk, vv in v.items()} if isinstance(v, dict)
+             else fn(v)) for k, v in layer.items()}
+        for layer in caches["decoder"]["layers"]]}}
+
+
+def _tile_caches(caches: dict, reps: int) -> dict:
+    """Each batch row of the cache repeated ``reps`` times (rows r, r + B,
+    r + 2B, ... share row r's cache; an int8 cache's scales stay)."""
+    return _map_caches(caches, lambda t: t if t.dim() == 1 else t.repeat(
+        (reps,) + (1,) * (t.dim() - 1)))
+
+
+def _decode_run(step, params, quant, caches, first, pos0: int, steps: int,
+                forced=None):
+    """``steps`` decode steps from ``caches`` (updated in place) at
+    positions ``pos0..``: greedy from ``first``, or fed ``forced`` (a list
+    of ``[B, 1]`` tokens).  Returns (logits per step, the tokens fed after
+    ``first``, ms per step: host clock around each synchronized step)."""
+    b = first.shape[0]
+    tok, logits, fed, ms = first, [], [], []
+    for i in range(steps):
+        batch = {"token": tok, "pos": torch.full(
+            (b,), pos0 + i, dtype=torch.int32, device=first.device)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, caches = step(params, quant, batch, caches)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(lg.float())
+        greedy = lg.argmax(-1, keepdim=True).to(torch.int32)
+        tok = forced[i] if forced is not None else greedy
+        fed.append(greedy)
+    return logits, fed, ms
+
+
+def _cell(shape_name: str, arch: str, dev, records, results) -> dict:
+    """One decode cell at full width and depth, hindsight W8A8G8: prefill
+    a window through ``make_prefill_step`` (cache_len the shape's
+    seq_len), re-base the cache to end at ``seq_len - 2``, then
+    ``CELL_STEPS`` decode steps through ``make_decode_step`` from position
+    ``seq_len - 1`` (past the ring's wrap) on inputs shaped by
+    ``input_specs``.  The simulated backend runs first, greedy, on a copy
+    of the cache; the fused backend is fed its tokens, with the launch
+    counters zeroed just before and read just after: its ms a step and
+    peak GiB (the parameters, the cache and one step) are the cell's.
+    Held each step: logits rel L2 <= 1e-2 and max |d| <= 0.1 (phase 6's
+    tolerance), the fused greedy token the simulated one or a near-tie
+    (the fused top-2 margin within 2 max |d|).  Reported: the re-basing
+    gap, the first step's logits against a decode at the window's own
+    next position on the un-rebased cache; one more fused step profiled
+    (device time by family, the idle share)."""
+    from repro_torch import configs
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.runtime import steps
+
+    cfg, shape = configs.get(arch), configs.SHAPES[shape_name]
+    ok, why = cfg.supports(shape_name)
+    if not ok:
+        raise AssertionError(f"{arch} refuses {shape_name}: {why}")
+    spec = configs.input_specs(cfg, shape)
+    b, last = spec["token"].shape[0], shape.seq_len - 1
+    w = _cell_window(cfg)
+    rows = min(b, CELL_PREFILL_ROWS)
+    tag = f"cell {shape_name} {arch}"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    policy = QuantPolicy.w8a8g8(backend="fused")
+    params = model.init_params(cfg, seed=0, device=dev)
+    quant = model.init_quant_state(cfg, device=dev)
+    prefill = steps.make_prefill_step(cfg, policy, cache_len=shape.seq_len)
+    decode = steps.make_decode_step(cfg, policy)
+    prompt = _prompt(cfg, rows, w, dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, caches = prefill(params, quant, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t1) * 1e3
+    g = torch.Generator(device=dev).manual_seed(7)
+    first = torch.randint(0, cfg.vocab, tuple(spec["token"].shape),
+                          generator=g, device=dev, dtype=spec["token"].dtype)
+    prefill_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the re-basing gap: the un-rebased cache decoded at its own next
+    # position w, against the re-based one's first step (rows 0..rows-1)
+    plain, _, _ = _decode_run(decode, params, quant,
+                              _map_caches(caches, torch.clone), first[:rows],
+                              w, 1)
+    rebase_caches(caches, last - w, cfg.rope_theta)
+    if b > rows:
+        caches = _tile_caches(caches, b // rows)
+    # the simulated backend first, greedy, on a copy of the same cache
+    sim = steps.make_decode_step(cfg, policy.with_backend("simulated"))
+    sim_caches = _map_caches(caches, torch.clone)
+    ops.reset_launch_counts()
+    s_logits, s_tokens, _ = _decode_run(sim, params, quant, sim_caches,
+                                        first, last, CELL_STEPS)
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"{tag}: the simulated backend launched a "
+                             f"kernel")
+    del sim_caches
+    torch.cuda.empty_cache()
+    # then the fused path, fed the same tokens
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    logits, greedy, ms = _decode_run(decode, params, quant, caches, first,
+                                     last, CELL_STEPS, forced=s_tokens)
+    counts, tiles = ops.launch_counts(), ops.tile_launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(counts[k] > 0 for k in DECODE_KERNELS):
+        raise AssertionError(f"{tag}: a kernel of the decode path never "
+                             f"launched: {counts}")
+    want_tile = mm_row_tile(cfg, b)
+    if tiles[("int8_matmul_fp", want_tile)] != counts["int8_matmul_fp"]:
+        raise AssertionError(f"{tag}: M = {b} did not run every product on "
+                             f"the {want_tile}-row tile: {tiles}")
+    for lg in logits:
+        if lg.shape != (b, cfg.vocab) or not torch.isfinite(lg).all():
+            raise AssertionError(f"{tag}: logits {tuple(lg.shape)} not "
+                                 f"finite or not [{b}, {cfg.vocab}]")
+    # the ring wrapped: slot (last + 1) % L holds position last + 1
+    for layer in caches["decoder"]["layers"]:
+        kv = layer.get("kv")
+        if kv is not None:
+            slot = (last + 1) % kv["pos"].shape[1]
+            if not bool((kv["pos"][:, slot] == last + 1).all()):
+                raise AssertionError(f"{tag}: the ring did not wrap")
+    # one more fused step under torch.profiler: device time by family and
+    # the card's idle share of the step
+
+    def one_step():
+        lg, _ = decode(params, quant, {"token": greedy[-1], "pos": torch.full(
+            (b,), last + CELL_STEPS, dtype=torch.int32, device=dev)}, caches)
+        float(lg[0, 0])
+    prof = profile_device(one_step, f"cells {shape_name}/{arch}")
+    gap = ((logits[0][:rows] - plain[0]).norm() / plain[0].norm()).item()
+    worst_rel, worst_abs, ties = 0.0, 0.0, []
+    for i, (a, c) in enumerate(zip(logits, s_logits)):
+        d = (a - c).abs().max().item()
+        rel = ((a - c).norm() / c.norm()).item()
+        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, d)
+        if not (rel <= 1e-2 and d <= 0.1 and math.isfinite(rel)):
+            raise AssertionError(f"{tag} step {i}: fused vs simulated rel "
+                                 f"L2 {rel:.3e}, max |d| {d:.3e}")
+        differ = (greedy[i] != s_tokens[i]).flatten().nonzero().flatten()
+        if len(differ):
+            top = a[differ].topk(2, dim=-1).values
+            margin = (top[:, 0] - top[:, 1]).max().item()
+            if margin > 2 * d:
+                raise AssertionError(f"{tag} step {i}: greedy tokens differ "
+                                     f"with top-2 margin {margin:.3e} > 2 "
+                                     f"max |d| {d:.3e}")
+            ties.append((i, len(differ)))
+    del caches, params
+    torch.cuda.empty_cache()
+    steady = sum(ms[1:]) / len(ms[1:])
+    rec = dict(arch=arch, shape=shape_name, batch=b, position=last,
+               window=w, prefill_rows=rows, prefill_ms=prefill_ms,
+               first_step_ms=ms[0], ms_per_step=steady, peak_gib=peak,
+               prefill_peak_gib=prefill_peak,
+               launches=counts, tile=want_tile, rel_l2=worst_rel,
+               max_abs=worst_abs, near_ties=ties, rebase_gap_rel_l2=gap,
+               profile=dict(wall_ms=prof["wall_ms"], busy_ms=prof["busy_ms"],
+                            idle_share=prof["idle_share"],
+                            families=prof["families"]),
+               seconds=time.perf_counter() - t0)
+    ring = ("no ring: the WKV state" if cfg.family == "rwkv" else
+            f"the ring of {w} wraps at step 2")
+    log("cells", f"{tag}: B {b} from position {last} ({CELL_STEPS} steps, "
+                 f"{ring}): {steady:.2f} ms a "
+                 f"decode step (first {ms[0]:.2f}), peak {peak:.2f} GiB "
+                 f"(the prefill's {prefill_peak:.2f}); prefill of {rows} x "
+                 f"{w} {prefill_ms:.1f} ms; every "
+                 f"int8 product on the {want_tile}-row tile; fused vs "
+                 f"simulated on the same cache: worst rel L2 "
+                 f"{worst_rel:.3e}, max |d| {worst_abs:.3e}, greedy tokens "
+                 + ("identical" if not ties else f"near-ties at {ties}")
+                 + f"; re-basing gap (rel L2 against position {w}) "
+                 f"{gap:.3e}; launches {counts}")
+    for r in records:
+        r.setdefault("cell_launches", {})[f"{shape_name}/{arch}"] = \
+            counts[r["name"]]
+    results.setdefault("tile_launches", {})[f"cell {shape_name}/{arch}"] = \
+        {f"{k}:{bm}": n for (k, bm), n in tiles.items()}
+    return rec
+
+
+def mm_row_tile(cfg, m: int) -> int:
+    """The row tile the tuner and the clamp give a decode product of ``m``
+    rows against ``cfg``'s widths."""
+    from repro_torch.kernels import int8_matmul as mm
+    from repro_torch.kernels import tuning
+
+    block = tuning.matmul_block(m, cfg.d_ff, cfg.d_model, dtype="uint8")
+    return mm.row_tile(block[0], m)
+
+
+def cells_phase(dev, records, results) -> None:
+    """Phase 41: the shape matrix.  ``configs.cells()`` over the ten
+    configs (earlier phases may have registered depth cuts beside them)
+    admits long_500k for exactly the four sub-quadratic archs and refuses
+    it for the six others with the reference's reason; then the five
+    decode cells (``DECODE_CELLS``, one model on the card at a time)."""
+    from repro_torch import configs
+
+    archs = LONG_500K_ARCHS | LONG_500K_REFUSED
+    cells = [c for c in configs.cells() if c.arch in archs]
+    admitted = {c.arch for c in cells if c.shape == "long_500k"
+                and c.runnable}
+    refused = {c.arch: c.skip_reason for c in cells if not c.runnable}
+    if admitted != LONG_500K_ARCHS or set(refused) != LONG_500K_REFUSED \
+            or set(refused.values()) != {CELL_REFUSAL} \
+            or len(cells) != len(archs) * len(configs.SHAPES) \
+            or any(c.shape != "long_500k" for c in cells if not c.runnable):
+        raise AssertionError(f"the shape matrix: admitted {admitted}, "
+                             f"refused {refused}")
+    log("cells", f"{len(cells)} cells; long_500k admitted for "
+                 f"{sorted(admitted)}, refused for {sorted(refused)} "
+                 f"({CELL_REFUSAL!r})")
+    out = {"refused": sorted(refused)}
+    for shape_name, arch in DECODE_CELLS:
+        out[f"{shape_name}/{arch}"] = _cell(shape_name, arch, dev, records,
+                                            results)
+    results["cells"] = out
+
+
 def parse_phases(spec: str) -> set:
     """``"1-3,9"`` -> ``{1, 2, 3, 9}``; phase 1 always, 4 with 5 or 6, 17
     with 18, 20 with 21 or 22, 26 with 27, 29 with 30, 32 with 33, 35
@@ -4476,6 +5031,10 @@ def main(argv=None) -> int:
                 ("hd256", dataclasses.replace(
                     ncfg, name="hd256-g8", n_heads=64, head_dim=256), 1,
                  PROMPT, {}),
+                # hd off the multiples of 16: the wrapper pads it to 208
+                ("hd200", dataclasses.replace(
+                    ncfg, name="hd200-g8", n_heads=64, head_dim=200), 1,
+                 PROMPT, {}),
                 ("hyb1024", hcfg, BATCH, PROMPT, dict(window=hw)),
                 ("hyb8192", hcfg, 1, LONG_SEQ, dict(window=hw)),
                 ("encdec_bidir", ecfg, BATCH, nf, dict(mode="bidir")),
@@ -4538,6 +5097,11 @@ def main(argv=None) -> int:
             dev, gen, "seamless head chunk",
             ENC_TRAIN_BATCH * ecfg.loss_chunk, ecfg.d_model, ecfg.vocab)
         torch.cuda.empty_cache()
+        # every tile of the int8 matmul at decode, decode_32k's B 128, the
+        # MoE prefill and the prefill, and one conv
+        results["tiles"] = check_matmul_tiles(dev, gen, cfg, mcfg)
+        mmrec["tiles"], by_name["int8_matmul_fused"]["tiles"] = \
+            tile_records(results["tiles"])
         clock.stop()
     for r in records:
         r["launches"] = None        # set by the path phases that run
@@ -4566,6 +5130,7 @@ def main(argv=None) -> int:
         # 9. the fused layer path: its kernel's launches are this run's
         with clock(9, "fused layers"):
             results["fused_layers"] = fused_layer_phase(cfg, dev)
+        _note_tiles(results, "fused layers")
         for r in records:   # the fused kernel is on this path alone
             if r["name"] in LAYER_KERNELS and not r["launches"]:
                 r["launches"] = results["fused_layers"]["launches"][r["name"]]
@@ -4721,6 +5286,10 @@ def main(argv=None) -> int:
         with clock(40, "dp train"):
             results["dp_train"] = dp_train_phase(records)
         torch.cuda.empty_cache()
+    if run_phase(41):
+        with clock(41, "decode cells"):
+            cells_phase(dev, records, results)
+        torch.cuda.empty_cache()
     for r in records:       # the kernels' launches where no earlier path ran
         for key in ("sc7_serve_launches", "cmdr_serve_launches",
                     "nemotron_serve_launches", "grad_only_launches",
@@ -4732,10 +5301,22 @@ def main(argv=None) -> int:
                     "dp_train_launches"):
             if not r["launches"] and r.get(key):
                 r["launches"] = r[key]
+        if not r["launches"]:       # the decode cells alone (phase 41)
+            r["launches"] = next((n for n in r.get("cell_launches",
+                                                   {}).values() if n),
+                                 r["launches"])
 
+    for r in records:       # each tile: its launches in the first path run
+        for t in r.get("tiles", ()):
+            key = f"{r['name']}:{t['tile'][0]}"
+            runs = {what: c[key] for what, c in
+                    results.get("tile_launches", {}).items()}
+            t["launches"] = next((n for n in runs.values() if n), 0)
+            t["launches_by_run"] = runs
     kernels = [{k: r[k] for k in ("name", "route", "source", "replaces",
                                   "launches", "max_abs_err", "ms", "plain_ms",
-                                  "bound_ms", "bound_by", "library_ms")}
+                                  "bound_ms", "bound_by", "library_ms",
+                                  "tiles") if k in r}
                for r in records]
     results["kernels"] = records
     results["time"] = clock.summary()

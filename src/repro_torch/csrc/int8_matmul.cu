@@ -31,13 +31,25 @@
 //
 // Main loop: the tensor cores through warp-level
 // mma.sync.m16n8k32.s32.u8.s8 (mma_int8.cuh), u8 activations fed as they
-// are.  A block computes a 128 x 128 output tile with 8 warps of 64 x 32;
-// K advances in 128-byte slabs through a 3-stage cp.async ring in dynamic
-// shared memory (96 KB), rows XOR-swizzled in 16-byte chunks so the
-// ldmatrix fragment loads and the cp.async stores are free of bank
-// conflicts.  Each thread also sums half a weight row of every slab with
-// __dp4a for the column sums.  The int32 contraction is exact in any
-// order, so the tile schedule cannot change a result.
+// are.  A block computes a BM x 128 output tile with 8 warps; K advances
+// in 128-byte slabs through a 3-stage cp.async ring in dynamic shared
+// memory, rows XOR-swizzled in 16-byte chunks so the ldmatrix fragment
+// loads and the cp.async stores are free of bank conflicts.  Each thread
+// also sums half a weight row of every slab with __dp4a for the column
+// sums.  The int32 contraction is exact in any order, so the tile
+// schedule cannot change a result.
+//
+// The row tile BM is a template parameter (the counterpart of the Pallas
+// block's bm, which the reference resolves through tuning.matmul_block
+// and clamps to the operand, min(bm, M)).  Instantiated:
+//   BM = 128  8 warps of 64 x 32, a 96 KB ring (the default tile);
+//   BM =  64  8 warps of 32 x 32, a 72 KB ring;
+//   BM =  32  8 warps of 16 x 32, a 60 KB ring;
+//   BM =  16  8 warps of 16 x 16 laid across N, a 54 KB ring (m16n8k32
+//             makes 16 rows the least tile).
+// 32 and 16 are the row clamps: a product with fewer rows than its tile
+// runs the least tile that covers them, so decode's M = 1..4 computes 16
+// rows, not 128.  BN = BK = 128 in every instantiation.
 //
 // Bound on the H100: int8 operations at the LM shapes (M = 4096 prefill),
 // bytes at decode (M = 4) and at the CNN layers of the paper's Table 5 as
@@ -63,15 +75,26 @@ namespace {
 
 using namespace mma_int8;
 
-constexpr int kBM = 128, kBN = 128, kBK = 128;
+constexpr int kBN = 128, kBK = 128;
 constexpr int kThreads = 256;
 constexpr int kStages = 3;
-constexpr int kTileBytes = kBM * kBK;            // one operand's slab
-constexpr int kStageBytes = 2 * kTileBytes;      // x slab, then w slab
-constexpr int kSmemBytes = kStages * kStageBytes;
+constexpr int kChunks = kBK / 16;                // 16-byte chunks a slab row
 constexpr int kOutLd = kBN + 16;                 // byte-staging row stride
-static_assert(kBM == kBN, "one slab layout serves both operands");
-static_assert(kBM * kOutLd <= kSmemBytes, "byte staging fits the ring");
+
+// The geometry of one row tile BM: the 8 warps as kWarpRows x kWarpCols,
+// each owning a kTM x kTN block of kMI x kNI mma tiles of 16 x 8.
+template <int BM>
+struct Tile {
+  static constexpr int kWarpRows = BM >= 32 ? 2 : 1;
+  static constexpr int kWarpCols = kThreads / 32 / kWarpRows;
+  static constexpr int kTM = BM / kWarpRows, kTN = kBN / kWarpCols;
+  static constexpr int kMI = kTM / 16, kNI = kTN / 8, kNP = kNI / 2;
+  static constexpr int kXBytes = BM * kBK;            // the x slab
+  static constexpr int kStageBytes = kXBytes + kBN * kBK;   // x, then w
+  static constexpr int kSmemBytes = kStages * kStageBytes;
+  static_assert(kTM % 16 == 0 && kTN % 16 == 0, "whole mma tiles a warp");
+  static_assert(BM * kOutLd <= kSmemBytes, "byte staging fits the ring");
+};
 
 // Byte offset of 16-byte chunk c (0..7) of slab row r: chunks XOR-swizzled
 // by r % 8, so 8 consecutive rows at one chunk (an ldmatrix read) and the
@@ -89,55 +112,65 @@ struct Requant {
 };
 
 // Start the cp.async copies of K slab kt (x rows i0.., w rows j0..) into
-// one stage; rows past M / N and chunks past K are zero-filled.
+// one stage; rows past M / N and chunks past K are zero-filled.  The w
+// slab has kBN * kChunks chunks, the x slab BM * kChunks (half a pass of
+// the threads at BM = 16).
+template <int BM>
 __device__ __forceinline__ void load_slab(uint8_t* stage,
                                           const uint8_t* __restrict__ x,
                                           const int8_t* __restrict__ w, int i0,
                                           int j0, int M, int N, int K, int kt,
                                           int t) {
-  const uint32_t xs = smem_addr(stage), ws = smem_addr(stage + kTileBytes);
+  constexpr int kX = BM * kChunks;
+  const uint32_t xs = smem_addr(stage);
+  const uint32_t ws = smem_addr(stage + Tile<BM>::kXBytes);
 #pragma unroll
-  for (int i = 0; i < kBM * (kBK / 16) / kThreads; ++i) {
-    const int e = t + i * kThreads, r = e / (kBK / 16), c = e % (kBK / 16);
+  for (int i = 0; i < kBN * kChunks / kThreads; ++i) {
+    const int e = t + i * kThreads, r = e / kChunks, c = e % kChunks;
     const int gk = kt * kBK + 16 * c;
     const bool kin = gk < K;
-    const bool xin = kin && i0 + r < M, win = kin && j0 + r < N;
-    cp_async_16(xs + swz(r, c),
-                xin ? x + static_cast<long long>(i0 + r) * K + gk : x,
-                xin ? 16 : 0);
+    if (i < kX / kThreads || e < kX) {   // a whole pass, or part of one
+      const bool xin = kin && i0 + r < M;
+      cp_async_16(xs + swz(r, c),
+                  xin ? x + static_cast<long long>(i0 + r) * K + gk : x,
+                  xin ? 16 : 0);
+    }
+    const bool win = kin && j0 + r < N;
     cp_async_16(ws + swz(r, c),
                 win ? w + static_cast<long long>(j0 + r) * K + gk : w,
                 win ? 16 : 0);
   }
 }
 
-// One block's 128 x 128 output tile: the main loop, then the epilogue that
+// One block's BM x 128 output tile: the main loop, then the epilogue that
 // kRequant selects (fp32 y, or the requantized byte).
-template <bool kRequant>
+template <int BM, bool kRequant>
 __device__ __forceinline__ void int8_matmul_tile(
     const uint8_t* __restrict__ x, const int8_t* __restrict__ w,
     void* __restrict__ out, float* __restrict__ partials,
     const float* __restrict__ alpha_p, const float* __restrict__ zp_p,
     const Requant& rq, int M, int K, int N) {
+  using T = Tile<BM>;
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ int corr[kBN];
   __shared__ float red[2 * kThreads / 32];
 
   const int b = blockIdx.z;
-  const int i0 = blockIdx.y * kBM, j0 = blockIdx.x * kBN;
+  const int i0 = blockIdx.y * BM, j0 = blockIdx.x * kBN;
   x += static_cast<long long>(b) * M * K;
   w += static_cast<long long>(b) * N * K;
   const long long out_base = static_cast<long long>(b) * M * N;
   const int t = threadIdx.x, lane = t % 32, warp = t / 32;
-  const int wm = warp >> 2, wn = warp & 3;   // warp tile rows wm*64, cols wn*32
+  // warp tile rows wm * kTM.., cols wn * kTN..
+  const int wm = warp / T::kWarpCols, wn = warp % T::kWarpCols;
   const int g = lane >> 2, tq = lane & 3;
 
   // ---- main loop (shared by both epilogues) ----
-  int acc[4][4][4];
+  int acc[T::kMI][T::kNI][4];
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+  for (int mi = 0; mi < T::kMI; ++mi)
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+    for (int ni = 0; ni < T::kNI; ++ni)
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0;
   int csum = 0;   // column t / 2 of the tile, over K-half t % 2 of each slab
@@ -145,24 +178,25 @@ __device__ __forceinline__ void int8_matmul_tile(
   const int KT = (K + kBK - 1) / kBK;
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (s < KT) load_slab(smem + s * kStageBytes, x, w, i0, j0, M, N, K, s, t);
+    if (s < KT)
+      load_slab<BM>(smem + s * T::kStageBytes, x, w, i0, j0, M, N, K, s, t);
     cp_async_commit();
   }
   // Per-lane ldmatrix rows and chunk offsets (see mma_int8.cuh).
-  const int a_row = wm * 64 + (lane & 15), a_chunk = lane >> 4;
-  const int b_row = wn * 32 + (lane & 7) + 8 * (lane >> 4);
+  const int a_row = wm * T::kTM + (lane & 15), a_chunk = lane >> 4;
+  const int b_row = wn * T::kTN + (lane & 7) + 8 * (lane >> 4);
   const int b_chunk = (lane >> 3) & 1;
   for (int kt = 0; kt < KT; ++kt) {
     cp_async_wait<kStages - 2>();
     __syncthreads();
     const int nt = kt + kStages - 1;
     if (nt < KT)
-      load_slab(smem + (nt % kStages) * kStageBytes, x, w, i0, j0, M, N, K,
-                nt, t);
+      load_slab<BM>(smem + (nt % kStages) * T::kStageBytes, x, w, i0, j0, M,
+                    N, K, nt, t);
     cp_async_commit();
 
-    const uint8_t* xs = smem + (kt % kStages) * kStageBytes;
-    const uint8_t* ws = xs + kTileBytes;
+    const uint8_t* xs = smem + (kt % kStages) * T::kStageBytes;
+    const uint8_t* ws = xs + T::kXBytes;
 #pragma unroll
     for (int h = 0; h < kBK / 32; ++h) {
       const int c = (t & 1) * (kBK / 32) + h;
@@ -175,17 +209,17 @@ __device__ __forceinline__ void int8_matmul_tile(
     const uint32_t xs_a = smem_addr(xs), ws_a = smem_addr(ws);
 #pragma unroll
     for (int ks = 0; ks < kBK / 32; ++ks) {
-      uint32_t af[4][4], bf[2][4];
+      uint32_t af[T::kMI][4], bf[T::kNP][4];
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
+      for (int mi = 0; mi < T::kMI; ++mi)
         ldmatrix_x4(af[mi], xs_a + swz(a_row + 16 * mi, 2 * ks + a_chunk));
 #pragma unroll
-      for (int np = 0; np < 2; ++np)
+      for (int np = 0; np < T::kNP; ++np)
         ldmatrix_x4(bf[np], ws_a + swz(b_row + 16 * np, 2 * ks + b_chunk));
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
+      for (int mi = 0; mi < T::kMI; ++mi)
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
+        for (int ni = 0; ni < T::kNI; ++ni)
           mma_u8s8(acc[mi][ni], af[mi], bf[ni >> 1][2 * (ni & 1)],
                    bf[ni >> 1][2 * (ni & 1) + 1]);
     }
@@ -215,14 +249,14 @@ __device__ __forceinline__ void int8_matmul_tile(
   const bool pairs = (N % 2) == 0;   // float2 stores stay 8-byte aligned
   float mn = FLT_MAX, mx = -FLT_MAX;
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
+  for (int mi = 0; mi < T::kMI; ++mi) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int row_l = wm * 64 + 16 * mi + g + 8 * h;
+      const int row_l = wm * T::kTM + 16 * mi + g + 8 * h;
       const int row = i0 + row_l;
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col_l = wn * 32 + 8 * ni + 2 * tq;
+      for (int ni = 0; ni < T::kNI; ++ni) {
+        const int col_l = wn * T::kTN + 8 * ni + 2 * tq;
         const int col = j0 + col_l;
         const float f0 = __fmul_rn(
             alpha, __int2float_rn(acc[mi][ni][2 * h] + corr[col_l]));
@@ -264,15 +298,17 @@ __device__ __forceinline__ void int8_matmul_tile(
     }
   }
   if (kRequant) {
-    // The staged byte tile out in 16-byte row segments.
+    // The staged byte tile out in 16-byte row segments (BM * 8 of them:
+    // half a pass of the threads at BM = 16).
     __syncthreads();
     uint8_t* q = static_cast<uint8_t*>(out) + out_base;
     const bool vec = (N % 16) == 0;
+    constexpr int kSegs = BM * (kBN / 16);
 #pragma unroll
-    for (int i = 0; i < kBM * (kBN / 16) / kThreads; ++i) {
+    for (int i = 0; i < (kSegs + kThreads - 1) / kThreads; ++i) {
       const int e = t + i * kThreads, row_l = e >> 3, c = e & 7;
       const int row = i0 + row_l, col = j0 + 16 * c;
-      if (row >= M || col >= N) continue;
+      if (e >= kSegs || row >= M || col >= N) continue;
       const uint8_t* src = smem + row_l * kOutLd + 16 * c;
       uint8_t* dst = q + static_cast<long long>(row) * N + col;
       if (vec) {
@@ -304,16 +340,18 @@ __device__ __forceinline__ void int8_matmul_tile(
   }
 }
 
+template <int BM>
 __global__ void __launch_bounds__(kThreads, 2)
 int8_matmul_fp_kernel(const uint8_t* __restrict__ x,
                       const int8_t* __restrict__ w, float* __restrict__ y,
                       float* __restrict__ partials,
                       const float* __restrict__ alpha_p,
                       const float* __restrict__ zp_p, int M, int K, int N) {
-  int8_matmul_tile<false>(x, w, y, partials, alpha_p, zp_p,
-                          Requant{nullptr, nullptr, 0, 0}, M, K, N);
+  int8_matmul_tile<BM, false>(x, w, y, partials, alpha_p, zp_p,
+                              Requant{nullptr, nullptr, 0, 0}, M, K, N);
 }
 
+template <int BM>
 __global__ void __launch_bounds__(kThreads, 2)
 int8_matmul_fused_kernel(const uint8_t* __restrict__ x,
                          const int8_t* __restrict__ w, uint8_t* __restrict__ q,
@@ -321,7 +359,7 @@ int8_matmul_fused_kernel(const uint8_t* __restrict__ x,
                          const float* __restrict__ alpha_p,
                          const float* __restrict__ zp_p, Requant rq, int M,
                          int K, int N) {
-  int8_matmul_tile<true>(x, w, q, partials, alpha_p, zp_p, rq, M, K, N);
+  int8_matmul_tile<BM, true>(x, w, q, partials, alpha_p, zp_p, rq, M, K, N);
 }
 
 // The weight's K-major image for mma's B operand: w [B, K, N] -> wt
@@ -380,14 +418,45 @@ int8_transpose_kernel(const int8_t* __restrict__ w, int8_t* __restrict__ wt,
 }
 
 // Allow the ring's dynamic shared memory (above the 48 KB default) once
-// per kernel; returns the CUDA error code.
-template <typename Kernel>
+// per kernel instantiation; returns the CUDA error code.
+template <int BM, bool kRequant, typename Kernel>
 int allow_smem(Kernel kernel) {
   static int status = -1;
   if (status < 0)
     status = static_cast<int>(cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Tile<BM>::kSmemBytes));
   return status;
+}
+
+template <int BM>
+int launch_fp(const void* x, const void* w, void* y, void* partials,
+              const void* alpha, const void* zp, int B, int M, int K, int N,
+              cudaStream_t stream) {
+  if (const int s = allow_smem<BM, false>(int8_matmul_fp_kernel<BM>)) return s;
+  const dim3 grid((N + kBN - 1) / kBN, (M + BM - 1) / BM, B);
+  int8_matmul_fp_kernel<BM><<<grid, kThreads, Tile<BM>::kSmemBytes, stream>>>(
+      static_cast<const uint8_t*>(x), static_cast<const int8_t*>(w),
+      static_cast<float*>(y), static_cast<float*>(partials),
+      static_cast<const float*>(alpha), static_cast<const float*>(zp), M, K,
+      N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BM>
+int launch_fused(const void* x, const void* w, void* q, void* partials,
+                 const void* alpha, const void* zp, const Requant& rq, int M,
+                 int K, int N, cudaStream_t stream) {
+  if (const int s = allow_smem<BM, true>(int8_matmul_fused_kernel<BM>))
+    return s;
+  const dim3 grid((N + kBN - 1) / kBN, (M + BM - 1) / BM, 1);
+  int8_matmul_fused_kernel<BM>
+      <<<grid, kThreads, Tile<BM>::kSmemBytes, stream>>>(
+          static_cast<const uint8_t*>(x), static_cast<const int8_t*>(w),
+          static_cast<uint8_t*>(q), static_cast<float*>(partials),
+          static_cast<const float*>(alpha), static_cast<const float*>(zp), rq,
+          M, K, N);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -405,42 +474,41 @@ extern "C" int repro_int8_transpose(const void* w, void* wt, int B, int K,
 }
 
 // x u8 [B, M, K], w s8 [B, N, K] (K-major), K a multiple of 16; y fp32
-// [B, M, N] and partials [B, gm, gn, 2].
+// [B, M, N] and partials [B, gm, gn, 2] on the row tile bm (128, 64, 32
+// or 16; any other is refused), gm = ceil(M / bm).
 extern "C" int repro_int8_matmul_fp(const void* x, const void* w, void* y,
                                     void* partials, const void* alpha,
                                     const void* zp, int B, int M, int K, int N,
-                                    void* stream) {
+                                    int bm, void* stream) {
   if (K % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (const int s = allow_smem(int8_matmul_fp_kernel)) return s;
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, B);
-  int8_matmul_fp_kernel<<<grid, kThreads, kSmemBytes,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<float*>(y), static_cast<float*>(partials),
-      static_cast<const float*>(alpha), static_cast<const float*>(zp), M, K,
-      N);
-  return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (bm) {
+    case 128: return launch_fp<128>(x, w, y, partials, alpha, zp, B, M, K, N, st);
+    case 64: return launch_fp<64>(x, w, y, partials, alpha, zp, B, M, K, N, st);
+    case 32: return launch_fp<32>(x, w, y, partials, alpha, zp, B, M, K, N, st);
+    case 16: return launch_fp<16>(x, w, y, partials, alpha, zp, B, M, K, N, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // x u8 [M, K], w s8 [N, K] (K-major), K a multiple of 16; q [M, N] (uint8
-// or int8 by the grid [int_min, int_max]) and partials [gm, gn, 2] of y;
-// bias may be null.
+// or int8 by the grid [int_min, int_max]) and partials [gm, gn, 2] of y on
+// the row tile bm (as above); bias may be null.
 extern "C" int repro_int8_matmul_fused(const void* x, const void* w, void* q,
                                        void* partials, const void* alpha,
                                        const void* zp, const void* bias,
                                        const void* qparams, int M, int K,
-                                       int N, int int_min, int int_max,
+                                       int N, int int_min, int int_max, int bm,
                                        void* stream) {
   if (K % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (const int s = allow_smem(int8_matmul_fused_kernel)) return s;
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, 1);
   const Requant rq{static_cast<const float*>(bias),
                    static_cast<const float*>(qparams), int_min, int_max};
-  int8_matmul_fused_kernel<<<grid, kThreads, kSmemBytes,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<uint8_t*>(q), static_cast<float*>(partials),
-      static_cast<const float*>(alpha), static_cast<const float*>(zp), rq, M,
-      K, N);
-  return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (bm) {
+    case 128: return launch_fused<128>(x, w, q, partials, alpha, zp, rq, M, K, N, st);
+    case 64: return launch_fused<64>(x, w, q, partials, alpha, zp, rq, M, K, N, st);
+    case 32: return launch_fused<32>(x, w, q, partials, alpha, zp, rq, M, K, N, st);
+    case 16: return launch_fused<16>(x, w, q, partials, alpha, zp, rq, M, K, N, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -61,7 +61,9 @@ MASK_MODES = ("causal", "sliding", "prefix", "cross", "bidir")
 KERNEL_MAX_BQ = 256          # bq limit of the CUDA kernel (above 128: tall)
 KERNEL_MAX_BKV = 128         # its bkv limit
 KERNEL_MAX_NARROW_HD = 128   # its narrow instantiation's hd
-KERNEL_MAX_HD = 256          # its hd limit (above 128: multiples of 16)
+KERNEL_MAX_HD = 256          # its hd limit (above 128: multiples of 16,
+                             # to which the wrapper pads hd)
+HD_ALIGN = 16                # the wide instantiation's hd step
 SMEM_LIMIT = 232448          # a block's shared memory on the H100, bytes
 
 
@@ -469,18 +471,26 @@ def bind(lib: ctypes.CDLL):
 
 def check_kernel_tiles(sched: AttnSchedule) -> None:
     """Raise unless the CUDA kernel takes ``sched``'s tile: bq <= 256 (the
-    tall instantiation above 128), bkv <= 128 and hd <= 256, a multiple
-    of 16 above 128."""
+    tall instantiation above 128), bkv <= 128 and hd <= 256 (above 128
+    :func:`attention_cuda` pads hd to a multiple of 16)."""
     S = sched
     if S.bq > KERNEL_MAX_BQ or S.bkv > KERNEL_MAX_BKV:
         raise ValueError(
             f"the CUDA attention kernel takes bq <= {KERNEL_MAX_BQ} and "
             f"bkv <= {KERNEL_MAX_BKV}; got ({S.bq}, {S.bkv})")
-    if S.hd > KERNEL_MAX_HD or (S.hd > KERNEL_MAX_NARROW_HD and S.hd % 16):
+    if S.hd > KERNEL_MAX_HD:
         raise ValueError(
-            f"the CUDA attention kernel takes head_dim <= "
-            f"{KERNEL_MAX_NARROW_HD}, or <= {KERNEL_MAX_HD} in multiples of "
-            f"16; got {S.hd}")
+            f"the CUDA attention kernel takes head_dim <= {KERNEL_MAX_HD}; "
+            f"got {S.hd}")
+
+
+def kernel_head_dim(hd: int) -> int:
+    """The head dim the kernel runs for ``hd``: ``hd`` up to 128 (the
+    narrow instantiation), above it ``hd`` rounded up to a multiple of 16
+    (the wide one)."""
+    if hd <= KERNEL_MAX_NARROW_HD:
+        return hd
+    return -(-hd // HD_ALIGN) * HD_ALIGN
 
 
 def launch(fn, q_u8, k_i8, vt, regs, kvl, *, sched: AttnSchedule):
@@ -506,7 +516,13 @@ def launch(fn, q_u8, k_i8, vt, regs, kvl, *, sched: AttnSchedule):
 
 def attention_cuda(q_u8, k_i8, v_i8, regs, kvlen, *, sched: AttnSchedule):
     """Launch the CUDA kernel; same returns as
-    :func:`attention_core_reference`."""
+    :func:`attention_core_reference`.
+
+    A head dim in (128, 256] off the multiples of 16 runs padded to the
+    next one (:func:`kernel_head_dim`): zero K columns add 0 to every
+    score ``(q - zp_q) . k`` and leave ``rowsum(k)`` as it was, and zero V
+    columns add output columns that are cut, so the scores, ``(m, l)``
+    and the p-site statistics are those of the unpadded core."""
     S = sched
     if not (q_u8.is_cuda and k_i8.is_cuda and v_i8.is_cuda):
         raise ValueError("attention_cuda needs CUDA tensors")
@@ -520,6 +536,14 @@ def attention_cuda(q_u8, k_i8, v_i8, regs, kvlen, *, sched: AttnSchedule):
             v_i8.shape != k_i8.shape:
         raise ValueError(f"attention shapes {tuple(q_u8.shape)}, "
                          f"{tuple(k_i8.shape)} do not match {S}")
+    hd = kernel_head_dim(S.hd)
+    if hd != S.hd:
+        pad = (0, hd - S.hd)
+        q_u8, k_i8, v_i8 = (F.pad(t, pad) for t in (q_u8, k_i8, v_i8))
+        out, ml, pstats = attention_cuda(
+            q_u8, k_i8, v_i8, regs, kvlen,
+            sched=dataclasses.replace(S, hd=hd))
+        return out[..., :S.hd].contiguous(), ml, pstats
     lib = build.library("int8_attention")
     fn = bind(lib)
     smem = lib.repro_int8_attention_smem(S.hd, S.bq, S.bkv)

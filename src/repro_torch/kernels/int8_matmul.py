@@ -22,9 +22,13 @@ bound by int8 operations; decode (M = 4) and the paper's CNN layers as
 im2col products (small K and N) by bytes.  The main loop runs on the
 tensor cores: warp-level ``mma.sync`` u8 x s8 -> s32 (the u8 activations
 go in as they are, and the zero point comes back as the column
-correction ``(round(128 - zp_x) - 128) * colsum(w)``), 128 x 128 tiles of
+correction ``(round(128 - zp_x) - 128) * colsum(w)``), BM x 128 tiles of
 8 warps, K in 128-byte slabs through a 3-stage ``cp.async`` ring in
-swizzled shared memory, fragments loaded with ``ldmatrix``.  ``mma``
+swizzled shared memory, fragments loaded with ``ldmatrix``.  The row tile
+BM is 128, 64, 32 or 16 (:data:`ROW_TILES`): the caller's tile comes from
+``tuning.matmul_block``, and :func:`row_tile` clamps it to the least
+instantiated row tile that covers M, so decode's M = 4 computes 16 rows
+and not 128.  ``mma``
 reads the weight K-contiguous, so the wrapper stages the operands first
 (:func:`stage_operands`): another kernel of the same source,
 ``int8_transpose``, writes the weight's K-major image ``[B, N, K]``,
@@ -54,14 +58,38 @@ from repro_torch.core.quant import QuantSpec
 
 from . import LaunchCounter, build
 from .fused_quantize import fused_quantize_plain
+from .tuning import MATMUL_DEFAULT, MATMUL_TILES
 
 COUNTER = LaunchCounter("int8_matmul_fp")
 FUSED_COUNTER = LaunchCounter("int8_matmul_fused")
 TRANSPOSE_COUNTER = LaunchCounter("int8_transpose")
 
-BM = BN = 128                # the CUDA kernel's output tile
+ROW_TILES = tuple(t[0] for t in MATMUL_TILES)   # the kernel's row tiles
+# Launches of each row tile, counted beside COUNTER / FUSED_COUNTER.
+TILE_COUNTERS = {bm: LaunchCounter(f"int8_matmul_fp bm={bm}")
+                 for bm in ROW_TILES}
+FUSED_TILE_COUNTERS = {bm: LaunchCounter(f"int8_matmul_fused bm={bm}")
+                       for bm in ROW_TILES}
 MAX_ROW_TILES = 65535        # gridDim.y
 K_ALIGN = 16                 # K padding and operand alignment, bytes
+
+
+def check_tile(block) -> tuple:
+    """``block`` as a tuple, if the CUDA kernel instantiates it."""
+    block = tuple(int(b) for b in block)
+    if block not in MATMUL_TILES:
+        raise ValueError(f"the CUDA int8 matmul has no tile {block}; its "
+                         f"tiles are {MATMUL_TILES}")
+    return block
+
+
+def row_tile(bm: int, m: int) -> int:
+    """The row tile a launch runs for the tile row ``bm`` at ``m`` rows:
+    ``bm``, or where M is below it the least instantiated row tile that
+    covers M (the counterpart of the Pallas block's ``min(bm, M)``)."""
+    if m >= bm:
+        return bm
+    return min(t for t in ROW_TILES if t >= m)
 
 
 def _acc_plain(x3: torch.Tensor, w3: torch.Tensor, x_zp: torch.Tensor):
@@ -105,8 +133,8 @@ def int8_matmul_fused_plain(x2: torch.Tensor, w2: torch.Tensor,
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {   # the C entry points of csrc/int8_matmul.cu
-    "repro_int8_matmul_fp": [_VP] * 6 + [_CI] * 4 + [_VP],
-    "repro_int8_matmul_fused": [_VP] * 8 + [_CI] * 5 + [_VP],
+    "repro_int8_matmul_fp": [_VP] * 6 + [_CI] * 5 + [_VP],
+    "repro_int8_matmul_fused": [_VP] * 8 + [_CI] * 6 + [_VP],
     "repro_int8_transpose": [_VP] * 2 + [_CI] * 3 + [_VP],
 }
 
@@ -200,54 +228,68 @@ def _check_staged(x, wk, what: str):
 
 
 def int8_matmul_fp_cuda(x3: torch.Tensor, w3: torch.Tensor,
-                        x_zp: torch.Tensor, alpha: torch.Tensor):
-    """Launch the CUDA kernel; same returns as :func:`int8_matmul_fp_plain`."""
+                        x_zp: torch.Tensor, alpha: torch.Tensor,
+                        block=MATMUL_DEFAULT):
+    """Launch the CUDA kernel on the tile ``block`` (one of
+    ``tuning.MATMUL_TILES``, its rows clamped by :func:`row_tile`); same
+    returns as :func:`int8_matmul_fp_plain`."""
     _check_operands(x3, w3, "int8_matmul_fp_cuda", 3)
-    return int8_matmul_fp_cuda_staged(*stage_operands(x3, w3), x_zp, alpha)
+    return int8_matmul_fp_cuda_staged(*stage_operands(x3, w3), x_zp, alpha,
+                                      block=block)
 
 
 def int8_matmul_fp_cuda_staged(xk: torch.Tensor, wk: torch.Tensor,
-                               x_zp: torch.Tensor, alpha: torch.Tensor):
+                               x_zp: torch.Tensor, alpha: torch.Tensor,
+                               block=MATMUL_DEFAULT, clamp: bool = True):
     """The kernel on operands already staged by :func:`stage_operands`:
     uint8 ``xk [B, M, Kp]``, int8 K-major ``wk [B, N, Kp]``.  Past
     ``MAX_ROW_TILES`` row tiles (the grid's y limit) M is split into
     chunks of at most that many tiles, one launch each, in the kernel's
-    own tile order."""
+    own tile order.  ``clamp=False`` runs ``block``'s row tile even where
+    M is below it (the tile as it is, for measurements)."""
     _check_operands(xk, wk.transpose(-1, -2), "int8_matmul_fp_cuda", 3)
     _check_staged(xk, wk, "int8_matmul_fp_cuda")
-    rows = MAX_ROW_TILES * BM
-    if xk.shape[1] > rows:
+    block = check_tile(block)
+    b, m, k = xk.shape
+    bm = row_tile(block[0], m) if clamp else block[0]
+    rows = MAX_ROW_TILES * bm
+    if m > rows:
         parts = [int8_matmul_fp_cuda_staged(
-            xk[:, i:i + rows].contiguous(), wk, x_zp, alpha)
-            for i in range(0, xk.shape[1], rows)]
+            xk[:, i:i + rows].contiguous(), wk, x_zp, alpha, block=block,
+            clamp=clamp)
+            for i in range(0, m, rows)]
         return (torch.cat([p[0] for p in parts], dim=1),
                 torch.stack([p[1] for p in parts]).amin(),
                 torch.stack([p[2] for p in parts]).amax())
-    b, m, k = xk.shape
     n = wk.shape[1]
     alpha, zp = _scalar(alpha, xk), _scalar(x_zp, xk)
-    gm, gn = -(-m // BM), -(-n // BN)
+    gm, gn = -(-m // bm), -(-n // block[1])
     y = torch.empty((b, m, n), dtype=torch.float32, device=xk.device)
     partials = torch.empty((b, gm, gn, 2), dtype=torch.float32,
                            device=xk.device)
     status = _lib("repro_int8_matmul_fp")(
         xk.data_ptr(), wk.data_ptr(), y.data_ptr(), partials.data_ptr(),
-        alpha.data_ptr(), zp.data_ptr(), b, m, k, n,
+        alpha.data_ptr(), zp.data_ptr(), b, m, k, n, bm,
         torch.cuda.current_stream(xk.device).cuda_stream)
     build.check(status, "int8_matmul_fp")
     COUNTER.count += 1
+    TILE_COUNTERS[bm].count += 1
     return y, partials[..., 0].amin(), partials[..., 1].amax()
 
 
 def int8_matmul_fused_cuda(x2: torch.Tensor, w2: torch.Tensor,
                            x_zp: torch.Tensor, alpha: torch.Tensor,
-                           bias, qparams: torch.Tensor, spec: QuantSpec):
-    """Launch the CUDA kernel; same returns as
+                           bias, qparams: torch.Tensor, spec: QuantSpec,
+                           block=MATMUL_DEFAULT):
+    """Launch the CUDA kernel on the tile ``block`` (as
+    :func:`int8_matmul_fp_cuda`); same returns as
     :func:`int8_matmul_fused_plain`."""
     _check_operands(x2, w2, "int8_matmul_fused_cuda", 2)
-    if -(-x2.shape[0] // BM) > MAX_ROW_TILES:
+    block = check_tile(block)
+    bm = row_tile(block[0], x2.shape[0])
+    if -(-x2.shape[0] // bm) > MAX_ROW_TILES:
         raise ValueError(f"int8_matmul_fused_cuda: M = {x2.shape[0]} "
-                         f"exceeds {MAX_ROW_TILES} row tiles of {BM}")
+                         f"exceeds {MAX_ROW_TILES} row tiles of {bm}")
     if spec.bits != 8:
         raise ValueError(f"the kernel stores 8-bit images, got {spec.bits}")
     xk, wk = stage_operands(x2, w2)
@@ -260,15 +302,16 @@ def int8_matmul_fused_cuda(x2: torch.Tensor, w2: torch.Tensor,
         if not bias.is_cuda or bias.shape != (n,):
             raise ValueError(f"bias must be a CUDA tensor of shape ({n},)")
         bias = bias.to(torch.float32).contiguous()
-    gm, gn = -(-m // BM), -(-n // BN)
+    gm, gn = -(-m // bm), -(-n // block[1])
     q = torch.empty((m, n), dtype=spec.storage_dtype, device=xk.device)
     partials = torch.empty((gm, gn, 2), dtype=torch.float32, device=xk.device)
     status = _lib("repro_int8_matmul_fused")(
         xk.data_ptr(), wk.data_ptr(), q.data_ptr(), partials.data_ptr(),
         alpha.data_ptr(), zp.data_ptr(),
         None if bias is None else bias.data_ptr(), qparams.data_ptr(),
-        m, k, n, spec.int_min, spec.int_max,
+        m, k, n, spec.int_min, spec.int_max, bm,
         torch.cuda.current_stream(xk.device).cuda_stream)
     build.check(status, "int8_matmul_fused")
     FUSED_COUNTER.count += 1
+    FUSED_TILE_COUNTERS[bm].count += 1
     return q, partials[..., 0].amin(), partials[..., 1].amax()

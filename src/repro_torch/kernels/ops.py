@@ -27,6 +27,7 @@ from . import fused_quantize as _fq
 from . import int8_attention as _attn
 from . import int8_matmul as _mm
 from . import stochastic_quantize as _sq
+from . import tuning
 from .int8_attention import AttnSchedule
 
 COUNTERS = (_fq.COUNTER, _mm.COUNTER, _attn.COUNTER, _sq.COUNTER,
@@ -38,9 +39,26 @@ def launch_counts() -> dict:
     return {c.name: c.count for c in COUNTERS}
 
 
+def tile_launch_counts() -> dict:
+    """``{(kernel name, row tile): launches}`` of the int8 matmuls since
+    the last reset."""
+    out = {("int8_matmul_fp", bm): c.count
+           for bm, c in _mm.TILE_COUNTERS.items()}
+    out.update({("int8_matmul_fused", bm): c.count
+                for bm, c in _mm.FUSED_TILE_COUNTERS.items()})
+    return out
+
+
 def reset_launch_counts() -> None:
-    for c in COUNTERS:
+    for c in (*COUNTERS, *_mm.TILE_COUNTERS.values(),
+              *_mm.FUSED_TILE_COUNTERS.values()):
         c.count = 0
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    """``"uint8"`` for ``torch.uint8``: the reference's dtype string in
+    the tile cache's key."""
+    return str(t.dtype).removeprefix("torch.")
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -176,20 +194,23 @@ def _prod(dims) -> int:
     return out
 
 
-def _int8_fp_batched(x3, w3, x_zp, alpha):
-    """uint8 ``[B, M, K]`` x int8 ``[B, K, N]`` -> ``(y, min, max)``."""
+def _int8_fp_batched(x3, w3, x_zp, alpha, block):
+    """uint8 ``[B, M, K]`` x int8 ``[B, K, N]`` -> ``(y, min, max)``; the
+    kernel runs on the tile ``block``."""
     zp = torch.as_tensor(x_zp, dtype=torch.float32).to(x3.device)
     al = torch.as_tensor(alpha, dtype=torch.float32).to(x3.device)
     if _on_cuda(x3, w3):
-        return _mm.int8_matmul_fp_cuda(x3, w3, zp, al)
+        return _mm.int8_matmul_fp_cuda(x3, w3, zp, al, block=block)
     return _mm.int8_matmul_fp_plain(x3, w3, zp, al)
 
 
 def int8_matmul_fp(x_q: torch.Tensor, w_q: torch.Tensor, x_zp, alpha, *,
-                   plan: EinsumPlan):
+                   plan: EinsumPlan, block=None):
     """``alpha * einsum(plan.spec, x_q - zp_x, w_q)`` with the contraction
     exact in int32, plus the min/max of the fp32 result.  Returns ``(y in
-    einsum output layout, obs_min, obs_max)``."""
+    einsum output layout, obs_min, obs_max)``.  ``block=None`` resolves
+    the tile through :func:`tuning.matmul_block` (``REPRO_MM_BLOCK`` /
+    ``REPRO_TUNE`` aware), as the reference does."""
     nb, nxf, nc = plan.n_batch, plan.n_x_free, plan.n_contract
     xt = x_q.permute(plan.x_perm)
     wt = w_q.permute(plan.w_perm)
@@ -198,8 +219,10 @@ def int8_matmul_fp(x_q: torch.Tensor, w_q: torch.Tensor, x_zp, alpha, *,
     kdims = tuple(xt.shape[nb + nxf:])
     ndims = tuple(wt.shape[nb + nc:])
     b, m, k, n = _prod(bdims), _prod(mdims), _prod(kdims), _prod(ndims)
+    if block is None:
+        block = tuning.matmul_block(m, n, k, dtype=_dtype_name(x_q))
     y3, mn, mx = _int8_fp_batched(xt.reshape(b, m, k), wt.reshape(b, k, n),
-                                  x_zp, alpha)
+                                  x_zp, alpha, block)
     y = y3.reshape(bdims + mdims + ndims).permute(plan.y_perm)
     return y, mn, mx
 
@@ -207,7 +230,8 @@ def int8_matmul_fp(x_q: torch.Tensor, w_q: torch.Tensor, x_zp, alpha, *,
 def int8_matmul_fused(x_q: torch.Tensor, w_q: torch.Tensor, x_scale, x_zp,
                       w_scale, bias, out_qmin, out_qmax, *,
                       out_spec: QuantSpec = QuantSpec(bits=8,
-                                                      symmetric=False)):
+                                                      symmetric=False),
+                      block=None):
     """The paper's whole layer (Fig. 2/3) in one pass: uint8 ``x_q [M, K]``
     (asymmetric grid, zero point ``x_zp``) times int8 ``w_q [K, N]``, plus
     the int32 image ``round(bias / alpha)`` of an optional fp32 ``bias
@@ -215,7 +239,8 @@ def int8_matmul_fused(x_q: torch.Tensor, w_q: torch.Tensor, x_scale, x_zp,
     requantized statically onto the grid of ``[out_qmin, out_qmax]``.
     Scalars are Python floats or 0-dim tensors.  Returns ``(q, obs_min,
     obs_max)``: ``q`` on ``out_spec``'s grid, min/max of the dequantized
-    output."""
+    output.  ``block=None`` resolves the tile as :func:`int8_matmul_fp`
+    does."""
     dev = x_q.device
     f32 = functools.partial(torch.as_tensor, dtype=torch.float32,
                             device=dev)
@@ -223,9 +248,12 @@ def int8_matmul_fused(x_q: torch.Tensor, w_q: torch.Tensor, x_scale, x_zp,
     zp = f32(x_zp)
     qp = _qparams(out_qmin, out_qmax, out_spec).to(dev)
     operands = (x_q, w_q) if bias is None else (x_q, w_q, bias)
+    if block is None:
+        block = tuning.matmul_block(x_q.shape[0], w_q.shape[1],
+                                    x_q.shape[1], dtype=_dtype_name(x_q))
     if _on_cuda(*operands):
         return _mm.int8_matmul_fused_cuda(x_q, w_q, zp, alpha, bias, qp,
-                                          out_spec)
+                                          out_spec, block=block)
     return _mm.int8_matmul_fused_plain(x_q, w_q, zp, alpha, bias, qp,
                                        out_spec)
 
@@ -441,7 +469,7 @@ def conv_unpatch(dp: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
 
 
 def int8_conv_fp(x_q: torch.Tensor, w_q: torch.Tensor, x_zp, alpha, *,
-                 plan: ConvPlan):
+                 plan: ConvPlan, block=None):
     """Quantized conv on the int8 matmul path with an fp32 result.
 
     im2col-lowers the uint8 NHWC image (padding with ``round(x_zp)``, see
@@ -453,11 +481,16 @@ def int8_conv_fp(x_q: torch.Tensor, w_q: torch.Tensor, x_zp, alpha, *,
     NHWC, obs_min, obs_max)``: the statistics are the min/max of ``y``,
     and ``y`` is contiguous (for grouped convs the unlowering is a
     strided view until copied), so what reduces over it later sums in one
-    order whichever backend made it.
+    order whichever backend made it.  The lowered conv shares the matmul's
+    tiles: ``block=None`` resolves through :func:`tuning.matmul_block` at
+    ``(M, Fg, K)``.
     """
+    if block is None:
+        block = tuning.matmul_block(plan.m, plan.cout_g, plan.k,
+                                    dtype=_dtype_name(x_q))
     pad_q = torch.round(torch.as_tensor(x_zp, dtype=torch.float32,
                                         device=x_q.device))
     patches = conv_patches(x_q, plan, pad_q)        # fp 0.0 == integer zp
     ws = conv_lower_weights(w_q, plan)
-    y3, mn, mx = _int8_fp_batched(patches, ws, x_zp, alpha)
+    y3, mn, mx = _int8_fp_batched(patches, ws, x_zp, alpha, block)
     return conv_unlower_output(y3, plan).contiguous(), mn, mx

@@ -1,5 +1,5 @@
-"""The training step with gradient accumulation (port of
-``repro/runtime/steps.py``: ``init_train_state`` and ``make_train_step``).
+"""Step builders: training with gradient accumulation, prefill, decode
+(port of ``repro/runtime/steps.py``).
 
 Train state: ``{"params": ParamTree, "opt": optimizer state, "quant":
 quant-state tree, "step": int}``.  The parameters and optimizer moments
@@ -300,3 +300,22 @@ def make_train_step(cfg, policy: QuantPolicy, optimizer, lr_schedule: Callable,
                 "step": step + 1}, metrics
 
     return train_step
+
+
+def make_prefill_step(cfg, policy: QuantPolicy,
+                      cache_len: Optional[int] = None) -> Callable:
+    """``prefill_step(params, quant, batch) -> (last logits, caches)``."""
+    def prefill_step(params, quant, batch):
+        return model.prefill(params, quant, batch, cfg, policy,
+                             cache_len=cache_len)
+    return prefill_step
+
+
+def make_decode_step(cfg, policy: QuantPolicy) -> Callable:
+    """``decode_step(params, quant, batch, caches) -> (logits, caches)``
+    for ``batch = {"token": [B, 1], "pos": [B]}``; the caches are updated
+    in place."""
+    def decode_step(params, quant, batch, caches):
+        return model.decode_step(params, quant, batch["token"], batch["pos"],
+                                 caches, cfg, policy)
+    return decode_step

@@ -344,14 +344,15 @@ def test_attention_kernel_tall_is_the_tuners_pick(card):
 
 
 @pytest.mark.parametrize("hd, blocks, what", [
-    (272, (128, 128), "head_dim"), (200, (128, 128), "head_dim"),
+    (272, (128, 128), "head_dim"), (320, (128, 128), "head_dim"),
     (256, (100, 100), "shared memory"), (128, (257, 128), "bq <= 256"),
     (128, (256, 256), "bkv <= 128")])
 def test_attention_kernel_refuses_what_it_cannot_take(card, hd, blocks,
                                                       what):
-    """hd above 256 (or above 128 off the multiples of 16), bq above 256,
-    bkv above 128, and a wide tile whose flat err/sig buffer does not fit
-    the card, raise with a message that names the limit."""
+    """hd above 256, bq above 256, bkv above 128, and a wide tile whose
+    flat err/sig buffer does not fit the card, raise with a message that
+    names the limit (an hd in (128, 256] off the multiples of 16 runs
+    padded: ``test_attention_kernel_pads_hd_off_16``)."""
     s = max(blocks)
     sched = attn.make_schedule(sq=s, skv=s, hd=hd, bq=blocks[0],
                                bkv=blocks[1], groups=1, mode="causal",
@@ -362,6 +363,19 @@ def test_attention_kernel_refuses_what_it_cannot_take(card, hd, blocks,
     kvl = torch.tensor([s], device=card, dtype=torch.int32)
     with pytest.raises(ValueError, match=what):
         attn.attention_cuda(q, k, k, regs, kvl, sched=sched)
+
+
+@pytest.mark.parametrize("case", [
+    ("causal", 256, 256, 2, 200, 0, 0, None, (128, 128)),
+    ("sliding", 300, 300, 4, 200, 96, 0, None, (64, 64)),
+    ("bidir", 132, 132, 1, 136, 0, 0, None, (256, 128)),
+    ("prefix", 200, 200, 8, 250, 0, 64, None, (128, 64))],
+    ids=lambda c: f"{c[0]}-hd{c[4]}")
+def test_attention_kernel_pads_hd_off_16(card, case):
+    """Head dims in (128, 256] off the multiples of 16 run on the wide
+    instantiation padded to the next one (zero K and V columns): held
+    against the plain version at the unpadded hd as every other case."""
+    _hold_attention(card, case)
 
 
 def _hold_attention(card, case):
@@ -444,9 +458,9 @@ def test_reduced_moe_serve_on_card_uses_every_kernel(card):
     batches = []
     real = mm.int8_matmul_fp_cuda_staged
 
-    def spy(xk, wk, zp, alpha):
+    def spy(xk, wk, zp, alpha, **kw):
         batches.append(xk.shape[0])
-        return real(xk, wk, zp, alpha)
+        return real(xk, wk, zp, alpha, **kw)
     mm.int8_matmul_fp_cuda_staged = spy
     try:
         logits = {}
@@ -648,6 +662,93 @@ def test_int8_conv_fp_beyond_the_row_tiles_splits(card):
     yr, mnr, mxr = ops.int8_conv_fp(x.cpu(), w.cpu(), zp, alpha, plan=plan)
     assert torch.equal(yk.cpu(), yr)
     assert torch.equal(mnk.cpu(), mnr) and torch.equal(mxk.cpu(), mxr)
+
+
+# Every tile the int8 matmul instantiates, at the row counts the paths
+# give it: decode (1, 4), one 16-row tile, the 64-row clamp (40), one full
+# tile (128) and the MoE prefill's 552; K off the 128-byte slab, N off
+# the 128-column tile.
+TILE_MS = [1, 4, 16, 40, 128, 552]
+
+
+def _tile_id(tile):
+    return f"bm{tile[0]}"
+
+
+@pytest.mark.parametrize("m", TILE_MS)
+@pytest.mark.parametrize("tile", mm.MATMUL_TILES, ids=_tile_id)
+def test_int8_matmul_every_tile_matches_plain(card, tile, m):
+    """y, the requantized bytes and the min/max bit for bit against the
+    plain versions on every tile; the launch runs the clamped row tile
+    (``row_tile``) and counts it."""
+    b, k, n = 3, 300, 263
+    g = _gen(card, m + tile[0])
+    x = torch.randint(0, 256, (b, m, k), generator=g, device=card,
+                      dtype=torch.uint8)
+    w = torch.randint(-127, 128, (b, k, n), generator=g, device=card,
+                      dtype=torch.int8)
+    zp = torch.tensor(117.3, device=card)
+    alpha = torch.tensor(3.1e-4, device=card)
+    ops.reset_launch_counts()
+    yk, mnk, mxk = mm.int8_matmul_fp_cuda(x, w, zp, alpha, block=tile)
+    yr, mnr, mxr = mm.int8_matmul_fp_plain(x, w, zp, alpha)
+    torch.cuda.synchronize()
+    assert torch.equal(yk, yr)
+    assert torch.equal(mnk, mnr) and torch.equal(mxk, mxr)
+    run = mm.row_tile(tile[0], m)
+    assert ops.tile_launch_counts()[("int8_matmul_fp", run)] == 1
+    if run != tile[0]:      # the tile itself, its rows past M zero-filled
+        xk, wk = mm.stage_operands(x, w)
+        yk, mnk, mxk = mm.int8_matmul_fp_cuda_staged(xk, wk, zp, alpha,
+                                                     block=tile, clamp=False)
+        torch.cuda.synchronize()
+        assert torch.equal(yk, yr)
+        assert torch.equal(mnk, mnr) and torch.equal(mxk, mxr)
+        assert ops.tile_launch_counts()[("int8_matmul_fp", tile[0])] == 1
+    bias = torch.randn((n,), generator=g, device=card) * 0.5
+    for sym in (False, True):
+        spec = QuantSpec(bits=8, symmetric=sym)
+        qp = ops._qparams(torch.tensor(-1.5, device=card),
+                          torch.tensor(2.0, device=card), spec)
+        qk, mnk, mxk = mm.int8_matmul_fused_cuda(x[0], w[0], zp, alpha, bias,
+                                                 qp, spec, block=tile)
+        qr, mnr, mxr = mm.int8_matmul_fused_plain(x[0], w[0], zp, alpha,
+                                                  bias, qp, spec)
+        torch.cuda.synchronize()
+        assert torch.equal(qk, qr)
+        assert torch.equal(mnk, mnr) and torch.equal(mxk, mxr)
+    assert ops.tile_launch_counts()[("int8_matmul_fused", run)] == 2
+
+
+@pytest.mark.parametrize("tile", mm.MATMUL_TILES, ids=_tile_id)
+def test_int8_conv_fp_every_tile_matches_plain(card, tile):
+    """A MobileNetV2-tiny expand layer (M = 4 x 32 x 32 rows) on every
+    tile, bit for bit against the plain version on the CPU."""
+    xs, ws = (4, 32, 32, 24), (1, 1, 24, 144)
+    g = _gen(card, tile[0])
+    x = torch.randint(0, 256, xs, generator=g, device=card,
+                      dtype=torch.uint8)
+    w = torch.randint(-127, 128, ws, generator=g, device=card,
+                      dtype=torch.int8)
+    plan = ops.plan_conv(xs, ws, 1, "SAME", 1, 1)
+    zp, alpha = torch.tensor(117.0), torch.tensor(2.3e-4)
+    ops.reset_launch_counts()
+    yk, mnk, mxk = ops.int8_conv_fp(x, w, zp.to(card), alpha.to(card),
+                                    plan=plan, block=tile)
+    assert ops.tile_launch_counts()[("int8_matmul_fp", tile[0])] == 1
+    yr, mnr, mxr = ops.int8_conv_fp(x.cpu(), w.cpu(), zp, alpha, plan=plan)
+    assert torch.equal(yk.cpu(), yr)
+    assert torch.equal(mnk.cpu(), mnr) and torch.equal(mxk.cpu(), mxr)
+
+
+def test_int8_matmul_refuses_an_uninstantiated_tile(card):
+    x = torch.zeros((1, 4, 32), dtype=torch.uint8, device=card)
+    w = torch.zeros((1, 32, 16), dtype=torch.int8, device=card)
+    one = torch.tensor(1.0, device=card)
+    with pytest.raises(ValueError, match="has no tile"):
+        mm.int8_matmul_fp_cuda(x, w, one, one, block=(256, 256, 256))
+    with pytest.raises(ValueError, match="has no tile"):
+        mm.int8_matmul_fp_cuda(x, w, one, one, block=(48, 128, 128))
 
 
 def test_conv_site_fp32_products_ignore_global_tf32(card):

@@ -190,18 +190,53 @@ def test_attention_plain_wide_head_dims_match_jax(case, monkeypatch):
 
 
 @pytest.mark.parametrize("hd, ok", [(128, True), (144, True), (192, True),
-                                    (256, True), (100, True), (200, False),
+                                    (256, True), (100, True), (200, True),
                                     (272, False), (512, False)])
 def test_kernel_tile_limits(hd, ok):
-    """The CUDA kernel takes hd <= 128, or <= 256 in multiples of 16, and
-    says so (the plain version takes up to 512)."""
+    """The CUDA kernel takes hd <= 256 (above 128 the wrapper pads hd to a
+    multiple of 16), and says so (the plain version takes up to 512)."""
     sched = tkattn.make_schedule(sq=64, skv=64, hd=hd, bq=64, bkv=64,
                                  groups=1, mode="causal", sm_scale=1.0)
     if ok:
         tkattn.check_kernel_tiles(sched)
+        want = hd if hd <= 128 else -(-hd // 16) * 16
+        assert tkattn.kernel_head_dim(hd) == want
     else:
-        with pytest.raises(ValueError, match="head_dim <= 128, or <= 256"):
+        with pytest.raises(ValueError, match="head_dim <= 256"):
             tkattn.check_kernel_tiles(sched)
+
+
+@pytest.mark.parametrize("case", [("causal", 40, 40, 3, 200, 0, None,
+                                   (16, 16)),
+                                  ("sliding", 48, 48, 2, 250, 20, 40,
+                                   (16, 16), (117.7, -0.1, 1.0, 23.0))],
+                         ids=lambda c: f"{c[0]}-{c[4]}")
+def test_attention_core_unchanged_by_hd_padding(case):
+    """What the CUDA wrapper does at hd 200 and 250 (zero K and V columns
+    up to the next multiple of 16), done to the plain core: out (cut
+    back), (m, l) and the p-site statistics equal the unpadded core's bit
+    for bit."""
+    mode, sq, skv, groups, hd, window, kv_len, block = case[:8]
+    q, k, v, regs = _attn_inputs(sq, skv, groups, hd, seed=sq + hd,
+                                 **({"zps": case[8]} if len(case) > 8
+                                    else {}))
+    kvl = torch.tensor([[skv if kv_len is None else kv_len]],
+                       dtype=torch.int32)
+    hp = tkattn.kernel_head_dim(hd)
+    assert hp % 16 == 0 and hp > hd
+    out = []
+    for d in (hd, hp):
+        sched = tkattn.make_schedule(
+            sq=sq, skv=skv, hd=d, bq=block[0], bkv=block[1], groups=groups,
+            mode=mode, window=window, sm_scale=hd ** -0.5)
+        qt, kt, vt = (torch.nn.functional.pad(torch.from_numpy(t),
+                                              (0, d - hd))
+                      for t in (q, k, v))
+        out.append(tkattn.attention_core_reference(
+            qt, kt, vt, torch.from_numpy(regs), kvl, sched=sched))
+    (o, ml, ps), (op, mlp, psp) = out
+    assert torch.equal(op[..., :hd], o) and not op[..., hd:].any()
+    assert torch.equal(mlp, ml) and torch.equal(psp, ps)
 
 
 @pytest.mark.parametrize("s, blocks, ok", [
