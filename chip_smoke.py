@@ -21,7 +21,9 @@ prompt, and its train step at full width, and the enc-dec and VLM
 families: seamless-m4t-medium (a bidirectional encoder on stub frame
 embeddings, a decoder with cross attention) and paligemma-3b (an image
 prefix of stub patch embeddings under the prefix-LM mask, MQA at hd 256)
-serving and training at full width and depth.  Each
+serving and training at full width and depth, and the ``model`` mesh
+axis: starcoder2-3b served and qwen2-moe-a2.7b trained on model shards
+over gloo ranks on the one card.  Each
 kernel is checked against its plain PyTorch version at the shapes those
 paths give it.  Every phase prints its wall seconds as it ends
 (``[time] phase N ...``), and the run its total.
@@ -246,6 +248,36 @@ Phases, one line each:
                    tile the tuner and the clamp give (16 at B 1, 128 at
                    B 128), the launch counters zeroed just before and read
                    just after
+ 42. general attn  the attention kernel's general instantiation (bkv in
+                   (128, 512], bq above 256, hd in (256, 512]) against its
+                   plain version at [8, 1024, 512] on bkv 512, [16, 1024,
+                   128] on bkv 256 and on bq 512, and hd 320: m and
+                   min/max/clip/n exact, out, l and err/sig within their
+                   tolerances; ms beside its bound, its plain version and
+                   bf16 SDPA
+ 43. tp serve      the model axis: starcoder2-3b at full width and depth
+                   over 2 gloo ranks on the card (model 2: a KV head, half
+                   the MLP's columns and of the vocabulary each; the
+                   row-parallel products on the int32 mode and its
+                   epilogue), through runtime.steps.make_prefill_step /
+                   make_decode_step(model_group=): prefill of phase 4's
+                   4 x 1024 prompt and 7 greedy decode steps against phase
+                   4's kept outputs (statistics bit for bit, prefill
+                   logits within 1e-5 rel L2, the 8 tokens identical);
+                   each rank's peak GiB, its gloo collectives' ms (host
+                   copies), the launch counters zeroed just before and
+                   read just after
+ 44. tp train      make_train_step(group=, model_group=) of
+                   qwen2-moe-a2.7b at full width, 2 layers, 4 x 1024 on
+                   (1, 2) (30 experts a rank), then reduced on (2, 2), gloo
+                   ranks on the card, against the one-process step on rank
+                   0: activation-site quant state bit for bit, gradient
+                   sites within 1e-5 of the largest element, the loss
+                   within 1e-5 relative, the clipped gradients within 2**-7
+                   relative L2 or 4 x the one-process step's own distance
+                   under another fp32 association of its backward (and
+                   doubled or halved gradients refused); first and warm
+                   steps timed
 
 Phase 3 also holds ``int8_conv_fp`` (the conv site, im2col onto the int8
 matmul kernel) against its plain version at four MobileNetV2-tiny layer
@@ -280,13 +312,12 @@ and prints no result; so does a machine without a CUDA card.
 
 ``--phases`` runs only the named phases (a list of numbers and ranges,
 e.g. ``1-3`` to build and check the kernels without serve and train);
-phase 1 always runs, 5-6 bring 4 along, whose serve run they reuse, 18
-brings 17, 21-22 bring 20, 27 brings 26, 30 brings 29, 33 brings 32 and
-36 brings 35.  Kernels whose path phases did not run report
-``"launches": null``.  The default is all 41; phases
-12-16 write
-their logs and checkpoints
-under ``build/chip_smoke/`` and remove the checkpoints when done.
+phase 1 always runs, 5-6 and 43 bring 4 along, whose serve run they
+reuse, 18 brings 17, 21-22 bring 20, 27 brings 26, 30 brings 29, 33
+brings 32 and 36 brings 35.  Kernels whose path phases did not run
+report ``"launches": null``.  The default is all 44; phases 12-16 and
+39-40, 43-44 write their logs, checkpoints and rank records under
+``build/chip_smoke/`` and remove the checkpoints when done.
 """
 from __future__ import annotations
 
@@ -402,7 +433,32 @@ CELL_REFUSAL = ("full attention: 512k decode needs an O(S) KV cache per "
 CELL_STEPS, CELL_PREFILL_ROWS, RWKV_CELL_WINDOW = 7, 8, 2048
 # The decode path's kernels (decode attention is the plain core).
 DECODE_KERNELS = ("fused_quantize", "int8_transpose", "int8_matmul_fp")
-N_PHASES = 41
+# The attention kernel's general instantiation (phase 42): [8, 1024, 512]
+# on bkv 512, [16, 1024, 128] on bkv 256 and on bq 512, and hd 320, each
+# at batch 1 and S = 1024 (causal).
+GENERAL_SEQ = 1024
+GENERAL_TILES = (("hd512-bkv512", 8, 2, 512, (128, 512)),
+                 ("hd128-bkv256", 16, 2, 128, (128, 256)),
+                 ("hd128-bq512", 16, 2, 128, (512, 128)),
+                 ("hd320", 8, 2, 320, (128, 128)))
+# The model axis (phases 43-44): gloo ranks on the one card.  Serve:
+# starcoder2-3b at full width and depth on (1, 2); train: qwen2-moe-a2.7b
+# at full width, depth 2, 4 x 1024 on (1, 2), then reduced on (2, 2) at 4
+# x 32.  The kernels of the sharded path (the row-parallel products run
+# the int32 mode and its epilogue).
+TP_SIZE = 2
+TP_KERNELS = SERVE_KERNELS + ("int8_matmul_int32", "int8_matmul_epilogue")
+TP_TRAIN_RUNS = (("full", (1, 2), False, MOE_TRAIN_LAYERS, BATCH, PROMPT),
+                 ("reduced", (2, 2), True, 0, 4, 32))
+# The sharded step's clipped gradients are held within 2**-7 relative L2
+# of the one-process step's, or within this many times the one-process
+# step's own distance from itself under another fp32 association of its
+# backward (stochastically rounded gradients carry any reordering's flips
+# down the layers: tests/test_torch_tp.py, PERF.md).
+TP_FLOOR_MARGIN = 4.0
+# Phase 4's one-process outputs, kept for phase 43.
+KEPT: dict = {}
+N_PHASES = 44
 # Where phases 12-16 write their JSONL logs and checkpoints (git-ignored).
 OUT_DIR = ROOT / "build" / "chip_smoke"
 
@@ -726,6 +782,99 @@ def check_matmul_shape(dev, gen, what, m, k, n) -> dict:
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms)
 
+
+def check_int8_matmul_int32(dev, gen, cfg):
+    """The int8 matmul's int32 mode at the row-parallel products of
+    phase 43's (1, 2) starcoder2-3b: the attention output ``[4096, 1536] x
+    [1536, 3072]`` (one rank's kv head) and the MLP down projection
+    ``[4096, 6144] x [6144, 3072]``: exact against its plain version, and
+    the two ranks' partials summed through the epilogue equal
+    ``int8_matmul_fp`` on the whole K bit for bit; timed at the down
+    projection beside its bound, its plain version and ``torch._int_mm``
+    (the int8 product alone)."""
+    from repro_torch.kernels import int8_matmul as mm
+
+    m, d = BATCH * PROMPT, cfg.d_model
+    zp = torch.tensor(117.0, device=dev)
+    alpha = torch.tensor(2.3e-5, device=dev)
+    shapes = (("o", cfg.n_heads * cfg.head_dim // 2), ("down", cfg.d_ff // 2))
+    for what, k in shapes:
+        x = torch.randint(0, 256, (1, m, 2 * k), generator=gen, device=dev,
+                          dtype=torch.uint8)
+        w = torch.randint(-127, 128, (1, 2 * k, d), generator=gen,
+                          device=dev, dtype=torch.int8)
+        parts = [mm.int8_matmul_int32_cuda(x[..., i * k:(i + 1) * k],
+                                           w[:, i * k:(i + 1) * k], zp)
+                 for i in range(2)]
+        for i, p in enumerate(parts):
+            want = mm.int8_matmul_int32_plain(
+                x[..., i * k:(i + 1) * k], w[:, i * k:(i + 1) * k], zp)
+            if not torch.equal(p, want):
+                raise AssertionError(f"int8_matmul_int32 {what} shard {i}: "
+                                     f"differs from its plain version")
+        y, mn, mx = mm.int8_matmul_epilogue_cuda(parts[0] + parts[1], alpha)
+        yw, mnw, mxw = mm.int8_matmul_fp_cuda(x, w, zp, alpha)
+        torch.cuda.synchronize()
+        if not (torch.equal(y, yw) and torch.equal(mn, mnw)
+                and torch.equal(mx, mxw)):
+            raise AssertionError(f"int8_matmul_int32 {what}: the summed "
+                                 f"shards' epilogue is not int8_matmul_fp")
+        del parts, y, yw
+    xs, ws = x[..., :k].contiguous(), w[:, :k].contiguous()
+    ms = time_ms(lambda: mm.int8_matmul_int32_cuda(xs, ws, zp), 10)
+    plain_ms = time_ms(lambda: mm.int8_matmul_int32_plain(xs, ws, zp), 3)
+    try:   # yardstick only: one library call, the int8 GEMM alone
+        xl = (xs[0].to(torch.int16) - 128).to(torch.int8)
+        lib_ms = time_ms(lambda: torch._int_mm(xl, ws[0]), 10)
+    except RuntimeError as e:
+        log("kernels", f"torch._int_mm yardstick unavailable: {e}")
+        lib_ms = None
+    b_ms, b_by = bound(m * k + k * d + 4 * m * d, 2 * m * k * d, INT8_OPS)
+    log("kernels", f"int8_matmul_int32 at {', '.join(w_ for w_, _ in shapes)}"
+                   f" (K halves): exact, the summed halves' epilogue bit for "
+                   f"bit int8_matmul_fp; [{m}, {k}, {d}] {ms:.4f} ms with "
+                   f"the weight's transpose (bound {b_ms:.4f} ms, {b_by}), "
+                   f"plain {plain_ms:.4f} ms, torch._int_mm "
+                   + ("n/a" if lib_ms is None else f"{lib_ms:.4f}") + " ms")
+    return dict(name="int8_matmul_int32", route="cuda",
+                source="src/repro_torch/csrc/int8_matmul.cu",
+                replaces="src/repro/kernels/int8_matmul.py:139",
+                shape=[m, k, d], max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def check_int8_matmul_epilogue(dev, gen, cfg):
+    """The int32 mode's epilogue at phase 43's row-parallel output
+    ``[4096, 3072]``: bit for bit its plain version (values and min/max),
+    timed beside its bound, its plain version and ``torch.mul`` (the
+    scaling alone)."""
+    from repro_torch.kernels import int8_matmul as mm
+
+    n = BATCH * PROMPT * cfg.d_model
+    acc = torch.randint(-2 ** 26, 2 ** 26, (BATCH * PROMPT, cfg.d_model),
+                        generator=gen, device=dev, dtype=torch.int32)
+    alpha = torch.tensor(2.3e-5, device=dev)
+    yk, mnk, mxk = mm.int8_matmul_epilogue_cuda(acc, alpha)
+    yr, mnr, mxr = mm.int8_matmul_epilogue_plain(acc, alpha)
+    torch.cuda.synchronize()
+    if not (torch.equal(yk, yr) and torch.equal(mnk, mnr)
+            and torch.equal(mxk, mxr)):
+        raise AssertionError("int8_matmul_epilogue differs from its plain "
+                             "version")
+    ms = time_ms(lambda: mm.int8_matmul_epilogue_cuda(acc, alpha), 20)
+    plain_ms = time_ms(lambda: mm.int8_matmul_epilogue_plain(acc, alpha), 20)
+    lib_ms = time_ms(lambda: torch.mul(acc, alpha), 20)
+    b_ms, b_by = bound(8 * n, n, FP32_OPS)
+    log("kernels", f"int8_matmul_epilogue [{BATCH * PROMPT}, "
+                   f"{cfg.d_model}]: bit-exact; {ms:.4f} ms (bound "
+                   f"{b_ms:.4f} ms, {b_by}), plain {plain_ms:.4f} ms, "
+                   f"torch.mul {lib_ms:.4f} ms")
+    return dict(name="int8_matmul_epilogue", route="cuda",
+                source="src/repro_torch/csrc/int8_matmul.cu",
+                replaces="src/repro/kernels/int8_matmul.py:139",
+                shape=[BATCH * PROMPT, cfg.d_model], max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
 
 def check_moe_matmul(dev, gen, mcfg) -> dict:
     """``int8_matmul_fp`` at the MoE experts' shapes (B = experts, M =
@@ -1260,13 +1409,15 @@ def _mask_pairs(mode, sq, skv, window, prefix_len) -> int:
 
 
 def check_attention(dev, gen, cfg, batch=BATCH, seq=PROMPT, window=None,
-                    skv=None, mode=None, prefix_len=0, light=False):
+                    skv=None, mode=None, prefix_len=0, light=False,
+                    block=None):
     """The attention kernel at ``cfg``'s prefill head layout, ``batch`` x
     ``seq`` queries against ``skv`` keys (default ``seq``), under a
     sliding mask of ``window`` (default: the config's ``sliding_window``)
     or causal, or under ``mode`` (bidir, cross, or prefix with
-    ``prefix_len``).  ``light`` (a long shape, whose plain version takes
-    seconds): held once, the plain version timed once."""
+    ``prefix_len``), on the tile ``block`` (default: the tuner's).
+    ``light`` (a long shape, whose plain version takes seconds): held
+    once, the plain version timed once."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import int8_attention as attn
@@ -1277,7 +1428,7 @@ def check_attention(dev, gen, cfg, batch=BATCH, seq=PROMPT, window=None,
     skv = skv or s
     g = nh // nkv
     bh, zb = batch * nh, batch * nkv
-    bq, bkv = tuning.attention_block(s, skv, hd)
+    bq, bkv = block or tuning.attention_block(s, skv, hd)
     window = window or cfg.sliding_window
     mode = mode or ("causal" if window is None else "sliding")
     sched = attn.make_schedule(sq=s, skv=skv, hd=hd, bq=bq, bkv=bkv,
@@ -4137,6 +4288,7 @@ def vlm_train_phase(dev, records, results) -> None:
 def serve_phases(cfg, dev, records, results, run_phase, clock) -> None:
     """Phase 4, serve, and the phases that reuse its run: 5 (the static
     path) and 6 (prefill parity); ``clock`` times each."""
+    from repro_torch.core.state import tree_map
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
@@ -4166,6 +4318,11 @@ def serve_phases(cfg, dev, records, results, run_phase, clock) -> None:
     for r in records:
         r["serve_launches"] = counts[r["name"]]
     _note_tiles(results, "serve")
+    KEPT["serve"] = {"prompt": run.prompt.cpu(),
+                     "logits": run.prefill_logits.cpu(),
+                     "tokens": run.tokens.cpu(),
+                     "stats": {"decoder": tree_map(
+                         lambda t: t.cpu(), run.prefill_stats["decoder"])}}
 
     policy = run.policy
     clock.stop()
@@ -4282,7 +4439,8 @@ class PhaseClock:
             for n, sec in sorted(self.seconds.items()))
             + f"; phases 1-31 {self.part(1, 31):.1f}, 32-37 "
             f"{self.part(32, 37):.1f}, 38-40 {self.part(38, 40):.1f}, 41 "
-            f"{self.part(41, 41):.1f}; the whole run {total:.1f} s")
+            f"{self.part(41, 41):.1f}, 42-44 {self.part(42, 44):.1f}; the "
+            f"whole run {total:.1f} s")
         return dict(seconds={str(n): sec for n, sec in self.seconds.items()},
                     total_s=total)
 
@@ -4637,6 +4795,440 @@ def dp_train_phase(records) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phases 42-44: the attention kernel's general tiles and the model axis.
+# ---------------------------------------------------------------------------
+def general_attention_phase(dev, records, results) -> None:
+    """Phase 42: the attention kernel's general instantiation against its
+    plain version (m and min/max/clip/n exact, out, l and err/sig within
+    their tolerances) at the tiles past the mma instantiations, timed
+    beside its bound, its plain version and bf16 SDPA."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+
+    base = configs.get("starcoder2-3b")
+    keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "block")
+    out = {}
+    for tag, heads, kv, hd, block in GENERAL_TILES:
+        c = dataclasses.replace(base, name=f"general-{tag}", n_heads=heads,
+                                n_kv=kv, head_dim=hd)
+        before = ops.tile_launch_counts()[("int8_attention", "general")]
+        rec = check_attention(dev, torch.Generator(device=dev).manual_seed(
+            hd + block[0] + block[1]), c, batch=1, seq=GENERAL_SEQ,
+            block=block)
+        runs = ops.tile_launch_counts()[("int8_attention", "general")] - \
+            before
+        if runs < 2:
+            raise AssertionError(f"general {tag}: {runs} launches of the "
+                                 f"general instantiation")
+        out[tag] = {k: rec[k] for k in keys}
+        lib = rec["library_ms"]
+        log("general-attn", f"{tag} {rec['shape']} (bq, bkv) = {block}: "
+                            f"{rec['ms']:.4f} ms, bound "
+                            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+                            f"plain {rec['plain_ms']:.4f} ms, SDPA "
+                            + ("n/a" if lib is None else f"{lib:.4f}")
+                            + " ms")
+        del rec
+        torch.cuda.empty_cache()
+    results["general_attention"] = out
+    for r in records:
+        if r["name"] == "int8_attention":
+            r["general"] = out
+
+
+def _timed_collectives() -> dict:
+    """Wrap this process's ``all_reduce`` / ``all_gather`` so each call is
+    timed on the host clock, the card synchronized before and after (over
+    gloo a collective is a copy through the host); returns the running
+    totals ``{ms, calls, bytes}``."""
+    import torch.distributed as dist
+    acc = {"ms": 0.0, "calls": 0, "bytes": 0}
+
+    def wrap(fn, arg):
+        def timed(*a, **kw):
+            t = a[arg]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            acc["ms"] += (time.perf_counter() - t0) * 1e3
+            acc["calls"] += 1
+            acc["bytes"] += t.numel() * t.element_size()
+            return res
+        return timed
+    dist.all_reduce = wrap(dist.all_reduce, 0)
+    dist.all_gather = wrap(dist.all_gather, 1)
+    return acc
+
+
+def _tp_serve_rank(rank: int, world: int, inp: str, out: str) -> None:
+    """One rank of phase 43 (a spawned process): starcoder2-3b at full
+    width and depth on its (1, 2) model shard, through the step
+    factories: prefill of phase 4's prompt, then greedy decode."""
+    from repro_torch import configs
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.core.state import tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh
+    from repro_torch.models import model
+    from repro_torch.runtime import sharding, steps
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = mesh.mesh_groups(1, world)
+    cfg = configs.get("starcoder2-3b")
+    pol = QuantPolicy.w8a8g8(backend="fused")
+    full = model.init_params(cfg, seed=0, device=dev)
+    params = sharding.shard_params(full, g.coords, g.sizes)
+    del full
+    torch.cuda.empty_cache()
+    quant = model.init_quant_state(cfg, pol, device=dev)
+    prompt = torch.load(inp, weights_only=False)["prompt"].to(dev)
+    prefill = steps.make_prefill_step(cfg, pol, cache_len=PROMPT + GEN_RATE,
+                                      model_group=g.model, return_stats=True)
+    decode = steps.make_decode_step(cfg, pol, model_group=g.model)
+    coll = _timed_collectives()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches, stats = prefill(params, quant, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    pre_coll = dict(coll)
+    tok = logits.argmax(-1)[:, None]
+    toks = [tok]
+    t0 = time.perf_counter()
+    for i in range(GEN_RATE - 1):
+        pos = torch.full((BATCH,), PROMPT + i, dtype=torch.int64, device=dev)
+        lg, caches = decode(params, quant, {"token": tok, "pos": pos}, caches)
+        tok = lg.argmax(-1)[:, None]
+        toks.append(tok)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    rec = {"rank": rank, "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": ops.launch_counts(),
+           "prefill_collectives": pre_coll,
+           "decode_collectives": {k: coll[k] - pre_coll[k] for k in coll}}
+    Path(f"{out}/tp_serve_r{rank}.json").write_text(json.dumps(rec))
+    if rank == 0:
+        torch.save({"logits": logits.cpu(),
+                    "tokens": torch.cat(toks, dim=1).cpu(),
+                    "stats": tree_map(lambda t: t.cpu(), stats)},
+                   f"{out}/tp_serve_r0.pt")
+
+
+def tp_serve_phase(records, results) -> None:
+    """Phase 43: starcoder2-3b served over 2 gloo ranks on the card
+    (model 2: each rank one of the 2 KV heads, half the MLP columns and
+    of the vocabulary) against phase 4's one-process outputs at the same
+    seed, kept: the prefill statistics bit for bit, the prefill logits
+    within 1e-5 relative L2, the 8 greedy tokens identical."""
+    from repro_torch.core.state import tree_map_with_path
+    from repro_torch.launch import mesh
+
+    one = KEPT["serve"]
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    inp = OUT_DIR / "tp_serve_in.pt"
+    torch.save({"prompt": one["prompt"]}, inp)
+    mesh.spawn_ranks(_tp_serve_rank, TP_SIZE, OUT_DIR / "store",
+                     backend="gloo", args=(str(inp), str(OUT_DIR)))
+    recs = [json.loads((OUT_DIR / f"tp_serve_r{r}.json").read_text())
+            for r in range(TP_SIZE)]
+    got = torch.load(OUT_DIR / "tp_serve_r0.pt", weights_only=False)
+    bad = []
+    tree_map_with_path(lambda p, a, b: None if torch.equal(a, b)
+                       else bad.append(p), got["stats"], one["stats"])
+    if bad:
+        raise AssertionError(f"tp serve: {len(bad)} statistics leaves "
+                             f"differ from phase 4's, e.g. {bad[:3]}")
+    rel = float(torch.linalg.vector_norm(got["logits"] - one["logits"])
+                / torch.linalg.vector_norm(one["logits"]))
+    if rel > 1e-5:
+        raise AssertionError(f"tp serve: prefill logits {rel:.3e} rel L2 "
+                             f"off phase 4's")
+    if not torch.equal(got["tokens"], one["tokens"]):
+        raise AssertionError("tp serve: greedy tokens differ from phase 4's")
+    counts = recs[0]["launches"]
+    for k in TP_KERNELS:
+        if not counts[k]:
+            raise AssertionError(f"tp serve: {k} never launched: {counts}")
+    n_stats = []
+    tree_map_with_path(lambda p, a: n_stats.append(p), got["stats"])
+    results["tp_serve"] = {"logits_rel_l2": rel, "stat_leaves": len(n_stats),
+                           "ranks": recs}
+    for r in recs:
+        log("tp-serve", f"rank {r['rank']}: prefill {r['prefill_ms']:.1f} "
+                        f"ms (of which gloo collectives, host copies, "
+                        f"{r['prefill_collectives']['ms']:.1f} ms in "
+                        f"{r['prefill_collectives']['calls']} calls, "
+                        f"{r['prefill_collectives']['bytes'] / 2 ** 20:.0f}"
+                        f" MiB), {GEN_RATE - 1} decode steps "
+                        f"{r['decode_ms']:.1f} ms (collectives "
+                        f"{r['decode_collectives']['ms']:.1f} ms), peak "
+                        f"{r['peak_gib']:.2f} GiB")
+    log("tp-serve", f"starcoder2-3b 30 layers d 3072 on (1, {TP_SIZE}), "
+                    f"{BATCH} x {PROMPT} + {GEN_RATE - 1} decode steps: "
+                    f"{len(n_stats)} statistics leaves bit for bit phase "
+                    f"4's, prefill logits {rel:.3e} rel L2, {GEN_RATE} "
+                    f"greedy tokens identical; launches {counts}")
+    for r in records:
+        r["tp_serve_launches"] = counts[r["name"]]
+
+
+def _grad_rel_l2(got: dict, want: dict) -> list:
+    """``[(relative L2 distance, name)]`` of the gradient tensors, the
+    largest first."""
+    out = []
+    for k, w in want.items():
+        d = torch.linalg.vector_norm((got[k].to(w.device) - w).float())
+        out.append((float(d / torch.linalg.vector_norm(
+            w.float()).clamp(min=1e-30)), k))
+    return sorted(out, reverse=True)
+
+
+def _quant_check(got, want, what: str) -> dict:
+    """Activation leaves bit for bit, gradient leaves within 1e-5 of the
+    leaf's largest element; returns the worst gradient-leaf distance in
+    those units and the leaf counts."""
+    from repro_torch.core.state import tree_map_with_path
+    bad, worst, n = [], [0.0], [0, 0]
+
+    def cmp(path, a, b):
+        if "grad" in path:
+            n[1] += 1
+            scale = max(float(b.abs().max()), 1e-30)
+            worst[0] = max(worst[0], float((a - b).abs().max()) / scale)
+        else:
+            n[0] += 1
+            if not torch.equal(a, b):
+                bad.append(path)
+    tree_map_with_path(cmp, got, want)
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} activation leaves differ "
+                             f"from the one-process step's, e.g. {bad[:3]}")
+    if worst[0] > 1e-5:
+        raise AssertionError(f"{what}: a gradient leaf {worst[0]:.3e} of its "
+                             f"largest element off the one-process step's")
+    return {"grad_leaf_rel": worst[0], "act_leaves": n[0],
+            "grad_leaves": n[1]}
+
+
+def _tp_train_rank(rank: int, world: int, data_n: int, model_n: int,
+                   arch: str, reduced: bool, layers: int, batch_n: int,
+                   seq: int, out: str) -> None:
+    """One rank of phase 44 (a spawned process): the train step on a
+    ``(data_n, model_n)`` mesh, then, on rank 0, the one-process step on
+    the same parameters and batch and the comparison."""
+    import torch.distributed as dist
+
+    from repro_torch import configs, data
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh
+    from repro_torch.models import model
+    from repro_torch.optim import Optimizer, adamw
+    from repro_torch.optim.schedules import constant
+    from repro_torch.runtime import sharding, steps
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda")
+    g = mesh.mesh_groups(data_n, model_n)
+    cfg = configs.get_reduced(arch) if reduced else configs.get(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    pol = QuantPolicy.w8a8g8(backend="fused")
+    seen = {}
+    base = adamw()
+
+    def update(grads, state, params, lr):     # the gradients handed over
+        seen["grads"] = {k: v.detach().clone() for k, v in grads.items()}
+        return base.update(grads, state, params, lr)
+
+    opt = Optimizer(init=base.init, update=update)
+    batch = {k: v.to(dev) for k, v in data.for_arch(
+        cfg, seq_len=seq, global_batch=batch_n, seed=0).batch(0).items()}
+
+    def fresh(shard: bool):
+        params = model.init_params(cfg, seed=0, device=dev)
+        if shard:
+            params = sharding.shard_params(params, g.coords, g.sizes)
+        return steps.train_state(
+            params, model.init_quant_state(cfg, pol, device=dev), opt)
+
+    st = fresh(True)
+    ts = steps.make_train_step(cfg, pol, opt, constant(DP_LR), group=g.data,
+                               model_group=g.model)
+    coll = _timed_collectives()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, met = ts(st, batch)
+    torch.cuda.synchronize()
+    met_norm = met["grad_norm"]
+    rec = {"rank": rank, "step_ms": (time.perf_counter() - t0) * 1e3,
+           "loss": float(met["loss"]), "collectives": dict(coll),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": ops.launch_counts()}
+    names = list(seen["grads"])
+    grads = seen.pop("grads")
+    quant = st["quant"]
+    coll0 = dict(coll)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = ts(st, batch)[0]      # a warm step (the first held the first use)
+    torch.cuda.synchronize()
+    rec["warm_step_ms"] = (time.perf_counter() - t0) * 1e3
+    rec["warm_collectives"] = {k: coll[k] - coll0[k] for k in coll}
+    seen.clear()
+    del st, met
+    torch.cuda.empty_cache()
+    if 0 < rank < model_n:     # data row 0's other shards, to rank 0
+        for k in names:
+            dist.send(grads[k].cpu(), 0)
+    elif rank == 0:
+        shards = [grads]
+        for m in range(1, model_n):
+            part = {}
+            for k in names:
+                t = torch.empty(grads[k].shape, dtype=grads[k].dtype)
+                dist.recv(t, m)
+                part[k] = t.to(dev)
+            shards.append(part)
+        one = fresh(False)
+        whole = sharding.gather_named(shards, dict(
+            one["params"].named_parameters()))
+        del shards, grads
+        ts1 = steps.make_train_step(cfg, pol, opt, constant(DP_LR))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one, met1 = ts1(one, batch)
+        torch.cuda.synchronize()
+        rec["single_step_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["single_loss"] = float(met1["loss"])
+        one_grads = seen.pop("grads")
+        rec.update(_quant_check(quant, one["quant"], f"tp train {arch}"))
+        rel = abs(rec["loss"] - rec["single_loss"]) / abs(rec["single_loss"])
+        if rel > 1e-5:
+            raise AssertionError(f"tp train {arch}: loss {rec['loss']} vs "
+                                 f"one process {rec['single_loss']}")
+        rec["loss_rel"] = rel
+        rec["single_grad_norm"] = float(met1["grad_norm"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = ts1(one, batch)[0]
+        torch.cuda.synchronize()
+        rec["single_warm_ms"] = (time.perf_counter() - t0) * 1e3
+        seen.clear()
+        del one, met1
+        torch.cuda.empty_cache()
+        # The one-process step's own noise floor: the same step with its
+        # backward's dx products run whole-batch (not one batch index at
+        # a time: another fp32 association on the card), whose flips of
+        # stochastically rounded gradients carry down the layers.
+        from repro_torch.core import backend
+        split, backend.SPLIT_MIN_ROWS = backend.SPLIT_MIN_ROWS, 1 << 62
+        try:
+            two = fresh(False)
+            two = steps.make_train_step(cfg, pol, opt, constant(DP_LR))(
+                two, batch)[0]
+        finally:
+            backend.SPLIT_MIN_ROWS = split
+        floor = _grad_rel_l2(seen.pop("grads"), one_grads)
+        del two
+        torch.cuda.empty_cache()
+        rels = _grad_rel_l2(whole, one_grads)
+        bar = max(2 ** -7, TP_FLOOR_MARGIN * floor[0][0])
+        rec.update(grad_rel_l2=rels[0][0], grad_worst=rels[:8],
+                   floor_rel_l2=floor[0][0], floor_worst=floor[:8],
+                   grad_bar=bar, grad_norm=float(met_norm))
+        # the check can fail: gradients summed twice, or averaged
+        rec["grad_rel_doubled"] = _grad_rel_l2(
+            {k: 2 * g for k, g in whole.items()}, one_grads)[-1][0]
+        rec["grad_rel_halved"] = _grad_rel_l2(
+            {k: g / 2 for k, g in whole.items()}, one_grads)[-1][0]
+        log("tp-train", f"{arch}: gradients rel L2 worst {rels[:8]}; the "
+                        f"one-process noise floor worst {floor[:8]}; bar "
+                        f"{bar:.4e}; norms {rec['grad_norm']} vs "
+                        f"{rec['single_grad_norm']}")
+        if rec["grad_rel_l2"] > bar:
+            raise AssertionError(f"tp train {arch}: a gradient "
+                                 f"{rec['grad_rel_l2']:.3e} rel L2 off the "
+                                 f"one-process step's, above {bar:.3e}")
+        for key in ("grad_rel_doubled", "grad_rel_halved"):
+            if rec[key] <= bar:
+                raise AssertionError(f"tp train {arch}: the gradient check "
+                                     f"passes {key[9:]} gradients")
+        del whole, one_grads
+    Path(f"{out}.r{rank}.json").write_text(json.dumps(rec))
+    dist.barrier()
+
+
+def tp_train_phase(records, results) -> None:
+    """Phase 44: qwen2-moe-a2.7b's train step at full width, depth 2, 4 x
+    1024 on (1, 2) (30 of the 60 experts a rank, 8 of the 16 KV heads,
+    half the shared expert's columns and of the vocabulary), then the
+    reduced config on (2, 2), gloo ranks on the card, each against the
+    one-process step on rank 0: activation-site quant state bit for bit,
+    gradient sites within 1e-5 of the largest element, the loss within
+    1e-5 relative, the clipped gradients within 2**-7 relative L2."""
+    from repro_torch.launch import mesh
+
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    results["tp_train"] = {}
+    for tag, (d, m), reduced, layers, b, s in TP_TRAIN_RUNS:
+        out = OUT_DIR / f"tp_train_{tag}"
+        mesh.spawn_ranks(_tp_train_rank, d * m, OUT_DIR / "store",
+                         backend="gloo",
+                         args=(d, m, MOE_ARCH, reduced, layers, b, s,
+                               str(out)))
+        recs = [json.loads(Path(f"{out}.r{r}.json").read_text())
+                for r in range(d * m)]
+        r0 = recs[0]
+        counts = r0["launches"]
+        for k in TP_KERNELS + ("stochastic_quantize",):
+            if not counts[k]:
+                raise AssertionError(f"tp train {tag}: {k} never launched: "
+                                     f"{counts}")
+        results["tp_train"][tag] = recs
+        log("tp-train", f"{MOE_ARCH} {tag} on ({d}, {m}), {b} x {s}: "
+                        f"{r0['act_leaves']} activation leaves bit for bit, "
+                        f"{r0['grad_leaves']} gradient leaves within "
+                        f"{r0['grad_leaf_rel']:.3e} of their largest "
+                        f"element, loss {r0['loss']:.7f} vs "
+                        f"{r0['single_loss']:.7f} ({r0['loss_rel']:.2e} "
+                        f"rel), gradients within {r0['grad_rel_l2']:.3e} "
+                        f"rel L2 (the one-process noise floor "
+                        f"{r0['floor_rel_l2']:.3e}, bar "
+                        f"{r0['grad_bar']:.3e}; doubled "
+                        f"{r0['grad_rel_doubled']:.2f}, halved "
+                        f"{r0['grad_rel_halved']:.2f} refused); step (host "
+                        f"clock) first {r0['step_ms']:.1f} ms, warm "
+                        f"{r0['warm_step_ms']:.1f} ms sharded vs first "
+                        f"{r0['single_step_ms']:.1f}, warm "
+                        f"{r0['single_warm_ms']:.1f} ms one process; "
+                        f"launches {counts}")
+        for r in recs:
+            log("tp-train", f"{tag} rank {r['rank']}: first step "
+                            f"{r['step_ms']:.1f} ms, of which gloo "
+                            f"collectives (host copies) "
+                            f"{r['collectives']['ms']:.1f} ms in "
+                            f"{r['collectives']['calls']} calls "
+                            f"({r['collectives']['bytes'] / 2 ** 20:.0f} "
+                            f"MiB); warm step {r['warm_step_ms']:.1f} ms, "
+                            f"collectives "
+                            f"{r['warm_collectives']['ms']:.1f} ms; peak "
+                            f"{r['peak_gib']:.2f} GiB")
+        if tag == "full":
+            for rr in records:
+                rr["tp_train_launches"] = counts[rr["name"]]
+
 def _cell_window(cfg) -> int:
     """The window a decode cell prefills: the sliding or local ring's
     length; rwkv's state has no ring (``RWKV_CELL_WINDOW`` tokens)."""
@@ -4897,8 +5489,8 @@ def cells_phase(dev, records, results) -> None:
 
 
 def parse_phases(spec: str) -> set:
-    """``"1-3,9"`` -> ``{1, 2, 3, 9}``; phase 1 always, 4 with 5 or 6, 17
-    with 18, 20 with 21 or 22, 26 with 27, 29 with 30, 32 with 33, 35
+    """``"1-3,9"`` -> ``{1, 2, 3, 9}``; phase 1 always, 4 with 5, 6 or 43,
+    17 with 18, 20 with 21 or 22, 26 with 27, 29 with 30, 32 with 33, 35
     with 36."""
     phases = {1}
     for part in spec.split(","):
@@ -4921,6 +5513,8 @@ def parse_phases(spec: str) -> set:
         phases.add(32)
     if 36 in phases:
         phases.add(35)
+    if 43 in phases:
+        phases.add(4)
     return phases
 
 
@@ -5006,7 +5600,9 @@ def main(argv=None) -> int:
                    check_int8_transpose(dev, gen, cfg),
                    check_int8_matmul(dev, gen, cfg),
                    check_int8_matmul_fused(dev, gen, cfg),
-                   check_attention(dev, gen, cfg)]
+                   check_attention(dev, gen, cfg),
+                   check_int8_matmul_int32(dev, gen, cfg),
+                   check_int8_matmul_epilogue(dev, gen, cfg)]
         results["conv"] = check_int8_conv(dev, gen)
         # the MoE family's new operand regimes: the experts on the int8
         # matmul's batch dimension, and MHA attention (G = 1)
@@ -5290,6 +5886,15 @@ def main(argv=None) -> int:
         with clock(41, "decode cells"):
             cells_phase(dev, records, results)
         torch.cuda.empty_cache()
+    for n, name, fn in (
+            (42, "general attention",
+             lambda: general_attention_phase(dev, records, results)),
+            (43, "tp serve", lambda: tp_serve_phase(records, results)),
+            (44, "tp train", lambda: tp_train_phase(records, results))):
+        if run_phase(n):
+            with clock(n, name):
+                fn()
+            torch.cuda.empty_cache()
     for r in records:       # the kernels' launches where no earlier path ran
         for key in ("sc7_serve_launches", "cmdr_serve_launches",
                     "nemotron_serve_launches", "grad_only_launches",
@@ -5298,7 +5903,8 @@ def main(argv=None) -> int:
                     "rwkv_train_launches_per_step", "encdec_serve_launches",
                     "encdec_train_launches_per_step", "vlm_serve_launches",
                     "vlm_train_launches_per_step", "tall_serve_launches",
-                    "dp_train_launches"):
+                    "dp_train_launches", "tp_serve_launches",
+                    "tp_train_launches"):
             if not r["launches"] and r.get(key):
                 r["launches"] = r[key]
         if not r["launches"]:       # the decode cells alone (phase 41)

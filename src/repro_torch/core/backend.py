@@ -21,6 +21,19 @@ the int8 contraction, the int8 convolution and the attention core have
 the reference's custom backward passes as ``torch.autograd.Function``s.
 The forward statistics and ranges are computed on detached tensors: only
 the on-grid values carry the autograd graph.
+
+Under a model group (``runtime.sharding.model_parallel``) a site may
+hold a shard of its tensor (``model_dim``: the dim a model rank holds a
+slice of; None = every rank holds it whole).  A range that reads the
+current tensor takes the (min, max) over the whole mesh, a gradient
+site's noise is this rank's slice of the global site's, and a whole
+site's additive telemetry counters count on model rank 0 only.  A weight
+shard is quantized on the global (min, max).  :func:`qmatmul` has
+Megatron's column-parallel form (the rank's output columns; ``dx``
+summed over the model group in fp32 before its cast) and row-parallel
+form (the rank's K rows: int32 partials summed exactly, then the
+epilogue), and an expert-parallel one (the rank's experts, nothing to
+reduce).
 """
 from __future__ import annotations
 
@@ -124,33 +137,50 @@ def site_noise(seed: int, shape, device) -> torch.Tensor:
                       dtype=torch.float32)
 
 
-def shard_noise(seed: int, shape, device, batch_dim: int = 0
-                ) -> torch.Tensor:
+def shard_noise(seed: int, shape, device, batch_dim: int = 0,
+                model_dim: Optional[int] = None) -> torch.Tensor:
     """:func:`site_noise` of a gradient site whose ``batch_dim`` is this
-    rank's shard under data parallelism: the global site's noise (``N``
-    times the rows) drawn, and this rank's rows of it kept, so a rank's
-    stochastic rounding is the single-device step's on the same rows."""
-    shard = sharding.dp_shard()
-    if shard is None:
+    rank's shard under data parallelism, and whose ``model_dim`` (if not
+    None) its shard under model parallelism: the global site's noise
+    drawn (``N`` times the rows, ``M`` times the model dim), and this
+    rank's rows and slice of it kept, so a rank's stochastic rounding is
+    the single-device step's on the same elements."""
+    dp = sharding.dp_shard()
+    mp = None if model_dim is None else sharding.mp_shard()
+    if dp is None and mp is None:
         return site_noise(seed, shape, device)
     full = list(shape)
-    full[batch_dim] *= shard[1]
-    return sharding.shard_rows(site_noise(seed, full, device), batch_dim)
+    if dp is not None:
+        full[batch_dim] *= dp[1]
+    if mp is not None:
+        full[model_dim] *= mp[1]
+    u = site_noise(seed, full, device)
+    if dp is not None:
+        u = sharding.shard_rows(u, batch_dim)
+    return u if mp is None else sharding.mp_slice(u, model_dim)
 
 
 def _global_minmax(cfg, leaf, tele, xf, local=None):
-    """Under data parallelism, the (min, max) over every rank where the
-    site's range reads the tensor this step (``estimators.
-    reads_current``): one blocking all_reduce.  Elsewhere ``local`` (the
+    """Under data or model parallelism, the (min, max) over every rank of
+    the mesh where the site's range reads the tensor this step
+    (``estimators.reads_current``): a blocking all_reduce a mesh axis (a
+    model-replicated tensor's is its own).  Elsewhere ``local`` (the
     kernel's partials, or ``None``: the caller reduces ``xf`` itself),
     which ``steps.dp_combine_stats`` merges over the ranks once a step,
     so an initialized hindsight site waits on no collective."""
-    if sharding.dp_shard() is None or \
+    if (sharding.dp_shard() is None and sharding.mp_shard() is None) or \
             not estimators.reads_current(cfg, leaf, tele):
         return local
     if local is None:
         local = quant.tensor_minmax(xf)
-    return sharding.dp_minmax(*local)
+    return sharding.mp_minmax(*sharding.dp_minmax(*local))
+
+
+def _whole_site(st: torch.Tensor, model_dim) -> torch.Tensor:
+    """A site's stats; where every model rank holds the tensor whole
+    (``model_dim`` None), its counters on model rank 0 only
+    (``sharding.mp_replicated_stats``)."""
+    return sharding.mp_replicated_stats(st) if model_dim is None else st
 
 
 # ---------------------------------------------------------------------------
@@ -186,19 +216,21 @@ def _quantizer_fwd(x, qmin, qmax, spec: quant.QuantSpec, fused: bool,
 # ---------------------------------------------------------------------------
 # Q_Y: activation quantizer sites.
 # ---------------------------------------------------------------------------
-def act_quantize(policy, x, leaf, step):
+def act_quantize(policy, x, leaf, step, model_dim: Optional[int] = None):
     """The classic activation site; returns ``(xq, stats, qtensor)``."""
-    return site_quantize(policy, x, leaf, step, name="act")
+    return site_quantize(policy, x, leaf, step, name="act",
+                         model_dim=model_dim)
 
 
 def site_quantize(policy, x: torch.Tensor, leaf: torch.Tensor, step, *,
-                  cfg=None, spec=None, name: str = "act"):
+                  cfg=None, spec=None, name: str = "act",
+                  model_dim: Optional[int] = None):
     """Activation-quantizer site with an overridable (estimator, spec).
 
     Simulated: estimator ranges -> fake-quant -> stats reduction.  Fused:
     one pass of the quantize kernel with the leaf's pre-computed range;
     the kernel's partials are the next-step statistics (no separate
-    min/max pass)."""
+    min/max pass).  ``model_dim``: see the module docstring."""
     cfg = policy.act_estimator if cfg is None else cfg
     spec = policy.act_spec if spec is None else spec
     tele = policy.telemetry
@@ -221,7 +253,7 @@ def site_quantize(policy, x: torch.Tensor, leaf: torch.Tensor, step, *,
         st = metrics.site_stats(x, used_qmin, used_qmax, spec, st,
                                 tele.sample)
     scale, zp = quant.scale_zero_point(used_qmin, used_qmax, spec)
-    return xq, st, QTensor(q, scale, zp)
+    return xq, _whole_site(st, model_dim), QTensor(q, scale, zp)
 
 
 def _fused_static_quant(cfg, spec, x, leaf, step, tele):
@@ -250,15 +282,20 @@ def _fused_static_quant(cfg, spec, x, leaf, step, tele):
 # ---------------------------------------------------------------------------
 # Q_W: weight quantizer (current min-max).
 # ---------------------------------------------------------------------------
-def weight_quantize(policy, w: torch.Tensor
+def weight_quantize(policy, w: torch.Tensor, sharded: bool = False
                     ) -> tuple[Optional[torch.Tensor], QTensor]:
     """``(wq, qtensor)``: the weight's int8 image and registers on the
     symmetric grid, and its on-grid values (``w``'s dtype, clipped-STE
     gradient) when a gradient of ``w`` is being recorded — else ``None``:
     an inference contraction reads the image only, and a consumer that
-    needs values takes :func:`dequantize_qtensor` (the same fp32 ops)."""
+    needs values takes :func:`dequantize_qtensor` (the same fp32 ops).
+    ``sharded``: ``w`` is this model rank's shard, quantized on the whole
+    weight's (min, max) (an exact all_reduce), so its image is the slice
+    of the whole weight's."""
     spec = policy.weight_spec
     mn, mx = quant.tensor_minmax(canonical(w))
+    if sharded:
+        mn, mx = sharding.mp_minmax(mn, mx)
     wq, q, _, _ = _quantizer_fwd(
         w, mn, mx, spec, fused=(policy.backend == FUSED),
         values=torch.is_grad_enabled() and w.requires_grad)
@@ -270,15 +307,15 @@ def weight_quantize(policy, w: torch.Tensor
 # Q_G: gradient quantizer (runs inside the barrier's backward pass).
 # ---------------------------------------------------------------------------
 def grad_quantize(policy, g: torch.Tensor, leaf: torch.Tensor, seed: int,
-                  step, batch_dim: int = 0):
+                  step, batch_dim: int = 0, model_dim: Optional[int] = None):
     """Quantize a cotangent; returns ``(gq, stats)``.  Both backends draw
     the stochastic-rounding noise from :func:`site_noise` with the same
     site seed, so the quantized gradients are bit-identical; ``batch_dim``
-    is the dim a data-parallel rank holds a shard of
-    (:func:`shard_noise`)."""
+    is the dim a data-parallel rank holds a shard of, ``model_dim`` the
+    one a model rank does (:func:`shard_noise`)."""
     cfg, spec = policy.grad_estimator, policy.grad_spec
     tele = policy.telemetry
-    noise = shard_noise(seed, g.shape, g.device, batch_dim) \
+    noise = shard_noise(seed, g.shape, g.device, batch_dim, model_dim) \
         if spec.stochastic else None
     gf = canonical(g)
     if policy.backend == FUSED and spec.bits <= 8:
@@ -295,7 +332,7 @@ def grad_quantize(policy, g: torch.Tensor, leaf: torch.Tensor, seed: int,
     if tele.enabled:
         st = metrics.site_stats(gf, used_qmin, used_qmax, spec, st,
                                 tele.sample)
-    return gq, st
+    return gq, _whole_site(st, model_dim)
 
 
 def _kernel_quant(spec, xf, qmin, qmax, noise):
@@ -369,25 +406,42 @@ class _QMatmulInt(torch.autograd.Function):
     GEMMs pick their algorithm (split-K over a long contraction) by
     shape, so a whole-batch product would make a row's cotangent depend
     on how many rows share the call, and a data-parallel rank's differ
-    from the one-process step's."""
+    from the one-process step's.
+
+    ``parallel`` (under a model group): ``"row"``, the contraction over
+    this rank's K rows, whose int32 partials (``acc + corr``: the int32
+    mode on the fused backend) are summed over the model group before
+    the epilogue ``alpha * float(.)``, the one-process product bit for
+    bit; ``"col"``, this rank's output columns, whose ``dx`` partial is
+    summed over the model group in fp32 before its cast (Megatron's
+    f)."""
 
     @staticmethod
     def forward(ctx, xq, wq, x_img, w_img, x_zp, alpha, resolved, fused,
-                batch_dim):
+                batch_dim, parallel):
+        row = parallel == "row" and sharding.mp_shard() is not None
         if fused:
             ops = _ops()
             plan = ops.plan_einsum(resolved, x_img.ndim, w_img.ndim)
-            y, _, _ = ops.int8_matmul_fp(x_img, w_img, x_zp, alpha,
-                                         plan=plan)
+            if row:
+                acc = sharding.mp_sum_now(
+                    ops.int8_matmul_int32(x_img, w_img, x_zp, plan=plan))
+                y, _, _ = ops.int8_matmul_epilogue(acc, alpha)
+            else:
+                y, _, _ = ops.int8_matmul_fp(x_img, w_img, x_zp, alpha,
+                                             plan=plan)
         else:
             # int32 contraction, exact in float64 (integers far below 2**53).
             rx = x_img.to(torch.int32) - torch.round(x_zp).to(torch.int32)
             acc = torch.einsum(resolved, rx.to(torch.float64),
                                w_img.to(torch.float64))
+            if row:
+                acc = sharding.mp_sum_now(acc.to(torch.int64))
             y = alpha * acc.to(torch.float32)
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
             ctx.save_for_backward(xq, wq)
             ctx.resolved, ctx.batch_dim = resolved, batch_dim
+            ctx.col = parallel == "col" and sharding.mp_shard() is not None
         return y
 
     @staticmethod
@@ -413,32 +467,47 @@ class _QMatmulInt(torch.autograd.Function):
                                                  wf)
                                     for i in range(gf.shape[d])],
                                    dim=xs.index(b))
+                if ctx.col:
+                    dx = sharding.mp_sum_now(dx)
                 dx = dx.to(xq.dtype)
             if ctx.needs_input_grad[1]:
                 dw = torch.einsum(f"{xs},{y}->{ws}", xq.to(torch.float32),
                                   gf).to(wq.dtype)
-        return dx, dw, None, None, None, None, None, None, None
+        return dx, dw, None, None, None, None, None, None, None, None
+
+
+PARALLEL = (None, "col", "row", "expert")
 
 
 def qmatmul(policy, espec: str, xq: torch.Tensor, xqt: Optional[QTensor],
             wq: Optional[torch.Tensor], wqt: Optional[QTensor],
-            out_dtype=None, batch_dim: int = 0) -> torch.Tensor:
+            out_dtype=None, batch_dim: int = 0,
+            parallel: Optional[str] = None) -> torch.Tensor:
     """Quantized-site contraction ``einsum(espec, xq, wq)``.
 
     With int8 images of both operands the contraction runs integer-exact
     (``alpha * int32``); otherwise it is the fp32 einsum of the on-grid
     values, for which ``wq=None`` means "dequantize ``wqt``".  ``wq`` (the
     on-grid weight values) is needed only when a gradient is recorded.
-    Profiles show the integer contraction as a ``qmatmul_int8_<backend>
-    <spec>`` range (the MoE experts' as ``...egcd,edf->egcf`` and
-    ``...egcf,efd->egcd``)."""
+    ``parallel`` (see :class:`_QMatmulInt`; ``"expert"``: the rank's
+    experts on a batch dim, nothing reduced) takes effect under a model
+    group only.  Profiles show the integer contraction as a
+    ``qmatmul_int8_<backend> <spec>`` range (the MoE experts' as
+    ``...egcd,edf->egcf`` and ``...egcf,efd->egcd``)."""
+    if parallel not in PARALLEL:
+        raise ValueError(f"parallel must be one of {PARALLEL}")
     out_dtype = out_dtype or xq.dtype
     if xqt is None or wqt is None or not int8_matmul_eligible(policy):
         if wq is None:
             wq = dequantize_qtensor(wqt).to(xq.dtype)
         with full_fp32():
-            return torch.einsum(espec, xq.to(torch.float32),
-                                wq.to(torch.float32)).to(out_dtype)
+            xf = xq.to(torch.float32)
+            if parallel == "col":
+                xf = sharding.mp_grad_sum(xf)
+            y = torch.einsum(espec, xf, wq.to(torch.float32))
+            if parallel == "row":
+                y = sharding.mp_sum(y)
+            return y.to(out_dtype)
     resolved = _ops().resolve_einsum_spec(espec, xq.ndim)
     alpha = (xqt.scale * wqt.scale).to(torch.float32)
     if wq is None and xq.requires_grad and torch.is_grad_enabled():
@@ -446,7 +515,8 @@ def qmatmul(policy, espec: str, xq: torch.Tensor, xqt: Optional[QTensor],
     with torch.profiler.record_function(
             f"qmatmul_int8_{policy.backend} {resolved}"):
         y = _QMatmulInt.apply(xq, wq, xqt.q, wqt.q, xqt.zero_point, alpha,
-                              resolved, policy.backend == FUSED, batch_dim)
+                              resolved, policy.backend == FUSED, batch_dim,
+                              parallel)
     return y.to(out_dtype)
 
 
@@ -591,11 +661,13 @@ class _QAttention(torch.autograd.Function):
     backward, shared by both backends.  Inputs are the head-major on-grid
     q/k/v values (for the backward), their integer images, the registers
     and ``kv_len``; outputs ``(out, stats6)``, the statistics not
-    differentiable."""
+    differentiable.  ``kv_sum``: k and v are whole on every model rank
+    while q holds the rank's G heads, so their cotangents, each rank's
+    partial, are summed over the model group in fp32 before their cast."""
 
     @staticmethod
     def forward(ctx, qh, kh, vh, q_img, k_img, v_img, regs, kvl, sched,
-                fused, z_chunk):
+                fused, z_chunk, kv_sum):
         from repro_torch.kernels import int8_attention as mod
         args = (q_img, k_img, v_img, regs, kvl)
         if fused:
@@ -606,7 +678,7 @@ class _QAttention(torch.autograd.Function):
         if any(ctx.needs_input_grad[:3]):
             ctx.save_for_backward(qh, kh, vh, q_img, k_img, v_img, regs, kvl,
                                   out, ml)
-            ctx.sched, ctx.z_chunk = sched, z_chunk
+            ctx.sched, ctx.z_chunk, ctx.kv_sum = sched, z_chunk, kv_sum
         ctx.mark_non_differentiable(stats6)
         return out, stats6
 
@@ -617,12 +689,15 @@ class _QAttention(torch.autograd.Function):
         dq, dk, dv = mod.attention_core_backward(
             qh, kh, vh, *rest, g_out.to(torch.float32), sched=ctx.sched,
             z_chunk=ctx.z_chunk)
+        if ctx.kv_sum:
+            dk, dv = sharding.mp_sum_now(dk), sharding.mp_sum_now(dv)
         return (dq.to(qh.dtype), dk.to(kh.dtype), dv.to(vh.dtype),
-                None, None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None, None)
 
 
 def qattention(policy, q, k, v, sites: dict, *, mode: str, window=None,
-               prefix_len=None, kv_len=None, scale: float, step):
+               prefix_len=None, kv_len=None, scale: float, step,
+               model_dims=(None, None)):
     """Backend-dispatched int8 attention core.
 
     ``q [B, S, KV, G, hd]`` x ``k/v [B, Skv, KV, hd]`` -> ``(out [B, S, KV,
@@ -630,7 +705,9 @@ def qattention(policy, q, k, v, sites: dict, *, mode: str, window=None,
     probabilities; ``sites`` is the ``{"q"/"k"/"v"/"p": {"act": leaf}}``
     core-site tree.  The block plan comes from
     :func:`repro_torch.kernels.tuning.attention_block`, exactly as in the
-    reference, so both backends replay the reference's schedule."""
+    reference, so both backends replay the reference's schedule.
+    ``model_dims``: the dims of q and of k / v a model rank holds a slice
+    of (None: whole); the p-site is always this rank's heads'."""
     from repro_torch.kernels import int8_attention as mod
     from repro_torch.kernels import tuning
 
@@ -638,12 +715,15 @@ def qattention(policy, q, k, v, sites: dict, *, mode: str, window=None,
     skv = k.shape[1]
     cfg = policy.act_estimator
     dev = q.device
+    q_dim, kv_dim = model_dims
     qh, q_st, q_qt = site_quantize(policy, q, sites["q"]["act"], step,
-                                   name="attn_q")
+                                   name="attn_q", model_dim=q_dim)
     kh, k_st, k_qt = site_quantize(policy, k, sites["k"]["act"], step,
-                                   cfg=cfg, spec=KV_SPEC, name="attn_k")
+                                   cfg=cfg, spec=KV_SPEC, name="attn_k",
+                                   model_dim=kv_dim)
     vh, v_st, v_qt = site_quantize(policy, v, sites["v"]["act"], step,
-                                   cfg=cfg, spec=KV_SPEC, name="attn_v")
+                                   cfg=cfg, spec=KV_SPEC, name="attn_v",
+                                   model_dim=kv_dim)
     p_lo, p_hi = estimators.static_ranges(cfg, sites["p"]["act"])
     p_lo, p_hi = p_lo.to(torch.float32), p_hi.to(torch.float32)
     scale_p, zp_p = quant.scale_zero_point(p_lo, p_hi, P_SPEC)
@@ -671,7 +751,8 @@ def qattention(policy, q, k, v, sites: dict, *, mode: str, window=None,
 
     out3, stats6 = _QAttention.apply(
         qflat(qh), kvflat(kh), kvflat(vh), qflat(q_qt.q), kvflat(k_qt.q),
-        kvflat(v_qt.q), regs, kvl, sched, policy.backend == FUSED, kvh)
+        kvflat(v_qt.q), regs, kvl, sched, policy.backend == FUSED, kvh,
+        q_dim == 3 and kv_dim is None and sharding.mp_shard() is not None)
     out = out3.reshape(b, kvh, g, s, hd).permute(0, 3, 1, 2, 4).to(q.dtype)
     p_st = _pstats_vector(policy, stats6, p_lo, p_hi)
     stats = {"q": {"act": q_st}, "k": {"act": k_st}, "v": {"act": v_st},

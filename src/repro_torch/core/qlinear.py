@@ -13,6 +13,13 @@ the barrier's backward returns the statistics vector as the gradient of
 the site's state leaf, so ``torch.autograd.grad`` over the grad leaves
 delivers them.  The estimator update runs once per optimizer step
 (:func:`update_quant_state`).
+
+Under a model group (``runtime.sharding.model_parallel``) a site names
+the dim of its tensor that a model rank holds a slice of (``x_dim`` of an
+input, ``y_dim`` of an output; None: the tensor is whole on every rank),
+and a product its form (``parallel``: ``"col"``, ``"row"``,
+``"expert"``, see ``backend.qmatmul``), whose weight is this rank's
+shard.  Outside one they change nothing.
 """
 from __future__ import annotations
 
@@ -34,26 +41,32 @@ from .state import INITED, QMAX, QMIN, init_range_state, tree_map, \
 # ---------------------------------------------------------------------------
 # Q_W: weight quantizer — current min-max, no state.
 # ---------------------------------------------------------------------------
-def quantize_weight(w: torch.Tensor, policy: QuantPolicy) -> torch.Tensor:
+def quantize_weight(w: torch.Tensor, policy: QuantPolicy,
+                    sharded: bool = False) -> torch.Tensor:
     """On-grid weight values (fp32; ``w`` itself when not quantized)."""
-    wq, wqt = quantize_weight_q(w, policy)
+    wq, wqt = quantize_weight_q(w, policy, sharded)
     if wq is None:
         wq = backend.dequantize_qtensor(wqt)
     return wq
 
 
-def quantize_weight_q(w: torch.Tensor, policy: QuantPolicy
+def quantize_weight_q(w: torch.Tensor, policy: QuantPolicy,
+                      sharded: bool = False
                       ) -> tuple[Optional[torch.Tensor], Optional[QTensor]]:
     """``(w, None)`` when weights are not quantized, else ``(wq,
     qtensor)``.  ``wq`` (on-grid values with the clipped-STE gradient) is
     ``None`` unless a gradient of ``w`` is being recorded: an inference
-    contraction reads the int8 image only and never materializes them."""
+    contraction reads the int8 image only and never materializes them.
+    ``sharded``: ``w`` is a model rank's shard, quantized on the whole
+    weight's range."""
     if not (policy.enabled and policy.quantize_weights):
         return w, None
     if policy.int8_weight_gather and policy.weight_spec.bits <= 8:
         mn, mx = quant.tensor_minmax(w.detach())
+        if sharded:
+            mn, mx = sharding.mp_minmax(mn, mx)
         return _GatheredSTE.apply(w, mn, mx, policy.weight_spec), None
-    return backend.weight_quantize(policy, w)
+    return backend.weight_quantize(policy, w, sharded)
 
 
 class _GatheredSTE(torch.autograd.Function):
@@ -93,13 +106,14 @@ def stats_zeros(policy: QuantPolicy, device=None) -> torch.Tensor:
 
 
 def act_quant_site(x: torch.Tensor, leaf: torch.Tensor, policy: QuantPolicy,
-                   step) -> tuple[torch.Tensor, torch.Tensor,
-                                  Optional[QTensor]]:
+                   step, model_dim: Optional[int] = None
+                   ) -> tuple[torch.Tensor, torch.Tensor, Optional[QTensor]]:
     """``(x_q, observed stats, qtensor)``; ``qtensor`` is ``None`` when
-    activation quantization is off."""
+    activation quantization is off.  ``model_dim``: the dim of ``x`` a
+    model rank holds a slice of (None: whole)."""
     if not (policy.enabled and policy.quantize_acts):
         return x, stats_zeros(policy, x.device), None
-    return backend.act_quantize(policy, x, leaf, step)
+    return backend.act_quantize(policy, x, leaf, step, model_dim)
 
 
 class _GradBarrier(torch.autograd.Function):
@@ -108,33 +122,37 @@ class _GradBarrier(torch.autograd.Function):
     channel)."""
 
     @staticmethod
-    def forward(ctx, y, leaf, policy, seed, step, batch_dim):
+    def forward(ctx, y, leaf, policy, seed, step, batch_dim, model_dim):
         ctx.save_for_backward(leaf)
         ctx.policy, ctx.seed, ctx.step = policy, seed, step
-        ctx.batch_dim = batch_dim
+        ctx.batch_dim, ctx.model_dim = batch_dim, model_dim
         return y.view_as(y)
 
     @staticmethod
     def backward(ctx, g):
         (leaf,) = ctx.saved_tensors
         gq, stats = backend.grad_quantize(ctx.policy, g, leaf, ctx.seed,
-                                          ctx.step, ctx.batch_dim)
-        return gq, stats, None, None, None, None
+                                          ctx.step, ctx.batch_dim,
+                                          ctx.model_dim)
+        return gq, stats, None, None, None, None, None
 
 
 def grad_quant_barrier(y: torch.Tensor, leaf: torch.Tensor,
                        policy: QuantPolicy, seed: int, step,
-                       batch_dim: int = 0) -> torch.Tensor:
+                       batch_dim: int = 0,
+                       model_dim: Optional[int] = None) -> torch.Tensor:
     """Identity in the forward pass; quantizes the cotangent in the backward
     pass and emits the observed (min, max) as the gradient of ``leaf``.
     Read it with ``torch.autograd.grad`` over a leaf that requires grad —
     never accumulate into ``.grad``: torch sums repeated gradients, while
     statistics combine by min/max (:func:`combine_stats`).  ``batch_dim``:
     the dim of ``y`` that a data-parallel rank holds a shard of (the MoE
-    experts' ``[E, G, C, F]`` outputs shard their groups, dim 1)."""
+    experts' ``[E, G, C, F]`` outputs shard their groups, dim 1), and
+    ``model_dim`` the one a model rank does (None: whole)."""
     if not (policy.enabled and policy.quantize_grads):
         return y
-    return _GradBarrier.apply(y, leaf, policy, int(seed), step, batch_dim)
+    return _GradBarrier.apply(y, leaf, policy, int(seed), step, batch_dim,
+                              model_dim)
 
 
 # ---------------------------------------------------------------------------
@@ -147,11 +165,14 @@ def init_site(policy: Optional[QuantPolicy] = None, device=None) -> dict:
             "grad": init_range_state(width, device)}
 
 
-def _contract(policy, espec, xq, xqt, w, bias, dtype, batch_dim=0):
-    wq, wqt = quantize_weight_q(w, policy)
+def _contract(policy, espec, xq, xqt, w, bias, dtype, batch_dim=0,
+              parallel=None):
+    wq, wqt = quantize_weight_q(w, policy, sharded=parallel is not None
+                                and sharding.mp_shard() is not None)
     if wq is not None:
         wq = wq.to(dtype)
-    y = backend.qmatmul(policy, espec, xq, xqt, wq, wqt, batch_dim=batch_dim)
+    y = backend.qmatmul(policy, espec, xq, xqt, wq, wqt, batch_dim=batch_dim,
+                        parallel=parallel)
     if bias is not None:
         y = y + bias.to(dtype)
     return y
@@ -160,34 +181,43 @@ def _contract(policy, espec, xq, xqt, w, bias, dtype, batch_dim=0):
 def qdense_pre(xq: torch.Tensor, w: torch.Tensor, site: dict,
                policy: QuantPolicy, *, einsum_spec: str = "...k,kn->...n",
                bias: Optional[torch.Tensor] = None, seed=0, step=0,
-               qinfo: Optional[QTensor] = None, batch_dim: int = 0
-               ) -> tuple[torch.Tensor, dict]:
+               qinfo: Optional[QTensor] = None, batch_dim: int = 0,
+               parallel: Optional[str] = None,
+               y_dim: Optional[int] = None) -> tuple[torch.Tensor, dict]:
     """Quantized matmul whose input was already quantized by a shared
     activation site; ``qinfo`` is that site's :class:`QTensor`."""
     y = _contract(policy, einsum_spec, xq, qinfo, w, bias, xq.dtype,
-                  batch_dim)
-    y = grad_quant_barrier(y, site["grad"], policy, seed, step, batch_dim)
+                  batch_dim, parallel)
+    y = grad_quant_barrier(y, site["grad"], policy, seed, step, batch_dim,
+                           y_dim)
     z = stats_zeros(policy, xq.device)
     return y, {"act": z, "grad": z.clone()}
 
 
 def qdense(x: torch.Tensor, w: torch.Tensor, site: dict,
            policy: QuantPolicy, *, bias: Optional[torch.Tensor] = None,
-           seed=0, step=0) -> tuple[torch.Tensor, dict]:
+           seed=0, step=0, parallel: Optional[str] = None,
+           x_dim: Optional[int] = None, y_dim: Optional[int] = None
+           ) -> tuple[torch.Tensor, dict]:
     """Quantized ``x @ w (+ bias)``; returns ``(y, stats)``."""
-    xq, act_stats, xqt = act_quant_site(x, site["act"], policy, step)
-    y = _contract(policy, "...k,kn->...n", xq, xqt, w, bias, x.dtype)
-    y = grad_quant_barrier(y, site["grad"], policy, seed, step)
+    xq, act_stats, xqt = act_quant_site(x, site["act"], policy, step, x_dim)
+    y = _contract(policy, "...k,kn->...n", xq, xqt, w, bias, x.dtype,
+                  parallel=parallel)
+    y = grad_quant_barrier(y, site["grad"], policy, seed, step,
+                           model_dim=y_dim)
     return y, {"act": act_stats, "grad": stats_zeros(policy, x.device)}
 
 
 def qeinsum(spec: str, x: torch.Tensor, w: torch.Tensor, site: dict,
-            policy: QuantPolicy, *, seed=0, step=0, batch_dim: int = 0
-            ) -> tuple[torch.Tensor, dict]:
+            policy: QuantPolicy, *, seed=0, step=0, batch_dim: int = 0,
+            parallel: Optional[str] = None, x_dim: Optional[int] = None,
+            y_dim: Optional[int] = None) -> tuple[torch.Tensor, dict]:
     """Quantized einsum for non-2D contractions (attention projections)."""
-    xq, act_stats, xqt = act_quant_site(x, site["act"], policy, step)
-    y = _contract(policy, spec, xq, xqt, w, None, x.dtype, batch_dim)
-    y = grad_quant_barrier(y, site["grad"], policy, seed, step, batch_dim)
+    xq, act_stats, xqt = act_quant_site(x, site["act"], policy, step, x_dim)
+    y = _contract(policy, spec, xq, xqt, w, None, x.dtype, batch_dim,
+                  parallel)
+    y = grad_quant_barrier(y, site["grad"], policy, seed, step, batch_dim,
+                           y_dim)
     return y, {"act": act_stats, "grad": stats_zeros(policy, x.device)}
 
 

@@ -978,7 +978,431 @@ int start(dim3 grid, int smem, cudaStream_t st, const void* q, const void* k,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The general instantiation: the tiles the others do not take (bkv in
+// (128, 512], bq above 256, hd in (256, 512], or a flat err/sig buffer
+// that does not fit beside the wide layout), up to the reference's own
+// limits (hd, bkv <= 512: int32 accumulators below 2**24, exact through
+// the fp32 cast).  A right kernel first, not a fast one: dp4a on CUDA
+// cores, plain loads, no tensor cores.
+//
+// The p requantization depends on the block: the reference exponentiates
+// each kv block against the running row max AFTER that block's bkv
+// columns.  So a block's scores are formed whole before any exp: K
+// streams through shared memory in sub-tiles of 64 kv rows (at hd 512 a
+// 512-row K tile would be 256 KB, above a CTA's 227 KB), each writing its
+// scores into a [16, bkv] fp32 buffer; then the row max, then the
+// probabilities (their bytes, the row sums of p_int, the order-free
+// partials and the err/sig values), then V^T streams in sub-tiles of 64
+// kv columns for P.V.  The integer contractions are the reference's:
+// acc_qk = q . k - trunc(zp_q) * rowsum(k) and acc_pv = p_int . v -
+// trunc(zp_p) * colsum(v) over the block's bkv columns, exact in int32
+// whatever the sub-tiling (|acc| < 2**24 for hd, bkv <= 512), and every
+// seam rounded as the other instantiations round it.
+//
+// q rows are independent, so a reference q block of any bq is split over
+// CTAs of 16 rows (grid.x = nq * nsub, nsub = ceil(bq / 16)): each walks
+// the q block's visited kv blocks with its own (m, l, acc) carries, and
+// writes its own (min, max, clip, n, err, sig) partials, [BH, nq, nsub,
+// 6], which the wrapper folds over nsub (min, max, clip and n exactly;
+// err/sig as a sum of per-CTA halving trees over each CTA's [16, bkv]
+// slice of the tile, within 1e-4 of the reference's tree over the whole
+// [bq, bkv] tile).
+//
+// Bound on the H100: the int8 operations on the CUDA cores (dp4a, 4 MACs
+// an instruction, far below the tensor cores' int8 rate) and the shared
+// memory traffic of their operands; wgmma / mma.sync is later work.
+constexpr int kGRows = 16;         // q rows of one CTA
+constexpr int kGThreads = 256;
+constexpr int kGWarps = kGThreads / 32;
+constexpr int kGSub = 64;          // kv rows (K) / columns (V^T) a sub-tile
+constexpr int kGMax = 512;         // hd and bkv limit
+
+struct GLayout {
+  int ld, vld, pld;                // Q/K row, V^T row, p_int row (bytes)
+  int q, kv, s, e, p, row, red, total;
+};
+
+__host__ __device__ constexpr GLayout glayout(int hd, int bkv) {
+  GLayout L{};
+  L.ld = hd + 16;
+  L.vld = kGSub + 16;
+  L.pld = ((bkv + kGSub - 1) / kGSub) * kGSub + 16;
+  L.q = 0;
+  L.kv = L.q + kGRows * L.ld;
+  const int kb = kGSub * L.ld, vb = hd * L.vld;
+  L.s = L.kv + (kb > vb ? kb : vb);
+  L.e = L.s + 4 * kGRows * bkv;
+  L.p = L.e + 4 * kGRows * bkv;
+  L.row = L.p + kGRows * L.pld;           // m_run, l_run, m_new, corr, lsum
+  L.red = L.row + 5 * kGRows * 4;
+  L.total = L.red + 4 * kGWarps * 4;
+  return L;
+}
+
+// d = c + sum of the four u8 bytes of a times the four s8 bytes of b.
+__device__ __forceinline__ int dp4a_us(uint32_t a, uint32_t b, int c) {
+  int d;
+  asm("dp4a.u32.s32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+__device__ __forceinline__ int dp4a_us4(const uint4& a, const uint4& b,
+                                        int c) {
+  c = dp4a_us(a.x, b.x, c);
+  c = dp4a_us(a.y, b.y, c);
+  c = dp4a_us(a.z, b.z, c);
+  return dp4a_us(a.w, b.w, c);
+}
+
+// The flat halving tree over the n values of buf (zero-padded to a power
+// of two), in place, by all kT threads; returns buf[0] to every thread.
+template <int kT>
+__device__ __forceinline__ float flat_tree_n(float* buf, int n, int t) {
+  __syncthreads();
+  int h = 1;
+  while (h < n) h <<= 1;
+  for (h >>= 1; h >= 1; h >>= 1) {
+    for (int j = t; j < h; j += kT)
+      buf[j] = __fadd_rn(buf[j], j + h < n ? buf[j + h] : 0.f);
+    __syncthreads();
+  }
+  const float v = buf[0];
+  __syncthreads();
+  return v;
+}
+
+__global__ void __launch_bounds__(kGThreads, 1)
+int8_attention_general_kernel(const uint8_t* __restrict__ q,
+                              const int8_t* __restrict__ k,
+                              const int8_t* __restrict__ vt,
+                              const float* __restrict__ regs,
+                              const int* __restrict__ kvlen_p,
+                              float* __restrict__ out, float* __restrict__ ml,
+                              float* __restrict__ partials, Sched S) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int hd = S.hd, bkv = S.bkv;
+  const GLayout L = glayout(hd, bkv);
+  uint8_t* qs = smem + L.q;
+  uint8_t* kvs = smem + L.kv;
+  float* sbuf = reinterpret_cast<float*>(smem + L.s);
+  float* ebuf = reinterpret_cast<float*>(smem + L.e);
+  uint8_t* ps = smem + L.p;
+  float* m_run = reinterpret_cast<float*>(smem + L.row);
+  float* l_run = m_run + kGRows;
+  float* m_new = l_run + kGRows;
+  float* corr = m_new + kGRows;
+  int* lsum = reinterpret_cast<int*>(corr + kGRows);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+
+  const int nsub = gridDim.x / S.nq;
+  const int i = blockIdx.x / nsub, sub = blockIdx.x % nsub;
+  const int bh = blockIdx.y, z = bh / S.groups;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const float zp_q = regs[0], alpha_qk = regs[1], scale_p = regs[2];
+  const float zp_p = regs[3], alpha_pv = regs[4], p_lo = regs[5];
+  const float p_hi = regs[6];
+  const int kvlim = min(*kvlen_p, S.skv);
+  const int tzq = static_cast<int>(zp_q), tzp = static_cast<int>(zp_p);
+  const int lr0 = sub * kGRows;            // first row within the q block
+  const int q0 = i * S.bq + lr0;           // its position
+  const int nch = hd >> 4;                 // 16-byte chunks of a row
+  const uint32_t kOnes = 0x01010101u;
+
+  // The q rows (rows past the q block or sq zero), the carries, and the
+  // p_int buffer's columns past bkv (zero: they meet the next block's V).
+  for (int e = t; e < kGRows * nch; e += kGThreads) {
+    const int r = e / nch, c = e % nch;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (lr0 + r < S.bq && q0 + r < S.sq)
+      v = *reinterpret_cast<const uint4*>(
+          q + (static_cast<long long>(bh) * S.sq + q0 + r) * hd + 16 * c);
+    *reinterpret_cast<uint4*>(qs + r * L.ld + 16 * c) = v;
+  }
+  for (int e = t; e < kGRows * L.pld; e += kGThreads) ps[e] = 0;
+  if (t < kGRows) {
+    m_run[t] = kNegInf;
+    l_run[t] = 0.f;
+  }
+  // PV outputs: columns h = t + 256 hh (hh < 2), all 16 rows.
+  float o[kGRows][2];
+#pragma unroll
+  for (int r = 0; r < kGRows; ++r) o[r][0] = o[r][1] = 0.f;
+  float pmn = FLT_MAX, pmx = -FLT_MAX;
+  int nclip = 0, ncnt = 0;
+  float st_err = 0.f, st_sig = 0.f;   // thread 0's are the CTA's
+  const int nsb = (bkv + kGSub - 1) / kGSub;   // sub-tiles of a block
+
+  const int end = kv_block_base(i, S) + S.width;
+  for (int ki = next_visited(i, kv_block_base(i, S) - 1, end, S); ki >= 0;
+       ki = next_visited(i, ki, end, S)) {
+    const int k0 = ki * bkv;
+    // ---- scores: S[r][c] = alpha_qk * (q . k - trunc(zp_q) rowsum(k)),
+    // masked to -1e30; thread t: kv row j = t % 64, rows t / 64 + 4 ii.
+    for (int sb = 0; sb < nsb; ++sb) {
+      __syncthreads();   // the buffer's last reader is done
+      for (int e = t; e < kGSub * nch; e += kGThreads) {
+        const int j = e / nch, c = e % nch;
+        const int cb = sb * kGSub + j, kp = k0 + cb;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (cb < bkv && kp < S.skv)
+          v = *reinterpret_cast<const uint4*>(
+              k + (static_cast<long long>(z) * S.skv + kp) * hd + 16 * c);
+        *reinterpret_cast<uint4*>(kvs + j * L.ld + 16 * c) = v;
+      }
+      __syncthreads();
+      const int j = t % kGSub, rq = t / kGSub;
+      const int cb = sb * kGSub + j, kp = k0 + cb;
+      int acc[4] = {0, 0, 0, 0}, rs = 0;
+      for (int c = 0; c < nch; ++c) {
+        const uint4 kv4 = *reinterpret_cast<const uint4*>(kvs + j * L.ld +
+                                                          16 * c);
+        rs = dp4a_us4(make_uint4(kOnes, kOnes, kOnes, kOnes), kv4, rs);
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) {
+          const uint4 q4 = *reinterpret_cast<const uint4*>(
+              qs + (rq + 4 * ii) * L.ld + 16 * c);
+          acc[ii] = dp4a_us4(q4, kv4, acc[ii]);
+        }
+      }
+      if (cb < bkv) {
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) {
+          const int r = rq + 4 * ii;
+          int lo, hi;
+          mask_bounds(q0 + r, kvlim, S, lo, hi);
+          sbuf[r * bkv + cb] =
+              (kp >= lo && kp < hi)
+                  ? __fmul_rn(alpha_qk, __int2float_rn(acc[ii] - tzq * rs))
+                  : kNegInf;
+        }
+      }
+    }
+    __syncthreads();
+    // ---- the row max over the block, then p, its byte, the row sums of
+    // p_int, the partials and err (ebuf) / sig (over the scores); warp w
+    // takes rows w and w + 8.
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = warp + kGWarps * rr;
+      float mx = kNegInf;
+      for (int c = lane; c < bkv; c += 32) mx = fmaxf(mx, sbuf[r * bkv + c]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(kAll, mx, off));
+      const float mr = m_run[r];
+      const float mn = fmaxf(mr, mx);
+      int lo, hi;
+      mask_bounds(q0 + r, kvlim, S, lo, hi);
+      const bool row_ok = lr0 + r < S.bq && q0 + r < S.sq;
+      int psum = 0;
+      for (int c = lane; c < bkv; c += 32) {
+        const int kp = k0 + c;
+        const float s = sbuf[r * bkv + c];
+        const float p =
+            (kp >= lo && kp < hi) ? expf(__fsub_rn(s, mn)) : 0.f;
+        const float pi = fminf(
+            fmaxf(rintf(__fadd_rn(__fdiv_rn(p, scale_p), zp_p)), 0.f), 255.f);
+        ps[r * L.pld + c] = static_cast<uint8_t>(static_cast<int>(pi));
+        psum += static_cast<int>(pi);
+        const bool sv = row_ok && kp < S.skv;
+        pmn = fminf(pmn, sv ? p : FLT_MAX);
+        pmx = fmaxf(pmx, sv ? p : -FLT_MAX);
+        nclip += (sv && (p < p_lo || p > p_hi)) ? 1 : 0;
+        ncnt += sv ? 1 : 0;
+        const float d = __fsub_rn(p, __fmul_rn(__fsub_rn(pi, zp_p), scale_p));
+        ebuf[r * bkv + c] = sv ? __fmul_rn(d, d) : 0.f;
+        sbuf[r * bkv + c] = sv ? __fmul_rn(p, p) : 0.f;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        psum += __shfl_xor_sync(kAll, psum, off);
+      if (lane == 0) {
+        m_new[r] = mn;
+        corr[r] = expf(__fsub_rn(mr, mn));
+        lsum[r] = psum - bkv * tzp;
+      }
+    }
+    const float err = flat_tree_n<kGThreads>(ebuf, kGRows * bkv, t);
+    const float sig = flat_tree_n<kGThreads>(sbuf, kGRows * bkv, t);
+    if (t == 0) {
+      st_err = __fadd_rn(st_err, err);
+      st_sig = __fadd_rn(st_sig, sig);
+    }
+    // ---- P.V: acc_pv[r][h] = p_int . v - trunc(zp_p) colsum(v), V^T in
+    // sub-tiles of 64 kv columns; thread t owns columns t and t + 256.
+    int pacc[kGRows][2], csum[2] = {0, 0};
+#pragma unroll
+    for (int r = 0; r < kGRows; ++r) pacc[r][0] = pacc[r][1] = 0;
+    const bool vvec = (bkv & 15) == 0;   // 16-byte aligned V^T chunks
+    for (int sb = 0; sb < nsb; ++sb) {
+      __syncthreads();   // the buffer's last reader is done
+      const int c0 = k0 + sb * kGSub;   // the sub-tile's first kv column
+      const int valid = max(0, min(min(kGSub, bkv - sb * kGSub),
+                                   S.skvp - c0));
+      for (int e = t; e < hd * (kGSub / 16); e += kGThreads) {
+        const int h = e / (kGSub / 16), c = e % (kGSub / 16);
+        const int8_t* src = vt + (static_cast<long long>(z) * hd + h) *
+                                     S.skvp + c0 + 16 * c;
+        uint8_t* dst = kvs + h * L.vld + 16 * c;
+        if (vvec) {
+          uint4 v = make_uint4(0u, 0u, 0u, 0u);
+          if (16 * c < valid) v = *reinterpret_cast<const uint4*>(src);
+          *reinterpret_cast<uint4*>(dst) = v;
+        } else {
+          for (int b = 0; b < 16; ++b)
+            dst[b] = 16 * c + b < valid
+                         ? static_cast<uint8_t>(src[b]) : 0;
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int h = t + kGThreads * hh;
+        if (h >= hd) break;
+#pragma unroll
+        for (int c = 0; c < kGSub / 16; ++c) {
+          const uint4 v4 = *reinterpret_cast<const uint4*>(
+              kvs + h * L.vld + 16 * c);
+          csum[hh] = dp4a_us4(make_uint4(kOnes, kOnes, kOnes, kOnes), v4,
+                              csum[hh]);
+#pragma unroll
+          for (int r = 0; r < kGRows; ++r) {
+            const uint4 p4 = *reinterpret_cast<const uint4*>(
+                ps + r * L.pld + sb * kGSub + 16 * c);
+            pacc[r][hh] = dp4a_us4(p4, v4, pacc[r][hh]);
+          }
+        }
+      }
+    }
+    // ---- the carries
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (t + kGThreads * hh >= hd) break;
+#pragma unroll
+      for (int r = 0; r < kGRows; ++r)
+        o[r][hh] = __fadd_rn(
+            __fmul_rn(o[r][hh], corr[r]),
+            __fmul_rn(alpha_pv,
+                      __int2float_rn(pacc[r][hh] - tzp * csum[hh])));
+    }
+    __syncthreads();   // every thread has read corr
+    if (t < kGRows) {
+      l_run[t] = __fadd_rn(__fmul_rn(l_run[t], corr[t]),
+                           __fmul_rn(scale_p, __int2float_rn(lsum[t])));
+      m_run[t] = m_new[t];
+    }
+  }
+  __syncthreads();
+
+  // The CTA's partials: min/max/clip/n over its threads, err/sig its own.
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    pmn = fminf(pmn, __shfl_xor_sync(kAll, pmn, off));
+    pmx = fmaxf(pmx, __shfl_xor_sync(kAll, pmx, off));
+    nclip += __shfl_xor_sync(kAll, nclip, off);
+    ncnt += __shfl_xor_sync(kAll, ncnt, off);
+  }
+  int* redi = reinterpret_cast<int*>(red);
+  if (lane == 0) {
+    red[warp] = pmn;
+    red[kGWarps + warp] = pmx;
+    redi[2 * kGWarps + warp] = nclip;
+    redi[3 * kGWarps + warp] = ncnt;
+  }
+  __syncthreads();
+  if (t == 0) {
+    int tcl = 0, tcn = 0;
+    for (int v = 0; v < kGWarps; ++v) {
+      pmn = fminf(pmn, red[v]);
+      pmx = fmaxf(pmx, red[kGWarps + v]);
+      tcl += redi[2 * kGWarps + v];
+      tcn += redi[3 * kGWarps + v];
+    }
+    float* prow = partials +
+                  (static_cast<long long>(bh) * gridDim.x + blockIdx.x) * 6;
+    prow[0] = pmn;
+    prow[1] = pmx;
+    prow[2] = __int2float_rn(tcl);
+    prow[3] = __int2float_rn(tcn);
+    prow[4] = st_err;
+    prow[5] = st_sig;
+  }
+  // out = acc / max(l, 1e-30); residuals (m, l).
+#pragma unroll
+  for (int r = 0; r < kGRows; ++r) {
+    if (lr0 + r >= S.bq || q0 + r >= S.sq) continue;
+    const long long qrow = static_cast<long long>(bh) * S.sq + q0 + r;
+    const float den = fmaxf(l_run[r], 1e-30f);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int h = t + kGThreads * hh;
+      if (h < hd) out[qrow * hd + h] = __fdiv_rn(o[r][hh], den);
+    }
+    if (t == 0) {
+      ml[2 * qrow] = m_run[r];
+      ml[2 * qrow + 1] = l_run[r];
+    }
+  }
+}
+
+int allow_general_smem() {
+  static int status = -1;
+  if (status < 0)
+    status = static_cast<int>(cudaFuncSetAttribute(
+        int8_attention_general_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemOptin));
+  return status;
+}
+
 }  // namespace
+
+// The general instantiation's dynamic shared memory at (hd, bkv), bytes.
+extern "C" int repro_int8_attention_general_smem(int hd, int bkv) {
+  return glayout(hd, bkv).total;
+}
+
+// The general instantiation (see above): operands as repro_int8_attention
+// takes them, hd a multiple of 16 and q, k, vt 16-byte aligned; partials
+// fp32 [BH, nq, nsub, 6], nsub = ceil(bq / 16), for the wrapper to fold.
+extern "C" int repro_int8_attention_general(
+    const void* q, const void* k, const void* vt, const void* regs,
+    const void* kvlen, void* out, void* ml, void* partials, int bh, int sq,
+    int skv, int hd, int bq, int bkv, int groups, int mode, int window,
+    int prefix_len, int width, void* stream) {
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (bq < 1 || bkv < 1 || bkv > kGMax || hd < 16 || hd > kGMax ||
+      hd % 16 != 0 || !aligned(q) || !aligned(k) || !aligned(vt))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = glayout(hd, bkv).total;
+  if (smem > kSmemOptin) return static_cast<int>(cudaErrorInvalidValue);
+  if (const int s = allow_general_smem()) return s;
+  Sched S{};
+  S.sq = sq;
+  S.skv = skv;
+  S.skvp = (skv + 15) & ~15;
+  S.hd = hd;
+  S.bq = bq;
+  S.bkv = bkv;
+  S.groups = groups;
+  S.mode = mode;
+  S.window = window;
+  S.prefix_len = prefix_len;
+  S.width = width;
+  S.nq = (sq + bq - 1) / bq;
+  S.nkv = (skv + bkv - 1) / bkv;
+  const int nsub = (bq + kGRows - 1) / kGRows;
+  const dim3 grid(S.nq * nsub, bh);
+  int8_attention_general_kernel<<<grid, kGThreads, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(q), static_cast<const int8_t*>(k),
+      static_cast<const int8_t*>(vt), static_cast<const float*>(regs),
+      static_cast<const int*>(kvlen), static_cast<float*>(out),
+      static_cast<float*>(ml), static_cast<float*>(partials), S);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // The dynamic shared memory a launch at (hd, bq, bkv) needs, in bytes.
 extern "C" int repro_int8_attention_smem(int hd, int bq, int bkv) {

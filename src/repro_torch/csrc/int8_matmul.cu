@@ -22,6 +22,16 @@
 // writes the byte (uint8 asymmetric / int8 symmetric, no -128 shift).
 // Both emit per-block (min, max) partials of y for the wrapper to reduce.
 //
+// A third mode of the same main loop, int8_matmul_int32 (no TPU kernel of
+// its own: the K-sharded form of int8_matmul_fp, for a row-parallel
+// product over a model axis), skips the epilogue and writes acc + corr as
+// int32, corr from this rank's own K rows; the ranks' int32 partials sum
+// exactly (an all_reduce), and int8_matmul_epilogue, an elementwise kernel
+// of this source, then computes y = alpha * float(acc + corr) with the
+// fused epilogue's one rounding and the (min, max) partials: bit for bit
+// the unsharded int8_matmul_fp.  The int32 partials' own min/max would
+// mean nothing, so this mode writes none.
+//
 // Operands, as the wrapper stages them: x u8 [B, M, K], w s8 [B, N, K]
 // (K-major: mma's B operand is K-contiguous), K zero-padded to a multiple
 // of 16 in both, so every 16-byte chunk of a row is a whole cp.async copy.
@@ -142,9 +152,14 @@ __device__ __forceinline__ void load_slab(uint8_t* stage,
   }
 }
 
+// The epilogues of the main loop: fp32 y, the requantized byte, or the
+// int32 acc + corr of a K shard.
+enum Epilogue { kFp = 0, kReq = 1, kInt = 2 };
+
 // One block's BM x 128 output tile: the main loop, then the epilogue that
-// kRequant selects (fp32 y, or the requantized byte).
-template <int BM, bool kRequant>
+// kMode selects.
+
+template <int BM, int kMode>
 __device__ __forceinline__ void int8_matmul_tile(
     const uint8_t* __restrict__ x, const int8_t* __restrict__ w,
     void* __restrict__ out, float* __restrict__ partials,
@@ -228,19 +243,19 @@ __device__ __forceinline__ void int8_matmul_tile(
 
   // ---- epilogue: the integer correction of each column, in int32 ----
   csum += __shfl_xor_sync(0xffffffffu, csum, 1);
-  const float alpha = *alpha_p;
+  const float alpha = kMode == kInt ? 1.f : *alpha_p;   // no alpha: int32
   const int shift = static_cast<int>(rintf(__fsub_rn(128.f, *zp_p)));
   if ((t & 1) == 0) {
     const int col = t >> 1;
     int bias_i = 0;
-    if (kRequant && rq.bias != nullptr && j0 + col < N)
+    if (kMode == kReq && rq.bias != nullptr && j0 + col < N)
       bias_i = static_cast<int>(rintf(__fdiv_rn(rq.bias[j0 + col], alpha)));
     corr[col] = (shift - 128) * csum + bias_i;
   }
   __syncthreads();   // corr is set, and the ring is free for byte staging
 
   float scale = 1.f, zp_out = 0.f;
-  if (kRequant) {
+  if (kMode == kReq) {
     scale = rq.qparams[0];
     zp_out = rq.qparams[1];
   }
@@ -258,12 +273,27 @@ __device__ __forceinline__ void int8_matmul_tile(
       for (int ni = 0; ni < T::kNI; ++ni) {
         const int col_l = wn * T::kTN + 8 * ni + 2 * tq;
         const int col = j0 + col_l;
+        if constexpr (kMode == kInt) {
+          const int a0 = acc[mi][ni][2 * h] + corr[col_l];
+          const int a1 = acc[mi][ni][2 * h + 1] + corr[col_l + 1];
+          if (row < M) {
+            int* y = static_cast<int*>(out) + out_base +
+                     static_cast<long long>(row) * N + col;
+            if (pairs && col + 1 < N) {
+              *reinterpret_cast<int2*>(y) = make_int2(a0, a1);
+            } else {
+              if (col < N) y[0] = a0;
+              if (col + 1 < N) y[1] = a1;
+            }
+          }
+          continue;
+        }
         const float f0 = __fmul_rn(
             alpha, __int2float_rn(acc[mi][ni][2 * h] + corr[col_l]));
         const float f1 = __fmul_rn(
             alpha, __int2float_rn(acc[mi][ni][2 * h + 1] + corr[col_l + 1]));
         const bool in0 = row < M && col < N, in1 = row < M && col + 1 < N;
-        if (kRequant) {
+        if (kMode == kReq) {
           // round half to even (rintf), like torch.round / jnp.round; the
           // low byte of the int is the uint8 or int8 image.  Outside the
           // matrix nothing is stored, so nothing is divided.
@@ -297,7 +327,8 @@ __device__ __forceinline__ void int8_matmul_tile(
       }
     }
   }
-  if (kRequant) {
+  if constexpr (kMode == kInt) return;   // no partials: see above
+  if (kMode == kReq) {
     // The staged byte tile out in 16-byte row segments (BM * 8 of them:
     // half a pass of the threads at BM = 16).
     __syncthreads();
@@ -347,8 +378,61 @@ int8_matmul_fp_kernel(const uint8_t* __restrict__ x,
                       float* __restrict__ partials,
                       const float* __restrict__ alpha_p,
                       const float* __restrict__ zp_p, int M, int K, int N) {
-  int8_matmul_tile<BM, false>(x, w, y, partials, alpha_p, zp_p,
-                              Requant{nullptr, nullptr, 0, 0}, M, K, N);
+  int8_matmul_tile<BM, kFp>(x, w, y, partials, alpha_p, zp_p,
+                            Requant{nullptr, nullptr, 0, 0}, M, K, N);
+}
+
+template <int BM>
+__global__ void __launch_bounds__(kThreads, 2)
+int8_matmul_int32_kernel(const uint8_t* __restrict__ x,
+                         const int8_t* __restrict__ w, int* __restrict__ acc,
+                         const float* __restrict__ zp_p, int M, int K,
+                         int N) {
+  int8_matmul_tile<BM, kInt>(x, w, acc, nullptr, nullptr, zp_p,
+                             Requant{nullptr, nullptr, 0, 0}, M, K, N);
+}
+
+// The int32 mode's epilogue: y = alpha * float(acc) over n values (the
+// fused epilogue's one rounding), and per-block (min, max) partials of y.
+// Bound by bytes (4 read and 4 written an element).
+constexpr int kEpiItems = 8;
+__global__ void __launch_bounds__(kThreads)
+int8_matmul_epilogue_kernel(const int* __restrict__ acc, float* __restrict__ y,
+                            float* __restrict__ partials,
+                            const float* __restrict__ alpha_p, long long n) {
+  __shared__ float red[2 * kThreads / 32];
+  const float alpha = *alpha_p;
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const long long base = static_cast<long long>(blockIdx.x) * kThreads *
+                         kEpiItems;
+  float mn = FLT_MAX, mx = -FLT_MAX;
+#pragma unroll
+  for (int i = 0; i < kEpiItems; ++i) {
+    const long long e = base + i * kThreads + t;
+    if (e < n) {
+      const float f = __fmul_rn(alpha, __int2float_rn(acc[e]));
+      y[e] = f;
+      mn = fminf(mn, f);
+      mx = fmaxf(mx, f);
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, off));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  }
+  if (lane == 0) {
+    red[2 * warp] = mn;
+    red[2 * warp + 1] = mx;
+  }
+  __syncthreads();
+  if (t == 0) {
+    for (int wi = 1; wi < kThreads / 32; ++wi) {
+      mn = fminf(mn, red[2 * wi]);
+      mx = fmaxf(mx, red[2 * wi + 1]);
+    }
+    partials[2 * blockIdx.x] = mn;
+    partials[2 * blockIdx.x + 1] = mx;
+  }
 }
 
 template <int BM>
@@ -359,7 +443,7 @@ int8_matmul_fused_kernel(const uint8_t* __restrict__ x,
                          const float* __restrict__ alpha_p,
                          const float* __restrict__ zp_p, Requant rq, int M,
                          int K, int N) {
-  int8_matmul_tile<BM, true>(x, w, q, partials, alpha_p, zp_p, rq, M, K, N);
+  int8_matmul_tile<BM, kReq>(x, w, q, partials, alpha_p, zp_p, rq, M, K, N);
 }
 
 // The weight's K-major image for mma's B operand: w [B, K, N] -> wt
@@ -419,7 +503,7 @@ int8_transpose_kernel(const int8_t* __restrict__ w, int8_t* __restrict__ wt,
 
 // Allow the ring's dynamic shared memory (above the 48 KB default) once
 // per kernel instantiation; returns the CUDA error code.
-template <int BM, bool kRequant, typename Kernel>
+template <int BM, int kMode, typename Kernel>
 int allow_smem(Kernel kernel) {
   static int status = -1;
   if (status < 0)
@@ -433,7 +517,7 @@ template <int BM>
 int launch_fp(const void* x, const void* w, void* y, void* partials,
               const void* alpha, const void* zp, int B, int M, int K, int N,
               cudaStream_t stream) {
-  if (const int s = allow_smem<BM, false>(int8_matmul_fp_kernel<BM>)) return s;
+  if (const int s = allow_smem<BM, kFp>(int8_matmul_fp_kernel<BM>)) return s;
   const dim3 grid((N + kBN - 1) / kBN, (M + BM - 1) / BM, B);
   int8_matmul_fp_kernel<BM><<<grid, kThreads, Tile<BM>::kSmemBytes, stream>>>(
       static_cast<const uint8_t*>(x), static_cast<const int8_t*>(w),
@@ -447,7 +531,7 @@ template <int BM>
 int launch_fused(const void* x, const void* w, void* q, void* partials,
                  const void* alpha, const void* zp, const Requant& rq, int M,
                  int K, int N, cudaStream_t stream) {
-  if (const int s = allow_smem<BM, true>(int8_matmul_fused_kernel<BM>))
+  if (const int s = allow_smem<BM, kReq>(int8_matmul_fused_kernel<BM>))
     return s;
   const dim3 grid((N + kBN - 1) / kBN, (M + BM - 1) / BM, 1);
   int8_matmul_fused_kernel<BM>
@@ -459,7 +543,52 @@ int launch_fused(const void* x, const void* w, void* q, void* partials,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int BM>
+int launch_int32(const void* x, const void* w, void* acc, const void* zp,
+                 int B, int M, int K, int N, cudaStream_t stream) {
+  if (const int s = allow_smem<BM, kInt>(int8_matmul_int32_kernel<BM>))
+    return s;
+  const dim3 grid((N + kBN - 1) / kBN, (M + BM - 1) / BM, B);
+  int8_matmul_int32_kernel<BM>
+      <<<grid, kThreads, Tile<BM>::kSmemBytes, stream>>>(
+          static_cast<const uint8_t*>(x), static_cast<const int8_t*>(w),
+          static_cast<int*>(acc), static_cast<const float*>(zp), M, K, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// x u8 [B, M, K], w s8 [B, N, K] (K-major), K a multiple of 16; acc int32
+// [B, M, N] = this K shard's acc + corr, on the row tile bm (as below).
+extern "C" int repro_int8_matmul_int32(const void* x, const void* w,
+                                       void* acc, const void* zp, int B,
+                                       int M, int K, int N, int bm,
+                                       void* stream) {
+  if (K % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (bm) {
+    case 128: return launch_int32<128>(x, w, acc, zp, B, M, K, N, st);
+    case 64: return launch_int32<64>(x, w, acc, zp, B, M, K, N, st);
+    case 32: return launch_int32<32>(x, w, acc, zp, B, M, K, N, st);
+    case 16: return launch_int32<16>(x, w, acc, zp, B, M, K, N, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// acc int32 [n] -> y fp32 [n] = alpha * float(acc); partials [ceil(n /
+// 2048), 2] of y.
+extern "C" int repro_int8_matmul_epilogue(const void* acc, void* y,
+                                          void* partials, const void* alpha,
+                                          long long n, void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (n + kThreads * kEpiItems - 1) /
+                           (kThreads * kEpiItems);
+  int8_matmul_epilogue_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(acc), static_cast<float*>(y),
+      static_cast<float*>(partials), static_cast<const float*>(alpha), n);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // w s8 [B, K, N] -> its K-major image wt [B, N, kx] (kx = K rounded up to
 // 16, zero-padded), the layout the two matmuls below read.

@@ -9,8 +9,9 @@ tile: batch 4 x 24 heads x 1024 x 128, G = 12, the sliding window
 (4096 > S) and the reference's (128, 128) blocks.  V's K-major image is
 made once, so a time is the kernel's alone.  Cut variants compute wrong
 results: the time a cut removes is what that part cost.  ``general``
-runs the kernel's general instantiation (every tile width a runtime
-value) where the launcher would pick the 128-wide one.  With ``--check``
+runs the mma kernel with every tile width a runtime value where the
+launcher would pick the 128-wide one (not the dp4a instantiation of the
+tiles past the mma ones).  With ``--check``
 every variant is also held against ``attention_core_reference`` (``m``
 and min/max/clip/n exact, the rest within the kernel tests' tolerances).
 A name may repeat, to interleave runs of the same build.

@@ -30,7 +30,13 @@ power-of-two ``bkv``, the flat tree otherwise).  A q block of 129-256
 rows (the tuner's ``(256, 128)`` below S = 256) takes the kernel's tall
 instantiation: each row group owns two 16-row mma tiles, whose values of
 one element meet first in the tree (its rows padded to 256), and K/V
-stream through one buffer.  At the slice's shape it
+stream through one buffer.  Every other tile the reference takes (bkv in
+(128, 512], bq above 256, hd in (256, 512], or a flat err/sig buffer that
+does not fit beside the wide layout) runs the general instantiation
+(:func:`uses_general`): CTAs of 16 q rows on dp4a, each kv block's scores
+formed whole (K in sub-tiles of 64 rows) before any exp, and the CTAs'
+p-site partials folded over each reference q block by the wrapper
+(err/sig within 1e-4 of the reference's tree).  At the slice's shape it
 is bound by the per-element fp32 softmax and requantization, not by bytes
 or by the card's int8 rate.
 
@@ -53,16 +59,22 @@ from . import LaunchCounter, build
 from . import int8_matmul as _mm
 
 COUNTER = LaunchCounter("int8_attention")
+# Launches of the general instantiation, counted beside COUNTER.
+GENERAL_COUNTER = LaunchCounter("int8_attention general")
 
 NEG_INF = -1e30
 P_SPEC = QuantSpec(bits=8, symmetric=False)
 STAT_SLOTS = 6
 MASK_MODES = ("causal", "sliding", "prefix", "cross", "bidir")
-KERNEL_MAX_BQ = 256          # bq limit of the CUDA kernel (above 128: tall)
-KERNEL_MAX_BKV = 128         # its bkv limit
-KERNEL_MAX_NARROW_HD = 128   # its narrow instantiation's hd
-KERNEL_MAX_HD = 256          # its hd limit (above 128: multiples of 16,
+KERNEL_MAX_BQ = 256          # bq limit of the mma instantiations (above
+                             # 128: tall)
+KERNEL_MAX_BKV = 128         # their bkv limit
+KERNEL_MAX_NARROW_HD = 128   # the narrow instantiation's hd
+KERNEL_MAX_HD = 256          # their hd limit (above 128: multiples of 16,
                              # to which the wrapper pads hd)
+MAX_HD = MAX_BKV = 512       # the reference's limits: the general
+                             # instantiation takes the tiles up to them
+GENERAL_ROWS = 16            # q rows of one general-instantiation CTA
 HD_ALIGN = 16                # the wide instantiation's hd step
 SMEM_LIMIT = 232448          # a block's shared memory on the H100, bytes
 
@@ -456,53 +468,80 @@ def _core_backward(qh, kh, vh, q_u8, k_i8, regs, kvlen, out, ml, g_out,
 _MODE_CODE = {"causal": 0, "sliding": 1, "prefix": 2, "cross": 3, "bidir": 4}
 
 
-def bind(lib: ctypes.CDLL):
-    """``lib``'s C entry ``repro_int8_attention`` with its signature."""
-    fn = lib.repro_int8_attention
+def bind(lib: ctypes.CDLL, general: bool = False):
+    """``lib``'s C entry ``repro_int8_attention`` (``general``: the
+    general instantiation's, ``repro_int8_attention_general``) with its
+    signature."""
+    fn = lib.repro_int8_attention_general if general \
+        else lib.repro_int8_attention
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp] * 8 + [ci] * 11 + [vp]
         fn.restype = ctypes.c_int
-        smem = lib.repro_int8_attention_smem
-        smem.argtypes = [ci] * 3
-        smem.restype = ci
+        for name, n in (("repro_int8_attention_smem", 3),
+                        ("repro_int8_attention_general_smem", 2)):
+            smem = getattr(lib, name)
+            smem.argtypes = [ci] * n
+            smem.restype = ci
     return fn
 
 
 def check_kernel_tiles(sched: AttnSchedule) -> None:
-    """Raise unless the CUDA kernel takes ``sched``'s tile: bq <= 256 (the
-    tall instantiation above 128), bkv <= 128 and hd <= 256 (above 128
-    :func:`attention_cuda` pads hd to a multiple of 16)."""
-    S = sched
-    if S.bq > KERNEL_MAX_BQ or S.bkv > KERNEL_MAX_BKV:
-        raise ValueError(
-            f"the CUDA attention kernel takes bq <= {KERNEL_MAX_BQ} and "
-            f"bkv <= {KERNEL_MAX_BKV}; got ({S.bq}, {S.bkv})")
-    if S.hd > KERNEL_MAX_HD:
-        raise ValueError(
-            f"the CUDA attention kernel takes head_dim <= {KERNEL_MAX_HD}; "
-            f"got {S.hd}")
+    """Raise where the reference's schedule raises (hd or bkv above 512,
+    with its message): the CUDA kernel takes every other tile, the mma
+    instantiations up to bq 256, bkv 128 and hd 256, the general one the
+    rest (:func:`uses_general`)."""
+    if sched.hd > MAX_HD or sched.bkv > MAX_BKV:
+        raise ValueError(f"head_dim/bkv must be <= 512 (got {sched.hd}, "
+                         f"{sched.bkv})")
 
 
-def kernel_head_dim(hd: int) -> int:
+def kernel_head_dim(hd: int, general: bool = False) -> int:
     """The head dim the kernel runs for ``hd``: ``hd`` up to 128 (the
-    narrow instantiation), above it ``hd`` rounded up to a multiple of 16
-    (the wide one)."""
-    if hd <= KERNEL_MAX_NARROW_HD:
+    narrow instantiation), above it, or on the general instantiation,
+    ``hd`` rounded up to a multiple of 16."""
+    if hd <= KERNEL_MAX_NARROW_HD and not general:
         return hd
     return -(-hd // HD_ALIGN) * HD_ALIGN
 
 
-def launch(fn, q_u8, k_i8, vt, regs, kvl, *, sched: AttnSchedule):
+def uses_general(sched: AttnSchedule, lib=None) -> bool:
+    """True when ``sched``'s tile runs the general instantiation: bq above
+    256, bkv above 128, hd above 256, or (with the library ``lib`` to ask)
+    an mma instantiation's shared memory above the card's."""
+    S = sched
+    if S.bq > KERNEL_MAX_BQ or S.bkv > KERNEL_MAX_BKV or \
+            S.hd > KERNEL_MAX_HD:
+        return True
+    if lib is None:
+        return False
+    bind(lib)
+    return lib.repro_int8_attention_smem(kernel_head_dim(S.hd), S.bq,
+                                         S.bkv) > SMEM_LIMIT
+
+
+def fold_partials(parts: torch.Tensor) -> torch.Tensor:
+    """The general instantiation's per-CTA partials ``[BH, nq, nsub, 6]``
+    folded over each reference q block's CTAs: min, max, and the sums of
+    clip, n, err and sig -> ``[BH, nq, 6]``."""
+    return torch.stack([parts[..., 0].amin(-1), parts[..., 1].amax(-1),
+                        *(parts[..., j].sum(-1) for j in range(2, 6))],
+                       dim=-1)
+
+
+def launch(fn, q_u8, k_i8, vt, regs, kvl, *, sched: AttnSchedule,
+           general: bool = False):
     """One launch of the C entry ``fn`` on operands already in the
     kernel's form: q and k 16-byte aligned, ``vt`` V's K-major image,
-    ``regs`` fp32 [8], ``kvl`` int32 [1], all on the card.  Returns
-    ``(out, ml, pstats)``; counts nothing."""
+    ``regs`` fp32 [8], ``kvl`` int32 [1], all on the card (``general``:
+    ``fn`` is the general instantiation's, whose partials are folded
+    here).  Returns ``(out, ml, pstats)``; counts nothing."""
     S = sched
     bh, dev = q_u8.shape[0], q_u8.device
     out = torch.empty((bh, S.sq, S.hd), dtype=torch.float32, device=dev)
     ml = torch.empty((bh, S.sq, 2), dtype=torch.float32, device=dev)
-    pstats = torch.empty((bh, S.nq, STAT_SLOTS), dtype=torch.float32,
+    nsub = -(-S.bq // GENERAL_ROWS) if general else 1
+    pstats = torch.empty((bh, S.nq, nsub, STAT_SLOTS), dtype=torch.float32,
                          device=dev)
     status = fn(q_u8.data_ptr(), k_i8.data_ptr(), vt.data_ptr(),
                 regs.data_ptr(), kvl.data_ptr(), out.data_ptr(),
@@ -511,18 +550,19 @@ def launch(fn, q_u8, k_i8, vt, regs, kvl, *, sched: AttnSchedule):
                 _MODE_CODE[S.mode], S.window, S.prefix_len, S.width,
                 torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, "int8_attention")
-    return out, ml, pstats
+    return out, ml, fold_partials(pstats) if general else pstats[:, :, 0]
 
 
 def attention_cuda(q_u8, k_i8, v_i8, regs, kvlen, *, sched: AttnSchedule):
     """Launch the CUDA kernel; same returns as
     :func:`attention_core_reference`.
 
-    A head dim in (128, 256] off the multiples of 16 runs padded to the
-    next one (:func:`kernel_head_dim`): zero K columns add 0 to every
-    score ``(q - zp_q) . k`` and leave ``rowsum(k)`` as it was, and zero V
-    columns add output columns that are cut, so the scores, ``(m, l)``
-    and the p-site statistics are those of the unpadded core."""
+    A head dim in (128, 256] off the multiples of 16 (any head dim on the
+    general instantiation) runs padded to the next one
+    (:func:`kernel_head_dim`): zero K columns add 0 to every score ``(q -
+    zp_q) . k`` and leave ``rowsum(k)`` as it was, and zero V columns add
+    output columns that are cut, so the scores, ``(m, l)`` and the p-site
+    statistics are those of the unpadded core."""
     S = sched
     if not (q_u8.is_cuda and k_i8.is_cuda and v_i8.is_cuda):
         raise ValueError("attention_cuda needs CUDA tensors")
@@ -536,7 +576,9 @@ def attention_cuda(q_u8, k_i8, v_i8, regs, kvlen, *, sched: AttnSchedule):
             v_i8.shape != k_i8.shape:
         raise ValueError(f"attention shapes {tuple(q_u8.shape)}, "
                          f"{tuple(k_i8.shape)} do not match {S}")
-    hd = kernel_head_dim(S.hd)
+    lib = build.library("int8_attention")
+    general = uses_general(S, lib)
+    hd = kernel_head_dim(S.hd, general)
     if hd != S.hd:
         pad = (0, hd - S.hd)
         q_u8, k_i8, v_i8 = (F.pad(t, pad) for t in (q_u8, k_i8, v_i8))
@@ -544,15 +586,7 @@ def attention_cuda(q_u8, k_i8, v_i8, regs, kvlen, *, sched: AttnSchedule):
             q_u8, k_i8, v_i8, regs, kvlen,
             sched=dataclasses.replace(S, hd=hd))
         return out[..., :S.hd].contiguous(), ml, pstats
-    lib = build.library("int8_attention")
-    fn = bind(lib)
-    smem = lib.repro_int8_attention_smem(S.hd, S.bq, S.bkv)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"the CUDA attention kernel at hd {S.hd} with (bq, bkv) = "
-            f"({S.bq}, {S.bkv}) needs {smem} bytes of shared memory, above "
-            f"the card's {SMEM_LIMIT} (a bkv that is not a power of two "
-            f"adds the flat err/sig tree's bq * bkv floats)")
+    fn = bind(lib, general)
     dev = q_u8.device
     q_u8, k_i8 = _mm._aligned(q_u8), _mm._aligned(k_i8)
     # V's K-major image [ZB, hd, skv rounded up to 16]: the PV product's
@@ -560,6 +594,8 @@ def attention_cuda(q_u8, k_i8, v_i8, regs, kvlen, *, sched: AttnSchedule):
     vt = _mm.weight_kmajor_cuda(v_i8)
     regs = regs.to(device=dev, dtype=torch.float32).reshape(-1).contiguous()
     kvl = kvlen.to(device=dev, dtype=torch.int32).reshape(1).contiguous()
-    out, ml, pstats = launch(fn, q_u8, k_i8, vt, regs, kvl, sched=S)
+    out, ml, pstats = launch(fn, q_u8, k_i8, vt, regs, kvl, sched=S,
+                             general=general)
     COUNTER.count += 1
+    GENERAL_COUNTER.count += general
     return out, ml, pstats

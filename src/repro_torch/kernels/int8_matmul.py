@@ -43,6 +43,16 @@ warp-specialised schedule is the next step in the same shared main loop,
 and a weight site that writes the K-major image directly removes the
 transpose.
 
+The same source's int32 mode (:func:`int8_matmul_int32_cuda`) and its
+epilogue (:func:`int8_matmul_epilogue_cuda`) replace no TPU kernel: they
+split ``int8_matmul_fp`` around a reduction, for a product whose K is
+sharded over a model axis (Megatron's row-parallel half).  The int32
+mode runs the same main loop and writes ``acc + corr``, ``corr`` from the
+rank's own K rows; the ranks' int32 partials sum exactly; the epilogue
+then takes ``alpha * float(.)`` and the (min, max) partials, the fused
+epilogue's one rounding, so the result is the unsharded kernel's bit for
+bit.  No statistic is taken of the int32 partials.
+
 ``torch.matmul`` has no int32 kernel on CUDA, so the plain versions
 compute the integer contraction in float64 in the reference's form,
 ``(x - 128) . w + round(128 - zp_x) * colsum(w)``: every product and
@@ -63,6 +73,8 @@ from .tuning import MATMUL_DEFAULT, MATMUL_TILES
 COUNTER = LaunchCounter("int8_matmul_fp")
 FUSED_COUNTER = LaunchCounter("int8_matmul_fused")
 TRANSPOSE_COUNTER = LaunchCounter("int8_transpose")
+INT32_COUNTER = LaunchCounter("int8_matmul_int32")
+EPILOGUE_COUNTER = LaunchCounter("int8_matmul_epilogue")
 
 ROW_TILES = tuple(t[0] for t in MATMUL_TILES)   # the kernel's row tiles
 # Launches of each row tile, counted beside COUNTER / FUSED_COUNTER.
@@ -111,6 +123,23 @@ def int8_matmul_fp_plain(x3: torch.Tensor, w3: torch.Tensor,
     return y, mn, mx
 
 
+def int8_matmul_int32_plain(x3: torch.Tensor, w3: torch.Tensor,
+                            x_zp: torch.Tensor) -> torch.Tensor:
+    """Plain version of the int32 mode: ``acc + corr`` int32 ``[B, M,
+    N]`` of uint8 ``x3 [B, M, K]`` and int8 ``w3 [B, K, N]`` (exact in
+    float64, then cast)."""
+    return _acc_plain(x3, w3, x_zp).to(torch.int32)
+
+
+def int8_matmul_epilogue_plain(acc: torch.Tensor, alpha: torch.Tensor):
+    """Plain version of the int32 mode's epilogue: ``(y = alpha *
+    float(acc), min, max)``, the fused epilogue's one rounding."""
+    y = alpha.to(device=acc.device, dtype=torch.float32) * acc.to(
+        torch.float32)
+    mn, mx = torch.aminmax(y)
+    return y, mn, mx
+
+
 def int8_matmul_fused_plain(x2: torch.Tensor, w2: torch.Tensor,
                             x_zp: torch.Tensor, alpha: torch.Tensor,
                             bias, qparams: torch.Tensor, spec: QuantSpec):
@@ -136,6 +165,8 @@ _ARGTYPES = {   # the C entry points of csrc/int8_matmul.cu
     "repro_int8_matmul_fp": [_VP] * 6 + [_CI] * 5 + [_VP],
     "repro_int8_matmul_fused": [_VP] * 8 + [_CI] * 6 + [_VP],
     "repro_int8_transpose": [_VP] * 2 + [_CI] * 3 + [_VP],
+    "repro_int8_matmul_int32": [_VP] * 4 + [_CI] * 5 + [_VP],
+    "repro_int8_matmul_epilogue": [_VP] * 4 + [ctypes.c_longlong, _VP],
 }
 
 
@@ -315,3 +346,50 @@ def int8_matmul_fused_cuda(x2: torch.Tensor, w2: torch.Tensor,
     FUSED_COUNTER.count += 1
     FUSED_TILE_COUNTERS[bm].count += 1
     return q, partials[..., 0].amin(), partials[..., 1].amax()
+
+
+def int8_matmul_int32_cuda(x3: torch.Tensor, w3: torch.Tensor,
+                           x_zp: torch.Tensor, block=MATMUL_DEFAULT):
+    """Launch the int32 mode on the tile ``block`` (rows clamped as
+    :func:`int8_matmul_fp_cuda`); same return as
+    :func:`int8_matmul_int32_plain`."""
+    _check_operands(x3, w3, "int8_matmul_int32_cuda", 3)
+    xk, wk = stage_operands(x3, w3)
+    block = check_tile(block)
+    b, m, k = xk.shape
+    bm = row_tile(block[0], m)
+    if -(-m // bm) > MAX_ROW_TILES:
+        raise ValueError(f"int8_matmul_int32_cuda: M = {m} exceeds "
+                         f"{MAX_ROW_TILES} row tiles of {bm}")
+    n = wk.shape[1]
+    acc = torch.empty((b, m, n), dtype=torch.int32, device=xk.device)
+    status = _lib("repro_int8_matmul_int32")(
+        xk.data_ptr(), wk.data_ptr(), acc.data_ptr(),
+        _scalar(x_zp, xk).data_ptr(), b, m, k, n, bm,
+        torch.cuda.current_stream(xk.device).cuda_stream)
+    build.check(status, "int8_matmul_int32")
+    INT32_COUNTER.count += 1
+    return acc
+
+
+EPILOGUE_BLOCK = 256 * 8     # int32 values a block of the epilogue takes
+
+
+def int8_matmul_epilogue_cuda(acc: torch.Tensor, alpha: torch.Tensor):
+    """Launch the int32 mode's epilogue; same returns as
+    :func:`int8_matmul_epilogue_plain`."""
+    if not acc.is_cuda or acc.dtype != torch.int32 or acc.numel() == 0:
+        raise ValueError(f"int8_matmul_epilogue_cuda needs a non-empty CUDA "
+                         f"int32 tensor, got {acc.dtype} on {acc.device}")
+    acc = acc.contiguous()
+    n = acc.numel()
+    y = torch.empty(acc.shape, dtype=torch.float32, device=acc.device)
+    partials = torch.empty((-(-n // EPILOGUE_BLOCK), 2), dtype=torch.float32,
+                           device=acc.device)
+    status = _lib("repro_int8_matmul_epilogue")(
+        acc.data_ptr(), y.data_ptr(), partials.data_ptr(),
+        _scalar(alpha, acc).data_ptr(), n,
+        torch.cuda.current_stream(acc.device).cuda_stream)
+    build.check(status, "int8_matmul_epilogue")
+    EPILOGUE_COUNTER.count += 1
+    return y, partials[:, 0].amin(), partials[:, 1].amax()

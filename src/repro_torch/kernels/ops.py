@@ -31,7 +31,8 @@ from . import tuning
 from .int8_attention import AttnSchedule
 
 COUNTERS = (_fq.COUNTER, _mm.COUNTER, _attn.COUNTER, _sq.COUNTER,
-            _mm.FUSED_COUNTER, _mm.TRANSPOSE_COUNTER)
+            _mm.FUSED_COUNTER, _mm.TRANSPOSE_COUNTER, _mm.INT32_COUNTER,
+            _mm.EPILOGUE_COUNTER)
 
 
 def launch_counts() -> dict:
@@ -46,12 +47,13 @@ def tile_launch_counts() -> dict:
            for bm, c in _mm.TILE_COUNTERS.items()}
     out.update({("int8_matmul_fused", bm): c.count
                 for bm, c in _mm.FUSED_TILE_COUNTERS.items()})
+    out[("int8_attention", "general")] = _attn.GENERAL_COUNTER.count
     return out
 
 
 def reset_launch_counts() -> None:
     for c in (*COUNTERS, *_mm.TILE_COUNTERS.values(),
-              *_mm.FUSED_TILE_COUNTERS.values()):
+              *_mm.FUSED_TILE_COUNTERS.values(), _attn.GENERAL_COUNTER):
         c.count = 0
 
 
@@ -225,6 +227,40 @@ def int8_matmul_fp(x_q: torch.Tensor, w_q: torch.Tensor, x_zp, alpha, *,
                                   x_zp, alpha, block)
     y = y3.reshape(bdims + mdims + ndims).permute(plan.y_perm)
     return y, mn, mx
+
+
+def int8_matmul_int32(x_q: torch.Tensor, w_q: torch.Tensor, x_zp, *,
+                      plan: EinsumPlan, block=None) -> torch.Tensor:
+    """The int32 mode of :func:`int8_matmul_fp`: ``einsum(plan.spec, x_q -
+    zp_x, w_q)`` exact in int32 (``acc + corr``), in einsum output layout,
+    with no epilogue and no statistics: a K shard's partial, which
+    :func:`int8_matmul_epilogue` finishes once the shards are summed."""
+    nb, nxf, nc = plan.n_batch, plan.n_x_free, plan.n_contract
+    xt = x_q.permute(plan.x_perm)
+    wt = w_q.permute(plan.w_perm)
+    bdims = tuple(xt.shape[:nb])
+    mdims = tuple(xt.shape[nb:nb + nxf])
+    ndims = tuple(wt.shape[nb + nc:])
+    b, m, n = _prod(bdims), _prod(mdims), _prod(ndims)
+    k = _prod(xt.shape[nb + nxf:])
+    x3, w3 = xt.reshape(b, m, k), wt.reshape(b, k, n)
+    zp = torch.as_tensor(x_zp, dtype=torch.float32).to(x3.device)
+    if _on_cuda(x3, w3):
+        if block is None:
+            block = tuning.matmul_block(m, n, k, dtype=_dtype_name(x_q))
+        acc = _mm.int8_matmul_int32_cuda(x3, w3, zp, block=block)
+    else:
+        acc = _mm.int8_matmul_int32_plain(x3, w3, zp)
+    return acc.reshape(bdims + mdims + ndims).permute(plan.y_perm)
+
+
+def int8_matmul_epilogue(acc: torch.Tensor, alpha):
+    """``(alpha * float(acc), min, max)`` of summed int32 partials: the
+    fused epilogue of :func:`int8_matmul_fp`, op for op."""
+    al = torch.as_tensor(alpha, dtype=torch.float32).to(acc.device)
+    if _on_cuda(acc):
+        return _mm.int8_matmul_epilogue_cuda(acc, al)
+    return _mm.int8_matmul_epilogue_plain(acc, al)
 
 
 def int8_matmul_fused(x_q: torch.Tensor, w_q: torch.Tensor, x_scale, x_zp,

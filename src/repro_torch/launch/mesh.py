@@ -13,7 +13,7 @@ carried over: they are a TPU's numbers.
 from __future__ import annotations
 
 import os
-from typing import Callable, Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import torch.distributed as dist
 
@@ -34,6 +34,34 @@ def make_production_mesh(*, multi_pod: bool = False,
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_mesh(shape, axes, device_type)
+
+
+class MeshGroups(NamedTuple):
+    """A rank's place in a ``(data, model)`` mesh: its data subgroup (the
+    ranks of its model coordinate), its model subgroup (the ranks of its
+    data coordinate), its coordinates and the mesh's sizes."""
+
+    data: object
+    model: object
+    coords: dict
+    sizes: dict
+
+
+def mesh_groups(data: int, model: int) -> MeshGroups:
+    """This rank's subgroups of a ``(data, model)`` mesh over the default
+    process group (world size ``data * model``), in ``jax.make_mesh``'s
+    row-major order: ``rank = d * model + m``.  Every rank must call it
+    (``torch.distributed.new_group`` is collective)."""
+    if dist.get_world_size() != data * model:
+        raise ValueError(f"a ({data}, {model}) mesh needs {data * model} "
+                         f"ranks, not {dist.get_world_size()}")
+    d, m = divmod(dist.get_rank(), model)
+    data_groups = [dist.new_group([dd * model + mm for dd in range(data)])
+                   for mm in range(model)]
+    model_groups = [dist.new_group([dd * model + mm for mm in range(model)])
+                    for dd in range(data)]
+    return MeshGroups(data_groups[m], model_groups[d],
+                      {"data": d, "model": m}, {"data": data, "model": model})
 
 
 def dp_axes(multi_pod: bool = False) -> tuple:

@@ -22,6 +22,17 @@ Cross attention (the enc-dec family) takes its keys and values from
 ``k`` site and no RoPE; a prefill fills the cross cache with the encoder's
 projections, and decode (``kv_x=None``) attends that cache whole without
 running a k/v projection.
+
+Under a model group (``runtime.sharding.model_parallel``) a rank holds
+the heads :func:`local_heads` gives (``sharding.attn_layout``: the KV
+heads where KV divides the group, else the G query heads of every KV
+head) and the layer runs on them: q (and k, v when KV is sharded) are
+column-parallel products, the core (the int8 kernel or an fp path) and
+the decode cache hold the rank's heads, and the output projection is
+row-parallel.  Where G is sharded, k and v are computed whole on every
+rank, and their cotangent, each rank's partial over its G heads, is
+summed (in fp32 inside the int8 core's backward) before their gradient
+sites quantize it.
 """
 from __future__ import annotations
 
@@ -37,6 +48,21 @@ from repro_torch.runtime import sharding
 from .layers import apply_rope, init_normal
 
 NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# The model axis.
+# ---------------------------------------------------------------------------
+def local_heads(n_kv: int, g: int):
+    """``(kv, g, layout)``: the KV and G head counts a model rank holds
+    and the layout (``"kv"`` / ``"g"``; None without a model group)."""
+    mp = sharding.mp_shard()
+    if mp is None:
+        return n_kv, g, None
+    layout = sharding.attn_layout(n_kv, g, mp[1])
+    if layout == "kv":
+        return n_kv // mp[1], g, layout
+    return n_kv, g // mp[1], layout
 
 
 # ---------------------------------------------------------------------------
@@ -254,8 +280,11 @@ def cache_fill(cache: dict, k, v) -> dict:
     slots = pos % length
     ksrc, vsrc = k[:, start:], v[:, start:]
     if "scale" in cache:
-        ks = (ksrc.to(torch.float32).abs().amax() / 127.0).clamp(min=1e-8)
-        vs = (vsrc.to(torch.float32).abs().amax() / 127.0).clamp(min=1e-8)
+        # the whole cache's scales: a model rank holds some heads
+        ks = (sharding.mp_max(ksrc.to(torch.float32).abs().amax())
+              / 127.0).clamp(min=1e-8)
+        vs = (sharding.mp_max(vsrc.to(torch.float32).abs().amax())
+              / 127.0).clamp(min=1e-8)
         cache["scale"] = torch.stack([ks, vs])
         ksrc, vsrc = _quant_kv(ksrc, ks), _quant_kv(vsrc, vs)
     cache["k"][:, slots] = ksrc.to(cache["k"].dtype)
@@ -299,6 +328,13 @@ def attention_layer(params, sites: dict, x: torch.Tensor, *, n_heads: int,
     output, as the k/v source); returns ``(y, stats, cache)``."""
     b, s, _ = x.shape
     scale = head_dim ** -0.5
+    # the model axis: which head dim of q ([B, S, KV, G, hd]) and of k / v
+    # ([B, S, KV, hd]) this rank holds a slice of
+    layout = local_heads(n_kv, n_heads // n_kv)[2]
+    q_dim = {None: None, "kv": 2, "g": 3}[layout]
+    kv_dim = 2 if layout == "kv" else None
+    par = None if layout is None else "col"
+    kv_par = "col" if layout == "kv" else None
     # Cross decode: the encoder's projections were cached at prefill
     # (signalled by kv_x=None); no k/v projection runs.
     cross_decode = cache is not None and mode == "cross" and kv_x is None
@@ -311,7 +347,7 @@ def attention_layer(params, sites: dict, x: torch.Tensor, *, n_heads: int,
     q, sq = qlinear.qdense_pre(xq, params["wq"], sites["q"], policy,
                                einsum_spec="bsd,dkgh->bskgh",
                                bias=params.get("bq"), seed=seed, step=step,
-                               qinfo=xqi)
+                               qinfo=xqi, parallel=par, y_dim=q_dim)
     sq["act"] = in_stats
     new_sites["q"] = sq
     if cross_decode:
@@ -327,11 +363,13 @@ def attention_layer(params, sites: dict, x: torch.Tensor, *, n_heads: int,
         k, new_sites["k"] = qlinear.qdense_pre(
             src_q, params["wk"], sites["k"], policy,
             einsum_spec="bsd,dkh->bskh", bias=params.get("bk"),
-            seed=seed + 1, step=step, qinfo=src_qi)
+            seed=seed + 1, step=step, qinfo=src_qi, parallel=kv_par,
+            y_dim=kv_dim)
         v, new_sites["v"] = qlinear.qdense_pre(
             src_q, params["wv"], sites["v"], policy,
             einsum_spec="bsd,dkh->bskh", bias=params.get("bv"),
-            seed=seed + 2, step=step, qinfo=src_qi)
+            seed=seed + 2, step=step, qinfo=src_qi, parallel=kv_par,
+            y_dim=kv_dim)
         if src_stats is not None:
             new_sites["k"]["act"] = src_stats
 
@@ -356,6 +394,10 @@ def attention_layer(params, sites: dict, x: torch.Tensor, *, n_heads: int,
              and max(s, k.shape[1]) <= dense_attn_max)
     q, k, v = sharding.attn_hints(q, k, v,
                                   allow_seq=dense and cache is None and s > 1)
+    if layout == "g" and not use_core and k is not None:
+        # whole k, v against the rank's G heads: their cotangent summed
+        # (f; the int8 core sums it in fp32 itself)
+        k, v = sharding.mp_grad_sum(k), sharding.mp_grad_sum(v)
 
     if cross_decode:
         # the whole cached encoder: every filled slot is at or before 2**30
@@ -373,7 +415,8 @@ def attention_layer(params, sites: dict, x: torch.Tensor, *, n_heads: int,
         if use_core:
             out, core_stats = backend.qattention(
                 policy, q, k, v, sites["core"], mode=mode, window=window,
-                prefix_len=prefix_len, kv_len=kv_len, scale=scale, step=step)
+                prefix_len=prefix_len, kv_len=kv_len, scale=scale, step=step,
+                model_dims=(q_dim, kv_dim))
         elif local:
             out = _local_attn(q, k, v, window=window, scale=scale)
         elif dense:
@@ -396,7 +439,9 @@ def attention_layer(params, sites: dict, x: torch.Tensor, *, n_heads: int,
 
     y, new_sites["o"] = qlinear.qeinsum("bskgh,kghd->bsd", out, params["wo"],
                                         sites["o"], policy, seed=seed + 3,
-                                        step=step)
+                                        step=step,
+                                        parallel=None if layout is None
+                                        else "row", x_dim=q_dim)
     if params.get("bo") is not None:
         y = y + params["bo"].to(y.dtype)
     return y, new_sites, cache

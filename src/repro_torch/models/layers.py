@@ -3,7 +3,9 @@ embeddings, activations, the quantized MLP and the embedding.
 
 Norms, rotary and activations compute in fp32 and cast back to the input
 dtype, like the reference; every weight-bearing matmul goes through
-:mod:`repro_torch.core.qlinear`.
+:mod:`repro_torch.core.qlinear`.  Under a model group the MLP is a
+Megatron pair: ``w_up`` / ``w_gate`` column-parallel (a rank's ``d_ff``
+columns), ``w_down`` row-parallel.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import qlinear
 from repro_torch.core.policy import QuantPolicy
+from repro_torch.runtime import sharding
 
 
 def init_normal(gen: torch.Generator, shape, scale: float, dtype
@@ -173,15 +176,18 @@ def apply_mlp(params, sites: dict, x: torch.Tensor, kind: str,
     """Returns ``(out, stats)``; one shared input quantization for up (and
     gate), its range state on the "up" site."""
     new_sites = {}
+    tp = sharding.mp_shard() is not None
+    col, hdim = ("col", -1) if tp else (None, None)
     xq, in_stats, xqi = qlinear.act_quant_site(x, sites["up"]["act"], policy,
                                                step)
     up, s_up = qlinear.qdense_pre(xq, params["w_up"], sites["up"], policy,
                                   bias=params.get("b_up"), seed=seed,
-                                  step=step, qinfo=xqi)
+                                  step=step, qinfo=xqi, parallel=col,
+                                  y_dim=hdim)
     if kind in GLU_KINDS:
         gate, new_sites["gate"] = qlinear.qdense_pre(
             xq, params["w_gate"], sites["gate"], policy, seed=seed + 1,
-            step=step, qinfo=xqi)
+            step=step, qinfo=xqi, parallel=col, y_dim=hdim)
         h = activation(gate, _GLU_ACT[kind]) * up
     else:
         h = activation(up, kind)
@@ -189,7 +195,8 @@ def apply_mlp(params, sites: dict, x: torch.Tensor, kind: str,
     new_sites["up"] = s_up
     out, new_sites["down"] = qlinear.qdense(
         h, params["w_down"], sites["down"], policy,
-        bias=params.get("b_down"), seed=seed + 2, step=step)
+        bias=params.get("b_down"), seed=seed + 2, step=step,
+        parallel="row" if tp else None, x_dim=hdim)
     return out, new_sites
 
 

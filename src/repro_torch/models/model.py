@@ -22,6 +22,15 @@ way in, ``Q_G`` on the same tensor), so the cotangent that re-enters the
 trunk is quantized once, whatever the chunking.  As in the reference,
 prefill/decode project only the last position onto the vocabulary, with
 the quantized head weight, in plain fp32 (outside any quant site).
+
+Under a model group (``runtime.sharding.model_parallel``) the embedding
+and the head are vocab-parallel: a rank holds ``V / M`` rows of
+``embed`` (columns of ``head``).  The lookup is masked to the rank's
+rows and summed over the group (one nonzero term a token: exact); the
+head's chunks compute the rank's vocabulary columns, and the cross
+entropy takes the row max (an all_reduce MAX) and the sum of exps and
+the gold logit (SUM) over the group; prefill and decode gather the last
+position's logits, whose greedy argmax is then the one process's.
 """
 from __future__ import annotations
 
@@ -102,17 +111,35 @@ def init_cache(cfg, batch: int, cache_len: int, device=None) -> dict:
 # ===========================================================================
 # Trunk.
 # ===========================================================================
+def _vocab_slice(ids: torch.Tensor, n_local: int):
+    """``(local index, inside)`` of vocabulary ids against this model
+    rank's ``n_local`` rows (``inside``: the rank holds the id; the
+    index of the others is clamped into range)."""
+    r = sharding.mp_shard()[0]
+    local = ids - r * n_local
+    inside = (local >= 0) & (local < n_local)
+    return local.clamp(0, n_local - 1), inside
+
+
 def _embed_tokens(params, tokens, cfg, policy) -> torch.Tensor:
     """Quantizes the whole table (current min-max), then gathers rows.
     Without a recorded gradient the rows are dequantized after the gather —
     the same elementwise ops as the reference's dequantize-then-gather,
-    without a full fp copy; with one, the on-grid table carries the STE."""
-    table, qt = qlinear.quantize_weight_q(params["embed"], policy)
+    without a full fp copy; with one, the on-grid table carries the STE.
+    Vocab-parallel under a model group (module docstring)."""
+    tp = sharding.mp_shard() is not None
+    table, qt = qlinear.quantize_weight_q(params["embed"], policy,
+                                          sharded=tp)
+    ids, inside = (tokens, None) if not tp else _vocab_slice(
+        tokens, params["embed"].shape[0])
     if table is not None:
-        rows = table[tokens]
+        rows = table[ids]
     else:
         rows = backend.dequantize_qtensor(
-            backend.QTensor(qt.q[tokens], qt.scale, qt.zero_point))
+            backend.QTensor(qt.q[ids], qt.scale, qt.zero_point))
+    if tp:
+        rows = sharding.mp_sum(torch.where(inside[..., None], rows.to(
+            torch.float32), 0.0)).to(rows.dtype)
     x = rows.to(getattr(torch, cfg.compute_dtype))
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
@@ -174,34 +201,54 @@ def _head_weight_raw(params, cfg) -> torch.Tensor:
 
 
 def _head_weight(params, cfg, policy) -> torch.Tensor:
-    return qlinear.quantize_weight(_head_weight_raw(params, cfg), policy)
+    return qlinear.quantize_weight(_head_weight_raw(params, cfg), policy,
+                                   sharded=sharding.mp_shard() is not None)
 
 
 def _logits(params, x, cfg, policy) -> torch.Tensor:
-    return torch.matmul(x[:, -1].to(torch.float32),
-                        _head_weight(params, cfg, policy).to(torch.float32))
+    """The last position's logits ``[B, V]`` (under a model group, the
+    ranks' vocabulary columns gathered)."""
+    y = torch.matmul(x[:, -1].to(torch.float32),
+                     _head_weight(params, cfg, policy).to(torch.float32))
+    return sharding.mp_gather(y, 1)
 
 
 # ===========================================================================
 # Training forward + chunked loss.
 # ===========================================================================
 def _chunk_loss(logits, labels, mask):
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    """``(sum of nll, sum of logz**2)`` over the chunk's masked tokens;
+    under a model group ``logits`` are the rank's vocabulary columns and
+    the reductions over V run across the group."""
+    if sharding.mp_shard() is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    else:
+        m = sharding.mp_max(logits.detach().amax(dim=-1))
+        se = sharding.mp_sum(torch.sum(torch.exp(logits - m[..., None]),
+                                       dim=-1))
+        logz = torch.log(se) + m
+        idx, inside = _vocab_slice(labels, logits.shape[-1])
+        gold = sharding.mp_sum(torch.where(
+            inside, torch.gather(logits, -1, idx[..., None])[..., 0], 0.0))
     return torch.sum((logz - gold) * mask), torch.sum(logz.square() * mask)
 
 
 def _chunk_nll(policy, xqi, wq, wqt, xcb, qcb, lcb, mcb):
     """One head chunk: logits ``[B, c, V]`` through the backend contraction
-    (the int8 kernel path when both images exist), then (nll, z-penalty)."""
+    (the int8 kernel path when both images exist), then (nll, z-penalty);
+    column-parallel under a model group (the rank's V columns)."""
+    par = None if sharding.mp_shard() is None else "col"
     if qcb is not None:
         logits = backend.qmatmul(
             policy, "bcd,dv->bcv", xcb,
             backend.QTensor(qcb, xqi.scale, xqi.zero_point), wq, wqt,
-            out_dtype=torch.float32)
+            out_dtype=torch.float32, parallel=par)
     else:
-        logits = torch.einsum("bcd,dv->bcv", xcb.to(torch.float32),
-                              wq.to(torch.float32))
+        xf = xcb.to(torch.float32)
+        if par is not None:
+            xf = sharding.mp_grad_sum(xf)
+        logits = torch.einsum("bcd,dv->bcv", xf, wq.to(torch.float32))
     return _chunk_loss(logits, lcb, mcb)
 
 
@@ -228,7 +275,9 @@ def loss_fn(params, quant_state, batch, cfg, policy: QuantPolicy, seed: int,
                                                    step)
     xq = qlinear.grad_quant_barrier(xq, site["grad"], policy,
                                     seed + 7_000_000, step)
-    wq, wqt = qlinear.quantize_weight_q(_head_weight_raw(params, cfg), policy)
+    wq, wqt = qlinear.quantize_weight_q(_head_weight_raw(params, cfg), policy,
+                                        sharded=sharding.mp_shard()
+                                        is not None)
     if wq is not None:
         wq = wq.to(xq.dtype)
 

@@ -28,9 +28,21 @@ load-balance loss takes the global means of ``frac`` and ``prob`` and the
 z-loss the global mean, as the reference's global program under GSPMD,
 each rank's share of the loss being ``1 / N`` of them; a rank's tokens
 must fill whole groups of ``group_size`` (the global program's groups
-are then the ranks' in order), or the layer raises.  ``hint(expert_in,
-"model", "batch", ...)`` (experts over the model axis) is the
-reference's; the model axis is not realized yet.
+are then the ranks' in order), or the layer raises.
+
+Under a model group (``runtime.sharding.model_parallel``) a rank holds
+``E / M`` experts (``hint(expert_in, "model", "batch", ...)``, the
+reference's expert parallelism).  Tokens are replicated over ``model``,
+so no all-to-all runs: the dispatch tensor is sliced along E, each rank
+runs its experts, and the experts' outputs are gathered along E before
+the combine, which every rank then computes whole, as one process does.
+A sum of per-rank partial combines would round a token's top-k terms in
+another order (bf16 einsums accumulate in fp32 and round once), where
+the gather keeps the forward bit for bit; its backward is each rank's
+slice of the replicated cotangent, and the dispatch's input gradient,
+each rank's partial over its experts, is summed in fp32 (Megatron's f).
+The router stays replicated and the shared expert is a Megatron pair;
+the aux and z losses are unchanged.
 """
 from __future__ import annotations
 
@@ -156,7 +168,16 @@ def apply_moe(params, sites: dict, x: torch.Tensor, spec: MoeSpec, *,
     combine, dispatch = _dispatch_tensors(gates, cap)
 
     comp = x.dtype
-    expert_in = torch.einsum("gtec,gtd->egcd", dispatch.to(comp), xg)
+    ep = sharding.mp_shard() is not None
+    par, edim = ("expert", 0) if ep else (None, None)
+    # The dispatch in fp32: its forward moves values (one-hot), and its
+    # input gradient, a token's top-k slots, is summed in fp32 and rounded
+    # once (a bf16 GEMM may round split-K partials to bf16 on the card);
+    # under expert parallelism over this rank's experts, the partials
+    # summed over the model group (f).
+    expert_in = torch.einsum(
+        "gtec,gtd->egcd", sharding.mp_slice(dispatch, 2),
+        sharding.mp_grad_sum(xg.to(torch.float32))).to(comp)
     # expert parallelism: E over the model axis, groups over data
     expert_in = sharding.hint(expert_in, "model", "batch", None, None)
 
@@ -164,16 +185,16 @@ def apply_moe(params, sites: dict, x: torch.Tensor, spec: MoeSpec, *,
     # One shared input quantization for the expert up/gate matmuls (empty
     # capacity slots are zero rows and enter its statistics).
     eq, e_stats, eqi = qlinear.act_quant_site(expert_in, sites["up"]["act"],
-                                              policy, step)
+                                              policy, step, edim)
     up, s_up = qlinear.qdense_pre(
         eq, params["w_up"], sites["up"], policy,
         einsum_spec="egcd,edf->egcf", seed=seed, step=step, qinfo=eqi,
-        batch_dim=1)
+        batch_dim=1, parallel=par, y_dim=edim)
     if spec.mlp_kind in GLU_KINDS:
         gate, new_sites["gate"] = qlinear.qdense_pre(
             eq, params["w_gate"], sites["gate"], policy,
             einsum_spec="egcd,edf->egcf", seed=seed + 1, step=step,
-            qinfo=eqi, batch_dim=1)
+            qinfo=eqi, batch_dim=1, parallel=par, y_dim=edim)
         h = activation(gate, _GLU_ACT[spec.mlp_kind]) * up
     else:
         h = activation(up, spec.mlp_kind)
@@ -181,7 +202,10 @@ def apply_moe(params, sites: dict, x: torch.Tensor, spec: MoeSpec, *,
     new_sites["up"] = s_up
     out, new_sites["down"] = qlinear.qeinsum(
         "egcf,efd->egcd", h, params["w_down"], sites["down"], policy,
-        seed=seed + 2, step=step, batch_dim=1)
+        seed=seed + 2, step=step, batch_dim=1, parallel=par, x_dim=edim,
+        y_dim=edim)
+    if ep:
+        out = sharding.mp_gather(out, 0)
 
     y = torch.einsum("gtec,egcd->gtd", combine.to(comp), out)
     y = y.reshape(b, s, d)

@@ -18,6 +18,13 @@ recurrentgemma's 38 = 12 x 3 + 2) unrolled; the port runs a Python loop
 over the layers and keeps one entry per layer: params, quant sites and
 caches are ``{"layers": [layer 0, layer 1, ...]}``, for the decoder and
 the encoder alike.  ``repro_torch.convert`` maps between the two layouts.
+
+Under a model group (``runtime.sharding.model_parallel``) the kinds
+``attn``, ``local``, ``enc``, ``xattn`` and ``moe`` run on a rank's
+shards (their attention heads, MLP columns, experts; caches of the
+rank's heads); ``rec`` and ``rwkv`` raise: their model-axis rules
+(reference ``sharding.py`` ``/rglru/``, ``/time/``, ``/chan/``) are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -119,12 +126,14 @@ def _init_block_cache(kind: str, cfg, batch: int, cache_len: int,
         length = min(cache_len, cfg.local_window)
     elif cfg.sliding_window is not None and kind != "xattn":
         length = min(cache_len, cfg.sliding_window)
-    cache = {"kv": attn.init_kv_cache(batch, length, cfg.n_kv, cfg.head_dim,
+    # a model rank's cache holds its own heads (cache_pspecs' k/v rule)
+    n_kv = attn.local_heads(cfg.n_kv, cfg.n_heads // cfg.n_kv)[0]
+    cache = {"kv": attn.init_kv_cache(batch, length, n_kv, cfg.head_dim,
                                       cdt, device)}
     if kind == "xattn":
         # the encoder's projections; a longer source keeps its last slots
         cache["xkv"] = attn.init_kv_cache(batch, cfg.enc_len(cache_len),
-                                          cfg.n_kv, cfg.head_dim, cdt, device)
+                                          n_kv, cfg.head_dim, cdt, device)
     return cache
 
 
@@ -188,6 +197,11 @@ def _apply_block(kind: str, params, sites, x, *, cfg, policy, seed, step,
     decode: it reads its ``xkv`` cache); ``prefix_len`` puts ``"attn"``
     and ``"moe"`` blocks under the prefix-LM mask."""
     _check_kind(kind)
+    if kind in ("rec", "rwkv") and sharding.mp_shard() is not None:
+        raise NotImplementedError(
+            f"the {kind!r} block under a model group: its model-axis rules "
+            f"(reference sharding.py /rglru/, /time/, /chan/) are not "
+            f"ported yet (ROADMAP.md §1)")
     if kind == "rwkv":
         return _apply_rwkv_block(params, sites, x, cfg=cfg, policy=policy,
                                  seed=seed, step=step, cache=cache)

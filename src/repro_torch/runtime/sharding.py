@@ -29,10 +29,25 @@ Hints.  ``hint``, ``hint_heads``, ``attn_hints`` and ``replicate_hint``
 return their input objects unchanged when no mapping is active, as the
 reference's do.  Under an active mapping they compute the reference's
 spec and record it (``activation_hints(..., record=list)``) and still
-return the input: on a data-only mesh the batch dim is already local to a
-rank, and the ``model`` axis (Megatron pairs, expert parallelism, the
-sequence-parallel attention core) is not realized by this port yet
-(ROADMAP.md §1 item 7b).
+return the input: a rank's tensors are already its shards, which the
+model code computes itself under :func:`model_parallel`.
+
+Model parallelism.  :func:`model_parallel` makes a process group the
+active ``model`` group (one rank per model coordinate,
+``launch.mesh.mesh_groups``).  Inside it a rank holds its compute shards
+of the parameters (:func:`shard_params`: the attention heads by
+:func:`attn_layout`, the MLP's ``d_ff``, the routed experts, the
+vocabulary of ``embed`` / ``head``), and the layers compute what the
+one-process program computes: Megatron's column / row pairs (an int32
+``all_reduce`` of a row-parallel product's K-shard partials before its
+epilogue), the experts a rank holds, the vocab-parallel embedding and
+cross entropy.  Megatron's f and g are :func:`mp_grad_sum` (identity,
+the gradient summed) and :func:`mp_sum` (summed, the gradient passed
+through).  :func:`param_pspecs` stays the reference's storage rule (its
+``model`` entries at the production model size); leaves whose ``model``
+entry is a storage split only, ``(("data", "model"), ...)``, and
+``patch_proj`` / ``enc_in`` stay replicated over ``model`` (ZeRO-3,
+ROADMAP.md §1).
 
 Data parallelism.  ``torch.distributed`` runs one controller per rank,
 where the reference's ``jit`` over the ``data`` axis is one program.
@@ -491,3 +506,272 @@ def shard_rows(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     _, r, world = _DP
     n = x.shape[dim] // world
     return x.narrow(dim, r * n, n)
+
+
+# ---------------------------------------------------------------------------
+# The model-parallel context: Megatron pairs, experts, the vocabulary.
+# ---------------------------------------------------------------------------
+_MP: Optional[tuple] = None     # (group, rank, size)
+
+
+@contextlib.contextmanager
+def model_parallel(group):
+    """Make ``group`` (a ``torch.distributed`` process group, one rank per
+    ``model`` coordinate) the active model-parallel group inside the
+    block; a group of one rank (or None) is the one-process program."""
+    global _MP
+    prev = _MP
+    if group is None:
+        _MP = None
+    else:
+        import torch.distributed as dist
+        size = dist.get_world_size(group)
+        _MP = None if size == 1 else (group, dist.get_rank(group), size)
+    try:
+        yield
+    finally:
+        _MP = prev
+
+
+def mp_shard() -> Optional[tuple]:
+    """``(rank, size)`` of the active model group, or None."""
+    return None if _MP is None else _MP[1:]
+
+
+def mp_slice(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This model rank's slice ``[r n / M, (r + 1) n / M)`` of ``dim``."""
+    if _MP is None:
+        return x
+    _, r, m = _MP
+    n = x.shape[dim] // m
+    return x.narrow(dim, r * n, n)
+
+
+def _all_reduce(x: torch.Tensor, op: str) -> torch.Tensor:
+    """A copy of ``x`` reduced (``"sum"`` / ``"max"``) over the active
+    model group, outside autograd."""
+    import torch.distributed as dist
+    y = x.detach().contiguous().clone()
+    dist.all_reduce(y, op=getattr(dist.ReduceOp, op.upper()), group=_MP[0])
+    return y
+
+
+class _GradSum(torch.autograd.Function):
+    """Megatron's f: identity forward, the gradient summed over the model
+    group (a replicated input whose consumers hold shards)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, "sum")
+
+
+class _Sum(torch.autograd.Function):
+    """Megatron's g: the partials summed over the model group, the gradient
+    passed through (every rank's consumers compute the same full
+    cotangent)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _all_reduce(x, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _Gather(torch.autograd.Function):
+    """The ranks' shards concatenated along ``dim`` (all_gather); the
+    gradient is this rank's slice of the (replicated) cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        import torch.distributed as dist
+        ctx.dim = dim
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(_MP[2])]
+        dist.all_gather(parts, x, group=_MP[0])
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return mp_slice(g, ctx.dim).contiguous(), None
+
+
+def mp_grad_sum(x: torch.Tensor) -> torch.Tensor:
+    """Megatron's f (:class:`_GradSum`); ``x`` without a model group."""
+    return x if _MP is None else _GradSum.apply(x)
+
+
+def mp_sum(x: torch.Tensor) -> torch.Tensor:
+    """Megatron's g (:class:`_Sum`); ``x`` without a model group."""
+    return x if _MP is None else _Sum.apply(x)
+
+
+def mp_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The whole tensor from the ranks' shards along ``dim``
+    (:class:`_Gather`); ``x`` without a model group."""
+    return x if _MP is None else _Gather.apply(x, dim)
+
+
+def mp_sum_now(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the model group outside autograd (int32
+    partials, a backward pass's fp32 partials; exact for integers);
+    ``x`` without one."""
+    return x if _MP is None else _all_reduce(x, "sum")
+
+
+def mp_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max over the model group (exact), detached."""
+    return x if _MP is None else _all_reduce(x, "max")
+
+
+def mp_minmax(mn: torch.Tensor, mx: torch.Tensor):
+    """The (min, max) over every model rank's shard (one all_reduce MAX
+    of ``(-min, max)``, exact); idempotent on a replicated tensor."""
+    if _MP is None:
+        return mn, mx
+    buf = mp_max(torch.stack([-mn.to(torch.float32), mx.to(torch.float32)]))
+    return (-buf[0]).to(mn.dtype), buf[1].to(mx.dtype)
+
+
+def mp_replicated_stats(st: torch.Tensor) -> torch.Tensor:
+    """A site's statistics vector over a tensor every model rank holds
+    whole: its additive telemetry counters (clip, n, err, sig) kept on
+    model rank 0 and zeroed on the others, so a SUM over the mesh counts
+    the site once (min / max / visited and the max-combined slots are
+    idempotent)."""
+    if _MP is None or _MP[1] == 0 or st.shape[-1] <= 3:
+        return st
+    from repro_torch.telemetry.config import T_CLIP, T_UTIL
+    st = st.clone()
+    st[..., T_CLIP:T_UTIL] = 0.0
+    return st
+
+
+def attn_layout(kv: int, g: int, msize: int) -> str:
+    """Which head dim the attention core shards over a model axis of
+    ``msize``: ``"kv"`` or ``"g"``, exact division in the reference's
+    preference order (:func:`choose_head_axis`, ``attn_hints``).  The
+    reference's other two layouts, the sequence-parallel core and padded
+    head sharding, are not ported: raises."""
+    if kv % msize == 0:
+        return "kv"
+    if g % msize == 0:
+        return "g"
+    raise NotImplementedError(
+        f"neither KV = {kv} nor G = {g} divides the model axis {msize}: "
+        f"the reference shards the sequence or pads the heads; "
+        f"the sequence-parallel attention core and padded heads "
+        f"(ROADMAP.md §1) are not ported yet")
+
+
+_ATTN_NAMES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+_MLP_NAMES = ("w_up", "w_gate", "w_down", "b_up")
+_UNSHARDED_BLOCKS = ("rglru", "time", "chan")
+
+
+def compute_dim(path: tuple, shape: tuple, msize: int) -> Optional[int]:
+    """The dim of a parameter leaf (``path``: its dotted name split) that
+    a model rank holds a shard of, or None (replicated): the attention
+    heads by :func:`attn_layout`, the MLP's ``d_ff`` (a shared expert's
+    too), the routed experts, the vocabulary of ``embed`` and ``head``.
+    Raises where a rule's dim does not divide ``msize``."""
+    if msize == 1 or any(b in path for b in _UNSHARDED_BLOCKS):
+        return None
+    name = path[-1]
+    dim = None
+    if name == "embed":
+        dim = 0
+    elif name == "head":
+        dim = 1
+    elif name in _ATTN_NAMES:
+        if name in ("wq", "wo", "bq"):
+            kv, g = (shape[1], shape[2]) if name == "wq" else shape[:2]
+            layout = attn_layout(kv, g, msize)
+            base = 1 if name == "wq" else 0
+            dim = base + (0 if layout == "kv" else 1)
+        else:   # wk, wv [D, KV, hd]; bk, bv [KV, hd]: heads when KV divides
+            d = 1 if name in ("wk", "wv") else 0
+            dim = d if shape[d] % msize == 0 else None
+    elif "moe" in path and "shared" not in path and \
+            name in ("w_up", "w_gate", "w_down"):
+        dim = 0
+    elif name in _MLP_NAMES:
+        dim = 0 if name in ("w_down", "b_up") else 1
+    if dim is not None and shape[dim] % msize:
+        raise ValueError(f"{'.'.join(path)}: dim {dim} of {tuple(shape)} "
+                         f"does not split over {msize} model ranks")
+    return dim
+
+
+def model_dim_of(p: torch.Tensor) -> Optional[int]:
+    """The dim of a parameter that :func:`shard_params` cut (None: whole
+    on every model rank)."""
+    return getattr(p, "model_dim", None)
+
+
+def _rebuild(params, fn):
+    """A ``ParamTree`` shaped like ``params`` with ``fn(path, tensor)`` at
+    every leaf (whole parameters: :func:`model_dim_of` None)."""
+    from repro_torch.models.param_tree import ParamTree
+
+    def plain(mod, path):
+        if isinstance(mod, ParamTree):
+            return {n: plain(mod[n], path + (n,)) for n in mod._names}
+        if isinstance(mod, torch.nn.ModuleList):
+            return [plain(m, path + (str(i),)) for i, m in enumerate(mod)]
+        return fn(path, mod.detach())
+    tree = ParamTree(plain(params, ()))
+    grad = any(q.requires_grad for q in params.parameters())
+    for p in tree.parameters():
+        p.requires_grad_(grad)
+        p.model_dim = None
+    return tree
+
+
+def shard_params(params, coords: dict, sizes: dict):
+    """A full parameter ``ParamTree`` (``repro_torch.convert``'s layout)
+    cut to the compute shards of the rank at ``coords`` (``{"model":
+    m}``) of a mesh of ``sizes`` (``{"model": M, ...}``):
+    :func:`compute_dim`'s dim of each leaf sliced (and recorded on the
+    parameter, :func:`model_dim_of`), the rest copied."""
+    m, msize = int(coords.get("model", 0)), int(sizes.get("model", 1))
+    dims = {}
+
+    def cut(path, t):
+        d = compute_dim(path, tuple(t.shape), msize)
+        if d is None:
+            return t.clone()
+        dims[".".join(path)] = d
+        n = t.shape[d] // msize
+        return t.narrow(d, m * n, n).contiguous()
+    tree = _rebuild(params, cut)
+    for name, p in tree.named_parameters():
+        p.model_dim = dims.get(name)
+    return tree
+
+
+def gather_named(shards: list, like: dict) -> dict:
+    """The model ranks' shards of named tensors (``{dotted name: tensor}``
+    dicts, in model order: parameters, their gradients) joined into the
+    whole tensors whose shapes ``like`` (``{dotted name: tensor}`` at the
+    full size, e.g. ``named_parameters()`` of a full tree) gives."""
+    msize = len(shards)
+    out = {}
+    for k, full in like.items():
+        d = compute_dim(tuple(k.split(".")), tuple(full.shape), msize)
+        parts = [s[k].detach() for s in shards]
+        out[k] = parts[0].clone() if d is None else torch.cat(parts, dim=d)
+    return out
+
+
+def gather_params(shards: list, like):
+    """The inverse of :func:`shard_params`: the model ranks' shard trees
+    (in model order) as the full ``ParamTree`` shaped like ``like``."""
+    whole = gather_named([dict(s.named_parameters()) for s in shards],
+                         dict(like.named_parameters()))
+    return _rebuild(like, lambda path, t: whole[".".join(path)])

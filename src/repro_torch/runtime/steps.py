@@ -41,6 +41,18 @@ gradient), the quant statistics combine as microbatches do (one
 ``all_reduce`` MAX of ``(-min, max, visited)`` and the max-combined
 telemetry slots; at width 10 one SUM of the counters), the metrics are
 summed.
+
+Model parallelism (``model_group``, the rank's ``model`` subgroup of a
+``(data, model)`` mesh, ``launch.mesh.mesh_groups``): the parameters
+are the rank's shards (``sharding.shard_params``) and the step runs
+under ``sharding.model_parallel``, where the layers compute what the
+one-process step computes (``runtime.sharding``'s module docstring).
+Parameter gradients are then reduced over the data group only, each rank
+its shards; the statistics combine over both groups (a site every model
+rank holds whole counts its telemetry counters once, on model rank 0);
+the metrics are not summed over the model replicas; and the clipping
+norm sums a sharded leaf's squares over the model group and a whole
+one's once.
 """
 from __future__ import annotations
 
@@ -210,10 +222,27 @@ def dp_combine_stats(stats, group):
     return tree_map(lambda _: next(it), stats)
 
 
+def _mp_clip(grads: dict, params: dict, max_norm: float):
+    """``optim.clip_by_global_norm`` of a model rank's gradients: the
+    global norm's squares of a sharded leaf summed over the model group,
+    of a whole one taken once."""
+    sq = [torch.sum(torch.square(g.to(torch.float32))) for g in grads.values()]
+    shard = [sharding.model_dim_of(params[k]) is not None for k in grads]
+    zero = torch.zeros((), dtype=torch.float32,
+                       device=next(iter(grads.values())).device)
+    part = sum((q for q, sh in zip(sq, shard) if sh), zero)
+    whole = sum((q for q, sh in zip(sq, shard) if not sh), zero)
+    norm = torch.sqrt(sharding.mp_sum_now(part) + whole)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    for g in grads.values():
+        g.mul_(scale)
+    return grads, norm
+
+
 def make_train_step(cfg, policy: QuantPolicy, optimizer, lr_schedule: Callable,
                     *, grad_accum: int = 1,
                     clip_norm: Optional[float] = 1.0, compress=None,
-                    group=None) -> Callable:
+                    group=None, model_group=None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     ``batch`` is ``{"tokens", "labels", "mask"}`` on the parameters'
@@ -222,15 +251,18 @@ def make_train_step(cfg, policy: QuantPolicy, optimizer, lr_schedule: Callable,
     simulated fake-quant or the kernels at every site.  ``compress(grads,
     stats) -> (grads, stats)`` replaces the gradient reduction (it takes
     per-replica gradients and returns their mean); ``group`` makes the
-    step data-parallel over that process group (module docstring)."""
+    step data-parallel over that process group, and ``model_group``
+    model-parallel over that one, on parameters cut by
+    ``sharding.shard_params`` (module docstring)."""
     backend.validate(policy)
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     world = 1 if group is None else dist.get_world_size(group)
-    if world > 1 and estimators.DSGC in (policy.act_estimator.kind,
-                                         policy.grad_estimator.kind):
+    mworld = 1 if model_group is None else dist.get_world_size(model_group)
+    if max(world, mworld) > 1 and estimators.DSGC in (
+            policy.act_estimator.kind, policy.grad_estimator.kind):
         raise ValueError("the dsgc estimator searches the whole tensor; "
-                         "the data-parallel step does not take it")
+                         "the sharded step does not take it")
 
     def train_step(state: dict, batch: dict):
         params, quant, step = state["params"], state["quant"], state["step"]
@@ -244,7 +276,7 @@ def make_train_step(cfg, policy: QuantPolicy, optimizer, lr_schedule: Callable,
         sharded = world > 1 and size % world == 0
         dp = sharding.data_parallel(group) if sharded \
             else contextlib.nullcontext()
-        with dp:
+        with dp, sharding.model_parallel(model_group):
             for midx in range(grad_accum):
                 mb = batch if grad_accum == 1 else \
                     {k: v[midx * size:(midx + 1) * size]
@@ -282,11 +314,18 @@ def make_train_step(cfg, policy: QuantPolicy, optimizer, lr_schedule: Callable,
                 vals = _flat_all_reduce([loss] + [met[k] for k in keys],
                                         dist.ReduceOp.SUM, group)
                 loss, met = vals[0], dict(zip(keys, vals[1:]))
+        if mworld > 1:
+            with torch.no_grad():
+                stats = dp_combine_stats(stats, model_group)
         if compress is not None:
             grads, stats = compress(grads, stats)
 
         metrics = dict(met)
-        if clip_norm is not None:
+        if clip_norm is not None and mworld > 1:
+            with sharding.model_parallel(model_group):
+                grads, metrics["grad_norm"] = _mp_clip(
+                    grads, named_params(params), clip_norm)
+        elif clip_norm is not None:
             grads, metrics["grad_norm"] = clip_by_global_norm(grads,
                                                               clip_norm)
         lr = lr_schedule(step)
@@ -303,19 +342,34 @@ def make_train_step(cfg, policy: QuantPolicy, optimizer, lr_schedule: Callable,
 
 
 def make_prefill_step(cfg, policy: QuantPolicy,
-                      cache_len: Optional[int] = None) -> Callable:
-    """``prefill_step(params, quant, batch) -> (last logits, caches)``."""
+                      cache_len: Optional[int] = None, *,
+                      model_group=None, return_stats: bool = False
+                      ) -> Callable:
+    """``prefill_step(params, quant, batch) -> (last logits, caches)``
+    (plus the forward statistics with ``return_stats``, combined over
+    ``model_group`` as the train step combines them).  ``model_group``:
+    the rank's model subgroup, its parameters ``sharding.shard_params``'
+    shards and its caches its heads'; the logits are whole."""
     def prefill_step(params, quant, batch):
-        return model.prefill(params, quant, batch, cfg, policy,
-                             cache_len=cache_len)
+        with sharding.model_parallel(model_group):
+            out = model.prefill(params, quant, batch, cfg, policy,
+                                cache_len=cache_len,
+                                return_stats=return_stats)
+        if return_stats and model_group is not None and \
+                dist.get_world_size(model_group) > 1:
+            with torch.no_grad():
+                out = out[:2] + (dp_combine_stats(out[2], model_group),)
+        return out
     return prefill_step
 
 
-def make_decode_step(cfg, policy: QuantPolicy) -> Callable:
+def make_decode_step(cfg, policy: QuantPolicy, *,
+                     model_group=None) -> Callable:
     """``decode_step(params, quant, batch, caches) -> (logits, caches)``
     for ``batch = {"token": [B, 1], "pos": [B]}``; the caches are updated
-    in place."""
+    in place.  ``model_group`` as :func:`make_prefill_step`'s."""
     def decode_step(params, quant, batch, caches):
-        return model.decode_step(params, quant, batch["token"], batch["pos"],
-                                 caches, cfg, policy)
+        with sharding.model_parallel(model_group):
+            return model.decode_step(params, quant, batch["token"],
+                                     batch["pos"], caches, cfg, policy)
     return decode_step

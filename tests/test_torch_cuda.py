@@ -9,6 +9,8 @@ fixture, never at import).  Run on the H100 with
 This file imports no JAX: the machine with the card has none (hence
 ``--noconftest``: ``tests/conftest.py`` imports JAX).
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -157,6 +159,40 @@ def test_int8_matmul_batched_experts_match_plain(card, b, m, k, n, zp):
     assert torch.equal(yk, yr)
     assert torch.equal(mnk, mnr) and torch.equal(mxk, mxr)
     assert ops.launch_counts()["int8_matmul_fp"] == 1
+
+
+@pytest.mark.parametrize("b,m,k,n,zp", [
+    (1, 4096, 1536, 3072, 117.0), (1, 4, 6144, 3072, 117.3),
+    (30, 552, 2048, 1408, 0.5), (2, 33, 17, 77, 131.0)],
+    ids=["o-half", "decode-down-half", "experts", "ragged"])
+def test_int8_matmul_int32_mode_sums_to_the_product(card, b, m, k, n, zp):
+    """The int32 mode on each half of K equals its plain version, and the
+    halves summed through the epilogue kernel equal ``int8_matmul_fp`` on
+    the whole K bit for bit (values and min/max)."""
+    g = _gen(card, b + m + k + n)
+    x = torch.randint(0, 256, (b, m, 2 * k), generator=g, device=card,
+                      dtype=torch.uint8)
+    w = torch.randint(-127, 128, (b, 2 * k, n), generator=g, device=card,
+                      dtype=torch.int8)
+    zp = torch.tensor(zp, device=card)
+    alpha = torch.tensor(3.1e-4, device=card)
+    ops.reset_launch_counts()
+    parts = [mm.int8_matmul_int32_cuda(x[..., i * k:(i + 1) * k],
+                                       w[:, i * k:(i + 1) * k], zp)
+             for i in range(2)]
+    for i, p in enumerate(parts):
+        assert torch.equal(p, mm.int8_matmul_int32_plain(
+            x[..., i * k:(i + 1) * k], w[:, i * k:(i + 1) * k], zp))
+    y, mn, mx = mm.int8_matmul_epilogue_cuda(parts[0] + parts[1], alpha)
+    yr, mnr, mxr = mm.int8_matmul_epilogue_plain(parts[0] + parts[1], alpha)
+    yw, mnw, mxw = mm.int8_matmul_fp_cuda(x, w, zp, alpha)
+    torch.cuda.synchronize()
+    assert torch.equal(y, yr) and torch.equal(y, yw)
+    assert torch.equal(mn, mnw) and torch.equal(mx, mxw)
+    assert torch.equal(mn, mnr) and torch.equal(mx, mxr)
+    counts = ops.launch_counts()
+    assert counts["int8_matmul_int32"] == 2
+    assert counts["int8_matmul_epilogue"] == 1
 
 
 @pytest.mark.parametrize("b,k,n", [(3, 1, 1), (3, 16, 8), (3, 17, 77),
@@ -344,25 +380,66 @@ def test_attention_kernel_tall_is_the_tuners_pick(card):
 
 
 @pytest.mark.parametrize("hd, blocks, what", [
-    (272, (128, 128), "head_dim"), (320, (128, 128), "head_dim"),
-    (256, (100, 100), "shared memory"), (128, (257, 128), "bq <= 256"),
-    (128, (256, 256), "bkv <= 128")])
+    (528, (128, 128), "head_dim"), (1024, (128, 128), "head_dim"),
+    (544, (64, 100), "head_dim"), (128, (128, 640), "bkv"),
+    (128, (512, 1024), "bkv")])
 def test_attention_kernel_refuses_what_it_cannot_take(card, hd, blocks,
                                                       what):
-    """hd above 256, bq above 256, bkv above 128, and a wide tile whose
-    flat err/sig buffer does not fit the card, raise with a message that
-    names the limit (an hd in (128, 256] off the multiples of 16 runs
-    padded: ``test_attention_kernel_pads_hd_off_16``)."""
+    """The kernel refuses exactly what the reference's schedule refuses:
+    hd above 512 or bkv above 512, with the reference's message (every
+    smaller tile runs; above the mma instantiations' bq 256, bkv 128 and
+    hd 256, on the general instantiation:
+    ``test_attention_kernel_general_tiles_match_plain``)."""
     s = max(blocks)
-    sched = attn.make_schedule(sq=s, skv=s, hd=hd, bq=blocks[0],
-                               bkv=blocks[1], groups=1, mode="causal",
-                               sm_scale=hd ** -0.5)
+    kw = dict(sq=s, skv=s, groups=1, mode="causal", sm_scale=hd ** -0.5)
+    with pytest.raises(ValueError, match="head_dim/bkv must be <= 512"):
+        attn.make_schedule(hd=hd, bq=blocks[0], bkv=blocks[1], **kw)
+    sched = dataclasses.replace(
+        attn.make_schedule(hd=min(hd, 512), bq=blocks[0],
+                           bkv=min(blocks[1], 512), **kw),
+        hd=hd, bkv=blocks[1])
     q = torch.zeros((1, s, hd), dtype=torch.uint8, device=card)
     k = torch.zeros((1, s, hd), dtype=torch.int8, device=card)
     regs = torch.zeros(8, device=card)
     kvl = torch.tensor([s], device=card, dtype=torch.int32)
-    with pytest.raises(ValueError, match=what):
+    with pytest.raises(ValueError, match="head_dim/bkv must be <= 512"):
         attn.attention_cuda(q, k, k, regs, kvl, sched=sched)
+    assert what in ("head_dim", "bkv")
+
+
+# The general instantiation: bkv in (128, 512], bq above 256, hd in (256,
+# 512] (padded to a multiple of 16), a flat err/sig buffer that does not
+# fit the wide layout (hd 256 at bkv 100), under every mask mode, with the
+# zero points off, a kv_len, and bkv off the multiples of 16.
+GENERAL_CASES = [
+    ("causal", 600, 600, 2, 64, 0, 0, None, (512, 256)),
+    ("causal", 1024, 1024, 1, 512, 0, 0, None, (128, 512)),
+    ("sliding", 700, 700, 3, 128, 300, 0, None, (300, 200),
+     (117.7, -0.1, 1.0, 23.0)),
+    ("prefix", 530, 530, 2, 320, 0, 100, None, (64, 512)),
+    ("cross", 96, 530, 1, 400, 0, 0, 500, (32, 512),
+     (125.5, 0.0, 1.0, 0.6)),
+    ("bidir", 300, 300, 2, 16, 0, 0, None, (300, 300)),
+    ("causal", 256, 256, 4, 256, 0, 0, 250, (128, 100)),
+    ("causal", 513, 513, 2, 200, 0, 0, None, (513, 129)),
+]
+
+
+@pytest.mark.parametrize("case", GENERAL_CASES,
+                         ids=lambda c: f"{_attn_id(c)}-hd{c[4]}-"
+                                       f"{c[8][0]}x{c[8][1]}")
+def test_attention_kernel_general_tiles_match_plain(card, case):
+    """The tiles past the mma instantiations run the general one, held
+    against the plain version as every other case (m and min/max/clip/n
+    exact; out, l and err/sig within their tolerances)."""
+    from repro_torch.kernels import build
+    mode, sq, skv, groups, hd, window, prefix, kv_len, (bq, bkv) = case[:9]
+    sched = attn.make_schedule(sq=sq, skv=skv, hd=hd, bq=bq, bkv=bkv,
+                               groups=groups, mode=mode, window=window,
+                               prefix_len=prefix, sm_scale=hd ** -0.5)
+    assert attn.uses_general(sched, build.library("int8_attention"))
+    _hold_attention(card, case)    # resets the counters, launches once
+    assert ops.tile_launch_counts()[("int8_attention", "general")] == 1
 
 
 @pytest.mark.parametrize("case", [

@@ -191,19 +191,28 @@ def test_attention_plain_wide_head_dims_match_jax(case, monkeypatch):
 
 @pytest.mark.parametrize("hd, ok", [(128, True), (144, True), (192, True),
                                     (256, True), (100, True), (200, True),
-                                    (272, False), (512, False)])
+                                    (272, True), (544, False)])
 def test_kernel_tile_limits(hd, ok):
-    """The CUDA kernel takes hd <= 256 (above 128 the wrapper pads hd to a
-    multiple of 16), and says so (the plain version takes up to 512)."""
-    sched = tkattn.make_schedule(sq=64, skv=64, hd=hd, bq=64, bkv=64,
-                                 groups=1, mode="causal", sm_scale=1.0)
+    """The CUDA kernel takes hd up to the reference's 512 (above 128 the
+    wrapper pads hd to a multiple of 16; above 256 the general
+    instantiation runs it), and above it raises where and as the
+    reference's schedule raises."""
+    sched = tkattn.make_schedule(sq=64, skv=64, hd=min(hd, 512), bq=64,
+                                 bkv=64, groups=1, mode="causal",
+                                 sm_scale=1.0)
     if ok:
         tkattn.check_kernel_tiles(sched)
         want = hd if hd <= 128 else -(-hd // 16) * 16
-        assert tkattn.kernel_head_dim(hd) == want
+        general = tkattn.uses_general(sched)
+        assert general == (hd > 256)
+        assert tkattn.kernel_head_dim(hd, general) == want
     else:
-        with pytest.raises(ValueError, match="head_dim <= 256"):
-            tkattn.check_kernel_tiles(sched)
+        msg = "head_dim/bkv must be <= 512"
+        with pytest.raises(ValueError, match=msg):
+            tkattn.make_schedule(sq=64, skv=64, hd=hd, bq=64, bkv=64,
+                                 groups=1, mode="causal", sm_scale=1.0)
+        with pytest.raises(ValueError, match=msg):
+            tkattn.check_kernel_tiles(dataclasses.replace(sched, hd=hd))
 
 
 @pytest.mark.parametrize("case", [("causal", 40, 40, 3, 200, 0, None,
@@ -241,17 +250,28 @@ def test_attention_core_unchanged_by_hd_padding(case):
 
 @pytest.mark.parametrize("s, blocks, ok", [
     (200, (256, 128), True), (132, (256, 128), True), (256, (256, 128), True),
-    (257, (257, 128), False), (256, (128, 256), False),
-    (300, (300, 300), False)])
+    (257, (257, 128), True), (256, (128, 256), True),
+    (600, (300, 600), False)])
 def test_kernel_q_block_limits(s, blocks, ok):
     """The tall instantiation takes bq up to 256 (the tuner's (256, 128)
-    clamps to S = 132 or 200); bq 257 and bkv 256 still raise."""
-    sched = tkattn.make_schedule(sq=s, skv=s, hd=128, bq=blocks[0],
-                                 bkv=blocks[1], groups=1, mode="causal",
-                                 sm_scale=1.0)
+    clamps to S = 132 or 200); bq 257 and bkv 256 run the general
+    instantiation, and only a bkv above the reference's 512 raises (as
+    the reference's schedule raises)."""
     if ok:
+        sched = tkattn.make_schedule(sq=s, skv=s, hd=128, bq=blocks[0],
+                                     bkv=blocks[1], groups=1, mode="causal",
+                                     sm_scale=1.0)
         tkattn.check_kernel_tiles(sched)
         assert sched.bq == min(blocks[0], s)
+        assert tkattn.uses_general(sched) == (max(sched.bq - 256,
+                                                  sched.bkv - 128) > 0)
     else:
-        with pytest.raises(ValueError, match="bq <= 256 and bkv <= 128"):
-            tkattn.check_kernel_tiles(sched)
+        kw = dict(sq=s, skv=s, hd=128, groups=1, mode="causal",
+                  sm_scale=1.0)
+        msg = "head_dim/bkv must be <= 512"
+        with pytest.raises(ValueError, match=msg):
+            tkattn.make_schedule(bq=blocks[0], bkv=blocks[1], **kw)
+        sched = tkattn.make_schedule(bq=blocks[0], bkv=512, **kw)
+        with pytest.raises(ValueError, match=msg):
+            tkattn.check_kernel_tiles(dataclasses.replace(sched,
+                                                          bkv=blocks[1]))

@@ -319,7 +319,7 @@ def test_dx_split_gate(monkeypatch, espec, xshape, wshape, batch_dim,
 
     out = backend._QMatmulInt.apply(x, w, x_img, w_img, torch.tensor(0.0),
                                     torch.tensor(1.0), espec, False,
-                                    batch_dim)
+                                    batch_dim, None)
     g = torch.randn(out.shape, generator=gen)
     monkeypatch.setattr(torch, "einsum", counted)
     (dx,) = torch.autograd.grad(out, x, g)
