@@ -9,21 +9,23 @@ batch 4 x 1024 tokens, remat on), the MoE family's qwen2-moe-a2.7b
 paper's CNN training loop on
 MobileNetV2 at its Tiny ImageNet width (64 x 64 x 3 images, 200 classes,
 batch 128; ResNet18 and VGG16 one step each), and the dense family past
-its window: starcoder2-7b at full size (4 x 1024 and 1 x 8192 prompts,
-fused, simulated and fp32), command-r-35b and nemotron-4-340b at full
+its window: starcoder2-7b at full width, depth 16 (4 x 1024 and 1 x
+8192 prompts, fused, simulated and fp32), command-r-35b and nemotron-4-340b at full
 width, the long-sequence train step and the paper's grad_only /
 act_only policies, the hybrid family: recurrentgemma-9b (RG-LRU
-blocks and local attention at hd 256, MQA) serving at full width and
-depth past its 2048 window, and its train step at full width, and the
+blocks and local attention at hd 256, MQA) serving at full width, depth
+18, past its 2048 window, and its train step at full width, and the
 RWKV-6 family: rwkv6-7b (attention-free: the chunked WKV recurrence with
-data-dependent decay) serving at full width and depth up to a 32768-token
-prompt, and its train step at full width, and the enc-dec and VLM
+data-dependent decay) serving at full width, depth 16, up to a
+32768-token prompt, and its train step at full width, and the enc-dec and VLM
 families: seamless-m4t-medium (a bidirectional encoder on stub frame
 embeddings, a decoder with cross attention) and paligemma-3b (an image
 prefix of stub patch embeddings under the prefix-LM mask, MQA at hd 256)
 serving and training at full width and depth, and the ``model`` mesh
-axis: starcoder2-3b served and qwen2-moe-a2.7b trained on model shards
-over gloo ranks on the one card.  Each
+axis: starcoder2-3b served and qwen2-moe-a2.7b trained on model shards,
+recurrentgemma-9b and rwkv6-7b served and trained on model shards, and
+starcoder2-3b trained on the sequence-parallel attention core, over
+gloo ranks on the one card.  Each
 kernel is checked against its plain PyTorch version at the shapes those
 paths give it.  Every phase prints its wall seconds as it ends
 (``[time] phase N ...``), and the run its total.
@@ -80,7 +82,7 @@ Phases, one line each:
                    and equal guard events (widens among them); phase 8's
                    LM configuration, one forward + backward, the telemetry
                    slots within stated limits
- 16. checkpoint    starcoder2-3b at full width, depth cut to 2 layers: a
+ 16. checkpoint    starcoder2-3b at full width, depth cut to 1 layer: a
                    3-step run uninterrupted (twice: does it repeat bit for
                    bit?), the same run with --ckpt-dir --ckpt-every 1
                    preempted (SIGTERM) after step 2, its restored state
@@ -101,8 +103,8 @@ Phases, one line each:
                    before and read just after; one more step profiled
                    (families, idle share, the experts' int8 contractions);
                    phase 8's fused-vs-simulated check at 1 layer
- 20. sc7 serve     starcoder2-7b at full size (32 layers, 7.40 B
-                   parameters): launch.serve.main fused at 4 x 1024, then
+ 20. sc7 serve     starcoder2-7b at full width, depth cut to 16 of its
+                   32 layers: launch.serve.main fused at 4 x 1024, then
                    serve.generate at 1 x 8192 (two windows: the int8 core's
                    sliding mask masks; decode on a wrapped 4096-slot ring),
                    8 and 32 generated, the launch counters zeroed just
@@ -125,9 +127,10 @@ Phases, one line each:
                    step each under QuantPolicy.grad_only / act_only
                    ("hindsight", fused), whose turned-off sites stay
                    uninitialized
- 26. hybrid serve  recurrentgemma-9b at full width and depth (38 layers:
-                   26 RG-LRU blocks and 12 local-attention blocks at hd
-                   256, 16 q heads on 1 kv head; 9.40 B parameters):
+ 26. hybrid serve  recurrentgemma-9b at full width, depth cut to 18 of
+                   its 38 layers (six rec, rec, local units: 12 RG-LRU
+                   blocks and 6 local-attention blocks at hd 256, 16 q
+                   heads on 1 kv head):
                    launch.serve.main fused at 4 x 1024, then
                    serve.generate at 1 x 8192 (four windows: the int8
                    core's sliding mask masks, each 2048-slot ring wraps,
@@ -147,13 +150,13 @@ Phases, one line each:
                    hindsight W8A8G8 at 2 x 4096 (past the window), AdamW,
                    3 steps, the launch counters zeroed just before and
                    read just after; one more step profiled
- 29. rwkv serve    rwkv6-7b at full width and depth (32 layers, 7.58 B
-                   parameters): launch.serve.main fused at 4 x 1024, then
+ 29. rwkv serve    rwkv6-7b at full width, depth cut to 16 of its 32
+                   layers: launch.serve.main fused at 4 x 1024, then
                    serve.generate at 1 x 32768 (the WKV state and the
                    token-shift rows carry through decode), 8 generated
                    each, the launch counters zeroed just before and read
-                   just after each (int8_matmul_fp: 8 projections x 32
-                   layers x 8 forwards = 2048); one 1 x 32768 prefill and
+                   just after each (int8_matmul_fp: 8 projections x 16
+                   layers x 8 forwards = 1024); one 1 x 32768 prefill and
                    one decode step profiled (families, idle share, the
                    WKV's share)
  30. rwkv parity   on phase 29's parameters, a fused 1 x 8192 run against
@@ -241,7 +244,7 @@ Phases, one line each:
                    position 32767, a 4096-slot ring) on starcoder2-3b; the
                    cache one window prefilled through make_prefill_step
                    and re-based to end one position before (K rotated with
-                   the port's apply_rope, the ring's slots rolled); 7 steps
+                   the port's apply_rope, the ring's slots rolled); 3 steps
                    past the ring's wrap, simulated vs fused on the same
                    cache (logits, greedy tokens), ms a step, peak GiB, the
                    re-basing gap, every int8 product of a step on the row
@@ -254,7 +257,11 @@ Phases, one line each:
                    128] on bkv 256 and on bq 512, and hd 320: m and
                    min/max/clip/n exact, out, l and err/sig within their
                    tolerances; ms beside its bound, its plain version and
-                   bf16 SDPA
+                   bf16 SDPA; then the query offset at phase 47's shape
+                   ([96, 128, 128] at q_start 896 against [8, 1024, 128],
+                   sliding at window 4096): the rows bit for bit the
+                   kernel's whole call's, held against the plain offset
+                   call, timed beside its bound and bf16 SDPA on the rows
  43. tp serve      the model axis: starcoder2-3b at full width and depth
                    over 2 gloo ranks on the card (model 2: a KV head, half
                    the MLP's columns and of the vocabulary each; the
@@ -268,7 +275,7 @@ Phases, one line each:
                    copies), the launch counters zeroed just before and
                    read just after
  44. tp train      make_train_step(group=, model_group=) of
-                   qwen2-moe-a2.7b at full width, 2 layers, 4 x 1024 on
+                   qwen2-moe-a2.7b at full width, 1 layer, 4 x 1024 on
                    (1, 2) (30 experts a rank), then reduced on (2, 2), gloo
                    ranks on the card, against the one-process step on rank
                    0: activation-site quant state bit for bit, gradient
@@ -278,6 +285,30 @@ Phases, one line each:
                    under another fp32 association of its backward (and
                    doubled or halved gradients refused); first and warm
                    steps timed
+ 45. tp rglru      recurrentgemma-9b at full width, 3 layers (one rec,
+                   rec, local unit), on (1, 2) gloo ranks: the RG-LRU's
+                   channels over the ranks (w_a / w_x on their input
+                   channels, int32 partials summed), the local attention
+                   on the G heads; served 4 x 1024 + 7 decode steps
+                   against one process (prefill statistics bit for bit,
+                   each rank's h / conv / KV its slice of the one-process
+                   cache, logits within 1e-5 rel L2, tokens identical),
+                   then one 4 x 1024 train step with phase 44's bars,
+                   each the larger of its fixed value and 4 x the
+                   one-process step's own floor for what it holds (the
+                   gradient-site leaves' worst; each gradient tensor's),
+                   doubled or halved gradients refused by some tensor
+ 46. tp rwkv       rwkv6-7b at full width, 2 layers, on (1, 2): the time
+                   mix's heads (the WKV, its state, the group norm) and
+                   the channel mix's d_ff over the ranks; phase 45's runs
+                   and bars
+ 47. seq train     starcoder2-3b (KV 2, G 12) at full width, 2 layers, on
+                   (1, 8) gloo ranks: the sequence-parallel attention core
+                   (each rank its 128 rows: the projections, RoPE at its
+                   positions, k / v gathered, the offset kernel, the o
+                   projection, the output gathered; the whole attention
+                   weights' gradients summed), one 4 x 1024 train step
+                   with phase 45's bars
 
 Phase 3 also holds ``int8_conv_fp`` (the conv site, im2col onto the int8
 matmul kernel) against its plain version at four MobileNetV2-tiny layer
@@ -315,8 +346,8 @@ e.g. ``1-3`` to build and check the kernels without serve and train);
 phase 1 always runs, 5-6 and 43 bring 4 along, whose serve run they
 reuse, 18 brings 17, 21-22 bring 20, 27 brings 26, 30 brings 29, 33
 brings 32 and 36 brings 35.  Kernels whose path phases did not run
-report ``"launches": null``.  The default is all 44; phases 12-16 and
-39-40, 43-44 write their logs, checkpoints and rank records under
+report ``"launches": null``.  The default is all 47; phases 12-16 and
+39-40, 43-47 write their logs, checkpoints and rank records under
 ``build/chip_smoke/`` and remove the checkpoints when done.
 """
 from __future__ import annotations
@@ -367,7 +398,7 @@ LAYER_KERNELS = ("int8_transpose", "int8_matmul_fused")
 CNN_KERNELS = ("fused_quantize", "int8_transpose", "int8_matmul_fp",
                "stochastic_quantize")
 CNN_BATCH, CNN_STEPS, CNN_PARITY_STEPS = 128, 3, 2
-GUARD_STEPS, CKPT_LAYERS = 3, 2
+GUARD_STEPS, CKPT_LAYERS = 3, 1
 # The MoE family: qwen2-moe-a2.7b served at full depth; its train step at
 # full width with depth cut (AdamW at 24 layers needs ~229 GB).
 MOE_ARCH, MOE_TRAIN_LAYERS, MOE_PARITY_LAYERS = "qwen2-moe-a2.7b", 2, 1
@@ -375,6 +406,10 @@ MOE_ARCH, MOE_TRAIN_LAYERS, MOE_PARITY_LAYERS = "qwen2-moe-a2.7b", 2, 1
 # step at full width, depth cut), command-r-35b at full width with depth
 # cut to what fits beside a 17 GB score tile, nemotron-4-340b at 1 layer.
 LONG_ARCH, LONG_SEQ, LONG_TRAIN_LAYERS = "starcoder2-7b", 8192, 2
+# The serve runs of phases 20-22, 26-27 and 29-30 at full width, depth cut
+# to half (recurrentgemma-9b: six (rec, rec, local) units) to make room
+# for phases 45-47 in the script's time.
+SC7_SERVE_LAYERS, HYB_SERVE_LAYERS, RWKV_SERVE_LAYERS = 16, 18, 16
 CMDR_ARCH, CMDR_LAYERS = "command-r-35b", 8
 NEMO_ARCH, NEMO_GEN = "nemotron-4-340b", 4
 # The hybrid family: recurrentgemma-9b served at full depth (9.40 B
@@ -430,7 +465,8 @@ LONG_500K_REFUSED = {"command-r-35b", "moonshot-v1-16b-a3b", "nemotron-4-340b",
                      "paligemma-3b", "qwen2-moe-a2.7b", "seamless-m4t-medium"}
 CELL_REFUSAL = ("full attention: 512k decode needs an O(S) KV cache per "
                 "token; skipped per assignment rules")
-CELL_STEPS, CELL_PREFILL_ROWS, RWKV_CELL_WINDOW = 7, 8, 2048
+# (3 steps a run: cut from 7 to make room for phases 45-47)
+CELL_STEPS, CELL_PREFILL_ROWS, RWKV_CELL_WINDOW = 3, 8, 2048
 # The decode path's kernels (decode attention is the plain core).
 DECODE_KERNELS = ("fused_quantize", "int8_transpose", "int8_matmul_fp")
 # The attention kernel's general instantiation (phase 42): [8, 1024, 512]
@@ -443,12 +479,12 @@ GENERAL_TILES = (("hd512-bkv512", 8, 2, 512, (128, 512)),
                  ("hd320", 8, 2, 320, (128, 128)))
 # The model axis (phases 43-44): gloo ranks on the one card.  Serve:
 # starcoder2-3b at full width and depth on (1, 2); train: qwen2-moe-a2.7b
-# at full width, depth 2, 4 x 1024 on (1, 2), then reduced on (2, 2) at 4
+# at full width, depth 1, 4 x 1024 on (1, 2), then reduced on (2, 2) at 4
 # x 32.  The kernels of the sharded path (the row-parallel products run
 # the int32 mode and its epilogue).
 TP_SIZE = 2
 TP_KERNELS = SERVE_KERNELS + ("int8_matmul_int32", "int8_matmul_epilogue")
-TP_TRAIN_RUNS = (("full", (1, 2), False, MOE_TRAIN_LAYERS, BATCH, PROMPT),
+TP_TRAIN_RUNS = (("full", (1, 2), False, 1, BATCH, PROMPT),
                  ("reduced", (2, 2), True, 0, 4, 32))
 # The sharded step's clipped gradients are held within 2**-7 relative L2
 # of the one-process step's, or within this many times the one-process
@@ -456,9 +492,21 @@ TP_TRAIN_RUNS = (("full", (1, 2), False, MOE_TRAIN_LAYERS, BATCH, PROMPT),
 # backward (stochastically rounded gradients carry any reordering's flips
 # down the layers: tests/test_torch_tp.py, PERF.md).
 TP_FLOOR_MARGIN = 4.0
+# The model axis of the recurrent kinds (phases 45-46): recurrentgemma-9b
+# and rwkv6-7b on (1, 2) at full width, depth cut to one pattern unit
+# (rec, rec, local) and to 2 layers (the one-process step and AdamW
+# beside both ranks', and the time budget); served 4 x 1024 + 7 decode
+# steps, then one 4 x 1024 train step.  The sequence-parallel core (phase
+# 47): starcoder2-3b (KV 2, G 12) on (1, 8) at full width, 2 layers, one
+# 4 x 1024 train step; the last rank's rows are phase 42's offset shape.
+TP_FAMILY = (
+    (45, "recurrentgemma-9b", 3, TP_KERNELS + ("stochastic_quantize",)),
+    (46, "rwkv6-7b", 2, RWKV_SERVE_KERNELS + (
+        "int8_matmul_int32", "int8_matmul_epilogue", "stochastic_quantize")))
+SEQ_ARCH, SEQ_SIZE, SEQ_LAYERS = "starcoder2-3b", 8, 2
 # Phase 4's one-process outputs, kept for phase 43.
 KEPT: dict = {}
-N_PHASES = 44
+N_PHASES = 47
 # Where phases 12-16 write their JSONL logs and checkpoints (git-ignored).
 OUT_DIR = ROOT / "build" / "chip_smoke"
 
@@ -2624,8 +2672,8 @@ class _Preempted:
 
 def ckpt_phase(cfg, out_dir: Path) -> dict:
     """Phase 16: checkpoint and resume, starcoder2-3b at full width with
-    depth cut to 2 layers (~0.34 B parameters; params and AdamW moments
-    ~4.1 GB in fp32), through ``launch.train.main`` and
+    depth cut to ``CKPT_LAYERS`` layers (1: 0.398 B parameters; a 4.78 GB
+    checkpoint with the AdamW moments), through ``launch.train.main`` and
     ``launch.serve.main``: a 3-step run uninterrupted; the same run
     with ``--ckpt-dir --ckpt-every 1 --telemetry`` preempted after step 2;
     the restored step-2 state against that run's in-memory one; ``--resume``
@@ -3098,8 +3146,9 @@ def _generate(params, quant, prompt, cfg, policy, gen=GEN, **kw):
 
 
 def sc7_serve_phase(dev, records, results):
-    """Phase 20: starcoder2-7b at full size (32 layers, 7.40 B parameters,
-    29.6 GB fp32), fused hindsight: ``launch.serve.main`` at batch 4 x 1024
+    """Phase 20: starcoder2-7b at full width, depth cut to
+    ``SC7_SERVE_LAYERS`` of its 32 layers, fused hindsight:
+    ``launch.serve.main`` at batch 4 x 1024
     and ``serve.generate`` at 1 x 8192 (two windows: the int8 core's
     sliding mask masks, and decode wraps the 4096-slot ring), ``GEN_RATE``
     and 32 generated (phase 21 compares the long run's tokens), launch
@@ -3108,7 +3157,9 @@ def sc7_serve_phase(dev, records, results):
     from repro_torch.launch import serve
     from repro_torch.models import model
 
-    argv = ["--arch", LONG_ARCH, "--batch", str(BATCH), "--prompt-len",
+    from repro_torch import configs
+    cut = _register_cut(configs.get(LONG_ARCH), SC7_SERVE_LAYERS)
+    argv = ["--arch", cut.name, "--batch", str(BATCH), "--prompt-len",
             str(PROMPT), "--gen", str(GEN_RATE)]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -3237,7 +3288,7 @@ def _hold_fp_path(spy, name: str, tag: str) -> dict:
 
 
 def sc7_fp_phase(long, dev, results) -> None:
-    """Phase 22: starcoder2-7b at full size with the fp32 policy (``launch
+    """Phase 22: starcoder2-7b (phase 20's cut) with the fp32 policy (``launch
     .serve --policy fp32``'s policy) at 1 x 8192 on phase 20's parameters:
     every layer's prefill attention through ``_local_attn``; layer 0's
     held against ``_dense_attn`` (a 9.7 GB score tile)."""
@@ -3479,8 +3530,9 @@ def _scan_share(prof: dict, ranges: dict, tag: str, what: str) -> float:
 
 
 def hyb_serve_phase(dev, records, results):
-    """Phase 26: recurrentgemma-9b at full width and depth (38 layers, 9.40
-    B parameters, 37.6 GB fp32; cut: none), fused hindsight:
+    """Phase 26: recurrentgemma-9b at full width, depth cut to
+    ``HYB_SERVE_LAYERS`` of its 38 layers (six (rec, rec, local) units),
+    fused hindsight:
     ``launch.serve.main`` at 4 x 1024 and ``serve.generate`` at 1 x 8192
     (four windows: the int8 core's sliding mask masks, each 2048-slot
     local ring wraps, the recurrent state carries through decode),
@@ -3492,7 +3544,9 @@ def hyb_serve_phase(dev, records, results):
     from repro_torch.launch import serve
     from repro_torch.models import model
 
-    argv = ["--arch", HYB_ARCH, "--batch", str(BATCH), "--prompt-len",
+    from repro_torch import configs
+    cut = _register_cut(configs.get(HYB_ARCH), HYB_SERVE_LAYERS)
+    argv = ["--arch", cut.name, "--batch", str(BATCH), "--prompt-len",
             str(PROMPT), "--gen", str(GEN_RATE)]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -3767,8 +3821,8 @@ def _rwkv_matmuls(cfg, counts, runs: int, what: str) -> None:
 
 
 def rwkv_serve_phase(dev, records, results):
-    """Phase 29: rwkv6-7b at full width and depth (32 layers, 7.577 B
-    parameters, 30.3 GB fp32; cut: none), fused hindsight:
+    """Phase 29: rwkv6-7b at full width, depth cut to
+    ``RWKV_SERVE_LAYERS`` of its 32 layers, fused hindsight:
     ``launch.serve.main`` at 4 x 1024 and ``serve.generate`` at
     ``RWKV_LONG`` = 1 x 32768 (the reference's ``prefill_32k`` length, its
     batch cut to 1; the WKV state and the token-shift rows carry through
@@ -3780,7 +3834,9 @@ def rwkv_serve_phase(dev, records, results):
     from repro_torch.launch import serve
     from repro_torch.models import model
 
-    argv = ["--arch", RWKV_ARCH, "--batch", str(BATCH), "--prompt-len",
+    from repro_torch import configs
+    cut = _register_cut(configs.get(RWKV_ARCH), RWKV_SERVE_LAYERS)
+    argv = ["--arch", cut.name, "--batch", str(BATCH), "--prompt-len",
             str(PROMPT), "--gen", str(GEN_RATE)]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -3840,7 +3896,7 @@ def rwkv_parity_phase(params, policy, dev, out: dict) -> None:
     from repro_torch import configs
     from repro_torch.models import model, rwkv6
 
-    cfg = configs.get(RWKV_ARCH)
+    cfg = configs.get(f"{RWKV_ARCH}-{RWKV_SERVE_LAYERS}l")  # phase 29's
     prompt = _prompt(cfg, 1, LONG_SEQ, dev)
     with _WkvSpy(keep=True) as spy:
         long, counts, _ = _generate(params, model.init_quant_state(
@@ -4798,11 +4854,100 @@ def dp_train_phase(records) -> dict:
 # ---------------------------------------------------------------------------
 # Phases 42-44: the attention kernel's general tiles and the model axis.
 # ---------------------------------------------------------------------------
+def check_offset_attention(dev, results) -> dict:
+    """The attention kernel with a query offset at phase 47's shape: the
+    last of 8 sequence-parallel ranks of starcoder2-3b at 4 x 1024, q
+    ``[96, 128, 128]`` at ``q_start`` 896 against ``[8, 1024, 128]`` K/V
+    under its sliding mask (window 4096: causal at 1024).  Held against
+    the plain version's offset call (m and min/max/clip/n exact, out, l
+    and err/sig within their tolerances) and bit for bit against the
+    kernel's whole-sequence call's rows (out, m, l); timed beside its
+    bound, its plain version and bf16 SDPA on the same rows and mask."""
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.kernels import int8_attention as attn
+    from repro_torch.kernels import tuning
+
+    cfg = configs.get(SEQ_ARCH)
+    s, hd, nh, nkv = PROMPT, cfg.head_dim, cfg.n_heads, cfg.n_kv
+    g, rows = nh // nkv, PROMPT // SEQ_SIZE
+    q0 = s - rows
+    bh, zb = BATCH * nh, BATCH * nkv
+    bq, bkv = tuning.attention_block(s, s, hd)
+    sched = attn.make_schedule(sq=s, skv=s, hd=hd, bq=bq, bkv=bkv, groups=g,
+                               mode="sliding", window=cfg.sliding_window,
+                               sm_scale=hd ** -0.5)
+    gen = torch.Generator(device=dev).manual_seed(47)
+    q = torch.randint(0, 256, (bh, s, hd), generator=gen, device=dev,
+                      dtype=torch.uint8)
+    k = torch.randint(-127, 128, (zb, s, hd), generator=gen, device=dev,
+                      dtype=torch.int8)
+    v = torch.randint(-127, 128, (zb, s, hd), generator=gen, device=dev,
+                      dtype=torch.int8)
+    kvl = torch.tensor([s], device=dev, dtype=torch.int32)
+    scale_p = 1.0 / 255.0
+    regs = torch.tensor([128.0, 1e-5, scale_p, 0.0, scale_p * 0.02, 0.0, 1.0,
+                         0.0], device=dev, dtype=torch.float32)
+    qr = q[:, q0:].contiguous()
+    ow, mlw, _ = attn.attention_cuda(q, k, v, regs, kvl, sched=sched)
+    ok, mlk, psk = attn.attention_cuda(qr, k, v, regs, kvl, sched=sched,
+                                       q_start=q0)
+    orf, mlr, psr = attn.attention_core_reference(qr, k, v, regs, kvl,
+                                                  sched=sched, q_start=q0)
+    torch.cuda.synchronize()
+    if not (torch.equal(ok, ow[:, q0:]) and torch.equal(mlk, mlw[:, q0:])):
+        raise AssertionError("offset attention: the rows differ from the "
+                             "kernel's whole-sequence call's")
+    if not torch.equal(mlk[..., 0], mlr[..., 0]):
+        raise AssertionError("offset attention: running max m differs")
+    if not torch.equal(psk[..., :4], psr[..., :4]):
+        raise AssertionError("offset attention: p-site min/max/clip/n "
+                             "differ")
+    err = (ok - orf).abs().max().item()
+    torch.testing.assert_close(ok, orf, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(mlk[..., 1], mlr[..., 1], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(psk[..., 4:], psr[..., 4:], rtol=1e-4,
+                               atol=1e-6)
+    ms = time_ms(lambda: attn.attention_cuda(qr, k, v, regs, kvl,
+                                             sched=sched, q_start=q0), 10)
+    plain_ms = time_ms(lambda: attn.attention_core_reference(
+        qr, k, v, regs, kvl, sched=sched, q_start=q0), 2)
+    qb = torch.randn((BATCH, nh, rows, hd), generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    kb = torch.randn((BATCH, nkv, s, hd), generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    vb = torch.randn((BATCH, nkv, s, hd), generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    pos = torch.arange(s, device=dev)
+    qpos = pos[q0:, None]
+    mask = (pos[None, :] <= qpos) & (qpos - pos[None, :] < cfg.sliding_window)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qb, kb, vb, attn_mask=mask, enable_gqa=True), 10)
+    pairs = bh * sum(min(i + 1, cfg.sliding_window) for i in range(q0, s))
+    nbytes = qr.numel() + k.numel() + v.numel() + 4 * (
+        ok.numel() + mlk.numel() + psk.numel())
+    b_ms, b_by = bound(nbytes, 4 * pairs * hd, INT8_OPS)
+    rec = dict(shape=[bh, rows, hd], kv=[zb, s, hd], q_start=q0,
+               block=[bq, bkv], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    log("general-attn", f"offset {rec['shape']} at q_start {q0} against "
+                        f"{rec['kv']} ({SEQ_ARCH}'s last of {SEQ_SIZE} "
+                        f"ranks, (bq, bkv) = ({bq}, {bkv})): rows bit for "
+                        f"bit the whole call's; m, min/max/clip/n exact vs "
+                        f"plain, out max |d| {err:.3e}; {ms:.4f} ms, bound "
+                        f"{b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, "
+                        f"SDPA {lib_ms:.4f} ms")
+    results["offset_attention"] = rec
+    return rec
+
+
 def general_attention_phase(dev, records, results) -> None:
     """Phase 42: the attention kernel's general instantiation against its
     plain version (m and min/max/clip/n exact, out, l and err/sig within
     their tolerances) at the tiles past the mma instantiations, timed
-    beside its bound, its plain version and bf16 SDPA."""
+    beside its bound, its plain version and bf16 SDPA; then the query
+    offset at phase 47's shape (:func:`check_offset_attention`)."""
     from repro_torch import configs
     from repro_torch.kernels import ops
 
@@ -4832,6 +4977,7 @@ def general_attention_phase(dev, records, results) -> None:
                             + " ms")
         del rec
         torch.cuda.empty_cache()
+    out["offset"] = check_offset_attention(dev, results)
     results["general_attention"] = out
     for r in records:
         if r["name"] == "int8_attention":
@@ -4992,18 +5138,21 @@ def _grad_rel_l2(got: dict, want: dict) -> list:
     return sorted(out, reverse=True)
 
 
-def _quant_check(got, want, what: str) -> dict:
-    """Activation leaves bit for bit, gradient leaves within 1e-5 of the
-    leaf's largest element; returns the worst gradient-leaf distance in
-    those units and the leaf counts."""
+def _quant_check(got, want, what: str, grad_bar=1e-5) -> dict:
+    """Activation leaves bit for bit, gradient leaves within ``grad_bar``
+    (None: not held here) of the leaf's largest element; returns the
+    worst gradient-leaf distance in those units, its leaf and the leaf
+    counts."""
     from repro_torch.core.state import tree_map_with_path
-    bad, worst, n = [], [0.0], [0, 0]
+    bad, worst, n = [], [0.0, None], [0, 0]
 
     def cmp(path, a, b):
         if "grad" in path:
             n[1] += 1
             scale = max(float(b.abs().max()), 1e-30)
-            worst[0] = max(worst[0], float((a - b).abs().max()) / scale)
+            d = float((a - b).abs().max()) / scale
+            if d >= worst[0]:
+                worst[:] = [d, "/".join(map(str, path))]
         else:
             n[0] += 1
             if not torch.equal(a, b):
@@ -5012,19 +5161,29 @@ def _quant_check(got, want, what: str) -> dict:
     if bad:
         raise AssertionError(f"{what}: {len(bad)} activation leaves differ "
                              f"from the one-process step's, e.g. {bad[:3]}")
-    if worst[0] > 1e-5:
-        raise AssertionError(f"{what}: a gradient leaf {worst[0]:.3e} of its "
-                             f"largest element off the one-process step's")
-    return {"grad_leaf_rel": worst[0], "act_leaves": n[0],
-            "grad_leaves": n[1]}
+    if grad_bar is not None and worst[0] > grad_bar:
+        raise AssertionError(f"{what}: a gradient leaf ({worst[1]}) "
+                             f"{worst[0]:.3e} of its largest element off the "
+                             f"one-process step's")
+    return {"grad_leaf_rel": worst[0], "grad_leaf_worst": worst[1],
+            "act_leaves": n[0], "grad_leaves": n[1]}
 
 
 def _tp_train_rank(rank: int, world: int, data_n: int, model_n: int,
                    arch: str, reduced: bool, layers: int, batch_n: int,
-                   seq: int, out: str) -> None:
-    """One rank of phase 44 (a spawned process): the train step on a
+                   seq: int, out: str, floor_bars: bool = False) -> None:
+    """One rank of phases 44-47 (a spawned process): the train step on a
     ``(data_n, model_n)`` mesh, then, on rank 0, the one-process step on
-    the same parameters and batch and the comparison."""
+    the same parameters and batch and the comparison.  Phase 44's bars:
+    gradient-site leaves within 1e-5 of their largest element, the
+    clipped gradients within 2**-7 rel L2 or ``TP_FLOOR_MARGIN`` times
+    the one-process step's own worst distance under another fp32
+    association (its floor).  ``floor_bars`` (phases 45-47): each bar is
+    the larger of that fixed one and ``TP_FLOOR_MARGIN`` times the
+    floor of what it holds, the leaves' worst floor and each gradient
+    tensor's own (the fixed bar wherever the one-process step repeats
+    itself that closely), and doubled or halved gradients must fail
+    some tensor's bar."""
     import torch.distributed as dist
 
     from repro_torch import configs, data
@@ -5064,6 +5223,12 @@ def _tp_train_rank(rank: int, world: int, data_n: int, model_n: int,
     st = fresh(True)
     ts = steps.make_train_step(cfg, pol, opt, constant(DP_LR), group=g.data,
                                model_group=g.model)
+    layouts, layout_of = set(), sharding.attn_layout
+
+    def spy(*a, **kw):      # the attention layouts the step ran
+        layouts.add(layout_of(*a, **kw))
+        return layout_of(*a, **kw)
+    sharding.attn_layout = spy
     coll = _timed_collectives()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -5071,11 +5236,12 @@ def _tp_train_rank(rank: int, world: int, data_n: int, model_n: int,
     t0 = time.perf_counter()
     st, met = ts(st, batch)
     torch.cuda.synchronize()
+    sharding.attn_layout = layout_of
     met_norm = met["grad_norm"]
     rec = {"rank": rank, "step_ms": (time.perf_counter() - t0) * 1e3,
            "loss": float(met["loss"]), "collectives": dict(coll),
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-           "launches": ops.launch_counts()}
+           "launches": ops.launch_counts(), "layouts": sorted(layouts)}
     names = list(seen["grads"])
     grads = seen.pop("grads")
     quant = st["quant"]
@@ -5112,8 +5278,9 @@ def _tp_train_rank(rank: int, world: int, data_n: int, model_n: int,
         torch.cuda.synchronize()
         rec["single_step_ms"] = (time.perf_counter() - t0) * 1e3
         rec["single_loss"] = float(met1["loss"])
-        one_grads = seen.pop("grads")
-        rec.update(_quant_check(quant, one["quant"], f"tp train {arch}"))
+        one_grads, one_quant = seen.pop("grads"), one["quant"]
+        rec.update(_quant_check(quant, one_quant, f"tp train {arch}",
+                                grad_bar=None))
         rel = abs(rec["loss"] - rec["single_loss"]) / abs(rec["single_loss"])
         if rel > 1e-5:
             raise AssertionError(f"tp train {arch}: loss {rec['loss']} vs "
@@ -5141,37 +5308,79 @@ def _tp_train_rank(rank: int, world: int, data_n: int, model_n: int,
         finally:
             backend.SPLIT_MIN_ROWS = split
         floor = _grad_rel_l2(seen.pop("grads"), one_grads)
+        leaf_floor = _quant_check(two["quant"], one_quant,
+                                  f"tp train {arch} floor", grad_bar=None)
         del two
         torch.cuda.empty_cache()
         rels = _grad_rel_l2(whole, one_grads)
         bar = max(2 ** -7, TP_FLOOR_MARGIN * floor[0][0])
         rec.update(grad_rel_l2=rels[0][0], grad_worst=rels[:8],
                    floor_rel_l2=floor[0][0], floor_worst=floor[:8],
-                   grad_bar=bar, grad_norm=float(met_norm))
-        # the check can fail: gradients summed twice, or averaged
-        rec["grad_rel_doubled"] = _grad_rel_l2(
-            {k: 2 * g for k, g in whole.items()}, one_grads)[-1][0]
-        rec["grad_rel_halved"] = _grad_rel_l2(
-            {k: g / 2 for k, g in whole.items()}, one_grads)[-1][0]
+                   grad_bar=bar, grad_norm=float(met_norm),
+                   grad_leaf_floor=leaf_floor["grad_leaf_rel"],
+                   grad_leaf_floor_worst=leaf_floor["grad_leaf_worst"],
+                   grad_leaf_bar=1e-5)
+        if floor_bars:
+            # each tensor against its own floor; the worst by its bar
+            bars = {k: max(2 ** -7, TP_FLOOR_MARGIN * f) for f, k in floor}
+            ratio = sorted(((r / bars[k], r, k) for r, k in rels),
+                           reverse=True)
+            rec.update(grad_bar=bars[ratio[0][2]], grad_rel_l2=ratio[0][1],
+                       grad_worst_by_bar=ratio[:8],
+                       grad_fixed_bars=sum(b == 2 ** -7
+                                           for b in bars.values()),
+                       grad_leaf_bar=max(1e-5, TP_FLOOR_MARGIN
+                                         * leaf_floor["grad_leaf_rel"]))
+
+            def worst(scaled):  # the largest rel L2 / bar of a candidate
+                return max(r / bars[k] for r, k in _grad_rel_l2(
+                    {k: g * scaled for k, g in whole.items()}, one_grads))
+            # refused where some tensor exceeds its bar: here the
+            # largest rel L2 / bar, refused above 1
+            rec["grad_rel_doubled"] = worst(2.0)
+            rec["grad_rel_halved"] = worst(0.5)
+        else:
+            # the check can fail: gradients summed twice, or averaged
+            rec["grad_rel_doubled"] = _grad_rel_l2(
+                {k: 2 * g for k, g in whole.items()}, one_grads)[-1][0]
+            rec["grad_rel_halved"] = _grad_rel_l2(
+                {k: g / 2 for k, g in whole.items()}, one_grads)[-1][0]
         log("tp-train", f"{arch}: gradients rel L2 worst {rels[:8]}; the "
                         f"one-process noise floor worst {floor[:8]}; bar "
                         f"{bar:.4e}; norms {rec['grad_norm']} vs "
-                        f"{rec['single_grad_norm']}")
+                        f"{rec['single_grad_norm']}; gradient-site leaves "
+                        f"worst {rec['grad_leaf_rel']:.3e} "
+                        f"({rec['grad_leaf_worst']}), the one-process "
+                        f"floor {rec['grad_leaf_floor']:.3e} "
+                        f"({rec['grad_leaf_floor_worst']}), bar "
+                        f"{rec['grad_leaf_bar']:.3e}"
+                        + (f"; by each tensor's bar, worst "
+                           f"{rec['grad_worst_by_bar']}, "
+                           f"{rec['grad_fixed_bars']} of {len(rels)} "
+                           f"tensors at 2**-7" if floor_bars else ""))
+        if rec["grad_leaf_rel"] > rec["grad_leaf_bar"]:
+            raise AssertionError(f"tp train {arch}: a gradient leaf "
+                                 f"({rec['grad_leaf_worst']}) "
+                                 f"{rec['grad_leaf_rel']:.3e} of its largest "
+                                 f"element off the one-process step's (its "
+                                 f"own floor {rec['grad_leaf_floor']:.3e}, "
+                                 f"bar {rec['grad_leaf_bar']:.3e})")
+        bar = rec["grad_bar"]
         if rec["grad_rel_l2"] > bar:
             raise AssertionError(f"tp train {arch}: a gradient "
                                  f"{rec['grad_rel_l2']:.3e} rel L2 off the "
                                  f"one-process step's, above {bar:.3e}")
         for key in ("grad_rel_doubled", "grad_rel_halved"):
-            if rec[key] <= bar:
+            if rec[key] <= (1.0 if floor_bars else bar):
                 raise AssertionError(f"tp train {arch}: the gradient check "
                                      f"passes {key[9:]} gradients")
-        del whole, one_grads
+        del whole, one_grads, one_quant
     Path(f"{out}.r{rank}.json").write_text(json.dumps(rec))
     dist.barrier()
 
 
 def tp_train_phase(records, results) -> None:
-    """Phase 44: qwen2-moe-a2.7b's train step at full width, depth 2, 4 x
+    """Phase 44: qwen2-moe-a2.7b's train step at full width, depth 1, 4 x
     1024 on (1, 2) (30 of the 60 experts a rank, 8 of the 16 KV heads,
     half the shared expert's columns and of the vocabulary), then the
     reduced config on (2, 2), gloo ranks on the card, each against the
@@ -5228,6 +5437,255 @@ def tp_train_phase(records, results) -> None:
         if tag == "full":
             for rr in records:
                 rr["tp_train_launches"] = counts[rr["name"]]
+
+def _host_tree(tree) -> dict:
+    """``{path: tensor on the host}`` of a tree of tensors."""
+    from repro_torch.core.state import tree_map_with_path
+    out = {}
+    tree_map_with_path(lambda p, t: out.__setitem__(p, t.detach().cpu()),
+                       tree)
+    return out
+
+
+# The cache leaves a model rank holds a slice of, and the dim (reference
+# cache_pspecs): the RG-LRU's channels, RWKV-6's heads, the KV heads.
+CACHE_SLICE_DIMS = {"h": 1, "conv": 2, "state": 1, "k": 2, "v": 2}
+
+
+def _tp_family_rank(rank: int, world: int, arch: str, layers: int,
+                    out: str) -> None:
+    """One rank of phases 45-46 (a spawned process): ``arch`` at full
+    width, ``layers`` layers, on its (1, world) model shard, served
+    through the step factories (a 4 x 1024 prefill with its statistics,
+    7 greedy decode steps); then rank 0 serves the one-process program on
+    the same parameters and compares; then the train step as phase 44
+    runs it (:func:`_tp_train_rank`)."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh
+    from repro_torch.models import model
+    from repro_torch.runtime import sharding, steps
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = mesh.mesh_groups(1, world)
+    cfg = dataclasses.replace(configs.get(arch), n_layers=layers)
+    pol = QuantPolicy.w8a8g8(backend="fused")
+    prompt = _prompt(cfg, BATCH, PROMPT, dev)
+    quant = model.init_quant_state(cfg, pol, device=dev)
+
+    def serve(params, group) -> dict:
+        prefill = steps.make_prefill_step(cfg, pol,
+                                          cache_len=PROMPT + GEN_RATE,
+                                          model_group=group,
+                                          return_stats=True)
+        decode = steps.make_decode_step(cfg, pol, model_group=group)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches, stats = prefill(params, quant, {"tokens": prompt})
+        torch.cuda.synchronize()
+        res = {"prefill_ms": (time.perf_counter() - t0) * 1e3,
+               "cache": _host_tree(caches["decoder"]),
+               "logits": logits.float().cpu(), "stats": _host_tree(stats)}
+        tok = logits.argmax(-1)[:, None]
+        toks = [tok]
+        t0 = time.perf_counter()
+        for i in range(GEN_RATE - 1):
+            pos = torch.full((BATCH,), PROMPT + i, dtype=torch.int64,
+                             device=dev)
+            lg, caches = decode(params, quant, {"token": tok, "pos": pos},
+                                caches)
+            tok = lg.argmax(-1)[:, None]
+            toks.append(tok)
+        torch.cuda.synchronize()
+        res.update(decode_ms=(time.perf_counter() - t0) * 1e3,
+                   tokens=torch.cat(toks, dim=1).cpu(),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        return res
+
+    full = model.init_params(cfg, seed=0, device=dev)
+    params = sharding.shard_params(full, g.coords, g.sizes)
+    del full
+    torch.cuda.empty_cache()
+    saved = dist.all_reduce, dist.all_gather
+    coll = _timed_collectives()
+    ops.reset_launch_counts()
+    got = serve(params, g.model)
+    rec = {"rank": rank, "launches": ops.launch_counts(),
+           "collectives": dict(coll),
+           **{k: got[k] for k in ("prefill_ms", "decode_ms", "peak_gib")}}
+    dist.all_reduce, dist.all_gather = saved
+    torch.save({"cache": got["cache"]}, f"{out}.serve.r{rank}.pt")
+    del params
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        one = serve(model.init_params(cfg, seed=0, device=dev), None)
+        torch.cuda.empty_cache()
+        bad = [p for p, t in one["stats"].items()
+               if not torch.equal(got["stats"][p], t)]
+        if bad:
+            raise AssertionError(f"tp {arch}: {len(bad)} prefill statistics "
+                                 f"leaves differ from one process's, e.g. "
+                                 f"{bad[:3]}")
+        n_sliced = 0
+        for r in range(world):
+            part = torch.load(f"{out}.serve.r{r}.pt",
+                              weights_only=False)["cache"]
+            for p, want in one["cache"].items():
+                have = part[p]
+                d = CACHE_SLICE_DIMS.get(p[-1])
+                if d is not None and have.shape[d] != want.shape[d]:
+                    n = have.shape[d]
+                    want = want.narrow(d, r * n, n)
+                    n_sliced += 1
+                if not torch.equal(have, want):
+                    raise AssertionError(f"tp {arch}: rank {r}'s cache "
+                                         f"{p} is not the one-process "
+                                         f"cache's slice")
+        rel = float(torch.linalg.vector_norm(got["logits"] - one["logits"])
+                    / torch.linalg.vector_norm(one["logits"]))
+        if rel > 1e-5:
+            raise AssertionError(f"tp {arch}: prefill logits {rel:.3e} rel "
+                                 f"L2 off one process's")
+        if not torch.equal(got["tokens"], one["tokens"]):
+            raise AssertionError(f"tp {arch}: greedy tokens differ from one "
+                                 f"process's")
+        rec.update(logits_rel_l2=rel, stat_leaves=len(one["stats"]),
+                   cache_slices=n_sliced,
+                   single_prefill_ms=one["prefill_ms"],
+                   single_decode_ms=one["decode_ms"],
+                   single_peak_gib=one["peak_gib"])
+        del one
+    Path(f"{out}.serve.r{rank}.json").write_text(json.dumps(rec))
+    del got
+    torch.cuda.empty_cache()
+    dist.barrier()
+    _tp_train_rank(rank, world, 1, world, arch, False, layers, BATCH, PROMPT,
+                   f"{out}.train", True)
+
+
+def tp_family_phase(n: int, arch: str, layers: int, kernels: tuple,
+                    records, results) -> None:
+    """Phases 45-46: ``arch`` on (1, 2) over gloo ranks on the card,
+    served and trained (:func:`_tp_family_rank`) against one process:
+    the prefill statistics bit for bit, each rank's cache the one-process
+    cache's slice, the prefill logits within 1e-5 rel L2, the 8 greedy
+    tokens identical; the train step with phase 44's bars against the
+    one-process floors (:func:`_tp_train_rank`'s ``floor_bars``).  Every
+    kernel
+    of ``kernels`` launched in the train step, every one but
+    ``stochastic_quantize`` in the serve run."""
+    from repro_torch.launch import mesh
+
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    out = OUT_DIR / f"tp_{arch}"
+    mesh.spawn_ranks(_tp_family_rank, TP_SIZE, OUT_DIR / "store",
+                     backend="gloo", args=(arch, layers, str(out)))
+    serve = [json.loads(Path(f"{out}.serve.r{r}.json").read_text())
+             for r in range(TP_SIZE)]
+    train = [json.loads(Path(f"{out}.train.r{r}.json").read_text())
+             for r in range(TP_SIZE)]
+    for what, recs, want in (("serve", serve, kernels[:-1]),
+                             ("train", train, kernels)):
+        for k in want:
+            if not recs[0]["launches"][k]:
+                raise AssertionError(f"tp {arch} {what}: {k} never "
+                                     f"launched: {recs[0]['launches']}")
+    s0, t0 = serve[0], train[0]
+    results[f"tp_{arch}"] = {"serve": serve, "train": train}
+    log("tp-family", f"{arch} {layers} layers on (1, {TP_SIZE}): serve "
+                     f"{BATCH} x {PROMPT} + {GEN_RATE - 1} decode steps: "
+                     f"{s0['stat_leaves']} statistics leaves bit for bit, "
+                     f"{s0['cache_slices']} cache leaves the one-process "
+                     f"slices, prefill logits {s0['logits_rel_l2']:.3e} rel "
+                     f"L2, {GEN_RATE} greedy tokens identical; prefill "
+                     f"{s0['prefill_ms']:.1f} ms (collectives "
+                     f"{s0['collectives']['ms']:.1f} ms in "
+                     f"{s0['collectives']['calls']} calls) vs "
+                     f"{s0['single_prefill_ms']:.1f} ms one process, decode "
+                     f"{s0['decode_ms']:.1f} vs {s0['single_decode_ms']:.1f}"
+                     f" ms, peak {s0['peak_gib']:.2f} vs "
+                     f"{s0['single_peak_gib']:.2f} GiB; launches "
+                     f"{s0['launches']}")
+    log("tp-family", f"{arch} train {BATCH} x {PROMPT}: {t0['act_leaves']} "
+                     f"activation leaves bit for bit, {t0['grad_leaves']} "
+                     f"gradient leaves within {t0['grad_leaf_rel']:.3e} "
+                     f"(floor {t0['grad_leaf_floor']:.3e}, bar "
+                     f"{t0['grad_leaf_bar']:.3e}), loss "
+                     f"{t0['loss_rel']:.2e} rel, gradients: the worst "
+                     f"against its bar {t0['grad_rel_l2']:.3e} rel L2 "
+                     f"(bar {t0['grad_bar']:.3e}; the worst floor "
+                     f"{t0['floor_rel_l2']:.3e}, {t0['grad_fixed_bars']} "
+                     f"tensors at 2**-7; doubled {t0['grad_rel_doubled']:.2f}"
+                     f"x, halved {t0['grad_rel_halved']:.2f}x a tensor's "
+                     f"bar, refused); first step "
+                     f"{t0['step_ms']:.1f} ms, warm {t0['warm_step_ms']:.1f}"
+                     f" ms vs {t0['single_step_ms']:.1f} / "
+                     f"{t0['single_warm_ms']:.1f} ms one process; peak "
+                     f"{max(r['peak_gib'] for r in train):.2f} GiB a rank; "
+                     f"launches {t0['launches']}")
+    for r in records:
+        r[f"tp_{n}_launches"] = t0["launches"].get(r["name"], 0)
+
+
+def seq_train_phase(records, results) -> None:
+    """Phase 47: starcoder2-3b's train step at full width, 2 layers, 4 x
+    1024 on (1, 8) gloo ranks on the card: KV 2 and G 12 do not divide
+    8, so every layer runs the sequence-parallel core (each rank its 128
+    rows through the offset kernel), held against the one-process step
+    with phase 45's bars (doubled or halved gradients refused)."""
+    from repro_torch.launch import mesh
+
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    out = OUT_DIR / "seq_train"
+    mesh.spawn_ranks(_tp_train_rank, SEQ_SIZE, OUT_DIR / "store",
+                     backend="gloo",
+                     args=(1, SEQ_SIZE, SEQ_ARCH, False, SEQ_LAYERS, BATCH,
+                           PROMPT, str(out), True))
+    recs = [json.loads(Path(f"{out}.r{r}.json").read_text())
+            for r in range(SEQ_SIZE)]
+    for r in recs:
+        if r["layouts"] != ["seq"]:
+            raise AssertionError(f"seq train: rank {r['rank']} ran the "
+                                 f"layouts {r['layouts']}")
+    r0 = recs[0]
+    for k in TP_KERNELS + ("stochastic_quantize",):
+        if not r0["launches"][k]:
+            raise AssertionError(f"seq train: {k} never launched: "
+                                 f"{r0['launches']}")
+    results["seq_train"] = recs
+    log("seq-train", f"{SEQ_ARCH} {SEQ_LAYERS} layers on (1, {SEQ_SIZE}) "
+                     f"(the seq layout), {BATCH} x {PROMPT}: "
+                     f"{r0['act_leaves']} activation leaves bit for bit, "
+                     f"{r0['grad_leaves']} gradient leaves within "
+                     f"{r0['grad_leaf_rel']:.3e} (floor "
+                     f"{r0['grad_leaf_floor']:.3e}, bar "
+                     f"{r0['grad_leaf_bar']:.3e}), loss "
+                     f"{r0['loss_rel']:.2e} rel, gradients: the worst "
+                     f"against its bar {r0['grad_rel_l2']:.3e} rel L2 (bar "
+                     f"{r0['grad_bar']:.3e}; the worst floor "
+                     f"{r0['floor_rel_l2']:.3e}, {r0['grad_fixed_bars']} "
+                     f"tensors at 2**-7; doubled {r0['grad_rel_doubled']:.2f}"
+                     f"x, halved {r0['grad_rel_halved']:.2f}x a tensor's "
+                     f"bar, refused); first step "
+                     f"{r0['step_ms']:.1f} ms (collectives "
+                     f"{r0['collectives']['ms']:.1f} ms in "
+                     f"{r0['collectives']['calls']} calls), warm "
+                     f"{r0['warm_step_ms']:.1f} ms vs "
+                     f"{r0['single_step_ms']:.1f} / "
+                     f"{r0['single_warm_ms']:.1f} ms one process; peak "
+                     f"{max(r['peak_gib'] for r in recs):.2f} GiB a rank; "
+                     f"launches {r0['launches']}")
+    for r in records:
+        r["seq_train_launches"] = r0["launches"].get(r["name"], 0)
+
 
 def _cell_window(cfg) -> int:
     """The window a decode cell prefills: the sliding or local ring's
@@ -5895,6 +6353,15 @@ def main(argv=None) -> int:
             with clock(n, name):
                 fn()
             torch.cuda.empty_cache()
+    for n, arch, layers, kernels in TP_FAMILY:
+        if run_phase(n):
+            with clock(n, f"tp {arch}"):
+                tp_family_phase(n, arch, layers, kernels, records, results)
+            torch.cuda.empty_cache()
+    if run_phase(47):
+        with clock(47, "seq train"):
+            seq_train_phase(records, results)
+        torch.cuda.empty_cache()
     for r in records:       # the kernels' launches where no earlier path ran
         for key in ("sc7_serve_launches", "cmdr_serve_launches",
                     "nemotron_serve_launches", "grad_only_launches",
@@ -5904,7 +6371,8 @@ def main(argv=None) -> int:
                     "encdec_train_launches_per_step", "vlm_serve_launches",
                     "vlm_train_launches_per_step", "tall_serve_launches",
                     "dp_train_launches", "tp_serve_launches",
-                    "tp_train_launches"):
+                    "tp_train_launches", "tp_45_launches",
+                    "tp_46_launches", "seq_train_launches"):
             if not r["launches"] and r.get(key):
                 r["launches"] = r[key]
         if not r["launches"]:       # the decode cells alone (phase 41)

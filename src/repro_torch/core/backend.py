@@ -662,23 +662,28 @@ class _QAttention(torch.autograd.Function):
     q/k/v values (for the backward), their integer images, the registers
     and ``kv_len``; outputs ``(out, stats6)``, the statistics not
     differentiable.  ``kv_sum``: k and v are whole on every model rank
-    while q holds the rank's G heads, so their cotangents, each rank's
-    partial, are summed over the model group in fp32 before their cast."""
+    while q holds the rank's heads or rows, so their cotangents, each
+    rank's partial, are summed over the model group in fp32 before their
+    cast.  ``q_start``: q holds the rows from there of ``sched``'s call
+    (the sequence-parallel core)."""
 
     @staticmethod
     def forward(ctx, qh, kh, vh, q_img, k_img, v_img, regs, kvl, sched,
-                fused, z_chunk, kv_sum):
+                fused, z_chunk, kv_sum, q_start):
         from repro_torch.kernels import int8_attention as mod
         args = (q_img, k_img, v_img, regs, kvl)
+        kw = {"q_start": q_start} if q_start else {}
         if fused:
-            out, ml, ps = _ops().int8_attention_fp(*args, sched=sched)
+            out, ml, ps = _ops().int8_attention_fp(*args, sched=sched, **kw)
         else:
-            out, ml, ps = mod.attention_core_reference(*args, sched=sched)
+            out, ml, ps = mod.attention_core_reference(*args, sched=sched,
+                                                       **kw)
         stats6 = torch.stack(mod.reduce_pstats(ps))
         if any(ctx.needs_input_grad[:3]):
             ctx.save_for_backward(qh, kh, vh, q_img, k_img, v_img, regs, kvl,
                                   out, ml)
             ctx.sched, ctx.z_chunk, ctx.kv_sum = sched, z_chunk, kv_sum
+            ctx.q_start = q_start
         ctx.mark_non_differentiable(stats6)
         return out, stats6
 
@@ -686,18 +691,20 @@ class _QAttention(torch.autograd.Function):
     def backward(ctx, g_out, _g_stats):
         from repro_torch.kernels import int8_attention as mod
         qh, kh, vh, *rest = ctx.saved_tensors
+        kw = {"q_start": ctx.q_start} if ctx.q_start else {}
         dq, dk, dv = mod.attention_core_backward(
             qh, kh, vh, *rest, g_out.to(torch.float32), sched=ctx.sched,
-            z_chunk=ctx.z_chunk)
+            z_chunk=ctx.z_chunk, **kw)
         if ctx.kv_sum:
             dk, dv = sharding.mp_sum_now(dk), sharding.mp_sum_now(dv)
         return (dq.to(qh.dtype), dk.to(kh.dtype), dv.to(vh.dtype),
-                None, None, None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None, None, None)
 
 
 def qattention(policy, q, k, v, sites: dict, *, mode: str, window=None,
                prefix_len=None, kv_len=None, scale: float, step,
-               model_dims=(None, None)):
+               model_dims=(None, None), q_start: int = 0,
+               sq_total: Optional[int] = None):
     """Backend-dispatched int8 attention core.
 
     ``q [B, S, KV, G, hd]`` x ``k/v [B, Skv, KV, hd]`` -> ``(out [B, S, KV,
@@ -707,7 +714,10 @@ def qattention(policy, q, k, v, sites: dict, *, mode: str, window=None,
     :func:`repro_torch.kernels.tuning.attention_block`, exactly as in the
     reference, so both backends replay the reference's schedule.
     ``model_dims``: the dims of q and of k / v a model rank holds a slice
-    of (None: whole); the p-site is always this rank's heads'."""
+    of (None: whole); the p-site is always this rank's heads' or rows'.
+    ``q_start`` / ``sq_total``: q is the rows ``[q_start, q_start + S)``
+    of a core of ``sq_total`` query rows (the sequence-parallel rank's),
+    planned and masked as that whole core."""
     from repro_torch.kernels import int8_attention as mod
     from repro_torch.kernels import tuning
 
@@ -737,9 +747,10 @@ def qattention(policy, q, k, v, sites: dict, *, mode: str, window=None,
     kvl = torch.tensor([skv if kv_len is None else int(kv_len)],
                        dtype=torch.int32, device=dev)
 
-    bq, bkv = tuning.attention_block(s, skv, hd)
+    sq_total = s if sq_total is None else int(sq_total)
+    bq, bkv = tuning.attention_block(sq_total, skv, hd)
     sched = mod.make_schedule(
-        sq=s, skv=skv, hd=hd, bq=bq, bkv=bkv, groups=g, mode=mode,
+        sq=sq_total, skv=skv, hd=hd, bq=bq, bkv=bkv, groups=g, mode=mode,
         window=int(window or 0), prefix_len=int(prefix_len or 0),
         sm_scale=float(scale))
 
@@ -752,7 +763,8 @@ def qattention(policy, q, k, v, sites: dict, *, mode: str, window=None,
     out3, stats6 = _QAttention.apply(
         qflat(qh), kvflat(kh), kvflat(vh), qflat(q_qt.q), kvflat(k_qt.q),
         kvflat(v_qt.q), regs, kvl, sched, policy.backend == FUSED, kvh,
-        q_dim == 3 and kv_dim is None and sharding.mp_shard() is not None)
+        q_dim is not None and kv_dim is None
+        and sharding.mp_shard() is not None, int(q_start))
     out = out3.reshape(b, kvh, g, s, hd).permute(0, 3, 1, 2, 4).to(q.dtype)
     p_st = _pstats_vector(policy, stats6, p_lo, p_hi)
     stats = {"q": {"act": q_st}, "k": {"act": k_st}, "v": {"act": v_st},

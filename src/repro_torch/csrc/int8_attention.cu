@@ -155,9 +155,13 @@ __device__ __forceinline__ Layout kernel_layout(int hd) {
 
 enum Mode { kCausal = 0, kSliding = 1, kPrefix = 2, kCross = 3, kBidir = 4 };
 
+// sq: this launch's q rows, of which the first row_lo are padding (no
+// statistics); q_start: the position of its row 0 in the whole call the
+// schedule plans (a multiple of bq), so its q block i is the call's
+// block q_start / bq + i, with that block's kv visitation and mask.
 struct Sched {
   int sq, skv, skvp, hd, bq, bkv, groups, mode, window, prefix_len, width,
-      nq, nkv, vec, pow2;
+      nq, nkv, vec, pow2, q_start, row_lo;
 };
 
 // The mask of row qp as a key interval: kp is attended iff lo <= kp < hi
@@ -204,14 +208,14 @@ __device__ __forceinline__ int lane_cols(int x, int nt_end) {
 
 __device__ __forceinline__ int kv_block_base(int i, const Sched& S) {
   if (S.mode != kSliding || S.width >= S.nkv) return 0;
-  const int hi = min((i * S.bq + S.bq - 1) / S.bkv, S.nkv - 1);
+  const int hi = min((S.q_start + i * S.bq + S.bq - 1) / S.bkv, S.nkv - 1);
   const int top = max(S.nkv - S.width, 0);
   return min(max(hi - (S.width - 1), 0), top);
 }
 
 __device__ __forceinline__ bool block_visited(int i, int ki, const Sched& S) {
   if (S.mode == kCross || S.mode == kBidir || S.mode == kSliding) return true;
-  const bool causal = ki * S.bkv <= i * S.bq + S.bq - 1;
+  const bool causal = ki * S.bkv <= S.q_start + i * S.bq + S.bq - 1;
   if (S.mode == kPrefix) return causal || (ki * S.bkv < S.prefix_len);
   return causal;
 }
@@ -484,7 +488,8 @@ int8_attention_kernel(const uint8_t* __restrict__ q,
   // p_int of a masked probability (p = 0), as the per-element formula.
   const float pi0 = fminf(
       fmaxf(rintf(__fadd_rn(__fdiv_rn(0.f, scale_p), zp_p)), 0.f), 255.f);
-  const int q0 = i * S.bq;
+  const int q0 = i * S.bq;          // the block's first row here
+  const int qp0 = S.q_start + q0;   // and its position
   // Tile u's rows of this lane: 128 u + w + 8 g (+ 64).
   int row[kU][2];
   bool row_ok[kU][2];
@@ -493,9 +498,11 @@ int8_attention_kernel(const uint8_t* __restrict__ q,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       row[u][r] = kMax * u + w + 8 * g + 64 * r;
-      row_ok[u][r] = row[u][r] < S.bq && q0 + row[u][r] < S.sq;
+      row_ok[u][r] = row[u][r] < S.bq && q0 + row[u][r] < S.sq &&
+                     q0 + row[u][r] >= S.row_lo;
     }
-  const bool rows_all = S.bq == kU * kMax && q0 + kU * kMax <= S.sq;
+  const bool rows_all =
+      S.bq == kU * kMax && q0 + kU * kMax <= S.sq && q0 >= S.row_lo;
   const int snt = kFix ? 8 : max(0, min(8, nnt - 8 * h));   // this half's
   const int ont = kFix ? 8                                    // score and
                   : kWide ? (h == 0 ? osplit : hnt - osplit)  // out n-tiles
@@ -585,7 +592,7 @@ int8_attention_kernel(const uint8_t* __restrict__ q,
     if (pow2 && n > 0 && t == 0) tree_total(part, st_err, st_sig);
 
     const int k0 = ki * S.bkv;
-    const bool live = !tile_empty(q0, k0, kvlim, S);   // uniform
+    const bool live = !tile_empty(qp0, k0, kvlim, S);   // uniform
     // This lane's columns are cbase + c, c = 8 i + e: the mask keeps
     // clo[u][r] <= c < chi[u][r] (chi also stops at bkv); the statistics
     // see c < cvalid (kp < skv) on rows row_ok; c < creal is in the tile.
@@ -595,7 +602,7 @@ int8_attention_kernel(const uint8_t* __restrict__ q,
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         int lo, hi;
-        mask_bounds(q0 + row[u][r], kvlim, S, lo, hi);
+        mask_bounds(qp0 + row[u][r], kvlim, S, lo, hi);
         clo[u][r] = lo - k0 - cbase;
         chi[u][r] = min(hi - k0, bkv) - cbase;
       }
@@ -1105,7 +1112,8 @@ int8_attention_general_kernel(const uint8_t* __restrict__ q,
   const int kvlim = min(*kvlen_p, S.skv);
   const int tzq = static_cast<int>(zp_q), tzp = static_cast<int>(zp_p);
   const int lr0 = sub * kGRows;            // first row within the q block
-  const int q0 = i * S.bq + lr0;           // its position
+  const int q0 = i * S.bq + lr0;           // its row here
+  const int qp0 = S.q_start + q0;          // and its position
   const int nch = hd >> 4;                 // 16-byte chunks of a row
   const uint32_t kOnes = 0x01010101u;
 
@@ -1170,7 +1178,7 @@ int8_attention_general_kernel(const uint8_t* __restrict__ q,
         for (int ii = 0; ii < 4; ++ii) {
           const int r = rq + 4 * ii;
           int lo, hi;
-          mask_bounds(q0 + r, kvlim, S, lo, hi);
+          mask_bounds(qp0 + r, kvlim, S, lo, hi);
           sbuf[r * bkv + cb] =
               (kp >= lo && kp < hi)
                   ? __fmul_rn(alpha_qk, __int2float_rn(acc[ii] - tzq * rs))
@@ -1193,8 +1201,9 @@ int8_attention_general_kernel(const uint8_t* __restrict__ q,
       const float mr = m_run[r];
       const float mn = fmaxf(mr, mx);
       int lo, hi;
-      mask_bounds(q0 + r, kvlim, S, lo, hi);
-      const bool row_ok = lr0 + r < S.bq && q0 + r < S.sq;
+      mask_bounds(qp0 + r, kvlim, S, lo, hi);
+      const bool row_ok =
+          lr0 + r < S.bq && q0 + r < S.sq && q0 + r >= S.row_lo;
       int psum = 0;
       for (int c = lane; c < bkv; c += 32) {
         const int kp = k0 + c;
@@ -1369,12 +1378,13 @@ extern "C" int repro_int8_attention_general(
     const void* q, const void* k, const void* vt, const void* regs,
     const void* kvlen, void* out, void* ml, void* partials, int bh, int sq,
     int skv, int hd, int bq, int bkv, int groups, int mode, int window,
-    int prefix_len, int width, void* stream) {
+    int prefix_len, int width, int q_start, int row_lo, void* stream) {
   const auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
   if (bq < 1 || bkv < 1 || bkv > kGMax || hd < 16 || hd > kGMax ||
-      hd % 16 != 0 || !aligned(q) || !aligned(k) || !aligned(vt))
+      hd % 16 != 0 || !aligned(q) || !aligned(k) || !aligned(vt) ||
+      q_start < 0 || q_start % bq != 0 || row_lo < 0 || row_lo >= bq)
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = glayout(hd, bkv).total;
   if (smem > kSmemOptin) return static_cast<int>(cudaErrorInvalidValue);
@@ -1391,6 +1401,8 @@ extern "C" int repro_int8_attention_general(
   S.window = window;
   S.prefix_len = prefix_len;
   S.width = width;
+  S.q_start = q_start;
+  S.row_lo = row_lo;
   S.nq = (sq + bq - 1) / bq;
   S.nkv = (skv + bkv - 1) / bkv;
   const int nsub = (bq + kGRows - 1) / kGRows;
@@ -1421,10 +1433,12 @@ extern "C" int repro_int8_attention(const void* q, const void* k,
                                     void* pstats, int bh, int sq, int skv,
                                     int hd, int bq, int bkv, int groups,
                                     int mode, int window, int prefix_len,
-                                    int width, void* stream) {
+                                    int width, int q_start, int row_lo,
+                                    void* stream) {
   const bool wide = hd > kMax, tall = bq > kMax;
   if (bq < 1 || bkv < 1 || hd < 1 || bq > kTallMax || bkv > kMax ||
-      hd > kWideMax || (wide && hd % 16 != 0))
+      hd > kWideMax || (wide && hd % 16 != 0) || q_start < 0 ||
+      q_start % bq != 0 || row_lo < 0 || row_lo >= bq)
     return static_cast<int>(cudaErrorInvalidValue);
   Sched S;
   S.sq = sq;
@@ -1438,6 +1452,8 @@ extern "C" int repro_int8_attention(const void* q, const void* k,
   S.window = window;
   S.prefix_len = prefix_len;
   S.width = width;
+  S.q_start = q_start;
+  S.row_lo = row_lo;
   S.nq = (sq + bq - 1) / bq;
   S.nkv = (skv + bkv - 1) / bkv;
   const auto aligned = [](const void* p) {

@@ -36,7 +36,12 @@ does not fit beside the wide layout) runs the general instantiation
 (:func:`uses_general`): CTAs of 16 q rows on dp4a, each kv block's scores
 formed whole (K in sub-tiles of 64 rows) before any exp, and the CTAs'
 p-site partials folded over each reference q block by the wrapper
-(err/sig within 1e-4 of the reference's tree).  At the slice's shape it
+(err/sig within 1e-4 of the reference's tree).  Every instantiation and
+the plain versions take a query offset (``q_start``): a call on the
+rows ``[q_start, q_start + sq)`` of the call a schedule plans (the
+sequence-parallel core's rank) runs those rows' q blocks with that
+call's kv walk and mask, and a first row inside a q block runs the
+block's leading rows as padding that counts in no statistic.  At the slice's shape it
 is bound by the per-element fp32 softmax and requantization, not by bytes
 or by the card's int8 rate.
 
@@ -171,6 +176,27 @@ def _element_mask(q_pos, k_pos, kvlen, sched: AttnSchedule):
     return m & (k_pos < kvlen) & (k_pos < sched.skv)
 
 
+def row_blocks(sched: AttnSchedule, q_start: int, sq: int):
+    """``(lead, i0, nq)`` of a call on the rows ``[q_start, q_start + sq)``
+    of ``sched``'s (whole-sequence) call: they lie in its q blocks ``i0``
+    to ``i0 + nq - 1``, from row ``lead`` of block ``i0``.  Every q block
+    keeps the whole call's kv visitation (its base, its width, its
+    skipped blocks), so the rows' ``out``, ``m`` and ``l`` are the whole
+    call's, and their p-site partials, combined over the calls that
+    cover the sequence, its (min, max, clip, n)."""
+    if q_start < 0 or sq < 1 or q_start + sq > sched.sq:
+        raise ValueError(f"rows [{q_start}, {q_start + sq}) are not within "
+                         f"the schedule's {sched.sq}")
+    lead = q_start % sched.bq
+    return lead, q_start // sched.bq, -(-(lead + sq) // sched.bq)
+
+
+def _pad_front(x: torch.Tensor, n: int, axis: int) -> torch.Tensor:
+    if not n:
+        return x
+    return F.pad(x, [0, 0] * (x.ndim - 1 - axis) + [n, 0])
+
+
 # ---------------------------------------------------------------------------
 # Arithmetic-order pinning.
 # ---------------------------------------------------------------------------
@@ -277,20 +303,26 @@ def _pad_axis(x: torch.Tensor, size: int, axis: int) -> torch.Tensor:
 
 
 def attention_core_reference(q_u8, k_i8, v_i8, regs, kvlen, *,
-                             sched: AttnSchedule):
+                             sched: AttnSchedule, q_start: int = 0):
     """Returns ``(out fp32 [BH, sq, hd], ml fp32 [BH, sq, 2], pstats fp32
     [BH, nq, 6])``.  The int contractions run in float64, exact for these
     integer operands in any summation order.  Every q block walks its
     ``width`` kv blocks from its own base in the kernel's order; the q
     blocks advance together, one kv step at a time, and a block the
-    schedule skips keeps its carries (the same values as skipping it)."""
+    schedule skips keeps its carries (the same values as skipping it).
+
+    ``q_u8``'s rows are the rows ``[q_start, q_start + sq)`` of the call
+    ``sched`` plans (:func:`row_blocks`; the sequence-parallel core's
+    rank): their ``out`` and ``ml`` are that call's rows, and ``pstats``
+    covers the q blocks they lie in, each over these rows only."""
     S = sched
-    bh = q_u8.shape[0]
+    bh, sq = q_u8.shape[0], q_u8.shape[1]
+    lead, i0, nq = row_blocks(S, q_start, sq)
     zb = bh // S.groups
     dev = q_u8.device
     f64 = torch.float64
-    qz = _pad_axis(q_u8, S.nq * S.bq, 1).reshape(zb, S.groups, S.nq, S.bq,
-                                                 S.hd)
+    qz = _pad_axis(_pad_front(q_u8, lead, 1), nq * S.bq, 1).reshape(
+        zb, S.groups, nq, S.bq, S.hd)
     kz = _pad_axis(k_i8, S.nkv * S.bkv, 1).reshape(zb, S.nkv, S.bkv, S.hd)
     vz = _pad_axis(v_i8, S.nkv * S.bkv, 1).reshape(zb, S.nkv, S.bkv, S.hd)
     regs = regs.reshape(-1).to(torch.float32)
@@ -298,21 +330,22 @@ def attention_core_reference(q_u8, k_i8, v_i8, regs, kvlen, *,
         regs[j] for j in range(7))
     kvl = kvlen.reshape(()).to(device=dev)
     # q block i's rows and kv block ki's columns: [nq, bq, 1], [nq, 1, bkv]
-    q_pos = (torch.arange(S.nq, device=dev) * S.bq)[:, None, None] + \
-        torch.arange(S.bq, device=dev)[None, :, None]
+    q_pos = (torch.arange(i0, i0 + nq, device=dev) * S.bq)[:, None, None] \
+        + torch.arange(S.bq, device=dev)[None, :, None]
+    row_ok = (q_pos >= q_start) & (q_pos < q_start + sq)
     cols = torch.arange(S.bkv, device=dev)[None, None, :]
-    base = [_kv_block_base(i, S) for i in range(S.nq)]
+    base = [_kv_block_base(i0 + i, S) for i in range(nq)]
 
     rq = (qz.to(torch.int32) - zp_q.to(torch.int32)).to(f64)
-    m = torch.full((zb, S.groups, S.nq, S.bq, 1), NEG_INF,
+    m = torch.full((zb, S.groups, nq, S.bq, 1), NEG_INF,
                    dtype=torch.float32, device=dev)
     l = torch.zeros_like(m)
-    acc = torch.zeros((zb, S.groups, S.nq, S.bq, S.hd), dtype=torch.float32,
+    acc = torch.zeros((zb, S.groups, nq, S.bq, S.hd), dtype=torch.float32,
                       device=dev)
-    st = _stats_init((zb, S.groups, S.nq), dev)
+    st = _stats_init((zb, S.groups, nq), dev)
     for t in range(S.width):
         kis = [b + t for b in base]
-        vis = [_block_visited(i, ki, S) for i, ki in enumerate(kis)]
+        vis = [_block_visited(i0 + i, ki, S) for i, ki in enumerate(kis)]
         if not any(vis):
             continue
         ki = torch.tensor(kis, device=dev)
@@ -326,7 +359,7 @@ def attention_core_reference(q_u8, k_i8, v_i8, regs, kvlen, *,
         acc_pv = torch.einsum("zgiqk,zikh->zgiqh", rp.to(f64), rv)
         acc_new, l_new = _accumulate(acc, l, corr, acc_pv, rp, alpha_pv,
                                      scale_p)
-        sv = (q_pos < S.sq) & (k_pos < S.skv)
+        sv = row_ok & (k_pos < S.skv)
         st_new = _stats_update(st, p, p_hat, sv, p_lo, p_hi)
         keep = torch.tensor(vis, device=dev)
         m = torch.where(keep[:, None, None], m_new, m)
@@ -334,9 +367,10 @@ def attention_core_reference(q_u8, k_i8, v_i8, regs, kvlen, *,
         acc = torch.where(keep[:, None, None], acc_new, acc)
         st = torch.where(keep[:, None], st_new, st)
     # [ZB, G, nq, bq, ...] is the kernel's element order [BH, sq, ...]
-    out = (acc / l.clamp(min=1e-30)).reshape(bh, S.nq * S.bq, S.hd)[:, :S.sq]
-    ml = torch.cat([m, l], dim=-1).reshape(bh, S.nq * S.bq, 2)[:, :S.sq]
-    pstats = st.reshape(bh, S.nq, STAT_SLOTS)
+    rows = slice(lead, lead + sq)
+    out = (acc / l.clamp(min=1e-30)).reshape(bh, nq * S.bq, S.hd)[:, rows]
+    ml = torch.cat([m, l], dim=-1).reshape(bh, nq * S.bq, 2)[:, rows]
+    pstats = st.reshape(bh, nq, STAT_SLOTS)
     return out.contiguous(), ml.contiguous(), pstats.contiguous()
 
 
@@ -351,7 +385,7 @@ def attention_core_reference(q_u8, k_i8, v_i8, regs, kvlen, *,
 # ---------------------------------------------------------------------------
 def attention_core_backward(qh, kh, vh, q_u8, k_i8, v_i8, regs, kvlen,
                             out, ml, g_out, *, sched: AttnSchedule,
-                            z_chunk: Optional[int] = None):
+                            z_chunk: Optional[int] = None, q_start: int = 0):
     """Returns ``(dq [BH, sq, hd], dk [ZB, skv, hd], dv [ZB, skv, hd])``,
     fp32 cotangents w.r.t. the on-grid (dequantized) q/k/v values, over
     the reference's ``(bq, bkv)`` blocks.  Each block pair's terms are
@@ -366,32 +400,39 @@ def attention_core_backward(qh, kh, vh, q_u8, k_i8, v_i8, regs, kvlen,
     has the same shapes whatever the batch, so a row's cotangents do not
     depend on the rows beside it (the card's batched GEMMs pick their
     algorithms by shape), and a data-parallel rank's are the one-process
-    step's."""
+    step's.
+
+    ``q_start``: the rows are ``[q_start, q_start + sq)`` of ``sched``'s
+    call, as :func:`attention_core_reference` takes them; ``dk`` and
+    ``dv`` are then these rows' share, which the calls covering the
+    sequence sum."""
     zb = k_i8.shape[0]
     zc = zb if z_chunk is None else z_chunk
     if zc >= zb:
         return _core_backward(qh, kh, vh, q_u8, k_i8, regs, kvlen, out, ml,
-                              g_out, sched)
+                              g_out, sched, q_start)
     g, parts = sched.groups, []
     for z0 in range(0, zb, zc):
         zs, qs = slice(z0, z0 + zc), slice(z0 * g, (z0 + zc) * g)
         parts.append(_core_backward(
             qh[qs], kh[zs], vh[zs], q_u8[qs], k_i8[zs], regs, kvlen,
-            out[qs], ml[qs], g_out[qs], sched))
+            out[qs], ml[qs], g_out[qs], sched, q_start))
     return tuple(torch.cat(t) for t in zip(*parts))
 
 
 def _core_backward(qh, kh, vh, q_u8, k_i8, regs, kvlen, out, ml, g_out,
-                   sched: AttnSchedule):
+                   sched: AttnSchedule, q_start: int = 0):
     S = sched
-    bh = q_u8.shape[0]
+    bh, sq = q_u8.shape[0], q_u8.shape[1]
+    lead, i0, nq = row_blocks(S, q_start, sq)
     zb = bh // S.groups
     dev = q_u8.device
     f32, f64 = torch.float32, torch.float64
-    sqp, skp = S.nq * S.bq, S.nkv * S.bkv
+    sqp, skp = nq * S.bq, S.nkv * S.bkv
 
     def qsplit(x, d):
-        return _pad_axis(x, sqp, 1).reshape(zb, S.groups, S.nq, S.bq, d)
+        return _pad_axis(_pad_front(x, lead, 1), sqp, 1).reshape(
+            zb, S.groups, nq, S.bq, d)
 
     def ksplit(x, d):
         return _pad_axis(x, skp, 1).reshape(zb, S.nkv, S.bkv, d)
@@ -416,14 +457,14 @@ def _core_backward(qh, kh, vh, q_u8, k_i8, regs, kvlen, out, ml, g_out,
     rows = torch.arange(S.bq, device=dev)[:, None]
     # q blocks per chunk: ~2**26 score elements at a time
     per_block = zb * S.groups * S.nkv * S.bq * S.bkv
-    ci = max(1, min(S.nq, (1 << 26) // per_block))
+    ci = max(1, min(nq, (1 << 26) // per_block))
 
     dk_acc = torch.zeros((zb, S.nkv, S.bkv, S.hd), dtype=f32, device=dev)
     dv_acc = torch.zeros_like(dk_acc)
     dqs = []
-    for i0 in range(0, S.nq, ci):
-        sl = slice(i0, min(i0 + ci, S.nq))
-        n = sl.stop - i0
+    for c0 in range(0, nq, ci):
+        sl = slice(c0, min(c0 + ci, nq))
+        n = sl.stop - c0
         rq = (qz[:, :, sl].to(torch.int32) - zp_q.to(torch.int32)).to(f64)
         qh_i, g_i = qhz[:, :, sl], gz[:, :, sl]      # [ZB, G, n, bq, hd]
         # [ZB, G, n, 1, bq, 1] against [ZB, G, n, nkv, bq, bkv] blocks
@@ -431,11 +472,12 @@ def _core_backward(qh, kh, vh, q_u8, k_i8, regs, kvlen, out, ml, g_out,
         acc_qk = torch.einsum("zgiqh,zjkh->zgijqk", rq, kz)
         s = _fence(alpha_qk * acc_qk.to(f32))
         del acc_qk
-        q_pos = (torch.arange(i0, i0 + n, device=dev) * S.bq)[
+        q_pos = (torch.arange(i0 + c0, i0 + c0 + n, device=dev) * S.bq)[
             :, None, None, None] + rows[None, None]
-        # Padded q rows (>= sq) carry zero (m, l) residuals: mask them,
-        # or p / max(l, eps) overflows into NaN cotangents.
-        mask = _element_mask(q_pos, k_pos[None], kvl, S) & (q_pos < S.sq)
+        # Padded q rows (outside the call's) carry zero (m, l) residuals:
+        # mask them, or p / max(l, eps) overflows into NaN cotangents.
+        mask = _element_mask(q_pos, k_pos[None], kvl, S) & \
+            (q_pos >= q_start) & (q_pos < q_start + sq)
         p = torch.where(mask, torch.exp(s - m_i), 0.0)
         del s, mask
         r = p / l_i.clamp(min=1e-30)
@@ -456,7 +498,7 @@ def _core_backward(qh, kh, vh, q_u8, k_i8, regs, kvlen, out, ml, g_out,
             dv_acc = dv_acc + cv[:, t]
         dqs.append(dq_c)
         del cq, ck, cv
-    dq = torch.cat(dqs, dim=2).reshape(bh, sqp, S.hd)[:, :S.sq]
+    dq = torch.cat(dqs, dim=2).reshape(bh, sqp, S.hd)[:, lead:lead + sq]
     dk = dk_acc.reshape(zb, skp, S.hd)[:, :S.skv]
     dv = dv_acc.reshape(zb, skp, S.hd)[:, :S.skv]
     return dq, dk, dv
@@ -476,7 +518,7 @@ def bind(lib: ctypes.CDLL, general: bool = False):
         else lib.repro_int8_attention
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 8 + [ci] * 11 + [vp]
+        fn.argtypes = [vp] * 8 + [ci] * 13 + [vp]
         fn.restype = ctypes.c_int
         for name, n in (("repro_int8_attention_smem", 3),
                         ("repro_int8_attention_general_smem", 2)):
@@ -530,32 +572,40 @@ def fold_partials(parts: torch.Tensor) -> torch.Tensor:
 
 
 def launch(fn, q_u8, k_i8, vt, regs, kvl, *, sched: AttnSchedule,
-           general: bool = False):
+           general: bool = False, q_start: int = 0, row_lo: int = 0):
     """One launch of the C entry ``fn`` on operands already in the
     kernel's form: q and k 16-byte aligned, ``vt`` V's K-major image,
     ``regs`` fp32 [8], ``kvl`` int32 [1], all on the card (``general``:
     ``fn`` is the general instantiation's, whose partials are folded
-    here).  Returns ``(out, ml, pstats)``; counts nothing."""
+    here).  ``q_u8``'s rows start at the position ``q_start`` of
+    ``sched``'s call (a multiple of ``bq``), and its rows below
+    ``row_lo`` are padding (no statistics).  Returns ``(out, ml,
+    pstats)``; counts nothing."""
     S = sched
-    bh, dev = q_u8.shape[0], q_u8.device
-    out = torch.empty((bh, S.sq, S.hd), dtype=torch.float32, device=dev)
-    ml = torch.empty((bh, S.sq, 2), dtype=torch.float32, device=dev)
+    bh, sq, dev = q_u8.shape[0], q_u8.shape[1], q_u8.device
+    nq = -(-sq // S.bq)
+    out = torch.empty((bh, sq, S.hd), dtype=torch.float32, device=dev)
+    ml = torch.empty((bh, sq, 2), dtype=torch.float32, device=dev)
     nsub = -(-S.bq // GENERAL_ROWS) if general else 1
-    pstats = torch.empty((bh, S.nq, nsub, STAT_SLOTS), dtype=torch.float32,
+    pstats = torch.empty((bh, nq, nsub, STAT_SLOTS), dtype=torch.float32,
                          device=dev)
     status = fn(q_u8.data_ptr(), k_i8.data_ptr(), vt.data_ptr(),
                 regs.data_ptr(), kvl.data_ptr(), out.data_ptr(),
                 ml.data_ptr(), pstats.data_ptr(),
-                bh, S.sq, S.skv, S.hd, S.bq, S.bkv, S.groups,
+                bh, sq, S.skv, S.hd, S.bq, S.bkv, S.groups,
                 _MODE_CODE[S.mode], S.window, S.prefix_len, S.width,
-                torch.cuda.current_stream(dev).cuda_stream)
+                q_start, row_lo, torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, "int8_attention")
     return out, ml, fold_partials(pstats) if general else pstats[:, :, 0]
 
 
-def attention_cuda(q_u8, k_i8, v_i8, regs, kvlen, *, sched: AttnSchedule):
+def attention_cuda(q_u8, k_i8, v_i8, regs, kvlen, *, sched: AttnSchedule,
+                   q_start: int = 0):
     """Launch the CUDA kernel; same returns as
-    :func:`attention_core_reference`.
+    :func:`attention_core_reference` (``q_start`` too: the kernel takes
+    the rows' first q block's position, and a call whose first row is
+    not on a block boundary runs with that block's leading rows as zero
+    padding that counts in no statistic).
 
     A head dim in (128, 256] off the multiples of 16 (any head dim on the
     general instantiation) runs padded to the next one
@@ -570,8 +620,9 @@ def attention_cuda(q_u8, k_i8, v_i8, regs, kvlen, *, sched: AttnSchedule):
                                                 torch.int8):
         raise TypeError("attention_cuda takes uint8 q and int8 k/v")
     check_kernel_tiles(S)
-    bh = q_u8.shape[0]
-    if q_u8.shape != (bh, S.sq, S.hd) or bh % S.groups or \
+    bh, sq = q_u8.shape[0], q_u8.shape[1]
+    lead, i0, _ = row_blocks(S, q_start, sq)
+    if q_u8.shape != (bh, sq, S.hd) or bh % S.groups or \
             k_i8.shape != (bh // S.groups, S.skv, S.hd) or \
             v_i8.shape != k_i8.shape:
         raise ValueError(f"attention shapes {tuple(q_u8.shape)}, "
@@ -584,18 +635,21 @@ def attention_cuda(q_u8, k_i8, v_i8, regs, kvlen, *, sched: AttnSchedule):
         q_u8, k_i8, v_i8 = (F.pad(t, pad) for t in (q_u8, k_i8, v_i8))
         out, ml, pstats = attention_cuda(
             q_u8, k_i8, v_i8, regs, kvlen,
-            sched=dataclasses.replace(S, hd=hd))
+            sched=dataclasses.replace(S, hd=hd), q_start=q_start)
         return out[..., :S.hd].contiguous(), ml, pstats
     fn = bind(lib, general)
     dev = q_u8.device
-    q_u8, k_i8 = _mm._aligned(q_u8), _mm._aligned(k_i8)
+    q_u8, k_i8 = _mm._aligned(_pad_front(q_u8, lead, 1)), _mm._aligned(k_i8)
     # V's K-major image [ZB, hd, skv rounded up to 16]: the PV product's
     # B operand, kv contiguous.
     vt = _mm.weight_kmajor_cuda(v_i8)
     regs = regs.to(device=dev, dtype=torch.float32).reshape(-1).contiguous()
     kvl = kvlen.to(device=dev, dtype=torch.int32).reshape(1).contiguous()
     out, ml, pstats = launch(fn, q_u8, k_i8, vt, regs, kvl, sched=S,
-                             general=general)
+                             general=general, q_start=i0 * S.bq,
+                             row_lo=lead)
     COUNTER.count += 1
     GENERAL_COUNTER.count += general
+    if lead:
+        out, ml = out[:, lead:].contiguous(), ml[:, lead:].contiguous()
     return out, ml, pstats

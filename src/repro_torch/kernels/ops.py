@@ -294,14 +294,17 @@ def int8_matmul_fused(x_q: torch.Tensor, w_q: torch.Tensor, x_scale, x_zp,
                                        out_spec)
 
 
-def int8_attention_fp(q_u8, k_i8, v_i8, regs, kvlen, *, sched: AttnSchedule):
+def int8_attention_fp(q_u8, k_i8, v_i8, regs, kvlen, *, sched: AttnSchedule,
+                      q_start: int = 0):
     """Fused int8 attention core with in-kernel p-site stats.  Returns
-    ``(out [BH, sq, hd], ml [BH, sq, 2], pstats [BH, nq, 6])``."""
+    ``(out [BH, sq, hd], ml [BH, sq, 2], pstats [BH, nq, 6])``; ``q_u8``
+    holds the rows ``[q_start, q_start + sq)`` of ``sched``'s call."""
+    kw = {"q_start": q_start} if q_start else {}
     if _on_cuda(q_u8, k_i8, v_i8):
         return _attn.attention_cuda(q_u8, k_i8, v_i8, regs, kvlen,
-                                    sched=sched)
+                                    sched=sched, **kw)
     return _attn.attention_core_reference(q_u8, k_i8, v_i8, regs, kvlen,
-                                          sched=sched)
+                                          sched=sched, **kw)
 
 
 # ---------------------------------------------------------------------------

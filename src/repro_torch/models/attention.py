@@ -33,6 +33,23 @@ row-parallel.  Where G is sharded, k and v are computed whole on every
 rank, and their cotangent, each rank's partial over its G heads, is
 summed (in fp32 inside the int8 core's backward) before their gradient
 sites quantize it.
+
+Where neither head dim divides the group, the layer's dense-path
+predicate holds (``allow_seq``: the reference's ``will_use_dense``, no
+cache, not the local or chunked path, S > 1) and the group divides S,
+the layer runs the reference's sequence-parallel core (layout
+``"seq"``): the weights are whole on every rank, each rank takes its
+``S / M`` rows of the normed input, projects q, k and v on them, rotates
+them at their own positions, gathers k and v along S (in fp: the core's
+k and v sites then quantize the whole tensors, as one process does, at
+twice the bytes of their int8 images), runs the core on its q rows
+against the whole keys (the kernel's query offset) and the ``o``
+projection on its rows, and gathers the output for the replicated
+residual stream.  The k / v cotangents (each rank's partial) are summed
+in fp32 before their sites, and the weights' gradients, partial sums
+over a rank's rows, are summed over the group (``sharding.mp_grad_sum``).
+Padded head sharding, the reference's third layout (decode, a prefill
+that fills a cache, the chunked path), raises.
 """
 from __future__ import annotations
 
@@ -136,13 +153,14 @@ def _softmax_numerator(s, keep):
 
 
 def _dense_attn(q, k, v, *, mode: str, window, prefix_len, kv_len,
-                scale: float):
-    """Single-tile fp32 attention (S <= ``dense_attn_max``)."""
+                scale: float, q_start: int = 0):
+    """Single-tile fp32 attention (S <= ``dense_attn_max``); q's rows are
+    at the positions from ``q_start`` (the sequence-parallel core's)."""
     sq, skv = q.shape[1], k.shape[1]
     s = torch.einsum("bqngh,bknh->bngqk", q.to(torch.float32) * scale,
                      k.to(torch.float32))
     dev = q.device
-    mask = _mask_block(torch.arange(sq, device=dev),
+    mask = _mask_block(q_start + torch.arange(sq, device=dev),
                        torch.arange(skv, device=dev), mode, window,
                        prefix_len, kv_len)
     p = _softmax_numerator(s, mask)
@@ -328,22 +346,48 @@ def attention_layer(params, sites: dict, x: torch.Tensor, *, n_heads: int,
     output, as the k/v source); returns ``(y, stats, cache)``."""
     b, s, _ = x.shape
     scale = head_dim ** -0.5
-    # the model axis: which head dim of q ([B, S, KV, G, hd]) and of k / v
-    # ([B, S, KV, hd]) this rank holds a slice of
-    layout = local_heads(n_kv, n_heads // n_kv)[2]
-    q_dim = {None: None, "kv": 2, "g": 3}[layout]
-    kv_dim = 2 if layout == "kv" else None
-    par = None if layout is None else "col"
-    kv_par = "col" if layout == "kv" else None
     # Cross decode: the encoder's projections were cached at prefill
     # (signalled by kv_x=None); no k/v projection runs.
     cross_decode = cache is not None and mode == "cross" and kv_x is None
+    decode = cache is not None and s == 1 and mode != "cross"
+    local = (mode == "sliding" and window is not None and s > window
+             and s % window == 0)
+    # The reference's will_use_dense: the sequence-parallel core needs
+    # the dense path's whole score tile (the chunked path walks the
+    # sequence, and decode has S = 1), whether the int8 core or the fp
+    # path then computes it.
+    skv = s if kv_x is None else kv_x.shape[1]
+    allow_seq = (cache is None and not local and max(s, skv) <= dense_attn_max
+                 and s > 1)
+    # the model axis: which dim of q ([B, S, KV, G, hd]) and of k / v
+    # ([B, S, KV, hd]) this rank holds a slice of
+    mp = sharding.mp_shard()
+    layout = None if mp is None else sharding.attn_layout(
+        n_kv, n_heads // n_kv, mp[1], s, allow_seq)
+    seq = layout == "seq"
+    q_dim = {None: None, "kv": 2, "g": 3, "seq": 1}[layout]
+    kv_dim = 2 if layout == "kv" else None
+    par = "col" if layout in ("kv", "g") else None
+    kv_par = "col" if layout == "kv" else None
+    q_start = 0
+    if seq:
+        # the rank's S / M rows of the normed input; the weights are
+        # whole, their gradients (partial sums over the rows) summed over
+        # the group (a cross layer's k / v source is whole on every rank)
+        q_start = mp[0] * (s // mp[1])
+        x = sharding.mp_take(x, 1)
+        names = ("wq", "wo", "bq") + (("wk", "wv", "bk", "bv")
+                                      if kv_x is None else ())
+        params = {n: sharding.mp_grad_sum(params[n]) if n in names
+                  else params[n]
+                  for n in ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo")
+                  if params.get(n) is not None}
     new_sites = {}
     core_stats = None
     # One shared activation quantization for q/k/v; its range state lives
     # on the "q" site.
-    xq, in_stats, xqi = qlinear.act_quant_site(x, sites["q"]["act"], policy,
-                                               step)
+    xq, in_stats, xqi = qlinear.act_quant_site(
+        x, sites["q"]["act"], policy, step, 1 if seq else None)
     q, sq = qlinear.qdense_pre(xq, params["wq"], sites["q"], policy,
                                einsum_spec="bsd,dkgh->bskgh",
                                bias=params.get("bq"), seed=seed, step=step,
@@ -360,43 +404,44 @@ def attention_layer(params, sites: dict, x: torch.Tensor, *, n_heads: int,
             # the encoder's output gets its own site, on "k"
             src_q, src_stats, src_qi = qlinear.act_quant_site(
                 kv_x, sites["k"]["act"], policy, step)
+        kv_y = 1 if seq and kv_x is None else kv_dim
         k, new_sites["k"] = qlinear.qdense_pre(
             src_q, params["wk"], sites["k"], policy,
             einsum_spec="bsd,dkh->bskh", bias=params.get("bk"),
             seed=seed + 1, step=step, qinfo=src_qi, parallel=kv_par,
-            y_dim=kv_dim)
+            y_dim=kv_y)
         v, new_sites["v"] = qlinear.qdense_pre(
             src_q, params["wv"], sites["v"], policy,
             einsum_spec="bsd,dkh->bskh", bias=params.get("bv"),
             seed=seed + 2, step=step, qinfo=src_qi, parallel=kv_par,
-            y_dim=kv_dim)
+            y_dim=kv_y)
         if src_stats is not None:
             new_sites["k"]["act"] = src_stats
 
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
+    if seq:
+        positions = positions[:, q_start:q_start + x.shape[1]]
     # no rotation across the encoder/decoder boundary
     if rope_theta is not None and mode != "cross":
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
+    if seq and kv_x is None:
+        # every rank's rows of k and v (fp: the core's k / v sites then
+        # quantize the whole tensors, as one process does)
+        k, v = sharding.mp_gather(k, 1), sharding.mp_gather(v, 1)
 
-    # The dispatch, decided once.  Sequence sharding of the core
-    # (sharding.attn_hints) only on the dense path without a cache (the
-    # chunked path walks the sequence, and decode has S = 1).
-    decode = cache is not None and s == 1 and mode != "cross"
+    # The dispatch, decided once.
     use_core = (not (cross_decode or decode) and "core" in sites and s > 1
                 and backend.qattention_eligible(policy)
                 and (mode != "sliding" or isinstance(window, int))
                 and (mode != "prefix" or isinstance(prefix_len, int)))
-    local = (mode == "sliding" and window is not None and s > window
-             and s % window == 0)
     dense = (not (cross_decode or decode or use_core or local)
-             and max(s, k.shape[1]) <= dense_attn_max)
-    q, k, v = sharding.attn_hints(q, k, v,
-                                  allow_seq=dense and cache is None and s > 1)
-    if layout == "g" and not use_core and k is not None:
-        # whole k, v against the rank's G heads: their cotangent summed
-        # (f; the int8 core sums it in fp32 itself)
+             and max(s, skv) <= dense_attn_max)
+    q, k, v = sharding.attn_hints(q, k, v, allow_seq=allow_seq)
+    if layout in ("g", "seq") and not use_core and k is not None:
+        # whole k, v against the rank's G heads or rows: their cotangent
+        # summed (f; the int8 core sums it in fp32 itself)
         k, v = sharding.mp_grad_sum(k), sharding.mp_grad_sum(v)
 
     if cross_decode:
@@ -416,13 +461,13 @@ def attention_layer(params, sites: dict, x: torch.Tensor, *, n_heads: int,
             out, core_stats = backend.qattention(
                 policy, q, k, v, sites["core"], mode=mode, window=window,
                 prefix_len=prefix_len, kv_len=kv_len, scale=scale, step=step,
-                model_dims=(q_dim, kv_dim))
+                model_dims=(q_dim, kv_dim), q_start=q_start, sq_total=s)
         elif local:
             out = _local_attn(q, k, v, window=window, scale=scale)
         elif dense:
             out = _dense_attn(q, k, v, mode=mode, window=window,
                               prefix_len=prefix_len, kv_len=kv_len,
-                              scale=scale)
+                              scale=scale, q_start=q_start)
         else:
             out = _chunked_attn(q, k, v, mode=mode, window=window,
                                 prefix_len=prefix_len, kv_len=kv_len,
@@ -440,8 +485,11 @@ def attention_layer(params, sites: dict, x: torch.Tensor, *, n_heads: int,
     y, new_sites["o"] = qlinear.qeinsum("bskgh,kghd->bsd", out, params["wo"],
                                         sites["o"], policy, seed=seed + 3,
                                         step=step,
-                                        parallel=None if layout is None
-                                        else "row", x_dim=q_dim)
+                                        parallel="row" if par else None,
+                                        x_dim=q_dim, y_dim=1 if seq else None)
+    if seq:
+        # the ranks' rows of the output for the replicated residual stream
+        y = sharding.mp_gather(y, 1)
     if params.get("bo") is not None:
         y = y + params["bo"].to(y.dtype)
     return y, new_sites, cache

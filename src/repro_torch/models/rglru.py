@@ -19,6 +19,17 @@ them; the conv, the gates and the recurrence run in fp32, plain PyTorch
 (the reference's ``jnp`` code, outside any kernel).  Decode carries
 ``(h, conv_tail)`` as constant-size state.
 
+Under a model group (``runtime.sharding.model_parallel``) the block is
+channel-parallel, as the reference's hint keeps it: a rank holds its
+``C / M`` channels of ``lru_width`` (``w_in`` / ``w_gate`` columns,
+``w_out`` rows, the conv taps, the gate biases and ``lambda``), and the
+conv, the gates, the scan and the state run on them.  ``w_a`` and
+``w_x`` hold the rank's input channels (``[C / M, C]``): their products
+sum the ranks' int32 K-shard partials before the epilogue, every rank
+gets the whole ``[B, S, C]`` gate input, and takes its channels
+(``sharding.mp_take``: the gradient site then sees the whole cotangent
+on every rank, gathered).  ``w_out`` is row-parallel, the output whole.
+
 :func:`rglru_scan` evaluates the recurrence as ``jax.lax.associative_scan``
 does: the same odd/even recursion over ``(a, b)`` pairs (about ``2 log2
 S`` levels of vectorised ops), so its products and sums are the
@@ -27,7 +38,7 @@ backward.  The gates write each of the reference's ops: ``softplus`` as
 ``jnp.logaddexp(x, 0)`` computes it (no threshold), ``sqrt(1 - a^2)`` from
 ``log a``.  The reference's ``hint`` (the channel axis over the model
 mesh axis) is called at its place (``runtime.sharding``; the model axis
-is not realized yet).
+is realized by the channel shards above).
 """
 from __future__ import annotations
 
@@ -143,29 +154,35 @@ def apply_rglru(params, sites: dict, x: torch.Tensor, *,
     ``None``.  Returns ``(y, stats, (h, conv_tail))``."""
     s = x.shape[1]
     new_sites = {}
+    # the model axis: the rank's channels (the last dim of u, gate, y)
+    tp = sharding.mp_shard() is not None
+    col, row, cdim = ("col", "row", -1) if tp else (None, None, None)
     # shared input quantization for in/gate; range state on the "in" site
     xq, in_stats, xqi = qlinear.act_quant_site(x, sites["in"]["act"],
                                                policy, step)
     u, s_in = qlinear.qdense_pre(xq, params["w_in"], sites["in"], policy,
-                                 seed=seed, step=step, qinfo=xqi)
+                                 seed=seed, step=step, qinfo=xqi,
+                                 parallel=col, y_dim=cdim)
     s_in["act"] = in_stats
     new_sites["in"] = s_in
     gate, new_sites["gate"] = qlinear.qdense_pre(
         xq, params["w_gate"], sites["gate"], policy, seed=seed + 1,
-        step=step, qinfo=xqi)
+        step=step, qinfo=xqi, parallel=col, y_dim=cdim)
     h0, tail = (None, None) if state is None else state
     u, new_tail = _causal_conv1d(u, params["conv_w"], params["conv_b"], tail)
 
     # shared quantization of the conv output for the two gate projections
     uq, u_stats, uqi = qlinear.act_quant_site(u, sites["a"]["act"], policy,
-                                              step)
+                                              step, cdim)
     ra, s_a = qlinear.qdense_pre(uq, params["w_a"], sites["a"], policy,
-                                 seed=seed + 2, step=step, qinfo=uqi)
+                                 seed=seed + 2, step=step, qinfo=uqi,
+                                 parallel=row)
     s_a["act"] = u_stats
     new_sites["a"] = s_a
     rx, new_sites["x"] = qlinear.qdense_pre(
         uq, params["w_x"], sites["x"], policy, seed=seed + 3, step=step,
-        qinfo=uqi)
+        qinfo=uqi, parallel=row)
+    ra, rx = sharding.mp_take(ra, -1), sharding.mp_take(rx, -1)
     f32 = torch.float32
     r = torch.sigmoid(ra.to(f32) + params["b_a"])
     i = torch.sigmoid(rx.to(f32) + params["b_x"])
@@ -186,5 +203,6 @@ def apply_rglru(params, sites: dict, x: torch.Tensor, *,
 
     y = hs.to(x.dtype) * activation(gate.to(f32), "gelu").to(x.dtype)
     out, new_sites["out"] = qlinear.qdense(y, params["w_out"], sites["out"],
-                                           policy, seed=seed + 4, step=step)
+                                           policy, seed=seed + 4, step=step,
+                                           parallel=row, x_dim=cdim)
     return out, new_sites, (h, new_tail)

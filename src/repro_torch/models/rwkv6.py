@@ -30,7 +30,24 @@ recurrence ``S <- exp(cs_last) S + kdec^T v`` loops over the chunks, and
 its contribution to ``y`` is one batched product after the loop.  The
 reference scans the chunks with ``lax.scan``.  Its ``hint`` /
 ``hint_heads`` sharding hints are called at their places
-(``runtime.sharding``; the model axis is not realized yet).
+(``runtime.sharding``).
+
+Under a model group (``runtime.sharding.model_parallel``) the time mix
+is head-parallel, as the reference's hint on the WKV inputs keeps it: a
+rank holds its ``H / M`` heads' columns of ``w_r``, ``w_k``, ``w_v``,
+``w_g`` (column-parallel) and rows of ``w_o`` (row-parallel: int32
+partials summed before the epilogue), and the WKV, its state, the group
+norm and the bonus run on those heads, with the rank's slices of the
+whole ``u``, ``ln_x_*`` and the decay (``sharding.mp_take``: their
+gradients, and the decay LoRA's, gathered whole on every rank).  The
+channel mix is a Megatron pair on ``d_ff`` (``w_k`` column-, ``w_v``
+row-parallel); ``w_r`` is column-parallel too, its output gathered for
+the gate.  The ``[B, S, 5, D]`` bf16 token-shift mix is held whole on
+every rank: the reference shards it over the sequence (its ``hint``)
+and re-shards it to heads before the products, one all-to-all under
+GSPMD; here the column-parallel products read every row of it, so a
+sequence shard would be gathered back before the first product.  Whole,
+it costs a rank ``10 B S D`` bytes (168 MB at rwkv6-7b's 4 x 1024).
 """
 from __future__ import annotations
 
@@ -245,6 +262,10 @@ def rwkv_time_mix(params, sites: dict, x: torch.Tensor, *, n_heads: int,
     b, s, d = x.shape
     hd = d // n_heads
     f32 = torch.float32
+    # the model axis: the rank's heads (the last dim's columns)
+    mp = sharding.mp_shard()
+    col, row, cdim = ("col", "row", -1) if mp else (None, None, None)
+    heads_here = n_heads // (mp[1] if mp else 1)
     # bf16 [B, S, 5, D]: the r, k, v, w, g mixes
     mixed = _ddlerp(x, _shifted(x, x_prev), params)
 
@@ -253,35 +274,40 @@ def rwkv_time_mix(params, sites: dict, x: torch.Tensor, *, n_heads: int,
     for i, (n, j) in enumerate((("r", 0), ("k", 1), ("v", 2), ("g", 4))):
         out[n], new_sites[n] = qlinear.qdense(
             mixed[:, :, j].to(x.dtype), params[f"w_{n}"], sites[n], policy,
-            seed=seed + i, step=step)
+            seed=seed + i, step=step, parallel=col, y_dim=cdim)
 
     # data-dependent decay (fp32, tiny LoRA)
     dw = torch.einsum("bsd,dr->bsr", torch.tanh(mixed[:, :, 3].to(f32)),
                       params["A_w"].to(f32))
     dw = torch.einsum("bsr,rd->bsd", dw, params["B_w"].to(f32))
     logw = -torch.exp(params["w0"] + dw)                  # [B, S, D], < 0
+    logw = sharding.mp_take(logw, -1)
 
     def heads(z):
         # the WKV recurrence is head-parallel: H over the model axis
         return sharding.hint_heads(
-            z.reshape(b, s, n_heads, hd).transpose(1, 2).to(f32),
+            z.reshape(b, s, heads_here, hd).transpose(1, 2).to(f32),
             kv_axis=1, g_axis=1)
 
     if state is None:
-        state = torch.zeros((b, n_heads, hd, hd), dtype=f32, device=x.device)
+        state = torch.zeros((b, heads_here, hd, hd), dtype=f32,
+                            device=x.device)
     r, k, v, lw = (heads(z) for z in (out["r"], out["k"], out["v"], logw))
+    u = sharding.mp_take(params["u"], 0)
     if s == 1:
         y, state = wkv_step(r[:, :, 0], k[:, :, 0], v[:, :, 0], lw[:, :, 0],
-                            params["u"], state)
+                            u, state)
         y = y[:, :, None, :]
     else:
-        y, state = wkv_chunked(r, k, v, lw, params["u"], state, chunk=chunk)
+        y, state = wkv_chunked(r, k, v, lw, u, state, chunk=chunk)
 
-    y = y.transpose(1, 2).reshape(b, s, d)
-    y = _group_norm(y, params["ln_x_scale"], params["ln_x_bias"], n_heads)
+    y = y.transpose(1, 2).reshape(b, s, heads_here * hd)
+    y = _group_norm(y, sharding.mp_take(params["ln_x_scale"], 0),
+                    sharding.mp_take(params["ln_x_bias"], 0), heads_here)
     y = (y * activation(out["g"].to(f32), "silu")).to(x.dtype)
     o, new_sites["o"] = qlinear.qdense(y, params["w_o"], sites["o"], policy,
-                                       seed=seed + 4, step=step)
+                                       seed=seed + 4, step=step,
+                                       parallel=row, x_dim=cdim)
     return o, new_sites, (state, x[:, -1])
 
 
@@ -295,12 +321,20 @@ def rwkv_channel_mix(params, sites: dict, x: torch.Tensor, *,
     xr = (xf + (pf - xf) * params["mu_r"]).to(x.dtype)
 
     new_sites = {}
+    # the model axis: a Megatron pair on d_ff (w_k, w_v); w_r's columns,
+    # gathered for the gate
+    tp = sharding.mp_shard() is not None
+    col, row, cdim = ("col", "row", -1) if tp else (None, None, None)
     kk, new_sites["k"] = qlinear.qdense(xk, params["w_k"], sites["k"],
-                                        policy, seed=seed, step=step)
+                                        policy, seed=seed, step=step,
+                                        parallel=col, y_dim=cdim)
     h = activation(kk, "sq_relu")
     vv, new_sites["v"] = qlinear.qdense(h, params["w_v"], sites["v"], policy,
-                                        seed=seed + 1, step=step)
+                                        seed=seed + 1, step=step,
+                                        parallel=row, x_dim=cdim)
     rr, new_sites["r"] = qlinear.qdense(xr, params["w_r"], sites["r"],
-                                        policy, seed=seed + 2, step=step)
+                                        policy, seed=seed + 2, step=step,
+                                        parallel=col, y_dim=cdim)
+    rr = sharding.mp_gather(rr, -1)
     y = (torch.sigmoid(rr.to(f32)) * vv.to(f32)).to(x.dtype)
     return y, new_sites, x[:, -1]

@@ -19,12 +19,13 @@ over the layers and keeps one entry per layer: params, quant sites and
 caches are ``{"layers": [layer 0, layer 1, ...]}``, for the decoder and
 the encoder alike.  ``repro_torch.convert`` maps between the two layouts.
 
-Under a model group (``runtime.sharding.model_parallel``) the kinds
-``attn``, ``local``, ``enc``, ``xattn`` and ``moe`` run on a rank's
-shards (their attention heads, MLP columns, experts; caches of the
-rank's heads); ``rec`` and ``rwkv`` raise: their model-axis rules
-(reference ``sharding.py`` ``/rglru/``, ``/time/``, ``/chan/``) are not
-ported yet.
+Under a model group (``runtime.sharding.model_parallel``) every kind
+runs on a rank's shards: the attention heads (or, where neither head
+dim divides the group, its rows of the sequence), MLP columns, experts,
+the RG-LRU's channels and RWKV-6's heads and ``d_ff``.  The caches are
+the reference's ``cache_pspecs``: a rank's KV heads, a ``rec`` block's
+``h`` and ``conv`` of its channels, an ``rwkv`` block's ``state`` of its
+heads; ``x_time`` and ``x_chan`` whole.
 """
 from __future__ import annotations
 
@@ -104,22 +105,35 @@ def _init_block_sites(kind: str, cfg, device=None) -> dict:
     return sites
 
 
+def _model_share(n: int, what: str) -> int:
+    """A model rank's share of ``n`` (``n`` without a model group)."""
+    mp = sharding.mp_shard()
+    if mp is None:
+        return n
+    if n % mp[1]:
+        raise ValueError(f"{what} {n} does not split over {mp[1]} model "
+                         f"ranks")
+    return n // mp[1]
+
+
 def _init_block_cache(kind: str, cfg, batch: int, cache_len: int,
                       device=None) -> dict:
     _check_kind(kind)
     cdt = getattr(torch, cfg.cache_dtype)
     if kind == "rwkv":
         hd = cfg.d_model // cfg.n_heads
-        return {"state": torch.zeros((batch, cfg.n_heads, hd, hd),
+        heads = _model_share(cfg.n_heads, "rwkv heads")
+        return {"state": torch.zeros((batch, heads, hd, hd),
                                      dtype=torch.float32, device=device),
                 "x_time": torch.zeros((batch, cfg.d_model), dtype=cdt,
                                       device=device),
                 "x_chan": torch.zeros((batch, cfg.d_model), dtype=cdt,
                                       device=device)}
     if kind == "rec":
-        return {"h": torch.zeros((batch, cfg.lru_width), dtype=torch.float32,
+        width = _model_share(cfg.lru_width, "lru_width")
+        return {"h": torch.zeros((batch, width), dtype=torch.float32,
                                  device=device),
-                "conv": torch.zeros((batch, 3, cfg.lru_width), dtype=cdt,
+                "conv": torch.zeros((batch, 3, width), dtype=cdt,
                                     device=device)}
     length = cache_len
     if kind == "local":
@@ -197,11 +211,6 @@ def _apply_block(kind: str, params, sites, x, *, cfg, policy, seed, step,
     decode: it reads its ``xkv`` cache); ``prefix_len`` puts ``"attn"``
     and ``"moe"`` blocks under the prefix-LM mask."""
     _check_kind(kind)
-    if kind in ("rec", "rwkv") and sharding.mp_shard() is not None:
-        raise NotImplementedError(
-            f"the {kind!r} block under a model group: its model-axis rules "
-            f"(reference sharding.py /rglru/, /time/, /chan/) are not "
-            f"ported yet (ROADMAP.md §1)")
     if kind == "rwkv":
         return _apply_rwkv_block(params, sites, x, cfg=cfg, policy=policy,
                                  seed=seed, step=step, cache=cache)

@@ -37,17 +37,26 @@ active ``model`` group (one rank per model coordinate,
 ``launch.mesh.mesh_groups``).  Inside it a rank holds its compute shards
 of the parameters (:func:`shard_params`: the attention heads by
 :func:`attn_layout`, the MLP's ``d_ff``, the routed experts, the
-vocabulary of ``embed`` / ``head``), and the layers compute what the
-one-process program computes: Megatron's column / row pairs (an int32
-``all_reduce`` of a row-parallel product's K-shard partials before its
-epilogue), the experts a rank holds, the vocab-parallel embedding and
-cross entropy.  Megatron's f and g are :func:`mp_grad_sum` (identity,
-the gradient summed) and :func:`mp_sum` (summed, the gradient passed
-through).  :func:`param_pspecs` stays the reference's storage rule (its
-``model`` entries at the production model size); leaves whose ``model``
-entry is a storage split only, ``(("data", "model"), ...)``, and
-``patch_proj`` / ``enc_in`` stay replicated over ``model`` (ZeRO-3,
-ROADMAP.md §1).
+vocabulary of ``embed`` / ``head``, the RG-LRU's channels, the RWKV-6
+time mix's heads and channel mix's ``d_ff``), and the layers compute
+what the one-process program computes: Megatron's column / row pairs (an
+int32 ``all_reduce`` of a row-parallel product's K-shard partials before
+its epilogue), the experts a rank holds, the vocab-parallel embedding and
+cross entropy, the channel-parallel RG-LRU and the head-parallel WKV.
+Megatron's f and g are :func:`mp_grad_sum` (identity, the gradient
+summed) and :func:`mp_sum` (summed, the gradient passed through);
+:func:`mp_take` is a rank's slice of a whole tensor (its gradient
+gathered) and :func:`mp_gather` the inverse.  Where neither attention
+head dim divides the model axis, :func:`attn_layout` gives the
+reference's sequence-parallel core (``"seq"``): the attention weights
+stay whole, each rank runs its ``S / M`` query rows against the gathered
+keys and values (``models.attention``), and the weights' gradients,
+partial sums over a rank's rows, are summed over the group.  Padded head
+sharding, the reference's third layout, raises (ROADMAP.md §1).
+:func:`param_pspecs` stays the reference's storage rule (its ``model``
+entries at the production model size); leaves whose ``model`` entry is
+a storage split only, ``(("data", "model"), ...)``, and ``patch_proj`` /
+``enc_in`` stay replicated over ``model`` (ZeRO-3, ROADMAP.md §1).
 
 Data parallelism.  ``torch.distributed`` runs one controller per rank,
 where the reference's ``jit`` over the ``data`` axis is one program.
@@ -583,18 +592,24 @@ class _Sum(torch.autograd.Function):
         return g
 
 
+def _all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The model ranks' ``x`` concatenated along ``dim``, outside
+    autograd."""
+    import torch.distributed as dist
+    x = x.detach().contiguous()
+    parts = [torch.empty_like(x) for _ in range(_MP[2])]
+    dist.all_gather(parts, x, group=_MP[0])
+    return torch.cat(parts, dim=dim)
+
+
 class _Gather(torch.autograd.Function):
     """The ranks' shards concatenated along ``dim`` (all_gather); the
     gradient is this rank's slice of the (replicated) cotangent."""
 
     @staticmethod
     def forward(ctx, x, dim):
-        import torch.distributed as dist
         ctx.dim = dim
-        x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(_MP[2])]
-        dist.all_gather(parts, x, group=_MP[0])
-        return torch.cat(parts, dim=dim)
+        return _all_gather(x, dim)
 
     @staticmethod
     def backward(ctx, g):
@@ -615,6 +630,28 @@ def mp_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
     """The whole tensor from the ranks' shards along ``dim``
     (:class:`_Gather`); ``x`` without a model group."""
     return x if _MP is None else _Gather.apply(x, dim)
+
+
+class _Take(torch.autograd.Function):
+    """This rank's slice of a tensor every rank holds whole, along
+    ``dim``; the gradient is the ranks' slices of the cotangent gathered
+    (each rank's consumers hold its slice), so a whole producer sees the
+    whole cotangent on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim = dim
+        return mp_slice(x, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim), None
+
+
+def mp_take(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This model rank's slice of a whole tensor along ``dim``, its
+    gradient gathered (:class:`_Take`); ``x`` without a model group."""
+    return x if _MP is None else _Take.apply(x, dim)
 
 
 def mp_sum_now(x: torch.Tensor) -> torch.Tensor:
@@ -652,48 +689,70 @@ def mp_replicated_stats(st: torch.Tensor) -> torch.Tensor:
     return st
 
 
-def attn_layout(kv: int, g: int, msize: int) -> str:
-    """Which head dim the attention core shards over a model axis of
-    ``msize``: ``"kv"`` or ``"g"``, exact division in the reference's
-    preference order (:func:`choose_head_axis`, ``attn_hints``).  The
-    reference's other two layouts, the sequence-parallel core and padded
-    head sharding, are not ported: raises."""
+def attn_layout(kv: int, g: int, msize: int, s: Optional[int] = None,
+                allow_seq: bool = False) -> str:
+    """The attention core's layout over a model axis of ``msize``, in the
+    reference's preference order (``attn_hints``): ``"kv"`` or ``"g"``
+    where that head dim divides (:func:`choose_head_axis`), else
+    ``"seq"``, the sequence-parallel core, where ``allow_seq`` (the
+    layer's dense-path predicate, the reference's ``will_use_dense``) and
+    ``msize`` divides the ``s`` query rows.  The reference's third
+    layout, padded head sharding (decode, a prefill that fills a cache,
+    the chunked path), is not ported: raises."""
     if kv % msize == 0:
         return "kv"
     if g % msize == 0:
         return "g"
+    if allow_seq and s is not None and s % msize == 0:
+        return "seq"
     raise NotImplementedError(
-        f"neither KV = {kv} nor G = {g} divides the model axis {msize}: "
-        f"the reference shards the sequence or pads the heads; "
-        f"the sequence-parallel attention core and padded heads "
-        f"(ROADMAP.md §1) are not ported yet")
+        f"neither KV = {kv} nor G = {g} divides the model axis {msize}, "
+        f"and the sequence-parallel core does not apply (S = {s}, "
+        f"allow_seq = {allow_seq}): the reference pads the heads; padded "
+        f"head sharding (ROADMAP.md §1) is not ported yet")
 
 
 _ATTN_NAMES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 _MLP_NAMES = ("w_up", "w_gate", "w_down", "b_up")
-_UNSHARDED_BLOCKS = ("rglru", "time", "chan")
+# The recurrent blocks' rules (reference ``_param_rule``'s ``/time/``,
+# ``/chan/`` and ``/rglru/``): the dim a model rank holds a slice of.
+_BLOCK_DIMS = {
+    "time": {"w_r": 1, "w_k": 1, "w_v": 1, "w_g": 1, "w_o": 0},
+    "chan": {"w_k": 1, "w_r": 1, "w_v": 0},
+    "rglru": {"w_in": 1, "w_gate": 1, "w_out": 0, "w_a": 0, "w_x": 0,
+              "conv_w": 1, "conv_b": 0, "b_a": 0, "b_x": 0, "lambda": 0},
+}
 
 
 def compute_dim(path: tuple, shape: tuple, msize: int) -> Optional[int]:
     """The dim of a parameter leaf (``path``: its dotted name split) that
     a model rank holds a shard of, or None (replicated): the attention
-    heads by :func:`attn_layout`, the MLP's ``d_ff`` (a shared expert's
-    too), the routed experts, the vocabulary of ``embed`` and ``head``.
-    Raises where a rule's dim does not divide ``msize``."""
-    if msize == 1 or any(b in path for b in _UNSHARDED_BLOCKS):
+    heads by :func:`attn_layout` (whole where neither head dim divides:
+    the sequence-parallel core), the MLP's ``d_ff`` (a shared expert's
+    too), the routed experts, the vocabulary of ``embed`` and ``head``,
+    and the recurrent blocks' channels: the RG-LRU's ``lru_width``, the
+    RWKV-6 time mix's heads and channel mix's ``d_ff`` (their LoRAs,
+    ``u``, ``w0``, ``mu*`` and ``ln_x_*`` stay whole, as the reference's
+    rule table leaves them).  Raises where a rule's dim does not divide
+    ``msize``."""
+    if msize == 1:
         return None
     name = path[-1]
     dim = None
-    if name == "embed":
+    block = next((b for b in _BLOCK_DIMS if b in path), None)
+    if block is not None:
+        dim = _BLOCK_DIMS[block].get(name)
+    elif name == "embed":
         dim = 0
     elif name == "head":
         dim = 1
     elif name in _ATTN_NAMES:
         if name in ("wq", "wo", "bq"):
             kv, g = (shape[1], shape[2]) if name == "wq" else shape[:2]
-            layout = attn_layout(kv, g, msize)
-            base = 1 if name == "wq" else 0
-            dim = base + (0 if layout == "kv" else 1)
+            if kv % msize == 0 or g % msize == 0:
+                layout = attn_layout(kv, g, msize)
+                base = 1 if name == "wq" else 0
+                dim = base + (0 if layout == "kv" else 1)
         else:   # wk, wv [D, KV, hd]; bk, bv [KV, hd]: heads when KV divides
             d = 1 if name in ("wk", "wv") else 0
             dim = d if shape[d] % msize == 0 else None

@@ -491,6 +491,74 @@ def _hold_attention(card, case):
                                atol=1e-6)
 
 
+# The query offset (the sequence-parallel core's rank): each
+# instantiation, every rank's rows of a whole call, the parts aligned to
+# the q blocks (fixed, narrow, wide, tall, general) and not (the leading
+# rows of a block run as padding).
+OFFSET_CASES = [
+    # mode, sq, skv, groups, hd, window, prefix, kv_len, (bq, bkv), parts
+    ("causal", 1024, 1024, 2, 128, 0, 0, None, (128, 128), 8),    # fixed
+    ("sliding", 512, 512, 3, 64, 200, 0, None, (64, 64), 4),      # narrow
+    ("prefix", 512, 512, 2, 256, 0, 77, None, (128, 128), 4),     # wide
+    ("causal", 1024, 1024, 1, 128, 0, 0, None, (256, 128), 4),    # tall
+    ("causal", 600, 600, 2, 64, 0, 0, None, (128, 256), 4),       # general
+    ("bidir", 480, 480, 2, 128, 0, 0, None, (128, 128), 3),       # 160-row
+    ("causal", 400, 400, 2, 64, 0, 0, None, (64, 64), 4),         # 100-row
+]
+
+
+@pytest.mark.parametrize("case", OFFSET_CASES,
+                         ids=lambda c: f"{c[0]}-hd{c[4]}-{c[8][0]}x{c[8][1]}"
+                                       f"-{c[9]}parts")
+def test_attention_kernel_query_offset_is_rows_of_the_whole(card, case):
+    """``attention_cuda(q_start=)`` on each part's rows: held against the
+    plain version's offset call as every other case (m and
+    min/max/clip/n exact, out, l, err/sig within their tolerances), and
+    its ``out`` and ``(m, l)`` bit for bit the kernel's whole call's rows;
+    the parts' p-site (min, max, clip, n), combined, the whole call's."""
+    mode, sq, skv, groups, hd, window, prefix, kv_len, (bq, bkv) = case[:9]
+    parts = case[9]
+    g = _gen(card, sq + hd + parts)
+    zb = 2
+    q = torch.randint(0, 256, (zb * groups, sq, hd), generator=g,
+                      device=card, dtype=torch.uint8)
+    k = torch.randint(-127, 128, (zb, skv, hd), generator=g, device=card,
+                      dtype=torch.int8)
+    v = torch.randint(-127, 128, (zb, skv, hd), generator=g, device=card,
+                      dtype=torch.int8)
+    scale_p = 1.0 / 255.0
+    regs = torch.tensor([128.0, 1e-5, scale_p, 0.0, scale_p * 0.02, 0.0,
+                         1.0, 0.0], device=card)
+    kvl = torch.tensor([skv], device=card, dtype=torch.int32)
+    sched = attn.make_schedule(sq=sq, skv=skv, hd=hd, bq=bq, bkv=bkv,
+                               groups=groups, mode=mode, window=window,
+                               prefix_len=prefix, sm_scale=hd ** -0.5)
+    ow, mlw, psw = attn.attention_cuda(q, k, v, regs, kvl, sched=sched)
+    n = sq // parts
+    stats = []
+    for r in range(parts):
+        rows = slice(r * n, (r + 1) * n)
+        ok, mlk, psk = attn.attention_cuda(q[:, rows], k, v, regs, kvl,
+                                           sched=sched, q_start=r * n)
+        orf, mlr, psr = attn.attention_core_reference(
+            q[:, rows], k, v, regs, kvl, sched=sched, q_start=r * n)
+        torch.cuda.synchronize()
+        assert torch.equal(ok, ow[:, rows]) and torch.equal(mlk, mlw[:, rows])
+        assert torch.equal(mlk[..., 0], mlr[..., 0])
+        assert torch.equal(psk[..., :4], psr[..., :4])
+        torch.testing.assert_close(ok, orf, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(mlk[..., 1], mlr[..., 1], rtol=1e-5,
+                                   atol=1e-5)
+        torch.testing.assert_close(psk[..., 4:], psr[..., 4:], rtol=1e-4,
+                                   atol=1e-6)
+        stats.append(torch.stack(attn.reduce_pstats(psk)))
+    whole = torch.stack(attn.reduce_pstats(psw))
+    assert float(min(t[0] for t in stats)) == float(whole[0])
+    assert float(max(t[1] for t in stats)) == float(whole[1])
+    assert float(sum(t[2] for t in stats)) == float(whole[2])
+    assert float(sum(t[3] for t in stats)) == float(whole[3])
+
+
 def test_reduced_serve_on_card_uses_every_kernel(card):
     from repro_torch import configs
     from repro_torch.core.policy import QuantPolicy

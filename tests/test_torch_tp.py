@@ -436,12 +436,20 @@ def test_shard_and_gather_params_round_trip():
 
 
 def test_rec_and_rwkv_blocks_raise_under_a_model_group(monkeypatch):
-    """The kinds whose model-axis rules are not ported raise, naming the
-    ROADMAP item, rather than compute on whole weights."""
+    """The recurrent kinds run under a model group on their channel or
+    head shards (``tests/test_torch_tp_recurrent.py``); they raise where
+    those do not split over the group: their parameters' cut names the
+    leaf, their caches the dim."""
     from repro_torch.models import transformer
-    monkeypatch.setattr(sharding, "_MP", (None, 0, 2))
-    for kind in ("rec", "rwkv"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            transformer._apply_block(kind, {}, {}, None, cfg=None,
-                                     policy=POLICY, seed=0, step=0,
-                                     positions=None)
+    for arch, kind, what in (("recurrentgemma-9b", "rec", "lru_width"),
+                             ("rwkv6-7b", "rwkv", "rwkv heads")):
+        cfg = configs.get_reduced(arch)
+        full = model.init_params(cfg, seed=0, device="cpu")
+        with pytest.raises(ValueError, match="does not split over 3"):
+            sharding.shard_params(full, {"model": 0}, {"model": 3})
+        monkeypatch.setattr(sharding, "_MP", (None, 0, 3))
+        with pytest.raises(ValueError, match=what):
+            transformer._init_block_cache(kind, cfg, 2, 8)
+        monkeypatch.setattr(sharding, "_MP", (None, 0, 2))
+        assert transformer._init_block_cache(kind, cfg, 2, 8)
+        monkeypatch.setattr(sharding, "_MP", None)
