@@ -24,8 +24,9 @@ prefix of stub patch embeddings under the prefix-LM mask, MQA at hd 256)
 serving and training at full width and depth, and the ``model`` mesh
 axis: starcoder2-3b served and qwen2-moe-a2.7b trained on model shards,
 recurrentgemma-9b and rwkv6-7b served and trained on model shards, and
-starcoder2-3b trained on the sequence-parallel attention core, over
-gloo ranks on the one card.  Each
+starcoder2-3b trained on the sequence-parallel attention core, then
+served, decoded over a length-sharded cache and trained on padded head
+shards, over gloo ranks on the one card.  Each
 kernel is checked against its plain PyTorch version at the shapes those
 paths give it.  Every phase prints its wall seconds as it ends
 (``[time] phase N ...``), and the run its total.
@@ -309,6 +310,24 @@ Phases, one line each:
                    projection, the output gathered; the whole attention
                    weights' gradients summed), one 4 x 1024 train step
                    with phase 45's bars
+ 48. padded        (phase 47's spawn) the same model on padded heads (G 12
+                   over 8: ranks 0-5 two heads, 6-7 none, no attention
+                   launch there): a 4 x 1024 prefill on the int8 core into
+                   a 1032-slot cache (129 slots a rank) against one
+                   process (statistics, each rank's cache slots and the
+                   logits bit for bit), 8 greedy decode steps over the
+                   length-sharded cache (tokens identical, logits within
+                   the larger of 1e-5 and 4 x the one-process decode's
+                   distance from itself with its sums over L in 8 blocks;
+                   the last step with wo doubled, and with rank 5's o
+                   partial dropped, refused), then one 1 x 8192 train
+                   step past the 4096 window (the sliding int8 core) with
+                   phase 45's bars (rank 5's share of the padded tensors
+                   dropped refused)
+
+Phases 43-46 run their (1, 2) ranks in one spawn of 2 processes (44's
+(2, 2) run in one of its own), 47-48 theirs in one of 8; each phase's
+seconds are its share of the spawn and its checks.
 
 Phase 3 also holds ``int8_conv_fp`` (the conv site, im2col onto the int8
 matmul kernel) against its plain version at four MobileNetV2-tiny layer
@@ -346,8 +365,8 @@ e.g. ``1-3`` to build and check the kernels without serve and train);
 phase 1 always runs, 5-6 and 43 bring 4 along, whose serve run they
 reuse, 18 brings 17, 21-22 bring 20, 27 brings 26, 30 brings 29, 33
 brings 32 and 36 brings 35.  Kernels whose path phases did not run
-report ``"launches": null``.  The default is all 47; phases 12-16 and
-39-40, 43-47 write their logs, checkpoints and rank records under
+report ``"launches": null``.  The default is all 48; phases 12-16 and
+39-40, 43-48 write their logs, checkpoints and rank records under
 ``build/chip_smoke/`` and remove the checkpoints when done.
 """
 from __future__ import annotations
@@ -504,9 +523,17 @@ TP_FAMILY = (
     (46, "rwkv6-7b", 2, RWKV_SERVE_KERNELS + (
         "int8_matmul_int32", "int8_matmul_epilogue", "stochastic_quantize")))
 SEQ_ARCH, SEQ_SIZE, SEQ_LAYERS = "starcoder2-3b", 8, 2
+# Padded head sharding (phase 48, in phase 47's spawn): starcoder2-3b (G
+# 12 over 8: 2 heads on ranks 0-5, none on 6-7) at full width, 2 layers,
+# on (1, 8): a 4 x 1024 prefill into a 1032-slot cache (129 slots a rank:
+# the length-sharded cache), 8 greedy decode steps, then one 1 x 8192
+# train step past the 4096 window (the local path, the sliding int8
+# core).  The decode logits' fixed bar (rel L2), beside 4 x the
+# one-process decode's own floor with its sums over L in 8 blocks.
+PAD_LAYERS, PAD_GEN, PAD_TRAIN_SEQ, PAD_LOGITS_TOL = 2, 8, 8192, 1e-5
 # Phase 4's one-process outputs, kept for phase 43.
 KEPT: dict = {}
-N_PHASES = 47
+N_PHASES = 48
 # Where phases 12-16 write their JSONL logs and checkpoints (git-ignored).
 OUT_DIR = ROOT / "build" / "chip_smoke"
 
@@ -4488,6 +4515,12 @@ class PhaseClock:
                     clock.stop()
         return _Span()
 
+    def add(self, n: int, name: str, seconds: float) -> None:
+        """A phase timed elsewhere (the share of a spawn it took)."""
+        self.seconds[n] = self.seconds.get(n, 0.0) + seconds
+        self.names[n] = name
+        log("time", f"phase {n} {name}: {self.seconds[n]:.1f} s")
+
     def summary(self) -> dict:
         total = time.perf_counter() - self.t0
         log("time", "phases (s): " + "; ".join(
@@ -4495,8 +4528,8 @@ class PhaseClock:
             for n, sec in sorted(self.seconds.items()))
             + f"; phases 1-31 {self.part(1, 31):.1f}, 32-37 "
             f"{self.part(32, 37):.1f}, 38-40 {self.part(38, 40):.1f}, 41 "
-            f"{self.part(41, 41):.1f}, 42-44 {self.part(42, 44):.1f}; the "
-            f"whole run {total:.1f} s")
+            f"{self.part(41, 41):.1f}, 42-44 {self.part(42, 44):.1f}, 45-48 "
+            f"{self.part(45, 48):.1f}; the whole run {total:.1f} s")
         return dict(seconds={str(n): sec for n, sec in self.seconds.items()},
                     total_s=total)
 
@@ -4991,6 +5024,7 @@ def _timed_collectives() -> dict:
     totals ``{ms, calls, bytes}``."""
     import torch.distributed as dist
     acc = {"ms": 0.0, "calls": 0, "bytes": 0}
+    orig = _DIST_FNS.setdefault("fns", (dist.all_reduce, dist.all_gather))
 
     def wrap(fn, arg):
         def timed(*a, **kw):
@@ -5004,9 +5038,12 @@ def _timed_collectives() -> dict:
             acc["bytes"] += t.numel() * t.element_size()
             return res
         return timed
-    dist.all_reduce = wrap(dist.all_reduce, 0)
-    dist.all_gather = wrap(dist.all_gather, 1)
+    dist.all_reduce = wrap(orig[0], 0)
+    dist.all_gather = wrap(orig[1], 1)
     return acc
+
+
+_DIST_FNS: dict = {}    # this process's collectives before any wrap
 
 
 def _tp_serve_rank(rank: int, world: int, inp: str, out: str) -> None:
@@ -5070,20 +5107,15 @@ def _tp_serve_rank(rank: int, world: int, inp: str, out: str) -> None:
 
 
 def tp_serve_phase(records, results) -> None:
-    """Phase 43: starcoder2-3b served over 2 gloo ranks on the card
-    (model 2: each rank one of the 2 KV heads, half the MLP columns and
-    of the vocabulary) against phase 4's one-process outputs at the same
-    seed, kept: the prefill statistics bit for bit, the prefill logits
-    within 1e-5 relative L2, the 8 greedy tokens identical."""
+    """Phase 43 (its ranks in the pair spawn, :func:`pair_phases`):
+    starcoder2-3b served over 2 gloo ranks on the card (model 2: each
+    rank one of the 2 KV heads, half the MLP columns and of the
+    vocabulary) against phase 4's one-process outputs at the same seed,
+    kept: the prefill statistics bit for bit, the prefill logits within
+    1e-5 relative L2, the 8 greedy tokens identical."""
     from repro_torch.core.state import tree_map_with_path
-    from repro_torch.launch import mesh
 
     one = KEPT["serve"]
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
-    inp = OUT_DIR / "tp_serve_in.pt"
-    torch.save({"prompt": one["prompt"]}, inp)
-    mesh.spawn_ranks(_tp_serve_rank, TP_SIZE, OUT_DIR / "store",
-                     backend="gloo", args=(str(inp), str(OUT_DIR)))
     recs = [json.loads((OUT_DIR / f"tp_serve_r{r}.json").read_text())
             for r in range(TP_SIZE)]
     got = torch.load(OUT_DIR / "tp_serve_r0.pt", weights_only=False)
@@ -5127,15 +5159,17 @@ def tp_serve_phase(records, results) -> None:
         r["tp_serve_launches"] = counts[r["name"]]
 
 
+def _rel_l2(a, b) -> float:
+    """The relative L2 distance of ``a`` from ``b``."""
+    return float(torch.linalg.vector_norm((a - b).float())
+                 / torch.linalg.vector_norm(b.float()).clamp(min=1e-30))
+
+
 def _grad_rel_l2(got: dict, want: dict) -> list:
     """``[(relative L2 distance, name)]`` of the gradient tensors, the
     largest first."""
-    out = []
-    for k, w in want.items():
-        d = torch.linalg.vector_norm((got[k].to(w.device) - w).float())
-        out.append((float(d / torch.linalg.vector_norm(
-            w.float()).clamp(min=1e-30)), k))
-    return sorted(out, reverse=True)
+    return sorted(((_rel_l2(got[k].to(w.device), w), k)
+                   for k, w in want.items()), reverse=True)
 
 
 def _quant_check(got, want, what: str, grad_bar=1e-5) -> dict:
@@ -5172,13 +5206,15 @@ def _quant_check(got, want, what: str, grad_bar=1e-5) -> dict:
 def _tp_train_rank(rank: int, world: int, data_n: int, model_n: int,
                    arch: str, reduced: bool, layers: int, batch_n: int,
                    seq: int, out: str, floor_bars: bool = False) -> None:
-    """One rank of phases 44-47 (a spawned process): the train step on a
+    """One rank of phases 44-48 (a spawned process): the train step on a
     ``(data_n, model_n)`` mesh, then, on rank 0, the one-process step on
     the same parameters and batch and the comparison.  Phase 44's bars:
     gradient-site leaves within 1e-5 of their largest element, the
     clipped gradients within 2**-7 rel L2 or ``TP_FLOOR_MARGIN`` times
     the one-process step's own worst distance under another fp32
-    association (its floor).  ``floor_bars`` (phases 45-47): each bar is
+    association (its floor: the backward's dx products whole-batch, or
+    for a batch of one their contraction in ``model_n`` blocks,
+    ``backend.reassociate``).  ``floor_bars`` (phases 45-48): each bar is
     the larger of that fixed one and ``TP_FLOOR_MARGIN`` times the
     floor of what it holds, the leaves' worst floor and each gradient
     tensor's own (the fixed bar wherever the one-process step repeats
@@ -5256,21 +5292,35 @@ def _tp_train_rank(rank: int, world: int, data_n: int, model_n: int,
     del st, met
     torch.cuda.empty_cache()
     if 0 < rank < model_n:     # data row 0's other shards, to rank 0
-        for k in names:
-            dist.send(grads[k].cpu(), 0)
+        for k in names:        # (a padded head dim's shares differ)
+            dist.send(torch.tensor(grads[k].shape, dtype=torch.int64), 0)
+            if grads[k].numel():
+                dist.send(grads[k].cpu(), 0)
     elif rank == 0:
         shards = [grads]
         for m in range(1, model_n):
             part = {}
             for k in names:
-                t = torch.empty(grads[k].shape, dtype=grads[k].dtype)
-                dist.recv(t, m)
+                shape = torch.empty(grads[k].dim(), dtype=torch.int64)
+                dist.recv(shape, m)
+                t = torch.empty(tuple(shape.tolist()), dtype=grads[k].dtype)
+                if t.numel():
+                    dist.recv(t, m)
                 part[k] = t.to(dev)
             shards.append(part)
         one = fresh(False)
-        whole = sharding.gather_named(shards, dict(
-            one["params"].named_parameters()))
-        del shards, grads
+        like = dict(one["params"].named_parameters())
+        whole = sharding.gather_named(shards, like)
+        # a fault of the uneven split: the last rank that holds a share of
+        # a padded tensor (wq, wo, bq) loses it
+        uneven = [k for k in names
+                  if len({tuple(s[k].shape) for s in shards}) > 1]
+        cut = [dict(s) for s in shards]
+        for k in uneven:
+            r = max(r for r, s in enumerate(shards) if s[k].numel())
+            cut[r][k] = torch.zeros_like(shards[r][k])
+        dropped = sharding.gather_named(cut, {k: like[k] for k in uneven})
+        del shards, grads, cut
         ts1 = steps.make_train_step(cfg, pol, opt, constant(DP_LR))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -5298,15 +5348,20 @@ def _tp_train_rank(rank: int, world: int, data_n: int, model_n: int,
         # The one-process step's own noise floor: the same step with its
         # backward's dx products run whole-batch (not one batch index at
         # a time: another fp32 association on the card), whose flips of
-        # stochastically rounded gradients carry down the layers.
+        # stochastically rounded gradients carry down the layers.  A batch
+        # of one has no such split: its dx products' contraction runs in
+        # model_n blocks instead (the model axis's own association).
         from repro_torch.core import backend
-        split, backend.SPLIT_MIN_ROWS = backend.SPLIT_MIN_ROWS, 1 << 62
+        saved = backend.SPLIT_MIN_ROWS
+        if batch_n > 1:
+            backend.SPLIT_MIN_ROWS = 1 << 62
         try:
-            two = fresh(False)
-            two = steps.make_train_step(cfg, pol, opt, constant(DP_LR))(
-                two, batch)[0]
+            with backend.reassociate(model_n if batch_n == 1 else 1):
+                two = fresh(False)
+                two = steps.make_train_step(cfg, pol, opt,
+                                            constant(DP_LR))(two, batch)[0]
         finally:
-            backend.SPLIT_MIN_ROWS = split
+            backend.SPLIT_MIN_ROWS = saved
         floor = _grad_rel_l2(seen.pop("grads"), one_grads)
         leaf_floor = _quant_check(two["quant"], one_quant,
                                   f"tp train {arch} floor", grad_bar=None)
@@ -5339,6 +5394,11 @@ def _tp_train_rank(rank: int, world: int, data_n: int, model_n: int,
             # largest rel L2 / bar, refused above 1
             rec["grad_rel_doubled"] = worst(2.0)
             rec["grad_rel_halved"] = worst(0.5)
+            if uneven:
+                rec["grad_dropped_by_bar"] = sorted(
+                    ((r / bars[k], r, k) for r, k in _grad_rel_l2(
+                        dropped, {k: one_grads[k] for k in uneven})),
+                    reverse=True)
         else:
             # the check can fail: gradients summed twice, or averaged
             rec["grad_rel_doubled"] = _grad_rel_l2(
@@ -5374,6 +5434,11 @@ def _tp_train_rank(rank: int, world: int, data_n: int, model_n: int,
             if rec[key] <= (1.0 if floor_bars else bar):
                 raise AssertionError(f"tp train {arch}: the gradient check "
                                      f"passes {key[9:]} gradients")
+        if rec.get("grad_dropped_by_bar", [(2.0,)])[0][0] <= 1.0:
+            raise AssertionError(f"tp train {arch}: the gradient check "
+                                 f"passes the padded tensors with the last "
+                                 f"rank's share dropped "
+                                 f"({rec['grad_dropped_by_bar']})")
         del whole, one_grads, one_quant
     Path(f"{out}.r{rank}.json").write_text(json.dumps(rec))
     dist.barrier()
@@ -5382,21 +5447,22 @@ def _tp_train_rank(rank: int, world: int, data_n: int, model_n: int,
 def tp_train_phase(records, results) -> None:
     """Phase 44: qwen2-moe-a2.7b's train step at full width, depth 1, 4 x
     1024 on (1, 2) (30 of the 60 experts a rank, 8 of the 16 KV heads,
-    half the shared expert's columns and of the vocabulary), then the
-    reduced config on (2, 2), gloo ranks on the card, each against the
+    half the shared expert's columns and of the vocabulary; its ranks in
+    the pair spawn), then the reduced config on (2, 2) (a spawn of its
+    own), gloo ranks on the card, each against the
     one-process step on rank 0: activation-site quant state bit for bit,
     gradient sites within 1e-5 of the largest element, the loss within
     1e-5 relative, the clipped gradients within 2**-7 relative L2."""
     from repro_torch.launch import mesh
 
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
     results["tp_train"] = {}
     for tag, (d, m), reduced, layers, b, s in TP_TRAIN_RUNS:
         out = OUT_DIR / f"tp_train_{tag}"
-        mesh.spawn_ranks(_tp_train_rank, d * m, OUT_DIR / "store",
-                         backend="gloo",
-                         args=(d, m, MOE_ARCH, reduced, layers, b, s,
-                               str(out)))
+        if (d, m) != (1, TP_SIZE):     # (1, 2) ran in the pair spawn
+            mesh.spawn_ranks(_tp_train_rank, d * m, OUT_DIR / "store",
+                             backend="gloo",
+                             args=(d, m, MOE_ARCH, reduced, layers, b, s,
+                                   str(out)))
         recs = [json.loads(Path(f"{out}.r{r}.json").read_text())
                 for r in range(d * m)]
         r0 = recs[0]
@@ -5438,6 +5504,65 @@ def tp_train_phase(records, results) -> None:
             for rr in records:
                 rr["tp_train_launches"] = counts[rr["name"]]
 
+def _pair_rank(rank: int, world: int, jobs: tuple, out: str) -> None:
+    """One rank of the pair spawn (phases 43-46, the (1, 2) runs): each
+    job ``(function name, args)`` in turn in the same process; rank 0
+    notes the wall clock as each ends."""
+    marks = []
+    for name, args in jobs:
+        globals()[name](rank, world, *args)
+        marks.append(time.time())
+        torch.cuda.empty_cache()
+    if rank == 0:
+        Path(out).write_text(json.dumps(marks))
+
+
+def pair_phases(phases: tuple, records, results, clock) -> None:
+    """Phases 43-46 over one spawn of 2 gloo ranks on the card (the
+    (1, 2) runs in turn: 43's serve, 44's full-width step, 45's and 46's
+    families), then each phase's checks; 44's reduced (2, 2) run spawns
+    its own 4 ranks.  Each phase's seconds are its share of the spawn
+    (the first one's with the spawn itself) and its checks."""
+    from repro_torch.launch import mesh
+
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    if 43 in phases:
+        inp = OUT_DIR / "tp_serve_in.pt"
+        torch.save({"prompt": KEPT["serve"]["prompt"]}, inp)
+        jobs.append((43, "_tp_serve_rank", (str(inp), str(OUT_DIR))))
+    if 44 in phases:
+        tag, _, reduced, layers, b, seq = TP_TRAIN_RUNS[0]
+        jobs.append((44, "_tp_train_rank",
+                     (1, TP_SIZE, MOE_ARCH, reduced, layers, b, seq,
+                      str(OUT_DIR / f"tp_train_{tag}"))))
+    for n, arch, layers, _ in TP_FAMILY:
+        if n in phases:
+            jobs.append((n, "_tp_family_rank",
+                         (arch, layers, str(OUT_DIR / f"tp_{arch}"))))
+    marks = OUT_DIR / "pair_marks.json"
+    t0 = time.time()
+    mesh.spawn_ranks(_pair_rank, TP_SIZE, OUT_DIR / "store", backend="gloo",
+                     args=(tuple(j[1:] for j in jobs), str(marks)))
+    ends = json.loads(marks.read_text())
+    family = {n: (arch, layers, kernels)
+              for n, arch, layers, kernels in TP_FAMILY}
+    for (n, _, _), a, z in zip(jobs, [t0] + ends[:-1], ends):
+        t = time.time()
+        if n == 43:
+            name = "tp serve"
+            tp_serve_phase(records, results)
+        elif n == 44:
+            name = "tp train"
+            tp_train_phase(records, results)
+        else:
+            arch, layers, kernels = family[n]
+            name = f"tp {arch}"
+            tp_family_phase(n, arch, layers, kernels, records, results)
+        clock.add(n, name, z - a + time.time() - t)
+        torch.cuda.empty_cache()
+
+
 def _host_tree(tree) -> dict:
     """``{path: tensor on the host}`` of a tree of tensors."""
     from repro_torch.core.state import tree_map_with_path
@@ -5447,9 +5572,18 @@ def _host_tree(tree) -> dict:
     return out
 
 
-# The cache leaves a model rank holds a slice of, and the dim (reference
-# cache_pspecs): the RG-LRU's channels, RWKV-6's heads, the KV heads.
-CACHE_SLICE_DIMS = {"h": 1, "conv": 2, "state": 1, "k": 2, "v": 2}
+def _cache_slice(t, name: str, r: int, world: int):
+    """Model rank ``r``'s slice of a one-process cache leaf ``name`` by
+    ``sharding.cache_pspecs`` (the reference's rule): the RG-LRU's
+    channels, RWKV-6's heads, the KV heads, else the cache length."""
+    from repro_torch.runtime import sharding
+    spec = sharding.cache_pspecs({name: t}, {"data": 1, "model": world},
+                                 ("data",))[name]
+    for d, ax in enumerate(spec):
+        if ax == "model":
+            n = t.shape[d] // world
+            t = t.narrow(d, r * n, n)
+    return t
 
 
 def _tp_family_rank(rank: int, world: int, arch: str, layers: int,
@@ -5540,12 +5674,9 @@ def _tp_family_rank(rank: int, world: int, arch: str, layers: int,
                               weights_only=False)["cache"]
             for p, want in one["cache"].items():
                 have = part[p]
-                d = CACHE_SLICE_DIMS.get(p[-1])
-                if d is not None and have.shape[d] != want.shape[d]:
-                    n = have.shape[d]
-                    want = want.narrow(d, r * n, n)
-                    n_sliced += 1
-                if not torch.equal(have, want):
+                sliced = _cache_slice(want, p[-1], r, world)
+                n_sliced += sliced.shape != want.shape
+                if not torch.equal(have, sliced):
                     raise AssertionError(f"tp {arch}: rank {r}'s cache "
                                          f"{p} is not the one-process "
                                          f"cache's slice")
@@ -5573,8 +5704,9 @@ def _tp_family_rank(rank: int, world: int, arch: str, layers: int,
 
 def tp_family_phase(n: int, arch: str, layers: int, kernels: tuple,
                     records, results) -> None:
-    """Phases 45-46: ``arch`` on (1, 2) over gloo ranks on the card,
-    served and trained (:func:`_tp_family_rank`) against one process:
+    """Phases 45-46: ``arch`` on (1, 2) over gloo ranks on the card (in
+    the pair spawn), served and trained (:func:`_tp_family_rank`)
+    against one process:
     the prefill statistics bit for bit, each rank's cache the one-process
     cache's slice, the prefill logits within 1e-5 rel L2, the 8 greedy
     tokens identical; the train step with phase 44's bars against the
@@ -5582,12 +5714,7 @@ def tp_family_phase(n: int, arch: str, layers: int, kernels: tuple,
     kernel
     of ``kernels`` launched in the train step, every one but
     ``stochastic_quantize`` in the serve run."""
-    from repro_torch.launch import mesh
-
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
     out = OUT_DIR / f"tp_{arch}"
-    mesh.spawn_ranks(_tp_family_rank, TP_SIZE, OUT_DIR / "store",
-                     backend="gloo", args=(arch, layers, str(out)))
     serve = [json.loads(Path(f"{out}.serve.r{r}.json").read_text())
              for r in range(TP_SIZE)]
     train = [json.loads(Path(f"{out}.train.r{r}.json").read_text())
@@ -5635,56 +5762,356 @@ def tp_family_phase(n: int, arch: str, layers: int, kernels: tuple,
         r[f"tp_{n}_launches"] = t0["launches"].get(r["name"], 0)
 
 
-def seq_train_phase(records, results) -> None:
-    """Phase 47: starcoder2-3b's train step at full width, 2 layers, 4 x
-    1024 on (1, 8) gloo ranks on the card: KV 2 and G 12 do not divide
-    8, so every layer runs the sequence-parallel core (each rank its 128
-    rows through the offset kernel), held against the one-process step
-    with phase 45's bars (doubled or halved gradients refused)."""
-    from repro_torch.launch import mesh
+def _pad_serve_rank(rank: int, world: int, out: str) -> None:
+    """One rank of phase 48's serve run (a spawned process):
+    starcoder2-3b at full width, ``PAD_LAYERS`` layers, on its (1, world)
+    shard, on the padded layout: a 4 x 1024 prefill with its statistics
+    into a ``PROMPT + PAD_GEN``-slot cache (the length-sharded cache),
+    ``PAD_GEN`` greedy decode steps, then the last step again with every
+    ``wo`` doubled, and again with the last rank that holds heads
+    dropping its ``o`` partial (its ``wo`` zeroed): the check must refuse
+    both.  Then rank 0 serves the one-process program on the same
+    parameters, and again with the decode sums over L in 8 blocks
+    (``backend.reassociate``: its floor), and compares."""
+    import torch.distributed as dist
 
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
-    out = OUT_DIR / "seq_train"
-    mesh.spawn_ranks(_tp_train_rank, SEQ_SIZE, OUT_DIR / "store",
-                     backend="gloo",
-                     args=(1, SEQ_SIZE, SEQ_ARCH, False, SEQ_LAYERS, BATCH,
-                           PROMPT, str(out), True))
+    from repro_torch import configs
+    from repro_torch.core import backend
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh
+    from repro_torch.models import attention, model
+    from repro_torch.runtime import sharding, steps
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = mesh.mesh_groups(1, world)
+    cfg = dataclasses.replace(configs.get(SEQ_ARCH), n_layers=PAD_LAYERS)
+    pol = QuantPolicy.w8a8g8(backend="fused")
+    prompt = _prompt(cfg, BATCH, PROMPT, dev)
+    quant = model.init_quant_state(cfg, pol, device=dev)
+
+    def serve(params, group) -> dict:
+        prefill = steps.make_prefill_step(cfg, pol,
+                                          cache_len=PROMPT + PAD_GEN,
+                                          model_group=group,
+                                          return_stats=True)
+        decode = steps.make_decode_step(cfg, pol, model_group=group)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches, stats = prefill(params, quant, {"tokens": prompt})
+        torch.cuda.synchronize()
+        res = {"prefill_ms": (time.perf_counter() - t0) * 1e3,
+               "cache": _host_tree(caches["decoder"]),
+               "cache_bytes": sum(t.numel() * t.element_size() for t in
+                                  _host_tree(caches["decoder"]).values()),
+               "stats": _host_tree(stats), "logits": [logits.float().cpu()]}
+        tok = logits.argmax(-1)[:, None]
+        toks = [tok]
+        t0 = time.perf_counter()
+        for i in range(PAD_GEN):
+            pos = torch.full((BATCH,), PROMPT + i, dtype=torch.int64,
+                             device=dev)
+            lg, caches = decode(params, quant, {"token": toks[-1],
+                                                "pos": pos}, caches)
+            res["logits"].append(lg.float().cpu())
+            toks.append(lg.argmax(-1)[:, None])
+        torch.cuda.synchronize()
+        res.update(decode_ms=(time.perf_counter() - t0) * 1e3,
+                   tokens=torch.cat(toks, dim=1).cpu(),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   launches=ops.launch_counts(), collectives=dict(coll))
+        # the last step again with the o projections' outputs doubled (a
+        # check: not counted)
+        wo = [p for n, p in params.named_parameters()
+              if n.endswith(".attn.wo")]
+        with torch.no_grad():
+            for p in wo:
+                p.mul_(2)
+            lg, _ = decode(params, quant, {"token": toks[-2], "pos": pos},
+                           caches)
+            for p in wo:
+                p.div_(2)
+        res["doubled_logits"] = lg.float().cpu()
+        if group is not None:
+            # the last rank that holds heads drops its o partial
+            keep = [p.clone() for p in wo]
+            with torch.no_grad():
+                if rank == last:
+                    for p in wo:
+                        p.zero_()
+                lg, _ = decode(params, quant, {"token": toks[-2],
+                                               "pos": pos}, caches)
+                for p, k in zip(wo, keep):
+                    p.copy_(k)
+            res["dropped_logits"] = lg.float().cpu()
+        return res
+
+    full = model.init_params(cfg, seed=0, device=dev)
+    params = sharding.shard_params(full, g.coords, g.sizes)
+    del full
+    torch.cuda.empty_cache()
+    with sharding.model_parallel(g.model):
+        heads = attention.local_heads(cfg.n_kv, cfg.n_heads // cfg.n_kv)
+    last = max(r for r in range(world) if sharding.split_range(
+        cfg.n_heads // cfg.n_kv, world, r)[1])
+    saved = dist.all_reduce, dist.all_gather
+    coll = _timed_collectives()
+    layouts, layout_of = [], sharding.attn_layout
+
+    def spy(*a, **kw):      # the layers' attention layouts
+        layouts.append(layout_of(*a, **kw))
+        return layouts[-1]
+    sharding.attn_layout = spy
+    ops.reset_launch_counts()
+    got = serve(params, g.model)
+    sharding.attn_layout = layout_of
+    dist.all_reduce, dist.all_gather = saved
+    rec = {"rank": rank, "launches": got["launches"],
+           "collectives": got["collectives"],
+           "heads": list(heads[:2]), "layout": heads[2],
+           "layouts": {k: layouts.count(k) for k in sorted(set(layouts))},
+           **{k: got[k] for k in ("prefill_ms", "decode_ms", "peak_gib",
+                                  "cache_bytes")}}
+    torch.save({"cache": got["cache"]}, f"{out}.r{rank}.pt")
+    del params
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        full = model.init_params(cfg, seed=0, device=dev)
+        one = serve(full, None)
+        with backend.reassociate(world):
+            blocks = serve(full, None)
+        del full
+        torch.cuda.empty_cache()
+        bad = [p for p, t in one["stats"].items()
+               if not torch.equal(got["stats"][p], t)]
+        if bad:
+            raise AssertionError(f"padded serve: {len(bad)} prefill "
+                                 f"statistics leaves differ from one "
+                                 f"process's, e.g. {bad[:3]}")
+        n_slots = []
+        for r in range(world):
+            part = torch.load(f"{out}.r{r}.pt", weights_only=False)["cache"]
+            for p, want in one["cache"].items():
+                sliced = _cache_slice(want, p[-1], r, world)
+                if not torch.equal(part[p], sliced):
+                    raise AssertionError(f"padded serve: rank {r}'s cache "
+                                         f"{p} is not its slice of the "
+                                         f"one-process cache")
+                if p[-1] == "k":
+                    n_slots.append(part[p].shape[1])
+        rels = [_rel_l2(a, b) for a, b in zip(got["logits"], one["logits"])]
+        floor = max(_rel_l2(a, b) for a, b in zip(blocks["logits"][1:],
+                                                   one["logits"][1:]))
+        bar = max(PAD_LOGITS_TOL, TP_FLOOR_MARGIN * floor)
+        doubled = _rel_l2(got["doubled_logits"], one["logits"][-1])
+        dropped = _rel_l2(got["dropped_logits"], one["logits"][-1])
+        rec.update(prefill_rel_l2=rels[0], decode_rel_l2=max(rels[1:]),
+                   prefill_identical=torch.equal(got["logits"][0],
+                                                 one["logits"][0]),
+                   decode_identical=sum(torch.equal(a, b) for a, b in zip(
+                       got["logits"][1:], one["logits"][1:])),
+                   decode_floor=floor, decode_bar=bar,
+                   doubled_rel_l2=doubled, dropped_rel_l2=dropped,
+                   dropped_rank=last, slots=sorted(set(n_slots)),
+                   stat_leaves=len(one["stats"]),
+                   single_prefill_ms=one["prefill_ms"],
+                   single_decode_ms=one["decode_ms"],
+                   single_peak_gib=one["peak_gib"],
+                   single_cache_bytes=one["cache_bytes"],
+                   tokens=got["tokens"].tolist())
+        if not rec["prefill_identical"]:
+            raise AssertionError(f"padded serve: prefill logits differ "
+                                 f"from one process's ({rels[0]:.3e} rel "
+                                 f"L2)")
+        if not torch.equal(got["tokens"], one["tokens"]):
+            raise AssertionError("padded serve: greedy tokens differ from "
+                                 "one process's")
+        if max(rels[1:]) > bar:
+            raise AssertionError(f"padded serve: decode logits "
+                                 f"{max(rels[1:]):.3e} rel L2 off one "
+                                 f"process's, above {bar:.3e}")
+        if doubled <= bar:
+            raise AssertionError(f"padded serve: the decode check passes a "
+                                 f"doubled o output ({doubled:.3e})")
+        if dropped <= bar:
+            raise AssertionError(f"padded serve: the decode check passes "
+                                 f"rank {last}'s o partial dropped "
+                                 f"({dropped:.3e})")
+        log("padded", f"rank 0: prefill logits {rels[0]:.3e} rel L2, "
+                      f"decode {max(rels[1:]):.3e} (floor {floor:.3e}, bar "
+                      f"{bar:.3e}; wo doubled {doubled:.3e}, rank {last}'s "
+                      f"o partial dropped {dropped:.3e}); tokens "
+                      f"identical")
+        del one, blocks
+    Path(f"{out}.r{rank}.json").write_text(json.dumps(rec))
+    del got
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+
+def _seq_pad_rank(rank: int, world: int, phases: tuple, out: str) -> None:
+    """One rank of phases 47-48, one spawn: phase 47's train step on the
+    sequence-parallel core, then phase 48's padded serve run
+    (:func:`_pad_serve_rank`) and its 1 x 8192 train step; rank 0 notes
+    the wall clock where phase 47 ended."""
+    if 47 in phases:
+        _tp_train_rank(rank, world, 1, world, SEQ_ARCH, False, SEQ_LAYERS,
+                       BATCH, PROMPT, f"{out}.seq", True)
+    if rank == 0:
+        Path(f"{out}.mark.json").write_text(json.dumps(time.time()))
+    if 48 in phases:
+        _pad_serve_rank(rank, world, f"{out}.serve")
+        _tp_train_rank(rank, world, 1, world, SEQ_ARCH, False, PAD_LAYERS, 1,
+                       PAD_TRAIN_SEQ, f"{out}.train", True)
+
+
+def _train_log(tag: str, what: str, r0: dict, recs: list) -> None:
+    log(tag, f"{what}: {r0['act_leaves']} activation leaves bit for bit, "
+             f"{r0['grad_leaves']} gradient leaves within "
+             f"{r0['grad_leaf_rel']:.3e} (floor "
+             f"{r0['grad_leaf_floor']:.3e}, bar "
+             f"{r0['grad_leaf_bar']:.3e}), loss "
+             f"{r0['loss_rel']:.2e} rel, gradients: the worst "
+             f"against its bar {r0['grad_rel_l2']:.3e} rel L2 (bar "
+             f"{r0['grad_bar']:.3e}; the worst floor "
+             f"{r0['floor_rel_l2']:.3e}, {r0['grad_fixed_bars']} "
+             f"tensors at 2**-7; doubled {r0['grad_rel_doubled']:.2f}"
+             f"x, halved {r0['grad_rel_halved']:.2f}x a tensor's "
+             f"bar, refused"
+             + (f"; the padded tensors with the last rank's share "
+                f"dropped, (x bar, rel L2, tensor) "
+                f"{r0['grad_dropped_by_bar'][:6]}, refused"
+                if "grad_dropped_by_bar" in r0 else "")
+             + f"); first step "
+             f"{r0['step_ms']:.1f} ms (collectives "
+             f"{r0['collectives']['ms']:.1f} ms in "
+             f"{r0['collectives']['calls']} calls), warm "
+             f"{r0['warm_step_ms']:.1f} ms vs "
+             f"{r0['single_step_ms']:.1f} / "
+             f"{r0['single_warm_ms']:.1f} ms one process; peak "
+             f"{max(r['peak_gib'] for r in recs):.2f} GiB a rank; "
+             f"launches {r0['launches']}")
+
+
+def _train_recs(out: str, layout: str, what: str) -> list:
+    """A sharded train step's rank records, each rank on ``layout`` and
+    every kernel of the step launched on rank 0."""
     recs = [json.loads(Path(f"{out}.r{r}.json").read_text())
             for r in range(SEQ_SIZE)]
     for r in recs:
-        if r["layouts"] != ["seq"]:
-            raise AssertionError(f"seq train: rank {r['rank']} ran the "
+        if r["layouts"] != [layout]:
+            raise AssertionError(f"{what}: rank {r['rank']} ran the "
                                  f"layouts {r['layouts']}")
-    r0 = recs[0]
     for k in TP_KERNELS + ("stochastic_quantize",):
-        if not r0["launches"][k]:
-            raise AssertionError(f"seq train: {k} never launched: "
-                                 f"{r0['launches']}")
-    results["seq_train"] = recs
-    log("seq-train", f"{SEQ_ARCH} {SEQ_LAYERS} layers on (1, {SEQ_SIZE}) "
-                     f"(the seq layout), {BATCH} x {PROMPT}: "
-                     f"{r0['act_leaves']} activation leaves bit for bit, "
-                     f"{r0['grad_leaves']} gradient leaves within "
-                     f"{r0['grad_leaf_rel']:.3e} (floor "
-                     f"{r0['grad_leaf_floor']:.3e}, bar "
-                     f"{r0['grad_leaf_bar']:.3e}), loss "
-                     f"{r0['loss_rel']:.2e} rel, gradients: the worst "
-                     f"against its bar {r0['grad_rel_l2']:.3e} rel L2 (bar "
-                     f"{r0['grad_bar']:.3e}; the worst floor "
-                     f"{r0['floor_rel_l2']:.3e}, {r0['grad_fixed_bars']} "
-                     f"tensors at 2**-7; doubled {r0['grad_rel_doubled']:.2f}"
-                     f"x, halved {r0['grad_rel_halved']:.2f}x a tensor's "
-                     f"bar, refused); first step "
-                     f"{r0['step_ms']:.1f} ms (collectives "
-                     f"{r0['collectives']['ms']:.1f} ms in "
-                     f"{r0['collectives']['calls']} calls), warm "
-                     f"{r0['warm_step_ms']:.1f} ms vs "
-                     f"{r0['single_step_ms']:.1f} / "
-                     f"{r0['single_warm_ms']:.1f} ms one process; peak "
-                     f"{max(r['peak_gib'] for r in recs):.2f} GiB a rank; "
-                     f"launches {r0['launches']}")
+        if not recs[0]["launches"][k]:
+            raise AssertionError(f"{what}: {k} never launched: "
+                                 f"{recs[0]['launches']}")
+    return recs
+
+
+def seq_pad_phases(phases: tuple, records, results, clock) -> None:
+    """Phases 47-48, one spawn of 8 gloo ranks on the card.
+
+    47: starcoder2-3b's train step at full width, 2 layers, 4 x 1024 on
+    (1, 8): KV 2 and G 12 do not divide 8, so every layer runs the
+    sequence-parallel core (each rank its 128 rows through the offset
+    kernel), held against the one-process step with phase 45's bars
+    (doubled or halved gradients refused).
+
+    48: the same model on padded heads (G 12 over 8: ranks 0-5 two
+    heads, 6-7 none): the 4 x 1024 prefill on the int8 core into a
+    1032-slot cache, 129 slots a rank, held bit for bit against one
+    process (statistics, each rank's cache slots, the logits); 8 greedy
+    decode steps over the length-sharded cache (tokens identical, logits
+    within the larger of 1e-5 and 4 x the one-process decode's distance
+    from itself with the sums over L in 8 blocks; the same step with
+    ``wo`` doubled, and with rank 5's ``o`` partial dropped, refused);
+    then one 1 x 8192 train step past the 4096 window (the sliding int8
+    core on each rank's heads) with phase 45's bars, its floor the step
+    with its dx products' contraction in 8 blocks, and the padded
+    tensors with rank 5's share dropped refused.  A rank with no heads
+    launches no attention kernel."""
+    from repro_torch.launch import mesh
+
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    out = OUT_DIR / "seq_pad"
+    t0 = time.time()
+    mesh.spawn_ranks(_seq_pad_rank, SEQ_SIZE, OUT_DIR / "store",
+                     backend="gloo", args=(tuple(phases), str(out)))
+    t1 = time.time()
+    mark = json.loads(Path(f"{out}.mark.json").read_text())
+    if 47 in phases:
+        clock.add(47, "seq train", mark - t0)
+        recs = _train_recs(f"{out}.seq", "seq", "seq train")
+        results["seq_train"] = recs
+        _train_log("seq-train", f"{SEQ_ARCH} {SEQ_LAYERS} layers on (1, "
+                                f"{SEQ_SIZE}) (the seq layout), {BATCH} x "
+                                f"{PROMPT}", recs[0], recs)
+        for r in records:
+            r["seq_train_launches"] = recs[0]["launches"].get(r["name"], 0)
+    if 48 not in phases:
+        return
+    clock.add(48, "padded", t1 - mark)
+    serve = [json.loads(Path(f"{out}.serve.r{r}.json").read_text())
+             for r in range(SEQ_SIZE)]
+    for r in serve:
+        if set(r["layouts"]) != {"g_pad"}:
+            raise AssertionError(f"padded serve: rank {r['rank']} ran the "
+                                 f"layouts {r['layouts']}")
+        ran = r["launches"]["int8_attention"]
+        if bool(ran) != bool(r["heads"][1]):
+            raise AssertionError(f"padded serve: rank {r['rank']} holds "
+                                 f"{r['heads']} heads and launched "
+                                 f"int8_attention {ran} times")
+    s0 = serve[0]
+    log("padded", f"serve launches on rank 0 (the prefill and {PAD_GEN} "
+                  f"decode steps): {s0['launches']}")
+    for k in TP_KERNELS:
+        if not s0["launches"][k]:
+            raise AssertionError(f"padded serve: {k} never launched: "
+                                 f"{s0['launches']}")
+    train = _train_recs(f"{out}.train", "g_pad", "padded train")
+    results["padded"] = {"serve": serve, "train": train}
+    log("padded", f"{SEQ_ARCH} {PAD_LAYERS} layers on (1, {SEQ_SIZE}), "
+                  f"layouts {s0['layouts']}; (KV, G) heads a rank "
+                  f"{[r['heads'] for r in serve]}; cache slots a rank "
+                  f"{s0['slots']} of {PROMPT + PAD_GEN}; {s0['stat_leaves']} "
+                  f"prefill statistics leaves and every rank's cache slots "
+                  f"bit for bit; prefill logits {s0['prefill_rel_l2']:.3e} "
+                  f"rel L2 (identical: {s0['prefill_identical']}); "
+                  f"{PAD_GEN} decode steps: tokens identical, logits "
+                  f"{s0['decode_rel_l2']:.3e} rel L2 at worst "
+                  f"({s0['decode_identical']} of {PAD_GEN} identical; "
+                  f"floor {s0['decode_floor']:.3e}, bar "
+                  f"{s0['decode_bar']:.3e}; wo doubled "
+                  f"{s0['doubled_rel_l2']:.3e}, rank {s0['dropped_rank']}'s "
+                  f"o partial dropped {s0['dropped_rel_l2']:.3e}, both "
+                  f"refused)")
+    for r in serve:
+        log("padded", f"rank {r['rank']}: {r['heads']} heads, cache "
+                      f"{r['cache_bytes'] / 2 ** 20:.2f} MiB, prefill "
+                      f"{r['prefill_ms']:.1f} ms, {PAD_GEN} decode steps "
+                      f"{r['decode_ms']:.1f} ms (gloo collectives, host "
+                      f"copies, claimed as nothing: "
+                      f"{r['collectives']['ms']:.1f} ms in "
+                      f"{r['collectives']['calls']} calls), peak "
+                      f"{r['peak_gib']:.2f} GiB; int8_attention launches "
+                      f"{r['launches']['int8_attention']}")
+    log("padded", f"one process: prefill {s0['single_prefill_ms']:.1f} ms, "
+                  f"decode {s0['single_decode_ms']:.1f} ms, peak "
+                  f"{s0['single_peak_gib']:.2f} GiB, cache "
+                  f"{s0['single_cache_bytes'] / 2 ** 20:.2f} MiB")
+    _train_log("padded", f"{SEQ_ARCH} {PAD_LAYERS} layers, train 1 x "
+                         f"{PAD_TRAIN_SEQ} on (1, {SEQ_SIZE}) (g_pad)",
+               train[0], train)
     for r in records:
-        r["seq_train_launches"] = r0["launches"].get(r["name"], 0)
+        r["pad_serve_launches"] = s0["launches"].get(r["name"], 0)
+        r["pad_train_launches"] = train[0]["launches"].get(r["name"], 0)
 
 
 def _cell_window(cfg) -> int:
@@ -6344,23 +6771,16 @@ def main(argv=None) -> int:
         with clock(41, "decode cells"):
             cells_phase(dev, records, results)
         torch.cuda.empty_cache()
-    for n, name, fn in (
-            (42, "general attention",
-             lambda: general_attention_phase(dev, records, results)),
-            (43, "tp serve", lambda: tp_serve_phase(records, results)),
-            (44, "tp train", lambda: tp_train_phase(records, results))):
-        if run_phase(n):
-            with clock(n, name):
-                fn()
-            torch.cuda.empty_cache()
-    for n, arch, layers, kernels in TP_FAMILY:
-        if run_phase(n):
-            with clock(n, f"tp {arch}"):
-                tp_family_phase(n, arch, layers, kernels, records, results)
-            torch.cuda.empty_cache()
-    if run_phase(47):
-        with clock(47, "seq train"):
-            seq_train_phase(records, results)
+    if run_phase(42):
+        with clock(42, "general attention"):
+            general_attention_phase(dev, records, results)
+        torch.cuda.empty_cache()
+    pair = tuple(n for n in (43, 44, 45, 46) if run_phase(n))
+    if pair:
+        pair_phases(pair, records, results, clock)
+    seq_pad = tuple(n for n in (47, 48) if run_phase(n))
+    if seq_pad:
+        seq_pad_phases(seq_pad, records, results, clock)
         torch.cuda.empty_cache()
     for r in records:       # the kernels' launches where no earlier path ran
         for key in ("sc7_serve_launches", "cmdr_serve_launches",
@@ -6372,7 +6792,8 @@ def main(argv=None) -> int:
                     "vlm_train_launches_per_step", "tall_serve_launches",
                     "dp_train_launches", "tp_serve_launches",
                     "tp_train_launches", "tp_45_launches",
-                    "tp_46_launches", "seq_train_launches"):
+                    "tp_46_launches", "seq_train_launches",
+                    "pad_serve_launches", "pad_train_launches"):
             if not r["launches"] and r.get(key):
                 r["launches"] = r[key]
         if not r["launches"]:       # the decode cells alone (phase 41)

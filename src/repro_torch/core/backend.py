@@ -28,12 +28,15 @@ slice of; None = every rank holds it whole).  A range that reads the
 current tensor takes the (min, max) over the whole mesh, a gradient
 site's noise is this rank's slice of the global site's, and a whole
 site's additive telemetry counters count on model rank 0 only.  A weight
-shard is quantized on the global (min, max).  :func:`qmatmul` has
-Megatron's column-parallel form (the rank's output columns; ``dx``
-summed over the model group in fp32 before its cast) and row-parallel
-form (the rank's K rows: int32 partials summed exactly, then the
-epilogue), and an expert-parallel one (the rank's experts, nothing to
-reduce).
+shard is quantized on the global (min, max).  A rank's empty share of a
+padded head dim (``runtime.sharding.split_range``) launches no kernel,
+takes part in every collective with a neutral ``(+inf, -inf)`` and
+emits an unvisited statistics vector (zero counters), so no statistic
+sees it.  :func:`qmatmul` has Megatron's column-parallel form (the
+rank's output columns; ``dx`` summed over the model group in fp32
+before its cast) and row-parallel form (the rank's K rows: int32
+partials summed exactly, then the epilogue), and an expert-parallel one
+(the rank's experts, nothing to reduce).
 """
 from __future__ import annotations
 
@@ -138,13 +141,15 @@ def site_noise(seed: int, shape, device) -> torch.Tensor:
 
 
 def shard_noise(seed: int, shape, device, batch_dim: int = 0,
-                model_dim: Optional[int] = None) -> torch.Tensor:
+                model_dim=None) -> torch.Tensor:
     """:func:`site_noise` of a gradient site whose ``batch_dim`` is this
     rank's shard under data parallelism, and whose ``model_dim`` (if not
     None) its shard under model parallelism: the global site's noise
-    drawn (``N`` times the rows, ``M`` times the model dim), and this
-    rank's rows and slice of it kept, so a rank's stochastic rounding is
-    the single-device step's on the same elements."""
+    drawn (``N`` times the rows; ``M`` times the model dim, or the whole
+    size where ``model_dim`` is ``(dim, whole size)``, a padded head
+    dim whose shares differ), and this rank's rows and share of it kept,
+    so a rank's stochastic rounding is the single-device step's on the
+    same elements."""
     dp = sharding.dp_shard()
     mp = None if model_dim is None else sharding.mp_shard()
     if dp is None and mp is None:
@@ -152,7 +157,10 @@ def shard_noise(seed: int, shape, device, batch_dim: int = 0,
     full = list(shape)
     if dp is not None:
         full[batch_dim] *= dp[1]
-    if mp is not None:
+    if mp is not None and isinstance(model_dim, tuple):
+        model_dim, whole = model_dim
+        full[model_dim] = whole
+    elif mp is not None:
         full[model_dim] *= mp[1]
     u = site_noise(seed, full, device)
     if dp is not None:
@@ -247,13 +255,23 @@ def site_quantize(policy, x: torch.Tensor, leaf: torch.Tensor, step, *,
         xq, q, mn, mx = _quantizer_fwd(x, used_qmin, used_qmax, spec,
                                        fused=False)
         obs = (mn, mx) if obs is None else obs
-    st = estimators.stats(cfg, xf, used_qmin, used_qmax, observed=obs)
-    if tele.enabled:
-        # Sampled on a prefix of x itself: no full fp32 copy on fused.
-        st = metrics.site_stats(x, used_qmin, used_qmax, spec, st,
-                                tele.sample)
+    if x.numel() == 0:
+        st = _unvisited(policy, x.device)
+    else:
+        st = estimators.stats(cfg, xf, used_qmin, used_qmax, observed=obs)
+        if tele.enabled:
+            # Sampled on a prefix of x itself: no full fp32 copy on fused.
+            st = metrics.site_stats(x, used_qmin, used_qmax, spec, st,
+                                    tele.sample)
     scale, zp = quant.scale_zero_point(used_qmin, used_qmax, spec)
     return xq, _whole_site(st, model_dim), QTensor(q, scale, zp)
+
+
+def _unvisited(policy, device) -> torch.Tensor:
+    """The statistics of a rank's empty share: not visited, zero
+    counters."""
+    return torch.zeros((policy.stat_width,), dtype=torch.float32,
+                       device=device)
 
 
 def _fused_static_quant(cfg, spec, x, leaf, step, tele):
@@ -328,10 +346,13 @@ def grad_quantize(policy, g: torch.Tensor, leaf: torch.Tensor, seed: int,
                                                  observed=obs)
         gq = quant.fake_quant_raw(gf, used_qmin, used_qmax, spec,
                                   noise).to(g.dtype)
-    st = estimators.stats(cfg, gf, used_qmin, used_qmax, observed=obs)
-    if tele.enabled:
-        st = metrics.site_stats(gf, used_qmin, used_qmax, spec, st,
-                                tele.sample)
+    if g.numel() == 0:
+        st = _unvisited(policy, g.device)
+    else:
+        st = estimators.stats(cfg, gf, used_qmin, used_qmax, observed=obs)
+        if tele.enabled:
+            st = metrics.site_stats(gf, used_qmin, used_qmax, spec, st,
+                                    tele.sample)
     return gq, _whole_site(st, model_dim)
 
 
@@ -394,6 +415,35 @@ def full_fp32():
 # one row a sample), where B calls would cost B launches for nothing
 # measurable: such a product runs whole, and is not batch-invariant.
 SPLIT_MIN_ROWS = 16
+_BLOCKS = 1
+
+
+@contextlib.contextmanager
+def reassociate(blocks: int):
+    """Within: the fp32 sums that :func:`in_blocks` carries (the
+    backward's ``dx`` products' contraction, the decode's sums over the
+    cache length) run in ``blocks`` blocks added in order, the model
+    axis's association of those sums on one process.  A floor
+    measurement reads the program's distance from itself under it;
+    outside, every such sum is one call."""
+    global _BLOCKS
+    saved, _BLOCKS = _BLOCKS, blocks
+    try:
+        yield
+    finally:
+        _BLOCKS = saved
+
+
+def in_blocks(part, size: int) -> torch.Tensor:
+    """``part(0, size)``; within :func:`reassociate`, ``part(lo, n)`` over
+    its blocks of ``range(size)`` (``sharding.split_range``), summed in
+    order."""
+    if _BLOCKS == 1:
+        return part(0, size)
+    acc = 0
+    for i in range(_BLOCKS):
+        acc = acc + part(*sharding.split_range(size, _BLOCKS, i))
+    return acc
 
 
 class _QMatmulInt(torch.autograd.Function):
@@ -454,17 +504,28 @@ class _QMatmulInt(torch.autograd.Function):
         with full_fp32():
             if ctx.needs_input_grad[0]:
                 spec, wf = f"{y},{ws}->{xs}", wq.to(torch.float32)
+                # the contraction's largest dim, for in_blocks
+                k = max((c for c in y if c in ws and c not in xs),
+                        key=lambda c: gf.shape[y.index(c)], default=None)
+
+                def dx_of(gb):
+                    if k is None:
+                        return torch.einsum(spec, gb, wf)
+                    kg, kw = y.index(k), ws.index(k)
+                    return in_blocks(lambda lo, n: torch.einsum(
+                        spec, gb.narrow(kg, lo, n), wf.narrow(kw, lo, n)),
+                        gb.shape[kg])
+
                 b = y[ctx.batch_dim]
                 rows = 1
                 for c, n in zip(y, gf.shape):
                     rows *= n if c in xs and c != b else 1
                 # not a batch axis of the activation alone, or GEMV rows
                 if b in ws or rows < SPLIT_MIN_ROWS:
-                    dx = torch.einsum(spec, gf, wf)
+                    dx = dx_of(gf)
                 else:
                     d = y.index(b)
-                    dx = torch.cat([torch.einsum(spec, gf.narrow(d, i, 1),
-                                                 wf)
+                    dx = torch.cat([dx_of(gf.narrow(d, i, 1))
                                     for i in range(gf.shape[d])],
                                    dim=xs.index(b))
                 if ctx.col:
@@ -749,8 +810,10 @@ def qattention(policy, q, k, v, sites: dict, *, mode: str, window=None,
 
     sq_total = s if sq_total is None else int(sq_total)
     bq, bkv = tuning.attention_block(sq_total, skv, hd)
+    # a rank's heads (one of a padded share's, or none: then no launch)
     sched = mod.make_schedule(
-        sq=sq_total, skv=skv, hd=hd, bq=bq, bkv=bkv, groups=g, mode=mode,
+        sq=sq_total, skv=skv, hd=hd, bq=bq, bkv=bkv, groups=max(g, 1),
+        mode=mode,
         window=int(window or 0), prefix_len=int(prefix_len or 0),
         sm_scale=float(scale))
 
@@ -766,7 +829,8 @@ def qattention(policy, q, k, v, sites: dict, *, mode: str, window=None,
         q_dim is not None and kv_dim is None
         and sharding.mp_shard() is not None, int(q_start))
     out = out3.reshape(b, kvh, g, s, hd).permute(0, 3, 1, 2, 4).to(q.dtype)
-    p_st = _pstats_vector(policy, stats6, p_lo, p_hi)
+    p_st = _pstats_vector(policy, stats6, p_lo, p_hi) if q.numel() else \
+        _unvisited(policy, dev)
     stats = {"q": {"act": q_st}, "k": {"act": k_st}, "v": {"act": v_st},
              "p": {"act": p_st}}
     return out, stats

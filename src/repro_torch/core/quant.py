@@ -160,7 +160,11 @@ def fake_quant_ste(x: torch.Tensor, qmin, qmax, spec: QuantSpec
 
 
 def tensor_minmax(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-tensor fp32 ``(min, max)``."""
+    """Full-tensor fp32 ``(min, max)``; ``(+inf, -inf)`` of an empty
+    tensor (a model rank's empty share: neutral in a min/max)."""
+    if x.numel() == 0:
+        inf = torch.tensor(float("inf"), device=x.device)
+        return inf, -inf
     mn, mx = torch.aminmax(x.to(torch.float32))
     return mn, mx
 

@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -284,7 +285,12 @@ def _stats_init(shape, device) -> torch.Tensor:
 
 def reduce_pstats(partials: torch.Tensor):
     """Reduce ``[BH, nq, 6]`` partials to the site-level (mn, mx, clip, n,
-    err, sig): min/max/counts exact in any order, err/sig order-pinned."""
+    err, sig): min/max/counts exact in any order, err/sig order-pinned;
+    ``(+inf, -inf, 0, 0, 0, 0)`` of an empty call's."""
+    if partials.numel() == 0:
+        inf = torch.tensor(float("inf"), device=partials.device)
+        zero = torch.zeros((), device=partials.device)
+        return inf, -inf, zero, zero, zero, zero
     return (partials[..., 0].amin(), partials[..., 1].amax(),
             partials[..., 2].sum(), partials[..., 3].sum(),
             _tree_sum_flat(partials[..., 4].reshape(-1)),
@@ -302,6 +308,16 @@ def _pad_axis(x: torch.Tensor, size: int, axis: int) -> torch.Tensor:
     return F.pad(x, pads)
 
 
+def empty_core(q_u8, sched: AttnSchedule, q_start: int = 0):
+    """:func:`attention_core_reference`'s outputs for no q heads (a model
+    rank's empty share of a padded head dim): empty, nothing launched."""
+    sq = q_u8.shape[1]
+    nq = row_blocks(sched, q_start, sq)[2]
+    z = functools.partial(torch.zeros, dtype=torch.float32,
+                          device=q_u8.device)
+    return z((0, sq, sched.hd)), z((0, sq, 2)), z((0, nq, 6))
+
+
 def attention_core_reference(q_u8, k_i8, v_i8, regs, kvlen, *,
                              sched: AttnSchedule, q_start: int = 0):
     """Returns ``(out fp32 [BH, sq, hd], ml fp32 [BH, sq, 2], pstats fp32
@@ -317,6 +333,8 @@ def attention_core_reference(q_u8, k_i8, v_i8, regs, kvlen, *,
     covers the q blocks they lie in, each over these rows only."""
     S = sched
     bh, sq = q_u8.shape[0], q_u8.shape[1]
+    if bh == 0:
+        return empty_core(q_u8, sched, q_start)
     lead, i0, nq = row_blocks(S, q_start, sq)
     zb = bh // S.groups
     dev = q_u8.device
@@ -405,7 +423,12 @@ def attention_core_backward(qh, kh, vh, q_u8, k_i8, v_i8, regs, kvlen,
     ``q_start``: the rows are ``[q_start, q_start + sq)`` of ``sched``'s
     call, as :func:`attention_core_reference` takes them; ``dk`` and
     ``dv`` are then these rows' share, which the calls covering the
-    sequence sum."""
+    sequence sum.  No q heads (a model rank's empty share): ``dk`` and
+    ``dv`` are zeros."""
+    if q_u8.shape[0] == 0:
+        return (torch.zeros_like(qh, dtype=torch.float32),
+                torch.zeros_like(kh, dtype=torch.float32),
+                torch.zeros_like(vh, dtype=torch.float32))
     zb = k_i8.shape[0]
     zc = zb if z_chunk is None else z_chunk
     if zc >= zb:

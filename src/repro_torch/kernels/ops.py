@@ -8,7 +8,10 @@ the pre-computed quant registers, and dispatch on where the operands lie:
   * anything else -> raises.
 
 There is no fallback between the two: a CUDA tensor never runs the plain
-version here.  All wrappers return core-convention integers (uint8
+version here.  An empty operand (a model rank's empty share of a padded
+head dim) launches nothing on either: the wrappers return empty (or, for
+an empty contraction, zero) outputs and neutral ``(+inf, -inf)``
+statistics.  All wrappers return core-convention integers (uint8
 asymmetric / int8 symmetric); the CUDA kernels write that convention
 directly, so the reference's ``-128`` storage shift and its ``_unshift``
 have no counterpart, and the elementwise quantize kernel runs on the flat
@@ -80,11 +83,20 @@ def _qparams(qmin, qmax, spec: QuantSpec) -> torch.Tensor:
     return torch.stack([scale, zp])
 
 
+def _empty_quantize(x: torch.Tensor, spec: QuantSpec):
+    """``(q, min, max)`` of an empty tensor: nothing launched."""
+    inf = torch.tensor(float("inf"), device=x.device)
+    return torch.empty(x.shape, dtype=spec.storage_dtype,
+                       device=x.device), inf, -inf
+
+
 def fused_quantize(x: torch.Tensor, qmin, qmax, *,
                    spec: QuantSpec = QuantSpec(bits=8, symmetric=False)):
     """Single-pass static quantize + stats: ``(q, obs_min, obs_max)``."""
     qp = _qparams(qmin, qmax, spec).to(x.device)
     xf = x.to(torch.float32)
+    if xf.numel() == 0:
+        return _empty_quantize(xf, spec)
     if _on_cuda(xf, qp):
         return _fq.fused_quantize_cuda(xf, qp, spec)
     return _fq.fused_quantize_plain(xf, qp, spec)
@@ -124,6 +136,8 @@ def stochastic_quantize_registers(x: torch.Tensor, qparams: torch.Tensor,
     clipped, and the (min, max) of ``x``."""
     xf, qp = x.to(torch.float32), qparams.to(x.device, torch.float32)
     nf = noise.to(torch.float32)
+    if xf.numel() == 0:
+        return _empty_quantize(xf, spec)
     if _on_cuda(xf, qp, nf):
         return _sq.stochastic_quantize_cuda(xf, qp, nf, spec)
     return _sq.stochastic_quantize_plain(xf, qp, nf, spec)
@@ -201,6 +215,14 @@ def _int8_fp_batched(x3, w3, x_zp, alpha, block):
     kernel runs on the tile ``block``."""
     zp = torch.as_tensor(x_zp, dtype=torch.float32).to(x3.device)
     al = torch.as_tensor(alpha, dtype=torch.float32).to(x3.device)
+    b, m, n = x3.shape[0], x3.shape[1], w3.shape[2]
+    if b * m * n == 0:
+        inf = torch.tensor(float("inf"), device=x3.device)
+        return x3.new_zeros((b, m, n), dtype=torch.float32), inf, -inf
+    if x3.shape[2] == 0:    # an empty contraction: alpha * 0
+        y = al * x3.new_zeros((b, m, n), dtype=torch.float32)
+        zero = y.new_zeros(())
+        return y, zero, zero
     if _on_cuda(x3, w3):
         return _mm.int8_matmul_fp_cuda(x3, w3, zp, al, block=block)
     return _mm.int8_matmul_fp_plain(x3, w3, zp, al)
@@ -221,7 +243,7 @@ def int8_matmul_fp(x_q: torch.Tensor, w_q: torch.Tensor, x_zp, alpha, *,
     kdims = tuple(xt.shape[nb + nxf:])
     ndims = tuple(wt.shape[nb + nc:])
     b, m, k, n = _prod(bdims), _prod(mdims), _prod(kdims), _prod(ndims)
-    if block is None:
+    if block is None and b * m * k * n:
         block = tuning.matmul_block(m, n, k, dtype=_dtype_name(x_q))
     y3, mn, mx = _int8_fp_batched(xt.reshape(b, m, k), wt.reshape(b, k, n),
                                   x_zp, alpha, block)
@@ -245,7 +267,9 @@ def int8_matmul_int32(x_q: torch.Tensor, w_q: torch.Tensor, x_zp, *,
     k = _prod(xt.shape[nb + nxf:])
     x3, w3 = xt.reshape(b, m, k), wt.reshape(b, k, n)
     zp = torch.as_tensor(x_zp, dtype=torch.float32).to(x3.device)
-    if _on_cuda(x3, w3):
+    if b * m * n * k == 0:  # a rank's empty K share: a zero partial
+        acc = x3.new_zeros((b, m, n), dtype=torch.int32)
+    elif _on_cuda(x3, w3):
         if block is None:
             block = tuning.matmul_block(m, n, k, dtype=_dtype_name(x_q))
         acc = _mm.int8_matmul_int32_cuda(x3, w3, zp, block=block)
@@ -300,6 +324,8 @@ def int8_attention_fp(q_u8, k_i8, v_i8, regs, kvlen, *, sched: AttnSchedule,
     ``(out [BH, sq, hd], ml [BH, sq, 2], pstats [BH, nq, 6])``; ``q_u8``
     holds the rows ``[q_start, q_start + sq)`` of ``sched``'s call."""
     kw = {"q_start": q_start} if q_start else {}
+    if q_u8.shape[0] == 0:
+        return _attn.empty_core(q_u8, sched, q_start)
     if _on_cuda(q_u8, k_i8, v_i8):
         return _attn.attention_cuda(q_u8, k_i8, v_i8, regs, kvlen,
                                     sched=sched, **kw)

@@ -27,29 +27,51 @@ Under a model group (``runtime.sharding.model_parallel``) a rank holds
 the heads :func:`local_heads` gives (``sharding.attn_layout``: the KV
 heads where KV divides the group, else the G query heads of every KV
 head) and the layer runs on them: q (and k, v when KV is sharded) are
-column-parallel products, the core (the int8 kernel or an fp path) and
-the decode cache hold the rank's heads, and the output projection is
-row-parallel.  Where G is sharded, k and v are computed whole on every
-rank, and their cotangent, each rank's partial over its G heads, is
-summed (in fp32 inside the int8 core's backward) before their gradient
-sites quantize it.
+column-parallel products, the core (the int8 kernel or an fp path) holds
+the rank's heads, and the output projection is row-parallel.  Where G is
+sharded, k and v are computed whole on every rank, and their cotangent,
+each rank's partial over its G heads, is summed (in fp32 inside the int8
+core's backward) before their gradient sites quantize it.
 
 Where neither head dim divides the group, the layer's dense-path
 predicate holds (``allow_seq``: the reference's ``will_use_dense``, no
 cache, not the local or chunked path, S > 1) and the group divides S,
 the layer runs the reference's sequence-parallel core (layout
-``"seq"``): the weights are whole on every rank, each rank takes its
-``S / M`` rows of the normed input, projects q, k and v on them, rotates
-them at their own positions, gathers k and v along S (in fp: the core's
-k and v sites then quantize the whole tensors, as one process does, at
-twice the bytes of their int8 images), runs the core on its q rows
-against the whole keys (the kernel's query offset) and the ``o``
-projection on its rows, and gathers the output for the replicated
-residual stream.  The k / v cotangents (each rank's partial) are summed
-in fp32 before their sites, and the weights' gradients, partial sums
-over a rank's rows, are summed over the group (``sharding.mp_grad_sum``).
-Padded head sharding, the reference's third layout (decode, a prefill
-that fills a cache, the chunked path), raises.
+``"seq"``): the weights are whole on every rank (``wq`` / ``wo`` /
+``bq`` gathered from their head shards), each rank takes its ``S / M``
+rows of the normed input, projects q, k and v on them, rotates them at
+their own positions, gathers k and v along S (in fp: the core's k and v
+sites then quantize the whole tensors, as one process does, at twice
+the bytes of their int8 images), runs the core on its q rows against the
+whole keys (the kernel's query offset) and the ``o`` projection on its
+rows, and gathers the output for the replicated residual stream.  The k
+/ v cotangents (each rank's partial) are summed in fp32 before their
+sites, and the weights' gradients, partial sums over a rank's rows, are
+summed over the group and each rank keeps its heads' share.
+
+Elsewhere (decode, a prefill that fills a cache, the local path and the
+sliding int8 core past a window, the chunked path) the layer runs the
+reference's third layout, padded head sharding (``"g_pad"``, or
+``"kv_pad"`` where KV > G): each rank holds its
+``sharding.split_range`` share of the padded head dim, possibly fewer
+heads than the others or none, and runs the ``"g"`` (or ``"kv"``)
+layout's pairs on it.  Under ``"kv_pad"`` k and v are computed whole and
+sliced to the rank's KV heads (their cotangent gathered).  A rank with
+no heads launches no kernel and still takes part in every collective
+(its ``o`` partial is zeros, its k / v cotangent too).
+
+The decode cache follows the reference's ``cache_pspecs``
+(:func:`init_kv_cache`): a rank holds its KV heads where KV divides the
+group, else its slots ``[r L / M, (r + 1) L / M)`` of the cache length
+where the group divides L (a ring's slot ``pos % L`` too), else the
+whole cache; ``pos`` holds the rank's slots wherever L divides.  A
+prefill writes the slots a rank owns, a decode step's token only on its
+owner.  Decode over a length shard (:func:`_decode_attn`) gathers the
+group's q heads, scores them against the rank's slots, takes the exact
+max over the group and sums the numerator and denominator partials over
+it in rank order; each rank keeps its own heads' rows for ``o``.  All
+of it runs in fp32, as the one-process decode does: the split of L
+reassociates the sums over it.
 """
 from __future__ import annotations
 
@@ -72,14 +94,17 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 def local_heads(n_kv: int, g: int):
     """``(kv, g, layout)``: the KV and G head counts a model rank holds
-    and the layout (``"kv"`` / ``"g"``; None without a model group)."""
+    where no sequence-parallel core applies, and the layout (``"kv"`` /
+    ``"g"`` / ``"kv_pad"`` / ``"g_pad"``; None without a model group).
+    A padded dim's count is the rank's ``sharding.split_range`` share."""
     mp = sharding.mp_shard()
     if mp is None:
         return n_kv, g, None
-    layout = sharding.attn_layout(n_kv, g, mp[1])
-    if layout == "kv":
-        return n_kv // mp[1], g, layout
-    return n_kv, g // mp[1], layout
+    r, m = mp
+    layout = sharding.attn_layout(n_kv, g, m)
+    if layout.startswith("kv"):
+        return sharding.split_range(n_kv, m, r)[1], g, layout
+    return n_kv, sharding.split_range(g, m, r)[1], layout
 
 
 # ---------------------------------------------------------------------------
@@ -239,11 +264,16 @@ def _local_attn(q, k, v, *, window: int, scale: float):
 
 
 def _decode_attn(q, k_cache, v_cache, cache_pos, cur_pos, *, mode: str,
-                 window, prefix_len, scale: float, kv_scale=None):
+                 window, prefix_len, scale: float, kv_scale=None,
+                 group: bool = False):
     """One new token against the cache.  q ``[B, 1, KV, G, hd]``; caches
     ``[B, L, KV, hd]``; ``cache_pos [B, L]`` (-1 = empty slot); ``cur_pos
     [B]``.  ``kv_scale`` = (k_scale, v_scale) of an int8 cache, folded
-    into the epilogue."""
+    into the epilogue.  ``group``: the caches are this model rank's slots
+    of a length-sharded cache; the max is taken over the group (exact)
+    and the numerator and denominator partials summed over it in rank
+    order.  The sums over L are ``backend.in_blocks``' (one call but
+    under a floor measurement's ``backend.reassociate``)."""
     qf = q[:, 0].to(torch.float32) * scale
     if kv_scale is not None:
         qf = qf * kv_scale[0]
@@ -257,12 +287,43 @@ def _decode_attn(q, k_cache, v_cache, cache_pos, cur_pos, *, mode: str,
         valid |= (pos >= 0) & (pos < prefix_len)
     s = torch.where(valid, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
+    if group:
+        m = sharding.mp_max(m)
     p = torch.exp(s - m)
-    out = torch.einsum("bkgl,blkh->bkgh", p, v_cache.to(torch.float32))
-    out = out / p.sum(dim=-1).clamp(min=1e-30)[..., None]
+    vf = v_cache.to(torch.float32)
+    out = backend.in_blocks(lambda lo, n: torch.einsum(
+        "bkgl,blkh->bkgh", p.narrow(-1, lo, n), vf.narrow(1, lo, n)),
+        p.shape[-1])
+    den = backend.in_blocks(lambda lo, n: p.narrow(-1, lo, n).sum(dim=-1),
+                            p.shape[-1])
+    if group:
+        both = sharding.mp_sum_ordered(torch.cat([out, den[..., None]], -1))
+        out, den = both[..., :-1], both[..., -1]
+    out = out / den.clamp(min=1e-30)[..., None]
     if kv_scale is not None:
         out = out * kv_scale[1]
     return out[:, None].to(q.dtype)
+
+
+def _decode_cached(q, cache: dict, cur, heads, **kw):
+    """:func:`_decode_attn` of q (a rank's heads: ``heads`` = ``(dim,
+    whole size)`` of its head dim, None when whole) against a cache laid
+    out as :func:`init_kv_cache` lays it: a length shard's group softmax
+    on the group's q heads gathered, then the rank's own heads kept; a
+    position cache sharded beside head-sharded k / v gathered; a whole
+    cache's KV heads sliced to a ``"kv_pad"`` rank's."""
+    kc, vc, pc = cache["k"], cache["v"], cache["pos"]
+    kw["kv_scale"] = cache.get("scale")
+    split = sharding.cache_split_of(kc)
+    if split is not None and split[0] == 1:
+        qa = q if heads is None else sharding.mp_gather(q, *heads)
+        out = _decode_attn(qa, kc, vc, pc, cur, group=True, **kw)
+        return out if heads is None else sharding.mp_slice(out, heads[0])
+    if sharding.cache_split_of(pc) is not None:
+        pc = sharding.mp_gather(pc, 1)
+    if heads is not None and heads[0] == 2 and split is None:
+        kc, vc = sharding.mp_slice(kc, 2), sharding.mp_slice(vc, 2)
+    return _decode_attn(q, kc, vc, pc, cur, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -271,16 +332,50 @@ def _decode_attn(q, k_cache, v_cache, cache_pos, cur_pos, *, mode: str,
 def init_kv_cache(batch: int, length: int, n_kv: int, head_dim: int,
                   dtype=torch.bfloat16, device=None) -> dict:
     """int8 dtype = the in-hindsight quantized cache: per-tensor symmetric
-    scales set at prefill, folded into the decode epilogue."""
-    c = {"k": torch.zeros((batch, length, n_kv, head_dim), dtype=dtype,
-                          device=device),
-         "v": torch.zeros((batch, length, n_kv, head_dim), dtype=dtype,
-                          device=device),
-         "pos": torch.full((batch, length), -1, dtype=torch.int32,
-                           device=device)}
+    scales set at prefill, folded into the decode epilogue.  Under a
+    model group a rank holds the slice ``sharding.cache_pspecs`` gives
+    (``sharding.kv_cache_split``, ``pos_cache_split``) of the whole
+    cache's ``length`` and ``n_kv`` heads, recorded on the tensor
+    (``sharding.cache_split_of``); the scales stay whole."""
+    mp = sharding.mp_shard()
+    whole = (batch, length, n_kv, head_dim)
+    kv_d = pos_d = None
+    shape = list(whole)
+    if mp is not None:
+        kv_d = sharding.kv_cache_split(n_kv, length, mp[1])
+        pos_d = sharding.pos_cache_split(length, mp[1])
+        if kv_d is not None:
+            shape[kv_d] //= mp[1]
+    c = {"k": torch.zeros(shape, dtype=dtype, device=device),
+         "v": torch.zeros(shape, dtype=dtype, device=device),
+         "pos": torch.full((batch, length // mp[1] if pos_d else length),
+                           -1, dtype=torch.int32, device=device)}
+    if kv_d is not None:
+        c["k"].model_split = c["v"].model_split = (kv_d, whole[kv_d])
+    if pos_d is not None:
+        c["pos"].model_split = (pos_d, length)
     if dtype == torch.int8:
         c["scale"] = torch.ones((2,), dtype=torch.float32, device=device)
     return c
+
+
+def _cache_length(cache: dict) -> int:
+    """The whole cache's length (a rank may hold a slice of it)."""
+    split = sharding.cache_split_of(cache["pos"])
+    return cache["pos"].shape[1] if split is None else split[1]
+
+
+def _own_slots(t: torch.Tensor, slots: torch.Tensor):
+    """``(index, keep)``: where the whole cache's ``slots`` lie in ``t``
+    (a length shard's own slots, relative to its first; ``keep`` selects
+    them, None: all of them)."""
+    split = sharding.cache_split_of(t)
+    if split is None or split[0] != 1:
+        return slots, None
+    r, m = sharding.mp_shard()
+    lo, n = sharding.split_range(split[1], m, r)
+    keep = (slots >= lo) & (slots < lo + n)
+    return slots[keep] - lo, keep
 
 
 def _quant_kv(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -290,9 +385,10 @@ def _quant_kv(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 def cache_fill(cache: dict, k, v) -> dict:
     """Prefill: write ``[B, S, KV, hd]`` into the cache in place.  Ring
-    caches (L < S) keep the last L tokens at slots ``pos % L``."""
+    caches (L < S) keep the last L tokens at slots ``pos % L``; a length
+    shard writes the slots it owns."""
     s = k.shape[1]
-    length = cache["k"].shape[1]
+    length = _cache_length(cache)
     start = max(0, s - length)
     pos = torch.arange(start, s, device=k.device)
     slots = pos % length
@@ -305,26 +401,30 @@ def cache_fill(cache: dict, k, v) -> dict:
               / 127.0).clamp(min=1e-8)
         cache["scale"] = torch.stack([ks, vs])
         ksrc, vsrc = _quant_kv(ksrc, ks), _quant_kv(vsrc, vs)
-    cache["k"][:, slots] = ksrc.to(cache["k"].dtype)
-    cache["v"][:, slots] = vsrc.to(cache["v"].dtype)
-    cache["pos"][:, slots] = pos.to(torch.int32)
+    for name, src in (("k", ksrc), ("v", vsrc), ("pos", pos[None])):
+        t = cache[name]
+        idx, keep = _own_slots(t, slots)
+        t[:, idx] = (src if keep is None else src[:, keep]).to(t.dtype)
     return cache
 
 
 def cache_insert(cache: dict, k_new, v_new, pos: torch.Tensor) -> dict:
     """Insert one token's (k, v) at absolute positions ``pos [B]`` in
-    place (slot ``pos % L``); an int8 cache quantizes it with the stored
-    hindsight scale."""
-    length = cache["k"].shape[1]
-    slot = pos % length
+    place (slot ``pos % L``, on a length shard only where it owns the
+    slot); an int8 cache quantizes it with the stored hindsight scale."""
+    slot = pos % _cache_length(cache)
     b = torch.arange(k_new.shape[0], device=k_new.device)
     kn, vn = k_new[:, 0], v_new[:, 0]
     if "scale" in cache:
         kn = _quant_kv(kn, cache["scale"][0])
         vn = _quant_kv(vn, cache["scale"][1])
-    cache["k"][b, slot] = kn.to(cache["k"].dtype)
-    cache["v"][b, slot] = vn.to(cache["v"].dtype)
-    cache["pos"][b, slot] = pos.to(torch.int32)
+    for name, val in (("k", kn), ("v", vn), ("pos", pos)):
+        t = cache[name]
+        idx, keep = _own_slots(t, slot)
+        if keep is None:
+            t[b, idx] = val.to(t.dtype)
+        else:
+            t[b[keep], idx] = val[keep].to(t.dtype)
     return cache
 
 
@@ -361,25 +461,42 @@ def attention_layer(params, sites: dict, x: torch.Tensor, *, n_heads: int,
                  and s > 1)
     # the model axis: which dim of q ([B, S, KV, G, hd]) and of k / v
     # ([B, S, KV, hd]) this rank holds a slice of
+    g = n_heads // n_kv
     mp = sharding.mp_shard()
     layout = None if mp is None else sharding.attn_layout(
-        n_kv, n_heads // n_kv, mp[1], s, allow_seq)
+        n_kv, g, mp[1], s, allow_seq)
     seq = layout == "seq"
-    q_dim = {None: None, "kv": 2, "g": 3, "seq": 1}[layout]
+    # the head dim of q a rank holds a share of: (dim, whole size)
+    heads = None if layout in (None, "seq") else \
+        ((2, n_kv) if layout.startswith("kv") else (3, g))
+    q_dim = 1 if seq else None if heads is None else heads[0]
+    # a site's model dim; a padded share names its whole size (the noise)
+    q_site = heads if layout in ("kv_pad", "g_pad") else q_dim
     kv_dim = 2 if layout == "kv" else None
-    par = "col" if layout in ("kv", "g") else None
+    par = "col" if heads is not None else None
     kv_par = "col" if layout == "kv" else None
     q_start = 0
     if seq:
         # the rank's S / M rows of the normed input; the weights are
-        # whole, their gradients (partial sums over the rows) summed over
-        # the group (a cross layer's k / v source is whole on every rank)
+        # whole (wq / wo / bq gathered from their head shards), their
+        # gradients (partial sums over the rows) summed over the group
+        # (a cross layer's k / v source is whole on every rank)
         q_start = mp[0] * (s // mp[1])
         x = sharding.mp_take(x, 1)
+        d = x.shape[-1]
+        full = {"wq": (d, n_kv, g, head_dim), "wo": (n_kv, g, head_dim, d),
+                "bq": (n_kv, g, head_dim)}
         names = ("wq", "wo", "bq") + (("wk", "wv", "bk", "bv")
                                       if kv_x is None else ())
-        params = {n: sharding.mp_grad_sum(params[n]) if n in names
-                  else params[n]
+
+        def whole(n, p):
+            dim = sharding.model_dim_of(p)
+            if n not in names:
+                return p
+            if dim is None:
+                return sharding.mp_grad_sum(p)
+            return sharding.mp_gather_sum(p, dim, full[n][dim])
+        params = {n: whole(n, params[n])
                   for n in ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo")
                   if params.get(n) is not None}
     new_sites = {}
@@ -391,7 +508,7 @@ def attention_layer(params, sites: dict, x: torch.Tensor, *, n_heads: int,
     q, sq = qlinear.qdense_pre(xq, params["wq"], sites["q"], policy,
                                einsum_spec="bsd,dkgh->bskgh",
                                bias=params.get("bq"), seed=seed, step=step,
-                               qinfo=xqi, parallel=par, y_dim=q_dim)
+                               qinfo=xqi, parallel=par, y_dim=q_site)
     sq["act"] = in_stats
     new_sites["q"] = sq
     if cross_decode:
@@ -439,29 +556,38 @@ def attention_layer(params, sites: dict, x: torch.Tensor, *, n_heads: int,
     dense = (not (cross_decode or decode or use_core or local)
              and max(s, skv) <= dense_attn_max)
     q, k, v = sharding.attn_hints(q, k, v, allow_seq=allow_seq)
-    if layout in ("g", "seq") and not use_core and k is not None:
+    k_all, v_all = k, v     # what the cache takes
+    core_kv_dim = kv_dim
+    if layout == "kv_pad" and not (cross_decode or decode):
+        # q holds the rank's KV heads: k, v sliced to them, their
+        # cotangent gathered (every rank's gradient sites see it whole)
+        k, v = sharding.mp_take(k, 2), sharding.mp_take(v, 2)
+        core_kv_dim = (2, n_kv)
+    if layout in ("g", "seq", "g_pad") and not use_core and k is not None:
         # whole k, v against the rank's G heads or rows: their cotangent
-        # summed (f; the int8 core sums it in fp32 itself)
-        k, v = sharding.mp_grad_sum(k), sharding.mp_grad_sum(v)
+        # summed in fp32 before its one cast back (f; the fp paths read
+        # fp32 k / v, and the int8 core sums it in fp32 itself)
+        k = sharding.mp_grad_sum(k.to(torch.float32))
+        v = sharding.mp_grad_sum(v.to(torch.float32))
 
     if cross_decode:
         # the whole cached encoder: every filled slot is at or before 2**30
-        out = _decode_attn(q, cache["k"], cache["v"], cache["pos"],
-                           torch.full((b,), 2 ** 30, device=x.device),
-                           mode="cross_dec", window=None, prefix_len=None,
-                           scale=scale, kv_scale=cache.get("scale"))
+        out = _decode_cached(q, cache,
+                             torch.full((b,), 2 ** 30, device=x.device),
+                             heads, mode="cross_dec", window=None,
+                             prefix_len=None, scale=scale)
     elif decode:
         cur = positions[:, 0]
         cache = cache_insert(cache, k, v, cur)
-        out = _decode_attn(q, cache["k"], cache["v"], cache["pos"], cur,
-                           mode=mode, window=window, prefix_len=prefix_len,
-                           scale=scale, kv_scale=cache.get("scale"))
+        out = _decode_cached(q, cache, cur, heads, mode=mode, window=window,
+                             prefix_len=prefix_len, scale=scale)
     else:
         if use_core:
             out, core_stats = backend.qattention(
                 policy, q, k, v, sites["core"], mode=mode, window=window,
                 prefix_len=prefix_len, kv_len=kv_len, scale=scale, step=step,
-                model_dims=(q_dim, kv_dim), q_start=q_start, sq_total=s)
+                model_dims=(q_site, core_kv_dim), q_start=q_start,
+                sq_total=s)
         elif local:
             out = _local_attn(q, k, v, window=window, scale=scale)
         elif dense:
@@ -474,7 +600,7 @@ def attention_layer(params, sites: dict, x: torch.Tensor, *, n_heads: int,
                                 q_start=0, q_chunk=q_chunk,
                                 kv_chunk=kv_chunk, scale=scale)
         if cache is not None:
-            cache = cache_fill(cache, k, v)
+            cache = cache_fill(cache, k_all, v_all)
 
     if "core" in sites:
         if core_stats is None:
@@ -486,7 +612,8 @@ def attention_layer(params, sites: dict, x: torch.Tensor, *, n_heads: int,
                                         sites["o"], policy, seed=seed + 3,
                                         step=step,
                                         parallel="row" if par else None,
-                                        x_dim=q_dim, y_dim=1 if seq else None)
+                                        x_dim=q_site,
+                                        y_dim=1 if seq else None)
     if seq:
         # the ranks' rows of the output for the replicated residual stream
         y = sharding.mp_gather(y, 1)

@@ -103,6 +103,8 @@ def init_quant_state(cfg, policy: Optional[QuantPolicy] = None,
 
 
 def init_cache(cfg, batch: int, cache_len: int, device=None) -> dict:
+    """The decode caches; under a model group a rank's slices of them
+    (``sharding.cache_pspecs``' rules, recorded on the tensors)."""
     return {"decoder": transformer.init_stack_cache(
         cfg, cfg.pattern, cfg.n_layers, batch, cache_len,
         resolve_device(device))}

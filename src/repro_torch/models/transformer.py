@@ -20,10 +20,12 @@ caches are ``{"layers": [layer 0, layer 1, ...]}``, for the decoder and
 the encoder alike.  ``repro_torch.convert`` maps between the two layouts.
 
 Under a model group (``runtime.sharding.model_parallel``) every kind
-runs on a rank's shards: the attention heads (or, where neither head
-dim divides the group, its rows of the sequence), MLP columns, experts,
-the RG-LRU's channels and RWKV-6's heads and ``d_ff``.  The caches are
-the reference's ``cache_pspecs``: a rank's KV heads, a ``rec`` block's
+runs on a rank's shards: the attention heads (where neither head dim
+divides the group, its rows of the sequence or its padded share of the
+heads), MLP columns, experts, the RG-LRU's channels and RWKV-6's heads
+and ``d_ff``.  The caches are the reference's ``cache_pspecs``: a rank's
+KV heads, else its slots of the cache length, else the whole k / v
+cache (``pos`` its slots where the length divides), a ``rec`` block's
 ``h`` and ``conv`` of its channels, an ``rwkv`` block's ``state`` of its
 heads; ``x_time`` and ``x_chan`` whole.
 """
@@ -140,14 +142,14 @@ def _init_block_cache(kind: str, cfg, batch: int, cache_len: int,
         length = min(cache_len, cfg.local_window)
     elif cfg.sliding_window is not None and kind != "xattn":
         length = min(cache_len, cfg.sliding_window)
-    # a model rank's cache holds its own heads (cache_pspecs' k/v rule)
-    n_kv = attn.local_heads(cfg.n_kv, cfg.n_heads // cfg.n_kv)[0]
-    cache = {"kv": attn.init_kv_cache(batch, length, n_kv, cfg.head_dim,
+    # a model rank's slice of the cache (cache_pspecs' k/v and pos rules)
+    cache = {"kv": attn.init_kv_cache(batch, length, cfg.n_kv, cfg.head_dim,
                                       cdt, device)}
     if kind == "xattn":
         # the encoder's projections; a longer source keeps its last slots
         cache["xkv"] = attn.init_kv_cache(batch, cfg.enc_len(cache_len),
-                                          n_kv, cfg.head_dim, cdt, device)
+                                          cfg.n_kv, cfg.head_dim, cdt,
+                                          device)
     return cache
 
 

@@ -48,15 +48,31 @@ summed) and :func:`mp_sum` (summed, the gradient passed through);
 :func:`mp_take` is a rank's slice of a whole tensor (its gradient
 gathered) and :func:`mp_gather` the inverse.  Where neither attention
 head dim divides the model axis, :func:`attn_layout` gives the
-reference's sequence-parallel core (``"seq"``): the attention weights
-stay whole, each rank runs its ``S / M`` query rows against the gathered
-keys and values (``models.attention``), and the weights' gradients,
-partial sums over a rank's rows, are summed over the group.  Padded head
-sharding, the reference's third layout, raises (ROADMAP.md §1).
+reference's sequence-parallel core (``"seq"``): each rank runs its ``S /
+M`` query rows against the gathered keys and values
+(``models.attention``) on the whole attention weights (``wq`` / ``wo`` /
+``bq`` gathered from their head shards, :func:`mp_gather_sum`), and the
+weights' gradients, partial sums over a rank's rows, are summed over the
+group.  Where that core does not apply either (decode, a prefill that
+fills a cache, the local and chunked paths), :func:`attn_layout` gives
+the reference's third layout, padded head sharding (``"g_pad"`` /
+``"kv_pad"``: the dim :func:`choose_head_axis` picks).  A rank then
+holds :func:`split_range`'s share of that dim, ``[r c, min((r + 1) c,
+n))`` with ``c = ceil(n / M)``: GSPMD's padded layout with the padding
+removed, so a rank may hold fewer than ``c`` heads or none, and no
+padding reaches a statistic.  :func:`mp_slice`, :func:`mp_take`,
+:func:`mp_gather` (``total=``), :func:`shard_params` and
+:func:`gather_named` cut and join on that split, which is the even one
+where ``M`` divides ``n``.  Decode caches follow :func:`cache_pspecs`:
+:func:`kv_cache_split` (a rank's KV heads, else its slots of the cache
+length, else whole) and :func:`pos_cache_split`, recorded on the cache
+tensors (:func:`cache_split_of`).
 :func:`param_pspecs` stays the reference's storage rule (its ``model``
 entries at the production model size); leaves whose ``model`` entry is
-a storage split only, ``(("data", "model"), ...)``, and ``patch_proj`` /
-``enc_in`` stay replicated over ``model`` (ZeRO-3, ROADMAP.md §1).
+a storage split only, ``(("data", "model"), ...)``, stay replicated
+over ``model`` (``wq`` / ``wo`` / ``bq`` hold their padded head shares
+for compute), as do ``patch_proj`` / ``enc_in`` (ZeRO-3, ROADMAP.md
+§1).
 
 Data parallelism.  ``torch.distributed`` runs one controller per rank,
 where the reference's ``jit`` over the ``data`` axis is one program.
@@ -377,6 +393,28 @@ def batch_pspecs(batch: Tree, mesh, dp_axes) -> Tree:
     return _walk(batch, (), spec)
 
 
+def kv_cache_split(n_kv: int, length: int, msize: int) -> Optional[int]:
+    """The dim of a ``[B, L, KV, hd]`` k / v cache a model rank holds a
+    slice of (``cache_pspecs``' k/v rule): the KV heads (2) where they
+    divide the model axis, else the cache length (1) where it divides
+    (decode's softmax then runs over the group), else None (whole)."""
+    if n_kv % msize == 0:
+        return 2
+    return 1 if length % msize == 0 else None
+
+
+def pos_cache_split(length: int, msize: int) -> Optional[int]:
+    """The dim of a ``[B, L]`` position cache a model rank holds a slice
+    of (``cache_pspecs``' pos rule): the length where it divides."""
+    return 1 if length % msize == 0 else None
+
+
+def cache_split_of(t: torch.Tensor) -> Optional[tuple]:
+    """``(dim, whole size)`` of a cache tensor a model rank holds a slice
+    of (recorded by ``models.attention.init_kv_cache``), or None."""
+    return getattr(t, "model_split", None)
+
+
 def cache_pspecs(cache: Tree, mesh, dp_axes) -> Tree:
     """Decode caches (one entry per layer): batch over DP; heads, the
     cache length or state channels over ``model``."""
@@ -386,17 +424,17 @@ def cache_pspecs(cache: Tree, mesh, dp_axes) -> Tree:
     def spec(path, leaf):
         name, core = path[-1], tuple(leaf.shape)
         bdim = bax if _divides(core[0], sizes, bax) else None
+        msize = sizes["model"]
         if name in ("k", "v"):                       # [B, L, KV, hd]
             # KV heads over model; when they do not divide, the cache
             # length (the decode memory bill scales with the mesh)
-            if _divides(core[2], sizes, "model"):
-                sp = (bdim, None, "model", None)
-            elif _divides(core[1], sizes, "model"):
-                sp = (bdim, "model", None, None)
-            else:
-                sp = (bdim, None, None, None)
+            sp = [bdim, None, None, None]
+            d = kv_cache_split(core[2], core[1], msize)
+            if d is not None:
+                sp[d] = "model"
+            sp = tuple(sp)
         elif name == "pos":                          # [B, L]
-            sp = (bdim, "model" if _divides(core[1], sizes, "model")
+            sp = (bdim, "model" if pos_cache_split(core[1], msize)
                   else None)
         elif name == "state":                        # [B, H, hd, hd]
             sp = (bdim, "model" if _divides(core[1], sizes, "model")
@@ -547,13 +585,24 @@ def mp_shard() -> Optional[tuple]:
     return None if _MP is None else _MP[1:]
 
 
+def split_range(n: int, msize: int, r: int) -> tuple:
+    """``(start, count)`` of model rank ``r``'s share of ``n`` over
+    ``msize`` ranks: ``[r c, min((r + 1) c, n))`` with ``c = ceil(n /
+    msize)``, GSPMD's padded layout with the padding removed (``[r n /
+    M, (r + 1) n / M)`` where ``msize`` divides ``n``; a rank may hold
+    fewer than ``c``, or none)."""
+    c = -(-n // msize)
+    lo = min(r * c, n)
+    return lo, min(lo + c, n) - lo
+
+
 def mp_slice(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """This model rank's slice ``[r n / M, (r + 1) n / M)`` of ``dim``."""
+    """This model rank's share (:func:`split_range`) of ``dim``."""
     if _MP is None:
         return x
     _, r, m = _MP
-    n = x.shape[dim] // m
-    return x.narrow(dim, r * n, n)
+    lo, n = split_range(x.shape[dim], m, r)
+    return x.narrow(dim, lo, n)
 
 
 def _all_reduce(x: torch.Tensor, op: str) -> torch.Tensor:
@@ -592,14 +641,25 @@ class _Sum(torch.autograd.Function):
         return g
 
 
-def _all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+def _all_gather(x: torch.Tensor, dim: int,
+                total: Optional[int] = None) -> torch.Tensor:
     """The model ranks' ``x`` concatenated along ``dim``, outside
-    autograd."""
+    autograd.  ``total``: the whole size of ``dim``, whose shares
+    (:func:`split_range`) may differ between ranks: each is padded to
+    ``ceil(total / M)`` for the collective and the padding dropped."""
     import torch.distributed as dist
     x = x.detach().contiguous()
+    if total is not None:
+        dim = dim % x.dim()
+        c = -(-total // _MP[2])
+        if x.shape[dim] < c:
+            pad = list(x.shape)
+            pad[dim] = c - x.shape[dim]
+            x = torch.cat([x, x.new_zeros(pad)], dim=dim)
     parts = [torch.empty_like(x) for _ in range(_MP[2])]
     dist.all_gather(parts, x, group=_MP[0])
-    return torch.cat(parts, dim=dim)
+    out = torch.cat(parts, dim=dim)
+    return out if total is None else out.narrow(dim, 0, total)
 
 
 class _Gather(torch.autograd.Function):
@@ -607,13 +667,30 @@ class _Gather(torch.autograd.Function):
     gradient is this rank's slice of the (replicated) cotangent."""
 
     @staticmethod
-    def forward(ctx, x, dim):
+    def forward(ctx, x, dim, total):
         ctx.dim = dim
-        return _all_gather(x, dim)
+        return _all_gather(x, dim, total)
 
     @staticmethod
     def backward(ctx, g):
-        return mp_slice(g, ctx.dim).contiguous(), None
+        return mp_slice(g, ctx.dim).contiguous(), None, None
+
+
+class _GatherSum(torch.autograd.Function):
+    """A tensor whole on every rank from the ranks' shards (all_gather),
+    whose consumers on each rank give a partial cotangent: the gradient is
+    this rank's slice of the cotangents summed over the group (a
+    reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, total):
+        ctx.dim = dim
+        return _all_gather(x, dim, total)
+
+    @staticmethod
+    def backward(ctx, g):
+        return mp_slice(_all_reduce(g, "sum"), ctx.dim).contiguous(), \
+            None, None
 
 
 def mp_grad_sum(x: torch.Tensor) -> torch.Tensor:
@@ -626,10 +703,19 @@ def mp_sum(x: torch.Tensor) -> torch.Tensor:
     return x if _MP is None else _Sum.apply(x)
 
 
-def mp_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+def mp_gather(x: torch.Tensor, dim: int,
+              total: Optional[int] = None) -> torch.Tensor:
     """The whole tensor from the ranks' shards along ``dim``
-    (:class:`_Gather`); ``x`` without a model group."""
-    return x if _MP is None else _Gather.apply(x, dim)
+    (:class:`_Gather`; ``total``: the whole size, for shares of
+    :func:`split_range` that differ); ``x`` without a model group."""
+    return x if _MP is None else _Gather.apply(x, dim, total)
+
+
+def mp_gather_sum(x: torch.Tensor, dim: int, total: int) -> torch.Tensor:
+    """A head-sharded weight whole on every rank for consumers that each
+    see a share of the rows (the sequence-parallel core):
+    :class:`_GatherSum`; ``x`` without a model group."""
+    return x if _MP is None else _GatherSum.apply(x, dim, total)
 
 
 class _Take(torch.autograd.Function):
@@ -640,12 +726,12 @@ class _Take(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dim):
-        ctx.dim = dim
+        ctx.dim, ctx.total = dim, x.shape[dim]
         return mp_slice(x, dim).contiguous()
 
     @staticmethod
     def backward(ctx, g):
-        return _all_gather(g, ctx.dim), None
+        return _all_gather(g, ctx.dim, ctx.total), None
 
 
 def mp_take(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -664,6 +750,19 @@ def mp_sum_now(x: torch.Tensor) -> torch.Tensor:
 def mp_max(x: torch.Tensor) -> torch.Tensor:
     """The elementwise max over the model group (exact), detached."""
     return x if _MP is None else _all_reduce(x, "max")
+
+
+def mp_sum_ordered(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the model group in rank order (all_gather, then
+    the ranks' terms added from rank 0 up), outside autograd: every rank
+    gets the same bits; ``x`` without one."""
+    if _MP is None:
+        return x
+    parts = _all_gather(x[None], 0)
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
 
 
 def mp_minmax(mn: torch.Tensor, mx: torch.Tensor):
@@ -696,20 +795,18 @@ def attn_layout(kv: int, g: int, msize: int, s: Optional[int] = None,
     where that head dim divides (:func:`choose_head_axis`), else
     ``"seq"``, the sequence-parallel core, where ``allow_seq`` (the
     layer's dense-path predicate, the reference's ``will_use_dense``) and
-    ``msize`` divides the ``s`` query rows.  The reference's third
+    ``msize`` divides the ``s`` query rows, else the reference's third
     layout, padded head sharding (decode, a prefill that fills a cache,
-    the chunked path), is not ported: raises."""
+    the local and chunked paths): ``"g_pad"`` or ``"kv_pad"``, the dim
+    :func:`choose_head_axis` picks (G where ``g >= kv``), each rank its
+    :func:`split_range` share of it."""
     if kv % msize == 0:
         return "kv"
     if g % msize == 0:
         return "g"
     if allow_seq and s is not None and s % msize == 0:
         return "seq"
-    raise NotImplementedError(
-        f"neither KV = {kv} nor G = {g} divides the model axis {msize}, "
-        f"and the sequence-parallel core does not apply (S = {s}, "
-        f"allow_seq = {allow_seq}): the reference pads the heads; padded "
-        f"head sharding (ROADMAP.md §1) is not ported yet")
+    return choose_head_axis(kv, g, msize) + "_pad"
 
 
 _ATTN_NAMES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
@@ -727,18 +824,20 @@ _BLOCK_DIMS = {
 def compute_dim(path: tuple, shape: tuple, msize: int) -> Optional[int]:
     """The dim of a parameter leaf (``path``: its dotted name split) that
     a model rank holds a shard of, or None (replicated): the attention
-    heads by :func:`attn_layout` (whole where neither head dim divides:
-    the sequence-parallel core), the MLP's ``d_ff`` (a shared expert's
-    too), the routed experts, the vocabulary of ``embed`` and ``head``,
-    and the recurrent blocks' channels: the RG-LRU's ``lru_width``, the
-    RWKV-6 time mix's heads and channel mix's ``d_ff`` (their LoRAs,
-    ``u``, ``w0``, ``mu*`` and ``ln_x_*`` stay whole, as the reference's
-    rule table leaves them).  Raises where a rule's dim does not divide
-    ``msize``."""
+    heads by :func:`attn_layout` (where neither head dim divides, ``wq``
+    / ``wo`` / ``bq`` on the padded dim, :func:`split_range`'s uneven
+    shares; ``wk`` / ``wv`` / ``bk`` / ``bv`` whole), the MLP's
+    ``d_ff`` (a shared expert's too), the routed experts, the vocabulary
+    of ``embed`` and ``head``, and the recurrent blocks' channels: the
+    RG-LRU's ``lru_width``, the RWKV-6 time mix's heads and channel
+    mix's ``d_ff`` (their LoRAs, ``u``, ``w0``, ``mu*`` and ``ln_x_*``
+    stay whole, as the reference's rule table leaves them).  Raises
+    where a rule's dim does not divide ``msize`` (a padded head dim
+    excepted)."""
     if msize == 1:
         return None
     name = path[-1]
-    dim = None
+    dim, padded = None, False
     block = next((b for b in _BLOCK_DIMS if b in path), None)
     if block is not None:
         dim = _BLOCK_DIMS[block].get(name)
@@ -749,10 +848,9 @@ def compute_dim(path: tuple, shape: tuple, msize: int) -> Optional[int]:
     elif name in _ATTN_NAMES:
         if name in ("wq", "wo", "bq"):
             kv, g = (shape[1], shape[2]) if name == "wq" else shape[:2]
-            if kv % msize == 0 or g % msize == 0:
-                layout = attn_layout(kv, g, msize)
-                base = 1 if name == "wq" else 0
-                dim = base + (0 if layout == "kv" else 1)
+            padded = bool(kv % msize and g % msize)
+            dim = (1 if name == "wq" else 0) + \
+                (0 if choose_head_axis(kv, g, msize) == "kv" else 1)
         else:   # wk, wv [D, KV, hd]; bk, bv [KV, hd]: heads when KV divides
             d = 1 if name in ("wk", "wv") else 0
             dim = d if shape[d] % msize == 0 else None
@@ -761,7 +859,7 @@ def compute_dim(path: tuple, shape: tuple, msize: int) -> Optional[int]:
         dim = 0
     elif name in _MLP_NAMES:
         dim = 0 if name in ("w_down", "b_up") else 1
-    if dim is not None and shape[dim] % msize:
+    if dim is not None and shape[dim] % msize and not padded:
         raise ValueError(f"{'.'.join(path)}: dim {dim} of {tuple(shape)} "
                          f"does not split over {msize} model ranks")
     return dim
@@ -796,8 +894,9 @@ def shard_params(params, coords: dict, sizes: dict):
     """A full parameter ``ParamTree`` (``repro_torch.convert``'s layout)
     cut to the compute shards of the rank at ``coords`` (``{"model":
     m}``) of a mesh of ``sizes`` (``{"model": M, ...}``):
-    :func:`compute_dim`'s dim of each leaf sliced (and recorded on the
-    parameter, :func:`model_dim_of`), the rest copied."""
+    :func:`compute_dim`'s dim of each leaf sliced (its :func:`split_range`
+    share, recorded on the parameter, :func:`model_dim_of`), the rest
+    copied."""
     m, msize = int(coords.get("model", 0)), int(sizes.get("model", 1))
     dims = {}
 
@@ -806,8 +905,7 @@ def shard_params(params, coords: dict, sizes: dict):
         if d is None:
             return t.clone()
         dims[".".join(path)] = d
-        n = t.shape[d] // msize
-        return t.narrow(d, m * n, n).contiguous()
+        return t.narrow(d, *split_range(t.shape[d], msize, m)).contiguous()
     tree = _rebuild(params, cut)
     for name, p in tree.named_parameters():
         p.model_dim = dims.get(name)

@@ -349,7 +349,10 @@ def make_prefill_step(cfg, policy: QuantPolicy,
     (plus the forward statistics with ``return_stats``, combined over
     ``model_group`` as the train step combines them).  ``model_group``:
     the rank's model subgroup, its parameters ``sharding.shard_params``'
-    shards and its caches its heads'; the logits are whole."""
+    shards and its caches the slices ``sharding.cache_pspecs`` gives
+    (its KV heads, else its slots of the cache length, else whole); the
+    attention runs on the rank's heads, padded where neither head dim
+    divides the group; the logits are whole."""
     def prefill_step(params, quant, batch):
         with sharding.model_parallel(model_group):
             out = model.prefill(params, quant, batch, cfg, policy,

@@ -1111,3 +1111,40 @@ def test_compressor_on_card_matches_emulation(card, tmp_path, backend,
                 assert torch.equal(out[k], want[k].cpu()), (call, k)
                 assert torch.equal(st[k], wst[k].cpu()), (call, k)
     assert all(r["launches"] == 4 for r in ranks)
+
+
+def test_empty_operands_launch_nothing(card):
+    """A model rank's empty share of a padded head dim: every wrapper
+    returns empty (or, for an empty contraction, zero) outputs and
+    neutral ``(+inf, -inf)`` statistics on CUDA tensors, and launches no
+    kernel."""
+    spec = QuantSpec(bits=8, symmetric=False)
+    lo, hi = torch.tensor(-1.0, device=card), torch.tensor(1.0, device=card)
+    ops.reset_launch_counts()
+    x = torch.empty((4, 8, 2, 0, 16), device=card)
+    q, mn, mx = ops.fused_quantize(x, lo, hi, spec=spec)
+    assert q.shape == x.shape and q.dtype == torch.uint8
+    assert float(mn) == float("inf") and float(mx) == float("-inf")
+    q, mn, mx = ops.stochastic_quantize(x, lo, hi, torch.empty_like(x))
+    assert q.shape == x.shape and float(mn) == float("inf")
+    xi = torch.empty((4, 8, 2, 0, 16), dtype=torch.uint8, device=card)
+    wo = torch.empty((2, 0, 16, 32), dtype=torch.int8, device=card)
+    plan = ops.plan_einsum("bskgh,kghd->bsd", 5, 4)
+    acc = ops.int8_matmul_int32(xi, wo, 3.0, plan=plan)
+    assert acc.shape == (4, 8, 32) and acc.dtype == torch.int32
+    assert not acc.any()
+    wq = torch.empty((32, 2, 0, 16), dtype=torch.int8, device=card)
+    xd = torch.zeros((4, 8, 32), dtype=torch.uint8, device=card)
+    y, mn, _ = ops.int8_matmul_fp(xd, wq, 3.0, 0.5, plan=ops.plan_einsum(
+        "bsd,dkgh->bskgh", 3, 4))
+    assert y.shape == (4, 8, 2, 0, 16) and float(mn) == float("inf")
+    sched = attn.make_schedule(sq=8, skv=8, hd=16, bq=8, bkv=8, groups=1,
+                               mode="causal", sm_scale=0.25)
+    k = torch.zeros((8, 8, 16), dtype=torch.int8, device=card)
+    out, ml, ps = ops.int8_attention_fp(
+        torch.empty((0, 8, 16), dtype=torch.uint8, device=card), k, k,
+        torch.zeros(8, device=card),
+        torch.tensor([8], dtype=torch.int32, device=card), sched=sched)
+    assert out.shape == (0, 8, 16) and ps.shape[0] == 0
+    torch.cuda.synchronize()
+    assert not any(ops.launch_counts().values()), ops.launch_counts()

@@ -192,11 +192,20 @@ def test_tp_recurrent_train_step_matches_one_process(tp, one, arch,
 @pytest.mark.parametrize("arch", ARCHS)
 def test_tp_recurrent_serve_matches_one_process(tp, one, arch):
     """(1, 2) prefill and greedy decode: the statistics bit for bit, each
-    rank's recurrent state its slice of the one-process cache (channels
-    of ``h`` / ``conv``, heads of ``state`` and of a local block's KV),
-    the logits within 1e-5 relative L2, the greedy tokens identical."""
+    rank's recurrent state its slice of the one-process cache by
+    ``sharding.cache_pspecs`` (channels of ``h`` / ``conv``, heads of
+    ``state``, a local block's ring slots: its single KV head does not
+    split), the logits within 1e-5 relative L2, the greedy tokens
+    identical."""
     want = one[f"{arch}/serve"]
-    dims = {"h": 1, "conv": 2, "state": 1, "k": 2, "v": 2}
+    specs = sharding.cache_pspecs(want["cache"], {"data": 1, "model": 2},
+                                  ("data",))
+
+    def model_dims(path):
+        sp = specs
+        for k in path:
+            sp = sp[k]
+        return [d for d, ax in enumerate(sp) if ax == "model"]
     for r in range(4):
         got, m = tp[r][f"{arch}/serve"], tp[r]["coords"]["model"]
         bad = []
@@ -205,9 +214,8 @@ def test_tp_recurrent_serve_matches_one_process(tp, one, arch):
         assert not bad, bad[:5]
 
         def cache(path, a, b):
-            d = dims.get(path[-1])
-            if d is not None and a.shape[d] != b.shape[d]:
-                n = a.shape[d]
+            for d in model_dims(path):
+                n = b.shape[d] // 2
                 b = b.narrow(d, m * n, n)
             if not torch.equal(a, b):
                 bad.append(path)
