@@ -233,7 +233,18 @@ Phases, one line each:
                    the loss within 1e-6, the parameters after one AdamW
                    step within 2 lr (tests/test_torch_dp.py's bound), the
                    train kernels counted; then once with compress against
-                   its emulation
+                   its emulation; then ZeRO-3 in the same spawn: a fresh
+                   stored state saved from its shares (the whole-leaf
+                   file), restored in one process bit for bit the
+                   one-process state, and the stored step
+                   (sharding.store_state) with int8_weight_gather off
+                   against the one-process step and on against the
+                   replicated DP step (its products run the fp path, whose
+                   GEMMs round by shape): quant state bit for bit,
+                   gradients and params within the DP step's bars; stored
+                   bytes and peak GiB a rank against the replicated DP
+                   rank's (both must be lower), the gathers' and
+                   reduce-scatters' ms
  41. decode cells  the reference's shape matrix: configs.cells() admits
                    long_500k for the four sub-quadratic archs and refuses
                    it for the six others with the reference's reason; the
@@ -285,7 +296,10 @@ Phases, one line each:
                    relative L2 or 4 x the one-process step's own distance
                    under another fp32 association of its backward (and
                    doubled or halved gradients refused); first and warm
-                   steps timed
+                   steps timed; then in the (2, 2) spawn the reduced
+                   model's stored (ZeRO-3) step with expert parallelism
+                   against one process with the same bars (the clipped
+                   gradients within 2**-7), the params within 2 lr
  45. tp rglru      recurrentgemma-9b at full width, 3 layers (one rec,
                    rec, local unit), on (1, 2) gloo ranks: the RG-LRU's
                    channels over the ranks (w_a / w_x on their input
@@ -323,7 +337,11 @@ Phases, one line each:
                    partial dropped, refused), then one 1 x 8192 train
                    step past the 4096 window (the sliding int8 core) with
                    phase 45's bars (rank 5's share of the padded tensors
-                   dropped refused)
+                   dropped refused); then qwen2-moe-a2.7b at full width,
+                   1 layer, its 60 experts split 8 x 7 + 4 over the 8
+                   ranks (split_range): a 4 x 1024 prefill and 4 greedy
+                   decode steps against one process (statistics bit for
+                   bit, tokens identical), int8_matmul_fp launches by rank
 
 Phases 43-46 run their (1, 2) ranks in one spawn of 2 processes (44's
 (2, 2) run in one of its own), 47-48 theirs in one of 8; each phase's
@@ -531,6 +549,10 @@ SEQ_ARCH, SEQ_SIZE, SEQ_LAYERS = "starcoder2-3b", 8, 2
 # core).  The decode logits' fixed bar (rel L2), beside 4 x the
 # one-process decode's own floor with its sums over L in 8 blocks.
 PAD_LAYERS, PAD_GEN, PAD_TRAIN_SEQ, PAD_LOGITS_TOL = 2, 8, 8192, 1e-5
+# Uneven expert shares (phase 48, in the same spawn): qwen2-moe-a2.7b at
+# full width, 1 layer, on (1, 8): its 60 experts split 8 x 7 + 4; a 4 x
+# 1024 prefill and 4 greedy decode steps against one process.
+UNEVEN_LAYERS, UNEVEN_GEN = 1, 4
 # Phase 4's one-process outputs, kept for phase 43.
 KEPT: dict = {}
 N_PHASES = 48
@@ -4754,6 +4776,7 @@ def _dp_rank(rank: int, world: int, out: str) -> None:
 
     def run(ts, st):
         ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         st, met = ts(st, batch)
@@ -4766,7 +4789,12 @@ def _dp_rank(rank: int, world: int, out: str) -> None:
     if not all(counts[k] > 0 for k in TRAIN_KERNELS):
         raise AssertionError(f"dp rank {rank}: a kernel of the path never "
                              f"launched: {counts}")
-    rec = {"loss": loss, "launches": counts, "dp_step_ms": ms}
+    rec = {"loss": loss, "launches": counts, "dp_step_ms": ms,
+           "dp_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "dp_state_bytes": sum(t.numel() * t.element_size() for t in (
+               *st["params"].parameters(), *st["opt"]["m"].values(),
+               *st["opt"]["v"].values()))}
+    zref = None
     if rank == 0:
         dp_grads = seen.pop("grads")
         one, ts1 = make(None)
@@ -4795,6 +4823,12 @@ def _dp_rank(rank: int, world: int, out: str) -> None:
         if worst > 2 * DP_LR * 1.001:
             raise AssertionError(f"dp params {worst:.3e} off, above 2 lr")
         rec["param_max_abs"] = worst
+        # the ZeRO-3 runs' reference, on the host (the spawn's last runs)
+        zref = {"loss": loss1, "quant": one["quant"],
+                "grads": {k: g.to("cpu", copy=True)
+                          for k, g in one_grads.items()},
+                "params": {k: p.detach().to("cpu", copy=True)
+                           for k, p in p1.items()}}
         rec["quant_leaves"] = len(tree_leaves(st["quant"]))
         del p1
         rec["single_warm_ms"] = run(ts1, one)[3]
@@ -4846,8 +4880,351 @@ def _dp_rank(rank: int, world: int, out: str) -> None:
     rec["compress_warm_ms"] = run(ts, st)[3]
     rec.update(compress_loss=loss_c, compress_launches=counts_c,
                compress_step_ms=ms_c)
+    del st, ts
+    torch.cuda.empty_cache()
+    rec["zero3"] = _zero3_dp(rank, world, group, cfg, pol, batch, dev, zref)
     if rank == 0:
         Path(out).write_text(json.dumps(rec))
+
+
+def _one_step(cfg, pol, batch, dev, clip, group=None, step=0) -> dict:
+    """One AdamW step from seed 0 of the one-process program (with
+    ``group``, of the data-parallel step on replicated parameters; as
+    step ``step``, whose number keys the gradient sites' noise): its
+    loss, quant state and, on the host, the gradients handed to the
+    optimizer and the parameters after the step."""
+    from repro_torch.optim import Optimizer, adamw
+    from repro_torch.optim.schedules import constant
+    from repro_torch.runtime import steps
+
+    seen, base = {}, adamw()
+
+    def update(grads, state, params, lr):
+        seen["grads"] = {k: g.detach().cpu() for k, g in grads.items()}
+        return base.update(grads, state, params, lr)
+    opt = Optimizer(init=base.init, update=update)
+    st = steps.init_train_state(cfg, opt, pol, seed=0, device=dev)
+    st["step"] = step
+    st, met = steps.make_train_step(cfg, pol, opt, constant(DP_LR),
+                                    clip_norm=clip, group=group)(st, batch)
+    out = {"loss": float(met["loss"]), "quant": st["quant"],
+           "grads": seen["grads"],
+           "params": {k: p.detach().cpu()
+                      for k, p in st["params"].named_parameters()}}
+    del st
+    torch.cuda.empty_cache()
+    return out
+
+
+def _zero3_step(g, cfg, pol, batch, dev, clip) -> tuple:
+    """One AdamW step from seed 0 on a stored state (ZeRO-3:
+    ``sharding.store_state`` on the mesh ``g``): this rank's record (its
+    stored parameter and optimizer bytes beside the whole state's, the
+    step's peak GiB, the gathers' and reduce-scatters' host-clock ms over
+    gloo, the launches), its quant state, and on the host the gradients
+    handed to the optimizer and the parameters after the step, joined
+    whole over the mesh (``sharding.leaf_whole``)."""
+    from repro_torch.kernels import ops
+    from repro_torch.optim import Optimizer, adamw
+    from repro_torch.optim.schedules import constant
+    from repro_torch.runtime import sharding, steps
+
+    seen, base = {}, adamw()
+
+    def update(grads, state, params, lr):
+        seen["grads"] = {k: v.detach().clone() for k, v in grads.items()}
+        return base.update(grads, state, params, lr)
+    opt = Optimizer(init=base.init, update=update)
+    st = sharding.store_state(steps.init_train_state(cfg, opt, pol, seed=0,
+                                                     device=dev),
+                              g.coords, g.sizes)
+    torch.cuda.empty_cache()
+    named = dict(st["params"].named_parameters())
+    held = [*named.values(), *st["opt"]["m"].values(),
+            *st["opt"]["v"].values()]
+    rec = {"stored_bytes": sum(t.numel() * t.element_size() for t in held),
+           "whole_bytes": sum(math.prod(sharding.stored_of(t).leaf)
+                              * t.element_size() for t in held),
+           "gather_ms": 0.0, "gathers": 0, "scatter_ms": 0.0, "scatters": 0}
+    ts = steps.make_train_step(cfg, pol, opt, constant(DP_LR),
+                               clip_norm=clip, group=g.data,
+                               model_group=g.model)
+    real = sharding.gather_stored, sharding.scatter_stored
+
+    def timed(fn, key):
+        def run(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            rec[f"{key}_ms"] += (time.perf_counter() - t0) * 1e3
+            rec[f"{key}s"] += 1
+            return out
+        return run
+    sharding.gather_stored = timed(real[0], "gather")
+    sharding.scatter_stored = timed(real[1], "scatter")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        st, met = ts(st, batch)
+        torch.cuda.synchronize()
+    finally:
+        sharding.gather_stored, sharding.scatter_stored = real
+    rec.update(step_ms=(time.perf_counter() - t0) * 1e3,
+               loss=float(met["loss"]), launches=ops.launch_counts(),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    with torch.no_grad(), sharding.storage(g.data), \
+            sharding.model_parallel(g.model):
+        grads = {k: sharding.leaf_whole(sharding.tag_layout(
+            v, sharding.stored_of(named[k]))).cpu()
+            for k, v in seen.pop("grads").items()}
+        params = {k: sharding.leaf_whole(p).cpu() for k, p in named.items()}
+    quant = st["quant"]
+    del st, named, held
+    torch.cuda.empty_cache()
+    return rec, quant, grads, params
+
+
+def _zero3_against(rec: dict, quant, grads, params, ref: dict, what: str,
+                   exact: bool) -> None:
+    """A ZeRO-3 step against the one-process step ``ref``: the quant state
+    bit for bit where ``exact`` (the data axis), else phase 44's bars;
+    the loss within 1e-5 relative; the gradients within phase 40's bar
+    (``_grad_ratio`` at most 1) and 2**-7 relative L2; the parameters
+    after AdamW within 2 lr."""
+    from repro_torch.core.state import tree_leaves
+    if exact:
+        bad = sum(not torch.equal(a, b) for a, b in zip(
+            tree_leaves(quant), tree_leaves(ref["quant"])))
+        if bad:
+            raise AssertionError(f"{what}: {bad} quant leaves differ from "
+                                 f"the one-process step's")
+        rec["quant_leaves"] = len(tree_leaves(quant))
+    else:
+        rec.update(_quant_check(quant, ref["quant"], what))
+    rec["single_loss"] = ref["loss"]
+    rec["loss_rel"] = abs(rec["loss"] - ref["loss"]) / abs(ref["loss"])
+    rec["grad_ratio"] = _grad_ratio(grads, ref["grads"])
+    rec["grad_rel_l2"] = _grad_rel_l2(grads, ref["grads"])[0]
+    rec["param_max_abs"] = max(float((p - ref["params"][k]).abs().max())
+                               for k, p in params.items())
+    if rec["loss_rel"] > 1e-5:
+        raise AssertionError(f"{what}: loss {rec['loss']} vs one process "
+                             f"{ref['loss']}")
+    if (exact and rec["grad_ratio"] > 1.0) or \
+            rec["grad_rel_l2"][0] > 2 ** -7:
+        raise AssertionError(f"{what}: gradients {rec['grad_ratio']:.3f} x "
+                             f"phase 40's bound, {rec['grad_rel_l2']} rel L2 "
+                             f"off the one-process step's")
+    if rec["param_max_abs"] > 2 * DP_LR * 1.001:
+        raise AssertionError(f"{what}: params {rec['param_max_abs']:.3e} "
+                             f"off, above 2 lr")
+
+
+def _total_rel_l2(got: dict, want: dict) -> float:
+    """The relative L2 distance of the whole gradient, every tensor's
+    elements together."""
+    num = sum(float((got[k] - w).double().square().sum())
+              for k, w in want.items())
+    return math.sqrt(num / sum(float(w.double().square().sum())
+                               for w in want.values()))
+
+
+def _zero3_rounding(rec: dict, quant, grads, params, ref: dict,
+                    other: dict) -> dict:
+    """The distance of a data-parallel step (here ZeRO-3 with
+    ``int8_weight_gather``, whose fp GEMMs round a rank's half batch
+    otherwise than the whole) from the one-process step ``ref``.  A
+    bf16 ulp off moves the 8-bit images of the elements at a rounding
+    boundary by a whole level, so the gradients differ by quantization
+    noise, not by rounding: the bar is ``other``, the one-process step
+    under another noise draw (the gradient sites' stochastic rounding
+    keyed by another step number).  Held: each quant leaf within 2**-7
+    of its largest element (one bf16 ulp is 2**-8 to 2**-7 of a value),
+    the whole gradient (every tensor's elements together) no farther
+    from ``ref`` in relative L2 than ``other`` is, the AdamW parameters
+    within 2 lr; by leaf ``_grad_ratio``, the worst relative L2 and the
+    loss are reported.  The host's tensors are compared on the card."""
+    from repro_torch.core.state import tree_map_with_path
+
+    def card(d):
+        return {k: t.to("cuda") for k, t in d.items()}
+    grads, want, noise = card(grads), card(ref["grads"]), card(other["grads"])
+    params, want_p = card(params), card(ref["params"])
+    worst = {"act": 0.0, "grad": 0.0}
+    n = {"leaves": 0, "differ": 0}
+
+    def cmp(path, a, b):
+        n["leaves"] += 1
+        if torch.equal(a, b):
+            return
+        n["differ"] += 1
+        kind = "grad" if "grad" in path else "act"
+        d = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        worst[kind] = max(worst[kind], d)
+    tree_map_with_path(cmp, quant, ref["quant"])
+    out = {**n, "act_leaf_rel": worst["act"],
+           "grad_leaf_rel": worst["grad"],
+           "grad_ratio": _grad_ratio(grads, want),
+           "grad_total_rel_l2": _total_rel_l2(grads, want),
+           "noise_total_rel_l2": _total_rel_l2(noise, want),
+           "noise_grad_ratio": _grad_ratio(noise, want),
+           "grad_rel_l2": _grad_rel_l2(grads, want)[0],
+           "param_max_abs": max(float((p - want_p[k]).abs().max())
+                                for k, p in params.items()),
+           "loss_rel": abs(rec["loss"] - ref["loss"]) / abs(ref["loss"])}
+    if max(worst.values()) > 2 ** -7 or \
+            out["grad_total_rel_l2"] > out["noise_total_rel_l2"] or \
+            out["param_max_abs"] > 2 * DP_LR * 1.001:
+        raise AssertionError(f"zero3 on: off the one-process step by more "
+                             f"than rounding: {out}")
+    return out
+
+
+def _zero3_save(g, cfg, pol, dev, rank) -> dict:
+    """A fresh stored state saved from its shares
+    (``checkpoint.save(..., groups=)``, the whole-leaf format), restored
+    in one process on rank 0 into the one-process state's layout and held
+    against that state leaf for leaf, bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch import checkpoint
+    from repro_torch.core.state import tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding, steps
+
+    ck = OUT_DIR / "zero3_ckpt"
+    if rank == 0:
+        shutil.rmtree(ck, ignore_errors=True)
+    dist.barrier(g.data)
+    st = sharding.store_state(steps.init_train_state(cfg, adamw(), pol,
+                                                     seed=0, device=dev),
+                              g.coords, g.sizes)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    checkpoint.save(str(ck), 0, st, groups=g)
+    out = {"save_ms": (time.perf_counter() - t0) * 1e3}
+    del st
+    torch.cuda.empty_cache()
+    if rank == 0:
+        one = steps.init_train_state(cfg, adamw(), pol, seed=0, device=dev)
+        t0 = time.perf_counter()
+        back = checkpoint.restore(str(ck), 0, one)
+        out["restore_ms"] = (time.perf_counter() - t0) * 1e3
+        pairs = list(zip(back["params"].parameters(),
+                         one["params"].parameters()))
+        pairs += [(back["opt"][m][k], t) for m in ("m", "v")
+                  for k, t in one["opt"][m].items()]
+        pairs += list(zip(tree_leaves(back["quant"]),
+                          tree_leaves(one["quant"])))
+        bad = sum(not torch.equal(a, b) for a, b in pairs)
+        if bad or back["step"] != one["step"] or \
+                back["opt"]["count"] != one["opt"]["count"]:
+            raise AssertionError(f"zero3 save: {bad} of {len(pairs)} "
+                                 f"leaves differ from the one-process "
+                                 f"state")
+        out["leaves"] = len(pairs)
+        out["bytes"] = sum(f.stat().st_size for f in ck.rglob("*")
+                           if f.is_file())
+        del one, back, pairs
+        shutil.rmtree(ck, ignore_errors=True)
+        torch.cuda.empty_cache()
+    dist.barrier(g.data)
+    return out
+
+
+def _zero3_dp(rank: int, world: int, group, cfg, pol, batch, dev,
+              ref_off) -> dict:
+    """Phase 40's ZeRO-3 runs (in its 2-rank spawn): a save from shares,
+    then the stored state's step with ``int8_weight_gather`` off (the
+    fused kernels), against the one-process step (``ref_off``, the
+    spawn's own, on rank 0), and on.  The flag routes the products onto
+    the fp path, whose GEMMs pick their algorithm by shape: a rank's
+    half batch rounds otherwise than the whole batch in one process, so
+    the flag's step is held against the data-parallel step on
+    replicated parameters (the same shapes a rank), the layout ZeRO-3
+    replaces; its distance from the one-process step with the flag is
+    measured and held to a rounding bar (:func:`_zero3_rounding`)."""
+    from repro_torch.launch import mesh
+
+    g = mesh.MeshGroups(group, None, {"data": rank, "model": 0},
+                        {"data": world, "model": 1})
+    out = {"save": _zero3_save(g, cfg, pol, dev, rank)}
+    for tag, p in (("off", pol),
+                   ("on", dataclasses.replace(pol, int8_weight_gather=True))):
+        ref = ref_off if tag == "off" else _one_step(cfg, p, batch, dev,
+                                                     None, group)
+        rec, quant, grads, params = _zero3_step(g, cfg, p, batch, dev, None)
+        if rank == 0:
+            _zero3_against(rec, quant, grads, params, ref, f"zero3 {tag}",
+                           exact=True)
+        del ref
+        torch.cuda.empty_cache()
+        if tag == "on" and rank == 0:
+            rec["vs_one"] = _zero3_rounding(
+                rec, quant, grads, params, _one_step(cfg, p, batch, dev, None),
+                _one_step(cfg, p, batch, dev, None, step=1))
+        del quant, grads, params
+        torch.cuda.empty_cache()
+        out[tag] = rec
+    if not all(out["off"]["launches"][k] > 0 for k in TRAIN_KERNELS):
+        raise AssertionError(f"zero3: a kernel of the path never launched: "
+                             f"{out['off']['launches']}")
+    return out
+
+
+def _zero3_ep_rank(rank: int, world: int, out: str) -> None:
+    """Phase 44's ZeRO-3 run (in its (2, 2) spawn): reduced
+    qwen2-moe-a2.7b's stored state on (2, 2), expert parallelism on the
+    model axis (the reference SPMD test's layout), one step against the
+    one-process step on rank 0 with phase 44's bars."""
+    import torch.distributed as dist
+
+    from repro_torch import configs, data
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.launch import mesh
+
+    dev = torch.device("cuda")
+    g = mesh.mesh_groups(2, world // 2)
+    cfg = configs.get_reduced(MOE_ARCH)
+    pol = QuantPolicy.w8a8g8(backend="fused")
+    batch = {k: v.to(dev) for k, v in data.for_arch(
+        cfg, seq_len=32, global_batch=4, seed=0).batch(0).items()}
+    rec, quant, grads, params = _zero3_step(g, cfg, pol, batch, dev, 1.0)
+    rec["rank"] = rank
+    if rank == 0:
+        _zero3_against(rec, quant, grads, params,
+                       _one_step(cfg, pol, batch, dev, 1.0), "zero3 ep",
+                       exact=False)
+    Path(f"{out}.r{rank}.json").write_text(json.dumps(rec))
+    dist.barrier()
+
+
+def _tp_reduced_rank(rank: int, world: int, *args) -> None:
+    """One rank of phase 44's (2, 2) spawn: the model-axis step
+    (:func:`_tp_train_rank`), then its ZeRO-3 counterpart
+    (:func:`_zero3_ep_rank`)."""
+    _tp_train_rank(rank, world, *args)
+    _zero3_ep_rank(rank, world, f"{args[-1]}.zero3")
+
+
+def _zero3_log(what: str, r: dict, dp_peak: float, dp_bytes: int) -> None:
+    log("zero3", f"{what}: stored {r['stored_bytes'] / 2 ** 30:.3f} GiB of "
+                 f"parameters and AdamW moments a rank ("
+                 f"{r['stored_bytes'] / r['whole_bytes']:.3f} of the "
+                 f"replicated rank's {dp_bytes / 2 ** 30:.3f} GiB); step peak "
+                 f"{r['peak_gib']:.2f} GiB a rank (replicated DP "
+                 f"{dp_peak:.2f} GiB); loss {r['loss']:.7f} vs "
+                 f"{r['single_loss']:.7f}; gradients within "
+                 f"{r['grad_ratio']:.4f} x phase 40's bound "
+                 f"({r['grad_rel_l2'][0]:.3e} rel L2 at worst), AdamW params "
+                 f"within {r['param_max_abs']:.3e} (<= 2 lr); step (host "
+                 f"clock) {r['step_ms']:.1f} ms, of which {r['gathers']} "
+                 f"gathers {r['gather_ms']:.1f} ms and {r['scatters']} "
+                 f"reduce-scatters {r['scatter_ms']:.1f} ms (gloo, host "
+                 f"copies); launches {r['launches']}")
 
 
 def dp_train_phase(records) -> dict:
@@ -4879,8 +5256,44 @@ def dp_train_phase(records) -> dict:
                     f"{rec['compress_launches']['stochastic_quantize']} "
                     f"launches, step first {rec['compress_step_ms']:.1f} "
                     f"ms, warm {rec['compress_warm_ms']:.1f} ms")
+    z = rec["zero3"]
+    log("zero3", f"save from the 2 ranks' shares: {z['save']['leaves']} "
+                 f"leaves ({z['save']['bytes'] / 2 ** 30:.2f} GiB) restored "
+                 f"in one process bit for bit the one-process state; save "
+                 f"{z['save']['save_ms']:.0f} ms, restore "
+                 f"{z['save']['restore_ms']:.0f} ms (host clock)")
+    for tag, what in (("off", "int8_weight_gather off (the fused kernels; "
+                              "against one process)"),
+                      ("on", "int8_weight_gather on (the int8 image "
+                             "gathered; against the replicated DP step)")):
+        _zero3_log(f"starcoder2-3b full width, {DP_LAYERS} layers, {BATCH} "
+                   f"x {PROMPT} on (2, 1), {what}; quant state "
+                   f"({z[tag]['quant_leaves']} leaves) bit for bit",
+                   z[tag], rec["dp_peak_gib"], rec["dp_state_bytes"])
+        if tag == "on":
+            v = z[tag]["vs_one"]
+            log("zero3", f"int8_weight_gather on, against the one-process "
+                         f"step with the flag: {v['differ']} of "
+                         f"{v['leaves']} quant leaves differ, by at most "
+                         f"{v['act_leaf_rel']:.3e} (activation sites) and "
+                         f"{v['grad_leaf_rel']:.3e} (gradient sites) of "
+                         f"the leaf's largest element (bar 2**-7); the "
+                         f"whole gradient {v['grad_total_rel_l2']:.3e} rel "
+                         f"L2 (bar: another noise draw of the one-process "
+                         f"step, {v['noise_total_rel_l2']:.3e}), by leaf "
+                         f"{v['grad_ratio']:.4f} x phase 40's bound "
+                         f"(another draw {v['noise_grad_ratio']:.4f} x) "
+                         f"and {v['grad_rel_l2'][0]:.3e} rel L2 at worst "
+                         f"({v['grad_rel_l2'][1]}); AdamW params within "
+                         f"{v['param_max_abs']:.3e} (<= 2 lr); loss "
+                         f"{v['loss_rel']:.3e} relative")
+        if z[tag]["peak_gib"] >= rec["dp_peak_gib"] or \
+                z[tag]["stored_bytes"] >= rec["dp_state_bytes"]:
+            raise AssertionError(f"zero3 {tag}: a rank holds no less than "
+                                 f"the replicated DP rank")
     for r in records:
         r["dp_train_launches"] = rec["launches"][r["name"]]
+        r["zero3_launches"] = z["off"]["launches"][r["name"]]
     return rec
 
 
@@ -5459,7 +5872,7 @@ def tp_train_phase(records, results) -> None:
     for tag, (d, m), reduced, layers, b, s in TP_TRAIN_RUNS:
         out = OUT_DIR / f"tp_train_{tag}"
         if (d, m) != (1, TP_SIZE):     # (1, 2) ran in the pair spawn
-            mesh.spawn_ranks(_tp_train_rank, d * m, OUT_DIR / "store",
+            mesh.spawn_ranks(_tp_reduced_rank, d * m, OUT_DIR / "store",
                              backend="gloo",
                              args=(d, m, MOE_ARCH, reduced, layers, b, s,
                                    str(out)))
@@ -5503,6 +5916,25 @@ def tp_train_phase(records, results) -> None:
         if tag == "full":
             for rr in records:
                 rr["tp_train_launches"] = counts[rr["name"]]
+            continue
+        zs = [json.loads(Path(f"{out}.zero3.r{r}.json").read_text())
+              for r in range(d * m)]
+        z0 = zs[0]
+        fracs = [round(z["stored_bytes"] / z["whole_bytes"], 3) for z in zs]
+        results["tp_train"]["zero3"] = zs
+        log("zero3", f"{MOE_ARCH} reduced on ({d}, {m}), ZeRO-3 with expert "
+                     f"parallelism, {b} x {s}: {z0['act_leaves']} activation "
+                     f"leaves bit for bit, {z0['grad_leaves']} gradient "
+                     f"leaves within {z0['grad_leaf_rel']:.3e}, loss "
+                     f"{z0['loss_rel']:.2e} rel, clipped gradients "
+                     f"{z0['grad_rel_l2'][0]:.3e} rel L2 at worst (<= "
+                     f"2**-7), AdamW params within "
+                     f"{z0['param_max_abs']:.3e}; stored "
+                     f"{fracs} "
+                     f"of the whole state a rank; {z0['gathers']} gathers "
+                     f"{z0['gather_ms']:.1f} ms, {z0['scatters']} "
+                     f"reduce-scatters {z0['scatter_ms']:.1f} ms (gloo); "
+                     f"launches {z0['launches']}")
 
 def _pair_rank(rank: int, world: int, jobs: tuple, out: str) -> None:
     """One rank of the pair spawn (phases 43-46, the (1, 2) runs): each
@@ -5954,6 +6386,99 @@ def _pad_serve_rank(rank: int, world: int, out: str) -> None:
     dist.barrier()
 
 
+def _uneven_serve_rank(rank: int, world: int, out: str) -> None:
+    """One rank of phase 48's uneven-expert run (in the 8-rank spawn):
+    qwen2-moe-a2.7b at full width, ``UNEVEN_LAYERS`` layer(s), on (1,
+    world): its 60 experts in ``split_range``'s shares (8 on ranks 0-6, 4
+    on rank 7), its vocabulary even; a ``BATCH`` x ``PROMPT`` prefill
+    with its statistics and ``UNEVEN_GEN`` greedy decode steps, then on
+    rank 0 the one-process program on the same parameters: statistics
+    bit for bit, tokens identical."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh
+    from repro_torch.models import model
+    from repro_torch.runtime import sharding, steps
+
+    dev = torch.device("cuda")
+    g = mesh.mesh_groups(1, world)
+    cfg = dataclasses.replace(configs.get(MOE_ARCH), n_layers=UNEVEN_LAYERS)
+    pol = QuantPolicy.w8a8g8(backend="fused")
+    prompt = _prompt(cfg, BATCH, PROMPT, dev)
+    quant = model.init_quant_state(cfg, pol, device=dev)
+
+    def serve(params, group) -> dict:
+        prefill = steps.make_prefill_step(cfg, pol,
+                                          cache_len=PROMPT + UNEVEN_GEN,
+                                          model_group=group,
+                                          return_stats=True)
+        decode = steps.make_decode_step(cfg, pol, model_group=group)
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches, stats = prefill(params, quant, {"tokens": prompt})
+        torch.cuda.synchronize()
+        res = {"prefill_ms": (time.perf_counter() - t0) * 1e3,
+               "stats": _host_tree(stats), "logits": [logits.float().cpu()]}
+        toks = [logits.argmax(-1)[:, None]]
+        t0 = time.perf_counter()
+        for i in range(UNEVEN_GEN):
+            pos = torch.full((BATCH,), PROMPT + i, dtype=torch.int64,
+                             device=dev)
+            lg, caches = decode(params, quant, {"token": toks[-1],
+                                                "pos": pos}, caches)
+            res["logits"].append(lg.float().cpu())
+            toks.append(lg.argmax(-1)[:, None])
+        torch.cuda.synchronize()
+        res.update(decode_ms=(time.perf_counter() - t0) * 1e3,
+                   tokens=torch.cat(toks, dim=1).cpu(),
+                   launches=ops.launch_counts(),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        return res
+
+    full = model.init_params(cfg, seed=0, device=dev)
+    params = sharding.shard_params(full, g.coords, g.sizes)
+    del full
+    torch.cuda.empty_cache()
+    got = serve(params, g.model)
+    rec = {"rank": rank, "experts": int(params["decoder"]["layers"][0]["moe"]
+                                        ["w_up"].shape[0]),
+           "vocab_rows": int(params["embed"].shape[0]),
+           **{k: got[k] for k in ("launches", "prefill_ms", "decode_ms",
+                                  "peak_gib")}}
+    del params
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        one = serve(model.init_params(cfg, seed=0, device=dev), None)
+        torch.cuda.empty_cache()
+        bad = [p for p, t in one["stats"].items()
+               if not torch.equal(got["stats"][p], t)]
+        if bad:
+            raise AssertionError(f"uneven serve: {len(bad)} prefill "
+                                 f"statistics leaves differ from one "
+                                 f"process's, e.g. {bad[:3]}")
+        if not torch.equal(got["tokens"], one["tokens"]):
+            raise AssertionError("uneven serve: greedy tokens differ from "
+                                 "one process's")
+        rec.update(stat_leaves=len(one["stats"]),
+                   logits_rel_l2=max(_rel_l2(a, b) for a, b in zip(
+                       got["logits"], one["logits"])),
+                   single_prefill_ms=one["prefill_ms"],
+                   single_decode_ms=one["decode_ms"],
+                   single_peak_gib=one["peak_gib"],
+                   tokens=got["tokens"].tolist())
+        del one
+    Path(f"{out}.r{rank}.json").write_text(json.dumps(rec))
+    del got
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+
 def _seq_pad_rank(rank: int, world: int, phases: tuple, out: str) -> None:
     """One rank of phases 47-48, one spawn: phase 47's train step on the
     sequence-parallel core, then phase 48's padded serve run
@@ -5968,6 +6493,7 @@ def _seq_pad_rank(rank: int, world: int, phases: tuple, out: str) -> None:
         _pad_serve_rank(rank, world, f"{out}.serve")
         _tp_train_rank(rank, world, 1, world, SEQ_ARCH, False, PAD_LAYERS, 1,
                        PAD_TRAIN_SEQ, f"{out}.train", True)
+        _uneven_serve_rank(rank, world, f"{out}.uneven")
 
 
 def _train_log(tag: str, what: str, r0: dict, recs: list) -> None:
@@ -6112,6 +6638,35 @@ def seq_pad_phases(phases: tuple, records, results, clock) -> None:
     for r in records:
         r["pad_serve_launches"] = s0["launches"].get(r["name"], 0)
         r["pad_train_launches"] = train[0]["launches"].get(r["name"], 0)
+    uneven = [json.loads(Path(f"{out}.uneven.r{r}.json").read_text())
+              for r in range(SEQ_SIZE)]
+    u0 = uneven[0]
+    results["uneven"] = uneven
+    experts = [r["experts"] for r in uneven]
+    from repro_torch.runtime import sharding
+    if experts != [sharding.split_range(60, SEQ_SIZE, r)[1]
+                   for r in range(SEQ_SIZE)]:
+        raise AssertionError(f"uneven serve: experts a rank {experts}")
+    for k in SERVE_KERNELS:
+        if not u0["launches"][k]:
+            raise AssertionError(f"uneven serve: {k} never launched: "
+                                 f"{u0['launches']}")
+    log("uneven", f"{MOE_ARCH} full width, {UNEVEN_LAYERS} layer on (1, "
+                  f"{SEQ_SIZE}): experts a rank {experts}, vocabulary rows "
+                  f"a rank {[r['vocab_rows'] for r in uneven]}; {BATCH} x "
+                  f"{PROMPT} prefill and {UNEVEN_GEN} greedy decode steps: "
+                  f"{u0['stat_leaves']} prefill statistics leaves bit for "
+                  f"bit, tokens identical, logits {u0['logits_rel_l2']:.3e} "
+                  f"rel L2 at worst; int8_matmul_fp launches by rank "
+                  f"{[r['launches']['int8_matmul_fp'] for r in uneven]}; "
+                  f"prefill {u0['prefill_ms']:.1f} ms, decode "
+                  f"{u0['decode_ms']:.1f} ms on rank 0 (gloo host copies "
+                  f"included) vs {u0['single_prefill_ms']:.1f} / "
+                  f"{u0['single_decode_ms']:.1f} ms one process; peak "
+                  f"{max(r['peak_gib'] for r in uneven):.2f} GiB a rank vs "
+                  f"{u0['single_peak_gib']:.2f} GiB")
+    for r in records:
+        r["uneven_serve_launches"] = u0["launches"].get(r["name"], 0)
 
 
 def _cell_window(cfg) -> int:

@@ -36,6 +36,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.param_tree import ParamTree
+from repro_torch.runtime import sharding
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 
@@ -70,18 +71,45 @@ def _step_dir(ckpt_dir: str, step: int) -> str:
     return os.path.join(ckpt_dir, f"step_{int(step):010d}")
 
 
-def save(ckpt_dir: str, step: int, tree: Any, keep_last: int = 3) -> str:
+def save(ckpt_dir: str, step: int, tree: Any, keep_last: int = 3, *,
+         groups=None) -> str:
     """Atomically write ``tree`` as ``<ckpt_dir>/step_<step>``; returns
-    that directory."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    that directory.
+
+    ``groups`` (``launch.mesh.MeshGroups``: ``.data``, ``.model``): a
+    rank's stored state (``sharding.store_state``, ZeRO-3).  Every rank
+    of the mesh calls ``save``; each leaf is gathered whole over its
+    storage groups and its model split, one leaf at a time, and the rank
+    at the mesh's origin writes the whole-leaf format the reference
+    writes after its ``device_get``; the others return once it has."""
+    mesh = [] if groups is None else \
+        [g for g in (groups.model, groups.data) if g is not None]
+    lead = True
+    if mesh:
+        import torch.distributed as dist
+        lead = all(dist.get_rank(g) == 0 for g in mesh)
     arrays, manifest = {}, {"step": int(step), "leaves": []}
     for i, (path, leaf) in enumerate(_flatten(tree)):
+        if isinstance(leaf, torch.Tensor) and \
+                sharding.stored_of(leaf) is not None:
+            if groups is None:
+                raise ValueError(f"{path} is a stored share: save it with "
+                                 f"the mesh's groups")
+            with sharding.storage(groups.data), \
+                    sharding.model_parallel(groups.model):
+                leaf = sharding.leaf_whole(leaf)
+        if not lead:
+            continue
         key = f"leaf_{i:05d}"
         arr = _to_numpy(leaf)
         arrays[key] = arr
         manifest["leaves"].append({"key": key, "path": path,
                                    "shape": list(arr.shape),
                                    "dtype": str(arr.dtype)})
+    if not lead:
+        _mesh_barrier(mesh)
+        return _step_dir(ckpt_dir, step)
+    os.makedirs(ckpt_dir, exist_ok=True)
 
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_")
     try:
@@ -97,7 +125,17 @@ def save(ckpt_dir: str, step: int, tree: Any, keep_last: int = 3) -> str:
         raise
 
     _prune(ckpt_dir, keep_last)
+    _mesh_barrier(mesh)
     return final
+
+
+def _mesh_barrier(groups: list) -> None:
+    """Every rank of the mesh past the lead rank's write: the model group
+    first, then the data group (a rank's data peers have each passed
+    their model barrier with the lead's row)."""
+    import torch.distributed as dist
+    for g in groups:
+        dist.barrier(group=g)
 
 
 def _prune(ckpt_dir: str, keep_last: int):
@@ -173,6 +211,8 @@ def _rebuild(template, path: str, load, shard=None):
                          for name in template._names})
         for p_new, p_old in zip(new.parameters(), template.parameters()):
             p_new.requires_grad_(p_old.requires_grad)
+            if sharding.stored_of(p_old) is not None:
+                sharding.tag_layout(p_new, sharding.stored_of(p_old))
         return new
     kids = _children(template)
     if kids is None:
@@ -194,7 +234,7 @@ def _plain(module, path: str, load, shard=None):
     if isinstance(module, nn.ModuleList):
         return [_plain(m, _join(path, i), load, _sub(shard, str(i)))
                 for i, m in enumerate(module)]
-    return load(path, module.detach(), shard)
+    return load(path, module, shard)
 
 
 def _join(path: str, key) -> str:
@@ -210,16 +250,21 @@ def restore(ckpt_dir: str, step: int, template: Any,
     ``template`` (``runtime.sharding.named``; parameter trees keyed by
     dotted names): each tensor is placed with ``distribute_tensor`` on
     that mesh instead, an elastic restore onto another mesh than the
-    writer's.  Raises ``KeyError`` for a leaf the checkpoint lacks and
-    ``ValueError`` for a shape that differs from the template's."""
+    writer's.  A template leaf that is a stored share
+    (``sharding.store_state``, ZeRO-3) takes the rank's share of the
+    whole leaf, its layout recorded.  Raises ``KeyError`` for a leaf the
+    checkpoint lacks and ``ValueError`` for a shape that differs from the
+    template's (a stored share's: from its whole leaf's)."""
     by_path = load_arrays(ckpt_dir, step)
 
     def load(path, leaf, placed):
         if path not in by_path:
             raise KeyError(f"checkpoint missing leaf {path!r}")
         arr = by_path[path]
-        want = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) \
-            else np.shape(leaf)
+        st = sharding.stored_of(leaf) if isinstance(leaf, torch.Tensor) \
+            else None
+        want = st.leaf if st is not None else tuple(leaf.shape) \
+            if isinstance(leaf, torch.Tensor) else np.shape(leaf)
         if tuple(arr.shape) != want:
             raise ValueError(f"{path}: checkpoint shape {arr.shape} != "
                              f"template {want}")
@@ -231,9 +276,10 @@ def restore(ckpt_dir: str, step: int, template: Any,
             t = torch.from_numpy(arr).to(device=mesh.device_type,
                                          dtype=leaf.dtype)
             return distribute_tensor(t, mesh, list(placements))
-        return torch.from_numpy(arr).to(
+        t = torch.from_numpy(arr).to(
             device=leaf.device if device is None else device,
             dtype=leaf.dtype)
+        return t if st is None else sharding.store_leaf(t, st)
 
     return _rebuild(template, "", load, shardings)
 

@@ -249,9 +249,9 @@ def site_quantize(policy, x: torch.Tensor, leaf: torch.Tensor, step, *,
     else:
         xf = canonical(x)
         obs = _global_minmax(cfg, leaf, tele, xf)
-        used_qmin, used_qmax = estimators.ranges(cfg, leaf, xf, spec, step,
-                                                 telemetry=tele,
-                                                 observed=obs)
+        used_qmin, used_qmax = estimators.ranges(
+            cfg, leaf, xf, spec, step, telemetry=tele, observed=obs,
+            split_model=model_dim is not None)
         xq, q, mn, mx = _quantizer_fwd(x, used_qmin, used_qmax, spec,
                                        fused=False)
         obs = (mn, mx) if obs is None else obs
@@ -341,9 +341,9 @@ def grad_quantize(policy, g: torch.Tensor, leaf: torch.Tensor, seed: int,
             cfg, spec, g, gf, leaf, step, tele, noise)
     else:
         obs = _global_minmax(cfg, leaf, tele, gf)
-        used_qmin, used_qmax = estimators.ranges(cfg, leaf, gf, spec, step,
-                                                 telemetry=tele,
-                                                 observed=obs)
+        used_qmin, used_qmax = estimators.ranges(
+            cfg, leaf, gf, spec, step, telemetry=tele, observed=obs,
+            split_model=model_dim is not None)
         gq = quant.fake_quant_raw(gf, used_qmin, used_qmax, spec,
                                   noise).to(g.dtype)
     if g.numel() == 0:

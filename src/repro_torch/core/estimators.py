@@ -27,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.runtime import sharding
 from repro_torch.telemetry import config as tc
 from repro_torch.telemetry import guard
 
@@ -78,23 +79,49 @@ def _const(v: float, like: torch.Tensor) -> torch.Tensor:
 _GOLDEN = 0.6180339887498949
 
 
-def dsgc_search(x: torch.Tensor, spec: quant.QuantSpec, iters: int = 20
+def dsgc_search(x: torch.Tensor, spec: quant.QuantSpec, iters: int = 20,
+                split_model: bool = False
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Golden-section search for the clipping value ``c`` minimizing
-    ``1 - cos(x, Q(x; -c, c))`` on ``c in [0.05, 1] * max|x|``."""
-    xf = x.to(torch.float32)
-    amax = xf.abs().max().clamp(min=1e-8)
-    det_spec = dataclasses.replace(spec, stochastic=False)
+    ``1 - cos(x, Q(x; -c, c))`` on ``c in [0.05, 1] * max|x|``.
 
-    def objective(c):
-        y = quant.fake_quant_raw(xf, -c, c, det_spec)
-        return quant.cosine_distance(xf, y)
+    ``x`` may be a rank's piece of the tensor: its rows under data
+    parallelism (``sharding.data_parallel``), and its model shard where
+    ``split_model`` (a site with a model dim).  The search then runs over
+    the whole tensor: ``max|x|`` a max over those groups (exact), and the
+    objective's three sums (x.y, |x|^2, |y|^2) partials summed over them,
+    both probes' in one all_reduce an iteration.  Outside a group it is
+    the one-process search, op for op."""
+    xf = x.to(torch.float32)
+    groups = sharding.site_groups(split_model)
+    det_spec = dataclasses.replace(spec, stochastic=False)
+    if not groups:
+        amax = xf.abs().max().clamp(min=1e-8)
+
+        def both(m1, m2):
+            return tuple(quant.cosine_distance(
+                xf, quant.fake_quant_raw(xf, -c, c, det_spec))
+                for c in (m1, m2))
+    else:
+        amax = sharding.group_max(xf.abs().max() if xf.numel() else
+                                  xf.new_zeros(()), groups).clamp(min=1e-8)
+        flat = xf.reshape(-1)
+
+        def both(m1, m2):
+            parts = []
+            for c in (m1, m2):
+                y = quant.fake_quant_raw(xf, -c, c, det_spec).reshape(-1)
+                parts += [torch.dot(flat, y), torch.dot(flat, flat),
+                          torch.dot(y, y)]
+            s = sharding.group_sum(torch.stack(parts), groups)
+            return tuple(quant.cosine_from_sums(*s[i:i + 3])
+                         for i in (0, 3))
 
     lo, hi = 0.05 * amax, amax
     for _ in range(iters):
         m1 = hi - _GOLDEN * (hi - lo)
         m2 = lo + _GOLDEN * (hi - lo)
-        f1, f2 = objective(m1), objective(m2)
+        f1, f2 = both(m1, m2)
         lo, hi = torch.where(f1 < f2, lo, m1), torch.where(f1 < f2, m2, hi)
     c = 0.5 * (lo + hi)
     return -c, c
@@ -106,10 +133,12 @@ def dsgc_search(x: torch.Tensor, spec: quant.QuantSpec, iters: int = 20
 def ranges(cfg: EstimatorConfig, leaf: torch.Tensor, x: torch.Tensor,
            spec: quant.QuantSpec, step: Optional[int] = None,
            telemetry=None,
-           observed: Optional[tuple[torch.Tensor, torch.Tensor]] = None
+           observed: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+           split_model: bool = False
            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Return the (qmin, qmax) the estimator prescribes for ``x``.  With
-    ``observed`` given, no reduction of ``x`` runs."""
+    ``observed`` given, no reduction of ``x`` runs.  ``split_model``:
+    ``x`` is a model rank's shard (:func:`dsgc_search`)."""
     inited = leaf[INITED] > 0.5
     if cfg.kind == FIXED:
         return _const(cfg.fixed_min, leaf), _const(cfg.fixed_max, leaf)
@@ -140,7 +169,7 @@ def ranges(cfg: EstimatorConfig, leaf: torch.Tensor, x: torch.Tensor,
     if cfg.kind == DSGC:
         step = 0 if step is None else int(step)
         if not bool(inited) or step % cfg.dsgc_interval == 0:
-            return dsgc_search(x, spec, cfg.dsgc_iters)
+            return dsgc_search(x, spec, cfg.dsgc_iters, split_model)
         return leaf[QMIN], leaf[QMAX]
 
     raise ValueError(cfg.kind)

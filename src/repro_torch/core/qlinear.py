@@ -42,58 +42,79 @@ from .state import INITED, QMAX, QMIN, init_range_state, tree_map, \
 # Q_W: weight quantizer — current min-max, no state.
 # ---------------------------------------------------------------------------
 def quantize_weight(w: torch.Tensor, policy: QuantPolicy,
-                    sharded: bool = False) -> torch.Tensor:
+                    sharded: bool = False, transpose: bool = False
+                    ) -> torch.Tensor:
     """On-grid weight values (fp32; ``w`` itself when not quantized)."""
-    wq, wqt = quantize_weight_q(w, policy, sharded)
+    wq, wqt = quantize_weight_q(w, policy, sharded, transpose)
     if wq is None:
         wq = backend.dequantize_qtensor(wqt)
     return wq
 
 
 def quantize_weight_q(w: torch.Tensor, policy: QuantPolicy,
-                      sharded: bool = False
+                      sharded: bool = False, transpose: bool = False
                       ) -> tuple[Optional[torch.Tensor], Optional[QTensor]]:
     """``(w, None)`` when weights are not quantized, else ``(wq,
     qtensor)``.  ``wq`` (on-grid values with the clipped-STE gradient) is
     ``None`` unless a gradient of ``w`` is being recorded: an inference
     contraction reads the int8 image only and never materializes them.
     ``sharded``: ``w`` is a model rank's shard, quantized on the whole
-    weight's range."""
+    weight's range.  ``transpose``: the weight is ``w.T`` (a tied head
+    reads ``embed``).
+
+    A stored leaf (``sharding.stored_of``, ZeRO-3) is gathered here, at
+    its use: with ``int8_weight_gather`` its share is quantized on the
+    whole weight's (min, max) and the int8 image moves
+    (:class:`_GatheredSTE`); otherwise the fp share is gathered
+    (``sharding.unstore``) and the whole quantized as before.  Either
+    way the gradient is reduce-scattered onto the share."""
     if not (policy.enabled and policy.quantize_weights):
-        return w, None
+        w = sharding.unstore(w)
+        return (w.T if transpose else w), None
     if policy.int8_weight_gather and policy.weight_spec.bits <= 8:
-        mn, mx = quant.tensor_minmax(w.detach())
-        if sharded:
+        st = sharding.stored_of(w)
+        if st is not None and not st.axes:
+            st = None
+        mn, mx = sharding.stored_minmax(*quant.tensor_minmax(w.detach()), st)
+        if sharded and "model" not in getattr(st, "axes", ()):
             mn, mx = sharding.mp_minmax(mn, mx)
-        return _GatheredSTE.apply(w, mn, mx, policy.weight_spec), None
-    return backend.weight_quantize(policy, w, sharded)
+        y = _GatheredSTE.apply(w, mn, mx, policy.weight_spec, st)
+        return (y.T if transpose else y), None
+    w = sharding.unstore(w)
+    return backend.weight_quantize(policy, w.T if transpose else w, sharded)
 
 
 class _GatheredSTE(torch.autograd.Function):
-    """The weight's fake-quant whose int8 image is pinned replicated
-    (:func:`sharding.replicate_hint`) before it is dequantized: under a
-    ZeRO-3 layout the weight all-gather then moves the 1-byte tensor (the
-    reference's ``_fake_quant_ste_gathered``).  Numerically the
+    """The weight's fake-quant whose int8 image is gathered before it is
+    dequantized (the reference's ``_fake_quant_ste_gathered``): a stored
+    share (``st``, ZeRO-3) is quantized on the whole weight's range, its
+    1-byte image all-gathered into the compute shard's
+    (``sharding.gather_stored``), and the gradient reduce-scattered onto
+    the share (``sharding.scatter_stored``); a replicated weight's image
+    is only pinned (:func:`sharding.replicate_hint`).  Numerically the
     fake-quant; the clipped STE backward (gradient masked to the grid's
-    ``[lo, hi]``).  With parameters replicated (a data-only mesh) the
-    gather is the identity."""
+    ``[lo, hi]``, on the share: the mask is elementwise)."""
 
     @staticmethod
-    def forward(ctx, x, qmin, qmax, spec):
+    def forward(ctx, x, qmin, qmax, spec, st=None):
         q = quant.quantize(x, qmin, qmax, spec).to(spec.storage_dtype)
-        q = sharding.replicate_hint(q)
+        q = sharding.replicate_hint(q) if st is None else \
+            sharding.gather_stored(q, st)
         y = quant.dequantize(q, qmin, qmax, spec).to(x.dtype)
         scale, zp = quant.scale_zero_point(qmin, qmax, spec)
         lo = (spec.int_min - zp) * scale
         hi = (spec.int_max - zp) * scale
         xf = x.detach().to(torch.float32)
         ctx.save_for_backward(torch.logical_and(xf >= lo, xf <= hi))
+        ctx.st = st
         return y
 
     @staticmethod
     def backward(ctx, g):
         (mask,) = ctx.saved_tensors
-        return torch.where(mask, g, 0.0).to(g.dtype), None, None, None
+        if ctx.st is not None:
+            g = sharding.scatter_stored(g, ctx.st).to(g.dtype)
+        return torch.where(mask, g, 0.0).to(g.dtype), None, None, None, None
 
 
 # ---------------------------------------------------------------------------

@@ -183,3 +183,11 @@ def cosine_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     num = torch.dot(af, bf)
     den = (torch.linalg.norm(af) * torch.linalg.norm(bf)).clamp(min=_EPS)
     return 1.0 - num / den
+
+
+def cosine_from_sums(dot: torch.Tensor, sq_a: torch.Tensor,
+                     sq_b: torch.Tensor) -> torch.Tensor:
+    """1 - cos(a, b) from the sums ``a.b``, ``|a|^2`` and ``|b|^2`` (the
+    DSGC objective of a tensor whose pieces sum them on several ranks)."""
+    den = (torch.sqrt(sq_a) * torch.sqrt(sq_b)).clamp(min=_EPS)
+    return 1.0 - dot / den

@@ -493,6 +493,7 @@ def attention_layer(params, sites: dict, x: torch.Tensor, *, n_heads: int,
             dim = sharding.model_dim_of(p)
             if n not in names:
                 return p
+            p = sharding.unstore(p)     # a stored share: the compute shard
             if dim is None:
                 return sharding.mp_grad_sum(p)
             return sharding.mp_gather_sum(p, dim, full[n][dim])

@@ -25,12 +25,14 @@ the quantized head weight, in plain fp32 (outside any quant site).
 
 Under a model group (``runtime.sharding.model_parallel``) the embedding
 and the head are vocab-parallel: a rank holds ``V / M`` rows of
-``embed`` (columns of ``head``).  The lookup is masked to the rank's
-rows and summed over the group (one nonzero term a token: exact); the
-head's chunks compute the rank's vocabulary columns, and the cross
-entropy takes the row max (an all_reduce MAX) and the sum of exps and
-the gold logit (SUM) over the group; prefill and decode gather the last
-position's logits, whose greedy argmax is then the one process's.
+``embed`` (columns of ``head``), ``sharding.split_range``'s share where
+``M`` does not divide ``V`` (256206 over 8: 32026 x 7 + 32024).  The
+lookup is masked to the rank's rows and summed over the group (one
+nonzero term a token: exact); the head's chunks compute the rank's
+vocabulary columns, and the cross entropy takes the row max (an
+all_reduce MAX) and the sum of exps and the gold logit (SUM) over the
+group; prefill and decode gather the last position's logits, whose
+greedy argmax is then the one process's.
 """
 from __future__ import annotations
 
@@ -113,14 +115,22 @@ def init_cache(cfg, batch: int, cache_len: int, device=None) -> dict:
 # ===========================================================================
 # Trunk.
 # ===========================================================================
-def _vocab_slice(ids: torch.Tensor, n_local: int):
+def _vocab_slice(ids: torch.Tensor, vocab: int):
     """``(local index, inside)`` of vocabulary ids against this model
-    rank's ``n_local`` rows (``inside``: the rank holds the id; the
-    index of the others is clamped into range)."""
-    r = sharding.mp_shard()[0]
-    local = ids - r * n_local
-    inside = (local >= 0) & (local < n_local)
-    return local.clamp(0, n_local - 1), inside
+    rank's share of the ``vocab`` rows (``sharding.split_range``;
+    ``inside``: the rank holds the id; the index of the others is
+    clamped into range)."""
+    lo, n = sharding.split_range(vocab, *reversed(sharding.mp_shard()))
+    local = ids - lo
+    inside = (local >= 0) & (local < n)
+    return local.clamp(0, max(n - 1, 0)), inside
+
+
+def _take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``; zeros where the rank holds no rows of the table."""
+    if table.shape[0]:
+        return table[ids]
+    return table.new_zeros(tuple(ids.shape) + tuple(table.shape[1:]))
 
 
 def _embed_tokens(params, tokens, cfg, policy) -> torch.Tensor:
@@ -132,13 +142,13 @@ def _embed_tokens(params, tokens, cfg, policy) -> torch.Tensor:
     tp = sharding.mp_shard() is not None
     table, qt = qlinear.quantize_weight_q(params["embed"], policy,
                                           sharded=tp)
-    ids, inside = (tokens, None) if not tp else _vocab_slice(
-        tokens, params["embed"].shape[0])
+    ids, inside = (tokens, None) if not tp else _vocab_slice(tokens,
+                                                             cfg.vocab)
     if table is not None:
-        rows = table[ids]
+        rows = _take_rows(table, ids)
     else:
         rows = backend.dequantize_qtensor(
-            backend.QTensor(qt.q[ids], qt.scale, qt.zero_point))
+            backend.QTensor(_take_rows(qt.q, ids), qt.scale, qt.zero_point))
     if tp:
         rows = sharding.mp_sum(torch.where(inside[..., None], rows.to(
             torch.float32), 0.0)).to(rows.dtype)
@@ -198,13 +208,17 @@ def _trunk(params, sites, batch, cfg, policy, seed, step, caches=None):
     return x, new_sites, new_caches, dmet
 
 
-def _head_weight_raw(params, cfg) -> torch.Tensor:
-    return params["embed"].T if cfg.tie_embeddings else params["head"]
+def _head_weight_q(params, cfg, policy, fn=qlinear.quantize_weight_q):
+    """``fn`` (``qlinear.quantize_weight_q`` / ``quantize_weight``) of the
+    head weight: ``head``, or the tied ``embed`` transposed after its
+    gather (a stored ``embed`` is gathered on its own dims)."""
+    tied = cfg.tie_embeddings
+    return fn(params["embed" if tied else "head"], policy,
+              sharded=sharding.mp_shard() is not None, transpose=tied)
 
 
 def _head_weight(params, cfg, policy) -> torch.Tensor:
-    return qlinear.quantize_weight(_head_weight_raw(params, cfg), policy,
-                                   sharded=sharding.mp_shard() is not None)
+    return _head_weight_q(params, cfg, policy, qlinear.quantize_weight)
 
 
 def _logits(params, x, cfg, policy) -> torch.Tensor:
@@ -212,31 +226,35 @@ def _logits(params, x, cfg, policy) -> torch.Tensor:
     ranks' vocabulary columns gathered)."""
     y = torch.matmul(x[:, -1].to(torch.float32),
                      _head_weight(params, cfg, policy).to(torch.float32))
-    return sharding.mp_gather(y, 1)
+    return sharding.mp_gather(y, 1, total=cfg.vocab)
 
 
 # ===========================================================================
 # Training forward + chunked loss.
 # ===========================================================================
-def _chunk_loss(logits, labels, mask):
+def _chunk_loss(logits, labels, mask, vocab: int):
     """``(sum of nll, sum of logz**2)`` over the chunk's masked tokens;
-    under a model group ``logits`` are the rank's vocabulary columns and
-    the reductions over V run across the group."""
+    under a model group ``logits`` are the rank's vocabulary columns (its
+    ``split_range`` share of ``vocab``) and the reductions over V run
+    across the group."""
     if sharding.mp_shard() is None:
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels[..., None])[..., 0]
     else:
-        m = sharding.mp_max(logits.detach().amax(dim=-1))
+        part = logits.detach().amax(dim=-1) if logits.shape[-1] else \
+            logits.new_full(logits.shape[:-1], float("-inf")).detach()
+        m = sharding.mp_max(part)
         se = sharding.mp_sum(torch.sum(torch.exp(logits - m[..., None]),
                                        dim=-1))
         logz = torch.log(se) + m
-        idx, inside = _vocab_slice(labels, logits.shape[-1])
-        gold = sharding.mp_sum(torch.where(
-            inside, torch.gather(logits, -1, idx[..., None])[..., 0], 0.0))
+        idx, inside = _vocab_slice(labels, vocab)
+        picked = torch.gather(logits, -1, idx[..., None])[..., 0] \
+            if logits.shape[-1] else logits.new_zeros(labels.shape)
+        gold = sharding.mp_sum(torch.where(inside, picked, 0.0))
     return torch.sum((logz - gold) * mask), torch.sum(logz.square() * mask)
 
 
-def _chunk_nll(policy, xqi, wq, wqt, xcb, qcb, lcb, mcb):
+def _chunk_nll(policy, vocab, xqi, wq, wqt, xcb, qcb, lcb, mcb):
     """One head chunk: logits ``[B, c, V]`` through the backend contraction
     (the int8 kernel path when both images exist), then (nll, z-penalty);
     column-parallel under a model group (the rank's V columns)."""
@@ -251,7 +269,7 @@ def _chunk_nll(policy, xqi, wq, wqt, xcb, qcb, lcb, mcb):
         if par is not None:
             xf = sharding.mp_grad_sum(xf)
         logits = torch.einsum("bcd,dv->bcv", xf, wq.to(torch.float32))
-    return _chunk_loss(logits, lcb, mcb)
+    return _chunk_loss(logits, lcb, mcb, vocab)
 
 
 def loss_fn(params, quant_state, batch, cfg, policy: QuantPolicy, seed: int,
@@ -277,9 +295,7 @@ def loss_fn(params, quant_state, batch, cfg, policy: QuantPolicy, seed: int,
                                                    step)
     xq = qlinear.grad_quant_barrier(xq, site["grad"], policy,
                                     seed + 7_000_000, step)
-    wq, wqt = qlinear.quantize_weight_q(_head_weight_raw(params, cfg), policy,
-                                        sharded=sharding.mp_shard()
-                                        is not None)
+    wq, wqt = _head_weight_q(params, cfg, policy)
     if wq is not None:
         wq = wq.to(xq.dtype)
 
@@ -289,7 +305,7 @@ def loss_fn(params, quant_state, batch, cfg, policy: QuantPolicy, seed: int,
         raise ValueError(f"sequence {s} is not a multiple of loss_chunk {c}")
     use_int = (xqi is not None and wqt is not None
                and backend.int8_matmul_eligible(policy))
-    chunk = functools.partial(_chunk_nll, policy, xqi, wq, wqt)
+    chunk = functools.partial(_chunk_nll, policy, cfg.vocab, xqi, wq, wqt)
     nlls, zpens = [], []
     for lo in range(0, s, c):
         sl = slice(lo, lo + c)

@@ -32,7 +32,10 @@ are then the ranks' in order), or the layer raises.
 
 Under a model group (``runtime.sharding.model_parallel``) a rank holds
 ``E / M`` experts (``hint(expert_in, "model", "batch", ...)``, the
-reference's expert parallelism).  Tokens are replicated over ``model``,
+reference's expert parallelism), or ``sharding.split_range``'s share
+where ``M`` does not divide ``E`` (60 experts over 16 ranks: fifteen of
+4 and one empty rank, which launches no expert kernel and joins every
+collective).  Tokens are replicated over ``model``,
 so no all-to-all runs: the dispatch tensor is sliced along E, each rank
 runs its experts, and the experts' outputs are gathered along E before
 the combine, which every rank then computes whole, as one process does.
@@ -169,7 +172,10 @@ def apply_moe(params, sites: dict, x: torch.Tensor, spec: MoeSpec, *,
 
     comp = x.dtype
     ep = sharding.mp_shard() is not None
-    par, edim = ("expert", 0) if ep else (None, None)
+    # a rank's experts: split_range's share (none where the group is
+    # wider than the experts' ceil-division leaves it any); the gradient
+    # sites' noise is the whole site's, sliced
+    par, edim = ("expert", (0, spec.n_experts)) if ep else (None, None)
     # The dispatch in fp32: its forward moves values (one-hot), and its
     # input gradient, a token's top-k slots, is summed in fp32 and rounded
     # once (a bf16 GEMM may round split-K partials to bf16 on the card);
@@ -205,7 +211,7 @@ def apply_moe(params, sites: dict, x: torch.Tensor, spec: MoeSpec, *,
         seed=seed + 2, step=step, batch_dim=1, parallel=par, x_dim=edim,
         y_dim=edim)
     if ep:
-        out = sharding.mp_gather(out, 0)
+        out = sharding.mp_gather(out, 0, total=spec.n_experts)
 
     y = torch.einsum("gtec,egcd->gtd", combine.to(comp), out)
     y = y.reshape(b, s, d)

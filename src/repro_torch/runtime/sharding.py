@@ -68,11 +68,25 @@ where ``M`` divides ``n``.  Decode caches follow :func:`cache_pspecs`:
 length, else whole) and :func:`pos_cache_split`, recorded on the cache
 tensors (:func:`cache_split_of`).
 :func:`param_pspecs` stays the reference's storage rule (its ``model``
-entries at the production model size); leaves whose ``model`` entry is
-a storage split only, ``(("data", "model"), ...)``, stay replicated
-over ``model`` (``wq`` / ``wo`` / ``bq`` hold their padded head shares
-for compute), as do ``patch_proj`` / ``enc_in`` (ZeRO-3, ROADMAP.md
-§1).
+entries at the production model size).
+
+ZeRO-3 storage.  :func:`store_state` cuts a whole train state into a
+rank's stored state by that rule at the mesh's sizes (:func:`layout_of`,
+recorded on each leaf as a :class:`Stored` layout, the optimizer
+moments with their parameters): a ``"data"`` entry stores the rank's
+share of its compute shard, a ``("data", "model")`` entry (``wq`` /
+``wk`` / ``wv`` / ``wo`` where the heads do not divide) its share of
+the whole leaf over the grid, row-major ``d * M + m``, and a ``"model"``
+entry on a leaf whole for compute (``patch_proj``, ``enc_in``) its share
+over the model group; an axis ``_pad_spec`` drops leaves the leaf whole
+on it.  A stored weight is gathered where it is used (``core.qlinear``'s
+weight site, :func:`unstore`: over the :func:`storage` data group and
+the model group, the compute shard then cut), and its gradient is
+reduce-scattered back onto the share (:func:`scatter_stored`: summed
+over the data group where the step's batch is sharded, sliced
+otherwise).  :func:`leaf_whole` gathers a leaf whole (the checkpoint's
+save from shares) and :func:`gather_state` is :func:`store_state`'s
+inverse in one process.
 
 Data parallelism.  ``torch.distributed`` runs one controller per rank,
 where the reference's ``jit`` over the ``data`` axis is one program.
@@ -86,7 +100,7 @@ each is the single-device computation, op for op.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -546,6 +560,28 @@ def dp_minmax(mn: torch.Tensor, mx: torch.Tensor):
     return (-buf[0]).to(mn.dtype), buf[1].to(mx.dtype)
 
 
+def site_groups(split_model: bool) -> list:
+    """The groups a site's tensor is split over: the data-parallel rows
+    where a data group is active, the model shard where ``split_model``
+    and a model group is active (``(group, rank, size)`` contexts)."""
+    return [g for g, on in ((_DP, True), (_MP, split_model))
+            if g is not None and on]
+
+
+def group_sum(x: torch.Tensor, groups: list) -> torch.Tensor:
+    """``x`` summed over each of ``groups`` in turn, outside autograd."""
+    for g in groups:
+        x = _all_reduce(x, "sum", g)
+    return x
+
+
+def group_max(x: torch.Tensor, groups: list) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``groups`` (exact)."""
+    for g in groups:
+        x = _all_reduce(x, "max", g)
+    return x
+
+
 def shard_rows(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """This rank's rows ``[r n / N, (r + 1) n / N)`` of a global tensor."""
     if _DP is None:
@@ -605,12 +641,14 @@ def mp_slice(x: torch.Tensor, dim: int) -> torch.Tensor:
     return x.narrow(dim, lo, n)
 
 
-def _all_reduce(x: torch.Tensor, op: str) -> torch.Tensor:
-    """A copy of ``x`` reduced (``"sum"`` / ``"max"``) over the active
-    model group, outside autograd."""
+def _all_reduce(x: torch.Tensor, op: str, grp=None) -> torch.Tensor:
+    """A copy of ``x`` reduced (``"sum"`` / ``"max"``) over ``grp`` (a
+    ``(group, rank, size)`` context; the active model group by default),
+    outside autograd."""
     import torch.distributed as dist
     y = x.detach().contiguous().clone()
-    dist.all_reduce(y, op=getattr(dist.ReduceOp, op.upper()), group=_MP[0])
+    dist.all_reduce(y, op=getattr(dist.ReduceOp, op.upper()),
+                    group=(grp or _MP)[0])
     return y
 
 
@@ -641,23 +679,25 @@ class _Sum(torch.autograd.Function):
         return g
 
 
-def _all_gather(x: torch.Tensor, dim: int,
-                total: Optional[int] = None) -> torch.Tensor:
-    """The model ranks' ``x`` concatenated along ``dim``, outside
-    autograd.  ``total``: the whole size of ``dim``, whose shares
+def _all_gather(x: torch.Tensor, dim: int, total: Optional[int] = None,
+                grp=None) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim``, outside autograd, over
+    ``grp`` (a ``(group, rank, size)`` context; the active model group by
+    default).  ``total``: the whole size of ``dim``, whose shares
     (:func:`split_range`) may differ between ranks: each is padded to
     ``ceil(total / M)`` for the collective and the padding dropped."""
     import torch.distributed as dist
+    grp = grp or _MP
     x = x.detach().contiguous()
     if total is not None:
         dim = dim % x.dim()
-        c = -(-total // _MP[2])
+        c = -(-total // grp[2])
         if x.shape[dim] < c:
             pad = list(x.shape)
             pad[dim] = c - x.shape[dim]
             x = torch.cat([x, x.new_zeros(pad)], dim=dim)
-    parts = [torch.empty_like(x) for _ in range(_MP[2])]
-    dist.all_gather(parts, x, group=_MP[0])
+    parts = [torch.empty_like(x) for _ in range(grp[2])]
+    dist.all_gather(parts, x, group=grp[0])
     out = torch.cat(parts, dim=dim)
     return out if total is None else out.narrow(dim, 0, total)
 
@@ -831,9 +871,13 @@ def compute_dim(path: tuple, shape: tuple, msize: int) -> Optional[int]:
     of ``embed`` and ``head``, and the recurrent blocks' channels: the
     RG-LRU's ``lru_width``, the RWKV-6 time mix's heads and channel
     mix's ``d_ff`` (their LoRAs, ``u``, ``w0``, ``mu*`` and ``ln_x_*``
-    stay whole, as the reference's rule table leaves them).  Raises
-    where a rule's dim does not divide ``msize`` (a padded head dim
-    excepted)."""
+    stay whole, as the reference's rule table leaves them).  The padded
+    head dim, the routed experts and the vocabulary take
+    :func:`split_range`'s shares where ``msize`` does not divide them
+    (GSPMD's padded layout: the reference's storage drops such an axis,
+    its in-graph hints pad it); elsewhere a rule's dim that does not
+    divide ``msize`` raises (the MLP's ``d_ff`` and the recurrent
+    blocks' channels, which the port does not pad)."""
     if msize == 1:
         return None
     name = path[-1]
@@ -841,10 +885,8 @@ def compute_dim(path: tuple, shape: tuple, msize: int) -> Optional[int]:
     block = next((b for b in _BLOCK_DIMS if b in path), None)
     if block is not None:
         dim = _BLOCK_DIMS[block].get(name)
-    elif name == "embed":
-        dim = 0
-    elif name == "head":
-        dim = 1
+    elif name in ("embed", "head"):
+        dim, padded = (0 if name == "embed" else 1), True
     elif name in _ATTN_NAMES:
         if name in ("wq", "wo", "bq"):
             kv, g = (shape[1], shape[2]) if name == "wq" else shape[:2]
@@ -856,7 +898,7 @@ def compute_dim(path: tuple, shape: tuple, msize: int) -> Optional[int]:
             dim = d if shape[d] % msize == 0 else None
     elif "moe" in path and "shared" not in path and \
             name in ("w_up", "w_gate", "w_down"):
-        dim = 0
+        dim, padded = 0, True
     elif name in _MLP_NAMES:
         dim = 0 if name in ("w_down", "b_up") else 1
     if dim is not None and shape[dim] % msize and not padded:
@@ -932,3 +974,339 @@ def gather_params(shards: list, like):
     whole = gather_named([dict(s.named_parameters()) for s in shards],
                          dict(like.named_parameters()))
     return _rebuild(like, lambda path, t: whole[".".join(path)])
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-3 storage: the rule table's "data" entries (and the storage-only
+# "model" entries) hold a rank's shares of parameters and optimizer state.
+# ---------------------------------------------------------------------------
+class Stored(NamedTuple):
+    """How a rank of a ``(data, model)`` mesh holds a leaf of a stored
+    state (:func:`store_state`): the whole leaf's shape, the dim a model
+    rank computes on a share of (:func:`compute_dim`; None: whole), and
+    the storage split: ``dim`` cut evenly over the mesh ``axes`` (major
+    first; empty: the rank holds its compute shard), a share of the whole
+    leaf (``of_leaf``: ``(("data", "model"), ...)`` entries, row-major
+    ``d * M + m``, and a ``"model"`` entry on a leaf whole for compute)
+    or of the rank's compute shard (a ``"data"`` entry)."""
+
+    leaf: tuple
+    model_dim: Optional[int]
+    dim: Optional[int]
+    axes: tuple
+    of_leaf: bool
+    coords: tuple           # (d, m)
+    sizes: tuple            # (D, M)
+
+
+def layout_of(path: tuple, shape: tuple, coords: dict,
+              sizes: dict) -> Stored:
+    """The :class:`Stored` layout of a parameter leaf (``path``: its
+    dotted name split) on the rank at ``coords`` of a mesh of ``sizes``,
+    from :func:`param_pspecs`' spec at those sizes: a ``"data"`` entry
+    splits the compute shard, a ``("data", "model")`` entry the whole
+    leaf over the grid, a ``"model"`` entry on a leaf whole for compute
+    the whole leaf over the model group; an axis of size 1 splits
+    nothing, and an axis that ``_pad_spec`` drops leaves the leaf whole
+    on it."""
+    shape = tuple(shape)
+    ext = {"data": int(sizes.get("data", 1)),
+           "model": int(sizes.get("model", 1))}
+    spec = _pad_spec(_param_rule("/".join(path), path[-1], shape), shape,
+                     ext)
+    cdim = compute_dim(path, shape, ext["model"])
+    dim, axes, of_leaf = None, (), False
+    for d, ax in enumerate(spec):
+        names = ax if isinstance(ax, tuple) else (ax,)
+        if "data" in names:
+            dim, axes, of_leaf = d, names, isinstance(ax, tuple)
+            break
+    else:
+        if cdim is None:
+            dim = next((d for d, ax in enumerate(spec) if ax == "model"),
+                       None)
+            axes, of_leaf = ("model",), True
+    axes = tuple(a for a in axes if ext[a] > 1) if dim is not None else ()
+    return Stored(shape, cdim, dim if axes else None, axes,
+                  of_leaf and bool(axes),
+                  (int(coords.get("data", 0)), int(coords.get("model", 0))),
+                  (ext["data"], ext["model"]))
+
+
+def stored_of(t: torch.Tensor) -> Optional[Stored]:
+    """The :class:`Stored` layout recorded on a leaf of a stored state, or
+    None."""
+    return getattr(t, "stored", None)
+
+
+def is_stored(params) -> bool:
+    """Whether any parameter of ``params`` is held as a storage share."""
+    return any(getattr(stored_of(p), "axes", ()) for p in params.parameters())
+
+
+def _share(st: Stored) -> tuple:
+    """``(index, parts)`` of the rank's share over the storage axes."""
+    d, m = st.coords
+    D, M = st.sizes
+    idx = {("data",): (d, D), ("model",): (m, M),
+           ("data", "model"): (d * M + m, D * M)}
+    return idx[st.axes]
+
+
+def compute_box(st: Stored) -> list:
+    """``[(start, count)]`` per dim of the whole leaf: the rank's compute
+    shard."""
+    box = [(0, n) for n in st.leaf]
+    if st.model_dim is not None and st.sizes[1] > 1:
+        box[st.model_dim] = split_range(st.leaf[st.model_dim], st.sizes[1],
+                                        st.coords[1])
+    return box
+
+
+def stored_box(st: Stored) -> list:
+    """``[(start, count)]`` per dim of the whole leaf: the region the
+    rank stores (its compute shard, or the whole leaf where the share is
+    of it, cut by the storage split)."""
+    box = [(0, n) for n in st.leaf] if st.of_leaf else compute_box(st)
+    if st.axes:
+        i, parts = _share(st)
+        lo, n = box[st.dim]
+        if n % parts:       # _pad_spec keeps only an axis that divides
+            raise ValueError(f"{st}: dim {st.dim} does not split evenly")
+        box[st.dim] = (lo + i * (n // parts), n // parts)
+    return box
+
+
+def _cut(t: torch.Tensor, box: list) -> torch.Tensor:
+    for d, (lo, n) in enumerate(box):
+        if (lo, n) != (0, t.shape[d]):
+            t = t.narrow(d, lo, n)
+    return t
+
+
+def tag_layout(t: torch.Tensor, st: Stored) -> torch.Tensor:
+    """Record the :class:`Stored` layout (and its ``model_dim``) on a
+    leaf; returns it."""
+    t.stored, t.model_dim = st, st.model_dim
+    return t
+
+
+def store_leaf(whole: torch.Tensor, st: Stored) -> torch.Tensor:
+    """The rank's stored share of a whole leaf, its layout recorded."""
+    return tag_layout(_cut(whole, stored_box(st)).contiguous().clone(), st)
+
+
+_ST: Optional[tuple] = None     # (group, rank, size): the storage data group
+
+
+@contextlib.contextmanager
+def storage(group):
+    """Make ``group`` (the rank's ``data`` subgroup of the mesh) the group
+    a stored leaf's ``"data"`` split gathers over inside the block, whether
+    or not the step's batch divides (its ``"model"`` split gathers over
+    the active model group)."""
+    global _ST
+    prev = _ST
+    if group is None:
+        _ST = None
+    else:
+        import torch.distributed as dist
+        _ST = (group, dist.get_rank(group), dist.get_world_size(group))
+    try:
+        yield
+    finally:
+        _ST = prev
+
+
+def _group_of(axis: str, st: Stored) -> tuple:
+    grp = _ST if axis == "data" else _MP
+    want = st.sizes[0 if axis == "data" else 1]
+    if grp is None or grp[2] != want:
+        raise RuntimeError(f"a leaf stored over {st.axes} of a {st.sizes} "
+                           f"mesh needs its {axis} group of {want} ranks "
+                           f"(sharding.storage / model_parallel)")
+    return grp
+
+
+def gather_stored(x: torch.Tensor, st: Stored) -> torch.Tensor:
+    """The rank's compute shard from its stored share (all_gathers over
+    the storage axes, minor first; a share of the whole leaf then cut to
+    the compute shard), outside autograd.  Any dtype: the int8 weight
+    gather moves the 1-byte image."""
+    if not st.axes:
+        return x
+    if x.numel() == 0:      # an empty compute shard: the group's all are
+        shape = [n for _, n in compute_box(st)]
+        return x.new_zeros(shape)
+    for axis in reversed(st.axes):
+        x = _all_gather(x, st.dim, grp=_group_of(axis, st))
+    if st.of_leaf:
+        x = _cut(x, compute_box(st))
+    return x
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, grp: tuple) -> torch.Tensor:
+    """``x`` summed over ``grp``'s ranks, this rank's even share of
+    ``dim`` kept (``reduce_scatter_tensor``, which gloo takes too)."""
+    import warnings
+
+    import torch.distributed as dist
+    src = x.detach().movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // grp[2],) + tuple(src.shape[1:]))
+    with warnings.catch_warnings():     # deprecated in newer releases
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.reduce_scatter_tensor(out, src, group=grp[0])
+    return out.movedim(0, dim).contiguous()
+
+
+def scatter_stored(g: torch.Tensor, st: Stored) -> torch.Tensor:
+    """The gradient of the rank's stored share from the gradient ``g`` of
+    its compute shard, outside autograd: over the data axis summed and
+    scattered (a reduce-scatter) where the step's batch is sharded
+    (:func:`data_parallel`), else sliced (every rank holds the whole
+    batch's gradient); over the model axis a share of the whole leaf's
+    gradient, the model ranks' disjoint compute shards summed and
+    scattered, or sliced where every model rank holds the leaf whole."""
+    if not st.axes:
+        return g
+    g = g.to(torch.float32) if g.is_floating_point() else g
+    embedded = st.of_leaf and st.model_dim is not None and st.sizes[1] > 1
+    if g.numel() == 0 and not embedded:
+        return g.new_zeros([n for _, n in stored_box(st)])
+    if embedded:
+        whole = g.new_zeros(st.leaf)
+        _cut(whole, compute_box(st)).copy_(g)
+        g = whole
+    for axis in st.axes:
+        grp = _group_of(axis, st)
+        summed = (_DP is not None) if axis == "data" else embedded
+        if summed:
+            g = _reduce_scatter(g, st.dim, grp)
+        else:
+            c = g.shape[st.dim] // grp[2]
+            g = g.narrow(st.dim, grp[1] * c, c).contiguous()
+    return g
+
+
+class _Unstore(torch.autograd.Function):
+    """The compute shard gathered from the stored share; its gradient
+    reduce-scattered back onto the share (:func:`scatter_stored`)."""
+
+    @staticmethod
+    def forward(ctx, x, st):
+        ctx.st, ctx.dtype = st, x.dtype
+        return gather_stored(x, st)
+
+    @staticmethod
+    def backward(ctx, g):
+        return scatter_stored(g, ctx.st).to(ctx.dtype), None
+
+
+def unstore(p: torch.Tensor) -> torch.Tensor:
+    """A parameter as the layers read it: a stored share gathered into
+    the rank's compute shard where it is used (the gradient
+    reduce-scattered; under remat the recompute gathers again), any
+    other tensor itself."""
+    st = stored_of(p)
+    if st is None or not st.axes:
+        return p
+    return _Unstore.apply(p, st)
+
+
+def stored_minmax(mn: torch.Tensor, mx: torch.Tensor, st: Optional[Stored]):
+    """The (min, max) of a stored leaf's share taken over its storage
+    axes (one all_reduce MAX of ``(-min, max)`` an axis, exact)."""
+    if st is None:
+        return mn, mx
+    for axis in st.axes:
+        buf = torch.stack([-mn.to(torch.float32), mx.to(torch.float32)])
+        buf = _all_reduce(buf, "max", _group_of(axis, st))
+        mn, mx = (-buf[0]).to(mn.dtype), buf[1].to(mx.dtype)
+    return mn, mx
+
+
+def leaf_whole(t: torch.Tensor) -> torch.Tensor:
+    """A leaf of a stored state gathered whole over its storage axes and
+    its model split (collective: every rank of the mesh calls it, in the
+    same order), outside autograd."""
+    st = stored_of(t)
+    if st is None:
+        return t.detach()
+    x = gather_stored(t.detach(), st)
+    if st.model_dim is not None and st.sizes[1] > 1:
+        x = _all_gather(x, st.model_dim, st.leaf[st.model_dim],
+                        _group_of("model", st))
+    return x
+
+
+def _moments(opts: list, names, fn):
+    """The first of the optimizer states ``opts`` (alike in structure)
+    with ``fn(name, [tensor of each])`` at every tensor a dict keys by a
+    parameter name (the moments); the rest kept."""
+    first = opts[0]
+    if not isinstance(first, dict):
+        return first
+    return {k: fn(k, [o[k] for o in opts])
+            if k in names and isinstance(v, torch.Tensor)
+            else _moments([o[k] for o in opts], names, fn)
+            for k, v in first.items()}
+
+
+def tag_moments(opt, named: dict):
+    """Record each parameter's layout on the optimizer moments made for it
+    (``zeros_like`` of the share keeps no attribute); returns ``opt``."""
+    def tag(k, vs):
+        st = stored_of(named[k])
+        return vs[0] if st is None else tag_layout(vs[0], st)
+    return _moments([opt], named, tag)
+
+
+def store_params(params, coords: dict, sizes: dict):
+    """A full parameter ``ParamTree`` cut to the stored shares of the rank
+    at ``coords`` of a ``(data, model)`` mesh of ``sizes``
+    (:func:`layout_of`; ZeRO-3), each with its :class:`Stored` layout and
+    its ``model_dim`` recorded."""
+    lay = {}
+
+    def cut(path, t):
+        st = lay[".".join(path)] = layout_of(path, tuple(t.shape), coords,
+                                             sizes)
+        return store_leaf(t, st)
+    tree = _rebuild(params, cut)
+    for name, p in tree.named_parameters():
+        tag_layout(p, lay[name])
+    return tree
+
+
+def store_state(state: dict, coords: dict, sizes: dict) -> dict:
+    """A whole train state (``runtime.steps``: params, optimizer state,
+    quant, step) cut to the rank's stored state: the parameters by
+    :func:`store_params`, the optimizer moments as their parameters, the
+    quant state and the step whole."""
+    params = store_params(state["params"], coords, sizes)
+    named = dict(params.named_parameters())
+    opt = _moments([state["opt"]], named,
+                   lambda k, vs: store_leaf(vs[0], stored_of(named[k])))
+    return {"params": params, "opt": opt, "quant": state["quant"],
+            "step": state["step"]}
+
+
+def _whole_of(pieces: list, lays: list) -> torch.Tensor:
+    out = pieces[0].new_zeros(lays[0].leaf)
+    for t, st in zip(pieces, lays):
+        _cut(out, stored_box(st)).copy_(t)
+    return out
+
+
+def gather_state(states: list) -> dict:
+    """The inverse of :func:`store_state` in one process: the stored
+    states of every rank of the mesh (any order) joined into the whole
+    state (parameters as a ``ParamTree`` without layouts)."""
+    named = [dict(s["params"].named_parameters()) for s in states]
+    lays = {k: [stored_of(n[k]) for n in named] for k in named[0]}
+    params = _rebuild(states[0]["params"], lambda path, t: _whole_of(
+        [n[".".join(path)].detach() for n in named], lays[".".join(path)]))
+    opt = _moments([s["opt"] for s in states], named[0],
+                   lambda k, vs: _whole_of(vs, lays[k]))
+    return {"params": params, "opt": opt, "quant": states[0]["quant"],
+            "step": states[0]["step"]}

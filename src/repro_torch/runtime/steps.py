@@ -53,6 +53,17 @@ rank holds whole counts its telemetry counters once, on model rank 0);
 the metrics are not summed over the model replicas; and the clipping
 norm sums a sharded leaf's squares over the model group and a whole
 one's once.
+
+ZeRO-3 (a state cut by ``sharding.store_state``): the step runs under
+``sharding.storage(group)`` whether or not the batch divides, each
+weight is gathered at its use and its gradient arrives reduce-scattered
+onto the rank's share (summed over the data group when the batch is
+sharded), so those leaves skip the gradient all_reduce; microbatches
+add shares, the clipping norm sums a share's squares over the groups it
+is split over, and the optimizer updates the shares.  ``compress`` (the
+reference's int8 all-reduce returns replicated gradients) has no form
+there and raises.  ``make_prefill_step`` / ``make_decode_step(group=)``
+gather stored weights the same way, with no gradient.
 """
 from __future__ import annotations
 
@@ -63,7 +74,7 @@ import torch
 
 import torch.distributed as dist
 
-from repro_torch.core import backend, estimators, qlinear
+from repro_torch.core import backend, qlinear
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.state import INITED, QMAX, QMIN, tree_leaves, \
     tree_map, tree_map_with_path
@@ -79,7 +90,9 @@ def train_state(params, quant, optimizer, step: int = 0) -> dict:
     grad) and quant state, with a fresh optimizer state."""
     for p in params.parameters():
         p.requires_grad_(True)
-    return {"params": params, "opt": optimizer.init(named_params(params)),
+    named = named_params(params)
+    return {"params": params,
+            "opt": sharding.tag_moments(optimizer.init(named), named),
             "quant": quant, "step": int(step)}
 
 
@@ -222,17 +235,34 @@ def dp_combine_stats(stats, group):
     return tree_map(lambda _: next(it), stats)
 
 
-def _mp_clip(grads: dict, params: dict, max_norm: float):
-    """``optim.clip_by_global_norm`` of a model rank's gradients: the
-    global norm's squares of a sharded leaf summed over the model group,
-    of a whole one taken once."""
+def _split_axes(p) -> tuple:
+    """The mesh axes a rank's piece of a parameter (and so of its
+    gradient) is split over: its storage axes (ZeRO-3) and ``"model"``
+    where it is a compute shard."""
+    axes = set(getattr(sharding.stored_of(p), "axes", ()))
+    if sharding.model_dim_of(p) is not None:
+        axes.add("model")
+    return tuple(a for a in ("data", "model") if a in axes)
+
+
+def _mp_clip(grads: dict, params: dict, max_norm: float, group=None):
+    """``optim.clip_by_global_norm`` of a rank's gradient pieces: the
+    global norm's squares of a piece summed over the groups it is split
+    over (the model group; for a stored share also ``group``, the data
+    group), of a whole one taken once."""
     sq = [torch.sum(torch.square(g.to(torch.float32))) for g in grads.values()]
-    shard = [sharding.model_dim_of(params[k]) is not None for k in grads]
+    axes = [_split_axes(params[k]) for k in grads]
     zero = torch.zeros((), dtype=torch.float32,
                        device=next(iter(grads.values())).device)
-    part = sum((q for q, sh in zip(sq, shard) if sh), zero)
-    whole = sum((q for q, sh in zip(sq, shard) if not sh), zero)
-    norm = torch.sqrt(sharding.mp_sum_now(part) + whole)
+
+    def part(key):
+        return sum((q for q, a in zip(sq, axes) if a == key), zero)
+    total = sharding.mp_sum_now(part(("model",))) + part(())
+    if any("data" in a for a in axes):
+        both = sharding.mp_sum_now(part(("data", "model")))
+        total = total + _flat_all_reduce([part(("data",)) + both],
+                                         dist.ReduceOp.SUM, group)[0]
+    norm = torch.sqrt(total)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     for g in grads.values():
         g.mul_(scale)
@@ -259,13 +289,14 @@ def make_train_step(cfg, policy: QuantPolicy, optimizer, lr_schedule: Callable,
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     world = 1 if group is None else dist.get_world_size(group)
     mworld = 1 if model_group is None else dist.get_world_size(model_group)
-    if max(world, mworld) > 1 and estimators.DSGC in (
-            policy.act_estimator.kind, policy.grad_estimator.kind):
-        raise ValueError("the dsgc estimator searches the whole tensor; "
-                         "the sharded step does not take it")
 
     def train_step(state: dict, batch: dict):
         params, quant, step = state["params"], state["quant"], state["step"]
+        stored = sharding.is_stored(params)
+        if stored and compress is not None:
+            raise ValueError("compress returns replicated gradients (the "
+                             "reference's int8 all-reduce): it has no "
+                             "form on a ZeRO-3 stored state")
         n = next(iter(batch.values())).shape[0]
         if n % grad_accum:
             raise ValueError(f"batch {n} does not split into "
@@ -276,7 +307,8 @@ def make_train_step(cfg, policy: QuantPolicy, optimizer, lr_schedule: Callable,
         sharded = world > 1 and size % world == 0
         dp = sharding.data_parallel(group) if sharded \
             else contextlib.nullcontext()
-        with dp, sharding.model_parallel(model_group):
+        with dp, sharding.model_parallel(model_group), \
+                sharding.storage(group if stored else None):
             for midx in range(grad_accum):
                 mb = batch if grad_accum == 1 else \
                     {k: v[midx * size:(midx + 1) * size]
@@ -306,7 +338,12 @@ def make_train_step(cfg, policy: QuantPolicy, optimizer, lr_schedule: Callable,
             with torch.no_grad():
                 # each rank's gradient is its share of the global one
                 if compress is None:
-                    grads = _all_reduce_grads(grads, group)
+                    # a share stored over the data axis arrived
+                    # reduce-scattered (sharding.scatter_stored)
+                    named = named_params(params)
+                    grads.update(_all_reduce_grads(
+                        {k: g for k, g in grads.items()
+                         if "data" not in _split_axes(named[k])}, group))
                 else:   # per-replica gradients, whose mean the hook takes
                     grads = {k: g * world for k, g in grads.items()}
                 stats = dp_combine_stats(stats, group)
@@ -321,10 +358,10 @@ def make_train_step(cfg, policy: QuantPolicy, optimizer, lr_schedule: Callable,
             grads, stats = compress(grads, stats)
 
         metrics = dict(met)
-        if clip_norm is not None and mworld > 1:
+        if clip_norm is not None and (mworld > 1 or stored):
             with sharding.model_parallel(model_group):
                 grads, metrics["grad_norm"] = _mp_clip(
-                    grads, named_params(params), clip_norm)
+                    grads, named_params(params), clip_norm, group)
         elif clip_norm is not None:
             grads, metrics["grad_norm"] = clip_by_global_norm(grads,
                                                               clip_norm)
@@ -343,8 +380,8 @@ def make_train_step(cfg, policy: QuantPolicy, optimizer, lr_schedule: Callable,
 
 def make_prefill_step(cfg, policy: QuantPolicy,
                       cache_len: Optional[int] = None, *,
-                      model_group=None, return_stats: bool = False
-                      ) -> Callable:
+                      model_group=None, return_stats: bool = False,
+                      group=None) -> Callable:
     """``prefill_step(params, quant, batch) -> (last logits, caches)``
     (plus the forward statistics with ``return_stats``, combined over
     ``model_group`` as the train step combines them).  ``model_group``:
@@ -352,9 +389,11 @@ def make_prefill_step(cfg, policy: QuantPolicy,
     shards and its caches the slices ``sharding.cache_pspecs`` gives
     (its KV heads, else its slots of the cache length, else whole); the
     attention runs on the rank's heads, padded where neither head dim
-    divides the group; the logits are whole."""
+    divides the group; the logits are whole.  ``group``: the rank's data
+    subgroup, over which stored parameters (``sharding.store_params``,
+    ZeRO-3) are gathered at their use, as the train step gathers them."""
     def prefill_step(params, quant, batch):
-        with sharding.model_parallel(model_group):
+        with sharding.model_parallel(model_group), sharding.storage(group):
             out = model.prefill(params, quant, batch, cfg, policy,
                                 cache_len=cache_len,
                                 return_stats=return_stats)
@@ -367,12 +406,12 @@ def make_prefill_step(cfg, policy: QuantPolicy,
 
 
 def make_decode_step(cfg, policy: QuantPolicy, *,
-                     model_group=None) -> Callable:
+                     model_group=None, group=None) -> Callable:
     """``decode_step(params, quant, batch, caches) -> (logits, caches)``
     for ``batch = {"token": [B, 1], "pos": [B]}``; the caches are updated
-    in place.  ``model_group`` as :func:`make_prefill_step`'s."""
+    in place.  ``model_group`` and ``group`` as :func:`make_prefill_step`'s."""
     def decode_step(params, quant, batch, caches):
-        with sharding.model_parallel(model_group):
+        with sharding.model_parallel(model_group), sharding.storage(group):
             return model.decode_step(params, quant, batch["token"],
                                      batch["pos"], caches, cfg, policy)
     return decode_step

@@ -327,23 +327,3 @@ def test_dx_split_gate(monkeypatch, espec, xshape, wshape, batch_dim,
     assert seen.count(dx_spec) == calls
     torch.testing.assert_close(dx, torch.einsum(dx_spec, g, w), rtol=1e-6,
                                atol=1e-6)
-
-
-def test_dp_step_rejects_dsgc():
-    """The dsgc estimator searches the whole tensor: the data-parallel step
-    refuses it (a one-process step takes it)."""
-    import torch.distributed as dist
-    pol = dataclasses.replace(QuantPolicy.w8a8g8(act_kind="dsgc"))
-    cfg = configs.get_reduced("starcoder2-3b")
-    steps.make_train_step(cfg, pol, adamw(), constant(1e-3))
-
-    class Two:
-        pass
-    orig = dist.get_world_size
-    dist.get_world_size = lambda group=None: 2
-    try:
-        with pytest.raises(ValueError, match="dsgc"):
-            steps.make_train_step(cfg, pol, adamw(), constant(1e-3),
-                                  group=Two())
-    finally:
-        dist.get_world_size = orig

@@ -122,7 +122,7 @@ def _units(rank_in_pair: int):
     logits = torch.randn((2, 5, 16), generator=gen) * 3
     labels = torch.randint(0, 16, (2, 5), generator=gen)
     mask = torch.ones((2, 5))
-    ce = model._chunk_loss(sharding.mp_slice(logits, 2), labels, mask)
+    ce = model._chunk_loss(sharding.mp_slice(logits, 2), labels, mask, 16)
     cfg = configs.get_reduced(MOE)
     full = model.init_params(cfg, seed=0, device="cpu")
     part = sharding.shard_params(full, {"model": rank_in_pair},
@@ -285,7 +285,7 @@ def test_vocab_parallel_cross_entropy_equals_full(tp):
     gen = torch.Generator().manual_seed(7)
     logits = torch.randn((2, 5, 16), generator=gen) * 3
     labels = torch.randint(0, 16, (2, 5), generator=gen)
-    want = model._chunk_loss(logits, labels, torch.ones((2, 5)))
+    want = model._chunk_loss(logits, labels, torch.ones((2, 5)), 16)
     for r in range(4):
         for a, b in zip(tp[r]["units"]["ce"], want):
             assert abs(float(a) - float(b)) <= 1e-6 * abs(float(b)), (a, b)
