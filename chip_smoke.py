@@ -221,8 +221,9 @@ Phases, one line each:
                    (prefill logits, the greedy tokens)
  39. compress      runtime.compress on one full-width starcoder2-3b
                    layer's gradient-shaped leaves: 2 gloo ranks on the card
-                   (spawned, FileStore under build/chip_smoke/), then a
-                   1-rank NCCL group; the step-0 and hindsight calls bit
+                   (spawned, FileStore under build/chip_smoke/; in phase
+                   40's spawn when 40 runs), then a 1-rank NCCL group
+                   (of rank 0 there); the step-0 and hindsight calls bit
                    for bit against the plain one-process emulation,
                    stochastic_quantize launches counted, the mean over 10
                    seeds within 5% of the fp32 mean; quantize / dequantize
@@ -342,10 +343,33 @@ Phases, one line each:
                    ranks (split_range): a 4 x 1024 prefill and 4 greedy
                    decode steps against one process (statistics bit for
                    bit, tokens identical), int8_matmul_fp launches by rank
+ 49. dryrun        python -m repro_torch.launch.dryrun (fake tensors on the
+                   card's device under a fake process group, CostMode)
+                   for starcoder2-3b train_4k on both production meshes
+                   (256 and 512 ranks; the cell's own global batch and
+                   microbatches, depth cut to 4 layers, printed), in
+                   subprocesses started after phase 3 that run beside
+                   phases 4-48 (they need no kernel, only host time;
+                   a timer kills what outlives DRYRUN_TIMEOUT): status ok,
+                   rank 0's FLOPs, bytes, collective bytes by kind and
+                   per-device bytes printed; and phase 40's configuration
+                   (2 layers, 4 x 1024, (2, 1), ZeRO-3): its
+                   stored_state_bytes equal byte for byte the parameters
+                   and AdamW moments phase 40's rank 0 stores on the card
 
-Phases 43-46 run their (1, 2) ranks in one spawn of 2 processes (44's
-(2, 2) run in one of its own), 47-48 theirs in one of 8; each phase's
-seconds are its share of the spawn and its checks.
+Phase 39 runs its ranks in phase 40's spawn of 2 processes (its own
+two spawns when 40 does not run), 43-46 their (1, 2) ranks in one spawn
+of 2 processes (44's (2, 2) run in one of its own), 47-48 theirs in one
+of 8; each phase's seconds are its share of the spawn and its checks.
+The main process only waits on a spawn, so 47-48's spawn runs in a
+thread beside phase 16, 39-40's beside phases 32-36 and 38, and 44's
+(2, 2) spawn beside 37 (:class:`Beside`; each pair's peaks fit the
+card's memory together);
+the checks of the spawned phases run after their ranks end.  The CNN
+phases (10, 11, 13) run beside the attention source's nvcc, once the
+other sources are built.  The phases run beside a spawn or a build
+share the card or the host with it: their times are not those of the
+card alone.
 
 Phase 3 also holds ``int8_conv_fp`` (the conv site, im2col onto the int8
 matmul kernel) against its plain version at four MobileNetV2-tiny layer
@@ -382,9 +406,9 @@ and prints no result; so does a machine without a CUDA card.
 e.g. ``1-3`` to build and check the kernels without serve and train);
 phase 1 always runs, 5-6 and 43 bring 4 along, whose serve run they
 reuse, 18 brings 17, 21-22 bring 20, 27 brings 26, 30 brings 29, 33
-brings 32 and 36 brings 35.  Kernels whose path phases did not run
-report ``"launches": null``.  The default is all 48; phases 12-16 and
-39-40, 43-48 write their logs, checkpoints and rank records under
+brings 32, 36 brings 35 and 49 brings 40.  Kernels whose path phases
+did not run report ``"launches": null``.  The default is all 49;
+phases 12-16 and 39-40, 43-49 write their logs, checkpoints and rank records under
 ``build/chip_smoke/`` and remove the checkpoints when done.
 """
 from __future__ import annotations
@@ -486,6 +510,12 @@ VLM_TRAIN_LAYERS, VLM_TRAIN_BATCH, VLM_TRAIN_SEQ = 18, 2, 2048
 # train step at full width, depth cut to 2 layers, 4 x 1024, 2 gloo ranks.
 TALL_SEQ, TALL_GEN = 200, 8
 COMP_SEEDS, DP_LAYERS, DP_LR = 10, 2, 1e-3
+# phase 49: the dry run's train cell at its own global batch and
+# microbatches, depth cut (a full-depth trace takes minutes of host time
+# a run: PERF.md section 5); and the seconds after which a timer kills a
+# run that has not ended
+DRYRUN_ARCH, DRYRUN_LAYERS = "starcoder2-3b", 4
+DRYRUN_TIMEOUT = 600
 # The reference's shape matrix (configs.SHAPES): the decode cells one card
 # holds at full width and depth, through runtime.steps.make_decode_step on
 # inputs shaped by configs.input_specs: long_500k (B 1 at position
@@ -555,7 +585,7 @@ PAD_LAYERS, PAD_GEN, PAD_TRAIN_SEQ, PAD_LOGITS_TOL = 2, 8, 8192, 1e-5
 UNEVEN_LAYERS, UNEVEN_GEN = 1, 4
 # Phase 4's one-process outputs, kept for phase 43.
 KEPT: dict = {}
-N_PHASES = 48
+N_PHASES = 49
 # Where phases 12-16 write their JSONL logs and checkpoints (git-ignored).
 OUT_DIR = ROOT / "build" / "chip_smoke"
 
@@ -4504,6 +4534,39 @@ def parity_phase(run, policy, dev, results) -> None:
 
 
 # ---------------------------------------------------------------------------
+class Beside:
+    """``fn(*args)`` in a thread beside the main process's phases, for a
+    spawn: the thread only waits on its ranks, while the main process
+    runs phases whose card memory fits beside theirs.  :meth:`join`
+    returns its value or raises its error, and logs the wall seconds of
+    the span against the thread's."""
+
+    def __init__(self, what: str, fn, *args):
+        import threading
+        self.what, self.value, self.error = what, None, None
+        self.t0 = time.perf_counter()
+        self.thread = threading.Thread(target=self._run, args=(fn, args),
+                                       daemon=True)
+        self.thread.start()
+
+    def _run(self, fn, args) -> None:
+        try:
+            self.value = fn(*args)
+        except BaseException as e:      # raised again by join
+            self.error = e
+        self.seconds = time.perf_counter() - self.t0
+
+    def join(self):
+        main = time.perf_counter() - self.t0
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        log("time", f"{self.what}: {time.perf_counter() - self.t0:.1f} s "
+                    f"(the main process's phases {main:.1f} s, the "
+                    f"spawns' {self.seconds:.1f} s)")
+        return self.value
+
+
 class PhaseClock:
     """Wall seconds of each phase, logged as it ends (``[time] phase N
     name: s``) and kept in ``seconds``; a phase timed in parts sums
@@ -4628,8 +4691,10 @@ def _events_ms(fn, reps: int = 3) -> float:
     return a.elapsed_time(b) / reps
 
 
-def _compress_rank(rank: int, world: int, backend: str, out: str) -> None:
-    """One rank of phase 39 (a spawned process)."""
+def _compress_rank(rank: int, world: int, backend: str, out: str,
+                   group=None) -> None:
+    """One rank of phase 39 (a spawned process; ``group``: the ranks of
+    ``backend``, the default group without it)."""
     from repro_torch.kernels import ops
     from repro_torch.runtime import compress
 
@@ -4638,7 +4703,7 @@ def _compress_rank(rank: int, world: int, backend: str, out: str) -> None:
     shapes = _layer_grad_shapes()
     grads = _rank_grads(shapes, rank, dev)
     every = [_rank_grads(shapes, r, dev) for r in range(world)]
-    reduce_fn, update_fn, init_fn = compress.make_compressor()
+    reduce_fn, update_fn, init_fn = compress.make_compressor(group)
     state = init_fn(grads)
     rec = {"leaves": len(grads), "elements": sum(g.numel()
                                                  for g in grads.values())}
@@ -4692,15 +4757,36 @@ def _compress_rank(rank: int, world: int, backend: str, out: str) -> None:
         Path(out).write_text(json.dumps(rec))
 
 
-def compress_phase(records) -> dict:
-    """Phase 39: the int8 in-hindsight gradient collective on the card."""
+def _compress_runs(rank: int, world: int) -> None:
+    """Phase 39 in phase 40's spawn of 2 gloo ranks: the compressor over
+    the 2 gloo ranks, then over a 1-rank NCCL group of rank 0 (the other
+    rank waits); rank 0 writes the part's seconds."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    _compress_rank(rank, world, "gloo", str(OUT_DIR / "compress_gloo.json"))
+    torch.cuda.empty_cache()
+    nccl = dist.new_group([0], backend="nccl")
+    if rank == 0:
+        _compress_rank(0, 1, "nccl", str(OUT_DIR / "compress_nccl.json"),
+                       nccl)
+        torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        (OUT_DIR / "compress_s.json").write_text(json.dumps(
+            time.perf_counter() - t0))
+
+
+def compress_phase(records, spawned: bool = False) -> dict:
+    """Phase 39: the int8 in-hindsight gradient collective on the card
+    (``spawned``: its ranks ran in phase 40's spawn)."""
     from repro_torch.launch import mesh
 
     out = {}
     for backend, world in (("gloo", 2), ("nccl", 1)):
         path = OUT_DIR / f"compress_{backend}.json"
-        mesh.spawn_ranks(_compress_rank, world, OUT_DIR / "store",
-                         backend=backend, args=(backend, str(path)))
+        if not spawned:
+            mesh.spawn_ranks(_compress_rank, world, OUT_DIR / "store",
+                             backend=backend, args=(backend, str(path)))
         rec = json.loads(path.read_text())
         label = ("2 gloo ranks on one card (intra-card gloo: host copies "
                  "over loopback, not a link number)" if backend == "gloo"
@@ -4736,11 +4822,14 @@ def _grad_ratio(got: dict, want: dict) -> float:
     return worst
 
 
-def _dp_rank(rank: int, world: int, out: str) -> None:
+def _dp_rank(rank: int, world: int, out: str, with_39: bool = False) -> None:
     """One rank of phase 40 (a spawned process): the DP step, rank 0's
     one-process step on the whole batch, warm steps of both, then the
-    step with compress."""
+    step with compress; first phase 39's runs where ``with_39``."""
     import torch.distributed as dist
+
+    if with_39:
+        _compress_runs(rank, world)
 
     from repro_torch import configs, data
     from repro_torch.core.policy import QuantPolicy
@@ -5227,15 +5316,22 @@ def _zero3_log(what: str, r: dict, dp_peak: float, dp_bytes: int) -> None:
                  f"copies); launches {r['launches']}")
 
 
-def dp_train_phase(records) -> dict:
-    """Phase 40: the data-parallel train step on 2 gloo ranks on the card
-    against one process on the whole batch, then with compress."""
+def dp_spawn(with_39: bool = False) -> float:
+    """Phase 40's ranks (first phase 39's runs where ``with_39``): one
+    spawn of 2 gloo ranks on the card; returns its seconds."""
     from repro_torch.launch import mesh
 
-    path = OUT_DIR / "dp_train.json"
-    mesh.spawn_ranks(_dp_rank, 2, OUT_DIR / "store", backend="gloo",
-                     args=(str(path),))
-    rec = json.loads(path.read_text())
+    t0 = time.perf_counter()
+    mesh.spawn_ranks(_dp_rank, 2, OUT_DIR / "store_dp", backend="gloo",
+                     args=(str(OUT_DIR / "dp_train.json"), with_39))
+    return time.perf_counter() - t0
+
+
+def dp_train_phase(records) -> dict:
+    """Phase 40's checks on its ranks' records (:func:`dp_spawn`): the
+    data-parallel train step on 2 gloo ranks on the card against one
+    process on the whole batch, then with compress, then ZeRO-3."""
+    rec = json.loads((OUT_DIR / "dp_train.json").read_text())
     log("dp-train", f"starcoder2-3b full width, {DP_LAYERS} layers, "
                     f"{BATCH} x {PROMPT} over 2 gloo ranks on one card: quant "
                     f"state ({rec['quant_leaves']} leaves) bit for bit the "
@@ -5520,7 +5616,7 @@ def _tp_serve_rank(rank: int, world: int, inp: str, out: str) -> None:
 
 
 def tp_serve_phase(records, results) -> None:
-    """Phase 43 (its ranks in the pair spawn, :func:`pair_phases`):
+    """Phase 43 (its ranks in the pair spawn, :func:`pair_spawn`):
     starcoder2-3b served over 2 gloo ranks on the card (model 2: each
     rank one of the 2 KV heads, half the MLP columns and of the
     vocabulary) against phase 4's one-process outputs at the same seed,
@@ -5862,20 +5958,14 @@ def tp_train_phase(records, results) -> None:
     1024 on (1, 2) (30 of the 60 experts a rank, 8 of the 16 KV heads,
     half the shared expert's columns and of the vocabulary; its ranks in
     the pair spawn), then the reduced config on (2, 2) (a spawn of its
-    own), gloo ranks on the card, each against the
+    own: :func:`reduced_spawn`), gloo ranks on the card,
+    each against the
     one-process step on rank 0: activation-site quant state bit for bit,
     gradient sites within 1e-5 of the largest element, the loss within
     1e-5 relative, the clipped gradients within 2**-7 relative L2."""
-    from repro_torch.launch import mesh
-
     results["tp_train"] = {}
     for tag, (d, m), reduced, layers, b, s in TP_TRAIN_RUNS:
         out = OUT_DIR / f"tp_train_{tag}"
-        if (d, m) != (1, TP_SIZE):     # (1, 2) ran in the pair spawn
-            mesh.spawn_ranks(_tp_reduced_rank, d * m, OUT_DIR / "store",
-                             backend="gloo",
-                             args=(d, m, MOE_ARCH, reduced, layers, b, s,
-                                   str(out)))
         recs = [json.loads(Path(f"{out}.r{r}.json").read_text())
                 for r in range(d * m)]
         r0 = recs[0]
@@ -5949,14 +6039,9 @@ def _pair_rank(rank: int, world: int, jobs: tuple, out: str) -> None:
         Path(out).write_text(json.dumps(marks))
 
 
-def pair_phases(phases: tuple, records, results, clock) -> None:
-    """Phases 43-46 over one spawn of 2 gloo ranks on the card (the
-    (1, 2) runs in turn: 43's serve, 44's full-width step, 45's and 46's
-    families), then each phase's checks; 44's reduced (2, 2) run spawns
-    its own 4 ranks.  Each phase's seconds are its share of the spawn
-    (the first one's with the spawn itself) and its checks."""
-    from repro_torch.launch import mesh
-
+def pair_jobs(phases: tuple) -> list:
+    """The pair spawn's jobs ``(phase, function name, args)`` for
+    ``phases`` (of 43-46), their inputs written."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     if 43 in phases:
@@ -5972,14 +6057,47 @@ def pair_phases(phases: tuple, records, results, clock) -> None:
         if n in phases:
             jobs.append((n, "_tp_family_rank",
                          (arch, layers, str(OUT_DIR / f"tp_{arch}"))))
+    return jobs
+
+
+def reduced_spawn() -> float:
+    """Phase 44's reduced (2, 2) run: a spawn of 4 gloo ranks on the card
+    (its own store); returns its seconds."""
+    from repro_torch.launch import mesh
+
+    t = time.time()
+    for tag, (d, m), reduced, layers, b, s in TP_TRAIN_RUNS:
+        if (d, m) != (1, TP_SIZE):     # (1, 2) runs in the pair spawn
+            mesh.spawn_ranks(_tp_reduced_rank, d * m,
+                             OUT_DIR / "store_reduced", backend="gloo",
+                             args=(d, m, MOE_ARCH, reduced, layers, b, s,
+                                   str(OUT_DIR / f"tp_train_{tag}")))
+    return time.time() - t
+
+
+def pair_spawn(jobs: list) -> dict:
+    """Phases 43-46's ranks: one spawn of 2 gloo ranks on the card (the
+    (1, 2) runs of ``jobs`` in turn: 43's serve, 44's full-width step,
+    45's and 46's families).  Returns the seconds each phase's ranks
+    took (a job's share of the spawn, the first one's with the spawn
+    itself)."""
+    from repro_torch.launch import mesh
+
     marks = OUT_DIR / "pair_marks.json"
     t0 = time.time()
     mesh.spawn_ranks(_pair_rank, TP_SIZE, OUT_DIR / "store", backend="gloo",
                      args=(tuple(j[1:] for j in jobs), str(marks)))
     ends = json.loads(marks.read_text())
+    return {n: z - a for (n, _, _), a, z in
+            zip(jobs, [t0] + ends[:-1], ends)}
+
+
+def pair_checks(jobs: list, seconds: dict, records, results, clock) -> None:
+    """Phases 43-46's checks on their ranks' records (:func:`pair_spawn`);
+    each phase's seconds are its ranks' and its checks'."""
     family = {n: (arch, layers, kernels)
               for n, arch, layers, kernels in TP_FAMILY}
-    for (n, _, _), a, z in zip(jobs, [t0] + ends[:-1], ends):
+    for n, _, _ in jobs:
         t = time.time()
         if n == 43:
             name = "tp serve"
@@ -5991,8 +6109,7 @@ def pair_phases(phases: tuple, records, results, clock) -> None:
             arch, layers, kernels = family[n]
             name = f"tp {arch}"
             tp_family_phase(n, arch, layers, kernels, records, results)
-        clock.add(n, name, z - a + time.time() - t)
-        torch.cuda.empty_cache()
+        clock.add(n, name, seconds[n] + time.time() - t)
 
 
 def _host_tree(tree) -> dict:
@@ -6540,8 +6657,23 @@ def _train_recs(out: str, layout: str, what: str) -> list:
     return recs
 
 
-def seq_pad_phases(phases: tuple, records, results, clock) -> None:
-    """Phases 47-48, one spawn of 8 gloo ranks on the card.
+def seq_pad_spawn(phases: tuple) -> tuple:
+    """Phases 47-48's ranks (:func:`seq_pad_checks`): one spawn of 8
+    gloo ranks on the card; returns its start and end (wall clock)."""
+    from repro_torch.launch import mesh
+
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.time()
+    mesh.spawn_ranks(_seq_pad_rank, SEQ_SIZE, OUT_DIR / "store_seq",
+                     backend="gloo",
+                     args=(tuple(phases), str(OUT_DIR / "seq_pad")))
+    return t0, time.time()
+
+
+def seq_pad_checks(phases: tuple, t0: float, t1: float, records, results,
+                   clock) -> None:
+    """Phases 47-48's checks on their ranks' records (:func:`seq_pad_spawn`,
+    one spawn of 8 gloo ranks on the card, from ``t0`` to ``t1``).
 
     47: starcoder2-3b's train step at full width, 2 layers, 4 x 1024 on
     (1, 8): KV 2 and G 12 do not divide 8, so every layer runs the
@@ -6562,14 +6694,7 @@ def seq_pad_phases(phases: tuple, records, results, clock) -> None:
     with its dx products' contraction in 8 blocks, and the padded
     tensors with rank 5's share dropped refused.  A rank with no heads
     launches no attention kernel."""
-    from repro_torch.launch import mesh
-
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
     out = OUT_DIR / "seq_pad"
-    t0 = time.time()
-    mesh.spawn_ranks(_seq_pad_rank, SEQ_SIZE, OUT_DIR / "store",
-                     backend="gloo", args=(tuple(phases), str(out)))
-    t1 = time.time()
     mark = json.loads(Path(f"{out}.mark.json").read_text())
     if 47 in phases:
         clock.add(47, "seq train", mark - t0)
@@ -6928,10 +7053,122 @@ def cells_phase(dev, records, results) -> None:
     results["cells"] = out
 
 
+def _dryrun_cmd(out: Path, *extra) -> list:
+    return [sys.executable, "-m", "repro_torch.launch.dryrun",
+            "--arch", DRYRUN_ARCH, "--shape", "train_4k", "--out", str(out),
+            "--device", "cuda", *extra]
+
+
+class DryrunRuns:
+    """Phase 49's subprocesses, started after phase 3 (the dry run needs
+    no kernel, only host time and the card's device type): the train
+    cell on both production meshes (``DRYRUN_LAYERS``) and phase 40's
+    configuration on ``(2, 1)``, each with its own fake process group.
+    A timer kills what still runs ``DRYRUN_TIMEOUT`` seconds after the
+    start; :meth:`stop` kills what still runs (at exit too)."""
+
+    OUT = OUT_DIR / "dryrun"
+
+    def __init__(self):
+        import atexit
+        import threading
+        shutil.rmtree(self.OUT, ignore_errors=True)
+        cut = ["--layers", str(DRYRUN_LAYERS)]
+        runs = {"16x16": _dryrun_cmd(self.OUT, *cut),
+                "2x16x16": _dryrun_cmd(self.OUT, *cut, "--multipod"),
+                "phase40": _dryrun_cmd(self.OUT, "--mesh", "2x1", "--layers",
+                                       str(DP_LAYERS), "--batch", str(BATCH),
+                                       "--seq", str(PROMPT), "--grad-accum",
+                                       "1", "--tag", "phase40")}
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   OMP_NUM_THREADS="1")
+        self.procs = {k: subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                                          stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT)
+                      for k, cmd in runs.items()}
+        self.expired: list = []
+        self.timer = threading.Timer(DRYRUN_TIMEOUT, self._expire)
+        self.timer.daemon = True
+        self.timer.start()
+        atexit.register(self.stop)
+
+    def _expire(self) -> None:
+        self.expired = [k for k, p in self.procs.items() if p.poll() is None]
+        self.stop()
+
+    def wait(self) -> None:
+        """Raises if a run failed or the timer killed it."""
+        try:
+            logs = {k: p.communicate()[0] for k, p in self.procs.items()}
+        finally:
+            self.stop()
+        if self.expired:
+            raise AssertionError(f"dryrun {self.expired}: killed "
+                                 f"{DRYRUN_TIMEOUT} s after the start")
+        for k, p in self.procs.items():
+            if p.returncode != 0:
+                raise AssertionError(f"dryrun {k}: exit {p.returncode}\n"
+                                     f"{logs[k][-3000:]}")
+
+    def stop(self) -> None:
+        self.timer.cancel()
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def dryrun_phase(runs: DryrunRuns, dp: dict) -> dict:
+    """Phase 49: the dry run's records (:class:`DryrunRuns`): status ok
+    on both meshes, rank 0's counts printed, and phase 40's
+    configuration's stored parameters and moments equal to phase 40's
+    rank 0's bytes on the card."""
+    from repro_torch import configs
+    runs.wait()
+    recs = {}
+    for k, name in (("16x16", "16_16"), ("2x16x16", "2_16_16"),
+                    ("phase40", "2_1__phase40")):
+        rec = json.loads((runs.OUT / f"{DRYRUN_ARCH}__train_4k__{name}.json")
+                         .read_text())
+        if rec["status"] != "ok" or rec["device"] != "cuda":
+            raise AssertionError(f"dryrun {k}: {rec['status']} on "
+                                 f"{rec['device']}")
+        recs[k] = rec
+    r = recs["16x16"]
+    log("dryrun", f"{DRYRUN_ARCH} train_4k cut to {r['layers']} of "
+                  f"{configs.get(DRYRUN_ARCH).n_layers} layers (the only "
+                  f"cut: the cell's global batch {r['global_batch']} x "
+                  f"{r['seq_len']}, its microbatches); cuda fake tensors, "
+                  f"rank 0; the three runs started after phase 3, beside "
+                  f"phases 4-48 (trace seconds below; phase 40's "
+                  f"configuration {recs['phase40']['trace_s']} s)")
+    for k in ("16x16", "2x16x16"):
+        r = recs[k]
+        coll = ", ".join(f"{kind} {v['ops']} ops {v['operand_bytes']} B"
+                         for kind, v in r["collectives"].items()
+                         if isinstance(v, dict) and v["ops"])
+        log("dryrun", f"{k} ({r['world']} ranks): {r['cost']['flops']:.6e} "
+                      f"FLOPs, {r['cost']['bytes_accessed']:.6e} bytes, "
+                      f"{r['n_ops']} ops; collectives {coll}; "
+                      f"per_device_bytes_est "
+                      f"{r['memory']['per_device_bytes_est']} "
+                      f"({r['memory']['per_device_bytes_est'] / 2 ** 30:.2f} "
+                      f"GiB), trace {r['trace_s']} s")
+    want = dp["zero3"]["off"]["stored_bytes"]
+    got = recs["phase40"]["memory"]["stored_state_bytes"]
+    log("dryrun", f"phase 40's configuration on (2, 1): stored parameters "
+                  f"and moments {got} B (dry run) against {want} B (phase "
+                  f"40's rank 0 on the card)")
+    if got != want:
+        raise AssertionError(f"dryrun: stored_state_bytes {got} != phase "
+                             f"40's {want}")
+    return {"records": recs, "phase40_stored_bytes": want}
+
+
 def parse_phases(spec: str) -> set:
     """``"1-3,9"`` -> ``{1, 2, 3, 9}``; phase 1 always, 4 with 5, 6 or 43,
     17 with 18, 20 with 21 or 22, 26 with 27, 29 with 30, 32 with 33, 35
-    with 36."""
+    with 36, 40 with 49."""
     phases = {1}
     for part in spec.split(","):
         lo, _, hi = part.strip().partition("-")
@@ -6955,6 +7192,8 @@ def parse_phases(spec: str) -> set:
         phases.add(35)
     if 43 in phases:
         phases.add(4)
+    if 49 in phases:
+        phases.add(40)
     return phases
 
 
@@ -7005,28 +7244,66 @@ def main(argv=None) -> int:
     results["device"] = dict(kind=kind, count=count, smi=smi)
     clock.stop()
 
-    # 2. build
+    def cnn_phases(which: tuple) -> None:
+        # 10. the CNN train path, MobileNetV2-tiny at full width; 11. CNN
+        # parity: fused vs simulated, TF32 on globally; 13. its telemetry
+        for n, name, key, fn in (
+                (10, "cnn train", "cnn_train", lambda: cnn_train_phase(dev)),
+                (11, "cnn parity", "cnn_parity",
+                 lambda: cnn_parity_phase(dev)),
+                (13, "tele cnn", "tele_cnn",
+                 lambda: tele_cnn_phase(dev, OUT_DIR))):
+            if n in which:
+                with clock(n, name):
+                    results[key] = fn()
+                torch.cuda.empty_cache()
+
+    # 2. build.  The attention source's nvcc takes most of it: the CNN
+    # phases (10, 11, 13), which launch no attention kernel, run beside
+    # it once the other sources are built.
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    early = tuple(n for n in (10, 11, 13) if run_phase(n))
     if run_phase(2):
         clock.start(2, "build")
         t0 = time.perf_counter()
-        built = build.build_all()
+        attn = Beside(f"phases {', '.join(map(str, early))} beside the "
+                      f"attention source's nvcc", build.build_all,
+                      ("int8_attention",)) if early else None
         results["build"] = {}
-        for name, (path, secs, out) in built.items():
-            regs = [ln.strip() for ln in out.splitlines()
-                    if "registers" in ln or "spill" in ln]
-            log("build", f"{name}: {secs:.1f} s; {' | '.join(regs) or out}")
-            imma = imma_count(path)
-            log("build", f"{name}: "
-                         + ("no cuobjdump in the toolkit" if imma is None
-                            else f"{imma} IMMA instructions in the SASS"))
-            results["build"][name] = dict(seconds=secs, ptxas=regs,
-                                          imma=imma)
-            if name in TENSOR_CORE_SOURCES and imma == 0:
-                raise AssertionError(f"{name}: no IMMA instruction in the "
-                                     f"SASS: its products are not on the "
-                                     f"tensor cores")
-        log("build", f"all kernels built in {time.perf_counter() - t0:.1f} s")
+
+        def note(built: dict) -> None:
+            for name, (path, secs, out) in built.items():
+                regs = [ln.strip() for ln in out.splitlines()
+                        if "registers" in ln or "spill" in ln]
+                log("build", f"{name}: {secs:.1f} s; "
+                             f"{' | '.join(regs) or out}")
+                imma = imma_count(path)
+                log("build", f"{name}: "
+                             + ("no cuobjdump in the toolkit" if imma is None
+                                else f"{imma} IMMA instructions in the SASS"))
+                results["build"][name] = dict(seconds=secs, ptxas=regs,
+                                              imma=imma)
+                if name in TENSOR_CORE_SOURCES and imma == 0:
+                    raise AssertionError(f"{name}: no IMMA instruction in "
+                                         f"the SASS: its products are not "
+                                         f"on the tensor cores")
+
+        note(build.build_all(tuple(n for n in build.SOURCES
+                                   if attn is None or n != "int8_attention")))
+        if attn is not None:
+            clock.stop()
+            try:
+                cnn_phases(early)
+            finally:
+                clock.start(2, "build")
+                built = attn.join()
+            note(built)
+        log("build", f"all kernels built in {time.perf_counter() - t0:.1f} s"
+                     + (f" (phases {', '.join(map(str, early))} beside the "
+                        f"attention source's nvcc)" if early else ""))
         clock.stop()
+    else:
+        early = ()
 
     # 3. kernels at the slice's shapes
     cfg = configs.get("starcoder2-3b")
@@ -7139,6 +7416,10 @@ def main(argv=None) -> int:
         mmrec["tiles"], by_name["int8_matmul_fused"]["tiles"] = \
             tile_records(results["tiles"])
         clock.stop()
+    # phase 49's dry runs need host time only: they run beside phases
+    # 4-48 (after phase 3's timings)
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    dryrun_runs = DryrunRuns() if run_phase(49) else None
     for r in records:
         r["launches"] = None        # set by the path phases that run
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -7171,22 +7452,13 @@ def main(argv=None) -> int:
             if r["name"] in LAYER_KERNELS and not r["launches"]:
                 r["launches"] = results["fused_layers"]["launches"][r["name"]]
         torch.cuda.empty_cache()
+    cnn_phases(tuple(n for n in (10, 11) if run_phase(n) and n not in early))
     if run_phase(10):
-        # 10. the CNN train path, MobileNetV2-tiny at full width
-        with clock(10, "cnn train"):
-            results["cnn_train"] = cnn_train_phase(dev)
         for r in records:
             r["cnn_train_launches"] = \
                 results["cnn_train"]["launches"][r["name"]]
             if r["launches"] is None and r["name"] in CNN_KERNELS:
                 r["launches"] = r["cnn_train_launches"]
-        torch.cuda.empty_cache()
-    if run_phase(11):
-        # 11. CNN parity: fused vs simulated, TF32 on globally
-        with clock(11, "cnn parity"):
-            results["cnn_parity"] = cnn_parity_phase(dev)
-        torch.cuda.empty_cache()
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
     if run_phase(12):
         # 12. LM train with telemetry and the guard, full width and depth
         with clock(12, "tele train"):
@@ -7195,18 +7467,26 @@ def main(argv=None) -> int:
             r["tele_train_launches"] = \
                 results["tele_train"]["launches"][r["name"]]
         torch.cuda.empty_cache()
+    cnn_phases((13,) if run_phase(13) and 13 not in early else ())
     for n, name, key, fn in (
-            (13, "tele cnn", "tele_cnn", lambda: tele_cnn_phase(dev,
-                                                                OUT_DIR)),
             (14, "tele serve", "tele_serve",
              lambda: tele_serve_phase(cfg, OUT_DIR)),
             (15, "guard parity", "guard_parity",
-             lambda: guard_parity_phase(cfg, dev)),
-            (16, "checkpoint", "ckpt", lambda: ckpt_phase(cfg, OUT_DIR))):
+             lambda: guard_parity_phase(cfg, dev))):
         if run_phase(n):
             with clock(n, name):
                 results[key] = fn()
             torch.cuda.empty_cache()
+    # 47-48's 8 ranks (~39 GiB of the card) beside 16 (~15 GiB): Beside
+    seq_pad = tuple(n for n in (47, 48) if run_phase(n))
+    beside = Beside("phase 16 beside 47-48's ranks", seq_pad_spawn,
+                    seq_pad) if seq_pad else None
+    if run_phase(16):
+        with clock(16, "checkpoint"):
+            results["ckpt"] = ckpt_phase(cfg, OUT_DIR)
+        torch.cuda.empty_cache()
+    if seq_pad:
+        seq_pad_checks(seq_pad, *beside.join(), records, results, clock)
     if run_phase(17):
         # 17. MoE serve at full width and depth; 18. its prefill parity
         with clock(17, "moe serve"):
@@ -7287,6 +7567,13 @@ def main(argv=None) -> int:
         with clock(31, "rwkv train"):
             rwkv_train_phase(dev, records, results)
         torch.cuda.empty_cache()
+    # 39-40's ranks beside 32-36 and 38, 44's (2, 2) ranks beside 37
+    # (Beside): the main process's phases there hold at most ~20 GiB of
+    # the card, 40's ranks ~35 GiB; 43-46's ranks (~77 GiB: rank 0 runs
+    # the one-process steps), 41 (~41 GiB) and 42 (which times kernels)
+    # run alone
+    beside = Beside("phases 32-36 and 38 beside 39-40's ranks", dp_spawn,
+                    run_phase(39)) if run_phase(40) else None
     for first, second, serve_fn, parity_fn, names in (
             (32, 33, encdec_serve_phase, encdec_parity_phase,
              ("encdec serve", "encdec parity")),
@@ -7302,25 +7589,46 @@ def main(argv=None) -> int:
                     parity_fn(run, dev, results)
             del run
             torch.cuda.empty_cache()
-        # 34 / 37. its train step at full width
-        n, name, fn = ((34, "encdec train", encdec_train_phase)
-                       if first == 32 else
-                       (37, "vlm train", vlm_train_phase))
-        if run_phase(n):
-            with clock(n, name):
-                fn(dev, records, results)
+        # 34. the enc-dec train step at full width (37's comes later)
+        if first == 32 and run_phase(34):
+            with clock(34, "encdec train"):
+                encdec_train_phase(dev, records, results)
             torch.cuda.empty_cache()
     if run_phase(38):
         with clock(38, "tall serve"):
             tall_serve_phase(dev, records, results)
         torch.cuda.empty_cache()
-    if run_phase(39):
+    if run_phase(40):
+        # 39's ranks ran in 40's spawn: its seconds are their part's
+        seconds = beside.join()
+        t0 = time.perf_counter()
+        results["dp_train"] = dp_train_phase(records)
+        seconds += time.perf_counter() - t0
+        if run_phase(39):
+            part = json.loads((OUT_DIR / "compress_s.json").read_text())
+            results["compress"] = compress_phase(records, spawned=True)
+            clock.add(39, "compress", part)
+            seconds -= part
+        clock.add(40, "dp train", seconds)
+    elif run_phase(39):
         with clock(39, "compress"):
             results["compress"] = compress_phase(records)
         torch.cuda.empty_cache()
-    if run_phase(40):
-        with clock(40, "dp train"):
-            results["dp_train"] = dp_train_phase(records)
+    pair = tuple(n for n in (43, 44, 45, 46) if run_phase(n))
+    beside = Beside("phase 37 beside 44's (2, 2) ranks", reduced_spawn) \
+        if 44 in pair else None
+    if run_phase(37):
+        # 37. the VLM train step at full width
+        with clock(37, "vlm train"):
+            vlm_train_phase(dev, records, results)
+        torch.cuda.empty_cache()
+    if pair:
+        reduced_s = beside.join() if beside else 0.0
+        jobs = pair_jobs(pair)
+        seconds = pair_spawn(jobs)
+        if 44 in seconds:
+            seconds[44] += reduced_s
+        pair_checks(jobs, seconds, records, results, clock)
         torch.cuda.empty_cache()
     if run_phase(41):
         with clock(41, "decode cells"):
@@ -7330,13 +7638,9 @@ def main(argv=None) -> int:
         with clock(42, "general attention"):
             general_attention_phase(dev, records, results)
         torch.cuda.empty_cache()
-    pair = tuple(n for n in (43, 44, 45, 46) if run_phase(n))
-    if pair:
-        pair_phases(pair, records, results, clock)
-    seq_pad = tuple(n for n in (47, 48) if run_phase(n))
-    if seq_pad:
-        seq_pad_phases(seq_pad, records, results, clock)
-        torch.cuda.empty_cache()
+    if run_phase(49):
+        with clock(49, "dryrun"):
+            results["dryrun"] = dryrun_phase(dryrun_runs, results["dp_train"])
     for r in records:       # the kernels' launches where no earlier path ran
         for key in ("sc7_serve_launches", "cmdr_serve_launches",
                     "nemotron_serve_launches", "grad_only_launches",

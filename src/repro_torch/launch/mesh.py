@@ -37,31 +37,56 @@ def make_production_mesh(*, multi_pod: bool = False,
 
 
 class MeshGroups(NamedTuple):
-    """A rank's place in a ``(data, model)`` mesh: its data subgroup (the
-    ranks of its model coordinate), its model subgroup (the ranks of its
-    data coordinate), its coordinates and the mesh's sizes."""
+    """A rank's place in a ``(pod, data, model)`` mesh: its data subgroup
+    (the ranks of its pod and model coordinates: ZeRO-3 storage), its
+    model subgroup (the ranks of its pod and data coordinates), its
+    coordinates and the mesh's sizes; its batch subgroup (the ranks of
+    its model coordinate: the batch is split over ``(pod, data)``) and its
+    pod subgroup (the ranks of its data and model coordinates).  With one
+    pod the batch group is the data group and there is no pod group."""
 
     data: object
     model: object
     coords: dict
     sizes: dict
+    batch: object = None
+    pod: object = None
 
 
-def mesh_groups(data: int, model: int) -> MeshGroups:
-    """This rank's subgroups of a ``(data, model)`` mesh over the default
-    process group (world size ``data * model``), in ``jax.make_mesh``'s
-    row-major order: ``rank = d * model + m``.  Every rank must call it
-    (``torch.distributed.new_group`` is collective)."""
-    if dist.get_world_size() != data * model:
-        raise ValueError(f"a ({data}, {model}) mesh needs {data * model} "
-                         f"ranks, not {dist.get_world_size()}")
-    d, m = divmod(dist.get_rank(), model)
-    data_groups = [dist.new_group([dd * model + mm for dd in range(data)])
-                   for mm in range(model)]
-    model_groups = [dist.new_group([dd * model + mm for mm in range(model)])
-                    for dd in range(data)]
-    return MeshGroups(data_groups[m], model_groups[d],
-                      {"data": d, "model": m}, {"data": data, "model": model})
+def mesh_groups(data: int, model: int, pod: int = 1) -> MeshGroups:
+    """This rank's subgroups of a ``(pod, data, model)`` mesh over the
+    default process group (world size ``pod * data * model``), in
+    ``jax.make_mesh``'s row-major order: ``rank = (p * data + d) * model
+    + m``.  Every rank must call it (``torch.distributed.new_group`` is
+    collective).  ``pod = 1`` is the ``(data, model)`` mesh: coordinates
+    and sizes without a ``"pod"`` entry, the batch group the data
+    group."""
+    world = pod * data * model
+    if dist.get_world_size() != world:
+        shape = (data, model) if pod == 1 else (pod, data, model)
+        raise ValueError(f"a {shape} mesh needs {world} ranks, not "
+                         f"{dist.get_world_size()}")
+
+    def rank(p, d, m):
+        return (p * data + d) * model + m
+    pd, m = divmod(dist.get_rank(), model)
+    p, d = divmod(pd, data)
+    data_groups = [[dist.new_group([rank(pp, dd, mm) for dd in range(data)])
+                    for mm in range(model)] for pp in range(pod)]
+    model_groups = [[dist.new_group([rank(pp, dd, mm) for mm in range(model)])
+                     for dd in range(data)] for pp in range(pod)]
+    coords, sizes = {"data": d, "model": m}, {"data": data, "model": model}
+    if pod == 1:
+        g = data_groups[0][m]
+        return MeshGroups(g, model_groups[0][d], coords, sizes, g, None)
+    batch_groups = [dist.new_group([rank(pp, dd, mm) for pp in range(pod)
+                                    for dd in range(data)])
+                    for mm in range(model)]
+    pod_groups = [[dist.new_group([rank(pp, dd, mm) for pp in range(pod)])
+                   for mm in range(model)] for dd in range(data)]
+    return MeshGroups(data_groups[p][m], model_groups[p][d],
+                      {"pod": p, **coords}, {"pod": pod, **sizes},
+                      batch_groups[m], pod_groups[d][m])
 
 
 def dp_axes(multi_pod: bool = False) -> tuple:

@@ -365,17 +365,35 @@ def _cache_length(cache: dict) -> int:
     return cache["pos"].shape[1] if split is None else split[1]
 
 
-def _own_slots(t: torch.Tensor, slots: torch.Tensor):
-    """``(index, keep)``: where the whole cache's ``slots`` lie in ``t``
-    (a length shard's own slots, relative to its first; ``keep`` selects
-    them, None: all of them)."""
+def _own_range(t: torch.Tensor):
+    """``(first, count)`` of the whole cache's slots a length shard ``t``
+    holds, or None (it holds them all)."""
     split = sharding.cache_split_of(t)
     if split is None or split[0] != 1:
-        return slots, None
+        return None
     r, m = sharding.mp_shard()
-    lo, n = sharding.split_range(split[1], m, r)
-    keep = (slots >= lo) & (slots < lo + n)
-    return slots[keep] - lo, keep
+    return sharding.split_range(split[1], m, r)
+
+
+def _owned_positions(start: int, s: int, length: int, lo: int, n: int,
+                     device) -> torch.Tensor:
+    """The indices ``i`` into the positions ``[start, s)`` whose slot
+    ``(start + i) % length`` a length shard owns (``[lo, lo + n)``), in
+    order: an index of static shape, the elements a mask selects.  The
+    positions cover the ring at most once, so their slots are two runs
+    (up to the ring's end, then from 0) and the owned ones at most two
+    ranges."""
+    a, count = start % length, s - start
+    parts = []
+    for u, v, off in ((a, min(a + count, length), 0),
+                      (0, a + count - length, length - a)):
+        first, end = max(u, lo), min(v, lo + n)
+        if end > first:
+            parts.append(torch.arange(first - u + off, end - u + off,
+                                      device=device))
+    if not parts:
+        return torch.zeros(0, dtype=torch.long, device=device)
+    return torch.cat(parts)
 
 
 def _quant_kv(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -403,8 +421,12 @@ def cache_fill(cache: dict, k, v) -> dict:
         ksrc, vsrc = _quant_kv(ksrc, ks), _quant_kv(vsrc, vs)
     for name, src in (("k", ksrc), ("v", vsrc), ("pos", pos[None])):
         t = cache[name]
-        idx, keep = _own_slots(t, slots)
-        t[:, idx] = (src if keep is None else src[:, keep]).to(t.dtype)
+        own = _own_range(t)
+        if own is None:
+            t[:, slots] = src.to(t.dtype)
+            continue
+        keep = _owned_positions(start, s, length, *own, k.device)
+        t[:, slots[keep] - own[0]] = src[:, keep].to(t.dtype)
     return cache
 
 
@@ -420,11 +442,19 @@ def cache_insert(cache: dict, k_new, v_new, pos: torch.Tensor) -> dict:
         vn = _quant_kv(vn, cache["scale"][1])
     for name, val in (("k", kn), ("v", vn), ("pos", pos)):
         t = cache[name]
-        idx, keep = _own_slots(t, slot)
-        if keep is None:
-            t[b, idx] = val.to(t.dtype)
-        else:
-            t[b[keep], idx] = val[keep].to(t.dtype)
+        own = _own_range(t)
+        if own is None:
+            t[b, slot] = val.to(t.dtype)
+            continue
+        # a row whose slot another shard owns writes its slot 0's own
+        # value back: every row writes, so no mask shapes the write
+        lo, n = own
+        if n == 0:
+            continue
+        keep = (slot >= lo) & (slot < lo + n)
+        idx = torch.where(keep, slot - lo, 0)
+        keep = keep.reshape(keep.shape + (1,) * (val.dim() - 1))
+        t[b, idx] = torch.where(keep, val.to(t.dtype), t[b, idx])
     return cache
 
 

@@ -64,6 +64,17 @@ is split over, and the optimizer updates the shares.  ``compress`` (the
 reference's int8 all-reduce returns replicated gradients) has no form
 there and raises.  ``make_prefill_step`` / ``make_decode_step(group=)``
 gather stored weights the same way, with no gradient.
+
+Pods (the reference's ``(pod, data, model)`` mesh,
+``launch.mesh.mesh_groups(..., pod=)``): the batch is split over
+``(pod, data)``, so ``group`` is the rank's batch group over both, while
+a stored state is stored over ``data`` only (``storage_group``, the
+rank's data group): each pod holds a whole ZeRO-3 copy.  A stored
+share's gradient is reduce-scattered within the pod and then summed
+over ``pod_group`` (the ranks of its data and model coordinates); every
+other gradient, the statistics and the metrics are reduced over
+``group``.  Without ``storage_group`` the step stores over ``group``, as
+on one pod.
 """
 from __future__ import annotations
 
@@ -272,7 +283,8 @@ def _mp_clip(grads: dict, params: dict, max_norm: float, group=None):
 def make_train_step(cfg, policy: QuantPolicy, optimizer, lr_schedule: Callable,
                     *, grad_accum: int = 1,
                     clip_norm: Optional[float] = 1.0, compress=None,
-                    group=None, model_group=None) -> Callable:
+                    group=None, model_group=None, storage_group=None,
+                    pod_group=None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     ``batch`` is ``{"tokens", "labels", "mask"}`` on the parameters'
@@ -283,11 +295,14 @@ def make_train_step(cfg, policy: QuantPolicy, optimizer, lr_schedule: Callable,
     per-replica gradients and returns their mean); ``group`` makes the
     step data-parallel over that process group, and ``model_group``
     model-parallel over that one, on parameters cut by
-    ``sharding.shard_params`` (module docstring)."""
+    ``sharding.shard_params``; ``storage_group`` (default ``group``) is
+    the group a stored state is stored over and ``pod_group`` the one its
+    shares' gradients are then summed over (module docstring)."""
     backend.validate(policy)
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     world = 1 if group is None else dist.get_world_size(group)
+    store_group = group if storage_group is None else storage_group
     mworld = 1 if model_group is None else dist.get_world_size(model_group)
 
     def train_step(state: dict, batch: dict):
@@ -308,7 +323,7 @@ def make_train_step(cfg, policy: QuantPolicy, optimizer, lr_schedule: Callable,
         dp = sharding.data_parallel(group) if sharded \
             else contextlib.nullcontext()
         with dp, sharding.model_parallel(model_group), \
-                sharding.storage(group if stored else None):
+                sharding.storage(store_group if stored else None):
             for midx in range(grad_accum):
                 mb = batch if grad_accum == 1 else \
                     {k: v[midx * size:(midx + 1) * size]
@@ -341,9 +356,15 @@ def make_train_step(cfg, policy: QuantPolicy, optimizer, lr_schedule: Callable,
                     # a share stored over the data axis arrived
                     # reduce-scattered (sharding.scatter_stored)
                     named = named_params(params)
+                    split = [k for k in grads
+                             if "data" in _split_axes(named[k])]
                     grads.update(_all_reduce_grads(
-                        {k: g for k, g in grads.items()
-                         if "data" not in _split_axes(named[k])}, group))
+                        {k: g for k, g in grads.items() if k not in split},
+                        group))
+                    if pod_group is not None and split:
+                        # the pods' sums of their shares
+                        grads.update(_all_reduce_grads(
+                            {k: grads[k] for k in split}, pod_group))
                 else:   # per-replica gradients, whose mean the hook takes
                     grads = {k: g * world for k, g in grads.items()}
                 stats = dp_combine_stats(stats, group)
@@ -361,7 +382,7 @@ def make_train_step(cfg, policy: QuantPolicy, optimizer, lr_schedule: Callable,
         if clip_norm is not None and (mworld > 1 or stored):
             with sharding.model_parallel(model_group):
                 grads, metrics["grad_norm"] = _mp_clip(
-                    grads, named_params(params), clip_norm, group)
+                    grads, named_params(params), clip_norm, store_group)
         elif clip_norm is not None:
             grads, metrics["grad_norm"] = clip_by_global_norm(grads,
                                                               clip_norm)

@@ -265,6 +265,26 @@ def test_split_range_shares():
                        for (a, c), (b, _) in zip(lo, lo[1:]))
 
 
+@pytest.mark.parametrize("length", [1, 5, 16, 20, 33])
+def test_owned_positions_are_the_mask(length):
+    """A length shard's prefill positions (``attention._owned_positions``,
+    at most two ranges) are exactly those whose slot a mask over its
+    share selects, in order, for prompts shorter and longer than the
+    ring and every share of 1-8 ranks."""
+    from repro_torch.models import attention
+    for s in range(1, 3 * length + 2):
+        start = max(0, s - length)
+        slots = torch.arange(start, s) % length
+        for m in range(1, 9):
+            for r in range(m):
+                lo, n = sharding.split_range(length, m, r)
+                want = torch.nonzero((slots >= lo) & (slots < lo + n))[:, 0]
+                got = attention._owned_positions(start, s, length, lo, n,
+                                                 "cpu")
+                assert got.dtype == torch.long
+                assert torch.equal(got, want), (s, m, r)
+
+
 @pytest.mark.parametrize("case", list(SERVE))
 def test_padded_layout_and_head_shares(padded, case):
     """Every rank ran the padded layouts (the encoder the sequence core,
