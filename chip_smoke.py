@@ -347,7 +347,10 @@ Phases, one line each:
                    card's device under a fake process group, CostMode)
                    for starcoder2-3b train_4k on both production meshes
                    (256 and 512 ranks; the cell's own global batch and
-                   microbatches, depth cut to 4 layers, printed), in
+                   microbatches, depth cut to 4 layers, printed) and
+                   again on 16 x 16 with --seq-shard (its per-device
+                   bytes below the unsharded trace's, more
+                   reduce-scatters), in
                    subprocesses started after phase 3 that run beside
                    phases 4-48 (they need no kernel, only host time;
                    a timer kills what outlives DRYRUN_TIMEOUT): status ok,
@@ -356,13 +359,27 @@ Phases, one line each:
                    (2 layers, 4 x 1024, (2, 1), ZeRO-3): its
                    stored_state_bytes equal byte for byte the parameters
                    and AdamW moments phase 40's rank 0 stores on the card
+ 50. seq shard     (phase 47's spawn) starcoder2-3b at full width, 2
+                   layers, on (1, 8) with seq_shard (make_prefill_step /
+                   make_decode_step / make_train_step: the residual
+                   stream at every block boundary each rank's 128 rows,
+                   or decode's one row on rank 0; the normed rows
+                   gathered into each sublayer, its row-parallel product
+                   reduce-scattered out on the int32 mode and its
+                   epilogue): phase 48's 4 x 1024 prefill into the
+                   1032-slot cache (statistics, cache slots and logits
+                   bit for bit) and 8 greedy decode steps (tokens
+                   identical, logits within phase 48's bars; rank 0's
+                   share of every reduce-scatter dropped refused), then
+                   phase 47's 4 x 1024 train step with phase 45's bars;
+                   each rank's peak GiB and gloo ms beside phase 47's
 
 Phase 39 runs its ranks in phase 40's spawn of 2 processes (its own
 two spawns when 40 does not run), 43-46 their (1, 2) ranks in one spawn
-of 2 processes (44's (2, 2) run in one of its own), 47-48 theirs in one
-of 8; each phase's seconds are its share of the spawn and its checks.
-The main process only waits on a spawn, so 47-48's spawn runs in a
-thread beside phase 16, 39-40's beside phases 32-36 and 38, and 44's
+of 2 processes (44's (2, 2) run in one of its own), 47-48 and 50 theirs
+in one of 8; each phase's seconds are its share of the spawn and its
+checks.  The main process only waits on a spawn, so 47-48 and 50's spawn
+runs in a thread beside phase 16, 39-40's beside phases 32-36 and 38, and 44's
 (2, 2) spawn beside 37 (:class:`Beside`; each pair's peaks fit the
 card's memory together);
 the checks of the spawned phases run after their ranks end.  The CNN
@@ -585,7 +602,7 @@ PAD_LAYERS, PAD_GEN, PAD_TRAIN_SEQ, PAD_LOGITS_TOL = 2, 8, 8192, 1e-5
 UNEVEN_LAYERS, UNEVEN_GEN = 1, 4
 # Phase 4's one-process outputs, kept for phase 43.
 KEPT: dict = {}
-N_PHASES = 49
+N_PHASES = 50
 # Where phases 12-16 write their JSONL logs and checkpoints (git-ignored).
 OUT_DIR = ROOT / "build" / "chip_smoke"
 
@@ -4613,8 +4630,8 @@ class PhaseClock:
             for n, sec in sorted(self.seconds.items()))
             + f"; phases 1-31 {self.part(1, 31):.1f}, 32-37 "
             f"{self.part(32, 37):.1f}, 38-40 {self.part(38, 40):.1f}, 41 "
-            f"{self.part(41, 41):.1f}, 42-44 {self.part(42, 44):.1f}, 45-48 "
-            f"{self.part(45, 48):.1f}; the whole run {total:.1f} s")
+            f"{self.part(41, 41):.1f}, 42-44 {self.part(42, 44):.1f}, 45-50 "
+            f"{self.part(45, 50):.1f}; the whole run {total:.1f} s")
         return dict(seconds={str(n): sec for n, sec in self.seconds.items()},
                     total_s=total)
 
@@ -5714,7 +5731,8 @@ def _quant_check(got, want, what: str, grad_bar=1e-5) -> dict:
 
 def _tp_train_rank(rank: int, world: int, data_n: int, model_n: int,
                    arch: str, reduced: bool, layers: int, batch_n: int,
-                   seq: int, out: str, floor_bars: bool = False) -> None:
+                   seq: int, out: str, floor_bars: bool = False,
+                   seq_shard: bool = False) -> None:
     """One rank of phases 44-48 (a spawned process): the train step on a
     ``(data_n, model_n)`` mesh, then, on rank 0, the one-process step on
     the same parameters and batch and the comparison.  Phase 44's bars:
@@ -5728,7 +5746,8 @@ def _tp_train_rank(rank: int, world: int, data_n: int, model_n: int,
     floor of what it holds, the leaves' worst floor and each gradient
     tensor's own (the fixed bar wherever the one-process step repeats
     itself that closely), and doubled or halved gradients must fail
-    some tensor's bar."""
+    some tensor's bar.  ``seq_shard`` (phase 50): the mesh's step with
+    the residual stream the rank's rows of the sequence."""
     import torch.distributed as dist
 
     from repro_torch import configs, data
@@ -5767,7 +5786,7 @@ def _tp_train_rank(rank: int, world: int, data_n: int, model_n: int,
 
     st = fresh(True)
     ts = steps.make_train_step(cfg, pol, opt, constant(DP_LR), group=g.data,
-                               model_group=g.model)
+                               model_group=g.model, seq_shard=seq_shard)
     layouts, layout_of = set(), sharding.attn_layout
 
     def spy(*a, **kw):      # the attention layouts the step ran
@@ -5830,6 +5849,11 @@ def _tp_train_rank(rank: int, world: int, data_n: int, model_n: int,
             cut[r][k] = torch.zeros_like(shards[r][k])
         dropped = sharding.gather_named(cut, {k: like[k] for k in uneven})
         del shards, grads, cut
+        # held on the host through the one-process steps (the card holds
+        # them and both ranks' states): compared a tensor at a time
+        whole = {k: v.cpu() for k, v in whole.items()}
+        dropped = {k: v.cpu() for k, v in dropped.items()}
+        torch.cuda.empty_cache()
         ts1 = steps.make_train_step(cfg, pol, opt, constant(DP_LR))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -6311,7 +6335,8 @@ def tp_family_phase(n: int, arch: str, layers: int, kernels: tuple,
         r[f"tp_{n}_launches"] = t0["launches"].get(r["name"], 0)
 
 
-def _pad_serve_rank(rank: int, world: int, out: str) -> None:
+def _pad_serve_rank(rank: int, world: int, out: str,
+                    seq_shard: bool = False) -> None:
     """One rank of phase 48's serve run (a spawned process):
     starcoder2-3b at full width, ``PAD_LAYERS`` layers, on its (1, world)
     shard, on the padded layout: a 4 x 1024 prefill with its statistics
@@ -6321,7 +6346,11 @@ def _pad_serve_rank(rank: int, world: int, out: str) -> None:
     dropping its ``o`` partial (its ``wo`` zeroed): the check must refuse
     both.  Then rank 0 serves the one-process program on the same
     parameters, and again with the decode sums over L in 8 blocks
-    (``backend.reassociate``: its floor), and compares."""
+    (``backend.reassociate``: its floor), and compares.  ``seq_shard``
+    (phase 50): the same run with the residual stream the rank's rows of
+    the sequence, and the refused fault rank 0's share of every
+    reduce-scatter dropped (zeroed: the decode step's one row is
+    rank 0's)."""
     import torch.distributed as dist
 
     from repro_torch import configs
@@ -6343,11 +6372,13 @@ def _pad_serve_rank(rank: int, world: int, out: str) -> None:
     quant = model.init_quant_state(cfg, pol, device=dev)
 
     def serve(params, group) -> dict:
+        sp = seq_shard and group is not None
         prefill = steps.make_prefill_step(cfg, pol,
                                           cache_len=PROMPT + PAD_GEN,
                                           model_group=group,
-                                          return_stats=True)
-        decode = steps.make_decode_step(cfg, pol, model_group=group)
+                                          return_stats=True, seq_shard=sp)
+        decode = steps.make_decode_step(cfg, pol, model_group=group,
+                                        seq_shard=sp)
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -6385,7 +6416,22 @@ def _pad_serve_rank(rank: int, world: int, out: str) -> None:
             for p in wo:
                 p.div_(2)
         res["doubled_logits"] = lg.float().cpu()
-        if group is not None:
+        if sp:
+            # rank 0's share of every reduce-scatter dropped
+            scatter = sharding.mp_scatter_now
+
+            def dropped(x, dim):
+                y = scatter(x, dim)
+                return torch.zeros_like(y) if rank == 0 else y
+            sharding.mp_scatter_now = dropped
+            try:
+                with torch.no_grad():
+                    lg, _ = decode(params, quant, {"token": toks[-2],
+                                                   "pos": pos}, caches)
+            finally:
+                sharding.mp_scatter_now = scatter
+            res["dropped_logits"] = lg.float().cpu()
+        elif group is not None:
             # the last rank that holds heads drops its o partial
             keep = [p.clone() for p in wo]
             with torch.no_grad():
@@ -6459,6 +6505,8 @@ def _pad_serve_rank(rank: int, world: int, out: str) -> None:
         bar = max(PAD_LOGITS_TOL, TP_FLOOR_MARGIN * floor)
         doubled = _rel_l2(got["doubled_logits"], one["logits"][-1])
         dropped = _rel_l2(got["dropped_logits"], one["logits"][-1])
+        if seq_shard:
+            last = 0
         rec.update(prefill_rel_l2=rels[0], decode_rel_l2=max(rels[1:]),
                    prefill_identical=torch.equal(got["logits"][0],
                                                  one["logits"][0]),
@@ -6489,13 +6537,16 @@ def _pad_serve_rank(rank: int, world: int, out: str) -> None:
                                  f"doubled o output ({doubled:.3e})")
         if dropped <= bar:
             raise AssertionError(f"padded serve: the decode check passes "
-                                 f"rank {last}'s o partial dropped "
+                                 f"rank {last}'s "
+                                 + ("reduce-scatter share" if seq_shard
+                                    else "o partial") + " dropped "
                                  f"({dropped:.3e})")
-        log("padded", f"rank 0: prefill logits {rels[0]:.3e} rel L2, "
-                      f"decode {max(rels[1:]):.3e} (floor {floor:.3e}, bar "
-                      f"{bar:.3e}; wo doubled {doubled:.3e}, rank {last}'s "
-                      f"o partial dropped {dropped:.3e}); tokens "
-                      f"identical")
+        log("seq-shard" if seq_shard else "padded",
+            f"rank 0: prefill logits {rels[0]:.3e} rel L2, decode "
+            f"{max(rels[1:]):.3e} (floor {floor:.3e}, bar {bar:.3e}; wo "
+            f"doubled {doubled:.3e}, rank {last}'s "
+            + ("reduce-scatter share" if seq_shard else "o partial")
+            + f" dropped {dropped:.3e}); tokens identical")
         del one, blocks
     Path(f"{out}.r{rank}.json").write_text(json.dumps(rec))
     del got
@@ -6597,10 +6648,11 @@ def _uneven_serve_rank(rank: int, world: int, out: str) -> None:
 
 
 def _seq_pad_rank(rank: int, world: int, phases: tuple, out: str) -> None:
-    """One rank of phases 47-48, one spawn: phase 47's train step on the
-    sequence-parallel core, then phase 48's padded serve run
-    (:func:`_pad_serve_rank`) and its 1 x 8192 train step; rank 0 notes
-    the wall clock where phase 47 ended."""
+    """One rank of phases 47-48 and 50, one spawn: phase 47's train step
+    on the sequence-parallel core, then phase 48's padded serve run
+    (:func:`_pad_serve_rank`) and its 1 x 8192 train step, then phase
+    50's serve run and phase 47's train step under ``seq_shard``; rank 0
+    notes the wall clock where phases 47 and 48 ended."""
     if 47 in phases:
         _tp_train_rank(rank, world, 1, world, SEQ_ARCH, False, SEQ_LAYERS,
                        BATCH, PROMPT, f"{out}.seq", True)
@@ -6611,6 +6663,12 @@ def _seq_pad_rank(rank: int, world: int, phases: tuple, out: str) -> None:
         _tp_train_rank(rank, world, 1, world, SEQ_ARCH, False, PAD_LAYERS, 1,
                        PAD_TRAIN_SEQ, f"{out}.train", True)
         _uneven_serve_rank(rank, world, f"{out}.uneven")
+    if rank == 0:
+        Path(f"{out}.mark48.json").write_text(json.dumps(time.time()))
+    if 50 in phases:
+        _pad_serve_rank(rank, world, f"{out}.sp_serve", True)
+        _tp_train_rank(rank, world, 1, world, SEQ_ARCH, False, SEQ_LAYERS,
+                       BATCH, PROMPT, f"{out}.sp_train", True, True)
 
 
 def _train_log(tag: str, what: str, r0: dict, recs: list) -> None:
@@ -6696,6 +6754,7 @@ def seq_pad_checks(phases: tuple, t0: float, t1: float, records, results,
     launches no attention kernel."""
     out = OUT_DIR / "seq_pad"
     mark = json.loads(Path(f"{out}.mark.json").read_text())
+    mark48 = json.loads(Path(f"{out}.mark48.json").read_text())
     if 47 in phases:
         clock.add(47, "seq train", mark - t0)
         recs = _train_recs(f"{out}.seq", "seq", "seq train")
@@ -6705,9 +6764,11 @@ def seq_pad_checks(phases: tuple, t0: float, t1: float, records, results,
                                 f"{PROMPT}", recs[0], recs)
         for r in records:
             r["seq_train_launches"] = recs[0]["launches"].get(r["name"], 0)
+    if 50 in phases:
+        seq_shard_checks(str(out), mark48, t1, records, results, clock)
     if 48 not in phases:
         return
-    clock.add(48, "padded", t1 - mark)
+    clock.add(48, "padded", mark48 - mark)
     serve = [json.loads(Path(f"{out}.serve.r{r}.json").read_text())
              for r in range(SEQ_SIZE)]
     for r in serve:
@@ -6792,6 +6853,70 @@ def seq_pad_checks(phases: tuple, t0: float, t1: float, records, results,
                   f"{u0['single_peak_gib']:.2f} GiB")
     for r in records:
         r["uneven_serve_launches"] = u0["launches"].get(r["name"], 0)
+
+
+def seq_shard_checks(out: str, t0: float, t1: float, records, results,
+                     clock) -> None:
+    """Phase 50's checks (in phases 47-48's spawn, from ``t0`` to
+    ``t1``): starcoder2-3b at full width, 2 layers, on (1, 8) under
+    ``seq_shard`` (the residual stream each rank's 128 rows, or decode's
+    one row on rank 0): phase 48's serve run (padded heads, the
+    length-sharded cache; the prefill statistics, cache slots and
+    logits bit for bit, 8 decode steps within phase 48's bars, rank 0's
+    share of every reduce-scatter dropped refused) and phase 47's 4 x
+    1024 train step with phase 45's bars; each rank's peak GiB and gloo
+    ms beside phase 47's step without ``seq_shard``."""
+    clock.add(50, "seq shard", t1 - t0)
+    serve = [json.loads(Path(f"{out}.sp_serve.r{r}.json").read_text())
+             for r in range(SEQ_SIZE)]
+    for r in serve:
+        if set(r["layouts"]) != {"g_pad"}:
+            raise AssertionError(f"seq-shard serve: rank {r['rank']} ran "
+                                 f"the layouts {r['layouts']}")
+    s0 = serve[0]
+    for k in TP_KERNELS:
+        if not s0["launches"][k]:
+            raise AssertionError(f"seq-shard serve: {k} never launched: "
+                                 f"{s0['launches']}")
+    train = _train_recs(f"{out}.sp_train", "seq", "seq-shard train")
+    results["seq_shard"] = {"serve": serve, "train": train}
+    log("seq-shard", f"{SEQ_ARCH} {PAD_LAYERS} layers on (1, {SEQ_SIZE}) "
+                     f"with the residual stream a rank's rows: "
+                     f"{s0['stat_leaves']} prefill statistics leaves and "
+                     f"every rank's cache slots bit for bit; prefill "
+                     f"logits identical: {s0['prefill_identical']}; "
+                     f"{PAD_GEN} decode steps: tokens identical, logits "
+                     f"{s0['decode_rel_l2']:.3e} rel L2 at worst "
+                     f"({s0['decode_identical']} of {PAD_GEN} identical; "
+                     f"bar {s0['decode_bar']:.3e}; wo doubled "
+                     f"{s0['doubled_rel_l2']:.3e}, rank 0's reduce-scatter "
+                     f"share dropped {s0['dropped_rel_l2']:.3e}, both "
+                     f"refused); launches on rank 0 {s0['launches']}")
+    for r in serve:
+        log("seq-shard", f"serve rank {r['rank']}: prefill "
+                         f"{r['prefill_ms']:.1f} ms, {PAD_GEN} decode steps "
+                         f"{r['decode_ms']:.1f} ms (gloo, host copies: "
+                         f"{r['collectives']['ms']:.1f} ms in "
+                         f"{r['collectives']['calls']} calls), peak "
+                         f"{r['peak_gib']:.2f} GiB")
+    _train_log("seq-shard", f"{SEQ_ARCH} {SEQ_LAYERS} layers, train "
+                            f"{BATCH} x {PROMPT} on (1, {SEQ_SIZE}) (seq "
+                            f"layout, seq_shard)", train[0], train)
+    plain = results.get("seq_train")
+    for r in train:
+        p = plain[r["rank"]] if plain else None
+        log("seq-shard", f"train rank {r['rank']}: peak "
+                         f"{r['peak_gib']:.3f} GiB with seq_shard"
+                         + (f", {p['peak_gib']:.3f} without (phase 47)"
+                            if p else "")
+                         + f"; gloo {r['collectives']['ms']:.1f} ms in "
+                         f"{r['collectives']['calls']} calls"
+                         + (f" ({p['collectives']['ms']:.1f} ms in "
+                            f"{p['collectives']['calls']} without)"
+                            if p else ""))
+    for r in records:
+        r["sp_serve_launches"] = s0["launches"].get(r["name"], 0)
+        r["sp_train_launches"] = train[0]["launches"].get(r["name"], 0)
 
 
 def _cell_window(cfg) -> int:
@@ -7062,8 +7187,9 @@ def _dryrun_cmd(out: Path, *extra) -> list:
 class DryrunRuns:
     """Phase 49's subprocesses, started after phase 3 (the dry run needs
     no kernel, only host time and the card's device type): the train
-    cell on both production meshes (``DRYRUN_LAYERS``) and phase 40's
-    configuration on ``(2, 1)``, each with its own fake process group.
+    cell on both production meshes (``DRYRUN_LAYERS``), again on 16 x 16
+    with ``--seq-shard``, and phase 40's configuration on ``(2, 1)``,
+    each with its own fake process group.
     A timer kills what still runs ``DRYRUN_TIMEOUT`` seconds after the
     start; :meth:`stop` kills what still runs (at exit too)."""
 
@@ -7076,6 +7202,7 @@ class DryrunRuns:
         cut = ["--layers", str(DRYRUN_LAYERS)]
         runs = {"16x16": _dryrun_cmd(self.OUT, *cut),
                 "2x16x16": _dryrun_cmd(self.OUT, *cut, "--multipod"),
+                "16x16-seq": _dryrun_cmd(self.OUT, *cut, "--seq-shard"),
                 "phase40": _dryrun_cmd(self.OUT, "--mesh", "2x1", "--layers",
                                        str(DP_LAYERS), "--batch", str(BATCH),
                                        "--seq", str(PROMPT), "--grad-accum",
@@ -7120,13 +7247,16 @@ class DryrunRuns:
 
 def dryrun_phase(runs: DryrunRuns, dp: dict) -> dict:
     """Phase 49: the dry run's records (:class:`DryrunRuns`): status ok
-    on both meshes, rank 0's counts printed, and phase 40's
+    on both meshes, rank 0's counts printed, the ``--seq-shard`` trace's
+    per-device bytes beside the unsharded trace's (below them, with more
+    reduce-scatters: the row-parallel exits), and phase 40's
     configuration's stored parameters and moments equal to phase 40's
     rank 0's bytes on the card."""
     from repro_torch import configs
     runs.wait()
     recs = {}
     for k, name in (("16x16", "16_16"), ("2x16x16", "2_16_16"),
+                    ("16x16-seq", "16_16__seq_shard"),
                     ("phase40", "2_1__phase40")):
         rec = json.loads((runs.OUT / f"{DRYRUN_ARCH}__train_4k__{name}.json")
                          .read_text())
@@ -7142,7 +7272,7 @@ def dryrun_phase(runs: DryrunRuns, dp: dict) -> dict:
                   f"rank 0; the three runs started after phase 3, beside "
                   f"phases 4-48 (trace seconds below; phase 40's "
                   f"configuration {recs['phase40']['trace_s']} s)")
-    for k in ("16x16", "2x16x16"):
+    for k in ("16x16", "2x16x16", "16x16-seq"):
         r = recs[k]
         coll = ", ".join(f"{kind} {v['ops']} ops {v['operand_bytes']} B"
                          for kind, v in r["collectives"].items()
@@ -7154,6 +7284,17 @@ def dryrun_phase(runs: DryrunRuns, dp: dict) -> dict:
                       f"{r['memory']['per_device_bytes_est']} "
                       f"({r['memory']['per_device_bytes_est'] / 2 ** 30:.2f} "
                       f"GiB), trace {r['trace_s']} s")
+    plain, sp = recs["16x16"], recs["16x16-seq"]
+    est = [r["memory"]["per_device_bytes_est"] for r in (sp, plain)]
+    rs = [r["collectives"]["reduce-scatter"]["ops"] for r in (sp, plain)]
+    log("dryrun", f"16x16 with --seq-shard: per_device_bytes_est {est[0]} "
+                  f"({est[0] / 2 ** 30:.2f} GiB) against {est[1]} "
+                  f"({est[1] / 2 ** 30:.2f} GiB) without; reduce-scatter "
+                  f"ops {rs[0]} against {rs[1]}")
+    if not sp["seq_shard"] or est[0] >= est[1] or rs[0] <= rs[1]:
+        raise AssertionError(f"dryrun --seq-shard: seq_shard "
+                             f"{sp['seq_shard']}, per-device bytes {est}, "
+                             f"reduce-scatter ops {rs}")
     want = dp["zero3"]["off"]["stored_bytes"]
     got = recs["phase40"]["memory"]["stored_state_bytes"]
     log("dryrun", f"phase 40's configuration on (2, 1): stored parameters "
@@ -7477,9 +7618,10 @@ def main(argv=None) -> int:
             with clock(n, name):
                 results[key] = fn()
             torch.cuda.empty_cache()
-    # 47-48's 8 ranks (~39 GiB of the card) beside 16 (~15 GiB): Beside
-    seq_pad = tuple(n for n in (47, 48) if run_phase(n))
-    beside = Beside("phase 16 beside 47-48's ranks", seq_pad_spawn,
+    # 47-48 and 50's 8 ranks (~39 GiB of the card) beside 16 (~15 GiB):
+    # Beside
+    seq_pad = tuple(n for n in (47, 48, 50) if run_phase(n))
+    beside = Beside("phase 16 beside 47-48 and 50's ranks", seq_pad_spawn,
                     seq_pad) if seq_pad else None
     if run_phase(16):
         with clock(16, "checkpoint"):
@@ -7652,7 +7794,8 @@ def main(argv=None) -> int:
                     "dp_train_launches", "tp_serve_launches",
                     "tp_train_launches", "tp_45_launches",
                     "tp_46_launches", "seq_train_launches",
-                    "pad_serve_launches", "pad_train_launches"):
+                    "pad_serve_launches", "pad_train_launches",
+                    "sp_serve_launches", "sp_train_launches"):
             if not r["launches"] and r.get(key):
                 r["launches"] = r[key]
         if not r["launches"]:       # the decode cells alone (phase 41)

@@ -36,7 +36,10 @@ sees it.  :func:`qmatmul` has Megatron's column-parallel form (the
 rank's output columns; ``dx`` summed over the model group in fp32
 before its cast) and row-parallel form (the rank's K rows: int32
 partials summed exactly, then the epilogue), and an expert-parallel one
-(the rank's experts, nothing to reduce).
+(the rank's experts, nothing to reduce); under the sequence-parallel
+residual a row-parallel product's partials are reduce-scattered onto
+the rank's rows of the sequence and a column-parallel product's ``dx``
+onto the rows its input was gathered from (``seq_dim``).
 """
 from __future__ import annotations
 
@@ -464,19 +467,37 @@ class _QMatmulInt(torch.autograd.Function):
     the epilogue ``alpha * float(.)``, the one-process product bit for
     bit; ``"col"``, this rank's output columns, whose ``dx`` partial is
     summed over the model group in fp32 before its cast (Megatron's
-    f)."""
+    f).  ``seq_dim`` (the sequence-parallel residual,
+    ``sharding.seq_rows``): a ``"row"`` product's partials are
+    reduce-scattered onto this rank's rows of that dim of the output
+    (still exact in int32; the cotangent is gathered back), and a
+    ``"col"`` product's ``dx`` partial onto its rows of that dim of the
+    input (in fp32, then placed among zeros: the input was gathered
+    from the ranks' rows, whose gather keeps this rank's)."""
 
     @staticmethod
     def forward(ctx, xq, wq, x_img, w_img, x_zp, alpha, resolved, fused,
-                batch_dim, parallel):
-        row = parallel == "row" and sharding.mp_shard() is not None
+                batch_dim, parallel, seq_dim=None):
+        mp = sharding.mp_shard() is not None
+        row = parallel == "row" and mp
+        seq = seq_dim if mp and parallel in ("row", "col") else None
+        # (dim, whole rows) of the output (row) or the input (col)
+        ctx.seq = None if seq is None else (seq, xq.shape[seq])
+
+        def reduce(acc):
+            if seq is None:
+                return sharding.mp_sum_now(acc)
+            ctx.seq = (seq, acc.shape[seq])
+            return sharding.mp_scatter_now(acc, seq)
         if fused:
             ops = _ops()
             plan = ops.plan_einsum(resolved, x_img.ndim, w_img.ndim)
             if row:
-                acc = sharding.mp_sum_now(
-                    ops.int8_matmul_int32(x_img, w_img, x_zp, plan=plan))
-                y, _, _ = ops.int8_matmul_epilogue(acc, alpha)
+                acc = reduce(ops.int8_matmul_int32(x_img, w_img, x_zp,
+                                                   plan=plan))
+                # a rank that holds none of the rows launches nothing
+                y = acc.to(torch.float32) if acc.numel() == 0 else \
+                    ops.int8_matmul_epilogue(acc, alpha)[0]
             else:
                 y, _, _ = ops.int8_matmul_fp(x_img, w_img, x_zp, alpha,
                                              plan=plan)
@@ -486,17 +507,19 @@ class _QMatmulInt(torch.autograd.Function):
             acc = torch.einsum(resolved, rx.to(torch.float64),
                                w_img.to(torch.float64))
             if row:
-                acc = sharding.mp_sum_now(acc.to(torch.int64))
+                acc = reduce(acc.to(torch.int64))
             y = alpha * acc.to(torch.float32)
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
             ctx.save_for_backward(xq, wq)
             ctx.resolved, ctx.batch_dim = resolved, batch_dim
-            ctx.col = parallel == "col" and sharding.mp_shard() is not None
+            ctx.col, ctx.row = parallel == "col" and mp, row
         return y
 
     @staticmethod
     def backward(ctx, g):
         xq, wq = ctx.saved_tensors
+        if ctx.row and ctx.seq is not None:
+            g = sharding.mp_gather_now(g, *ctx.seq)
         lhs, y = ctx.resolved.split("->")
         xs, ws = lhs.split(",")
         gf = g.to(torch.float32)
@@ -528,13 +551,16 @@ class _QMatmulInt(torch.autograd.Function):
                     dx = torch.cat([dx_of(gf.narrow(d, i, 1))
                                     for i in range(gf.shape[d])],
                                    dim=xs.index(b))
-                if ctx.col:
+                if ctx.col and ctx.seq is not None:
+                    dx = sharding.mp_embed(
+                        sharding.mp_scatter_now(dx, ctx.seq[0]), *ctx.seq)
+                elif ctx.col:
                     dx = sharding.mp_sum_now(dx)
                 dx = dx.to(xq.dtype)
             if ctx.needs_input_grad[1]:
                 dw = torch.einsum(f"{xs},{y}->{ws}", xq.to(torch.float32),
                                   gf).to(wq.dtype)
-        return dx, dw, None, None, None, None, None, None, None, None
+        return dx, dw, None, None, None, None, None, None, None, None, None
 
 
 PARALLEL = (None, "col", "row", "expert")
@@ -543,7 +569,8 @@ PARALLEL = (None, "col", "row", "expert")
 def qmatmul(policy, espec: str, xq: torch.Tensor, xqt: Optional[QTensor],
             wq: Optional[torch.Tensor], wqt: Optional[QTensor],
             out_dtype=None, batch_dim: int = 0,
-            parallel: Optional[str] = None) -> torch.Tensor:
+            parallel: Optional[str] = None,
+            seq_dim: Optional[int] = None) -> torch.Tensor:
     """Quantized-site contraction ``einsum(espec, xq, wq)``.
 
     With int8 images of both operands the contraction runs integer-exact
@@ -551,8 +578,9 @@ def qmatmul(policy, espec: str, xq: torch.Tensor, xqt: Optional[QTensor],
     values, for which ``wq=None`` means "dequantize ``wqt``".  ``wq`` (the
     on-grid weight values) is needed only when a gradient is recorded.
     ``parallel`` (see :class:`_QMatmulInt`; ``"expert"``: the rank's
-    experts on a batch dim, nothing reduced) takes effect under a model
-    group only.  Profiles show the integer contraction as a
+    experts on a batch dim, nothing reduced) and ``seq_dim`` (the
+    sequence-parallel residual's rows, see there) take effect under a
+    model group only.  Profiles show the integer contraction as a
     ``qmatmul_int8_<backend> <spec>`` range (the MoE experts' as
     ``...egcd,edf->egcf`` and ``...egcf,efd->egcd``)."""
     if parallel not in PARALLEL:
@@ -564,10 +592,12 @@ def qmatmul(policy, espec: str, xq: torch.Tensor, xqt: Optional[QTensor],
         with full_fp32():
             xf = xq.to(torch.float32)
             if parallel == "col":
-                xf = sharding.mp_grad_sum(xf)
+                xf = sharding.mp_grad_sum(xf) if seq_dim is None else \
+                    sharding.mp_grad_scatter(xf, seq_dim)
             y = torch.einsum(espec, xf, wq.to(torch.float32))
             if parallel == "row":
-                y = sharding.mp_sum(y)
+                y = sharding.mp_sum(y) if seq_dim is None else \
+                    sharding.mp_scatter(y, seq_dim)
             return y.to(out_dtype)
     resolved = _ops().resolve_einsum_spec(espec, xq.ndim)
     alpha = (xqt.scale * wqt.scale).to(torch.float32)
@@ -577,7 +607,7 @@ def qmatmul(policy, espec: str, xq: torch.Tensor, xqt: Optional[QTensor],
             f"qmatmul_int8_{policy.backend} {resolved}"):
         y = _QMatmulInt.apply(xq, wq, xqt.q, wqt.q, xqt.zero_point, alpha,
                               resolved, policy.backend == FUSED, batch_dim,
-                              parallel)
+                              parallel, seq_dim)
     return y.to(out_dtype)
 
 

@@ -19,7 +19,12 @@ the dim of its tensor that a model rank holds a slice of (``x_dim`` of an
 input, ``y_dim`` of an output; None: the tensor is whole on every rank),
 and a product its form (``parallel``: ``"col"``, ``"row"``,
 ``"expert"``, see ``backend.qmatmul``), whose weight is this rank's
-shard.  Outside one they change nothing.
+shard.  Under the sequence-parallel residual (``sharding.seq_rows``) a
+product that leaves or enters it names the row dim (``seq_dim``): a
+``"row"`` product's output, its gradient site and its bias add are the
+rank's rows of the input's (gathered) rows; a ``"col"`` product's input
+cotangent is reduce-scattered onto them.  Outside one they change
+nothing.
 """
 from __future__ import annotations
 
@@ -187,16 +192,33 @@ def init_site(policy: Optional[QuantPolicy] = None, device=None) -> dict:
 
 
 def _contract(policy, espec, xq, xqt, w, bias, dtype, batch_dim=0,
-              parallel=None):
+              parallel=None, seq_dim=None):
     wq, wqt = quantize_weight_q(w, policy, sharded=parallel is not None
                                 and sharding.mp_shard() is not None)
     if wq is not None:
         wq = wq.to(dtype)
     y = backend.qmatmul(policy, espec, xq, xqt, wq, wqt, batch_dim=batch_dim,
-                        parallel=parallel)
+                        parallel=parallel, seq_dim=seq_dim)
     if bias is not None:
+        if _exits_rows(parallel, seq_dim):
+            # added on the rank's rows: its gradient summed over the group
+            bias = sharding.mp_grad_sum(bias)
         y = y + bias.to(dtype)
     return y
+
+
+def _exits_rows(parallel, seq_dim) -> bool:
+    """Whether a product's output is the rank's rows of the sequence."""
+    return parallel == "row" and seq_dim is not None and \
+        sharding.mp_shard() is not None
+
+
+def _out_dim(x, parallel, seq_dim, y_dim):
+    """The gradient site's model dim: a row exit's rows, named with the
+    whole size (the noise is the whole site's, sliced)."""
+    if _exits_rows(parallel, seq_dim):
+        return (seq_dim, x.shape[seq_dim])
+    return y_dim
 
 
 def qdense_pre(xq: torch.Tensor, w: torch.Tensor, site: dict,
@@ -204,13 +226,14 @@ def qdense_pre(xq: torch.Tensor, w: torch.Tensor, site: dict,
                bias: Optional[torch.Tensor] = None, seed=0, step=0,
                qinfo: Optional[QTensor] = None, batch_dim: int = 0,
                parallel: Optional[str] = None,
-               y_dim: Optional[int] = None) -> tuple[torch.Tensor, dict]:
+               y_dim: Optional[int] = None,
+               seq_dim: Optional[int] = None) -> tuple[torch.Tensor, dict]:
     """Quantized matmul whose input was already quantized by a shared
     activation site; ``qinfo`` is that site's :class:`QTensor`."""
     y = _contract(policy, einsum_spec, xq, qinfo, w, bias, xq.dtype,
-                  batch_dim, parallel)
+                  batch_dim, parallel, seq_dim)
     y = grad_quant_barrier(y, site["grad"], policy, seed, step, batch_dim,
-                           y_dim)
+                           _out_dim(xq, parallel, seq_dim, y_dim))
     z = stats_zeros(policy, xq.device)
     return y, {"act": z, "grad": z.clone()}
 
@@ -218,27 +241,28 @@ def qdense_pre(xq: torch.Tensor, w: torch.Tensor, site: dict,
 def qdense(x: torch.Tensor, w: torch.Tensor, site: dict,
            policy: QuantPolicy, *, bias: Optional[torch.Tensor] = None,
            seed=0, step=0, parallel: Optional[str] = None,
-           x_dim: Optional[int] = None, y_dim: Optional[int] = None
-           ) -> tuple[torch.Tensor, dict]:
+           x_dim: Optional[int] = None, y_dim: Optional[int] = None,
+           seq_dim: Optional[int] = None) -> tuple[torch.Tensor, dict]:
     """Quantized ``x @ w (+ bias)``; returns ``(y, stats)``."""
     xq, act_stats, xqt = act_quant_site(x, site["act"], policy, step, x_dim)
     y = _contract(policy, "...k,kn->...n", xq, xqt, w, bias, x.dtype,
-                  parallel=parallel)
+                  parallel=parallel, seq_dim=seq_dim)
     y = grad_quant_barrier(y, site["grad"], policy, seed, step,
-                           model_dim=y_dim)
+                           model_dim=_out_dim(x, parallel, seq_dim, y_dim))
     return y, {"act": act_stats, "grad": stats_zeros(policy, x.device)}
 
 
 def qeinsum(spec: str, x: torch.Tensor, w: torch.Tensor, site: dict,
             policy: QuantPolicy, *, seed=0, step=0, batch_dim: int = 0,
             parallel: Optional[str] = None, x_dim: Optional[int] = None,
-            y_dim: Optional[int] = None) -> tuple[torch.Tensor, dict]:
+            y_dim: Optional[int] = None,
+            seq_dim: Optional[int] = None) -> tuple[torch.Tensor, dict]:
     """Quantized einsum for non-2D contractions (attention projections)."""
     xq, act_stats, xqt = act_quant_site(x, site["act"], policy, step, x_dim)
     y = _contract(policy, spec, xq, xqt, w, None, x.dtype, batch_dim,
-                  parallel)
+                  parallel, seq_dim)
     y = grad_quant_barrier(y, site["grad"], policy, seed, step, batch_dim,
-                           y_dim)
+                           _out_dim(x, parallel, seq_dim, y_dim))
     return y, {"act": act_stats, "grad": stats_zeros(policy, x.device)}
 
 

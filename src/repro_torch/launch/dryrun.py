@@ -222,12 +222,14 @@ def make_inputs(spec: dict, device, rows: Optional[tuple] = None) -> dict:
 
 
 def build_cell(cfg, shape, groups, policy: QuantPolicy, *, fsdp: str = "2d",
-               grad_accum: Optional[int] = None, device="cuda"):
+               grad_accum: Optional[int] = None, device="cuda",
+               seq_shard: bool = False):
     """``(fn, args, state)``: the cell's step on the rank of ``groups``
     (``launch.mesh.mesh_groups``) and its arguments, ``state`` the
     rank's train state or ``{"params", "quant"}`` (plus ``"cache"``) of
     a serving cell.  Fake tensors where a ``FakeTensorMode`` is active,
-    real ones otherwise."""
+    real ones otherwise.  ``seq_shard``: the step factories' (the
+    sequence-parallel residual on the model axis)."""
     spec = configs.input_specs(cfg, shape)
     rows = batch_rows(shape.global_batch, groups)
     stored = fsdp == "2d"
@@ -252,7 +254,7 @@ def build_cell(cfg, shape, groups, policy: QuantPolicy, *, fsdp: str = "2d",
             cfg, policy, opt, cosine(3e-4, 10000, warmup=100),
             grad_accum=accum, group=groups.batch, model_group=groups.model,
             storage_group=groups.data if stored else None,
-            pod_group=groups.pod if stored else None)
+            pod_group=groups.pod if stored else None, seq_shard=seq_shard)
         return fn, (st, make_inputs(spec, device)), st
 
     params = cut(model.init_params(cfg, seed=0, device=device))
@@ -261,13 +263,14 @@ def build_cell(cfg, shape, groups, policy: QuantPolicy, *, fsdp: str = "2d",
     group = groups.data if stored else None
     if shape.kind == "prefill":
         fn = steps.make_prefill_step(cfg, policy, cache_len=shape.seq_len,
-                                     model_group=groups.model, group=group)
+                                     model_group=groups.model, group=group,
+                                     seq_shard=seq_shard)
         return fn, (params, quant, batch), {"params": params, "quant": quant}
     with sharding.model_parallel(groups.model):
         cache = model.init_cache(cfg, rows[1], shape.seq_len, device)
     batch["pos"].fill_(shape.seq_len - 1)
     fn = steps.make_decode_step(cfg, policy, model_group=groups.model,
-                                group=group)
+                                group=group, seq_shard=seq_shard)
     return fn, (params, quant, batch, cache), \
         {"params": params, "quant": quant, "cache": cache}
 
@@ -369,13 +372,15 @@ def fake_mesh(dims: tuple):
 
 
 def trace_cell(cfg, shape, dims: tuple, policy: QuantPolicy, *,
-               fsdp: str = "2d", grad_accum=None, device="cuda") -> dict:
+               fsdp: str = "2d", grad_accum=None, device="cuda",
+               seq_shard: bool = False) -> dict:
     """One trace of rank 0's step on the mesh ``dims`` (:func:`fake_mesh`):
     ``{"cost", "memory", "reads", "coords"}``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     with fake_mesh(dims) as groups, FakeTensorMode():
         fn, args, state = build_cell(cfg, shape, groups, policy, fsdp=fsdp,
-                                     grad_accum=grad_accum, device=device)
+                                     grad_accum=grad_accum, device=device,
+                                     seq_shard=seq_shard)
         reads = SteadyState()
         cost, mem = trace_step(fn, args, state, _batch_of(shape, args),
                                batch_rows(shape.global_batch, groups),
@@ -425,13 +430,14 @@ def extrapolated_trace(cfg, shape, dims, policy, **kw) -> tuple:
 
 
 def _state_bytes(cfg, shape, dims, policy, *, fsdp="2d", grad_accum=None,
-                 device="cuda") -> dict:
+                 device="cuda", seq_shard=False) -> dict:
     """The rank's ``argument_size_in_bytes`` and ``stored_state_bytes``,
     from its state built (fake) without a step."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     with fake_mesh(dims) as groups, FakeTensorMode():
         _, args, state = build_cell(cfg, shape, groups, policy, fsdp=fsdp,
-                                    grad_accum=grad_accum, device=device)
+                                    grad_accum=grad_accum, device=device,
+                                    seq_shard=seq_shard)
         rows = batch_rows(shape.global_batch, groups)
         return {"argument_size_in_bytes": count_bytes(leaves(state))
                 + _batch_bytes(_batch_of(shape, args), rows,
@@ -449,11 +455,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
     """Trace rank 0's step of one cell and write its record.  ``layers``
     cuts the depth; ``batch`` / ``seq`` set the shape's global batch and
     sequence.  ``extrapolate``: the full depth from two cut depths
-    (:func:`extrapolated_trace`)."""
-    if seq_shard:
-        raise NotImplementedError(
-            "--seq-shard (the reference's Megatron-SP residual stream) has "
-            "no mechanism in the port yet: ROADMAP section 1 queues it")
+    (:func:`extrapolated_trace`).  ``seq_shard``: the residual stream as
+    the rank's rows of the sequence (the step factories' flag)."""
     cfg = cut_depth(configs.get(arch), layers)
     shape = configs.SHAPES[shape_name]
     if batch or seq:
@@ -472,7 +475,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
         rec.update(status="skipped", reason=why)
         return _write(rec, out_dir)
     policy = _policy(policy_kind, int8_gather)
-    kw = dict(fsdp=fsdp, grad_accum=grad_accum, device=device)
+    kw = dict(fsdp=fsdp, grad_accum=grad_accum, device=device,
+              seq_shard=seq_shard)
     t0 = time.time()
     if extrapolate:
         tr, traced = extrapolated_trace(cfg, shape, dims, policy, **kw)
@@ -531,7 +535,8 @@ def _cell_cmd(args, arch: str, shape: str, mp: bool) -> list:
         if v:
             cmd += [flag, str(v)]
     for flag, on in (("--int8-gather", args.int8_gather),
-                     ("--extrapolate", args.extrapolate)):
+                     ("--extrapolate", args.extrapolate),
+                     ("--seq-shard", args.seq_shard)):
         if on:
             cmd.append(flag)
     return cmd
@@ -540,7 +545,7 @@ def _cell_cmd(args, arch: str, shape: str, mp: bool) -> list:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch")
-    ap.add_argument("--shape")
+    ap.add_argument("--shape", help="with --all: that shape's cells only")
     ap.add_argument("--multipod", action="store_true")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--both-meshes", action="store_true",
@@ -553,7 +558,9 @@ def main(argv=None):
     ap.add_argument("--int8-gather", action="store_true",
                     help="pin FSDP weight all-gathers to the int8 tensor")
     ap.add_argument("--seq-shard", action="store_true",
-                    help="Megatron-SP (not in the port yet: raises)")
+                    help="Megatron-SP: the residual stream's sequence dim "
+                         "over the model axis (records tagged seq_shard "
+                         "unless --tag is given)")
     ap.add_argument("--tag", default="")
     ap.add_argument("--timeout", type=int, default=3000)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -571,10 +578,10 @@ def main(argv=None):
     ap.add_argument("--jobs", type=int, default=1,
                     help="with --all: cells traced at once")
     args = ap.parse_args(argv)
+    if args.seq_shard and not args.tag:
+        args.tag = "seq_shard"      # beside the unsharded records
 
     if args.all:
-        if args.seq_shard:
-            ap.error("--seq-shard has no mechanism in the port yet")
         meshes = [False, True] if args.both_meshes else [args.multipod]
         failures = []
 
@@ -591,6 +598,8 @@ def main(argv=None):
 
         todo = []
         for cell in configs.cells():
+            if args.shape and cell.shape != args.shape:
+                continue
             for mp in meshes:
                 if not cell.runnable:
                     run_cell(cell.arch, cell.shape, mp, args.out,

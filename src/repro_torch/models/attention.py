@@ -471,10 +471,17 @@ def attention_layer(params, sites: dict, x: torch.Tensor, *, n_heads: int,
                     kv_len=None, cache: Optional[dict] = None,
                     policy: QuantPolicy, seed=0, step=0,
                     q_chunk: int = 2048, kv_chunk: int = 1024,
-                    dense_attn_max: int = 4096):
+                    dense_attn_max: int = 4096,
+                    seq_len: Optional[int] = None):
     """Self- or cross-attention layer (``kv_x [B, Skv, D]``, the encoder's
-    output, as the k/v source); returns ``(y, stats, cache)``."""
+    output, as the k/v source); returns ``(y, stats, cache)``.
+    ``seq_len`` (the sequence-parallel residual, under a model group):
+    ``x`` is the rank's ``sharding.split_range`` rows of a sequence of
+    ``seq_len``, and so is ``y``."""
     b, s, _ = x.shape
+    sp = seq_len is not None and sharding.mp_shard() is not None
+    if sp:
+        s = seq_len
     scale = head_dim ** -0.5
     # Cross decode: the encoder's projections were cached at prefill
     # (signalled by kv_x=None); no k/v projection runs.
@@ -505,6 +512,12 @@ def attention_layer(params, sites: dict, x: torch.Tensor, *, n_heads: int,
     kv_dim = 2 if layout == "kv" else None
     par = "col" if heads is not None else None
     kv_par = "col" if layout == "kv" else None
+    # a head layout gathers the rank's normed rows, its products' input
+    # cotangent reduce-scattered back, and its o product reduce-scatters
+    # onto them (Megatron-SP); the "seq" core runs on the rows
+    sd = 1 if sp and not seq else None
+    if sd is not None:
+        x = sharding.mp_gather(x, 1, s)
     q_start = 0
     if seq:
         # the rank's S / M rows of the normed input; the weights are
@@ -512,7 +525,8 @@ def attention_layer(params, sites: dict, x: torch.Tensor, *, n_heads: int,
         # gradients (partial sums over the rows) summed over the group
         # (a cross layer's k / v source is whole on every rank)
         q_start = mp[0] * (s // mp[1])
-        x = sharding.mp_take(x, 1)
+        if not sp:
+            x = sharding.mp_take(x, 1)
         d = x.shape[-1]
         full = {"wq": (d, n_kv, g, head_dim), "wo": (n_kv, g, head_dim, d),
                 "bq": (n_kv, g, head_dim)}
@@ -539,7 +553,8 @@ def attention_layer(params, sites: dict, x: torch.Tensor, *, n_heads: int,
     q, sq = qlinear.qdense_pre(xq, params["wq"], sites["q"], policy,
                                einsum_spec="bsd,dkgh->bskgh",
                                bias=params.get("bq"), seed=seed, step=step,
-                               qinfo=xqi, parallel=par, y_dim=q_site)
+                               qinfo=xqi, parallel=par, y_dim=q_site,
+                               seq_dim=sd)
     sq["act"] = in_stats
     new_sites["q"] = sq
     if cross_decode:
@@ -553,16 +568,17 @@ def attention_layer(params, sites: dict, x: torch.Tensor, *, n_heads: int,
             src_q, src_stats, src_qi = qlinear.act_quant_site(
                 kv_x, sites["k"]["act"], policy, step)
         kv_y = 1 if seq and kv_x is None else kv_dim
+        kv_sd = sd if kv_x is None else None
         k, new_sites["k"] = qlinear.qdense_pre(
             src_q, params["wk"], sites["k"], policy,
             einsum_spec="bsd,dkh->bskh", bias=params.get("bk"),
             seed=seed + 1, step=step, qinfo=src_qi, parallel=kv_par,
-            y_dim=kv_y)
+            y_dim=kv_y, seq_dim=kv_sd)
         v, new_sites["v"] = qlinear.qdense_pre(
             src_q, params["wv"], sites["v"], policy,
             einsum_spec="bsd,dkh->bskh", bias=params.get("bv"),
             seed=seed + 2, step=step, qinfo=src_qi, parallel=kv_par,
-            y_dim=kv_y)
+            y_dim=kv_y, seq_dim=kv_sd)
         if src_stats is not None:
             new_sites["k"]["act"] = src_stats
 
@@ -644,10 +660,14 @@ def attention_layer(params, sites: dict, x: torch.Tensor, *, n_heads: int,
                                         step=step,
                                         parallel="row" if par else None,
                                         x_dim=q_site,
-                                        y_dim=1 if seq else None)
-    if seq:
+                                        y_dim=1 if seq else None,
+                                        seq_dim=sd)
+    if seq and not sp:
         # the ranks' rows of the output for the replicated residual stream
         y = sharding.mp_gather(y, 1)
     if params.get("bo") is not None:
-        y = y + params["bo"].to(y.dtype)
+        bo = params["bo"]
+        if sp:      # added on the rank's rows: its gradient summed
+            bo = sharding.mp_grad_sum(bo)
+        y = y + bo.to(y.dtype)
     return y, new_sites, cache

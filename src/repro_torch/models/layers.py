@@ -5,7 +5,9 @@ Norms, rotary and activations compute in fp32 and cast back to the input
 dtype, like the reference; every weight-bearing matmul goes through
 :mod:`repro_torch.core.qlinear`.  Under a model group the MLP is a
 Megatron pair: ``w_up`` / ``w_gate`` column-parallel (a rank's ``d_ff``
-columns), ``w_down`` row-parallel.
+columns), ``w_down`` row-parallel; under the sequence-parallel residual
+(``seq_dim``) the pair's input is the gathered rows and its output the
+rank's rows (Megatron-SP), and a norm runs on the rank's rows.
 """
 from __future__ import annotations
 
@@ -53,9 +55,17 @@ def layernorm(x: torch.Tensor, weight: torch.Tensor,
 
 
 def apply_norm(x: torch.Tensor, params, kind: str) -> torch.Tensor:
+    """The residual stream's norm; under the sequence-parallel residual
+    (``sharding.seq_rows``) ``x`` is the rank's rows, a norm is per row,
+    and its parameters' gradients, partial sums over those rows, are
+    summed over the model group."""
+    scale, bias = params["scale"], params.get("bias")
+    if sharding.seq_rows():
+        scale = sharding.mp_grad_sum(scale)
+        bias = None if bias is None else sharding.mp_grad_sum(bias)
     if kind == "rmsnorm":
-        return rmsnorm(x, params["scale"])
-    return layernorm(x, params["scale"], params.get("bias"))
+        return rmsnorm(x, scale)
+    return layernorm(x, scale, bias)
 
 
 def init_norm(d: int, kind: str, use_bias: bool, device=None) -> dict:
@@ -171,10 +181,12 @@ def init_mlp_sites(kind: str, device=None) -> dict:
 
 
 def apply_mlp(params, sites: dict, x: torch.Tensor, kind: str,
-              policy: QuantPolicy, seed=0, step=0
-              ) -> tuple[torch.Tensor, dict]:
+              policy: QuantPolicy, seed=0, step=0,
+              seq_dim: Optional[int] = None) -> tuple[torch.Tensor, dict]:
     """Returns ``(out, stats)``; one shared input quantization for up (and
-    gate), its range state on the "up" site."""
+    gate), its range state on the "up" site.  ``seq_dim``: ``x`` is the
+    ranks' rows gathered along it and ``out`` this rank's rows (the
+    sequence-parallel residual; ``qlinear``'s module docstring)."""
     new_sites = {}
     tp = sharding.mp_shard() is not None
     col, hdim = ("col", -1) if tp else (None, None)
@@ -183,11 +195,11 @@ def apply_mlp(params, sites: dict, x: torch.Tensor, kind: str,
     up, s_up = qlinear.qdense_pre(xq, params["w_up"], sites["up"], policy,
                                   bias=params.get("b_up"), seed=seed,
                                   step=step, qinfo=xqi, parallel=col,
-                                  y_dim=hdim)
+                                  y_dim=hdim, seq_dim=seq_dim)
     if kind in GLU_KINDS:
         gate, new_sites["gate"] = qlinear.qdense_pre(
             xq, params["w_gate"], sites["gate"], policy, seed=seed + 1,
-            step=step, qinfo=xqi, parallel=col, y_dim=hdim)
+            step=step, qinfo=xqi, parallel=col, y_dim=hdim, seq_dim=seq_dim)
         h = activation(gate, _GLU_ACT[kind]) * up
     else:
         h = activation(up, kind)
@@ -196,7 +208,7 @@ def apply_mlp(params, sites: dict, x: torch.Tensor, kind: str,
     out, new_sites["down"] = qlinear.qdense(
         h, params["w_down"], sites["down"], policy,
         bias=params.get("b_down"), seed=seed + 2, step=step,
-        parallel="row" if tp else None, x_dim=hdim)
+        parallel="row" if tp else None, x_dim=hdim, seq_dim=seq_dim)
     return out, new_sites
 
 

@@ -33,6 +33,14 @@ vocabulary columns, and the cross entropy takes the row max (an
 all_reduce MAX) and the sum of exps and the gold logit (SUM) over the
 group; prefill and decode gather the last position's logits, whose
 greedy argmax is then the one process's.
+
+Under the sequence-parallel residual (``sharding.seq_rows``, the step
+factories' ``seq_shard``) the trunk's stacks run on the rank's
+``sharding.split_range`` rows of the sequence: the lookup's sum is a
+reduce-scatter onto them (still one nonzero term a row), a frontend's
+whole output (``enc_in``, the VLM's prefix with its tokens) takes them,
+and the final norms run on them before the rows are gathered for the
+head, the loss and the cross attention's ``enc_out``.
 """
 from __future__ import annotations
 
@@ -133,12 +141,15 @@ def _take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return table.new_zeros(tuple(ids.shape) + tuple(table.shape[1:]))
 
 
-def _embed_tokens(params, tokens, cfg, policy) -> torch.Tensor:
+def _embed_tokens(params, tokens, cfg, policy,
+                  rows_only: bool = False) -> torch.Tensor:
     """Quantizes the whole table (current min-max), then gathers rows.
     Without a recorded gradient the rows are dequantized after the gather —
     the same elementwise ops as the reference's dequantize-then-gather,
     without a full fp copy; with one, the on-grid table carries the STE.
-    Vocab-parallel under a model group (module docstring)."""
+    Vocab-parallel under a model group (module docstring);
+    ``rows_only``: the rank's rows of the sequence (the sum a
+    reduce-scatter)."""
     tp = sharding.mp_shard() is not None
     table, qt = qlinear.quantize_weight_q(params["embed"], policy,
                                           sharded=tp)
@@ -150,8 +161,10 @@ def _embed_tokens(params, tokens, cfg, policy) -> torch.Tensor:
         rows = backend.dequantize_qtensor(
             backend.QTensor(_take_rows(qt.q, ids), qt.scale, qt.zero_point))
     if tp:
-        rows = sharding.mp_sum(torch.where(inside[..., None], rows.to(
-            torch.float32), 0.0)).to(rows.dtype)
+        part = torch.where(inside[..., None], rows.to(torch.float32), 0.0)
+        part = sharding.mp_scatter(part, 1) if rows_only else \
+            sharding.mp_sum(part)
+        rows = part.to(rows.dtype)
     x = rows.to(getattr(torch, cfg.compute_dtype))
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
@@ -166,6 +179,13 @@ def _trunk(params, sites, batch, cfg, policy, seed, step, caches=None):
     enc_out = enc_len = prefix_len = None
     metrics = None
     dt = getattr(torch, cfg.compute_dtype)
+    sp = sharding.seq_rows()
+
+    def rows(t):        # the rank's rows of a tensor whole on every rank
+        return sharding.mp_take(t, 1) if sp else t
+
+    def whole(t, n):    # the ranks' rows of n gathered
+        return sharding.mp_gather(t, 1, n) if sp else t
 
     if cfg.family == "encdec" and "frames" in batch:
         frames = batch["frames"].to(dt)
@@ -175,28 +195,30 @@ def _trunk(params, sites, batch, cfg, policy, seed, step, caches=None):
         epos = torch.arange(ex.shape[1], device=ex.device).expand(
             ex.shape[:2])
         enc_out, new_sites["encoder"], _, metrics = transformer.apply_stack(
-            params["encoder"], sites["encoder"], ex, cfg=cfg,
+            params["encoder"], sites["encoder"], rows(ex), cfg=cfg,
             pattern=cfg.enc_pattern, policy=policy, seed=seed + 2_000_000,
             step=step, positions=epos)
-        enc_out = layers.apply_norm(enc_out, params["enc_norm"],
-                                    cfg.norm_kind)
+        enc_out = whole(layers.apply_norm(enc_out, params["enc_norm"],
+                                          cfg.norm_kind), ex.shape[1])
         enc_len = batch.get("frame_len")
 
+    b, s = batch["tokens"].shape
     if cfg.family == "vlm" and "patches" in batch:
         patches = batch["patches"].to(dt)
         px, new_sites["patch_proj"] = qlinear.qdense(
             patches, params["patch_proj"], sites["patch_proj"], policy,
             seed=seed + 3_000_000, step=step)
         tx = _embed_tokens(params, batch["tokens"], cfg, policy)
-        x = torch.cat([px, tx], dim=1)
+        x = rows(torch.cat([px, tx], dim=1))
         prefix_len = patches.shape[1]
+        s += prefix_len
     else:
-        x = _embed_tokens(params, batch["tokens"], cfg, policy)
+        x = _embed_tokens(params, batch["tokens"], cfg, policy,
+                          rows_only=sp)
 
     positions = batch.get("positions")
     if positions is None:
-        positions = torch.arange(x.shape[1], device=x.device).expand(
-            x.shape[:2])
+        positions = torch.arange(s, device=x.device).expand(b, s)
     x, new_sites["decoder"], new_caches, dmet = transformer.apply_stack(
         params["decoder"], sites["decoder"], x, cfg=cfg, pattern=cfg.pattern,
         policy=policy, seed=seed, step=step, positions=positions,
@@ -204,7 +226,7 @@ def _trunk(params, sites, batch, cfg, policy, seed, step, caches=None):
         prefix_len=prefix_len)
     if metrics is not None:
         dmet = {k: metrics[k] + dmet[k] for k in dmet}
-    x = layers.apply_norm(x, params["final_norm"], cfg.norm_kind)
+    x = whole(layers.apply_norm(x, params["final_norm"], cfg.norm_kind), s)
     return x, new_sites, new_caches, dmet
 
 

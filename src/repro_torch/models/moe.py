@@ -146,9 +146,15 @@ def _dispatch_tensors(gates: torch.Tensor, capacity: int):
 
 
 def apply_moe(params, sites: dict, x: torch.Tensor, spec: MoeSpec, *,
-              policy: QuantPolicy, seed: int, step
+              policy: QuantPolicy, seed: int, step,
+              seq_dim: Optional[int] = None
               ) -> tuple[torch.Tensor, dict, dict]:
-    """``x [B, S, D]`` -> ``(y, stats, metrics{aux_loss, z_loss})``."""
+    """``x [B, S, D]`` -> ``(y, stats, metrics{aux_loss, z_loss})``.
+    ``seq_dim``: ``x`` is the ranks' rows gathered along it and ``y`` this
+    rank's rows (the sequence-parallel residual): the routed experts'
+    output, whole on every rank after the combine, takes the rows
+    (``sharding.mp_take``), and the shared expert's pair
+    reduce-scatters."""
     b, s, d = x.shape
     tokens = b * s
     if sharding.dp_shard() is not None and tokens % spec.group_size:
@@ -215,11 +221,13 @@ def apply_moe(params, sites: dict, x: torch.Tensor, spec: MoeSpec, *,
 
     y = torch.einsum("gtec,egcd->gtd", combine.to(comp), out)
     y = y.reshape(b, s, d)
+    if ep and seq_dim is not None:
+        y = sharding.mp_take(y, seq_dim)
 
     if spec.n_shared:
         ys, new_sites["shared"] = apply_mlp(
             params["shared"], sites["shared"], x, spec.mlp_kind, policy,
-            seed=seed + 3, step=step)
+            seed=seed + 3, step=step, seq_dim=seq_dim)
         y = y + ys
 
     metrics = {"aux_loss": spec.aux_loss_coef * sharding.dp_share(aux),

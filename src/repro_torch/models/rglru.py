@@ -149,9 +149,13 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_rglru(params, sites: dict, x: torch.Tensor, *,
-                policy: QuantPolicy, seed, step, state=None):
+                policy: QuantPolicy, seed, step, state=None,
+                seq_dim: Optional[int] = None):
     """x ``[B, S, D]``; ``state = (h [B, C] fp32, conv_tail [B, 3, C])`` or
-    ``None``.  Returns ``(y, stats, (h, conv_tail))``."""
+    ``None``.  Returns ``(y, stats, (h, conv_tail))``.  ``seq_dim``: ``x``
+    is the ranks' rows gathered along it (the conv and the scan need the
+    whole sequence) and ``y`` this rank's rows (the sequence-parallel
+    residual)."""
     s = x.shape[1]
     new_sites = {}
     # the model axis: the rank's channels (the last dim of u, gate, y)
@@ -162,12 +166,12 @@ def apply_rglru(params, sites: dict, x: torch.Tensor, *,
                                                policy, step)
     u, s_in = qlinear.qdense_pre(xq, params["w_in"], sites["in"], policy,
                                  seed=seed, step=step, qinfo=xqi,
-                                 parallel=col, y_dim=cdim)
+                                 parallel=col, y_dim=cdim, seq_dim=seq_dim)
     s_in["act"] = in_stats
     new_sites["in"] = s_in
     gate, new_sites["gate"] = qlinear.qdense_pre(
         xq, params["w_gate"], sites["gate"], policy, seed=seed + 1,
-        step=step, qinfo=xqi, parallel=col, y_dim=cdim)
+        step=step, qinfo=xqi, parallel=col, y_dim=cdim, seq_dim=seq_dim)
     h0, tail = (None, None) if state is None else state
     u, new_tail = _causal_conv1d(u, params["conv_w"], params["conv_b"], tail)
 
@@ -204,5 +208,6 @@ def apply_rglru(params, sites: dict, x: torch.Tensor, *,
     y = hs.to(x.dtype) * activation(gate.to(f32), "gelu").to(x.dtype)
     out, new_sites["out"] = qlinear.qdense(y, params["w_out"], sites["out"],
                                            policy, seed=seed + 4, step=step,
-                                           parallel=row, x_dim=cdim)
+                                           parallel=row, x_dim=cdim,
+                                           seq_dim=seq_dim)
     return out, new_sites, (h, new_tail)

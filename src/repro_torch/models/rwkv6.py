@@ -51,6 +51,8 @@ it costs a rank ``10 B S D`` bytes (168 MB at rwkv6-7b's 4 x 1024).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core import qlinear
@@ -255,10 +257,12 @@ def _shifted(x, x_prev):
 
 def rwkv_time_mix(params, sites: dict, x: torch.Tensor, *, n_heads: int,
                   policy: QuantPolicy, seed, step, chunk: int = 32,
-                  state=None, x_prev=None):
+                  state=None, x_prev=None, seq_dim: Optional[int] = None):
     """x ``[B, S, D]``; ``state`` ``[B, H, hd, hd]`` fp32 and ``x_prev``
     ``[B, D]`` carry decode context.  Returns ``(y, stats, (state,
-    x_last))``."""
+    x_last))``.  ``seq_dim``: ``x`` is the ranks' rows gathered along it
+    (the token shift and the WKV need the whole sequence) and ``y`` this
+    rank's rows (the sequence-parallel residual)."""
     b, s, d = x.shape
     hd = d // n_heads
     f32 = torch.float32
@@ -307,14 +311,17 @@ def rwkv_time_mix(params, sites: dict, x: torch.Tensor, *, n_heads: int,
     y = (y * activation(out["g"].to(f32), "silu")).to(x.dtype)
     o, new_sites["o"] = qlinear.qdense(y, params["w_o"], sites["o"], policy,
                                        seed=seed + 4, step=step,
-                                       parallel=row, x_dim=cdim)
+                                       parallel=row, x_dim=cdim,
+                                       seq_dim=seq_dim)
     return o, new_sites, (state, x[:, -1])
 
 
 def rwkv_channel_mix(params, sites: dict, x: torch.Tensor, *,
-                     policy: QuantPolicy, seed, step, x_prev=None):
+                     policy: QuantPolicy, seed, step, x_prev=None,
+                     seq_dim: Optional[int] = None):
     """x ``[B, S, D]``; ``x_prev`` ``[B, D]``.  Returns ``(y, stats,
-    x_last)``."""
+    x_last)``.  ``seq_dim``: as :func:`rwkv_time_mix`'s (``w_v``'s
+    product reduce-scatters, the gate takes the rank's rows)."""
     f32 = torch.float32
     xf, pf = x.to(f32), _shifted(x, x_prev).to(f32)
     xk = (xf + (pf - xf) * params["mu_k"]).to(x.dtype)
@@ -331,10 +338,13 @@ def rwkv_channel_mix(params, sites: dict, x: torch.Tensor, *,
     h = activation(kk, "sq_relu")
     vv, new_sites["v"] = qlinear.qdense(h, params["w_v"], sites["v"], policy,
                                         seed=seed + 1, step=step,
-                                        parallel=row, x_dim=cdim)
+                                        parallel=row, x_dim=cdim,
+                                        seq_dim=seq_dim if tp else None)
     rr, new_sites["r"] = qlinear.qdense(xr, params["w_r"], sites["r"],
                                         policy, seed=seed + 2, step=step,
                                         parallel=col, y_dim=cdim)
     rr = sharding.mp_gather(rr, -1)
+    if tp and seq_dim is not None:
+        rr = sharding.mp_take(rr, seq_dim)
     y = (torch.sigmoid(rr.to(f32)) * vv.to(f32)).to(x.dtype)
     return y, new_sites, x[:, -1]

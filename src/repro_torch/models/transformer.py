@@ -18,6 +18,8 @@ recurrentgemma's 38 = 12 x 3 + 2) unrolled; the port runs a Python loop
 over the layers and keeps one entry per layer: params, quant sites and
 caches are ``{"layers": [layer 0, layer 1, ...]}``, for the decoder and
 the encoder alike.  ``repro_torch.convert`` maps between the two layouts.
+Remat follows the reference's: one checkpoint a pattern unit (the
+scanned ``jax.checkpoint``), the tail blocks unchecked.
 
 Under a model group (``runtime.sharding.model_parallel``) every kind
 runs on a rank's shards: the attention heads (where neither head dim
@@ -27,7 +29,10 @@ and ``d_ff``.  The caches are the reference's ``cache_pspecs``: a rank's
 KV heads, else its slots of the cache length, else the whole k / v
 cache (``pos`` its slots where the length divides), a ``rec`` block's
 ``h`` and ``conv`` of its channels, an ``rwkv`` block's ``state`` of its
-heads; ``x_time`` and ``x_chan`` whole.
+heads; ``x_time`` and ``x_chan`` whole.  Under the sequence-parallel
+residual (``sharding.seq_rows``) a block's input and output are the
+rank's rows of the sequence, and each sublayer gathers its normed rows
+(``runtime.sharding``'s module docstring).
 """
 from __future__ import annotations
 
@@ -153,22 +158,30 @@ def _init_block_cache(kind: str, cfg, batch: int, cache_len: int,
     return cache
 
 
+def _whole(h: torch.Tensor, seq_len) -> torch.Tensor:
+    """A sublayer's normed input: under the sequence-parallel residual
+    (``seq_len`` the whole length) the ranks' rows gathered, in the
+    compute dtype (the gradient keeps this rank's rows)."""
+    return h if seq_len is None else sharding.mp_gather(h, 1, seq_len)
+
+
 def _apply_rec_block(params, sites, x, *, cfg, policy, seed, step,
-                     cache=None):
+                     cache=None, seq_len=None):
     """The ``"rec"`` block: the RG-LRU in the attention's place.  A cache's
     (zero) state enters a prefill as the reference passes it."""
     new_sites: dict = {}
-    h = layers.apply_norm(x, params["ln1"], cfg.norm_kind)
+    sd = None if seq_len is None else 1
+    h = _whole(layers.apply_norm(x, params["ln1"], cfg.norm_kind), seq_len)
     st = None if cache is None else (cache["h"],
                                      cache["conv"].to(h.dtype))
     a, new_sites["rglru"], (hstate, tail) = rglru.apply_rglru(
         params["rglru"], sites["rglru"], h, policy=policy, seed=seed,
-        step=step, state=st)
+        step=step, state=st, seq_dim=sd)
     x = x + a
-    h = layers.apply_norm(x, params["ln2"], cfg.norm_kind)
+    h = _whole(layers.apply_norm(x, params["ln2"], cfg.norm_kind), seq_len)
     m, new_sites["mlp"] = layers.apply_mlp(params["mlp"], sites["mlp"], h,
                                            cfg.mlp_kind, policy, seed + 16,
-                                           step)
+                                           step, seq_dim=sd)
     x = x + m
     new_cache = None if cache is None else {
         "h": hstate, "conv": tail.to(cache["conv"].dtype)}
@@ -176,24 +189,26 @@ def _apply_rec_block(params, sites, x, *, cfg, policy, seed, step,
 
 
 def _apply_rwkv_block(params, sites, x, *, cfg, policy, seed, step,
-                      cache=None):
+                      cache=None, seq_len=None):
     """The ``"rwkv"`` block: time mix (seeds ``seed + 0..4``) and channel
     mix (``seed + 16..18``), each after its norm.  The cache keeps the
     WKV state and each sublayer's last *normed* input row (in the cache
     dtype, cast back to the compute dtype on the way in)."""
     new_sites: dict = {}
-    h = layers.apply_norm(x, params["ln1"], cfg.norm_kind)
+    sd = None if seq_len is None else 1
+    h = _whole(layers.apply_norm(x, params["ln1"], cfg.norm_kind), seq_len)
     st = None if cache is None else cache["state"]
     xp = None if cache is None else cache["x_time"].to(h.dtype)
     a, new_sites["time"], (st, x_last) = rwkv6.rwkv_time_mix(
         params["time"], sites["time"], h, n_heads=cfg.n_heads, policy=policy,
-        seed=seed, step=step, chunk=cfg.rwkv_chunk, state=st, x_prev=xp)
+        seed=seed, step=step, chunk=cfg.rwkv_chunk, state=st, x_prev=xp,
+        seq_dim=sd)
     x = x + a
-    h = layers.apply_norm(x, params["ln2"], cfg.norm_kind)
+    h = _whole(layers.apply_norm(x, params["ln2"], cfg.norm_kind), seq_len)
     xp = None if cache is None else cache["x_chan"].to(h.dtype)
     c, new_sites["chan"], c_last = rwkv6.rwkv_channel_mix(
         params["chan"], sites["chan"], h, policy=policy, seed=seed + 16,
-        step=step, x_prev=xp)
+        step=step, x_prev=xp, seq_dim=sd)
     x = x + c
     # copies: a view of the last row would keep the whole [B, S, D]
     # normed input alive in the cache
@@ -206,19 +221,24 @@ def _apply_rwkv_block(params, sites, x, *, cfg, policy, seed, step,
 
 def _apply_block(kind: str, params, sites, x, *, cfg, policy, seed, step,
                  positions, cache=None, enc_out=None, enc_len=None,
-                 prefix_len=None):
+                 prefix_len=None, seq_len=None):
     """Returns ``(x, stats, cache, metrics)``: the MoE block's
     ``{aux_loss, z_loss}``, ``None`` for the others.  ``enc_out`` /
     ``enc_len`` feed an ``"xattn"`` block's cross attention (``None`` in
     decode: it reads its ``xkv`` cache); ``prefix_len`` puts ``"attn"``
-    and ``"moe"`` blocks under the prefix-LM mask."""
+    and ``"moe"`` blocks under the prefix-LM mask.  ``seq_len``: ``x`` is
+    the rank's rows of a sequence of that length (the sequence-parallel
+    residual), and so is the block's output."""
     _check_kind(kind)
     if kind == "rwkv":
         return _apply_rwkv_block(params, sites, x, cfg=cfg, policy=policy,
-                                 seed=seed, step=step, cache=cache)
+                                 seed=seed, step=step, cache=cache,
+                                 seq_len=seq_len)
     if kind == "rec":
         return _apply_rec_block(params, sites, x, cfg=cfg, policy=policy,
-                                seed=seed, step=step, cache=cache)
+                                seed=seed, step=step, cache=cache,
+                                seq_len=seq_len)
+    sd = None if seq_len is None else 1
     window = cfg.local_window if kind == "local" else cfg.sliding_window
     mode = "sliding" if window is not None else "causal"
     if kind == "enc":
@@ -234,7 +254,8 @@ def _apply_block(kind: str, params, sites, x, *, cfg, policy, seed, step,
         prefix_len=prefix_len, rope_theta=cfg.rope_theta,
         positions=positions, cache=None if cache is None else cache["kv"],
         policy=policy, seed=seed, step=step, q_chunk=cfg.q_chunk,
-        kv_chunk=cfg.kv_chunk, dense_attn_max=cfg.dense_attn_max)
+        kv_chunk=cfg.kv_chunk, dense_attn_max=cfg.dense_attn_max,
+        seq_len=seq_len)
     x = x + a
     if cache is not None:
         new_cache["kv"] = kv
@@ -246,19 +267,19 @@ def _apply_block(kind: str, params, sites, x, *, cfg, policy, seed, step,
             rope_theta=None, positions=positions, kv_x=enc_out,
             kv_len=enc_len, cache=None if cache is None else cache["xkv"],
             policy=policy, seed=seed + 8, step=step, q_chunk=cfg.q_chunk,
-            kv_chunk=cfg.kv_chunk)
+            kv_chunk=cfg.kv_chunk, seq_len=seq_len)
         x = x + a
         if cache is not None:
             new_cache["xkv"] = xkv
-    h = layers.apply_norm(x, params["ln2"], cfg.norm_kind)
+    h = _whole(layers.apply_norm(x, params["ln2"], cfg.norm_kind), seq_len)
     if kind == "moe":
         m, new_sites["moe"], metrics = moe_mod.apply_moe(
             params["moe"], sites["moe"], h, cfg.moe, policy=policy,
-            seed=seed + 16, step=step)
+            seed=seed + 16, step=step, seq_dim=sd)
     else:
         m, new_sites["mlp"] = layers.apply_mlp(params["mlp"], sites["mlp"],
                                                h, cfg.mlp_kind, policy,
-                                               seed + 16, step)
+                                               seed + 16, step, seq_dim=sd)
         metrics = None
     x = x + m
     return x, new_sites, new_cache, metrics
@@ -297,30 +318,56 @@ def apply_stack(params, sites, x, *, cfg, pattern, policy, seed, step,
                 prefix_len=None):
     """Returns ``(x, stats, caches, metrics)``, the blocks' ``aux_loss``
     and ``z_loss`` summed over the layers; the stack of ``pattern`` has
-    :func:`stack_depth` layers.  With ``cfg.remat`` and a recorded
-    gradient each block is checkpointed (its activations are recomputed
-    in the backward pass), as the reference's ``jax.checkpoint`` of the
-    scan unit."""
+    :func:`stack_depth` layers: ``depth // len(pattern)`` pattern units,
+    then the tail's ``depth % len(pattern)`` blocks.  With ``cfg.remat``
+    and a recorded gradient each unit is one checkpoint (its blocks'
+    activations are recomputed in the backward pass, only its input is
+    saved) and the tail blocks run unchecked, as the reference's
+    ``jax.checkpoint`` of the scan unit and its unrolled tail.
+
+    Under the sequence-parallel residual (``sharding.seq_rows``) ``x`` is
+    the rank's ``sharding.split_range`` rows of the ``positions.shape[1]``
+    rows of the sequence, at every block boundary (so a checkpoint saves
+    the rank's rows), and so is the output."""
+    seq_len = positions.shape[1] if sharding.seq_rows() else None
     remat = cfg.remat and torch.is_grad_enabled()
+    kinds = _kinds(pattern, stack_depth(cfg, pattern))
+    unit = len(pattern)
     new_sites, new_caches = [], []
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     metrics = {"aux_loss": zero, "z_loss": zero}
-    for idx, kind in enumerate(_kinds(pattern, stack_depth(cfg, pattern))):
-        if idx % len(pattern) == 0:     # a pattern unit starts
+
+    def blocks(lo, hi, x):
+        outs = []
+        for idx in range(lo, hi):
+            x, ns, nc, met = _apply_block(
+                kinds[idx], params["layers"][idx], sites["layers"][idx], x,
+                cfg=cfg, policy=policy, seed=seed + idx * _SEED_STRIDE,
+                step=step, positions=positions,
+                cache=None if caches is None else caches["layers"][idx],
+                enc_out=enc_out, enc_len=enc_len, prefix_len=prefix_len,
+                seq_len=seq_len)
+            outs.append((ns, nc, met))
+        return x, outs
+
+    tail = len(kinds) - len(kinds) % unit
+    for lo in range(0, len(kinds), unit):
+        hi = min(lo + unit, len(kinds))
+        if lo < tail:       # a pattern unit
             x = sharding.hint(x, "batch", "seq", "embed")
-        block = functools.partial(
-            _apply_block, kind, params["layers"][idx], sites["layers"][idx],
-            cfg=cfg, policy=policy, seed=seed + idx * _SEED_STRIDE,
-            step=step, positions=positions,
-            cache=None if caches is None else caches["layers"][idx],
-            enc_out=enc_out, enc_len=enc_len, prefix_len=prefix_len)
-        if remat:
-            x, ns, nc, met = checkpoint(block, x, use_reentrant=False)
+        if lo < tail and remat:
+            x, outs = checkpoint(functools.partial(blocks, lo, hi), x,
+                                 use_reentrant=False)
         else:
-            x, ns, nc, met = block(x)
-        new_sites.append(ns)
-        new_caches.append(nc)
-        if met is not None:
-            metrics = {k: metrics[k] + met[k] for k in metrics}
+            # block by block: a unit's input is not held past its block
+            outs = []
+            for idx in range(lo, hi):
+                x, out = blocks(idx, idx + 1, x)
+                outs += out
+        for ns, nc, met in outs:
+            new_sites.append(ns)
+            new_caches.append(nc)
+            if met is not None:
+                metrics = {k: metrics[k] + met[k] for k in metrics}
     return (x, {"layers": new_sites},
             None if caches is None else {"layers": new_caches}, metrics)

@@ -70,6 +70,37 @@ tensors (:func:`cache_split_of`).
 :func:`param_pspecs` stays the reference's storage rule (its ``model``
 entries at the production model size).
 
+Sequence parallelism (the reference's ``"seq": "model"`` mapping,
+Megatron-SP).  Inside :func:`sequence_parallel` under a model group
+(:func:`seq_rows`; the step factories' ``seq_shard``) the residual
+stream at every block boundary is the rank's :func:`split_range` rows
+of the sequence (an uneven S gives ranks fewer rows, decode's S = 1
+gives rank 0 the row and the others none), so a checkpointed unit saves
+the rank's rows.  The lookup's vocab-parallel sum is a reduce-scatter
+onto them (:func:`mp_scatter`: one nonzero term a row, exact), a
+frontend's whole output takes them (:func:`mp_take`), and every norm
+runs on them, its parameters' gradients summed over the group
+(:func:`mp_grad_sum`).  A sublayer gathers its normed rows whole in the
+compute dtype (:func:`mp_gather`; the gradient keeps the rank's rows)
+and leaves by one of two exits.  A row-parallel product reduce-scatters
+its int32 partials onto the rank's rows before the epilogue
+(:func:`mp_scatter_now`: the one-process product bit for bit; its
+cotangent gathered back, :func:`mp_gather_now`; its gradient site and
+bias on the rows): the head layouts' ``wo``, the MLP's ``w_down`` (a
+shared expert's too), the RG-LRU's ``w_out``, the RWKV-6 time mix's
+``w_o`` and channel mix's ``w_v``.  A column-parallel product on the
+gathered rows reduce-scatters its ``dx`` partial in fp32 onto them
+instead of summing it whole (:func:`mp_embed` places it among zeros for
+the gather, which keeps the rank's rows): the MLP's ``w_up`` /
+``w_gate``, the RG-LRU's ``w_in`` / ``w_gate``, the head layouts' q (and
+k / v where KV is split); the RWKV-6 mixes' column products read the
+token shift, whose cotangent crosses rows, and sum theirs whole.  A
+tensor whole on every rank after its sublayer takes the rows
+(:func:`mp_take`): the routed experts' output after the combine, the
+channel mix's gate.  The ``"seq"`` attention core runs on the rank's
+rows as it is (no gather, no output gather).  The final norms' rows are
+gathered for the head, the loss and ``enc_out``.
+
 ZeRO-3 storage.  :func:`store_state` cuts a whole train state into a
 rank's stored state by that rule at the mesh's sizes (:func:`layout_of`,
 recorded on each leaf as a :class:`Stored` layout, the optimizer
@@ -780,6 +811,105 @@ def mp_take(x: torch.Tensor, dim: int) -> torch.Tensor:
     return x if _MP is None else _Take.apply(x, dim)
 
 
+# ---------------------------------------------------------------------------
+# The sequence-parallel residual stream (the reference's "seq": "model").
+# ---------------------------------------------------------------------------
+_SP = False
+
+
+@contextlib.contextmanager
+def sequence_parallel(on: bool = True):
+    """Inside the block, under a model group of more than one rank, the
+    residual stream at every block boundary is the rank's rows of the
+    sequence (:func:`seq_rows`): the step factories' ``seq_shard``."""
+    global _SP
+    prev, _SP = _SP, bool(on)
+    try:
+        yield
+    finally:
+        _SP = prev
+
+
+def seq_rows() -> bool:
+    """Whether the residual stream is the rank's :func:`split_range` rows
+    of the sequence: :func:`sequence_parallel` under a model group."""
+    return _SP and _MP is not None
+
+
+def mp_gather_now(x: torch.Tensor, dim: int,
+                  total: Optional[int] = None) -> torch.Tensor:
+    """The ranks' shares of ``dim`` concatenated (``total``: the whole
+    size, for :func:`split_range`'s uneven shares), outside autograd;
+    ``x`` without a model group."""
+    return x if _MP is None else _all_gather(x, dim, total)
+
+
+def mp_scatter_now(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` summed over the model group and this rank's
+    :func:`split_range` share of ``dim`` kept (a reduce-scatter: int32
+    partials exact, fp32 in the collective's order), outside autograd;
+    ``x`` without a model group."""
+    return x if _MP is None else _reduce_scatter(x, dim, _MP, uneven=True)
+
+
+def mp_embed(x: torch.Tensor, dim: int, total: int) -> torch.Tensor:
+    """This rank's :func:`split_range` share ``x`` of ``dim`` placed in a
+    tensor of the whole size ``total`` there, zeros elsewhere; ``x``
+    without a model group."""
+    if _MP is None:
+        return x
+    shape = list(x.shape)
+    shape[dim] = total
+    out = x.new_zeros(shape)
+    out.narrow(dim, *split_range(total, _MP[2], _MP[1])).copy_(x)
+    return out
+
+
+class _Scatter(torch.autograd.Function):
+    """A product's partials summed over the model group onto this rank's
+    rows of ``dim`` (a reduce-scatter); the gradient is the ranks' rows of
+    the cotangent gathered (each rank's consumers hold its rows)."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim, ctx.total = dim, x.shape[dim]
+        return mp_scatter_now(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.total), None
+
+
+class _GradScatter(torch.autograd.Function):
+    """Identity forward on a tensor gathered from the ranks' rows of
+    ``dim``, whose consumers here each give a partial cotangent: the
+    gradient is the partials summed over the model group onto this
+    rank's rows (a reduce-scatter, the gather's conjugate), zeros on the
+    other rows, which the gather's backward drops."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim = dim
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return mp_embed(mp_scatter_now(g, ctx.dim), ctx.dim,
+                        g.shape[ctx.dim]), None
+
+
+def mp_scatter(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Megatron-SP's row-parallel exit (:class:`_Scatter`); ``x`` without
+    a model group."""
+    return x if _MP is None else _Scatter.apply(x, dim)
+
+
+def mp_grad_scatter(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Megatron-SP's column-parallel entry (:class:`_GradScatter`); ``x``
+    without a model group."""
+    return x if _MP is None else _GradScatter.apply(x, dim)
+
+
 def mp_sum_now(x: torch.Tensor) -> torch.Tensor:
     """``x`` summed over the model group outside autograd (int32
     partials, a backward pass's fp32 partials; exact for integers);
@@ -1145,17 +1275,27 @@ def gather_stored(x: torch.Tensor, st: Stored) -> torch.Tensor:
     return x
 
 
-def _reduce_scatter(x: torch.Tensor, dim: int, grp: tuple) -> torch.Tensor:
+def _reduce_scatter(x: torch.Tensor, dim: int, grp: tuple,
+                    uneven: bool = False) -> torch.Tensor:
     """``x`` summed over ``grp``'s ranks, this rank's even share of
-    ``dim`` kept (``reduce_scatter_tensor``, which gloo takes too)."""
+    ``dim`` kept (``reduce_scatter_tensor``, which gloo takes too);
+    ``uneven``: its :func:`split_range` share, ``dim`` padded to ``M``
+    shares of ``ceil(n / M)`` for the collective."""
     import warnings
 
     import torch.distributed as dist
     src = x.detach().movedim(dim, 0).contiguous()
-    out = src.new_empty((src.shape[0] // grp[2],) + tuple(src.shape[1:]))
+    n, m = src.shape[0], grp[2]
+    c = -(-n // m) if uneven else n // m
+    if uneven and c * m > n:
+        src = torch.cat([src, src.new_zeros((c * m - n,)
+                                            + tuple(src.shape[1:]))])
+    out = src.new_empty((c,) + tuple(src.shape[1:]))
     with warnings.catch_warnings():     # deprecated in newer releases
         warnings.simplefilter("ignore", FutureWarning)
         dist.reduce_scatter_tensor(out, src, group=grp[0])
+    if uneven:
+        out = out[:split_range(n, m, grp[1])[1]]
     return out.movedim(0, dim).contiguous()
 
 

@@ -65,6 +65,15 @@ reference's int8 all-reduce returns replicated gradients) has no form
 there and raises.  ``make_prefill_step`` / ``make_decode_step(group=)``
 gather stored weights the same way, with no gradient.
 
+Sequence parallelism (``seq_shard``, the reference's ``"seq": "model"``
+mapping, Megatron-SP): with a ``model_group`` of more than one rank the
+factories run under ``sharding.sequence_parallel``, where the residual
+stream at every block boundary is the rank's ``sharding.split_range``
+rows of the sequence (``runtime.sharding``'s module docstring): a
+checkpointed unit saves those rows, and the layers' products are the
+one-process products (the statistics and logits bit for bit).  Without
+a model group it changes nothing.
+
 Pods (the reference's ``(pod, data, model)`` mesh,
 ``launch.mesh.mesh_groups(..., pod=)``): the batch is split over
 ``(pod, data)``, so ``group`` is the rank's batch group over both, while
@@ -284,7 +293,7 @@ def make_train_step(cfg, policy: QuantPolicy, optimizer, lr_schedule: Callable,
                     *, grad_accum: int = 1,
                     clip_norm: Optional[float] = 1.0, compress=None,
                     group=None, model_group=None, storage_group=None,
-                    pod_group=None) -> Callable:
+                    pod_group=None, seq_shard: bool = False) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     ``batch`` is ``{"tokens", "labels", "mask"}`` on the parameters'
@@ -297,7 +306,8 @@ def make_train_step(cfg, policy: QuantPolicy, optimizer, lr_schedule: Callable,
     model-parallel over that one, on parameters cut by
     ``sharding.shard_params``; ``storage_group`` (default ``group``) is
     the group a stored state is stored over and ``pod_group`` the one its
-    shares' gradients are then summed over (module docstring)."""
+    shares' gradients are then summed over; ``seq_shard`` the
+    sequence-parallel residual on the model group (module docstring)."""
     backend.validate(policy)
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
@@ -323,6 +333,7 @@ def make_train_step(cfg, policy: QuantPolicy, optimizer, lr_schedule: Callable,
         dp = sharding.data_parallel(group) if sharded \
             else contextlib.nullcontext()
         with dp, sharding.model_parallel(model_group), \
+                sharding.sequence_parallel(seq_shard), \
                 sharding.storage(store_group if stored else None):
             for midx in range(grad_accum):
                 mb = batch if grad_accum == 1 else \
@@ -402,7 +413,7 @@ def make_train_step(cfg, policy: QuantPolicy, optimizer, lr_schedule: Callable,
 def make_prefill_step(cfg, policy: QuantPolicy,
                       cache_len: Optional[int] = None, *,
                       model_group=None, return_stats: bool = False,
-                      group=None) -> Callable:
+                      group=None, seq_shard: bool = False) -> Callable:
     """``prefill_step(params, quant, batch) -> (last logits, caches)``
     (plus the forward statistics with ``return_stats``, combined over
     ``model_group`` as the train step combines them).  ``model_group``:
@@ -412,9 +423,12 @@ def make_prefill_step(cfg, policy: QuantPolicy,
     attention runs on the rank's heads, padded where neither head dim
     divides the group; the logits are whole.  ``group``: the rank's data
     subgroup, over which stored parameters (``sharding.store_params``,
-    ZeRO-3) are gathered at their use, as the train step gathers them."""
+    ZeRO-3) are gathered at their use, as the train step gathers them.
+    ``seq_shard``: the sequence-parallel residual on the model group (the
+    module docstring)."""
     def prefill_step(params, quant, batch):
-        with sharding.model_parallel(model_group), sharding.storage(group):
+        with sharding.model_parallel(model_group), sharding.storage(group), \
+                sharding.sequence_parallel(seq_shard):
             out = model.prefill(params, quant, batch, cfg, policy,
                                 cache_len=cache_len,
                                 return_stats=return_stats)
@@ -427,12 +441,15 @@ def make_prefill_step(cfg, policy: QuantPolicy,
 
 
 def make_decode_step(cfg, policy: QuantPolicy, *,
-                     model_group=None, group=None) -> Callable:
+                     model_group=None, group=None,
+                     seq_shard: bool = False) -> Callable:
     """``decode_step(params, quant, batch, caches) -> (logits, caches)``
     for ``batch = {"token": [B, 1], "pos": [B]}``; the caches are updated
-    in place.  ``model_group`` and ``group`` as :func:`make_prefill_step`'s."""
+    in place.  ``model_group``, ``group`` and ``seq_shard`` as
+    :func:`make_prefill_step`'s (the one row on model rank 0)."""
     def decode_step(params, quant, batch, caches):
-        with sharding.model_parallel(model_group), sharding.storage(group):
+        with sharding.model_parallel(model_group), sharding.storage(group), \
+                sharding.sequence_parallel(seq_shard):
             return model.decode_step(params, quant, batch["token"],
                                      batch["pos"], caches, cfg, policy)
     return decode_step

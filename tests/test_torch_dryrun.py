@@ -20,7 +20,12 @@ process group.
     (one microbatch of 16 rows: one a data rank) and ``decode_32k``; a
     refused cell
     (``long_500k`` on full attention) is written ``skipped`` with its
-    reason; ``--seq-shard`` raises; no process group is left behind.
+    reason; the train cell traced again with ``seq_shard`` (the residual
+    stream the rank's rows of the sequence) is ``ok``, runs more
+    reduce-scatters (the row-parallel exits) and holds fewer bytes a
+    rank; no process group is left behind.
+(d) ``--all --seq-shard --shape train_4k`` forwards the flag to every
+    cell's subprocess under the ``seq_shard`` tag, that shape only.
 """
 import json
 import os
@@ -175,7 +180,35 @@ def test_run_cell_on_the_production_mesh(tmp_path):
                               device="cpu")
     assert skipped["status"] == "skipped" and "full attention" in \
         skipped["reason"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dryrun.run_cell(ARCH, "train_4k", False, out, device="cpu",
-                        seq_shard=True)
+    sp = dryrun.run_cell(SERVE_ARCH, "train_4k", False, out, device="cpu",
+                         layers=2, grad_accum=1, batch=16, seq_shard=True,
+                         tag="seq_shard")
+    assert sp["status"] == "ok" and sp["seq_shard"] is True
+    assert sp["collectives"]["reduce-scatter"]["ops"] > \
+        train["collectives"]["reduce-scatter"]["ops"]
+    assert sp["memory"]["per_device_bytes_est"] < \
+        train["memory"]["per_device_bytes_est"]
+    assert os.path.exists(os.path.join(
+        out, f"{SERVE_ARCH}__train_4k__16_16__seq_shard.json"))
     assert not dist.is_initialized()
+
+
+def test_all_forwards_seq_shard_under_its_own_tag(monkeypatch, tmp_path):
+    """``--all --seq-shard --shape train_4k`` starts one subprocess a
+    train cell and mesh, each with ``--seq-shard`` and the ``seq_shard``
+    tag (its records beside the unsharded ones), and no other shape."""
+    cmds = []
+
+    def run(cmd, **kw):
+        cmds.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+    monkeypatch.setattr(dryrun.subprocess, "run", run)
+    dryrun.main(["--all", "--both-meshes", "--seq-shard", "--shape",
+                 "train_4k", "--out", str(tmp_path), "--device", "cpu"])
+    want = [c for c in configs.cells() if c.shape == "train_4k"]
+    assert len(cmds) == 2 * sum(c.runnable for c in want) > 0
+    for cmd in cmds:
+        assert cmd[cmd.index("--shape") + 1] == "train_4k"
+        assert "--seq-shard" in cmd
+        assert cmd[cmd.index("--tag") + 1] == "seq_shard"
+    assert sum("--multipod" in c for c in cmds) == len(cmds) // 2
